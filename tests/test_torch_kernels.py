@@ -1,0 +1,246 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+The same numpy inputs go through the JAX kernels in interpret mode (as
+``tests/test_kernels.py`` runs them) and through the port's wrappers on
+CPU tensors, which take the kernels' plain PyTorch versions.  The CUDA
+kernels themselves run only on the card: ``chip_smoke.py`` and
+``tests/test_torch_gpu.py`` hold them against these plain versions.
+
+Tolerances: f32 1e-5 and bf16 3e-2, as ``tests/test_kernels.py`` uses
+for the same kernels; block scores rtol 1e-4 (f32 sums in another
+order).  Score-mask inputs are tie-free: no score lies within 0.1% of
+tau, so the keep decision cannot hinge on the last bit of a pow."""
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import sparse_matmul as JK
+from repro_torch.kernels import build, ref
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import sparse_matmul as TK
+
+SHAPES = [
+    (1, 256, 128, 128),
+    (4, 512, 384, 128),
+    (8, 1024, 512, 256),
+    (3, 384, 256, 128),
+]
+AWKWARD = [
+    (5, 256, 257, 128),
+    (13, 384, 131, 128),
+    (9, 512, 384, 256),
+    (1, 128, 1, 128),
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+
+
+def _data(B, n, m, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, n)).astype(np.float32)
+    w = (rng.standard_normal((n, m)) * 0.1).astype(np.float32)
+    g = (np.abs(rng.standard_normal(n)) + 0.1).astype(np.float32)
+    return x, w, g
+
+
+def _tie_free(x, g, alpha, tau):
+    s = np.abs(x.astype(np.float64)) * np.maximum(g, 1e-12) ** alpha
+    near = np.abs(s - tau) <= 1e-3 * max(abs(tau), 1e-3)
+    x = x.copy()
+    x[near] *= 1.05
+    return x
+
+
+def _both(a, jdt, tdt):
+    return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+
+def _np(t):
+    return t.float().numpy() if torch.is_tensor(t) else \
+        np.asarray(t.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("B,n,m,blk", SHAPES + AWKWARD)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_sparse_matmul_shared_matches_pallas(B, n, m, blk, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    x, w, _ = _data(B, n, m)
+    jx, tx = _both(x, jdt, tdt)
+    jw, tw = _both(w, jdt, tdt)
+    idx = np.arange(0, n // blk, 2, dtype=np.int32)
+    yj = JK.sparse_matmul_shared(jx, jw, jnp.asarray(idx), blk=blk,
+                                 interpret=True)
+    yt = TK.sparse_matmul_shared(tx, tw, torch.from_numpy(idx), blk=blk)
+    assert yt.shape == (B, m) and yt.dtype == torch.float32
+    np.testing.assert_allclose(_np(yt), _np(yj), rtol=tol, atol=tol)
+
+
+def test_sparse_matmul_shared_duplicate_ids_count_twice():
+    """The pad contract: a repeated block id contributes once per entry."""
+    x, w, _ = _data(2, 256, 64)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    once = TK.sparse_matmul_shared(tx, tw, torch.tensor([1], dtype=torch.int32))
+    twice = TK.sparse_matmul_shared(tx, tw,
+                                    torch.tensor([1, 1], dtype=torch.int32))
+    yj = JK.sparse_matmul_shared(jnp.asarray(x), jnp.asarray(w),
+                                 jnp.asarray([1, 1], jnp.int32),
+                                 interpret=True)
+    np.testing.assert_allclose(twice.numpy(), 2 * once.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(twice.numpy(), np.asarray(yj), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("B,n,m,blk", SHAPES + AWKWARD)
+@pytest.mark.parametrize("alpha,tau", [(0.0, 0.3), (0.7, 0.5), (1.5, 1.0)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_score_mask_matches_pallas(B, n, m, blk, alpha, tau, dtype):
+    jdt, tdt, _ = DTYPES[dtype]
+    x, _, g = _data(B, n, m)
+    x = _tie_free(torch.from_numpy(x).to(tdt).float().numpy(), g, alpha, tau)
+    jx, tx = _both(x, jdt, tdt)
+    rw = np.random.default_rng(1).random(B).astype(np.float32)
+    xm_j, bs_j = JK.score_mask(jx, jnp.asarray(g), alpha, tau, blk=blk,
+                               interpret=True, row_weights=jnp.asarray(rw))
+    xm_t, bs_t = TK.score_mask(tx, torch.from_numpy(g), alpha, tau, blk=blk,
+                               row_weights=torch.from_numpy(rw))
+    assert xm_t.dtype == tdt and bs_t.dtype == torch.float32
+    np.testing.assert_array_equal(_np(xm_t), _np(xm_j))
+    np.testing.assert_allclose(bs_t.numpy(), np.asarray(bs_j), rtol=1e-4,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("B,n,m,blk", SHAPES + AWKWARD[:3])
+@pytest.mark.parametrize("k_frac,keep_frac", [(1.0, 1.0), (0.75, 0.5),
+                                              (0.5, 0.5)])
+def test_wisparse_project_matches_pallas(B, n, m, blk, k_frac, keep_frac):
+    x, w, g = _data(B, n, m)
+    sp_j = {"g": jnp.asarray(g), "alpha": jnp.float32(0.7),
+            "tau": jnp.float32(0.2), "keep_frac": jnp.float32(keep_frac)}
+    sp_t = {"g": torch.from_numpy(g), "alpha": torch.tensor(0.7),
+            "tau": torch.tensor(0.2), "keep_frac": torch.tensor(keep_frac)}
+    x = _tie_free(x, g, 0.7, 0.2)
+    yj = jops.wisparse_project(jnp.asarray(x), jnp.asarray(w), sp_j,
+                               block=blk, k_frac=k_frac, interpret=True)
+    yt = tops.wisparse_project(torch.from_numpy(x), torch.from_numpy(w), sp_t,
+                               block=blk, k_frac=k_frac)
+    assert yt.shape == (B, m)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("B,n,m,blk", [(4, 257, 128, 128),
+                                       (3, 384 + 7, 131, 128)])
+def test_wisparse_project_awkward_channel_dim(B, n, m, blk):
+    """Non-divisible channel dims pad to full-width blocks in both."""
+    x, w, g = _data(B, n, m)
+    x = _tie_free(x, g, 0.7, 0.2)
+    sp_j = {"g": jnp.asarray(g), "alpha": jnp.float32(0.7),
+            "tau": jnp.float32(0.2), "keep_frac": jnp.float32(0.5)}
+    sp_t = {k: torch.tensor(np.asarray(v)) for k, v in sp_j.items()}
+    tw = np.random.default_rng(2).random(B).astype(np.float32)
+    yj = jops.wisparse_project(jnp.asarray(x), jnp.asarray(w), sp_j,
+                               block=blk, k_frac=0.75, interpret=True,
+                               token_weights=jnp.asarray(tw))
+    yt = tops.wisparse_project(torch.from_numpy(x), torch.from_numpy(w), sp_t,
+                               block=blk, k_frac=0.75,
+                               token_weights=torch.from_numpy(tw))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("tau", [float("-inf"), float("inf")])
+def test_wisparse_project_tau_extremes(tau):
+    """tau=-inf keeps every channel, so full keep is the dense product;
+    tau=+inf (the reference's uncalibrated sp tree) masks everything and
+    the projection is exactly zero — in the reference and the port."""
+    x, w, g = _data(4, 512, 256)
+    sp_j = {"g": jnp.asarray(g), "alpha": jnp.float32(1.0),
+            "tau": jnp.float32(tau), "keep_frac": jnp.float32(1.0)}
+    sp_t = {k: torch.tensor(np.asarray(v)) for k, v in sp_j.items()}
+    yj = np.asarray(jops.wisparse_project(jnp.asarray(x), jnp.asarray(w),
+                                          sp_j, interpret=True))
+    yt = tops.wisparse_project(torch.from_numpy(x), torch.from_numpy(w), sp_t)
+    want = x @ w if tau < 0 else np.zeros((4, 256), np.float32)
+    np.testing.assert_allclose(yt.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=1e-5, atol=1e-5)
+
+
+def test_plain_versions_match_the_reference_oracle():
+    """ref_wisparse_project mirrors repro.kernels.ref.ref_wisparse_project."""
+    from repro.kernels import ref as jref
+    x, w, g = _data(4, 512, 384)
+    x = _tie_free(x, g, 0.7, 0.2)
+    sp_j = {"g": jnp.asarray(g), "alpha": jnp.float32(0.7),
+            "tau": jnp.float32(0.2), "keep_frac": jnp.float32(0.5)}
+    sp_t = {k: torch.tensor(np.asarray(v)) for k, v in sp_j.items()}
+    yj = jref.ref_wisparse_project(jnp.asarray(x), jnp.asarray(w), sp_j,
+                                   k_blocks=3, blk=128)
+    yt = ref.ref_wisparse_project(torch.from_numpy(x), torch.from_numpy(w),
+                                  sp_t, k_blocks=3, blk=128)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_cpu_tensors_take_the_plain_version(monkeypatch):
+    """CPU tensors never touch the kernel library: the wrappers return the
+    plain versions' results and count no launch."""
+    def no_library():
+        raise AssertionError("the CPU route must not load the kernels")
+    monkeypatch.setattr(build, "library", no_library)
+    TK.reset_launch_counts()
+    x, w, g = _data(3, 256, 64)
+    tx, tw, tg = map(torch.from_numpy, (x, w, g))
+    xm, bs = TK.score_mask(tx, tg, 0.5, 0.2, blk=128)
+    xm_r, bs_r = ref.ref_score_mask(tx, tg, 0.5, 0.2, 128)
+    assert torch.equal(xm, xm_r) and torch.equal(bs, bs_r)
+    idx = torch.tensor([1, 0], dtype=torch.int32)
+    assert torch.equal(TK.sparse_matmul_shared(tx, tw, idx),
+                       ref.ref_sparse_matmul_shared(tx, tw, idx, 128))
+    assert TK.launch_counts == {"score_mask": 0, "sparse_matmul_shared": 0}
+
+
+def test_non_cpu_tensors_never_fall_back():
+    """A tensor that is not on the CPU goes to the kernel path, which
+    refuses what it cannot launch — it never silently takes the plain
+    version."""
+    x = torch.empty(2, 256, device="meta")
+    g = torch.empty(256, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        TK.score_mask(x, g, 0.0, 0.0)
+    w = torch.empty(256, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        TK.sparse_matmul_shared(x, w, torch.zeros(1, dtype=torch.int32,
+                                                  device="meta"))
+
+
+def test_wrappers_validate_shapes():
+    x = torch.zeros(2, 200)
+    with pytest.raises(ValueError, match="multiple of blk"):
+        TK.score_mask(x, torch.ones(200), 0.0, 0.0, blk=128)
+    with pytest.raises(ValueError, match="w rows"):
+        TK.sparse_matmul_shared(torch.zeros(2, 256), torch.zeros(128, 4),
+                                torch.zeros(1, dtype=torch.int32))
+
+
+def test_kernel_modules_import_without_nvcc_or_card(tmp_path, monkeypatch):
+    """Importing the kernel modules builds nothing (a fresh interpreter
+    imports every module and the build cache stays empty), and a build
+    without nvcc raises a clear error instead of falling back."""
+    code = ("import repro_torch.kernels.ops, repro_torch.kernels.build as b, "
+            "repro_torch.serving, repro_torch.launch.serve; "
+            "assert b.library.cache_info().currsize == 0; print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PATH": "/usr/bin:/bin",
+                                         "PYTHONPATH": ":".join(sys.path),
+                                         "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    monkeypatch.setattr(build.shutil, "which", lambda _name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
