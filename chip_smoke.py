@@ -12,8 +12,11 @@ In order, it:
 3. holds each kernel against its plain PyTorch version on the card, on
    the kernel test shapes in f32 and bf16 and at llama31_8b's projection
    shapes (B = 8 decode slots, B = 32 one prefill chunk), and times the
-   kernel, the plain version and (for the matmul) dense ``torch.matmul``
-   with CUDA events;
+   kernel, the plain version and (for the matmuls) dense ``torch.matmul``
+   by CUDA-graph replay.  ``sparse_matmul_per_seq`` gets a distinct
+   random half of the blocks per row there, and its only entry point,
+   ``ops.wisparse_project(per_seq=True)``, is driven at every projection
+   shape and held against ``per_seq=False``;
 4. checks a reduced llama31_8b on the card against the same model on the
    CPU (plain kernel versions): forward logits and served greedy tokens;
 5. serves full-width llama31_8b (32 layers, d_model 4096, bf16, random
@@ -27,8 +30,22 @@ In order, it:
    decode step and per sparse prefill chunk), on a dense run zero.  A
    window of each run's decode steps is traced with ``torch.profiler``
    for the device busy share of those same steps;
-6. prints one JSON line describing every kernel, then, as its last line,
-   ``{"ok": true, "device": {...}}``.
+6. calibrates WiSparse (paper Alg. 1-4, ``core/pipeline.run_pipeline``
+   with the serve CLI's ``--calib-quick`` budget) on the same full-width
+   model at a 0.5 budget, on 4 x 128 synthetic tokens, printing each
+   stage's wall time, the block ratios, the mean alpha, the device
+   memory peak and the plan's KL beside the activation-only plan's, and
+   checks the budget and that every threshold of a sparsified linear is
+   finite;
+7. saves the calibrated plan as a ``pallas`` policy artifact under
+   ``build/``, loads it back and serves phase 5's trace once from it,
+   checking the launch counts as in phase 5;
+8. prints one JSON line describing every kernel, then, as its last line,
+   ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_mask``
+   and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
+   run; those of ``sparse_matmul_per_seq`` from phase 3's
+   ``wisparse_project(per_seq=True)`` calls, since no serving path
+   reaches that kernel.
 
 Any failed check raises, so the script exits nonzero and prints no
 result line.  It imports nothing of JAX or of the JAX package.
@@ -195,7 +212,26 @@ def check_kernel_shapes(K, ref, dev) -> dict:
                         "differs from the plain version")
                 errs["score_mask"] = max(errs["score_mask"], check_close(
                     f"score_mask {B, n, blk} {dtype}", bs, bs_r))
-    print(f"kernel shapes: {len(SHAPES + AWKWARD)} shapes x f32/bf16 agree "
+    errs["sparse_matmul_per_seq"] = 0.0
+    for (B, n, m, blk) in SHAPES[:3] + AWKWARD[:3]:
+        nb = n // blk
+        kb = max(nb // 2, 1)
+        ids = np.stack([(np.arange(kb) + b) % nb for b in range(B)])
+        for dtype in (torch.float32, torch.bfloat16):
+            x = rng.standard_normal((B, n)).astype(np.float32)
+            w = (rng.standard_normal((n, m)) * 0.1).astype(np.float32)
+            xt = torch.from_numpy(x).to(dev, dtype)
+            wt = torch.from_numpy(w).to(dev, dtype)
+            idx = torch.from_numpy(ids.astype(np.int32)).to(dev)
+            y = K.sparse_matmul_per_seq(xt, wt, idx, blk=blk)
+            torch.cuda.synchronize()
+            assert y.shape == (B, m) and y.dtype == torch.float32
+            errs["sparse_matmul_per_seq"] = max(
+                errs["sparse_matmul_per_seq"], check_close(
+                    f"sparse_matmul_per_seq {B, n, m, blk} {dtype}", y,
+                    ref.ref_sparse_matmul_per_seq(xt, wt, idx, blk)))
+    print(f"kernel shapes: {len(SHAPES + AWKWARD)} shapes x f32/bf16 agree, "
+          f"sparse_matmul_per_seq on {len(SHAPES[:3] + AWKWARD[:3])} "
           f"(max abs err {errs})")
     return errs
 
@@ -310,6 +346,100 @@ def main_path_kernels(K, ref, ops, build, dev, rates) -> tuple:
     return rows, errs
 
 
+def per_seq_kernel(K, ref, ops, build, dev, rates) -> tuple:
+    """``sparse_matmul_per_seq`` at llama31_8b's projection shapes, B = 8
+    and B = 32, bf16: each row keeps a distinct random half of the
+    blocks, and x is zero outside them, so dense ``torch.matmul`` on the
+    same x computes the same function (the library yardstick).  Weights
+    rotate through copies that exceed the 50 MB L2.  Then its entry
+    point, ``wisparse_project(per_seq=True)``, runs once at every shape
+    with the launch counts zeroed just before and read just after, and
+    must equal ``per_seq=False`` (in f32).  Returns (rows, max err,
+    launches)."""
+    rng = np.random.default_rng(SEED + 2)
+    rows, err = [], 0.0
+    lib = build.library()
+    dt = torch.bfloat16
+    cases = []
+    for B in (8, 32):
+        for role, n, m in LAYER:
+            nb = n // BLK
+            kb = round(nb * KEEP)
+            ids_np = np.stack([rng.permutation(nb)[:kb] for _ in range(B)])
+            keep = np.zeros((B, nb), bool)
+            keep[np.arange(B)[:, None], ids_np] = True
+            x = rng.standard_normal((B, n)).astype(np.float32)
+            x *= np.repeat(keep, BLK, axis=1)
+            xk = torch.from_numpy(x).to(dev, dt)
+            w = (torch.randn(n, m, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(SEED)) * 0.02).to(dt)
+            idx = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+            y = K.sparse_matmul_per_seq(xk, w, idx, blk=BLK)
+            torch.cuda.synchronize()
+            err = max(err, check_close(
+                f"sparse_matmul_per_seq {role} B={B}", y,
+                ref.ref_sparse_matmul_per_seq(xk, w, idx, BLK)))
+
+            copies = max(1, math.ceil(200e6 / (n * m * 2)))
+            ws = [w] + [w.clone() for _ in range(copies - 1)]
+            y_o = torch.empty(B, m, device=dev)
+
+            def kernel(i):
+                launched(lib.wisparse_sparse_matmul_per_seq(
+                    xk.data_ptr(), ws[i % copies].data_ptr(),
+                    idx.data_ptr(), y_o.data_ptr(), B, n, m, BLK, kb, 1,
+                    torch.cuda.current_stream().cuda_stream))
+
+            t_k = graph_ms(kernel)
+            t_plain = graph_ms(lambda i: ref.ref_sparse_matmul_per_seq(
+                xk, ws[i % copies], idx, BLK))
+            t_lib = graph_ms(lambda i: torch.matmul(xk, ws[i % copies]))
+            del ws
+            union = int(keep.any(0).sum())
+            # the kept x blocks, the union of kept weight rows, the ids, y
+            nbytes = (B * kb * BLK * 2 + union * BLK * m * 2 + B * kb * 4
+                      + B * m * 4)
+            bms, by = bound_ms(nbytes, 2.0 * B * kb * BLK * m, dt, rates)
+            rows.append({"B": B, "role": role, "n": n, "m": m, "kb": kb,
+                         "union_blocks": union, "ms": t_k,
+                         "plain_ms": t_plain, "library_ms": t_lib,
+                         "bound_ms": bms, "bound_by": by})
+            print(f"  B={B:2d} {role:12s} n={n:5d} m={m:5d} kb={kb:3d} "
+                  f"union {union:3d} | sparse_matmul_per_seq "
+                  f"{t_k * 1e3:8.2f} us (plain {t_plain * 1e3:8.2f}, "
+                  f"torch.matmul dense {t_lib * 1e3:8.2f}, bound "
+                  f"{bms * 1e3:6.2f}, {math.ceil(m / 64) * B} blocks)")
+            g = torch.sqrt((w.float() ** 2).sum(1))
+            sp1 = {"g": g, "alpha": torch.tensor(1.0, device=dev),
+                   "tau": torch.tensor(float("-inf"), device=dev),
+                   "keep_frac": torch.tensor(KEEP, device=dev)}
+            # f32, so that the two paths' outputs are not rounded to bf16
+            # (one bf16 step is 0.4%, above the tolerance)
+            xr = torch.from_numpy(rng.standard_normal((B, n)).astype(
+                np.float32)).to(dev)
+            cases.append((role, B, xr, w.float(), sp1))
+
+    shared = [ops.wisparse_project(xr, w, sp1, block=BLK, k_frac=KEEP)
+              for _r, _B, xr, w, sp1 in cases]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    per_seq = [ops.wisparse_project(xr, w, sp1, block=BLK, k_frac=KEEP,
+                                    per_seq=True)
+               for _r, _B, xr, w, sp1 in cases]
+    torch.cuda.synchronize()
+    launches = K.launch_counts["sparse_matmul_per_seq"]
+    if launches != len(cases):
+        raise AssertionError(f"wisparse_project(per_seq=True) launched "
+                             f"sparse_matmul_per_seq {launches} times over "
+                             f"{len(cases)} calls")
+    for (role, B, *_), a, b in zip(cases, per_seq, shared):
+        err = max(err, check_close(
+            f"wisparse_project per_seq vs shared {role} B={B}", a, b))
+    print(f"wisparse_project(per_seq=True) == per_seq=False at "
+          f"{len(cases)} projection shapes; {launches} per-seq launches")
+    return rows, err, launches
+
+
 # ---------------------------------------------------------------------------
 # phase 4: reduced model, card against CPU
 # ---------------------------------------------------------------------------
@@ -360,104 +490,255 @@ def reduced_model_check(dev) -> None:
 # phase 5: full-width serving
 # ---------------------------------------------------------------------------
 
-def serve_full_width(dev, K) -> dict:
+def full_width_model(dev):
+    """llama31_8b at full width and depth, random weights from SEED."""
     from repro_torch import obs
     from repro_torch.configs import get_config
-    from repro_torch.core.sp_schema import default_sp_stacked
     from repro_torch.models import api
-    from repro_torch.serving import Engine, EngineConfig
-    from repro_torch.sparsity import SparsityPolicy
 
     cfg = get_config("llama31_8b")
     assert cfg.num_layers == 32 and cfg.d_model == 4096
     t0 = obs.now()
     params = api.init_model(cfg, SEED, device=dev)
-    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"llama31_8b: {n_params / 1e9:.2f}B params ({cfg.dtype}), init "
           f"{obs.now() - t0:.1f} s, device memory "
           f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    return cfg, params
 
+
+def serving_trace(cfg) -> dict:
+    """Phase 5's trace: 12 ragged prompts, 32 new tokens each, 8 slots,
+    and an independent count of its sparse prefill chunks (§5.1: chunks
+    that start at or past ceil(P/2) run sparse)."""
     rng = np.random.default_rng(SEED)
     lens = rng.integers(64, 449, 12)
     prompts = [rng.integers(0, cfg.vocab_size, int(p)) for p in lens]
     ecfg = dict(max_slots=8, max_len=512, prefill_chunk=32)
-    gen = 32
+    C = ecfg["prefill_chunk"]
+    sparse_chunks = sum(1 for p in lens for off in range(0, int(p), C)
+                        if off >= math.ceil(int(p) * 0.5))
+    return {"prompts": prompts, "ecfg": ecfg, "gen": 32,
+            "sparse_chunks": sparse_chunks}
+
+
+def serve_once(name, params, cfg, policy, sp, trace, dev, K) -> dict:
+    """One run of the trace through a fresh ``Engine``, with the kernels'
+    launch counts zeroed just before and read just after: a sparse run
+    must launch each of score_mask and sparse_matmul_shared once per
+    sparse projection (224 per decode step and per sparse prefill
+    chunk), a dense run neither."""
+    from repro_torch import obs
+    from repro_torch.serving import Engine, EngineConfig
+
+    gen = trace["gen"]
+    eng = Engine(params, cfg, EngineConfig(policy=policy, **trace["ecfg"]),
+                 sp, device=dev)
+    for p in trace["prompts"]:
+        eng.submit(p, gen)
+    K.reset_launch_counts()
+    t0 = obs.now()
+    out, res = drive(eng)
+    torch.cuda.synchronize()
+    res["wall_s"] = obs.now() - t0
+    launches = dict(K.launch_counts)
+    for rid, toks in out.items():
+        if len(toks) != gen or not all(0 <= t < cfg.vocab_size
+                                       for t in toks):
+            raise AssertionError(f"{name}: request {rid} gave {toks}")
+    served = ("score_mask", "sparse_matmul_shared")
+    if policy.is_dense:
+        if any(launches.values()):
+            raise AssertionError(f"{name}: dense run launched kernels: "
+                                 f"{launches}")
+    else:
+        sparse_chunks = trace["sparse_chunks"]
+        if sparse_chunks != res["prefill_sparse_chunks"]:
+            raise AssertionError(
+                f"{name}: sparse prefill chunks: engine "
+                f"{res['prefill_sparse_chunks']} != expected "
+                f"{sparse_chunks}")
+        per_pass = 7 * cfg.num_layers
+        want = per_pass * (res["decode_steps"] + sparse_chunks)
+        for k in served:
+            if launches[k] != want:
+                raise AssertionError(
+                    f"{name}: {k} launched {launches[k]} times, expected "
+                    f"{want} = {per_pass} x ({res['decode_steps']} decode "
+                    f"steps + {sparse_chunks} sparse prefill chunks)")
+        if launches["sparse_matmul_per_seq"]:
+            raise AssertionError(f"{name}: a serving run launched "
+                                 "sparse_matmul_per_seq")
+        res["launches"] = {k: launches[k] for k in served}
+        res["launches_per_decode_step"] = per_pass
+    res["tokens"] = out
+    return res
+
+
+def _fmt(res: dict) -> str:
+    return ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in res.items() if k != "tokens")
+
+
+def serve_full_width(dev, K, cfg, params, trace) -> dict:
+    """Phase 5: dense and uncalibrated ``pallas``, each twice in the
+    order dense, pallas, pallas, dense."""
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.sparsity import SparsityPolicy
+
+    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
     modes = {"dense": (SparsityPolicy.dense(), None),
              "pallas": (SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
                         sp)}
     # warm both paths (cuBLAS handles, allocator) outside the measured runs
     for pol, s in modes.values():
-        eng = Engine(params, cfg, EngineConfig(policy=pol, **ecfg), s,
-                     device=dev)
-        eng.submit(prompts[0][:40], 2)
+        eng = Engine(params, cfg, EngineConfig(policy=pol, **trace["ecfg"]),
+                     s, device=dev)
+        eng.submit(trace["prompts"][0][:40], 2)
         eng.run()
 
-    # independent count of the sparse prefill chunks: §5.1, chunks that
-    # start at or past ceil(P/2) run sparse
-    C = ecfg["prefill_chunk"]
-    sparse_chunks = sum(1 for p in lens for off in range(0, int(p), C)
-                        if off >= math.ceil(int(p) * 0.5))
-    per_pass = 7 * cfg.num_layers
     # each mode runs twice, in the order dense, pallas, pallas, dense, so
     # the spread between a mode's two runs shows the host's variance
     # within one call with the code held fixed
     runs = {"dense": [], "pallas": []}
     for name in ("dense", "pallas", "pallas", "dense"):
         pol, s = modes[name]
-        eng = Engine(params, cfg, EngineConfig(policy=pol, **ecfg), s,
-                     device=dev)
-        for p in prompts:
-            eng.submit(p, gen)
-        K.reset_launch_counts()
-        t0 = obs.now()
-        out, res = drive(eng)
-        torch.cuda.synchronize()
-        res["wall_s"] = obs.now() - t0
-        launches = dict(K.launch_counts)
-        for rid, toks in out.items():
-            if len(toks) != gen or not all(0 <= t < cfg.vocab_size
-                                           for t in toks):
-                raise AssertionError(f"{name}: request {rid} gave {toks}")
-        if name == "pallas":
-            if sparse_chunks != res["prefill_sparse_chunks"]:
-                raise AssertionError(
-                    f"sparse prefill chunks: engine "
-                    f"{res['prefill_sparse_chunks']} != expected "
-                    f"{sparse_chunks}")
-            want = per_pass * (res["decode_steps"] + sparse_chunks)
-            for k, v in launches.items():
-                if v != want:
-                    raise AssertionError(
-                        f"{k}: {v} launches on the pallas run, expected "
-                        f"{want} = {per_pass} x ({res['decode_steps']} "
-                        f"decode steps + {sparse_chunks} sparse prefill "
-                        "chunks)")
-            res["launches"] = launches
-            res["launches_per_decode_step"] = per_pass
-        elif any(launches.values()):
-            raise AssertionError(f"dense run launched kernels: {launches}")
-        if runs[name] and out != runs[name][0]["tokens"]:
+        res = serve_once(name, params, cfg, pol, s, trace, dev, K)
+        if runs[name] and res["tokens"] != runs[name][0]["tokens"]:
             raise AssertionError(f"{name}: the second run's greedy tokens "
                                  "differ from the first's")
-        res["tokens"] = out
         runs[name].append(res)
-        print(f"{name:6s} run {len(runs[name])}: " + ", ".join(
-            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
-            for k, v in res.items() if k != "tokens"))
+        print(f"{name:6s} run {len(runs[name])}: {_fmt(res)}")
     for name, rs in runs.items():
         p50 = [r["decode_step_p50_ms"] for r in rs]
         print(f"{name:6s}: decode step p50 {p50[0]:.2f} / {p50[1]:.2f} ms in "
               f"its two runs (spread {100 * (max(p50) / min(p50) - 1):.1f}%); "
               "greedy tokens equal across the two runs")
-    dense_toks, sparse_toks = runs["dense"][0]["tokens"], runs["pallas"][0][
-        "tokens"]
-    agree = np.mean([a == b for rid in dense_toks
-                     for a, b in zip(dense_toks[rid], sparse_toks[rid])])
-    print(f"greedy tokens equal to dense at the same position: {agree:.3f} "
+    print(f"greedy tokens equal to dense at the same position: "
+          f"{agreement(runs['dense'][0], runs['pallas'][0]):.3f} "
           "(random weights; informative only)")
     return runs
+
+
+def agreement(a: dict, b: dict) -> float:
+    return float(np.mean([x == y for rid in a["tokens"]
+                          for x, y in zip(a["tokens"][rid],
+                                          b["tokens"][rid])]))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: full-width calibration
+# ---------------------------------------------------------------------------
+
+def calibrate_full_width(cfg, params):
+    """WiSparse Alg. 1-4 on the full-width model, with the serve CLI's
+    ``--calib-quick`` budget, at p_target 0.5 on 4 x 128 synthetic
+    tokens.  Returns the plan."""
+    from repro_torch import obs
+    from repro_torch.core import calibration, pipeline
+    from repro_torch.core.allocation import EvoConfig, weighted_average
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    p_target = 0.5
+    evo = EvoConfig(generations=2, offspring=4, eps=0.1)
+    toks = SyntheticLM(DataConfig(cfg.vocab_size, 128, 4)).batch(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    marks = [("context", obs.now())]
+
+    def log(msg):
+        print(f"  [{obs.now() - marks[0][1]:7.1f} s] {msg}")
+        for stage, text in (("coarse (Alg. 3)", "coarse search"),
+                            ("fine (Alg. 4)", "fine search"),
+                            ("alpha (Alg. 2)", "alpha search:")):
+            if msg.startswith(text):
+                marks.append((stage, obs.now()))
+
+    ctx = calibration.build_context(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    log(f"calibration context: {len(ctx.acts)} linears captured over "
+        f"{toks.size} tokens")
+    plan = pipeline.run_pipeline(params, cfg, None, p_target, evo=evo,
+                                 delta=0.25, coord_passes=0, log=log,
+                                 ctx=ctx)
+    torch.cuda.synchronize()
+    marks.append(("taus and sp", obs.now()))
+    stages = {a[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    stages["total"] = marks[-1][1] - marks[0][1]
+    peak = torch.cuda.max_memory_allocated() - base
+    summary = plan.summary()
+    kl = ctx.fitness(plan.per_depth_sp)
+    act = pipeline.activation_only_plan(params, cfg, None, p_target, ctx=ctx)
+    kl_act = ctx.fitness(act.per_depth_sp)
+    print("calibration stage wall times (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stages.items()))
+    print(f"block ratios: {summary['block_ratios']}")
+    print(f"mean alpha {summary['mean_alpha']}; device memory peak above "
+          f"the model {peak / 1e9:.2f} GB (total "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+    print(f"KL (Eq. 8) on the calibration tokens: WiSparse plan {kl:.6g}, "
+          f"activation-only plan {kl_act:.6g} (random weights; "
+          "informative only)")
+
+    avg = weighted_average(ctx, np.asarray(plan.block_ratios))
+    if not p_target - evo.eps <= avg <= p_target + 1e-9:
+        raise AssertionError(f"size-weighted block ratio {avg} is outside "
+                             f"[{p_target - evo.eps}, {p_target}]")
+    bad = [k for k, t in plan.taus.items()
+           if 1.0 - plan.layer_ratios[k] < 1.0 and not math.isfinite(t)]
+    if bad:
+        raise AssertionError(f"non-finite taus of sparsified linears: {bad}")
+    if len(plan.taus) != 7 * cfg.num_layers:
+        raise AssertionError(f"{len(plan.taus)} taus, expected "
+                             f"{7 * cfg.num_layers}")
+    print(f"budget: size-weighted block ratio {avg:.6f} in "
+          f"[{p_target - evo.eps}, {p_target}]; every tau of a sparsified "
+          "linear is finite")
+    info = {"stages_s": stages, "peak_gb": peak / 1e9, "kl": kl,
+            "kl_activation_only": kl_act, "weighted_ratio": avg, **summary}
+    del ctx, act
+    torch.cuda.empty_cache()
+    return plan, info
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serve the calibrated plan from its artifact
+# ---------------------------------------------------------------------------
+
+def serve_calibrated(dev, K, cfg, params, trace, plan, runs) -> dict:
+    from repro_torch.sparsity import SparsityPolicy
+
+    policy = plan.to_policy(backend="pallas")
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "calibrated_plan.npz")
+    policy.save(path, sp=plan.stacked_sp)
+    loaded, sp = SparsityPolicy.load(path, device=dev)
+    if loaded != policy:
+        raise AssertionError(f"artifact policy {loaded} != saved {policy}")
+    got, want = list(_leaves(sp)), list(_leaves(plan.stacked_sp))
+    if len(got) != len(want) or not all(
+            torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("artifact sp tree differs from the plan's")
+    print(f"artifact {os.path.relpath(path, HERE)} "
+          f"({os.path.getsize(path) / 1e6:.1f} MB): policy "
+          f"{loaded.to_dict()}")
+    res = serve_once("calibrated", params, cfg, loaded, sp, trace, dev, K)
+    print(f"calibrated pallas run: {_fmt(res)}")
+    keys = ("decode_tok_s", "decode_step_p50_ms", "decode_step_p95_ms",
+            "ttft_p50_ms", "decode_device_busy")
+    for name, r in [("dense 1", runs["dense"][0]),
+                    ("dense 2", runs["dense"][1]),
+                    ("pallas 1 (uncalibrated)", runs["pallas"][0]),
+                    ("calibrated", res)]:
+        print(f"  {name:24s} " + ", ".join(f"{k} {r[k]:.4g}" for k in keys))
+    print(f"calibrated greedy tokens equal to dense at the same position: "
+          f"{agreement(runs['dense'][0], res):.3f} (random weights; "
+          "informative only)")
+    return res
 
 
 def drive(eng, window: int = WINDOW) -> tuple:
@@ -532,9 +813,11 @@ def drive(eng, window: int = WINDOW) -> tuple:
 
 
 def _leaves(tree):
+    """The tensors of a nested dict/list tree, dict keys in sorted order
+    (so two trees built in different key orders line up)."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
@@ -560,14 +843,20 @@ def main() -> int:
     rates = peak_rates(name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
-    t0 = obs.now()
+    t_start = t0 = obs.now()
     build.library()
     print(f"kernels built in {obs.now() - t0:.1f} s\n{build.build_log()}")
 
     errs = check_kernel_shapes(K, ref, dev)
     rows, errs2 = main_path_kernels(K, ref, ops, build, dev, rates)
+    ps_rows, ps_err, ps_launches = per_seq_kernel(K, ref, ops, build, dev,
+                                                  rates)
     reduced_model_check(dev)
-    results = serve_full_width(dev, K)
+    cfg, params = full_width_model(dev)
+    trace = serving_trace(cfg)
+    results = serve_full_width(dev, K, cfg, params, trace)
+    plan, _info = calibrate_full_width(cfg, params)
+    serve_calibrated(dev, K, cfg, params, trace, plan, results)
 
     decode_rows = [r for r in rows if r["B"] == 8]
     kernels = []
@@ -590,6 +879,21 @@ def main() -> int:
                                          for p in per) else "operations"),
             "library_ms": None if lib[0] is None else sum(lib),
         })
+    per = [r for r in ps_rows if r["B"] == 8]
+    kernels.append({
+        "name": "sparse_matmul_per_seq", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sparse_matmul_per_seq.cu",
+        "replaces": "src/repro/kernels/sparse_matmul.py:266",
+        "launches": ps_launches,
+        "max_abs_err": max(errs["sparse_matmul_per_seq"], ps_err),
+        "ms": sum(p["ms"] for p in per),
+        "plain_ms": sum(p["plain_ms"] for p in per),
+        "bound_ms": sum(p["bound_ms"] for p in per),
+        "bound_by": ("bytes" if all(p["bound_by"] == "bytes" for p in per)
+                     else "operations"),
+        "library_ms": sum(p["library_ms"] for p in per),
+    })
+    print(f"chip_smoke.py phases took {obs.now() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

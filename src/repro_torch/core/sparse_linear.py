@@ -67,6 +67,8 @@ def project(x, w, sp: Optional[dict] = None, *,
     resolve here).  ``policy=None`` runs dense."""
     if policy is None:
         policy = DENSE
+    if policy.capture is not None:
+        policy.capture.record(w, x)
     backend = policy.backend_at(role=role)
     if sp is None or backend == "off":
         return _matmul(x, w)

@@ -34,6 +34,8 @@ SIGNATURES = {
                             _P),
     "wisparse_sparse_matmul_shared": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _P),
+    "wisparse_sparse_matmul_per_seq": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _P),
 }
 
 

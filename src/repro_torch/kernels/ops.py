@@ -8,7 +8,9 @@ the JAX package's ``kernels/ops.py``):
      ``k_max_frac``; ranks past the layer's ``keep_frac`` get their x
      zeroed, so the per-layer allocation still binds),
   3. block-gather matmul over exactly the kept blocks
-     (``sparse_matmul_shared`` kernel).
+     (``sparse_matmul_shared`` kernel; with ``per_seq=True`` the
+     ``sparse_matmul_per_seq`` kernel, every row given the shared ids,
+     as the reference does).
 
 ``alpha``, ``tau`` and ``keep_frac`` stay device tensors throughout: a
 host read (``.item()``) per projection would add one sync per
@@ -32,9 +34,13 @@ def channel_plan(n: int, block: int = 128):
 
 
 def wisparse_project(x, w, sp, *, block: int = 128, k_frac: float = 1.0,
-                     token_weights=None):
+                     per_seq: bool = False, token_weights=None):
     """x: (..., n); w: (n, *out).  Returns x W with WiSparse block
     sparsity, in x's dtype.
+
+    per_seq: run the per-row kernel, ``sparse_matmul_per_seq``, with the
+    shared top-k ids copied to every row (the reference's only use of
+    that kernel; no serving path sets it).
 
     token_weights: per-row weights for the shared block-score aggregate
     (the serving engine's active-slot / real-token mask, fused into the
@@ -71,6 +77,11 @@ def wisparse_project(x, w, sp, *, block: int = 128, k_frac: float = 1.0,
     keep_blocks = torch.zeros(nb, dtype=torch.bool, device=x.device)
     keep_blocks[idx] = rank_ok
     xm = xm * keep_blocks.repeat_interleave(blk)[None].to(xm.dtype)
-    y = K.sparse_matmul_shared(xm, w2.contiguous(), idx.to(torch.int32),
-                               blk=blk)
+    idx = idx.to(torch.int32)
+    if per_seq:
+        y = K.sparse_matmul_per_seq(xm, w2.contiguous(),
+                                    idx.expand(xf.shape[0], kb).contiguous(),
+                                    blk=blk)
+    else:
+        y = K.sparse_matmul_shared(xm, w2.contiguous(), idx, blk=blk)
     return y.to(x.dtype).reshape(lead + w.shape[1:])

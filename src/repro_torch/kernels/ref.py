@@ -25,6 +25,14 @@ def ref_sparse_matmul_shared(x, w, block_idx, blk: int):
     return torch.einsum("bkc,kcm->bm", xs, ws)
 
 
+def ref_sparse_matmul_per_seq(x, w, block_idx, blk: int):
+    """Per-row kept-block sets: row b of y is
+    ``ref_sparse_matmul_shared(x[b:b+1], w, block_idx[b], blk)``."""
+    return torch.cat([ref_sparse_matmul_shared(x[b:b + 1], w, block_idx[b],
+                                               blk)
+                      for b in range(x.shape[0])], 0)
+
+
 def ref_score_mask(x, g, alpha, tau, blk: int, row_weights=None):
     """(xm, bs): Eq. 4 scores ``s = |x| * max(g, 1e-12)^alpha`` in f32,
     the Eq. 5 mask ``s >= tau`` applied to x (dtype kept), and per

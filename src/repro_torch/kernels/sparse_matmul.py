@@ -1,14 +1,14 @@
 """Wrappers for the WiSparse Hopper kernels (port of the JAX package's
 ``kernels/sparse_matmul.py``).
 
-``score_mask`` and ``sparse_matmul_shared`` take the route by the device
-of the tensors they are given: a CUDA tensor launches the CUDA kernel in
-``csrc/`` (built at first use by :mod:`repro_torch.kernels.build`) or
-raises; a CPU tensor runs the plain PyTorch version in
-:mod:`repro_torch.kernels.ref`.  There is no fallback from one to the
-other.  Each wrapper adds one to :data:`launch_counts` where it launches
-its kernel, and nowhere else, so a run can show that it went through the
-kernels.
+``score_mask``, ``sparse_matmul_shared`` and ``sparse_matmul_per_seq``
+take the route by the device of the tensors they are given: a CUDA
+tensor launches the CUDA kernel in ``csrc/`` (built at first use by
+:mod:`repro_torch.kernels.build`) or raises; a CPU tensor runs the
+plain PyTorch version in :mod:`repro_torch.kernels.ref`.  There is no
+fallback from one to the other.  Each wrapper adds one to
+:data:`launch_counts` where it launches its kernel, and nowhere else, so
+a run can show that it went through the kernels.
 
 The kernels launch on PyTorch's current stream, do not synchronise, and
 allocate nothing: the wrappers allocate outputs with ``torch.empty``.
@@ -28,7 +28,8 @@ from repro_torch.kernels import ref
 DEFAULT_BLK = 128
 
 # kernel name -> launches since the last reset_launch_counts()
-launch_counts = {"score_mask": 0, "sparse_matmul_shared": 0}
+launch_counts = {"score_mask": 0, "sparse_matmul_shared": 0,
+                 "sparse_matmul_per_seq": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -129,4 +130,42 @@ def sparse_matmul_shared(x, w, block_idx, *, blk: int = DEFAULT_BLK):
         block_idx.shape[0], _DTYPE_CODES[x.dtype], _stream(x.device))
     _raise_on(err, "sparse_matmul_shared")
     launch_counts["sparse_matmul_shared"] += 1
+    return y
+
+
+def sparse_matmul_per_seq(x, w, block_idx, *, blk: int = DEFAULT_BLK):
+    """y[b, :] = sum_{i} x[b, blk_i(b)] @ w[blk_i(b), :], f32: one kept
+    block list per row.
+
+    x: (B, n) already per-channel masked; w: (n, m) of x's dtype;
+    block_idx: (B, kb) int32 (a repeated id counts once per occurrence).
+    Returns (B, m) float32."""
+    B, n = x.shape
+    m = w.shape[1]
+    blk = min(blk, n)
+    _check(w.shape[0] == n, f"w rows {w.shape[0]} != x channels {n}")
+    _check(n % blk == 0, f"channel dim {n} is not a multiple of blk {blk}")
+    _check(block_idx.dim() == 2 and block_idx.shape[0] == B,
+           f"block_idx must be ({B}, kb), got {tuple(block_idx.shape)}")
+    if x.device.type == "cpu":
+        return ref.ref_sparse_matmul_per_seq(x, w, block_idx, blk)
+    _check(x.is_cuda, f"sparse_matmul_per_seq: unsupported device {x.device}")
+    _check(x.dtype in _DTYPE_CODES and w.dtype == x.dtype,
+           f"sparse_matmul_per_seq: x {x.dtype} / w {w.dtype} must be one "
+           "of float32/bfloat16, and equal")
+    _check(block_idx.dtype == torch.int32, "block_idx must be int32")
+    _check(w.device == x.device and block_idx.device == x.device,
+           "sparse_matmul_per_seq: x, w and block_idx must share a device")
+    _check(x.is_contiguous() and w.is_contiguous()
+           and block_idx.is_contiguous(),
+           "sparse_matmul_per_seq: inputs must be contiguous")
+    from repro_torch.kernels.build import library
+    y = torch.empty(B, m, dtype=torch.float32, device=x.device)
+    # the C entry refuses (cudaErrorInvalidValue) a blk whose staged x
+    # chunk needs more than 48 KB of shared memory
+    err = library().wisparse_sparse_matmul_per_seq(
+        _ptr(x), _ptr(w), _ptr(block_idx), _ptr(y), B, n, m, blk,
+        block_idx.shape[1], _DTYPE_CODES[x.dtype], _stream(x.device))
+    _raise_on(err, "sparse_matmul_per_seq")
+    launch_counts["sparse_matmul_per_seq"] += 1
     return y

@@ -10,6 +10,17 @@ from ``--seed``.  The paper's §5.1 recipe applies: the first half of each
 prompt prefills dense, later chunks and every decode step run under the
 ``--mode`` backend.
 
+The prompts are the JAX CLI's: ``SyntheticLM(DataConfig(vocab,
+prompt_len, batch)).batch(0)``.
+
+``--calib-quick`` calibrates WiSparse on those prompts (paper Alg. 1-4,
+``core/pipeline.run_pipeline``, with the JAX CLI's small budget) and
+serves the plan under ``--mode``; ``--sensitive-backend`` runs another
+backend on the blocks the search found most sensitive.
+``--policy-artifact PATH`` serves a saved plan instead: the npz that
+``plan.to_policy(...).save(path, sp=plan.stacked_sp)`` writes, from this
+package or the JAX one.
+
 Without calibration the sp tree is built from the weights
 (``default_sp_stacked``): g = column norms, alpha = 1, keep_frac =
 1 - sparsity.  Its threshold tau is set to -inf for ``pallas`` (the
@@ -17,18 +28,20 @@ reference's uncalibrated +inf would zero every projection that
 backend runs), so ``pallas`` sparsity comes from the block top-k at
 keep_frac alone.  ``mask`` thresholds on tau and needs calibration, so
 uncalibrated it falls back to ``topk_shared``, as the reference CLI does.
-Calibration, ladders, the gateway and telemetry come with later slices.
+Ladders, the gateway and telemetry come with later slices.
 """
 from __future__ import annotations
 
 import argparse
 
-import numpy as np
 import torch
 
 from repro_torch import obs
 from repro_torch.configs import get_config, reduced
+from repro_torch.core import pipeline
+from repro_torch.core.allocation import EvoConfig
 from repro_torch.core.sp_schema import default_sp_stacked
+from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.serving import Engine, EngineConfig
@@ -51,6 +64,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4,
                     help="number of requests to submit")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--calib-quick", action="store_true",
+                    help="small-budget WiSparse calibration on the prompts")
+    ap.add_argument("--sensitive-backend", default=None,
+                    choices=["off", "mask"],
+                    help="mixed per-block policy: run this backend on the "
+                         "most sensitive blocks of a calibrated plan "
+                         "(requires --calib-quick)")
+    ap.add_argument("--sensitive-frac", type=float, default=0.25,
+                    help="fraction of blocks treated as sensitive")
+    ap.add_argument("--policy-artifact", default=None,
+                    help="serve the policy and sp tree of this saved npz "
+                         "artifact (overrides --sparsity/--mode)")
     return ap
 
 
@@ -61,12 +86,31 @@ def validate_args(args) -> None:
         v = getattr(args, name.replace("-", "_"))
         if v <= 0:
             raise SystemExit(f"--{name} must be > 0, got {v}")
+    if args.sensitive_backend is not None and not args.calib_quick:
+        raise SystemExit("--sensitive-backend needs a calibrated plan: "
+                         "add --calib-quick")
+    if args.policy_artifact is not None and args.calib_quick:
+        raise SystemExit("--policy-artifact serves a saved plan; drop "
+                         "--calib-quick")
 
 
-def build_policy(args, params, cfg):
+def build_policy(args, params, cfg, prompts, device):
     """(policy, sp) for the flags; prints what it chose and why."""
+    if args.policy_artifact is not None:
+        policy, sp = SparsityPolicy.load(args.policy_artifact, device=device)
+        print(f"loaded policy {policy.to_dict()} from {args.policy_artifact}")
+        return policy, sp
     if args.sparsity == 0:
         return SparsityPolicy.dense(), None
+    if args.calib_quick:
+        plan = pipeline.run_pipeline(
+            params, cfg, {"tokens": prompts}, args.sparsity,
+            evo=EvoConfig(generations=2, offspring=4, eps=0.1),
+            delta=0.25, coord_passes=0, log=print)
+        print("calibrated plan:", plan.summary())
+        return plan.to_policy(
+            backend=args.mode, sensitive_backend=args.sensitive_backend,
+            sensitive_frac=args.sensitive_frac), plan.stacked_sp
     mode = args.mode
     if mode == "mask":
         print("mask needs calibrated thresholds -> using topk_shared")
@@ -89,9 +133,9 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     params = api.init_model(cfg, args.seed, device=device)
-    policy, sp = build_policy(args, params, cfg)
-    rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    prompts = SyntheticLM(DataConfig(cfg.vocab_size, args.prompt_len,
+                                     args.batch)).batch(0)
+    policy, sp = build_policy(args, params, cfg, prompts, device)
     # one slot per request, room for prompt + generation
     ecfg = EngineConfig(max_slots=args.batch,
                         max_len=args.prompt_len + args.gen, policy=policy)

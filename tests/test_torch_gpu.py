@@ -49,6 +49,14 @@ def test_kernels_match_plain_versions(dev, B, n, m, blk, dtype):
     y = K.sparse_matmul_shared(xm, w, idx, blk=blk)
     torch.testing.assert_close(y, ref.ref_sparse_matmul_shared(xm, w, idx, blk),
                                rtol=1e-4, atol=1e-4)
+    nb = n // blk
+    kb = max(nb // 2, 1)
+    ids = torch.stack([(torch.arange(kb, device=dev) + b) % nb
+                       for b in range(B)]).to(torch.int32)
+    y = K.sparse_matmul_per_seq(xm, w, ids, blk=blk)
+    torch.testing.assert_close(
+        y, ref.ref_sparse_matmul_per_seq(xm, w, ids, blk), rtol=1e-4,
+        atol=1e-4)
 
 
 def test_engine_on_card_matches_cpu_and_counts_launches(dev):
@@ -72,6 +80,42 @@ def test_engine_on_card_matches_cpu_and_counts_launches(dev):
             steps = eng.stats.decode_steps + eng.stats.prefill_sparse_chunks
             assert K.launch_counts == {
                 "score_mask": 7 * cfg.num_layers * steps,
-                "sparse_matmul_shared": 7 * cfg.num_layers * steps}
+                "sparse_matmul_shared": 7 * cfg.num_layers * steps,
+                "sparse_matmul_per_seq": 0}
     assert outs[0] == outs[1]
 
+
+
+def test_calibration_on_card(dev):
+    """Eq. 7 thresholds computed on the card equal the CPU's on the same
+    activations (rtol 1e-6: pow may differ by an ulp), and a small
+    calibration on the card meets its budget with finite thresholds."""
+    import dataclasses
+
+    from repro_torch.core import calibration, pipeline
+    from repro_torch.core.allocation import EvoConfig, weighted_average
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    cfg = reduced(get_config("llama31_8b"))
+    params = api.init_model(cfg, 0, device="cpu")
+    toks = SyntheticLM(DataConfig(cfg.vocab_size, 48, 2)).batch(0)
+    ctx_c = calibration.build_context(params, cfg, {"tokens": toks})
+    ctx_g = dataclasses.replace(
+        ctx_c, acts={k: v.to(dev) for k, v in ctx_c.acts.items()},
+        g={k: v.to(dev) for k, v in ctx_c.g.items()}, _tau_cache={})
+    for key in list(ctx_c.acts)[::2]:
+        for alpha in (0.0, 0.55, 1.0, 1.5):
+            for keep in (0.9, 0.5, 0.2):
+                np.testing.assert_allclose(ctx_g.tau_for(key, alpha, keep),
+                                           ctx_c.tau_for(key, alpha, keep),
+                                           rtol=1e-6)
+    params_g = P.tree_map(lambda t: t.to(dev), params)
+    ctx = calibration.build_context(params_g, cfg, {"tokens": toks})
+    plan = pipeline.run_pipeline(
+        params_g, cfg, None, 0.5, evo=EvoConfig(generations=1, offspring=2,
+                                                 eps=0.1),
+        delta=0.25, coord_passes=0, ctx=ctx)
+    assert 0.4 <= weighted_average(ctx, plan.block_ratios) <= 0.5 + 1e-9
+    assert all(np.isfinite(t) for k, t in plan.taus.items()
+               if plan.layer_ratios[k] > 0)
+    assert plan.stacked_sp[0]["l0"]["attn"]["wq"]["tau"].device == dev

@@ -96,6 +96,68 @@ def test_sparse_matmul_shared_duplicate_ids_count_twice():
                                atol=1e-5)
 
 
+def _per_seq_ids(B, n, blk):
+    """tests/test_kernels.py's per-seq ids: row b keeps the blocks
+    (arange(kb) + b) % nb, kb = max(nb // 2, 1)."""
+    nb = n // blk
+    kb = max(nb // 2, 1)
+    return np.stack([(np.arange(kb) + b) % nb for b in range(B)]
+                    ).astype(np.int32)
+
+
+@pytest.mark.parametrize("B,n,m,blk", SHAPES + AWKWARD)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_sparse_matmul_per_seq_matches_pallas(B, n, m, blk, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    x, w, _ = _data(B, n, m)
+    jx, tx = _both(x, jdt, tdt)
+    jw, tw = _both(w, jdt, tdt)
+    idx = _per_seq_ids(B, n, blk)
+    yj = JK.sparse_matmul_per_seq(jx, jw, jnp.asarray(idx), blk=blk,
+                                  interpret=True)
+    yt = TK.sparse_matmul_per_seq(tx, tw, torch.from_numpy(idx), blk=blk)
+    assert yt.shape == (B, m) and yt.dtype == torch.float32
+    np.testing.assert_allclose(_np(yt), _np(yj), rtol=tol, atol=tol)
+
+
+def test_sparse_matmul_per_seq_duplicate_ids_count_twice():
+    x, w, _ = _data(2, 256, 64)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    ids = np.array([[1, 1], [0, 1]], np.int32)
+    twice = TK.sparse_matmul_per_seq(tx, tw, torch.from_numpy(ids))
+    once = TK.sparse_matmul_shared(tx[:1], tw,
+                                   torch.tensor([1], dtype=torch.int32))
+    yj = JK.sparse_matmul_per_seq(jnp.asarray(x), jnp.asarray(w),
+                                  jnp.asarray(ids), interpret=True)
+    np.testing.assert_allclose(twice[0].numpy(), 2 * once[0].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(twice.numpy(), np.asarray(yj), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("B,n,m,blk", SHAPES[:3] + AWKWARD[:3])
+def test_wisparse_project_per_seq(B, n, m, blk):
+    """per_seq=True gives every row the shared ids (the reference's only
+    use of the per-seq kernel): equal to JAX's and to per_seq=False."""
+    x, w, g = _data(B, n, m)
+    x = _tie_free(x, g, 0.7, 0.2)
+    sp_j = {"g": jnp.asarray(g), "alpha": jnp.float32(0.7),
+            "tau": jnp.float32(0.2), "keep_frac": jnp.float32(0.5)}
+    sp_t = {k: torch.tensor(np.asarray(v)) for k, v in sp_j.items()}
+    yj = jops.wisparse_project(jnp.asarray(x), jnp.asarray(w), sp_j,
+                               block=blk, k_frac=0.75, interpret=True,
+                               per_seq=True)
+    TK.reset_launch_counts()
+    yt = tops.wisparse_project(torch.from_numpy(x), torch.from_numpy(w), sp_t,
+                               block=blk, k_frac=0.75, per_seq=True)
+    ys = tops.wisparse_project(torch.from_numpy(x), torch.from_numpy(w), sp_t,
+                               block=blk, k_frac=0.75)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(yt.numpy(), ys.numpy(), rtol=1e-5, atol=1e-5)
+    assert set(TK.launch_counts.values()) == {0}
+
+
 @pytest.mark.parametrize("B,n,m,blk", SHAPES + AWKWARD)
 @pytest.mark.parametrize("alpha,tau", [(0.0, 0.3), (0.7, 0.5), (1.5, 1.0)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -202,7 +264,11 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     idx = torch.tensor([1, 0], dtype=torch.int32)
     assert torch.equal(TK.sparse_matmul_shared(tx, tw, idx),
                        ref.ref_sparse_matmul_shared(tx, tw, idx, 128))
-    assert TK.launch_counts == {"score_mask": 0, "sparse_matmul_shared": 0}
+    ids = torch.tensor([[1, 0], [0, 0], [1, 1]], dtype=torch.int32)
+    assert torch.equal(TK.sparse_matmul_per_seq(tx, tw, ids),
+                       ref.ref_sparse_matmul_per_seq(tx, tw, ids, 128))
+    assert TK.launch_counts == {"score_mask": 0, "sparse_matmul_shared": 0,
+                                "sparse_matmul_per_seq": 0}
 
 
 def test_non_cpu_tensors_never_fall_back():
@@ -217,6 +283,9 @@ def test_non_cpu_tensors_never_fall_back():
     with pytest.raises(ValueError, match="unsupported device"):
         TK.sparse_matmul_shared(x, w, torch.zeros(1, dtype=torch.int32,
                                                   device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        TK.sparse_matmul_per_seq(x, w, torch.zeros(2, 1, dtype=torch.int32,
+                                                   device="meta"))
 
 
 def test_wrappers_validate_shapes():
@@ -226,6 +295,9 @@ def test_wrappers_validate_shapes():
     with pytest.raises(ValueError, match="w rows"):
         TK.sparse_matmul_shared(torch.zeros(2, 256), torch.zeros(128, 4),
                                 torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="block_idx must be"):
+        TK.sparse_matmul_per_seq(torch.zeros(2, 256), torch.zeros(256, 4),
+                                 torch.zeros(3, 1, dtype=torch.int32))
 
 
 def test_kernel_modules_import_without_nvcc_or_card(tmp_path, monkeypatch):
