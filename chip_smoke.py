@@ -2,18 +2,26 @@
 """Drive the PyTorch/H100 port's main path once on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --host-only [--src DIR]
 
 In order, it:
 
 1. prints the card's name and power limit (``nvidia-smi``) and stops,
    with a nonzero exit, when ``torch.cuda.is_available()`` is false;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` (printing each kernel's register / shared-memory report);
+   ``nvcc`` (printing each kernel's register / shared-memory report) and
+   times each kernel wrapper's host cost per call at the decode shapes
+   (``--host-only`` stops here; ``--src`` times another tree's package,
+   so two commits' wrappers can be compared in one call);
 3. holds each kernel against its plain PyTorch version on the card, on
    the kernel test shapes in f32 and bf16 and at llama31_8b's projection
    shapes (B = 8 decode slots, B = 32 one prefill chunk), and times the
    kernel, the plain version and (for the matmuls) dense ``torch.matmul``
-   by CUDA-graph replay.  ``sparse_matmul_per_seq`` gets a distinct
+   by CUDA-graph replay.  At every projection shape each matmul kernel
+   must give the same bits in two launches, and its line shows its
+   split-K grid, its share of the bound and the v1 kernel's time beside
+   this run's; a per-decode-layer summary follows.  ``sparse_matmul_per_seq``
+   gets a distinct
    random half of the blocks per row there, and its only entry point,
    ``ops.wisparse_project(per_seq=True)``, is driven at every projection
    shape and held against ``per_seq=False``;
@@ -52,6 +60,7 @@ result line.  It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -59,10 +68,9 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(HERE, "src"))
 
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
 SEED = 0
 # kernel test shapes (B, n, m, blk): tests/test_kernels.py SHAPES + AWKWARD
@@ -89,6 +97,20 @@ RTOL = ATOL = 1e-4
 LOGIT_ATOL = 1e-4
 # decode steps of each serving run traced by torch.profiler (busy share)
 WINDOW = 8
+# Times of the v1 matmul kernels (one thread block per 64 columns walking
+# the kept blocks on CUDA cores; us, CUDA-graph replay, bf16, 50% kept,
+# cold L2, this script on an NVIDIA H100 80GB HBM3 at 700 W), printed
+# beside this run's: (B, role) -> (sparse_matmul_shared,
+# sparse_matmul_per_seq)
+V1_US = {
+    (8, "attn/wq"): (53.53, 42.51), (8, "attn/wk"): (49.66, 27.67),
+    (8, "attn/wv"): (49.66, 28.50), (8, "attn/wo"): (54.09, 44.33),
+    (8, "mlp/wi_gate"): (59.16, 145.92), (8, "mlp/wi_up"): (59.09, 146.57),
+    (8, "mlp/wo"): (189.34, 163.75),
+    (32, "attn/wq"): (56.06, 137.65), (32, "attn/wk"): (47.44, 38.21),
+    (32, "attn/wv"): (47.36, 37.83), (32, "attn/wo"): (56.22, 136.45),
+    (32, "mlp/wi_gate"): (151.52, 549.30), (32, "mlp/wi_up"): (151.92, 547.95),
+    (32, "mlp/wo"): (190.02, 559.12)}
 
 
 def nvidia_smi() -> str:
@@ -145,6 +167,34 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 def launched(err: int) -> None:
     if err != 0:
         raise RuntimeError(f"kernel launch failed: cudaError {err}")
+
+
+def direct_matmul(K, build, name, x, ws, idx, m, kb, per_seq):
+    """``fn(i)`` calling the C entry of the block-gather matmul ``name``
+    on weight copy ``ws[i % len(ws)]``, with its output and split-K
+    scratch allocated once here (kernel-only timing), and its plan."""
+    B, n = x.shape
+    plan = K.launch_plan(B, n, m, kb, BLK, per_seq, x.element_size())
+    y = torch.empty(B, m, device=x.device)
+    scratch, cnt = K.matmul_scratch(plan, x.device)
+    entry = getattr(build.library(), "wisparse_" + name)
+
+    def fn(i):
+        launched(entry(x.data_ptr(), ws[i % len(ws)].data_ptr(),
+                       idx.data_ptr(), y.data_ptr(),
+                       None if scratch is None else scratch.data_ptr(),
+                       None if cnt is None else cnt.data_ptr(), B, n, m, BLK,
+                       kb, plan.rows, plan.cols, plan.splits, 1,
+                       torch.cuda.current_stream().cuda_stream))
+    return fn, plan
+
+
+def bit_equal(name: str, fn) -> None:
+    """Two launches of the same inputs give the same bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two launches differ")
 
 
 def tie_free(x: np.ndarray, g: np.ndarray, alpha: float, tau: float,
@@ -213,7 +263,7 @@ def check_kernel_shapes(K, ref, dev) -> dict:
                 errs["score_mask"] = max(errs["score_mask"], check_close(
                     f"score_mask {B, n, blk} {dtype}", bs, bs_r))
     errs["sparse_matmul_per_seq"] = 0.0
-    for (B, n, m, blk) in SHAPES[:3] + AWKWARD[:3]:
+    for (B, n, m, blk) in SHAPES + AWKWARD:
         nb = n // blk
         kb = max(nb // 2, 1)
         ids = np.stack([(np.arange(kb) + b) % nb for b in range(B)])
@@ -231,8 +281,7 @@ def check_kernel_shapes(K, ref, dev) -> dict:
                     f"sparse_matmul_per_seq {B, n, m, blk} {dtype}", y,
                     ref.ref_sparse_matmul_per_seq(xt, wt, idx, blk)))
     print(f"kernel shapes: {len(SHAPES + AWKWARD)} shapes x f32/bf16 agree, "
-          f"sparse_matmul_per_seq on {len(SHAPES[:3] + AWKWARD[:3])} "
-          f"(max abs err {errs})")
+          f"sparse_matmul_per_seq too (max abs err {errs})")
     return errs
 
 
@@ -271,6 +320,8 @@ def main_path_kernels(K, ref, ops, build, dev, rates) -> tuple:
             xk = (xm * keep.repeat_interleave(BLK)[None].to(dt)).contiguous()
             y = K.sparse_matmul_shared(xk, w, idx, blk=BLK)
             torch.cuda.synchronize()
+            bit_equal(f"sparse_matmul_shared {role} B={B}",
+                      lambda: K.sparse_matmul_shared(xk, w, idx, blk=BLK))
             errs["sparse_matmul_shared"] = max(
                 errs["sparse_matmul_shared"], check_close(
                     f"sparse_matmul_shared {role} B={B}", y,
@@ -281,21 +332,15 @@ def main_path_kernels(K, ref, ops, build, dev, rates) -> tuple:
             # kernel-only times call the C entries on preallocated outputs
             lib = build.library()
             xm_o, bs_o = torch.empty_like(x), torch.empty(nb, device=dev)
-            y_o = torch.empty(B, m, device=dev)
-
-            def stream():
-                return torch.cuda.current_stream().cuda_stream
-
-            def mm_kernel(i):
-                launched(lib.wisparse_sparse_matmul_shared(
-                    xk.data_ptr(), ws[i % copies].data_ptr(), idx.data_ptr(),
-                    y_o.data_ptr(), B, n, m, BLK, kb, 1, stream()))
+            mm_kernel, plan = direct_matmul(K, build, "sparse_matmul_shared",
+                                            xk, ws, idx, m, kb, False)
 
             def sm_kernel(i):
                 launched(lib.wisparse_score_mask(
                     x.data_ptr(), g.data_ptr(), alpha.data_ptr(),
                     tau.data_ptr(), rw.data_ptr(), xm_o.data_ptr(),
-                    bs_o.data_ptr(), B, n, BLK, 1, stream()))
+                    bs_o.data_ptr(), B, n, BLK, 1,
+                    torch.cuda.current_stream().cuda_stream))
 
             t_mm = graph_ms(mm_kernel)
             t_mm_plain = graph_ms(lambda i: ref.ref_sparse_matmul_shared(
@@ -326,8 +371,8 @@ def main_path_kernels(K, ref, ops, build, dev, rates) -> tuple:
                          "sparse_matmul_shared": {
                              "ms": t_mm, "plain_ms": t_mm_plain,
                              "library_ms": t_mm_lib, "bound_ms": mm_bound,
-                             "bound_by": mm_by,
-                             "blocks": math.ceil(m / 64) * math.ceil(B / 8)},
+                             "bound_by": mm_by, "splits": plan.splits,
+                             "blocks": math.prod(plan.grid)},
                          "score_mask": {
                              "ms": t_sm, "plain_ms": t_sm_plain,
                              "library_ms": None, "bound_ms": sm_bound,
@@ -335,10 +380,11 @@ def main_path_kernels(K, ref, ops, build, dev, rates) -> tuple:
                          "projection": {"pallas_ms": t_proj,
                                         "dense_ms": t_dense}})
             print(f"  B={B:2d} {role:12s} n={n:5d} m={m:5d} kb={kb:3d} | "
-                  f"sparse_matmul_shared {t_mm * 1e3:8.2f} us (plain "
+                  f"sparse_matmul_shared {t_mm * 1e3:8.2f} us (v1 "
+                  f"{V1_US[B, role][0]:7.2f}, plain "
                   f"{t_mm_plain * 1e3:8.2f}, torch.matmul dense "
-                  f"{t_mm_lib * 1e3:8.2f}, bound {mm_bound * 1e3:6.2f}, "
-                  f"{rows[-1]['sparse_matmul_shared']['blocks']} blocks) | "
+                  f"{t_mm_lib * 1e3:8.2f}, bound {mm_bound * 1e3:6.2f} = "
+                  f"{100 * mm_bound / t_mm:5.1f}%, grid {plan.grid}) | "
                   f"score_mask {t_sm * 1e3:6.2f} us (plain "
                   f"{t_sm_plain * 1e3:6.2f}, bound {sm_bound * 1e3:5.2f}) | "
                   f"projection pallas {t_proj * 1e3:7.2f} us, dense "
@@ -358,7 +404,6 @@ def per_seq_kernel(K, ref, ops, build, dev, rates) -> tuple:
     launches)."""
     rng = np.random.default_rng(SEED + 2)
     rows, err = [], 0.0
-    lib = build.library()
     dt = torch.bfloat16
     cases = []
     for B in (8, 32):
@@ -376,20 +421,16 @@ def per_seq_kernel(K, ref, ops, build, dev, rates) -> tuple:
             idx = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
             y = K.sparse_matmul_per_seq(xk, w, idx, blk=BLK)
             torch.cuda.synchronize()
+            bit_equal(f"sparse_matmul_per_seq {role} B={B}",
+                      lambda: K.sparse_matmul_per_seq(xk, w, idx, blk=BLK))
             err = max(err, check_close(
                 f"sparse_matmul_per_seq {role} B={B}", y,
                 ref.ref_sparse_matmul_per_seq(xk, w, idx, BLK)))
 
             copies = max(1, math.ceil(200e6 / (n * m * 2)))
             ws = [w] + [w.clone() for _ in range(copies - 1)]
-            y_o = torch.empty(B, m, device=dev)
-
-            def kernel(i):
-                launched(lib.wisparse_sparse_matmul_per_seq(
-                    xk.data_ptr(), ws[i % copies].data_ptr(),
-                    idx.data_ptr(), y_o.data_ptr(), B, n, m, BLK, kb, 1,
-                    torch.cuda.current_stream().cuda_stream))
-
+            kernel, plan = direct_matmul(K, build, "sparse_matmul_per_seq",
+                                         xk, ws, idx, m, kb, True)
             t_k = graph_ms(kernel)
             t_plain = graph_ms(lambda i: ref.ref_sparse_matmul_per_seq(
                 xk, ws[i % copies], idx, BLK))
@@ -403,12 +444,14 @@ def per_seq_kernel(K, ref, ops, build, dev, rates) -> tuple:
             rows.append({"B": B, "role": role, "n": n, "m": m, "kb": kb,
                          "union_blocks": union, "ms": t_k,
                          "plain_ms": t_plain, "library_ms": t_lib,
-                         "bound_ms": bms, "bound_by": by})
+                         "bound_ms": bms, "bound_by": by,
+                         "splits": plan.splits})
             print(f"  B={B:2d} {role:12s} n={n:5d} m={m:5d} kb={kb:3d} "
                   f"union {union:3d} | sparse_matmul_per_seq "
-                  f"{t_k * 1e3:8.2f} us (plain {t_plain * 1e3:8.2f}, "
-                  f"torch.matmul dense {t_lib * 1e3:8.2f}, bound "
-                  f"{bms * 1e3:6.2f}, {math.ceil(m / 64) * B} blocks)")
+                  f"{t_k * 1e3:8.2f} us (v1 {V1_US[B, role][1]:7.2f}, "
+                  f"plain {t_plain * 1e3:8.2f}, torch.matmul dense "
+                  f"{t_lib * 1e3:8.2f}, bound {bms * 1e3:6.2f} = "
+                  f"{100 * bms / t_k:5.1f}%, grid {plan.grid})")
             g = torch.sqrt((w.float() ** 2).sum(1))
             sp1 = {"g": g, "alpha": torch.tensor(1.0, device=dev),
                    "tau": torch.tensor(float("-inf"), device=dev),
@@ -438,6 +481,85 @@ def per_seq_kernel(K, ref, ops, build, dev, rates) -> tuple:
     print(f"wisparse_project(per_seq=True) == per_seq=False at "
           f"{len(cases)} projection shapes; {launches} per-seq launches")
     return rows, err, launches
+
+
+def wrapper_host_us(K, ops, dev, calls: int = 50, rounds: int = 7) -> dict:
+    """Host microseconds per call of each kernel wrapper (and of the whole
+    ``pallas`` projection, ``ops.wisparse_project``) at llama31_8b's 7
+    projection shapes, B = 8, bf16, half of the blocks kept: the time
+    until ``calls`` back-to-back calls have returned, without a sync in
+    between, over ``calls``; the median of ``rounds`` rounds per shape,
+    then the mean over the shapes.  The queue stays far from full, so this
+    is the host's cost of a launch, the quantity that sets a decode step
+    while the device idles.  Uses only the wrappers' public signatures, so
+    it times any tree's package (``--src``)."""
+    from repro_torch import obs
+    rng = np.random.default_rng(SEED + 3)
+    B, dt = 8, torch.bfloat16
+    per = {"score_mask": [], "sparse_matmul_shared": [],
+           "sparse_matmul_per_seq": [], "wisparse_project": []}
+    for _role, n, m in LAYER:
+        nb = n // BLK
+        kb = round(nb * KEEP)
+        x = torch.from_numpy(rng.standard_normal((B, n)).astype(
+            np.float32)).to(dev, dt)
+        w = (torch.randn(n, m, device=dev) * 0.02).to(dt)
+        g = torch.sqrt((w.float() ** 2).sum(1))
+        alpha = torch.tensor(1.0, device=dev)
+        tau = torch.tensor(float("-inf"), device=dev)
+        rw = torch.ones(B, device=dev)
+        ids = np.stack([rng.permutation(nb)[:kb] for _ in range(B)])
+        idx = torch.from_numpy(ids[0].astype(np.int32)).to(dev)
+        idx2 = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        sp1 = {"g": g, "alpha": alpha, "tau": tau,
+               "keep_frac": torch.tensor(KEEP, device=dev)}
+        fns = {
+            "score_mask": lambda: K.score_mask(x, g, alpha, tau, blk=BLK,
+                                               row_weights=rw),
+            "sparse_matmul_shared": lambda: K.sparse_matmul_shared(
+                x, w, idx, blk=BLK),
+            "sparse_matmul_per_seq": lambda: K.sparse_matmul_per_seq(
+                x, w, idx2, blk=BLK),
+            "wisparse_project": lambda: ops.wisparse_project(
+                x, w, sp1, block=BLK, k_frac=KEEP, token_weights=rw)}
+        for name, fn in fns.items():
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(rounds):
+                t0 = obs.now()
+                for _ in range(calls):
+                    fn()
+                times.append((obs.now() - t0) / calls)
+                torch.cuda.synchronize()
+            per[name].append(1e6 * float(np.median(times)))
+        del w
+    return {k: {"mean_us": float(np.mean(v)), "per_shape_us": v}
+            for k, v in per.items()}
+
+
+def layer_summary(rows, ps_rows) -> None:
+    """Per decode layer (the 7 projection shapes summed) at B = 8 and 32:
+    each matmul kernel beside the v1 kernel's time, dense
+    ``torch.matmul`` and its bound."""
+    for B in (8, 32):
+        sh = [r for r in rows if r["B"] == B]
+        ps = [r for r in ps_rows if r["B"] == B]
+        for name, per, col in (
+                ("sparse_matmul_shared",
+                 [r["sparse_matmul_shared"] for r in sh], 0),
+                ("sparse_matmul_per_seq", ps, 1)):
+            ms = sum(p["ms"] for p in per)
+            lib = sum(p["library_ms"] for p in per)
+            bnd = sum(p["bound_ms"] for p in per)
+            old = sum(V1_US[B, r["role"]][col] for r in sh)
+            faster = sum(1e3 * p["ms"] < V1_US[B, r["role"]][col]
+                         for p, r in zip(per, sh))
+            print(f"per decode layer B={B:2d} {name:22s} {ms * 1e3:8.2f} us "
+                  f"(v1 {old:8.2f}; torch.matmul dense {lib * 1e3:7.2f}; "
+                  f"bound {bnd * 1e3:7.2f} = {100 * bnd / ms:5.1f}%); faster "
+                  f"than v1 at {faster}/{len(per)} shapes")
 
 
 # ---------------------------------------------------------------------------
@@ -826,6 +948,15 @@ def _leaves(tree):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--host-only", action="store_true",
+                    help="build the kernels, print the wrappers' host time "
+                         "per call as one JSON line, and stop")
+    ap.add_argument("--src", default=os.path.join(HERE, "src"),
+                    help="directory holding the repro_torch package (for "
+                         "--host-only against another tree)")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False: chip_smoke.py needs a "
               "CUDA card", file=sys.stderr)
@@ -846,11 +977,16 @@ def main() -> int:
     t_start = t0 = obs.now()
     build.library()
     print(f"kernels built in {obs.now() - t0:.1f} s\n{build.build_log()}")
+    host = wrapper_host_us(K, ops, dev)
+    print(json.dumps({"wrapper_host_us": host, "src": args.src}))
+    if args.host_only:
+        return 0
 
     errs = check_kernel_shapes(K, ref, dev)
     rows, errs2 = main_path_kernels(K, ref, ops, build, dev, rates)
     ps_rows, ps_err, ps_launches = per_seq_kernel(K, ref, ops, build, dev,
                                                   rates)
+    layer_summary(rows, ps_rows)
     reduced_model_check(dev)
     cfg, params = full_width_model(dev)
     trace = serving_trace(cfg)

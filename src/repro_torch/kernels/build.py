@@ -32,10 +32,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     "wisparse_score_mask": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P),
-    "wisparse_sparse_matmul_shared": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _P),
-    "wisparse_sparse_matmul_per_seq": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _P),
+    # x, w, idx, y, workspace, counters, B, n, m, blk, kb, rows, cols,
+    # splits, dtype, stream
+    "wisparse_sparse_matmul_shared": (_P,) * 6 + (_I,) * 9 + (_P,),
+    "wisparse_sparse_matmul_per_seq": (_P,) * 6 + (_I,) * 9 + (_P,),
 }
 
 

@@ -8,136 +8,159 @@
 // contract); ids are clamped to [0, n/blk), as the reference's dynamic
 // slice clamps.
 //
-// What bounds it on an H100: bytes.  At decode (B = 8) it does 2*B flops
-// per weight element read, far below the ~295 flops/byte at which bf16
-// tensor cores would bound it, so the least time is the kept weight bytes
-// over 3.35 TB/s (e.g. 58.7 MB, 17.5 us, for mlp/wi_gate at 50% kept).
+// What bounds it on an H100: bytes.  At the main path's B (8 decode slots,
+// 32 rows of a prefill chunk) it does 2*B flops per weight element read,
+// far below the ~295 flops/byte at which the bf16 tensor cores would bound
+// it, so the least time is the kept weight bytes over 3.35 TB/s (58.7 MB,
+// 17.5 us, for mlp/wi_gate at 50% kept).
 //
-// Design: W is row-major, so a kept block is one contiguous blk x m slab
-// and every weight row is read along m.  One thread block per (64-column
-// tile of m, 8-row tile of B), 256 threads = 8 warps.  The block loads
-// the ids itself from device memory (the TPU took them by scalar
-// prefetch) and walks them in order; for each it stages the 8 x blk tile
-// of x in shared memory as f32, then warp w reads weight rows w, w+8, ...
-// of the slab.  Lane l owns columns l and l+32 of the tile, so each warp
-// load covers 32 neighbouring elements (coalesced), and keeps the sums of
-// its two columns for all 8 batch rows in f32 registers.  The 8 warps'
-// partial sums are added in a fixed order through shared memory at the
-// end: no atomics, bit-identical across runs.  Ragged B and m are masked
-// in the kernel, not padded.  Known limit, left to a later change: at
-// m = 1024 (attn/wk, attn/wv) only 16 blocks launch on the 132 SMs, so
-// those projections cannot reach the card's bandwidth (split-K would).
-#include "common.cuh"
+// Design (shared with sparse_matmul_per_seq through gather_mma.cuh):
+// - Split-K.  The grid is (column tiles of m) x (S slices of idx) x (tiles
+//   of B).  Slice s takes positions [s*kb/S, (s+1)*kb/S) of idx, so slices
+//   differ by at most one kept block; a block reads its slice's ids into
+//   shared memory once.  S and the batch rows per tile come from the host
+//   (sparse_matmul.launch_plan), from the shapes alone, so that about one
+//   block per SM is in flight; the C entry checks them.
+// - A ring of 3 stages in dynamic shared memory, each one chunk of 128
+//   weight rows (a whole kept block at blk = 128) x 128 columns (bf16)
+//   and its x values, filled by 16-byte cp.async copies two chunks ahead;
+//   one barrier per chunk.  PERF.md holds the ring and split variants
+//   measured against this choice.
+// - bf16 on the tensor cores: mma.sync m16n8k16, A = W^T from ldmatrix
+//   .trans, B = x^T (8 batch rows per N tile), f32 accumulators.  f32 runs
+//   on CUDA-core FMA in the same grid (64-column tiles).
+// - The S partial tiles are summed in the order s = 0..S-1 by the last
+//   block of a column tile to finish: no float atomics, bit-identical runs.
+// Measured result: PERF.md (chip_smoke.py, per projection shape).
+#include "gather_mma.cuh"
 
 namespace wisparse {
+namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 64;   // output columns per block (2 per lane)
-constexpr int kRows = 8;    // batch rows per block
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int NB>
+__global__ void __launch_bounds__(gm::kThreads, 2)
 sparse_matmul_shared_kernel(const T* __restrict__ x, const T* __restrict__ w,
                             const int* __restrict__ idx, float* __restrict__ y,
-                            int B, int n, int m, int blk, int kb) {
-  extern __shared__ float smem[];
-  float* xs = smem;                  // kRows * blk staged x values
-  float* red = smem + kRows * blk;   // kWarps * kRows * kCols partial sums
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int col0 = blockIdx.x * kCols;
-  const int row0 = blockIdx.y * kRows;
+                            float* ws, int* counters, int B, int n, int m,
+                            int blk, int kb, int S, int flags) {
+  using L = gm::Layout<T, NB, false>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* wring = reinterpret_cast<T*>(smem);
+  T* xring = wring + L::kStages * L::kWStage;
+  const int col0 = blockIdx.x * L::kCols;
+  const int s = blockIdx.y;
+  const int row0 = blockIdx.z * NB;
   const int nb = n / blk;
-  const int c0 = col0 + lane;
-  const int c1 = col0 + 32 + lane;
-  const bool ok0 = c0 < m;
-  const bool ok1 = c1 < m;
-
-  float acc0[kRows];
-  float acc1[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    acc0[r] = 0.0f;
-    acc1[r] = 0.0f;
-  }
-
-  for (int i = 0; i < kb; ++i) {
-    const int id = min(max(idx[i], 0), nb - 1);
-    const int k0 = id * blk;
-    __syncthreads();  // every warp is done reading the previous tile
-    for (int t = threadIdx.x; t < kRows * blk; t += kThreads) {
-      const int r = t / blk;
-      const int c = t - r * blk;
-      const int row = row0 + r;
-      xs[t] = row < B ? to_f32(x[static_cast<size_t>(row) * n + k0 + c])
-                      : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = warp; k < blk; k += kWarps) {
-      const T* wr = w + static_cast<size_t>(k0 + k) * m;
-      const float w0 = ok0 ? to_f32(wr[c0]) : 0.0f;
-      const float w1 = ok1 ? to_f32(wr[c1]) : 0.0f;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float xv = xs[r * blk + k];
-        acc0[r] = fmaf(xv, w0, acc0[r]);
-        acc1[r] = fmaf(xv, w1, acc1[r]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    red[(warp * kRows + r) * kCols + lane] = acc0[r];
-    red[(warp * kRows + r) * kCols + 32 + lane] = acc1[r];
+  const int p0 = static_cast<int>(static_cast<long long>(s) * kb / S);
+  const int p1 = static_cast<int>(static_cast<long long>(s + 1) * kb / S);
+  const int nchunks = (blk + L::kKC - 1) / L::kKC;
+  // the slice's ids, clamped, read once (the ring then finds them in
+  // shared memory); a slice longer than kMaxSlice reads the rest directly
+  int* sids = reinterpret_cast<int*>(smem + L::kRing);
+  for (int i = threadIdx.x; i < min(p1 - p0, gm::kMaxSlice);
+       i += gm::kThreads) {
+    sids[i] = min(max(idx[p0 + i], 0), nb - 1);
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < kRows * kCols; t += kThreads) {
-    const int r = t / kCols;
-    const int c = t - r * kCols;
-    const int row = row0 + r;
-    const int col = col0 + c;
-    if (row < B && col < m) {
-      float s = 0.0f;
-      for (int v = 0; v < kWarps; ++v) s += red[(v * kRows + r) * kCols + c];
-      y[static_cast<size_t>(row) * m + col] = s;
-    }
+
+  gm::Acc<T, NB> acc;
+  gm::zero_acc(acc);
+  auto rows_of = [&](int item) {
+    return min(L::kKC, blk - (item % nchunks) * L::kKC);
+  };
+  auto load = [&](int item, int stage) {
+    const int p = item / nchunks;
+    const int id = p < gm::kMaxSlice ? sids[p]
+                                     : min(max(idx[p0 + p], 0), nb - 1);
+    const int k0 = id * blk + (item % nchunks) * L::kKC;
+    gm::load_stage<T, NB, false>(wring + stage * L::kWStage,
+                                 xring + stage * L::kXStage, w, x, B, n, m,
+                                 row0, col0, k0, rows_of(item),
+                                 (flags & 1) != 0, nullptr);
+  };
+  auto compute = [&](int item, int stage) {
+    gm::chunk_mma<NB, false>(acc, wring + stage * L::kWStage,
+                             xring + stage * L::kXStage, rows_of(item),
+                             nullptr, 1);
+  };
+  gm::run_ring<L::kStages>((p1 - p0) * nchunks, load, compute);
+
+  float* out = reinterpret_cast<float*>(smem);
+  gm::store_acc<NB, false>(acc, out);
+  __syncthreads();
+  gm::finish<T, NB, false>(out, y, ws, counters, B, m, row0, col0, S, s,
+                           blockIdx.z * gridDim.x + blockIdx.x,
+                           (flags & 2) != 0);
+}
+
+template <typename T, int NB>
+int launch_shared(const void* x, const void* w, const void* idx, void* y,
+                  void* ws, void* counters, int B, int n, int m, int blk,
+                  int kb, int S, cudaStream_t st) {
+  using L = gm::Layout<T, NB, false>;
+  static unsigned done = 0;
+  auto kern = sparse_matmul_shared_kernel<T, NB>;
+  cudaError_t e = gm::allow_smem(kern, L::kBytes, done);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((m + L::kCols - 1) / L::kCols, S, (B + NB - 1) / NB);
+  kern<<<grid, gm::kThreads, L::kBytes, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const int*>(idx), static_cast<float*>(y),
+      static_cast<float*>(ws), static_cast<int*>(counters), B, n, m, blk, kb,
+      S, (gm::vec_ok<T>(x, w, n, m, blk) ? 1 : 0) |
+             (gm::out4_ok(y, ws, m) ? 2 : 0));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_shared(const void* x, const void* w, const void* idx, void* y,
+                    void* ws, void* counters, int B, int n, int m, int blk,
+                    int kb, int rows, int cols, int S, cudaStream_t st) {
+  if (!gm::tiles_ok<T>(B, rows, cols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (rows) {
+    case 8:
+      return launch_shared<T, 8>(x, w, idx, y, ws, counters, B, n, m, blk,
+                                 kb, S, st);
+    case 16:
+      return launch_shared<T, 16>(x, w, idx, y, ws, counters, B, n, m, blk,
+                                  kb, S, st);
+    default:
+      return launch_shared<T, 32>(x, w, idx, y, ws, counters, B, n, m, blk,
+                                  kb, S, st);
   }
 }
 
+}  // namespace
 }  // namespace wisparse
 
 // x: (B, n) and w: (n, m) of `dtype`; idx: (kb,) int32; y: (B, m) f32.
-// Returns cudaGetLastError().
+// The host's plan: `rows` batch rows per tile (8, 16 or 32), `cols`
+// columns per tile (must be the kernel's: 128 bf16, 64 f32), S split-K
+// slices (1 <= S <= kb).  For S > 1, ws: S x B x m f32 scratch and
+// counters: one int32 per (column tile, row tile), zero on entry and left
+// zero.  Returns cudaGetLastError().
 extern "C" int wisparse_sparse_matmul_shared(const void* x, const void* w,
-                                             const void* idx, void* y, int B,
+                                             const void* idx, void* y,
+                                             void* ws, void* counters, int B,
                                              int n, int m, int blk, int kb,
+                                             int rows, int cols, int S,
                                              int dtype, void* stream) {
   using namespace wisparse;
-  if (B <= 0 || n <= 0 || m <= 0 || blk <= 0 || kb <= 0 || n % blk != 0) {
+  if (B <= 0 || n <= 0 || m <= 0 || blk <= 0 || kb <= 0 || n % blk != 0 ||
+      S < 1 || S > kb || S > 65535 ||
+      (S > 1 && (ws == nullptr || counters == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // shared memory: the staged x tile and the warps' partial sums; a blk
-  // that needs more than the 48 KB default is refused
-  const int smem = static_cast<int>(
-      (kRows * blk + kWarps * kRows * kCols) * sizeof(float));
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((m + kCols - 1) / kCols, (B + kRows - 1) / kRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* ids = static_cast<const int*>(idx);
-  float* yf = static_cast<float*>(y);
   if (dtype == kFloat32) {
-    sparse_matmul_shared_kernel<float><<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), ids, yf, B,
-        n, m, blk, kb);
-  } else if (dtype == kBFloat16) {
-    sparse_matmul_shared_kernel<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), ids, yf, B, n, m, blk, kb);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch_shared<float>(x, w, idx, y, ws, counters, B, n, m, blk,
+                                  kb, rows, cols, S, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == kBFloat16) {
+    return dispatch_shared<__nv_bfloat16>(x, w, idx, y, ws, counters, B, n,
+                                          m, blk, kb, rows, cols, S, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

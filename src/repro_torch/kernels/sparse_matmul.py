@@ -11,15 +11,19 @@ fallback from one to the other.  Each wrapper adds one to
 a run can show that it went through the kernels.
 
 The kernels launch on PyTorch's current stream, do not synchronise, and
-allocate nothing: the wrappers allocate outputs with ``torch.empty``.
-The TPU tile geometry of ``shared_plan``/``score_mask_plan`` does not
-carry over (Hopper runs its own tiles, masked at ragged edges in the
-kernels); what the port keeps is the channel-block contract, checked
-here: ``n % blk == 0``.
+allocate nothing: the wrappers allocate outputs with ``torch.empty`` and
+keep the matmuls' split-K scratch per device (:func:`matmul_scratch`).  The TPU tile geometry of
+``shared_plan``/``score_mask_plan`` does not carry over (Hopper runs its
+own tiles, masked at ragged edges in the kernels, and chosen by
+:func:`launch_plan`); what the port keeps is the channel-block contract,
+checked here: ``n % blk == 0``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
 
 import torch
 
@@ -32,6 +36,99 @@ launch_counts = {"score_mask": 0, "sparse_matmul_shared": 0,
                  "sparse_matmul_per_seq": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Geometry of the block-gather matmul kernels (csrc/gather_mma.cuh).  The
+# plan below owns it and passes it to the C entries, which refuse a column
+# tile other than the one they are compiled for (256 bytes of a weight
+# row) and a per-seq slice of more than MAX_SLICE_BLOCKS block ids.  The
+# split count aims at a number of thread blocks per launch (one per SM of
+# an H100 for the shared kernel's deeper stages, two for per-seq) and stays
+# at or below MAX_SPLITS: the last block of a column tile sums the S
+# partial tiles alone, which at S = 32 cost more than the extra blocks
+# gained.  PERF.md holds the variants measured against these choices.
+TILE_COLS = {2: 128, 4: 64}          # element bytes -> columns per tile
+MAX_SLICE_BLOCKS = 128
+TARGET_BLOCKS_SHARED = 132
+TARGET_BLOCKS_PER_SEQ = 2 * 132
+MAX_SPLITS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Grid and scratch of one block-gather matmul launch.
+
+    The grid is (tiles_m, splits, tiles_b); ``workspace`` f32 values of
+    split-K partials and ``counters`` int32 arrival counters are needed
+    when ``splits > 1`` (both 0 otherwise)."""
+    rows: int          # batch rows per thread block
+    cols: int          # columns per thread block
+    tiles_m: int
+    tiles_b: int
+    splits: int
+    units: int         # kb positions (shared) or nb block ids (per-seq)
+    workspace: int
+    counters: int
+
+    @property
+    def grid(self):
+        return (self.tiles_m, self.splits, self.tiles_b)
+
+    def slice(self, s: int) -> range:
+        """Positions of idx (shared) or block ids (per-seq) of slice s."""
+        return range(s * self.units // self.splits,
+                     (s + 1) * self.units // self.splits)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(B: int, n: int, m: int, kb: int, blk: int, per_seq: bool,
+                elem_bytes: int = 2) -> LaunchPlan:
+    """Split-K plan of ``sparse_matmul_shared`` (slices of the kb
+    positions of idx) or ``sparse_matmul_per_seq`` (slices of the n/blk
+    block ids), from the shapes alone: no device read.  Cached per shape
+    (a decode step asks for the same few plans 224 times)."""
+    nb = n // blk
+    rows = 8 if B <= 8 else 16 if B <= 16 else 32
+    cols = TILE_COLS[elem_bytes]
+    tiles_m = math.ceil(m / cols)
+    tiles_b = math.ceil(B / rows)
+    units = nb if per_seq else kb
+    target = TARGET_BLOCKS_PER_SEQ if per_seq else TARGET_BLOCKS_SHARED
+    splits = max(1, min(units, MAX_SPLITS,
+                        round(target / (tiles_m * tiles_b))))
+    if per_seq:
+        splits = max(splits, math.ceil(nb / MAX_SLICE_BLOCKS))
+    split = splits > 1
+    return LaunchPlan(rows, cols, tiles_m, tiles_b, splits, units,
+                      splits * B * m if split else 0,
+                      tiles_m * tiles_b if split else 0)
+
+
+# device -> (f32 workspace, zeroed int32 arrival counters) shared by the
+# matmul launches of that device, grown on demand.  Each launch leaves the
+# counters zero, and a later launch on the same stream reuses both only
+# after the earlier one has finished.  Launches on one device that overlap
+# in time (two streams) must not share them: the port launches on one
+# stream.  A captured CUDA graph keeps the pointers it saw, so a capture
+# must follow the largest plan's first launch.
+_scratch: dict = {}
+
+
+def matmul_scratch(plan: LaunchPlan, device):
+    """(workspace, counters) for ``plan`` on ``device``: the device's f32
+    workspace (at least ``plan.workspace`` values) and zeroed int32
+    counters (at least ``plan.counters``), or (None, None) for one slice.
+    Allocates only when a plan needs more than any before it."""
+    if plan.splits == 1:
+        return None, None
+    ws, cnt = _scratch.get(device, (None, None))
+    if ws is None or ws.numel() < plan.workspace:
+        ws = torch.empty(max(1 << 20, plan.workspace), dtype=torch.float32,
+                         device=device)
+    if cnt is None or cnt.numel() < plan.counters:
+        cnt = torch.zeros(max(4096, plan.counters), dtype=torch.int32,
+                          device=device)
+    _scratch[device] = ws, cnt
+    return ws, cnt
 
 
 def reset_launch_counts() -> None:
@@ -121,16 +218,8 @@ def sparse_matmul_shared(x, w, block_idx, *, blk: int = DEFAULT_BLK):
     _check(x.is_contiguous() and w.is_contiguous()
            and block_idx.is_contiguous(),
            "sparse_matmul_shared: inputs must be contiguous")
-    from repro_torch.kernels.build import library
-    y = torch.empty(B, m, dtype=torch.float32, device=x.device)
-    # the C entry refuses (cudaErrorInvalidValue) a blk whose tiles need
-    # more than 48 KB of shared memory
-    err = library().wisparse_sparse_matmul_shared(
-        _ptr(x), _ptr(w), _ptr(block_idx), _ptr(y), B, n, m, blk,
-        block_idx.shape[0], _DTYPE_CODES[x.dtype], _stream(x.device))
-    _raise_on(err, "sparse_matmul_shared")
-    launch_counts["sparse_matmul_shared"] += 1
-    return y
+    return _launch_matmul("sparse_matmul_shared", x, w, block_idx, blk,
+                          block_idx.shape[0], per_seq=False)
 
 
 def sparse_matmul_per_seq(x, w, block_idx, *, blk: int = DEFAULT_BLK):
@@ -159,13 +248,23 @@ def sparse_matmul_per_seq(x, w, block_idx, *, blk: int = DEFAULT_BLK):
     _check(x.is_contiguous() and w.is_contiguous()
            and block_idx.is_contiguous(),
            "sparse_matmul_per_seq: inputs must be contiguous")
+    return _launch_matmul("sparse_matmul_per_seq", x, w, block_idx, blk,
+                          block_idx.shape[1], per_seq=True)
+
+
+def _launch_matmul(name, x, w, block_idx, blk, kb, *, per_seq):
+    """Launch the checked inputs on the kernel ``name`` and count it."""
     from repro_torch.kernels.build import library
+    B, n = x.shape
+    m = w.shape[1]
+    plan = launch_plan(B, n, m, kb, blk, per_seq, x.element_size())
     y = torch.empty(B, m, dtype=torch.float32, device=x.device)
-    # the C entry refuses (cudaErrorInvalidValue) a blk whose staged x
-    # chunk needs more than 48 KB of shared memory
-    err = library().wisparse_sparse_matmul_per_seq(
-        _ptr(x), _ptr(w), _ptr(block_idx), _ptr(y), B, n, m, blk,
-        block_idx.shape[1], _DTYPE_CODES[x.dtype], _stream(x.device))
-    _raise_on(err, "sparse_matmul_per_seq")
-    launch_counts["sparse_matmul_per_seq"] += 1
+    ws, cnt = matmul_scratch(plan, x.device)
+    err = getattr(library(), "wisparse_" + name)(
+        _ptr(x), _ptr(w), _ptr(block_idx), _ptr(y),
+        None if ws is None else _ptr(ws), None if cnt is None else _ptr(cnt),
+        B, n, m, blk, kb, plan.rows, plan.cols, plan.splits,
+        _DTYPE_CODES[x.dtype], _stream(x.device))
+    _raise_on(err, name)
+    launch_counts[name] += 1
     return y

@@ -119,3 +119,109 @@ def test_calibration_on_card(dev):
     assert all(np.isfinite(t) for k, t in plan.taus.items()
                if plan.layer_ratios[k] > 0)
     assert plan.stacked_sp[0]["l0"]["attn"]["wq"]["tau"].device == dev
+
+
+# llama31_8b's projection shapes (n, m): attn/wk and wv, mlp/wi_gate and
+# wi_up, mlp/wo
+MAIN_SHAPES = [(4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+def _matmul_inputs(dev, B, n, m, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, n, device=dev, generator=gen).to(dtype)
+    w = (torch.randn(n, m, device=dev, generator=gen) * 0.02).to(dtype)
+    return x, w
+
+
+def _per_row_ids(B, nb, kb, seed=0):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.permutation(nb)[:kb] for _ in range(B)]).astype(
+        np.int32)
+
+
+def _close(got, want):
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B", [1, 8, 13, 32, 33])
+@pytest.mark.parametrize("n,m", MAIN_SHAPES)
+def test_matmuls_at_main_path_shapes(dev, B, n, m):
+    """Both block-gather kernels against their plain versions, bf16, half
+    of the blocks kept (shared: one random set; per-seq: a random set per
+    row)."""
+    x, w = _matmul_inputs(dev, B, n, m, torch.bfloat16)
+    nb = n // 128
+    ids = _per_row_ids(B, nb, nb // 2)
+    idx = torch.from_numpy(ids[0]).to(dev)
+    _close(K.sparse_matmul_shared(x, w, idx),
+           ref.ref_sparse_matmul_shared(x, w, idx, 128))
+    idx2 = torch.from_numpy(ids).to(dev)
+    _close(K.sparse_matmul_per_seq(x, w, idx2),
+           ref.ref_sparse_matmul_per_seq(x, w, idx2, 128))
+
+
+@pytest.mark.parametrize("B,n,m,kb,per_seq", [
+    (8, 4096, 4096, 13, False), (13, 4096, 4096, 21, False),
+    (33, 1024, 2048, 5, False), (8, 4480, 4096, 9, True),
+    (13, 4480, 1024, 17, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmuls_split_k_with_ragged_slices(dev, B, n, m, kb, per_seq,
+                                            dtype):
+    """Shapes where the plan splits K (S > 1) into slices of unequal size
+    (the units are not a multiple of S)."""
+    plan = K.launch_plan(B, n, m, kb, 128, per_seq,
+                         torch.empty((), dtype=dtype).element_size())
+    assert plan.splits > 1 and plan.units % plan.splits != 0, plan
+    x, w = _matmul_inputs(dev, B, n, m, dtype, seed=1)
+    ids = _per_row_ids(B, n // 128, kb, seed=1)
+    if per_seq:
+        idx = torch.from_numpy(ids).to(dev)
+        _close(K.sparse_matmul_per_seq(x, w, idx),
+               ref.ref_sparse_matmul_per_seq(x, w, idx, 128))
+    else:
+        idx = torch.from_numpy(ids[0]).to(dev)
+        _close(K.sparse_matmul_shared(x, w, idx),
+               ref.ref_sparse_matmul_shared(x, w, idx, 128))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmuls_duplicate_and_out_of_range_ids(dev, dtype):
+    """A repeated id adds once per occurrence; ids outside [0, nb) are
+    clamped, as the plain versions (and the reference) do."""
+    x, w = _matmul_inputs(dev, 8, 1024, 512, dtype, seed=2)
+    idx = torch.tensor([3, 3, -5, 999, 0, 3], dtype=torch.int32, device=dev)
+    _close(K.sparse_matmul_shared(x, w, idx),
+           ref.ref_sparse_matmul_shared(x, w, idx, 128))
+    rows = [[3, 3, 3, 1], [-1, 0, 7, 8], [2, 2, 5, 5], [7, 7, 7, 7],
+            [0, 1, 2, 3], [100, -100, 4, 4], [6, 6, 6, 0], [5, 4, 3, 2]]
+    idx2 = torch.tensor(rows, dtype=torch.int32, device=dev)
+    _close(K.sparse_matmul_per_seq(x, w, idx2),
+           ref.ref_sparse_matmul_per_seq(x, w, idx2, 128))
+
+
+@pytest.mark.parametrize("B", [8, 32])
+def test_matmuls_two_launches_bit_equal(dev, B):
+    """The split-K partials are summed in a fixed order: two launches give
+    the same bits (serving runs must repeat their greedy tokens)."""
+    x, w = _matmul_inputs(dev, B, 14336, 4096, torch.bfloat16, seed=3)
+    ids = _per_row_ids(B, 112, 56, seed=3)
+    idx = torch.from_numpy(ids[0]).to(dev)
+    assert torch.equal(K.sparse_matmul_shared(x, w, idx),
+                       K.sparse_matmul_shared(x, w, idx))
+    idx2 = torch.from_numpy(ids).to(dev)
+    assert torch.equal(K.sparse_matmul_per_seq(x, w, idx2),
+                       K.sparse_matmul_per_seq(x, w, idx2))
+
+
+@pytest.mark.parametrize("B", [8, 32])
+@pytest.mark.parametrize("n,m", MAIN_SHAPES)
+def test_per_seq_with_shared_ids_matches_shared(dev, B, n, m):
+    """Every row given the same ids, the per-seq kernel reads what the
+    shared kernel reads.  It sums the kept blocks in block-id order and
+    the shared kernel in idx order (with other split-K slices), so the two
+    agree to f32 rounding (1e-4), not bit for bit."""
+    x, w = _matmul_inputs(dev, B, n, m, torch.bfloat16, seed=4)
+    nb = n // 128
+    idx = torch.from_numpy(_per_row_ids(1, nb, nb // 2, seed=4)[0]).to(dev)
+    _close(K.sparse_matmul_per_seq(x, w, idx.expand(B, -1).contiguous()),
+           K.sparse_matmul_shared(x, w, idx))

@@ -10,6 +10,9 @@ Tolerances: f32 1e-5 and bf16 3e-2, as ``tests/test_kernels.py`` uses
 for the same kernels; block scores rtol 1e-4 (f32 sums in another
 order).  Score-mask inputs are tie-free: no score lies within 0.1% of
 tau, so the keep decision cannot hinge on the last bit of a pow."""
+import ctypes
+import dataclasses
+import re
 import subprocess
 import sys
 
@@ -316,3 +319,128 @@ def test_kernel_modules_import_without_nvcc_or_card(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.find_nvcc()
+
+
+# llama31_8b's projection shapes (n, m) and the kept-block counts the
+# main path gives them at 50%
+MAIN_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+@pytest.mark.parametrize("n,m", MAIN_SHAPES + [(1024, 384), (128, 1)])
+@pytest.mark.parametrize("B", [1, 8, 13, 32, 33])
+@pytest.mark.parametrize("per_seq", [False, True])
+def test_launch_plan_slices_cover_every_unit_once(n, m, B, per_seq):
+    """Across its S slices the plan walks every position of idx (shared)
+    or every block id (per-seq) exactly once, for kb = 1..nb; per-seq
+    slices span at most MAX_SLICE_BLOCKS ids, and no slice of the shared
+    kernel is empty."""
+    nb = n // 128
+    for kb in range(1, nb + 1):
+        plan = TK.launch_plan(B, n, m, kb, 128, per_seq)
+        units = nb if per_seq else kb
+        assert plan.units == units and 1 <= plan.splits <= units
+        walked = [u for s in range(plan.splits) for u in plan.slice(s)]
+        assert walked == list(range(units))
+        sizes = [len(plan.slice(s)) for s in range(plan.splits)]
+        assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+        if per_seq:
+            assert max(sizes) <= TK.MAX_SLICE_BLOCKS
+
+
+@pytest.mark.parametrize("B,n,m,kb", [
+    (1, 128, 1, 1), (8, 4096, 1024, 16), (32, 14336, 4096, 56),
+    (4096, 4096, 14336, 32), (200_000, 8192, 128, 64),
+    (8, 131072, 256, 1024), (2, 262144, 64, 2048)])
+@pytest.mark.parametrize("per_seq", [False, True])
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+def test_launch_plan_grid_within_launch_limits(B, n, m, kb, per_seq,
+                                               elem_bytes):
+    plan = TK.launch_plan(B, n, m, kb, 128, per_seq, elem_bytes)
+    gx, gy, gz = plan.grid
+    assert 1 <= gx <= 2**31 - 1 and 1 <= gy <= 65535 and 1 <= gz <= 65535
+    assert gx * TK.TILE_COLS[elem_bytes] >= m > (gx - 1) * TK.TILE_COLS[
+        elem_bytes]
+    assert plan.rows in (8, 16, 32) and gz * plan.rows >= B
+    assert gz == 1 or B > 32
+    if per_seq:
+        assert -(-(n // 128) // plan.splits) <= TK.MAX_SLICE_BLOCKS
+
+
+@pytest.mark.parametrize("B,n,m,kb,per_seq", [
+    (8, 4096, 1024, 16, False), (32, 14336, 4096, 56, True),
+    (8, 4096, 14336, 16, False), (1, 128, 1, 1, False),
+    (33, 1024, 4096, 5, True)])
+def test_matmul_scratch_matches_the_plan(monkeypatch, B, n, m, kb, per_seq):
+    """The device's scratch holds what the plan needs, is reused by the
+    next launch, and grows only for a plan that needs more."""
+    monkeypatch.setattr(TK, "_scratch", {})
+    plan = TK.launch_plan(B, n, m, kb, 128, per_seq)
+    ws, cnt = TK.matmul_scratch(plan, "cpu")
+    if plan.splits == 1:
+        assert ws is None and cnt is None and plan.workspace == 0
+        return
+    assert plan.workspace == plan.splits * B * m
+    assert ws.dtype == torch.float32 and ws.numel() >= plan.workspace
+    assert plan.counters == plan.tiles_m * plan.tiles_b
+    assert cnt.dtype == torch.int32 and cnt.numel() >= plan.counters
+    assert not cnt.any()
+    ws2, cnt2 = TK.matmul_scratch(plan, "cpu")
+    assert ws2 is ws and cnt2 is cnt
+    big = dataclasses.replace(plan, workspace=ws.numel() + 1,
+                              counters=cnt.numel() + 1)
+    ws3, cnt3 = TK.matmul_scratch(big, "cpu")
+    assert ws3.numel() >= big.workspace and cnt3.numel() >= big.counters
+    assert not cnt3.any()
+    assert TK.matmul_scratch(plan, "cpu") == (ws3, cnt3)
+
+
+def test_plan_geometry_matches_the_kernel_header():
+    """The plan's column tiles and per-seq slice limit are the ones
+    csrc/gather_mma.cuh compiles (its C entries refuse others)."""
+    src = (build.CSRC / "gather_mma.cuh").read_text()
+    cols = dict(re.findall(
+        r"struct Geom<(\w+)> \{\s*static constexpr int kCols = (\d+);",
+        src))
+    assert {2: int(cols["__nv_bfloat16"]), 4: int(cols["float"])} == \
+        TK.TILE_COLS
+    (max_slice,) = re.findall(r"constexpr int kMaxSlice = (\d+);", src)
+    assert int(max_slice) == TK.MAX_SLICE_BLOCKS
+
+
+@pytest.mark.parametrize("name,per_seq", [("sparse_matmul_shared", False),
+                                          ("sparse_matmul_per_seq", True)])
+@pytest.mark.parametrize("B,n,m,kb", [(8, 4096, 1024, 16), (1, 256, 64, 1)])
+def test_matmul_launch_passes_the_c_signature(monkeypatch, name, per_seq, B,
+                                              n, m, kb):
+    """The arguments the wrapper passes fit ``build.SIGNATURES`` (a stub
+    library stands in for the compiled one: no nvcc needed)."""
+    calls = []
+
+    def entry(*args):
+        argtypes = build.SIGNATURES["wisparse_" + name]
+        assert len(args) == len(argtypes)
+        for a, t in zip(args, argtypes):
+            t.from_param(a)
+        calls.append(args)
+        return 0
+
+    class Stub:
+        pass
+
+    stub = Stub()
+    setattr(stub, "wisparse_" + name, entry)
+    monkeypatch.setattr(build, "library", lambda: stub)
+    monkeypatch.setattr(TK, "_stream", lambda _d: ctypes.c_void_p(0))
+    x = torch.zeros(B, n, dtype=torch.bfloat16)
+    w = torch.zeros(n, m, dtype=torch.bfloat16)
+    idx = torch.zeros((B, kb) if per_seq else (kb,), dtype=torch.int32)
+    TK.reset_launch_counts()
+    y = TK._launch_matmul(name, x, w, idx, 128, kb, per_seq=per_seq)
+    assert y.shape == (B, m) and y.dtype == torch.float32
+    assert TK.launch_counts[name] == 1
+    TK.reset_launch_counts()
+    (args,) = calls
+    plan = TK.launch_plan(B, n, m, kb, 128, per_seq)
+    assert args[6:15] == (B, n, m, 128, kb, plan.rows, plan.cols,
+                          plan.splits, 1)
+    assert (args[4] is None) == (args[5] is None) == (plan.splits == 1)
