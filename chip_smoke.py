@@ -9,20 +9,31 @@ In order, it:
 1. prints the card's name and power limit (``nvidia-smi``) and stops,
    with a nonzero exit, when ``torch.cuda.is_available()`` is false;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` (printing each kernel's register / shared-memory report) and
-   times each kernel wrapper's host cost per call at the decode shapes
-   (``--host-only`` stops here; ``--src`` times another tree's package,
-   so two commits' wrappers can be compared in one call);
+   ``nvcc`` (printing each kernel's register / shared-memory report),
+   times each kernel wrapper's host cost per call at the decode shapes,
+   times the whole ``pallas`` projection (``ops.wisparse_project``)
+   against the dense product at every projection shape (B = 8, 32, 448)
+   and counts the CUDA kernels one projection launches
+   (``torch.profiler``; it must be 3: ``score_select``, the matmul, the
+   cast), and times one projection of each plain gather backend
+   (``topk_shared``, ``topk_block``) at B = 8.  ``--host-only`` stops
+   here; ``--src`` times another tree's package, so two commits can be
+   compared in one call;
 3. holds each kernel against its plain PyTorch version on the card, on
    the kernel test shapes in f32 and bf16 and at llama31_8b's projection
-   shapes (B = 8 decode slots, B = 32 one prefill chunk), and times the
-   kernel, the plain version and (for the matmuls) dense ``torch.matmul``
-   by CUDA-graph replay.  At every projection shape each matmul kernel
+   shapes, and times the kernel, the plain version and (for the
+   matmuls) dense ``torch.matmul`` by CUDA-graph replay.
+   ``score_select`` runs at B = 8 (decode slots), 32 (one prefill
+   chunk) and 448 (a whole prompt), with a finite tau and keep_frac 0.5
+   and 0.375 under k_frac 0.5: xm bit-equal, idx equal (or differing
+   only between block scores within the tolerance, printed), two
+   launches bit-equal, timed as one launch of the cluster kernel.  The
+   matmul kernels run at B = 8 and 32; at every projection shape each
    must give the same bits in two launches, and its line shows its
    split-K grid, its share of the bound and the v1 kernel's time beside
-   this run's; a per-decode-layer summary follows.  ``sparse_matmul_per_seq``
-   gets a distinct
-   random half of the blocks per row there, and its only entry point,
+   this run's; a per-decode-layer summary follows.
+   ``sparse_matmul_per_seq`` gets a distinct random half of the blocks
+   per row there, and its only entry point,
    ``ops.wisparse_project(per_seq=True)``, is driven at every projection
    shape and held against ``per_seq=False``;
 4. checks a reduced llama31_8b on the card against the same model on the
@@ -49,7 +60,7 @@ In order, it:
    ``build/``, loads it back and serves phase 5's trace once from it,
    checking the launch counts as in phase 5;
 8. prints one JSON line describing every kernel, then, as its last line,
-   ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_mask``
+   ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run; those of ``sparse_matmul_per_seq`` from phase 3's
    ``wisparse_project(per_seq=True)`` calls, since no serving path
@@ -111,6 +122,11 @@ V1_US = {
     (32, "attn/wv"): (47.36, 37.83), (32, "attn/wo"): (56.22, 136.45),
     (32, "mlp/wi_gate"): (151.52, 549.30), (32, "mlp/wi_up"): (151.92, 547.95),
     (32, "mlp/wo"): (190.02, 559.12)}
+# The unfused score_mask kernel (one thread block per channel block,
+# scoring and block sums only; the selection then ran as a dozen PyTorch
+# ops), per decode layer at B = 8 (us, CUDA-graph replay, this script on
+# an NVIDIA H100 80GB HBM3 at 700 W), printed beside score_select's
+SCORE_MASK_UNFUSED_US = 18.06
 
 
 def nvidia_smi() -> str:
@@ -190,10 +206,13 @@ def direct_matmul(K, build, name, x, ws, idx, m, kb, per_seq):
 
 
 def bit_equal(name: str, fn) -> None:
-    """Two launches of the same inputs give the same bits."""
+    """Two launches of the same inputs give the same bits (in each output
+    where ``fn`` returns a tuple)."""
     a, b = fn(), fn()
     torch.cuda.synchronize()
-    if not torch.equal(a, b):
+    if not isinstance(a, tuple):
+        a, b = (a,), (b,)
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
         raise AssertionError(f"{name}: two launches differ")
 
 
@@ -227,9 +246,51 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def check_select(name: str, got, want, kb_l: int) -> float:
+    """``score_select``'s (xm, idx, bs) against its plain version's: bs
+    within the tolerance; idx equal, or else every pair of ids that
+    differ has plain block scores within the bs tolerance of each other
+    (a near tie that the summation order breaks either way; printed); xm
+    bit-equal to the plain mask zeroed outside the first ``kb_l`` blocks
+    of the kernel's own idx (the plain xm itself when idx is equal).
+    Returns the largest bs error."""
+    xm, idx, bs = got
+    xm_r, idx_r, bs_r = want
+    err = check_close(f"{name} bs", bs, bs_r)
+    if not torch.equal(idx, idx_r):
+        ranks = (idx != idx_r).nonzero().flatten().tolist()
+        for r in ranks:
+            a, b = float(bs_r[idx[r].long()]), float(bs_r[idx_r[r].long()])
+            if abs(a - b) > ATOL + RTOL * abs(b):
+                raise AssertionError(
+                    f"{name}: idx[{r}] = {int(idx[r])} (plain bs {a}) where "
+                    f"the plain version ranks {int(idx_r[r])} (plain bs {b})")
+        print(f"  {name}: idx differs from the plain version at ranks "
+              f"{ranks}, between block scores within the tolerance: kernel "
+              f"{idx[ranks].tolist()}, plain {idx_r[ranks].tolist()}")
+        blk = xm.shape[1] // bs.numel()
+        kept = torch.zeros(bs.numel(), dtype=torch.bool, device=xm.device)
+        kept[idx[:kb_l].long()] = True
+        xm_r = torch.where(kept.repeat_interleave(blk)[None], xm_r,
+                           torch.zeros_like(xm_r))
+        if torch.unique(idx).numel() != idx.numel():
+            raise AssertionError(f"{name}: idx repeats a block: {idx}")
+    if not torch.equal(xm, xm_r):
+        raise AssertionError(f"{name}: xm differs from the plain version")
+    return err
+
+
+def rank_limit(keep_frac: float, nb: int, kb: int) -> int:
+    """min(kb, round(keep_frac * nb)), the product in f32 and rounded half
+    to even, as the kernel and the plain version take it."""
+    return min(kb, int(torch.round(torch.tensor(keep_frac) * nb)))
+
+
 def check_kernel_shapes(K, ref, dev) -> dict:
-    """Both kernels on SHAPES + AWKWARD in f32 and bf16."""
-    errs = {"score_mask": 0.0, "sparse_matmul_shared": 0.0}
+    """All three kernels on SHAPES + AWKWARD in f32 and bf16:
+    ``score_select`` with keep_frac 0.5 and 0.375 under k_frac 0.5 (and
+    its mask alone, ``score_mask``), with finite taus."""
+    errs = {"score_select": 0.0, "sparse_matmul_shared": 0.0}
     rng = np.random.default_rng(SEED)
     for (B, n, m, blk) in SHAPES + AWKWARD:
         for dtype in (torch.float32, torch.bfloat16):
@@ -246,6 +307,8 @@ def check_kernel_shapes(K, ref, dev) -> dict:
                 errs["sparse_matmul_shared"], check_close(
                     f"sparse_matmul_shared {B, n, m, blk} {dtype}", y,
                     ref.ref_sparse_matmul_shared(xt, wt, idx, blk)))
+            nb = n // blk
+            kb = max(1, round(nb * KEEP))
             for alpha, tau in ((0.0, 0.3), (0.7, 0.5), (1.5, 1.0)):
                 xs = torch.from_numpy(tie_free(x, g, alpha, tau, dtype)).to(
                     dev, dtype)
@@ -260,8 +323,22 @@ def check_kernel_shapes(K, ref, dev) -> dict:
                     raise AssertionError(
                         f"score_mask {B, n, blk} {dtype} a={alpha}: masked x "
                         "differs from the plain version")
-                errs["score_mask"] = max(errs["score_mask"], check_close(
+                errs["score_select"] = max(errs["score_select"], check_close(
                     f"score_mask {B, n, blk} {dtype}", bs, bs_r))
+                for keep in (KEEP, 0.375):
+                    kf = torch.tensor(keep, device=dev)
+                    name = f"score_select {B, n, blk} {dtype} a={alpha} " \
+                        f"keep={keep}"
+                    got = K.score_select(xs, gt, a, t, kf, kb=kb, blk=blk,
+                                         row_weights=rw)
+                    torch.cuda.synchronize()
+                    errs["score_select"] = max(
+                        errs["score_select"], check_select(
+                            name, got, ref.ref_score_select(
+                                xs, gt, a, t, kf, blk, kb, rw),
+                            rank_limit(keep, nb, kb)))
+                    bit_equal(name, lambda: K.score_select(
+                        xs, gt, a, t, kf, kb=kb, blk=blk, row_weights=rw))
     errs["sparse_matmul_per_seq"] = 0.0
     for (B, n, m, blk) in SHAPES + AWKWARD:
         nb = n // blk
@@ -280,20 +357,43 @@ def check_kernel_shapes(K, ref, dev) -> dict:
                 errs["sparse_matmul_per_seq"], check_close(
                     f"sparse_matmul_per_seq {B, n, m, blk} {dtype}", y,
                     ref.ref_sparse_matmul_per_seq(xt, wt, idx, blk)))
-    print(f"kernel shapes: {len(SHAPES + AWKWARD)} shapes x f32/bf16 agree, "
-          f"sparse_matmul_per_seq too (max abs err {errs})")
+    print(f"kernel shapes: {len(SHAPES + AWKWARD)} shapes x f32/bf16 agree "
+          f"(score_select: 3 taus x keep_frac {KEEP}/0.375, two launches "
+          f"bit-equal), sparse_matmul_per_seq too (max abs err {errs})")
     return errs
 
 
-def main_path_kernels(K, ref, ops, build, dev, rates) -> tuple:
-    """Both kernels at llama31_8b's projection shapes: B = 8 (decode) and
-    B = 32 (one prefill chunk), bf16, 50% of blocks kept (top-k of the
-    kernel's own block scores, tau = -inf), weights rotated through
-    copies that exceed the 50 MB L2 so each launch reads them cold."""
+def direct_select(build, x, g, alpha, tau, keep, rw, kb):
+    """``fn(i)`` calling ``score_select``'s C entry on outputs allocated
+    once here (kernel-only timing)."""
+    B, n = x.shape
+    xm = torch.empty_like(x)
+    idx = torch.empty(kb, dtype=torch.int32, device=x.device)
+    bs = torch.empty(n // BLK, device=x.device)
+    entry = build.library().wisparse_score_select
+
+    def fn(i):
+        launched(entry(x.data_ptr(), g.data_ptr(), alpha.data_ptr(),
+                       tau.data_ptr(), keep.data_ptr(), rw.data_ptr(),
+                       xm.data_ptr(), idx.data_ptr(), bs.data_ptr(), B, n,
+                       BLK, kb, 1,
+                       torch.cuda.current_stream().cuda_stream))
+    return fn
+
+
+def main_path_kernels(K, ref, build, dev, rates) -> tuple:
+    """The kernels at llama31_8b's projection shapes, bf16.
+    ``score_select`` at B = 8 (decode), 32 (one prefill chunk) and 448
+    (a whole prompt), alpha 1 and a finite tau (a quarter of the mean
+    g, so about a fifth of the channels fall below it), k_frac 0.5 with
+    keep_frac 0.5 and 0.375.
+    ``sparse_matmul_shared`` at B = 8 and 32 on the kept blocks of
+    ``score_select`` (keep_frac 0.5), its weights rotated through copies
+    that exceed the 50 MB L2 so each launch reads them cold."""
     rng = np.random.default_rng(SEED + 1)
     rows = []
-    errs = {"score_mask": 0.0, "sparse_matmul_shared": 0.0}
-    for B in (8, 32):
+    errs = {"score_select": 0.0, "sparse_matmul_shared": 0.0}
+    for B in (8, 32, 448):
         for role, n, m in LAYER:
             dt = torch.bfloat16
             x = torch.from_numpy(rng.standard_normal((B, n)).astype(
@@ -302,94 +402,132 @@ def main_path_kernels(K, ref, ops, build, dev, rates) -> tuple:
                 device=dev).manual_seed(SEED)) * 0.02).to(dt)
             g = torch.sqrt((w.float() ** 2).sum(1))
             alpha = torch.tensor(1.0, device=dev)
-            tau = torch.tensor(float("-inf"), device=dev)
+            tau = 0.25 * g.mean()
             rw = torch.ones(B, device=dev)
             nb = n // BLK
             kb = round(nb * KEEP)
+            for keep in (0.375, KEEP):
+                kf = torch.tensor(keep, device=dev)
+                name = f"score_select {role} B={B} keep={keep}"
+                got = K.score_select(x, g, alpha, tau, kf, kb=kb, blk=BLK,
+                                     row_weights=rw)
+                torch.cuda.synchronize()
+                errs["score_select"] = max(errs["score_select"], check_select(
+                    name, got, ref.ref_score_select(x, g, alpha, tau, kf, BLK,
+                                                    kb, rw),
+                    rank_limit(keep, nb, kb)))
+                bit_equal(name, lambda: K.score_select(
+                    x, g, alpha, tau, kf, kb=kb, blk=BLK, row_weights=rw))
+            xk, idx, _ = got                    # keep_frac 0.5
+            t_sel = graph_ms(direct_select(build, x, g, alpha, tau, kf, rw,
+                                           kb))
+            t_sel_plain = graph_ms(lambda i: ref.ref_score_select(
+                x, g, alpha, tau, kf, BLK, kb, rw))
+            # x read, xm written, g, alpha, tau and keep_frac, the row
+            # weights, bs and idx
+            sel_bytes = 2 * B * n * 2 + n * 4 + 12 + B * 4 + nb * 4 + kb * 4
+            sel_bound, sel_by = bound_ms(sel_bytes, 6.0 * B * n,
+                                         torch.float32, rates)
+            row = {"B": B, "role": role, "n": n, "m": m, "kb": kb,
+                   "score_select": {
+                       "ms": t_sel, "plain_ms": t_sel_plain,
+                       "library_ms": None, "bound_ms": sel_bound,
+                       "bound_by": sel_by}}
+            line = (f"  B={B:3d} {role:12s} n={n:5d} m={m:5d} kb={kb:3d} | "
+                    f"score_select {t_sel * 1e3:6.2f} us"
+                    f" (plain {t_sel_plain * 1e3:7.2f}, bound "
+                    f"{sel_bound * 1e3:5.2f} us)")
+            if B <= 32:
+                y = K.sparse_matmul_shared(xk, w, idx, blk=BLK)
+                torch.cuda.synchronize()
+                bit_equal(f"sparse_matmul_shared {role} B={B}",
+                          lambda: K.sparse_matmul_shared(xk, w, idx, blk=BLK))
+                errs["sparse_matmul_shared"] = max(
+                    errs["sparse_matmul_shared"], check_close(
+                        f"sparse_matmul_shared {role} B={B}", y,
+                        ref.ref_sparse_matmul_shared(xk, w, idx, BLK)))
+                copies = max(1, math.ceil(200e6 / (n * m * 2)))
+                ws = [w] + [w.clone() for _ in range(copies - 1)]
+                mm_kernel, plan = direct_matmul(
+                    K, build, "sparse_matmul_shared", xk, ws, idx, m, kb,
+                    False)
+                t_mm = graph_ms(mm_kernel)
+                t_mm_plain = graph_ms(lambda i: ref.ref_sparse_matmul_shared(
+                    xk, ws[i % copies], idx, BLK))
+                t_mm_lib = graph_ms(lambda i: torch.matmul(xk,
+                                                           ws[i % copies]))
+                del ws
+                # the kept x blocks, the kept weight rows, the ids and y
+                mm_bytes = (B * kb * BLK * 2 + kb * BLK * m * 2 + kb * 4
+                            + B * m * 4)
+                mm_bound, mm_by = bound_ms(mm_bytes, 2.0 * B * kb * BLK * m,
+                                           dt, rates)
+                row["sparse_matmul_shared"] = {
+                    "ms": t_mm, "plain_ms": t_mm_plain,
+                    "library_ms": t_mm_lib, "bound_ms": mm_bound,
+                    "bound_by": mm_by, "splits": plan.splits,
+                    "blocks": math.prod(plan.grid)}
+                line += (f" | sparse_matmul_shared {t_mm * 1e3:8.2f} us (v1 "
+                         f"{V1_US[B, role][0]:7.2f}, plain "
+                         f"{t_mm_plain * 1e3:8.2f}, torch.matmul dense "
+                         f"{t_mm_lib * 1e3:8.2f}, bound "
+                         f"{mm_bound * 1e3:6.2f} = "
+                         f"{100 * mm_bound / t_mm:5.1f}%, grid {plan.grid})")
+            rows.append(row)
+            print(line)
+    return rows, errs
 
-            xm, bs = K.score_mask(x, g, alpha, tau, blk=BLK, row_weights=rw)
-            xm_r, bs_r = ref.ref_score_mask(x, g, alpha, tau, BLK, rw)
-            torch.cuda.synchronize()
-            if not torch.equal(xm, xm_r):
-                raise AssertionError(f"score_mask {role} B={B}: xm differs")
-            errs["score_mask"] = max(errs["score_mask"], check_close(
-                f"score_mask {role} B={B}", bs, bs_r))
-            idx = torch.topk(bs, kb, sorted=True).indices.to(torch.int32)
-            keep = torch.zeros(nb, dtype=torch.bool, device=dev)
-            keep[idx.long()] = True
-            xk = (xm * keep.repeat_interleave(BLK)[None].to(dt)).contiguous()
-            y = K.sparse_matmul_shared(xk, w, idx, blk=BLK)
-            torch.cuda.synchronize()
-            bit_equal(f"sparse_matmul_shared {role} B={B}",
-                      lambda: K.sparse_matmul_shared(xk, w, idx, blk=BLK))
-            errs["sparse_matmul_shared"] = max(
-                errs["sparse_matmul_shared"], check_close(
-                    f"sparse_matmul_shared {role} B={B}", y,
-                    ref.ref_sparse_matmul_shared(xk, w, idx, BLK)))
 
+def projection_us(ops, dev) -> dict:
+    """Device time of one whole ``pallas`` projection
+    (``ops.wisparse_project``: bf16, alpha 1, tau -inf, keep_frac and
+    k_frac 0.5, unit row weights) against the dense bf16 product it
+    replaces, at llama31_8b's 7 projection shapes and B = 8, 32 and 448,
+    by CUDA-graph replay with the weights rotated through copies beyond
+    L2; and the CUDA kernels one projection launches (``torch.profiler``
+    over one warm call at attn/wq, B = 8).  Uses only the public
+    signature, so it times any tree's package (``--src``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(SEED + 4)
+    out = {"rows": []}
+    for B in (8, 32, 448):
+        for role, n, m in LAYER:
+            x = torch.from_numpy(rng.standard_normal((B, n)).astype(
+                np.float32)).to(dev, torch.bfloat16)
+            w = (torch.randn(n, m, device=dev) * 0.02).to(torch.bfloat16)
+            sp1 = {"g": torch.sqrt((w.float() ** 2).sum(1)),
+                   "alpha": torch.tensor(1.0, device=dev),
+                   "tau": torch.tensor(float("-inf"), device=dev),
+                   "keep_frac": torch.tensor(KEEP, device=dev)}
+            rw = torch.ones(B, device=dev)
+            if B == 8 and role == "attn/wq":
+                ops.wisparse_project(x, w, sp1, block=BLK, k_frac=KEEP,
+                                     token_weights=rw)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    ops.wisparse_project(x, w, sp1, block=BLK, k_frac=KEEP,
+                                         token_weights=rw)
+                    torch.cuda.synchronize()
+                kern = [(e.key, e.count) for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA]
+                out["launches_per_projection"] = sum(c for _k, c in kern)
+                out["launched"] = kern
             copies = max(1, math.ceil(200e6 / (n * m * 2)))
             ws = [w] + [w.clone() for _ in range(copies - 1)]
-            # kernel-only times call the C entries on preallocated outputs
-            lib = build.library()
-            xm_o, bs_o = torch.empty_like(x), torch.empty(nb, device=dev)
-            mm_kernel, plan = direct_matmul(K, build, "sparse_matmul_shared",
-                                            xk, ws, idx, m, kb, False)
-
-            def sm_kernel(i):
-                launched(lib.wisparse_score_mask(
-                    x.data_ptr(), g.data_ptr(), alpha.data_ptr(),
-                    tau.data_ptr(), rw.data_ptr(), xm_o.data_ptr(),
-                    bs_o.data_ptr(), B, n, BLK, 1,
-                    torch.cuda.current_stream().cuda_stream))
-
-            t_mm = graph_ms(mm_kernel)
-            t_mm_plain = graph_ms(lambda i: ref.ref_sparse_matmul_shared(
-                xk, ws[i % copies], idx, BLK))
-            t_mm_lib = graph_ms(lambda i: torch.matmul(xk, ws[i % copies]))
-            t_sm = graph_ms(sm_kernel)
-            t_sm_plain = graph_ms(lambda i: ref.ref_score_mask(
-                x, g, alpha, tau, BLK, rw))
-            # the whole pallas projection (score_mask, top-k, rank mask,
-            # matmul, cast) against the dense bf16 projection it replaces
-            sp1 = {"g": g, "alpha": alpha, "tau": tau,
-                   "keep_frac": torch.tensor(KEEP, device=dev)}
             t_proj = graph_ms(lambda i: ops.wisparse_project(
                 x, ws[i % copies], sp1, block=BLK, k_frac=KEEP,
                 token_weights=rw))
             t_dense = graph_ms(lambda i: x @ ws[i % copies])
             del ws
-            # the kept x blocks, the kept weight rows, the ids and y
-            mm_bytes = (B * kb * BLK * 2 + kb * BLK * m * 2 + kb * 4
-                        + B * m * 4)
-            mm_bound, mm_by = bound_ms(mm_bytes, 2.0 * B * kb * BLK * m, dt,
-                                       rates)
-            # x read, xm written, g, alpha and tau, the row weights, bs
-            sm_bytes = 2 * B * n * 2 + n * 4 + 8 + B * 4 + nb * 4
-            sm_bound, sm_by = bound_ms(sm_bytes, 6.0 * B * n, torch.float32,
-                                       rates)
-            rows.append({"B": B, "role": role, "n": n, "m": m, "kb": kb,
-                         "sparse_matmul_shared": {
-                             "ms": t_mm, "plain_ms": t_mm_plain,
-                             "library_ms": t_mm_lib, "bound_ms": mm_bound,
-                             "bound_by": mm_by, "splits": plan.splits,
-                             "blocks": math.prod(plan.grid)},
-                         "score_mask": {
-                             "ms": t_sm, "plain_ms": t_sm_plain,
-                             "library_ms": None, "bound_ms": sm_bound,
-                             "bound_by": sm_by, "blocks": nb},
-                         "projection": {"pallas_ms": t_proj,
-                                        "dense_ms": t_dense}})
-            print(f"  B={B:2d} {role:12s} n={n:5d} m={m:5d} kb={kb:3d} | "
-                  f"sparse_matmul_shared {t_mm * 1e3:8.2f} us (v1 "
-                  f"{V1_US[B, role][0]:7.2f}, plain "
-                  f"{t_mm_plain * 1e3:8.2f}, torch.matmul dense "
-                  f"{t_mm_lib * 1e3:8.2f}, bound {mm_bound * 1e3:6.2f} = "
-                  f"{100 * mm_bound / t_mm:5.1f}%, grid {plan.grid}) | "
-                  f"score_mask {t_sm * 1e3:6.2f} us (plain "
-                  f"{t_sm_plain * 1e3:6.2f}, bound {sm_bound * 1e3:5.2f}) | "
-                  f"projection pallas {t_proj * 1e3:7.2f} us, dense "
-                  f"{t_dense * 1e3:7.2f} us")
-    return rows, errs
+            out["rows"].append({"B": B, "role": role, "pallas_us": 1e3 * t_proj,
+                                "dense_us": 1e3 * t_dense})
+    for B in (8, 32, 448):
+        per = [r for r in out["rows"] if r["B"] == B]
+        out[f"per_layer_B{B}"] = {
+            "pallas_us": sum(r["pallas_us"] for r in per),
+            "dense_us": sum(r["dense_us"] for r in per)}
+    return out
 
 
 def per_seq_kernel(K, ref, ops, build, dev, rates) -> tuple:
@@ -485,7 +623,8 @@ def per_seq_kernel(K, ref, ops, build, dev, rates) -> tuple:
 
 def wrapper_host_us(K, ops, dev, calls: int = 50, rounds: int = 7) -> dict:
     """Host microseconds per call of each kernel wrapper (and of the whole
-    ``pallas`` projection, ``ops.wisparse_project``) at llama31_8b's 7
+    ``pallas`` projection, ``ops.wisparse_project``; ``score_select`` only
+    where the tree has it) at llama31_8b's 7
     projection shapes, B = 8, bf16, half of the blocks kept: the time
     until ``calls`` back-to-back calls have returned, without a sync in
     between, over ``calls``; the median of ``rounds`` rounds per shape,
@@ -498,6 +637,8 @@ def wrapper_host_us(K, ops, dev, calls: int = 50, rounds: int = 7) -> dict:
     B, dt = 8, torch.bfloat16
     per = {"score_mask": [], "sparse_matmul_shared": [],
            "sparse_matmul_per_seq": [], "wisparse_project": []}
+    if hasattr(K, "score_select"):      # absent from trees before it
+        per["score_select"] = []
     for _role, n, m in LAYER:
         nb = n // BLK
         kb = round(nb * KEEP)
@@ -521,8 +662,12 @@ def wrapper_host_us(K, ops, dev, calls: int = 50, rounds: int = 7) -> dict:
             "sparse_matmul_per_seq": lambda: K.sparse_matmul_per_seq(
                 x, w, idx2, blk=BLK),
             "wisparse_project": lambda: ops.wisparse_project(
-                x, w, sp1, block=BLK, k_frac=KEEP, token_weights=rw)}
-        for name, fn in fns.items():
+                x, w, sp1, block=BLK, k_frac=KEEP, token_weights=rw),
+            "score_select": lambda: K.score_select(
+                x, g, alpha, tau, sp1["keep_frac"], kb=kb, blk=BLK,
+                row_weights=rw)}
+        for name in per:
+            fn = fns[name]
             for _ in range(5):
                 fn()
             torch.cuda.synchronize()
@@ -539,10 +684,22 @@ def wrapper_host_us(K, ops, dev, calls: int = 50, rounds: int = 7) -> dict:
             for k, v in per.items()}
 
 
-def layer_summary(rows, ps_rows) -> None:
-    """Per decode layer (the 7 projection shapes summed) at B = 8 and 32:
-    each matmul kernel beside the v1 kernel's time, dense
-    ``torch.matmul`` and its bound."""
+def layer_summary(rows, ps_rows, proj) -> None:
+    """Per decode layer (the 7 projection shapes summed): score_select at
+    B = 8, 32 and 448 against its bound and the unfused ``score_mask``;
+    each matmul kernel at B = 8 and 32 beside the v1 kernel's time, dense
+    ``torch.matmul`` and its bound; the whole ``pallas`` projection
+    against dense."""
+    for B in (8, 32, 448):
+        per = [r["score_select"] for r in rows if r["B"] == B]
+        bnd = sum(p["bound_ms"] for p in per)
+        print(f"per decode layer B={B:3d} score_select "
+              f"{sum(p['ms'] for p in per) * 1e3:7.2f} us (unfused "
+              f"score_mask alone at B=8: {SCORE_MASK_UNFUSED_US:.2f}; "
+              f"plain {sum(p['plain_ms'] for p in per) * 1e3:8.2f}; bound "
+              f"{bnd * 1e3:6.2f} us); whole pallas projection "
+              f"{proj[f'per_layer_B{B}']['pallas_us']:8.2f} us, dense "
+              f"{proj[f'per_layer_B{B}']['dense_us']:8.2f} us")
     for B in (8, 32):
         sh = [r for r in rows if r["B"] == B]
         ps = [r for r in ps_rows if r["B"] == B]
@@ -648,7 +805,7 @@ def serving_trace(cfg) -> dict:
 def serve_once(name, params, cfg, policy, sp, trace, dev, K) -> dict:
     """One run of the trace through a fresh ``Engine``, with the kernels'
     launch counts zeroed just before and read just after: a sparse run
-    must launch each of score_mask and sparse_matmul_shared once per
+    must launch each of score_select and sparse_matmul_shared once per
     sparse projection (224 per decode step and per sparse prefill
     chunk), a dense run neither."""
     from repro_torch import obs
@@ -669,7 +826,7 @@ def serve_once(name, params, cfg, policy, sp, trace, dev, K) -> dict:
         if len(toks) != gen or not all(0 <= t < cfg.vocab_size
                                        for t in toks):
             raise AssertionError(f"{name}: request {rid} gave {toks}")
-    served = ("score_mask", "sparse_matmul_shared")
+    served = ("score_select", "sparse_matmul_shared")
     if policy.is_dense:
         if any(launches.values()):
             raise AssertionError(f"{name}: dense run launched kernels: "
@@ -947,11 +1104,46 @@ def _leaves(tree):
         yield tree
 
 
+def gather_backends_us(dev) -> dict:
+    """Device time of one ``topk_shared`` and one ``topk_block``
+    projection (``core/sparse_linear.project``: plain PyTorch backends
+    with no kernel of their own; bf16, alpha 1, tau -inf, keep_frac and
+    k_max_frac 0.5, unit token weights) at llama31_8b's 7 projection
+    shapes, B = 8, by CUDA-graph replay with the weights rotated through
+    copies beyond L2.  Uses only the public signature, so it times any
+    tree's package (``--src``)."""
+    from repro_torch.core import sparse_linear
+    from repro_torch.sparsity import SparsityPolicy
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+    for backend in ("topk_shared", "topk_block"):
+        pol = SparsityPolicy.uniform(backend, k_max_frac=KEEP, block=BLK)
+        per = []
+        for _role, n, m in LAYER:
+            x = torch.from_numpy(rng.standard_normal((8, n)).astype(
+                np.float32)).to(dev, torch.bfloat16)
+            w = (torch.randn(n, m, device=dev) * 0.02).to(torch.bfloat16)
+            sp1 = {"g": torch.sqrt((w.float() ** 2).sum(1)),
+                   "alpha": torch.tensor(1.0, device=dev),
+                   "tau": torch.tensor(float("-inf"), device=dev),
+                   "keep_frac": torch.tensor(KEEP, device=dev)}
+            rw = torch.ones(8, device=dev)
+            copies = max(1, math.ceil(200e6 / (n * m * 2)))
+            ws = [w] + [w.clone() for _ in range(copies - 1)]
+            per.append(1e3 * graph_ms(lambda i: sparse_linear.project(
+                x, ws[i % copies], sp1, policy=pol, token_weights=rw)))
+            del ws
+        out[backend] = {"per_layer_us": sum(per), "per_shape_us": per}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--host-only", action="store_true",
                     help="build the kernels, print the wrappers' host time "
-                         "per call as one JSON line, and stop")
+                         "per call, the pallas projection's device time per "
+                         "shape and the gather backends' device time as "
+                         "JSON lines, and stop")
     ap.add_argument("--src", default=os.path.join(HERE, "src"),
                     help="directory holding the repro_torch package (for "
                          "--host-only against another tree)")
@@ -979,14 +1171,23 @@ def main() -> int:
     print(f"kernels built in {obs.now() - t0:.1f} s\n{build.build_log()}")
     host = wrapper_host_us(K, ops, dev)
     print(json.dumps({"wrapper_host_us": host, "src": args.src}))
+    proj = projection_us(ops, dev)
+    print(json.dumps({"projection": proj, "src": args.src}))
+    print(f"one pallas projection launches {proj['launches_per_projection']} "
+          f"CUDA kernels: {proj['launched']}")
+    print(json.dumps({"gather_backends": gather_backends_us(dev),
+                      "src": args.src}))
     if args.host_only:
         return 0
+    if proj["launches_per_projection"] != 3:
+        raise AssertionError("a pallas projection should launch 3 kernels "
+                             "(score_select, the matmul, the cast)")
 
     errs = check_kernel_shapes(K, ref, dev)
-    rows, errs2 = main_path_kernels(K, ref, ops, build, dev, rates)
+    rows, errs2 = main_path_kernels(K, ref, build, dev, rates)
     ps_rows, ps_err, ps_launches = per_seq_kernel(K, ref, ops, build, dev,
                                                   rates)
-    layer_summary(rows, ps_rows)
+    layer_summary(rows, ps_rows, proj)
     reduced_model_check(dev)
     cfg, params = full_width_model(dev)
     trace = serving_trace(cfg)
@@ -996,7 +1197,7 @@ def main() -> int:
 
     decode_rows = [r for r in rows if r["B"] == 8]
     kernels = []
-    for kname, src, line in (("score_mask", "score_mask.cu", 319),
+    for kname, src, line in (("score_select", "score_select.cu", 319),
                              ("sparse_matmul_shared",
                               "sparse_matmul_shared.cu", 211)):
         per = [r[kname] for r in decode_rows]

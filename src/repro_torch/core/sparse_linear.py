@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.select import topk_ids
 from repro_torch.sparsity import VALID_BACKENDS, SparsityPolicy
 
 __all__ = ["SparsityPolicy", "VALID_BACKENDS", "DENSE", "project", "scores",
@@ -111,7 +112,7 @@ def _topk_gather(x, w, sp, policy, *, backend: str, token_weights=None):
             nb += 1
         blk = sal.reshape(nb, -1).sum(1)
         kb_max = max(1, round(nb * policy.k_max_frac))
-        _, bidx = torch.topk(blk, kb_max, sorted=True)
+        bidx = topk_ids(blk, kb_max)
         idx = (bidx[:, None] * b + torch.arange(b, device=dev)[None, :]
                ).reshape(-1)
         # the reference clamps tail-block ids to the last channel
@@ -121,7 +122,7 @@ def _topk_gather(x, w, sp, policy, *, backend: str, token_weights=None):
         rank_ok = rank_ok.repeat_interleave(b)
     else:
         k_max = max(1, round(n_in * policy.k_max_frac))
-        _, idx = torch.topk(sal, k_max, sorted=True)
+        idx = topk_ids(sal, k_max)
         k_l = torch.round(sp["keep_frac"] * n_in)
         rank_ok = torch.arange(k_max, device=dev) < k_l
     ws = w.reshape(n_in, -1).index_select(0, idx)                # (k, m)

@@ -30,8 +30,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every entry returns a cudaError_t as int
 SIGNATURES = {
-    "wisparse_score_mask": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _P),
+    # x, g, alpha, tau, keep_frac, rw, xm, idx, bs, B, n, blk, kb, dtype,
+    # stream
+    "wisparse_score_select": (_P,) * 9 + (_I,) * 5 + (_P,),
     # x, w, idx, y, workspace, counters, B, n, m, blk, kb, rows, cols,
     # splits, dtype, stream
     "wisparse_sparse_matmul_shared": (_P,) * 6 + (_I,) * 9 + (_P,),

@@ -3,15 +3,18 @@
 the JAX package's ``kernels/ops.py``):
 
   1. fused scoring + per-channel threshold mask (Eq. 4/5) + per-block
-     aggregate scores (``score_mask`` kernel),
-  2. static-budget top-k block selection (k from the policy's
-     ``k_max_frac``; ranks past the layer's ``keep_frac`` get their x
-     zeroed, so the per-layer allocation still binds),
-  3. block-gather matmul over exactly the kept blocks
+     aggregate scores, static-budget top-k block selection (k from the
+     policy's ``k_max_frac``, in ``jax.lax.top_k``'s order) and the rank
+     mask (ranks past the layer's ``keep_frac`` get their x zeroed, so
+     the per-layer allocation still binds): one ``score_select`` launch,
+  2. block-gather matmul over exactly the kept blocks
      (``sparse_matmul_shared`` kernel; with ``per_seq=True`` the
      ``sparse_matmul_per_seq`` kernel, every row given the shared ids,
-     as the reference does).
+     as the reference does),
+  3. the cast of the f32 result to x's dtype.
 
+On the card a projection of contiguous inputs whose channel dim is a
+multiple of the block is these three launches and nothing else.
 ``alpha``, ``tau`` and ``keep_frac`` stay device tensors throughout: a
 host read (``.item()``) per projection would add one sync per
 projection, 224 per decode step at llama31_8b's depth.
@@ -66,18 +69,11 @@ def wisparse_project(x, w, sp, *, block: int = 128, k_frac: float = 1.0,
             f"token_weights has {tw.numel()} rows but the projection sees "
             f"{xf.shape[0]} token rows; pass token_weights=None for "
             "dispatch-reshaped projections")
-    xm, bs = K.score_mask(xf.contiguous(), g, sp["alpha"], sp["tau"],
-                          blk=blk, row_weights=tw)
-    _, idx = torch.topk(bs, kb, sorted=True)
-    # per-layer budget: zero blocks ranked past keep_frac*nb; those
-    # entries keep their own (now zeroed) block ids, so their kernel
-    # contribution is exactly zero
-    kb_l = torch.round(sp["keep_frac"] * nb)
-    rank_ok = torch.arange(kb, device=x.device) < kb_l
-    keep_blocks = torch.zeros(nb, dtype=torch.bool, device=x.device)
-    keep_blocks[idx] = rank_ok
-    xm = xm * keep_blocks.repeat_interleave(blk)[None].to(xm.dtype)
-    idx = idx.to(torch.int32)
+    xm, idx, _ = K.score_select(xf.contiguous(), g, sp["alpha"], sp["tau"],
+                                sp["keep_frac"], kb=kb, blk=blk,
+                                row_weights=tw)
+    # entries ranked past keep_frac keep their own (zeroed) block ids, so
+    # their kernel contribution is exactly zero
     if per_seq:
         y = K.sparse_matmul_per_seq(xm, w2.contiguous(),
                                     idx.expand(xf.shape[0], kb).contiguous(),

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.select import topk_ids
+
 
 def ref_sparse_matmul_shared(x, w, block_idx, blk: int):
     """y = sum over kept blocks of x[:, blk_i] @ w[blk_i, :] in f32.
@@ -51,15 +53,29 @@ def ref_score_mask(x, g, alpha, tau, blk: int, row_weights=None):
     return xm, bs
 
 
+def ref_score_select(x, g, alpha, tau, keep_frac, blk: int, kb: int,
+                     row_weights=None):
+    """(xm, idx, bs): :func:`ref_score_mask`, then the top ``kb`` blocks
+    by ``bs`` in :func:`topk_ids` order (int32), then the rank mask: x is
+    zeroed outside the blocks ranked below
+    ``min(kb, round(keep_frac * nb))`` (the layer's own budget under the
+    static ``kb``; ``torch.round`` rounds half to even, as ``jnp.round``
+    does)."""
+    xm, bs = ref_score_mask(x, g, alpha, tau, blk, row_weights)
+    nb = x.shape[1] // blk
+    idx = topk_ids(bs, kb)
+    kf = torch.as_tensor(keep_frac, dtype=torch.float32, device=x.device)
+    kb_l = torch.round(kf * nb)
+    keep_blocks = torch.zeros(nb, dtype=torch.bool, device=x.device)
+    keep_blocks[idx] = torch.arange(kb, device=x.device) < kb_l
+    keep = keep_blocks.repeat_interleave(blk)[None]
+    xm = torch.where(keep, xm, torch.zeros_like(xm))
+    return xm, idx.to(torch.int32), bs
+
+
 def ref_wisparse_project(x, w, sp, k_blocks: int, blk: int):
     """Full-op version: score -> mask -> top-k blocks (rank-limited by the
     layer's keep_frac) -> gathered matmul."""
-    xm, bs = ref_score_mask(x, sp["g"], sp["alpha"], sp["tau"], blk)
-    _, idx = torch.topk(bs, k_blocks, sorted=True)
-    nb = x.shape[1] // blk
-    kb_l = torch.round(sp["keep_frac"] * nb).to(torch.int64)
-    rank_ok = torch.arange(k_blocks, device=x.device) < kb_l
-    keep_blocks = torch.zeros(nb, dtype=torch.bool, device=x.device)
-    keep_blocks[idx] = rank_ok
-    xm = xm * keep_blocks.repeat_interleave(blk)[None].to(xm.dtype)
+    xm, idx, _ = ref_score_select(x, sp["g"], sp["alpha"], sp["tau"],
+                                  sp["keep_frac"], blk, k_blocks)
     return ref_sparse_matmul_shared(xm, w, idx, blk)

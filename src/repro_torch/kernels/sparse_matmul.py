@@ -1,9 +1,10 @@
 """Wrappers for the WiSparse Hopper kernels (port of the JAX package's
 ``kernels/sparse_matmul.py``).
 
-``score_mask``, ``sparse_matmul_shared`` and ``sparse_matmul_per_seq``
-take the route by the device of the tensors they are given: a CUDA
-tensor launches the CUDA kernel in ``csrc/`` (built at first use by
+``score_select`` (with ``score_mask``, the same kernel without the
+selection), ``sparse_matmul_shared`` and ``sparse_matmul_per_seq`` take
+the route by the device of the tensors they are given: a CUDA tensor
+launches the CUDA kernel in ``csrc/`` (built at first use by
 :mod:`repro_torch.kernels.build`) or raises; a CPU tensor runs the
 plain PyTorch version in :mod:`repro_torch.kernels.ref`.  There is no
 fallback from one to the other.  Each wrapper adds one to
@@ -27,12 +28,12 @@ import math
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 
 DEFAULT_BLK = 128
 
 # kernel name -> launches since the last reset_launch_counts()
-launch_counts = {"score_mask": 0, "sparse_matmul_shared": 0,
+launch_counts = {"score_select": 0, "sparse_matmul_shared": 0,
                  "sparse_matmul_per_seq": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -154,44 +155,97 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
+def score_select(x, g, alpha, tau, keep_frac, *, kb: int,
+                 blk: int = DEFAULT_BLK, row_weights=None):
+    """Returns (xm (B,n) in x.dtype, idx (kb,) int32, bs (n//blk,) f32):
+    Eq. 4/5 scoring and per-block score sums (as :func:`score_mask`),
+    the top ``kb`` blocks by ``bs`` (largest first, the lower id first
+    among equal sums: ``jax.lax.top_k``'s order), and x zeroed outside
+    the blocks ranked below ``min(kb, round(keep_frac * n/blk))``.
+
+    ``alpha``, ``tau`` and ``keep_frac`` are one-element f32 tensors on
+    x's device (the sp tree's own; the kernel reads them where they lie,
+    so no host sync), or floats, which are copied to the device;
+    ``row_weights`` (B,) optionally weights each row's block-score
+    contribution (the engine's active-slot / real-token mask)."""
+    B, n = x.shape
+    blk = min(blk, n)
+    if n % blk:
+        raise ValueError(f"channel dim {n} is not a multiple of blk {blk}")
+    if not 1 <= kb <= n // blk:
+        raise ValueError(f"kb {kb} outside [1, {n // blk}]")
+    if x.device.type == "cpu":
+        return ref.ref_score_select(x, g, alpha, tau, keep_frac, blk, kb,
+                                    row_weights)
+    if not x.is_cuda:
+        raise ValueError(f"score_select: unsupported device {x.device}")
+    return _launch_score(x, g, alpha, tau, keep_frac, blk, kb, row_weights)
+
+
 def score_mask(x, g, alpha, tau, *, blk: int = DEFAULT_BLK, row_weights=None):
     """Returns (x_masked (B,n) in x.dtype, block_scores (n//blk,) f32) —
-    Eq. 4/5 fused.  ``alpha``/``tau`` are one-element f32 tensors on x's
-    device (the sp tree's own; the kernel reads them where they lie), or
-    floats, which are copied to the device; ``row_weights`` (B,)
-    optionally weights each row's block-score contribution (the engine's
-    active-slot / real-token mask)."""
+    Eq. 4/5 fused, no block selection: the ``score_select`` kernel with
+    no rank limit (it counts as a ``score_select`` launch)."""
     B, n = x.shape
     blk = min(blk, n)
     _check(n % blk == 0, f"channel dim {n} is not a multiple of blk {blk}")
     if x.device.type == "cpu":
         return ref.ref_score_mask(x, g, alpha, tau, blk, row_weights)
     _check(x.is_cuda, f"score_mask: unsupported device {x.device}")
-    _check(x.dtype in _DTYPE_CODES, f"score_mask: x dtype {x.dtype}")
-    _check(x.is_contiguous(), "score_mask: x must be contiguous")
-    _check(g.shape == (n,) and g.dtype == torch.float32
-           and g.device == x.device and g.is_contiguous(),
-           f"score_mask: g must be a contiguous ({n},) f32 tensor on "
-           f"{x.device}")
-    # no-ops (no copy, no launch) for the sp tree's f32 device scalars
-    a = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
-    t = torch.as_tensor(tau, dtype=torch.float32, device=x.device)
-    _check(a.numel() == 1 and t.numel() == 1,
-           "score_mask: alpha and tau must be scalars")
-    rw = None
-    if row_weights is not None:
-        rw = row_weights.reshape(B).to(torch.float32).contiguous()
-        _check(rw.device == x.device, "score_mask: row_weights device")
-    xm = torch.empty_like(x)
-    bs = torch.empty(n // blk, dtype=torch.float32, device=x.device)
-    from repro_torch.kernels.build import library
-    err = library().wisparse_score_mask(
-        _ptr(x), _ptr(g), _ptr(a), _ptr(t),
-        None if rw is None else _ptr(rw), _ptr(xm), _ptr(bs), B, n, blk,
-        _DTYPE_CODES[x.dtype], _stream(x.device))
-    _raise_on(err, "score_mask")
-    launch_counts["score_mask"] += 1
+    xm, _, bs = _launch_score(x, g, alpha, tau, None, blk, n // blk,
+                              row_weights)
     return xm, bs
+
+
+def _f32_scalar(v, device, what: str):
+    """``v`` as a one-element f32 tensor on ``device``; the sp tree's own
+    scalars pass through as they are."""
+    if not (isinstance(v, torch.Tensor) and v.dtype == torch.float32
+            and v.device == device):
+        v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    if v.numel() != 1:
+        raise ValueError(f"score_select: {what} must be a scalar")
+    return v
+
+
+def _launch_score(x, g, alpha, tau, keep_frac, blk, kb, row_weights):
+    """Check the inputs of a CUDA ``score_select`` launch (with the
+    selection when ``keep_frac`` is given, else the mask alone), launch
+    it on the current stream and count it.  Messages are formatted only
+    on failure: this runs 224 times per decode step."""
+    B, n = x.shape
+    dev = x.device
+    if x.dtype not in _DTYPE_CODES or not x.is_contiguous():
+        raise ValueError(f"score_select: x must be a contiguous float32 or "
+                         f"bfloat16 tensor, got {x.dtype}")
+    if not (g.shape == (n,) and g.dtype == torch.float32 and g.device == dev
+            and g.is_contiguous()):
+        raise ValueError(f"score_select: g must be a contiguous ({n},) f32 "
+                         f"tensor on {dev}")
+    a = _f32_scalar(alpha, dev, "alpha")
+    t = _f32_scalar(tau, dev, "tau")
+    select = keep_frac is not None
+    kf = _f32_scalar(keep_frac, dev, "keep_frac") if select else None
+    rw = row_weights
+    if rw is not None:
+        if rw.dim() != 1 or rw.dtype != torch.float32 or \
+                not rw.is_contiguous():
+            rw = rw.reshape(B).to(torch.float32).contiguous()
+        if rw.shape != (B,) or rw.device != dev:
+            raise ValueError(f"score_select: row_weights must be ({B},) on "
+                             f"{dev}")
+    xm = torch.empty_like(x)
+    bs = torch.empty(n // blk, dtype=torch.float32, device=dev)
+    idx = torch.empty(kb, dtype=torch.int32, device=dev) if select else None
+    err = build.library().wisparse_score_select(
+        x.data_ptr(), g.data_ptr(), a.data_ptr(), t.data_ptr(),
+        kf.data_ptr() if select else None,
+        None if rw is None else rw.data_ptr(), xm.data_ptr(),
+        idx.data_ptr() if select else None, bs.data_ptr(), B, n, blk, kb,
+        _DTYPE_CODES[x.dtype], _stream(dev))
+    _raise_on(err, "score_select")
+    launch_counts["score_select"] += 1
+    return xm, idx, bs
 
 
 def sparse_matmul_shared(x, w, block_idx, *, blk: int = DEFAULT_BLK):
@@ -254,13 +308,12 @@ def sparse_matmul_per_seq(x, w, block_idx, *, blk: int = DEFAULT_BLK):
 
 def _launch_matmul(name, x, w, block_idx, blk, kb, *, per_seq):
     """Launch the checked inputs on the kernel ``name`` and count it."""
-    from repro_torch.kernels.build import library
     B, n = x.shape
     m = w.shape[1]
     plan = launch_plan(B, n, m, kb, blk, per_seq, x.element_size())
     y = torch.empty(B, m, dtype=torch.float32, device=x.device)
     ws, cnt = matmul_scratch(plan, x.device)
-    err = getattr(library(), "wisparse_" + name)(
+    err = getattr(build.library(), "wisparse_" + name)(
         _ptr(x), _ptr(w), _ptr(block_idx), _ptr(y),
         None if ws is None else _ptr(ws), None if cnt is None else _ptr(cnt),
         B, n, m, blk, kb, plan.rows, plan.cols, plan.splits,

@@ -94,7 +94,7 @@ def test_pallas_route_counts_no_launches_on_cpu(model):
         policy=SparsityPolicy.uniform("pallas", k_max_frac=0.5, block=16),
         **TRACE), model["sp"], device="cpu")
     _run(eng, model["prompts"][:1])
-    assert K.launch_counts == {"score_mask": 0, "sparse_matmul_shared": 0,
+    assert K.launch_counts == {"score_select": 0, "sparse_matmul_shared": 0,
                                "sparse_matmul_per_seq": 0}
 
 

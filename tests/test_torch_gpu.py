@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.sp_schema import default_sp_stacked
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sparse_matmul as K
 from repro_torch.models import api
 from repro_torch.models import params as P
@@ -79,7 +79,7 @@ def test_engine_on_card_matches_cpu_and_counts_launches(dev):
         if d.type == "cuda":
             steps = eng.stats.decode_steps + eng.stats.prefill_sparse_chunks
             assert K.launch_counts == {
-                "score_mask": 7 * cfg.num_layers * steps,
+                "score_select": 7 * cfg.num_layers * steps,
                 "sparse_matmul_shared": 7 * cfg.num_layers * steps,
                 "sparse_matmul_per_seq": 0}
     assert outs[0] == outs[1]
@@ -225,3 +225,126 @@ def test_per_seq_with_shared_ids_matches_shared(dev, B, n, m):
     idx = torch.from_numpy(_per_row_ids(1, nb, nb // 2, seed=4)[0]).to(dev)
     _close(K.sparse_matmul_per_seq(x, w, idx.expand(B, -1).contiguous()),
            K.sparse_matmul_shared(x, w, idx))
+
+
+def _separated(dev, B, n, dtype, blk=128, seed=5):
+    """x whose channel blocks are scaled by 1.1**(a random permutation of
+    0..nb-1): block scores 10% apart against a few % of noise, so no
+    two lie within any summation-order tolerance (tie-free for idx)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nb = n // blk
+    perm = torch.randperm(nb, device=dev, generator=gen).float()
+    scale = (1.1 ** perm).repeat_interleave(blk)
+    x = torch.randn(B, n, device=dev, generator=gen) * scale / 1.1 ** nb
+    g = torch.rand(n, device=dev, generator=gen) * 0.2 + 0.9
+    return x.to(dtype), g
+
+
+@pytest.mark.parametrize("B,n", [(1, 256), (8, 4096), (32, 14336),
+                                 (448, 4096), (13, 384)])
+@pytest.mark.parametrize("keep_frac", [0.5, 0.375])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_score_select_matches_plain_version(dev, B, n, keep_frac, dtype):
+    """Bit-equal xm and idx at tie-free block scores, bs to 1e-4; two
+    launches bit-equal.  tau sits at half the median block's scale, so
+    it masks channels in most blocks and whole blocks at the small end
+    (their scores sum to exactly 0 in both versions)."""
+    x, g = _separated(dev, B, n, dtype)
+    alpha = torch.tensor(0.7, device=dev)
+    tau = torch.tensor(0.5 * 1.1 ** (-(n // 128) / 2), device=dev)
+    kf = torch.tensor(keep_frac, device=dev)
+    rw = torch.rand(B, device=dev) + 0.5
+    kb = max(1, round(n // 128 * 0.5))
+    got = K.score_select(x, g, alpha, tau, kf, kb=kb, row_weights=rw)
+    want = ref.ref_score_select(x, g, alpha, tau, kf, 128, kb, rw)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
+    again = K.score_select(x, g, alpha, tau, kf, kb=kb, row_weights=rw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,n,blk,offset", [(3, 300, 100, 0),
+                                             (8, 4096, 128, 1),
+                                             (5, 1000, 125, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_score_select_element_path(dev, B, n, blk, offset, dtype):
+    """The kernel's one-element loads: a channel block that is not a
+    multiple of 16 bytes, or x (and so xm's layout) not 16-byte aligned
+    (a contiguous view ``offset`` elements into its buffer)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    buf = torch.randn(B * n + offset, device=dev, generator=gen)
+    x = buf[offset:].view(B, n)
+    # blocks 10% apart, as in _separated: no near tie for idx to break
+    perm = torch.randperm(n // blk, device=dev, generator=gen).float()
+    x.mul_((1.1 ** perm).repeat_interleave(blk))
+    buf = buf.to(dtype)
+    x = buf[offset:].view(B, n)
+    g = torch.rand(n, device=dev, generator=gen) + 0.5
+    alpha = torch.tensor(0.7, device=dev)
+    tau = torch.tensor(0.3, device=dev)
+    kf = torch.tensor(0.5, device=dev)
+    kb = max(1, n // blk - 1)
+    got = K.score_select(x, g, alpha, tau, kf, kb=kb, blk=blk)
+    want = ref.ref_score_select(x, g, alpha, tau, kf, blk, kb)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("nb,blk", [(112, 128), (32, 128), (112, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_score_select_takes_lax_top_k_order_under_ties(dev, nb, blk, dtype):
+    """Block scores that tie exactly (blocks repeat one pattern of
+    quarter-integers, scaled by 2, 1 or 0, g = 1): the kernel keeps the
+    lower ids first, bit for bit as the plain version does."""
+    rng = np.random.default_rng(6)
+    pat = rng.integers(-8, 9, (8, blk)).astype(np.float32) / 4
+    counts = [nb // 10, nb // 2, nb - nb // 10 - nb // 2]
+    mult = rng.permutation(np.repeat(np.float32([2, 1, 0]), counts))
+    x = torch.from_numpy((pat[:, None, :] * mult[None, :, None]).reshape(
+        8, nb * blk)).to(dev, dtype)
+    g = torch.ones(nb * blk, device=dev)
+    one = torch.tensor(1.0, device=dev)
+    for keep_frac in (0.5, 0.375):
+        kf = torch.tensor(keep_frac, device=dev)
+        got = K.score_select(x, g, one, torch.tensor(-1.0, device=dev), kf,
+                             kb=nb // 2, blk=blk)
+        want = ref.ref_score_select(x, g, one, -1.0, kf, blk, nb // 2)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _projection_inputs(dev, B, n, m, dtype):
+    x, g = _separated(dev, B, n, dtype, seed=7)
+    w = (torch.randn(n, m, device=dev) * 0.05).to(dtype)
+    sp = {"g": g, "alpha": torch.tensor(0.7, device=dev),
+          "tau": torch.tensor(0.5 * 1.1 ** (-(n // 128) / 2), device=dev),
+          "keep_frac": torch.tensor(0.375, device=dev)}
+    return x, w, sp
+
+
+def test_wisparse_project_on_card_matches_cpu(dev):
+    x, w, sp = _projection_inputs(dev, 6, 1024, 384, torch.float32)
+    rw = torch.rand(6, device=dev)
+    y = ops.wisparse_project(x, w, sp, k_frac=0.5, token_weights=rw)
+    cpu = {k: v.cpu() for k, v in sp.items()}
+    y_c = ops.wisparse_project(x.cpu(), w.cpu(), cpu, k_frac=0.5,
+                               token_weights=rw.cpu())
+    torch.testing.assert_close(y.cpu(), y_c, rtol=1e-4, atol=1e-4)
+
+
+def test_pallas_projection_is_three_launches(dev):
+    """score_select, the matmul and the output cast, nothing else
+    (torch.profiler over one warm call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, w, sp = _projection_inputs(dev, 8, 4096, 1024, torch.bfloat16)
+    rw = torch.ones(8, device=dev)
+    ops.wisparse_project(x, w, sp, k_frac=0.5, token_weights=rw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.wisparse_project(x, w, sp, k_frac=0.5, token_weights=rw)
+        torch.cuda.synchronize()
+    launched = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    assert launched == 3, [e.key for e in prof.key_averages()]

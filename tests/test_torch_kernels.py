@@ -9,23 +9,30 @@ kernels themselves run only on the card: ``chip_smoke.py`` and
 Tolerances: f32 1e-5 and bf16 3e-2, as ``tests/test_kernels.py`` uses
 for the same kernels; block scores rtol 1e-4 (f32 sums in another
 order).  Score-mask inputs are tie-free: no score lies within 0.1% of
-tau, so the keep decision cannot hinge on the last bit of a pow."""
+tau, so the keep decision cannot hinge on the last bit of a pow.  Block
+scores that tie exactly are built on purpose where the tie order is the
+point: the port follows ``jax.lax.top_k`` (the lower id first)."""
 import ctypes
 import dataclasses
 import re
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import sparse_linear as jsl
 from repro.kernels import ops as jops
 from repro.kernels import sparse_matmul as JK
-from repro_torch.kernels import build, ref
+from repro.sparsity import SparsityPolicy as JPolicy
+from repro_torch.core import sparse_linear as tsl
+from repro_torch.kernels import build, ref, select
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import sparse_matmul as TK
+from repro_torch.sparsity import SparsityPolicy
 
 SHAPES = [
     (1, 256, 128, 128),
@@ -264,13 +271,16 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     xm, bs = TK.score_mask(tx, tg, 0.5, 0.2, blk=128)
     xm_r, bs_r = ref.ref_score_mask(tx, tg, 0.5, 0.2, 128)
     assert torch.equal(xm, xm_r) and torch.equal(bs, bs_r)
+    got = TK.score_select(tx, tg, 0.5, 0.2, 0.5, kb=2, blk=128)
+    want = ref.ref_score_select(tx, tg, 0.5, 0.2, 0.5, 128, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     idx = torch.tensor([1, 0], dtype=torch.int32)
     assert torch.equal(TK.sparse_matmul_shared(tx, tw, idx),
                        ref.ref_sparse_matmul_shared(tx, tw, idx, 128))
     ids = torch.tensor([[1, 0], [0, 0], [1, 1]], dtype=torch.int32)
     assert torch.equal(TK.sparse_matmul_per_seq(tx, tw, ids),
                        ref.ref_sparse_matmul_per_seq(tx, tw, ids, 128))
-    assert TK.launch_counts == {"score_mask": 0, "sparse_matmul_shared": 0,
+    assert TK.launch_counts == {"score_select": 0, "sparse_matmul_shared": 0,
                                 "sparse_matmul_per_seq": 0}
 
 
@@ -282,6 +292,8 @@ def test_non_cpu_tensors_never_fall_back():
     g = torch.empty(256, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         TK.score_mask(x, g, 0.0, 0.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TK.score_select(x, g, 0.0, 0.0, 1.0, kb=1)
     w = torch.empty(256, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         TK.sparse_matmul_shared(x, w, torch.zeros(1, dtype=torch.int32,
@@ -295,6 +307,11 @@ def test_wrappers_validate_shapes():
     x = torch.zeros(2, 200)
     with pytest.raises(ValueError, match="multiple of blk"):
         TK.score_mask(x, torch.ones(200), 0.0, 0.0, blk=128)
+    with pytest.raises(ValueError, match="multiple of blk"):
+        TK.score_select(x, torch.ones(200), 0.0, 0.0, 1.0, kb=1, blk=128)
+    with pytest.raises(ValueError, match="kb 3 outside"):
+        TK.score_select(torch.zeros(2, 256), torch.ones(256), 0.0, 0.0, 1.0,
+                        kb=3, blk=128)
     with pytest.raises(ValueError, match="w rows"):
         TK.sparse_matmul_shared(torch.zeros(2, 256), torch.zeros(128, 4),
                                 torch.zeros(1, dtype=torch.int32))
@@ -444,3 +461,159 @@ def test_matmul_launch_passes_the_c_signature(monkeypatch, name, per_seq, B,
     assert args[6:15] == (B, n, m, 128, kb, plan.rows, plan.cols,
                           plan.splits, 1)
     assert (args[4] is None) == (args[5] is None) == (plan.splits == 1)
+
+
+# ---------------------------------------------------------------------------
+# score_select: the selection folded into the scoring kernel
+# ---------------------------------------------------------------------------
+
+def _jax_score_select(x, g, alpha, tau, keep_frac, blk, kb, rw):
+    """The reference's chain in ``repro.kernels.ops.wisparse_project``:
+    the Pallas ``score_mask`` (interpret mode), ``lax.top_k``, the rank
+    mask."""
+    xm, bs = JK.score_mask(x, g, alpha, tau, blk=blk, interpret=True,
+                           row_weights=rw)
+    _, idx = jax.lax.top_k(bs, kb)
+    nb = x.shape[1] // blk
+    kb_l = jnp.round(jnp.float32(keep_frac) * nb).astype(jnp.int32)
+    keep_blocks = jnp.zeros((nb,), bool).at[idx].set(jnp.arange(kb) < kb_l)
+    xm = xm * jnp.repeat(keep_blocks, blk)[None].astype(xm.dtype)
+    return xm, idx, bs
+
+
+@pytest.mark.parametrize("B,n,m,blk", SHAPES + AWKWARD[:3])
+@pytest.mark.parametrize("keep_frac", [0.25, 0.5, 0.75])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_score_select_matches_the_reference_chain(B, n, m, blk, keep_frac,
+                                                  dtype):
+    """ref_score_select (the CPU route of score_select) against the JAX
+    chain at k_frac 0.5, with keep_frac below, equal to and above it:
+    xm and idx equal, bs to 1e-5 (f32 sums in another order)."""
+    jdt, tdt, _ = DTYPES[dtype]
+    alpha, tau = 0.7, 0.2
+    x, _, g = _data(B, n, m, seed=3)
+    x = _tie_free(torch.from_numpy(x).to(tdt).float().numpy(), g, alpha, tau)
+    jx, tx = _both(x, jdt, tdt)
+    rw = np.random.default_rng(4).random(B).astype(np.float32)
+    nb = n // blk
+    kb = max(1, round(nb * 0.5))
+    xm_j, idx_j, bs_j = _jax_score_select(jx, jnp.asarray(g), alpha, tau,
+                                          keep_frac, blk, kb,
+                                          jnp.asarray(rw))
+    xm_t, idx_t, bs_t = TK.score_select(
+        tx, torch.from_numpy(g), torch.tensor(alpha), torch.tensor(tau),
+        torch.tensor(keep_frac), kb=kb, blk=blk,
+        row_weights=torch.from_numpy(rw))
+    assert xm_t.dtype == tdt and idx_t.dtype == torch.int32
+    assert idx_t.shape == (kb,) and bs_t.shape == (nb,)
+    np.testing.assert_allclose(bs_t.numpy(), np.asarray(bs_j), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    np.testing.assert_array_equal(_np(xm_t), _np(xm_j))
+
+
+def _tied(B=2, blk=16, m=32, seed=0):
+    """Inputs whose 112 channel blocks repeat one pattern, scaled by 2
+    (10 blocks), 1 (60) or 0 (42) in a random order, with g = 1: every
+    score is a small multiple of 1/4, so block scores and saliencies tie
+    exactly within each group, and a budget of half the blocks (or
+    channels) cuts through the group of 1s."""
+    rng = np.random.default_rng(seed)
+    pat = rng.integers(-8, 9, (B, blk)).astype(np.float32) / 4
+    mult = rng.permutation(np.repeat(np.float32([2, 1, 0]), [10, 60, 42]))
+    x = (pat[:, None, :] * mult[None, :, None]).reshape(B, 112 * blk)
+    w = (rng.standard_normal((112 * blk, m)) * 0.1).astype(np.float32)
+    return x, w, np.ones(112 * blk, np.float32)
+
+
+def _tied_sp(g, keep_frac, tau):
+    sp_j = {"g": jnp.asarray(g), "alpha": jnp.float32(1.0),
+            "tau": jnp.float32(tau), "keep_frac": jnp.float32(keep_frac)}
+    return sp_j, {k: torch.tensor(np.asarray(v)) for k, v in sp_j.items()}
+
+
+def test_topk_ids_takes_lax_top_k_order():
+    scores = np.float32([1, 3, 1, 3, 0, 1, 3, 0])
+    for k in range(1, 9):
+        _, want = jax.lax.top_k(jnp.asarray(scores), k)
+        got = select.topk_ids(torch.from_numpy(scores), k)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("keep_frac", [0.5, 0.375])
+def test_pallas_projection_under_tied_block_scores(keep_frac):
+    """Tied block scores with kb (56 of 112) and the layer's limit inside
+    the tie: the port keeps the blocks lax.top_k keeps (the lower ids
+    first), so the projection equals the reference's."""
+    x, w, g = _tied()
+    sp_j, sp_t = _tied_sp(g, keep_frac, float("-inf"))
+    yj = jops.wisparse_project(jnp.asarray(x), jnp.asarray(w), sp_j,
+                               block=16, k_frac=0.5, interpret=True)
+    yt = tops.wisparse_project(torch.from_numpy(x), torch.from_numpy(w), sp_t,
+                               block=16, k_frac=0.5)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["topk_block", "topk_shared"])
+@pytest.mark.parametrize("keep_frac", [0.5, 0.375])
+def test_gather_projections_under_tied_scores(backend, keep_frac):
+    """The gather backends under tied saliencies (blocks for topk_block,
+    channels for topk_shared) equal the reference's sparse_linear.project."""
+    x, w, g = _tied(seed=1)
+    sp_j, sp_t = _tied_sp(g, keep_frac, float("inf"))
+    kw = dict(k_max_frac=0.5, block=16)
+    yj = jsl.project(jnp.asarray(x), jnp.asarray(w), sp_j,
+                     policy=JPolicy.uniform(backend, interpret=True, **kw))
+    yt = tsl.project(torch.from_numpy(x), torch.from_numpy(w), sp_t,
+                     policy=SparsityPolicy.uniform(backend, **kw))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("select", [True, False])
+@pytest.mark.parametrize("B,n,kb,dtype", [
+    (8, 4096, 16, torch.bfloat16), (32, 14336, 56, torch.bfloat16),
+    (1, 256, 1, torch.float32)])
+def test_score_select_launch_passes_the_c_signature(monkeypatch, select, B, n,
+                                                    kb, dtype):
+    """The arguments the wrapper passes fit ``build.SIGNATURES`` (a stub
+    library stands in for the compiled one: no nvcc needed); the sp
+    tree's f32 scalars and f32 row weights reach the kernel as they are,
+    uncopied; the mask alone passes no keep_frac and no idx."""
+    calls = []
+
+    def entry(*args):
+        argtypes = build.SIGNATURES["wisparse_score_select"]
+        assert len(args) == len(argtypes)
+        for a, t in zip(args, argtypes):
+            t.from_param(a)
+        calls.append(args)
+        return 0
+
+    class Stub:
+        wisparse_score_select = staticmethod(entry)
+
+    monkeypatch.setattr(build, "library", lambda: Stub())
+    monkeypatch.setattr(TK, "_stream", lambda _d: ctypes.c_void_p(0))
+    x = torch.zeros(B, n, dtype=dtype)
+    g = torch.ones(n)
+    alpha, tau, keep = torch.tensor(1.0), torch.tensor(0.5), torch.tensor(0.5)
+    rw = torch.ones(B)
+    TK.reset_launch_counts()
+    xm, idx, bs = TK._launch_score(x, g, alpha, tau, keep if select else None,
+                                   128, kb if select else n // 128, rw)
+    assert TK.launch_counts["score_select"] == 1
+    TK.reset_launch_counts()
+    assert xm.shape == x.shape and xm.dtype == dtype
+    assert bs.shape == (n // 128,) and bs.dtype == torch.float32
+    (args,) = calls
+    assert args[2:4] == (alpha.data_ptr(), tau.data_ptr())
+    assert args[5] == rw.data_ptr()
+    if select:
+        assert idx.shape == (kb,) and idx.dtype == torch.int32
+        assert args[4] == keep.data_ptr() and args[7] == idx.data_ptr()
+    else:
+        assert idx is None and args[4] is None and args[7] is None
+    assert args[9:14] == (B, n, 128, kb if select else n // 128,
+                          1 if dtype == torch.bfloat16 else 0)
