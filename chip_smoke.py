@@ -43,23 +43,38 @@ In order, it:
    with ragged prompts of 64-448 tokens, 32 new tokens each, dense and
    under ``SparsityPolicy.uniform("pallas", k_max_frac=0.5)`` with an
    uncalibrated sp tree (``keep_frac=0.5``, ``tau=-inf``), each twice in
-   the order dense, pallas, pallas, dense.  The kernels' launch counts
-   are zeroed just before each run and read just after; on a ``pallas``
-   run each must equal the sparse projections it executed (224 per
-   decode step and per sparse prefill chunk), on a dense run zero.  A
-   window of each run's decode steps is traced with ``torch.profiler``
-   for the device busy share of those same steps;
-6. calibrates WiSparse (paper Alg. 1-4, ``core/pipeline.run_pipeline``
-   with the serve CLI's ``--calib-quick`` budget) on the same full-width
-   model at a 0.5 budget, on 4 x 128 synthetic tokens, printing each
-   stage's wall time, the block ratios, the mean alpha, the device
-   memory peak and the plan's KL beside the activation-only plan's, and
-   checks the budget and that every threshold of a sparsified linear is
-   finite;
-7. saves the calibrated plan as a ``pallas`` policy artifact under
-   ``build/``, loads it back and serves phase 5's trace once from it,
-   checking the launch counts as in phase 5;
-8. prints one JSON line describing every kernel, then, as its last line,
+   the order dense, pallas, pallas, dense.  The decode step runs as a
+   CUDA graph captured once per engine (``serving/graphs.py``).  The
+   kernels' launch counts are zeroed just before each engine is built
+   and read just after its run; on a ``pallas`` run the launches that
+   ran (each launch recorded in the capture taken once per replay) must
+   equal the sparse projections executed (224 per decode step, per
+   sparse prefill chunk and per warm step before a capture), on a dense
+   run zero.  A window of each run's decode steps is traced with
+   ``torch.profiler`` for the device busy share of those same steps;
+6. calibrates a ``pallas`` policy ladder (``sparsity.calibrate_ladder``,
+   paper Alg. 1-4 per rung, with the serve CLI's ``--calib-quick``
+   budget) on the same full-width model at budgets 0.0, 0.5 (the cold
+   search) and 0.7 (warm-started), on 4 x 128 synthetic tokens, with the
+   quality baselines; prints each rung's stage wall times, the block
+   ratios, the mean alpha, the device memory peak and the 0.5 rung's KL
+   beside the activation-only plan's, and checks the 0.5 rung's budget,
+   that every threshold of a sparsified linear is finite, the 0.7 rung's
+   budget and the ladder's monotonicity;
+7. saves the 0.5 rung as a ``pallas`` policy artifact under ``build/``,
+   loads it back and serves phase 5's trace once from it, checking the
+   launch counts as in phase 5;
+8. saves the ladder as a v4 artifact under ``build/``, loads it back and
+   serves phase 5's trace from it twice under the SLO controller
+   (``tpot_p95=1e6``, ``max_queue=2``, ``dwell=2``): at least two rungs
+   visited, ``"queue"`` and ``"idle"`` transitions, no decode step built
+   after warmup (every rung's graph is captured once), a rung for every
+   token, the same tokens and transitions in both runs, launches as in
+   phase 5;
+9. holds the captured decode step against the eager one at full width,
+   B = 8, dense and ``pallas``: equal greedy tokens, the logits' max abs
+   error, host and device time per step;
+10. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run; those of ``sparse_matmul_per_seq`` from phase 3's
@@ -802,62 +817,95 @@ def serving_trace(cfg) -> dict:
             "sparse_chunks": sparse_chunks}
 
 
-def serve_once(name, params, cfg, policy, sp, trace, dev, K) -> dict:
-    """One run of the trace through a fresh ``Engine``, with the kernels'
-    launch counts zeroed just before and read just after: a sparse run
-    must launch each of score_select and sparse_matmul_shared once per
-    sparse projection (224 per decode step and per sparse prefill
-    chunk), a dense run neither."""
+def serve_once(name, params, cfg, policy, sp, trace, dev, K, ladder=None,
+               slo=None) -> dict:
+    """One run of the trace through a fresh ``Engine`` (from ``policy``
+    and ``sp``, or from ``ladder`` under ``slo``), with the kernels'
+    launch counts zeroed just before the engine is built and read just
+    after the run.  The decode step runs as a CUDA graph per rung: the
+    wrappers count a kernel once where it is captured, and its replays
+    count nothing, so the launches that ran are the counts with each
+    captured launch taken once per replay (``DecodeSteps.launches``).
+    On a sparse rung they must equal the sparse projections executed:
+    224 per decode step, per sparse prefill chunk and per rung's eager
+    warm step before its capture; a dense run launches none."""
     from repro_torch import obs
     from repro_torch.serving import Engine, EngineConfig
 
     gen = trace["gen"]
-    eng = Engine(params, cfg, EngineConfig(policy=policy, **trace["ecfg"]),
-                 sp, device=dev)
+    K.reset_launch_counts()
+    eng = Engine(params, cfg, EngineConfig(policy=policy, slo=slo,
+                                           **trace["ecfg"]),
+                 sp, device=dev, ladder=ladder)
     for p in trace["prompts"]:
         eng.submit(p, gen)
-    K.reset_launch_counts()
     t0 = obs.now()
     out, res = drive(eng)
     torch.cuda.synchronize()
     res["wall_s"] = obs.now() - t0
-    launches = dict(K.launch_counts)
+    counts = dict(K.launch_counts)
+    g = eng.decode_graphs
+    launches = g.launches(counts)
     for rid, toks in out.items():
         if len(toks) != gen or not all(0 <= t < cfg.vocab_size
                                        for t in toks):
             raise AssertionError(f"{name}: request {rid} gave {toks}")
+    per_pass = 7 * cfg.num_layers
     served = ("score_select", "sparse_matmul_shared")
-    if policy.is_dense:
-        if any(launches.values()):
-            raise AssertionError(f"{name}: dense run launched kernels: "
-                                 f"{launches}")
-    else:
-        sparse_chunks = trace["sparse_chunks"]
-        if sparse_chunks != res["prefill_sparse_chunks"]:
+    policies = ladder.policies if ladder is not None else [eng.policy]
+    sparse = [not p.for_phase("decode").is_dense for p in policies]
+    if policy is not None and ladder is None and not policy.is_dense:
+        if trace["sparse_chunks"] != res["prefill_sparse_chunks"]:
             raise AssertionError(
                 f"{name}: sparse prefill chunks: engine "
                 f"{res['prefill_sparse_chunks']} != expected "
-                f"{sparse_chunks}")
-        per_pass = 7 * cfg.num_layers
-        want = per_pass * (res["decode_steps"] + sparse_chunks)
+                f"{trace['sparse_chunks']}")
+    if not any(sparse):
+        if any(counts.values()):
+            raise AssertionError(f"{name}: dense run launched kernels: "
+                                 f"{counts}")
+    else:
+        steps = sum(n + 1 for n, sp_r, built in zip(
+            g.steps, sparse, [g.built(r) for r in range(len(g))])
+            if sp_r and built)
+        want = per_pass * (steps + res["prefill_sparse_chunks"])
         for k in served:
+            for r, sp_r in enumerate(sparse):
+                if g.built(r) and g.captured[r][k] != (per_pass if sp_r
+                                                       else 0):
+                    raise AssertionError(
+                        f"{name}: rung {r}'s graph captured "
+                        f"{g.captured[r][k]} {k} launches")
             if launches[k] != want:
                 raise AssertionError(
                     f"{name}: {k} launched {launches[k]} times, expected "
-                    f"{want} = {per_pass} x ({res['decode_steps']} decode "
-                    f"steps + {sparse_chunks} sparse prefill chunks)")
+                    f"{want} = {per_pass} x ({steps} decode steps and warm "
+                    f"steps on sparse rungs + "
+                    f"{res['prefill_sparse_chunks']} sparse prefill chunks)")
         if launches["sparse_matmul_per_seq"]:
             raise AssertionError(f"{name}: a serving run launched "
                                  "sparse_matmul_per_seq")
         res["launches"] = {k: launches[k] for k in served}
+        res["launches_counted"] = {k: counts[k] for k in served}
         res["launches_per_decode_step"] = per_pass
+    res["decode_replays"] = list(g.steps)
+    res["captures"] = g.builds
+    if eng.controller is not None:
+        c = eng.controller
+        res["transitions"] = list(c.transitions)
+        res["residency"] = list(c.residency)
+        res["decode_retraces_after_warmup"] = \
+            eng.decode_retraces_after_warmup
+        res["token_rungs"] = {rid: list(rs.token_rungs)
+                              for rid, rs in eng.states.items()}
     res["tokens"] = out
     return res
 
 
 def _fmt(res: dict) -> str:
     return ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
-                     for k, v in res.items() if k != "tokens")
+                     for k, v in res.items()
+                     if k not in ("tokens", "token_rungs"))
 
 
 def serve_full_width(dev, K, cfg, params, trace) -> dict:
@@ -911,16 +959,44 @@ def agreement(a: dict, b: dict) -> float:
 # phase 6: full-width calibration
 # ---------------------------------------------------------------------------
 
+LADDER_BUDGETS = (0.0, 0.5, 0.7)
+
+
+def _sp_scalars(cfg, sp, key: str) -> dict:
+    """{(depth, path): the sp leaf scalar ``key``} of a stacked sp tree."""
+    from repro_torch.core import unstacked as U
+    from repro_torch.obs.quality import unstack_sp
+    out = {}
+    for d, spd in enumerate(unstack_sp(cfg, sp)):
+        for path in _leaf_paths(spd):
+            out[(d, path)] = float(U.get_sp_leaf(spd, path)[key])
+    return out
+
+
+def _leaf_paths(node, prefix=""):
+    for k in sorted(node):
+        if "g" in node[k]:
+            yield prefix + k
+        else:
+            yield from _leaf_paths(node[k], prefix + k + "/")
+
+
 def calibrate_full_width(cfg, params):
-    """WiSparse Alg. 1-4 on the full-width model, with the serve CLI's
-    ``--calib-quick`` budget, at p_target 0.5 on 4 x 128 synthetic
-    tokens.  Returns the plan."""
+    """WiSparse Alg. 1-4 on the full-width model as a ``pallas`` policy
+    ladder (``sparsity.calibrate_ladder``) at budgets 0.0 (dense), 0.5
+    (the cold search) and 0.7 (warm-started from the 0.5 rung), with the
+    serve CLI's ``--calib-quick`` budget, on 4 x 128 synthetic tokens,
+    with the v4 quality baselines.  Prints each rung's stage wall times;
+    checks the 0.5 rung as one plan (budget, finite thresholds, KL
+    beside the activation-only plan's) and the ladder's monotonicity.
+    Returns (ladder, info)."""
     from repro_torch import obs
     from repro_torch.core import calibration, pipeline
     from repro_torch.core.allocation import EvoConfig, weighted_average
     from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.obs.quality import unstack_sp
+    from repro_torch.sparsity import calibrate_ladder
 
-    p_target = 0.5
     evo = EvoConfig(generations=2, offspring=4, eps=0.1)
     toks = SyntheticLM(DataConfig(cfg.vocab_size, 128, 4)).batch(0)
     torch.cuda.synchronize()
@@ -929,76 +1005,114 @@ def calibrate_full_width(cfg, params):
     marks = [("context", obs.now())]
 
     def log(msg):
+        torch.cuda.synchronize()
         print(f"  [{obs.now() - marks[0][1]:7.1f} s] {msg}")
         for stage, text in (("coarse (Alg. 3)", "coarse search"),
                             ("fine (Alg. 4)", "fine search"),
-                            ("alpha (Alg. 2)", "alpha search:")):
+                            ("alpha (Alg. 2)", "alpha search:"),
+                            ("rung", "rung "),
+                            ("baselines", "recording quality baselines")):
             if msg.startswith(text):
-                marks.append((stage, obs.now()))
+                label = msg.split(":")[0] if stage == "rung" else stage
+                marks.append((label, obs.now()))
 
     ctx = calibration.build_context(params, cfg, {"tokens": toks})
     torch.cuda.synchronize()
     log(f"calibration context: {len(ctx.acts)} linears captured over "
         f"{toks.size} tokens")
-    plan = pipeline.run_pipeline(params, cfg, None, p_target, evo=evo,
-                                 delta=0.25, coord_passes=0, log=log,
-                                 ctx=ctx)
+    ladder = calibrate_ladder(params, cfg, None, LADDER_BUDGETS,
+                              backend="pallas", evo=evo, delta=0.25,
+                              coord_passes=0, ctx=ctx, log=log)
     torch.cuda.synchronize()
-    marks.append(("taus and sp", obs.now()))
-    stages = {a[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
-    stages["total"] = marks[-1][1] - marks[0][1]
+    marks.append(("end", obs.now()))
     peak = torch.cuda.max_memory_allocated() - base
-    summary = plan.summary()
-    kl = ctx.fitness(plan.per_depth_sp)
+    # wall time of each stage, and of each rung from its own mark to the
+    # next rung's (or the baselines')
+    stages, rung_s, rung = [], {}, None
+    for (label, t), (_next, t1) in zip(marks, marks[1:]):
+        if label.startswith("rung "):
+            rung = label
+            rung_s[rung] = 0.0
+        elif rung is not None and label != "baselines":
+            stages.append((f"{rung} {label}", t1 - t))
+        if rung is not None and label != "baselines":
+            rung_s[rung] += t1 - t
+        if label in ("context", "baselines"):
+            stages.append((label, t1 - t))
+    total = marks[-1][1] - marks[0][1]
+    print("ladder calibration wall times (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stages) + f"; total {total:.2f}")
+    print("per rung (s): " + ", ".join(f"{k} {v:.2f}"
+                                       for k, v in rung_s.items()))
+
+    # the 0.5 rung is the cold search: check it as one calibrated plan
+    p_target = LADDER_BUDGETS[1]
+    ratios = np.asarray(ladder.block_ratios[1])
+    keep = _sp_scalars(cfg, ladder.sps[1], "keep_frac")
+    taus = _sp_scalars(cfg, ladder.sps[1], "tau")
+    alphas = _sp_scalars(cfg, ladder.sps[1], "alpha")
+    kl = ctx.fitness(unstack_sp(cfg, ladder.sps[1]))
     act = pipeline.activation_only_plan(params, cfg, None, p_target, ctx=ctx)
     kl_act = ctx.fitness(act.per_depth_sp)
-    print("calibration stage wall times (s): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in stages.items()))
-    print(f"block ratios: {summary['block_ratios']}")
-    print(f"mean alpha {summary['mean_alpha']}; device memory peak above "
-          f"the model {peak / 1e9:.2f} GB (total "
+    print(f"rung 1 block ratios: {[round(float(x), 4) for x in ratios]}")
+    print(f"rung 2 block ratios: "
+          f"{[round(float(x), 4) for x in ladder.block_ratios[2]]}")
+    print(f"mean alpha {np.mean(list(alphas.values())):.4f}; device memory "
+          f"peak above the model {peak / 1e9:.2f} GB (total "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
-    print(f"KL (Eq. 8) on the calibration tokens: WiSparse plan {kl:.6g}, "
+    print(f"KL (Eq. 8) on the calibration tokens: rung 1 {kl:.6g}, "
           f"activation-only plan {kl_act:.6g} (random weights; "
           "informative only)")
-
-    avg = weighted_average(ctx, np.asarray(plan.block_ratios))
+    print(f"quality baselines: recon per rung (mean over blocks) "
+          f"{[float(np.mean(r)) for r in ladder.baselines['recon']]}")
+    avg = weighted_average(ctx, ratios)
     if not p_target - evo.eps <= avg <= p_target + 1e-9:
         raise AssertionError(f"size-weighted block ratio {avg} is outside "
                              f"[{p_target - evo.eps}, {p_target}]")
-    bad = [k for k, t in plan.taus.items()
-           if 1.0 - plan.layer_ratios[k] < 1.0 and not math.isfinite(t)]
+    bad = [k for k, t in taus.items() if keep[k] < 1.0
+           and not math.isfinite(t)]
     if bad:
         raise AssertionError(f"non-finite taus of sparsified linears: {bad}")
-    if len(plan.taus) != 7 * cfg.num_layers:
-        raise AssertionError(f"{len(plan.taus)} taus, expected "
+    if len(taus) != 7 * cfg.num_layers:
+        raise AssertionError(f"{len(taus)} taus, expected "
                              f"{7 * cfg.num_layers}")
-    print(f"budget: size-weighted block ratio {avg:.6f} in "
-          f"[{p_target - evo.eps}, {p_target}]; every tau of a sparsified "
-          "linear is finite")
-    info = {"stages_s": stages, "peak_gb": peak / 1e9, "kl": kl,
-            "kl_activation_only": kl_act, "weighted_ratio": avg, **summary}
+    for lo, hi in zip(ladder.block_ratios, ladder.block_ratios[1:]):
+        if not np.all(np.asarray(hi) >= np.asarray(lo) - 1e-9):
+            raise AssertionError("ladder block ratios are not monotone")
+    avg2 = weighted_average(ctx, np.asarray(ladder.block_ratios[2]))
+    if not LADDER_BUDGETS[2] - evo.eps <= avg2 <= LADDER_BUDGETS[2] + 1e-9:
+        raise AssertionError(f"rung 2's size-weighted block ratio {avg2} "
+                             f"is outside its budget")
+    print(f"budget: rung 1's size-weighted block ratio {avg:.6f} in "
+          f"[{p_target - evo.eps}, {p_target}], rung 2's {avg2:.6f}; every "
+          "tau of a sparsified linear is finite; the ladder is monotone "
+          "per block")
+    info = {"stages_s": dict(stages), "rungs_s": rung_s, "total_s": total,
+            "peak_gb": peak / 1e9, "kl": kl, "kl_activation_only": kl_act,
+            "weighted_ratio": avg, "weighted_ratio_rung2": avg2}
     del ctx, act
     torch.cuda.empty_cache()
-    return plan, info
+    return ladder, info
 
 
 # ---------------------------------------------------------------------------
 # phase 7: serve the calibrated plan from its artifact
 # ---------------------------------------------------------------------------
 
-def serve_calibrated(dev, K, cfg, params, trace, plan, runs) -> dict:
+def serve_calibrated(dev, K, cfg, params, trace, ladder, runs) -> dict:
+    """Phase 7: the ladder's 0.5 rung as one calibrated plan, saved as a
+    ``pallas`` policy artifact, loaded back and served once."""
     from repro_torch.sparsity import SparsityPolicy
 
-    policy = plan.to_policy(backend="pallas")
+    policy, plan_sp = ladder.rung(1)
     out_dir = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "calibrated_plan.npz")
-    policy.save(path, sp=plan.stacked_sp)
+    policy.save(path, sp=plan_sp)
     loaded, sp = SparsityPolicy.load(path, device=dev)
     if loaded != policy:
         raise AssertionError(f"artifact policy {loaded} != saved {policy}")
-    got, want = list(_leaves(sp)), list(_leaves(plan.stacked_sp))
+    got, want = list(_leaves(sp)), list(_leaves(plan_sp))
     if len(got) != len(want) or not all(
             torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError("artifact sp tree differs from the plan's")
@@ -1018,6 +1132,161 @@ def serve_calibrated(dev, K, cfg, params, trace, plan, runs) -> dict:
           f"{agreement(runs['dense'][0], res):.3f} (random weights; "
           "informative only)")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: serve the calibrated ladder under the SLO controller
+# ---------------------------------------------------------------------------
+
+def serve_ladder(dev, K, cfg, params, trace, ladder) -> list:
+    """Save the ladder as a v4 artifact under ``build/``, load it back
+    and serve phase 5's trace from it twice under
+    ``SLOConfig(tpot_p95=1e6, max_queue=2, dwell=2, hysteresis=0.25)``:
+    the TPOT target is out of reach, so the controller acts on queue
+    depth alone and both runs must make the same transitions and tokens.
+    Each run must visit at least two rungs, escalate ("queue") and come
+    back down ("idle"), build no decode step after warmup, attribute
+    every token to a rung, and launch the kernels as ``serve_once``
+    checks."""
+    from repro_torch.serving import SLOConfig
+    from repro_torch.sparsity import PolicyLadder
+
+    path = os.path.join(HERE, "build", "chip_smoke", "ladder.npz")
+    ladder.save(path)
+    loaded = PolicyLadder.load(path, device=dev)
+    if loaded.budgets != ladder.budgets or loaded.policies != \
+            ladder.policies:
+        raise AssertionError("ladder artifact: budgets or policies differ")
+    for a, b in zip(loaded.sps, ladder.sps):
+        ga, gb = list(_leaves(a)), list(_leaves(b))
+        if len(ga) != len(gb) or not all(torch.equal(x, y)
+                                         for x, y in zip(ga, gb)):
+            raise AssertionError("ladder artifact: sp trees differ")
+    if not np.array_equal(loaded.baselines["recon"],
+                          ladder.baselines["recon"]) or not all(
+            np.array_equal(x, y)
+            for ra, rb in zip(loaded.baselines["channels"],
+                              ladder.baselines["channels"])
+            for x, y in zip(ra, rb)):
+        raise AssertionError("ladder artifact: quality baselines differ")
+    print(f"ladder artifact {os.path.relpath(path, HERE)} "
+          f"({os.path.getsize(path) / 1e6:.1f} MB, v4 with baselines): "
+          f"budgets {list(loaded.budgets)}, policies "
+          f"{[p.backend for p in loaded.policies]}")
+    slo = SLOConfig(tpot_p95=1e6, max_queue=2, dwell=2, hysteresis=0.25)
+    runs = []
+    for i in range(2):
+        res = serve_once(f"ladder {i + 1}", params, cfg, None, None, trace,
+                         dev, K, ladder=loaded, slo=slo)
+        reasons = {t[3] for t in res["transitions"]}
+        visited = sum(1 for r in res["residency"] if r > 0)
+        if visited < 2 or not {"queue", "idle"} <= reasons:
+            raise AssertionError(
+                f"ladder run {i + 1}: visited {visited} rungs, transitions "
+                f"{res['transitions']}")
+        if res["decode_retraces_after_warmup"] != 0:
+            raise AssertionError(
+                f"ladder run {i + 1}: {res['decode_retraces_after_warmup']} "
+                "decode builds after warmup")
+        if res["captures"] != len(loaded):
+            raise AssertionError(f"ladder run {i + 1}: {res['captures']} "
+                                 "captures")
+        for rid, toks in res["tokens"].items():
+            if len(res["token_rungs"][rid]) != len(toks):
+                raise AssertionError(
+                    f"ladder run {i + 1}: request {rid} has "
+                    f"{len(res['token_rungs'][rid])} token rungs for "
+                    f"{len(toks)} tokens")
+        if runs and (res["tokens"] != runs[0]["tokens"]
+                     or res["transitions"] != runs[0]["transitions"]
+                     or res["token_rungs"] != runs[0]["token_rungs"]):
+            raise AssertionError("the two ladder runs differ in tokens, "
+                                 "token rungs or transitions")
+        total = sum(res["residency"])
+        res["residency_share"] = [r / total for r in res["residency"]]
+        runs.append(res)
+        print(f"ladder run {i + 1}: {_fmt(res)}")
+    print(f"ladder: {len(runs[0]['transitions'])} transitions "
+          f"{runs[0]['transitions']}; residency per rung "
+          f"{runs[0]['residency']}; decode_retraces_after_warmup 0; "
+          "tokens, token rungs and transitions equal across the two runs")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the captured decode step against the eager one
+# ---------------------------------------------------------------------------
+
+def graph_vs_eager(dev, cfg, params, trace, steps: int = 8) -> dict:
+    """At full width, B = 8, dense and uncalibrated ``pallas``: 8 requests
+    (the trace's first 8 prompts, cut to 64 tokens) prefilled, then at
+    each of ``steps`` decode steps the eager step and the graph replay on
+    the same inputs (the eager step writes the new K/V first, the replay
+    the same values again).  Greedy tokens must be equal; prints the
+    logits' max abs error and, per step, the host time until the argmax
+    is on the host and the CUDA-event span of the step (the device's
+    timeline from the step's first kernel to its last)."""
+    from repro_torch import obs
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.metrics import percentile
+    from repro_torch.sparsity import SparsityPolicy
+
+    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
+    out = {}
+    for name, pol, s in (
+            ("dense", SparsityPolicy.dense(), None),
+            ("pallas", SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
+             sp)):
+        eng = Engine(params, cfg, EngineConfig(policy=pol, **trace["ecfg"]),
+                     s, device=dev)
+        for p in trace["prompts"][:8]:
+            eng.submit(p[:64], 64)
+        while eng.scheduler.prefilling or eng.scheduler.has_queued():
+            eng.step()
+        g = eng.decode_graphs
+        err, times = 0.0, {"eager": [], "graph": []}
+        for _ in range(steps):
+            tokens, positions, active = eng.decode_inputs()
+            if active.sum() != 8:
+                raise AssertionError(f"{name}: {active.sum()} active slots")
+            res = {}
+            for kind in ("eager", "graph"):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = obs.now()
+                start.record()
+                if kind == "eager":
+                    logits = g.eager(0, tokens, positions, active)
+                    nxt = torch.argmax(logits, -1).cpu().numpy()
+                else:
+                    nxt, logits = g(0, tokens, positions, active)
+                end.record()
+                t1 = obs.now()
+                torch.cuda.synchronize()
+                times[kind].append((1e3 * (t1 - t0),
+                                    start.elapsed_time(end)))
+                res[kind] = (nxt, logits.float().clone())
+            if not np.array_equal(res["eager"][0], res["graph"][0]):
+                raise AssertionError(f"{name}: graph replay tokens "
+                                     f"{res['graph'][0]} != eager "
+                                     f"{res['eager'][0]}")
+            err = max(err, max_err(res["graph"][1], res["eager"][1]))
+            eng.step()                 # one real step (a replay) onward
+        row = {"logits_max_abs_err": err}
+        for kind, ts in times.items():
+            row[f"{kind}_host_ms_p50"] = percentile([h for h, _ in ts], 50)
+            row[f"{kind}_span_ms_p50"] = percentile([d for _, d in ts], 50)
+        out[name] = row
+        print(f"graph vs eager, {name}, B=8, {steps} steps: greedy tokens "
+              f"equal; logits max abs err {err:.3g}; host ms per step "
+              f"eager {row['eager_host_ms_p50']:.2f} / graph "
+              f"{row['graph_host_ms_p50']:.2f}; event span ms eager "
+              f"{row['eager_span_ms_p50']:.2f} / graph "
+              f"{row['graph_span_ms_p50']:.2f} (p50)")
+        del eng
+    return out
 
 
 def drive(eng, window: int = WINDOW) -> tuple:
@@ -1192,8 +1461,19 @@ def main() -> int:
     cfg, params = full_width_model(dev)
     trace = serving_trace(cfg)
     results = serve_full_width(dev, K, cfg, params, trace)
-    plan, _info = calibrate_full_width(cfg, params)
-    serve_calibrated(dev, K, cfg, params, trace, plan, results)
+    ladder, calib = calibrate_full_width(cfg, params)
+    calibrated = serve_calibrated(dev, K, cfg, params, trace, ladder,
+                                  results)
+    ladder_runs = serve_ladder(dev, K, cfg, params, trace, ladder)
+    gve = graph_vs_eager(dev, cfg, params, trace)
+    keep = ("tokens", "token_rungs")
+    print(json.dumps({"serving": {
+        "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
+                                  if k not in keep}
+                 for n, rs in [*results.items(), ("ladder", ladder_runs)]
+                 for i, r in enumerate(rs)},
+        "calibrated": {k: v for k, v in calibrated.items() if k not in keep},
+        "calibration": calib, "graph_vs_eager": gve}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     kernels = []

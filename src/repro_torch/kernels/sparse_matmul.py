@@ -13,11 +13,12 @@ a run can show that it went through the kernels.
 
 The kernels launch on PyTorch's current stream, do not synchronise, and
 allocate nothing: the wrappers allocate outputs with ``torch.empty`` and
-keep the matmuls' split-K scratch per device (:func:`matmul_scratch`).  The TPU tile geometry of
-``shared_plan``/``score_mask_plan`` does not carry over (Hopper runs its
-own tiles, masked at ragged edges in the kernels, and chosen by
-:func:`launch_plan`); what the port keeps is the channel-block contract,
-checked here: ``n % blk == 0``.
+keep the matmuls' split-K scratch per device (:func:`matmul_scratch`,
+sized ahead of a CUDA-graph capture by :func:`reserve_matmul_scratch`).
+The TPU tile geometry of ``shared_plan``/``score_mask_plan`` does not
+carry over (Hopper runs its own tiles, masked at ragged edges in the
+kernels, and chosen by :func:`launch_plan`); what the port keeps is the
+channel-block contract, checked here: ``n % blk == 0``.
 """
 from __future__ import annotations
 
@@ -109,9 +110,21 @@ def launch_plan(B: int, n: int, m: int, kb: int, blk: int, per_seq: bool,
 # counters zero, and a later launch on the same stream reuses both only
 # after the earlier one has finished.  Launches on one device that overlap
 # in time (two streams) must not share them: the port launches on one
-# stream.  A captured CUDA graph keeps the pointers it saw, so a capture
-# must follow the largest plan's first launch.
+# stream.  A captured CUDA graph keeps the pointers it saw, so the serving
+# engine reserves the scratch for every launch it can make
+# (:func:`reserve_matmul_scratch`) before its first capture, and the graph
+# keeps references to the tensors it captured (``serving/graphs.py``), so
+# that a later growth here cannot free memory a graph still writes.  A
+# growth while a capture is running raises: the new tensors would come
+# from the graph's private pool.
 _scratch: dict = {}
+
+
+def _device_key(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def matmul_scratch(plan: LaunchPlan, device):
@@ -121,15 +134,38 @@ def matmul_scratch(plan: LaunchPlan, device):
     Allocates only when a plan needs more than any before it."""
     if plan.splits == 1:
         return None, None
+    device = _device_key(device)
     ws, cnt = _scratch.get(device, (None, None))
-    if ws is None or ws.numel() < plan.workspace:
+    grow_ws = ws is None or ws.numel() < plan.workspace
+    grow_cnt = cnt is None or cnt.numel() < plan.counters
+    if (grow_ws or grow_cnt) and device.type == "cuda" and \
+            torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "the split-K scratch would grow during a CUDA-graph capture; "
+            "reserve it first (reserve_matmul_scratch)")
+    if grow_ws:
         ws = torch.empty(max(1 << 20, plan.workspace), dtype=torch.float32,
                          device=device)
-    if cnt is None or cnt.numel() < plan.counters:
+    if grow_cnt:
         cnt = torch.zeros(max(4096, plan.counters), dtype=torch.int32,
                           device=device)
     _scratch[device] = ws, cnt
     return ws, cnt
+
+
+def reserve_matmul_scratch(B: int, n: int, m: int, blk: int, device,
+                           elem_bytes: int = 2) -> None:
+    """Grow ``device``'s scratch to what ``sparse_matmul_shared`` at
+    (B, n, m) can need for any kept-block count: the plan's split grows
+    with kb, so kb = n/blk bounds it."""
+    matmul_scratch(launch_plan(B, n, m, n // blk, blk, False, elem_bytes),
+                   device)
+
+
+def scratch_tensors(device) -> tuple:
+    """The device's (workspace, counters) as they stand, or (None, None):
+    what a graph captured now would write."""
+    return _scratch.get(_device_key(device), (None, None))
 
 
 def reset_launch_counts() -> None:

@@ -28,7 +28,13 @@ reference's uncalibrated +inf would zero every projection that
 backend runs), so ``pallas`` sparsity comes from the block top-k at
 keep_frac alone.  ``mask`` thresholds on tau and needs calibration, so
 uncalibrated it falls back to ``topk_shared``, as the reference CLI does.
-Ladders, the gateway and telemetry come with later slices.
+
+``--ladder PATH`` serves a saved policy ladder (the npz that
+``PolicyLadder.save`` writes, from this package or the JAX one) from
+rung ``--rung``; ``--slo-tpot-p95`` > 0 arms the adaptive controller,
+which moves between rungs under that TPOT target and the
+``--slo-max-queue`` queue bound.  The gateway and telemetry come with
+later slices.
 """
 from __future__ import annotations
 
@@ -44,8 +50,8 @@ from repro_torch.core.sp_schema import default_sp_stacked
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import api
-from repro_torch.serving import Engine, EngineConfig
-from repro_torch.sparsity import SparsityPolicy
+from repro_torch.serving import Engine, EngineConfig, SLOConfig
+from repro_torch.sparsity import PolicyLadder, SparsityPolicy
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,6 +82,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--policy-artifact", default=None,
                     help="serve the policy and sp tree of this saved npz "
                          "artifact (overrides --sparsity/--mode)")
+    ap.add_argument("--ladder", default=None,
+                    help="PolicyLadder npz artifact for adaptive serving "
+                         "(overrides --sparsity/--mode)")
+    ap.add_argument("--rung", type=int, default=0,
+                    help="ladder rung to start on (and to pin, without "
+                         "--slo-tpot-p95)")
+    ap.add_argument("--slo-tpot-p95", type=float, default=0.0,
+                    help="target p95 inter-token latency in seconds; > 0 "
+                         "arms the adaptive controller (needs --ladder)")
+    ap.add_argument("--slo-max-queue", type=int, default=8,
+                    help="queued requests beyond which the controller "
+                         "escalates")
     return ap
 
 
@@ -92,6 +110,26 @@ def validate_args(args) -> None:
     if args.policy_artifact is not None and args.calib_quick:
         raise SystemExit("--policy-artifact serves a saved plan; drop "
                          "--calib-quick")
+    if args.rung < 0:
+        raise SystemExit(f"--rung must be >= 0, got {args.rung}")
+    if args.slo_tpot_p95 > 0 and args.ladder is None:
+        raise SystemExit("--slo-tpot-p95 needs --ladder: the controller "
+                         "switches between ladder rungs")
+    if args.rung != 0 and args.ladder is None:
+        raise SystemExit("--rung needs --ladder: a fixed-policy engine "
+                         "has only rung 0")
+    if args.ladder is not None and (args.policy_artifact is not None
+                                    or args.calib_quick):
+        raise SystemExit("--ladder serves a saved ladder; drop "
+                         "--policy-artifact/--calib-quick")
+
+
+def validate_rungs(args, num_rungs: int) -> None:
+    """Range-check ``--rung`` against the loaded ladder."""
+    if not 0 <= args.rung < num_rungs:
+        raise SystemExit(
+            f"--rung {args.rung} out of range: the loaded ladder has "
+            f"rungs 0..{num_rungs - 1}")
 
 
 def build_policy(args, params, cfg, prompts, device):
@@ -135,11 +173,23 @@ def main(argv=None):
     params = api.init_model(cfg, args.seed, device=device)
     prompts = SyntheticLM(DataConfig(cfg.vocab_size, args.prompt_len,
                                      args.batch)).batch(0)
-    policy, sp = build_policy(args, params, cfg, prompts, device)
+    ladder = policy = sp = None
+    if args.ladder is not None:
+        ladder = PolicyLadder.load(args.ladder, device=device)
+        print(f"loaded {len(ladder)}-rung ladder (budgets "
+              f"{list(ladder.budgets)}) from {args.ladder}")
+        validate_rungs(args, len(ladder))
+    else:
+        policy, sp = build_policy(args, params, cfg, prompts, device)
+    slo = None
+    if args.slo_tpot_p95 > 0:
+        slo = SLOConfig(tpot_p95=args.slo_tpot_p95,
+                        max_queue=args.slo_max_queue)
     # one slot per request, room for prompt + generation
     ecfg = EngineConfig(max_slots=args.batch,
-                        max_len=args.prompt_len + args.gen, policy=policy)
-    engine = Engine(params, cfg, ecfg, sp, device=device)
+                        max_len=args.prompt_len + args.gen, policy=policy,
+                        slo=slo, initial_rung=args.rung)
+    engine = Engine(params, cfg, ecfg, sp, device=device, ladder=ladder)
     t0 = obs.now()
     for b in range(args.batch):
         engine.submit(prompts[b], args.gen)
@@ -151,6 +201,9 @@ def main(argv=None):
     print(f"generated {n} tokens in {dt:.2f}s ({n / dt:.1f} tok/s on "
           f"{where})")
     print("engine stats:", engine.stats.summary())
+    if engine.controller is not None:
+        print("controller:", engine.controller.snapshot(),
+              "transitions:", engine.controller.transitions)
     print("sample:", out[0][:16])
     return out
 

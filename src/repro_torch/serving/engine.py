@@ -15,11 +15,22 @@ into the pool slot) and ``"whole"`` (one whole-prompt forward, batched
 over same-length prompts, then inserted into the pool); ``"auto"``
 resolves to chunked for the dense-attention archs the port serves.
 
-The reference's ladder/SLO controller, speculative decoding, prefix
-cache, preemption, telemetry, flight recorder and quality probes are not
-ported yet: asking for any of them raises ``NotImplementedError``.  The
-reference's jit warmup and retrace counters have no counterpart: the
-port runs eagerly.
+Adaptive serving: instead of one policy the engine can serve a
+:class:`repro_torch.sparsity.PolicyLadder` — calibrated policies at
+ascending sparsity budgets.  With an :class:`SLOConfig` an
+:class:`AdaptiveController` switches the decode and prefill-sparse
+phases between rungs as load changes.  Each rung's decode step is built
+once (``repro_torch.serving.graphs``: a CUDA graph on the card, captured
+by :meth:`Engine.warmup` when a controller is armed, else at the rung's
+first decode step), so a rung switch only selects another graph;
+``decode_retraces_after_warmup`` counts builds after warmup, as the
+reference counts retraces.  Chunked prefill runs eagerly.
+
+The reference's speculative decoding, prefix cache, preemption and
+priority scheduling, telemetry, flight recorder and quality probes (and
+the controller's ``priority_aware``/``quality_aware`` modes, which read
+them) are not ported yet: asking for any of them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,23 +43,34 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, sync
+from repro_torch.core.unstacked import sparsifiable_leaves
+from repro_torch.kernels.ops import channel_plan
 from repro_torch.models import api
 from repro_torch.models import model as M
+from repro_torch.serving.controller import AdaptiveController, SLOConfig
+from repro_torch.serving.graphs import DecodeSteps
 from repro_torch.serving.kv_pool import SlotKVPool
 from repro_torch.serving.metrics import EngineStats
 from repro_torch.serving.request import (FinishReason, Request, RequestState,
                                          Status)
 from repro_torch.serving.scheduler import Scheduler
-from repro_torch.sparsity import SparsityPolicy
+from repro_torch.sparsity import PolicyLadder, SparsityPolicy
 
-_NOT_PORTED = ("slo", "spec", "prefix_cache", "scheduler")
+_NOT_PORTED = ("spec", "prefix_cache", "scheduler")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """``policy`` is the engine's execution policy (``None`` = dense).
-    ``slo``, ``spec``, ``prefix_cache`` and ``scheduler`` keep the
-    reference's names and raise ``NotImplementedError`` when set."""
+    Ladder serving ignores it: the rung policies come from the ladder
+    passed to :class:`Engine`.
+
+    ``slo`` enables the adaptive controller (requires a ladder);
+    ``initial_rung`` is the rung a ladder engine starts on (and stays on
+    when no SLO is configured — a pinned rung).  ``spec``,
+    ``prefix_cache`` and ``scheduler`` keep the reference's names and
+    raise ``NotImplementedError`` when set, as do the SLO's
+    ``priority_aware`` and ``quality_aware`` modes."""
     max_slots: int = 8
     max_len: int = 512
     prefill_chunk: int = 32
@@ -56,7 +78,8 @@ class EngineConfig:
     prefill_dense_frac: float = 0.5  # §5.1: first fraction of prompt dense
     prefill_strategy: str = "auto"   # auto|chunked|whole
     eos_id: Optional[int] = None     # default per-request EOS
-    slo: object = None
+    slo: Optional[SLOConfig] = None  # adaptive serving objectives
+    initial_rung: int = 0            # ladder rung at engine start
     spec: object = None
     prefix_cache: bool = False
     scheduler: object = None
@@ -69,6 +92,19 @@ class EngineConfig:
             raise TypeError(
                 f"policy must be a SparsityPolicy, got {type(pol)!r}")
         object.__setattr__(self, "policy", pol)
+        if self.slo is not None:
+            if not isinstance(self.slo, SLOConfig):
+                raise TypeError(
+                    f"slo must be an SLOConfig, got {type(self.slo)!r}")
+            for mode, needs in (("priority_aware", "the priority scheduler"),
+                                ("quality_aware", "the quality monitor")):
+                if getattr(self.slo, mode):
+                    raise NotImplementedError(
+                        f"SLOConfig.{mode} needs {needs}, which is not "
+                        "ported yet (see ROADMAP.md queue 1)")
+        if self.initial_rung < 0:
+            raise ValueError(
+                f"initial_rung must be >= 0, got {self.initial_rung}")
         for name in _NOT_PORTED:
             if getattr(self, name):
                 raise NotImplementedError(
@@ -88,11 +124,11 @@ class EngineConfig:
 
 class Engine:
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
-                 sp=None, *, device="cuda", ladder=None, telemetry=None):
-        if ladder is not None or telemetry is not None:
+                 sp=None, *, device="cuda",
+                 ladder: Optional[PolicyLadder] = None, telemetry=None):
+        if telemetry is not None:
             raise NotImplementedError(
-                "ladder serving and telemetry are not ported yet (see "
-                "ROADMAP.md queue 1)")
+                "telemetry is not ported yet (see ROADMAP.md queue 1)")
         M.check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -102,11 +138,41 @@ class Engine:
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg
-        self.sp = sp
-        pol = ecfg.policy
-        self._phases = (pol.for_phase("prefill_dense"),
-                        pol.for_phase("prefill_sparse"),
-                        pol.for_phase("decode"))
+        self.ladder = ladder
+        if ladder is not None:
+            if not isinstance(ladder, PolicyLadder):
+                raise TypeError(
+                    f"ladder must be a PolicyLadder, got {type(ladder)!r}")
+            if sp is not None:
+                raise ValueError(
+                    "pass either a ladder (which carries per-rung sp "
+                    "trees) or a flat sp tree, not both")
+            if not 0 <= ecfg.initial_rung < len(ladder):
+                raise ValueError(
+                    f"initial_rung {ecfg.initial_rung} outside the "
+                    f"{len(ladder)}-rung ladder")
+            self._rung_policies = list(ladder.policies)
+            self._rung_sp = list(ladder.sps)
+        else:
+            if ecfg.slo is not None:
+                raise ValueError(
+                    "EngineConfig.slo needs a PolicyLadder: the controller "
+                    "switches rungs, a single policy has none")
+            if ecfg.initial_rung != 0:
+                raise ValueError(
+                    f"initial_rung={ecfg.initial_rung} needs a "
+                    "PolicyLadder; a fixed-policy engine has only rung 0")
+            self._rung_policies = [ecfg.policy]
+            self._rung_sp = [sp]
+        # per-rung per-phase policies, derived once
+        self._rung_phases = [
+            (pol.for_phase("prefill_dense"), pol.for_phase("prefill_sparse"),
+             pol.for_phase("decode")) for pol in self._rung_policies]
+        self._rung = ecfg.initial_rung if ladder is not None else 0
+        self.controller = None
+        if ecfg.slo is not None:
+            self.controller = AdaptiveController(
+                len(self._rung_policies), ecfg.slo, initial_rung=self._rung)
         # the pool holds slack past max_len: pad tokens of a request's
         # final prefill chunk land in [max_len, pool_len-1), and the last
         # position is scratch — inactive slots in a decode step still
@@ -122,9 +188,97 @@ class Engine:
         self._next_id = 0
         self.prefill_strategy = ("chunked" if ecfg.prefill_strategy == "auto"
                                  else ecfg.prefill_strategy)
-        self._dstep = api.make_slot_decode_step(cfg)
         self._cstep = api.make_chunk_prefill_step(cfg)
         self._pstep = api.make_prefill_step(cfg)
+        self._decode = DecodeSteps(
+            api.make_slot_decode_step(cfg), params, self.pool.caches,
+            [(dec, s) for (_, _, dec), s in zip(self._rung_phases,
+                                                self._rung_sp)],
+            ecfg.max_slots, self.pool_len - 1, self.device,
+            reserve=self._scratch_shapes())
+        self._warm_builds: Optional[int] = None
+        if self.controller is not None:
+            self.warmup()
+
+    def _scratch_shapes(self) -> List[tuple]:
+        """(B, n, m, blk, elem_bytes) of every ``pallas`` matmul the
+        engine can launch before or after a capture: each sparsifiable
+        weight at B = max_slots (decode) and, for chunked prefill, at
+        B = prefill_chunk (a chunk's token rows)."""
+        blocks = {pol.block for pol in self._rung_policies
+                  if "pallas" in _backends(pol)}
+        if not blocks or self.device.type != "cuda":
+            return []
+        rows = {self.ecfg.max_slots}
+        if self.prefill_strategy == "chunked":
+            rows.add(self.ecfg.prefill_chunk)
+        elem = self.params["embed"].element_size()
+        shapes = set()
+        for group in self.params["groups"]:
+            for layer in group.values():
+                for _path, w in sparsifiable_leaves(layer):  # (reps, n, m)
+                    n, m = w.shape[1], int(np.prod(w.shape[2:]))
+                    for block in blocks:
+                        blk, n_padded, _ = channel_plan(n, block)
+                        shapes.update((B, n_padded, m, blk, elem)
+                                      for B in rows)
+        return sorted(shapes)
+
+    # ------------------------------------------------------------------
+    # ladder rungs
+    # ------------------------------------------------------------------
+    @property
+    def rung(self) -> int:
+        return self._rung
+
+    @property
+    def num_rungs(self) -> int:
+        return len(self._rung_policies)
+
+    @property
+    def policy(self) -> SparsityPolicy:
+        """The currently active rung's policy."""
+        return self._rung_policies[self._rung]
+
+    @property
+    def sp(self):
+        return self._rung_sp[self._rung]
+
+    def set_rung(self, i: int) -> None:
+        if not 0 <= i < self.num_rungs:
+            raise ValueError(f"rung {i} outside [0, {self.num_rungs})")
+        self._rung = i
+
+    @torch.no_grad()
+    def warmup(self) -> None:
+        """Build every rung's decode step (on the card: one eager warm
+        step and one CUDA-graph capture per rung), then zero the
+        post-warmup build baseline.  Only valid on an idle engine, as in
+        the reference.  Rung switches after this build nothing
+        (``decode_retraces_after_warmup`` stays 0)."""
+        if self.scheduler.has_work() or self.pool.num_occupied:
+            raise RuntimeError(
+                "warmup() on a busy engine would corrupt live KV state; "
+                "call it before submitting requests")
+        for r in range(self.num_rungs):
+            self._decode.build(r)
+        sync(self.device)
+        self._warm_builds = self._decode.builds
+
+    @property
+    def decode_retraces_after_warmup(self) -> Optional[int]:
+        """Decode-step builds since :meth:`warmup` (captures on the
+        card); None before warmup.  Stays 0 however often the controller
+        switches rungs."""
+        if self._warm_builds is None:
+            return None
+        return self._decode.builds - self._warm_builds
+
+    @property
+    def decode_graphs(self) -> DecodeSteps:
+        """The per-rung decode steps: builds, steps (replays on the
+        card) and the kernel launches recorded in each capture."""
+        return self._decode
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, eos_id: Optional[int] = None,
@@ -177,12 +331,14 @@ class Engine:
     # ------------------------------------------------------------------
     def _phase_policy(self, offset: int, prompt_len: int) -> SparsityPolicy:
         """§5.1: chunks starting before the dense boundary run dense."""
-        pd, ps, _ = self._phases
+        pd, ps, _ = self._rung_phases[self._rung]
         dense_end = int(np.ceil(prompt_len * self.ecfg.prefill_dense_frac))
         return pd if offset < dense_end else ps
 
     def _emit(self, rs: RequestState, token: int) -> None:
         rs.emit(token)
+        if self.ladder is not None:
+            rs.token_rungs.append(self._rung)
         self.stats.decode_tokens += 1
 
     def _prefill_chunk(self, rs: RequestState) -> None:
@@ -219,7 +375,7 @@ class Engine:
         tokens = np.stack([rs.request.prompt for rs in group]).astype(np.int64)
         # whole-prompt prefill can't split tokens by phase: any dense
         # fraction > 0 makes the whole prompt dense
-        pd, ps, _ = self._phases
+        pd, ps, _ = self._rung_phases[self._rung]
         policy = ps if self.ecfg.prefill_dense_frac <= 0.0 else pd
         t0 = obs.now()
         logits, caches = self._pstep(
@@ -246,7 +402,9 @@ class Engine:
         self.scheduler.to_decode(rs)
         self._maybe_finish(rs, first_token)
 
-    def _decode_step(self) -> None:
+    def decode_inputs(self):
+        """The next decode step's host inputs: (tokens, positions, active)
+        over the whole slot pool."""
         S = self.ecfg.max_slots
         tokens = np.zeros((S,), np.int64)
         # inactive slots write their garbage token at the scratch position
@@ -254,31 +412,39 @@ class Engine:
         # their saliency weight is zero
         positions = np.full((S,), self.pool_len - 1, np.int64)
         active = np.zeros((S,), np.float32)
-        decoding = self.scheduler.decoding
-        for slot, rs in decoding.items():
+        for slot, rs in self.scheduler.decoding.items():
             tokens[slot] = rs.last_token
             positions[slot] = rs.position
             active[slot] = 1.0
-        _, _, dec_policy = self._phases
+        return tokens, positions, active
+
+    def _decode_step(self) -> None:
+        tokens, positions, active = self.decode_inputs()
+        decoding = self.scheduler.decoding
+        # a rung not built yet (no warmup) builds outside the timed step
+        self._decode.build(self._rung)
         t0 = obs.now()
-        logits, _ = self._dstep(
-            self.params, torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(positions).to(self.device), self.pool.caches,
-            self.sp, torch.from_numpy(active).to(self.device),
-            policy=dec_policy)
-        nxt = torch.argmax(logits, -1).cpu().numpy()    # syncs the step
+        nxt, _ = self._decode(self._rung, tokens, positions, active)
         t1 = obs.now()
         self.stats.decode_time += t1 - t0
         self.stats.decode_step_s.append(t1 - t0)
         self.stats.decode_steps += 1
+        gaps = []
         for slot, rs in list(decoding.items()):
             tok = int(nxt[slot])
             if rs.last_token_time is not None:
-                self.stats.tpot_s.append(t1 - rs.last_token_time)
+                gaps.append(t1 - rs.last_token_time)
+                self.stats.tpot_s.append(gaps[-1])
             rs.last_token_time = t1
             self._emit(rs, tok)
             self.pool.commit(slot, 1)
             self._maybe_finish(rs, tok)
+        if self.controller is not None:
+            new_rung = self.controller.update(
+                gaps, queue_depth=self.scheduler.queue_depth,
+                occupancy=self.pool.num_occupied)
+            if new_rung != self._rung:
+                self.set_rung(new_rung)
 
     def _maybe_finish(self, rs: RequestState, token: int) -> None:
         req = rs.request
@@ -292,3 +458,8 @@ class Engine:
         self.scheduler.finish(rs)
         self.pool.free(rs.slot)
         self.stats.finished += 1
+
+
+def _backends(pol: SparsityPolicy) -> set:
+    return ({pol.backend} | {b for _, b in pol.role_backends}
+            | {b for _, _, b in pol.block_backends})

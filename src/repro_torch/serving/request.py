@@ -53,6 +53,9 @@ class RequestState:
     first_token_time: Optional[float] = None
     last_token_time: Optional[float] = None   # previous emit (TPOT)
     finish_time: Optional[float] = None
+    # ladder serving: rung index active when each token was emitted
+    # (parallel to ``tokens``; stays empty on fixed-policy engines)
+    token_rungs: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def position(self) -> int:

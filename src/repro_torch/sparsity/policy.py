@@ -27,8 +27,9 @@ The JAX policy's Pallas ``interpret`` flag has no meaning here:
 A calibrated plan becomes a policy through :meth:`from_plan`, and ships
 as the self-contained npz artifact of :meth:`save` / :meth:`load`, in
 the JAX package's format (versions 1-4): an artifact written by either
-package loads in the other.  The ladder kind of artifact comes with the
-ladder slice.
+package loads in the other.  The ladder kind of artifact is read and
+written by :class:`repro_torch.sparsity.ladder.PolicyLadder`, on the
+helpers below.
 """
 from __future__ import annotations
 
@@ -278,10 +279,9 @@ class SparsityPolicy:
         tree's tensors on ``device``.  Needs no model params."""
         meta, z = _read_artifact(path)
         if meta.get("kind", "policy") != "policy":
-            raise NotImplementedError(
-                f"{path} is a {meta['kind']!r} artifact; the port loads "
-                "policy artifacts only (ladders come with the ladder "
-                "slice)")
+            raise ValueError(
+                f"{path} is a {meta['kind']!r} artifact; load it with "
+                "repro_torch.sparsity.PolicyLadder.load")
         pol = cls.from_artifact_dict(meta["policy"], meta["version"])
         flat = {k[len("sp/"):]: z[k] for k in z.files if k.startswith("sp/")}
         return pol, (_unflatten_sp(flat, device) if flat else None)
@@ -289,7 +289,8 @@ class SparsityPolicy:
 
 def _read_artifact(path: str):
     """npz artifact reader -> (meta dict, npz handle); checks that the
-    file is an artifact of a readable version."""
+    file is an artifact of a readable version (policy and ladder kinds
+    alike)."""
     z = np.load(path)
     if "__meta__" not in z.files:
         raise ValueError(f"{path} is not a sparsity artifact")

@@ -542,7 +542,7 @@ def test_artifact_kinds_and_bad_versions_raise(tmp_path, monkeypatch):
     ladder = PolicyLadder(budgets=(0.5,),
                           policies=(JPolicy.uniform("mask"),), sps=(None,))
     ladder.save(path)
-    with pytest.raises(NotImplementedError, match="ladder"):
+    with pytest.raises(ValueError, match="PolicyLadder.load"):
         SparsityPolicy.load(path)
 
 

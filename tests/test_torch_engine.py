@@ -25,7 +25,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import sparse_matmul as K
 from repro_torch.launch import serve
 from repro_torch.models import params as P
-from repro_torch.serving import Engine, EngineConfig, SlotKVPool
+from repro_torch.serving import Engine, EngineConfig, SLOConfig, SlotKVPool
 from repro_torch.sparsity import SparsityPolicy
 
 TRACE = dict(max_slots=2, max_len=64, prefill_chunk=16)
@@ -107,20 +107,21 @@ def test_engine_needs_a_card_unless_asked_for_cpu(model, monkeypatch):
                     "--gen", "2"])
 
 
-@pytest.mark.parametrize("field,value", [("slo", object()),
-                                         ("spec", object()),
-                                         ("prefix_cache", True),
-                                         ("scheduler", object())])
+@pytest.mark.parametrize("field,value", [
+    ("slo", SLOConfig(tpot_p95=1.0, priority_aware=True)),
+    ("slo", SLOConfig(tpot_p95=1.0, quality_aware=True)),
+    ("spec", object()),
+    ("prefix_cache", True),
+    ("scheduler", object())])
 def test_unported_engine_features_raise(field, value):
     with pytest.raises(NotImplementedError):
         EngineConfig(**{field: value})
 
 
 def test_unported_engine_arguments_raise(model):
-    for kw in ({"ladder": object()}, {"telemetry": object()}):
-        with pytest.raises(NotImplementedError):
-            Engine(model["params"], model["cfg"], EngineConfig(**TRACE),
-                   device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Engine(model["params"], model["cfg"], EngineConfig(**TRACE),
+               device="cpu", telemetry=object())
 
 
 def test_kv_pool_slot_bookkeeping(model):

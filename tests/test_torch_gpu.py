@@ -60,6 +60,11 @@ def test_kernels_match_plain_versions(dev, B, n, m, blk, dtype):
 
 
 def test_engine_on_card_matches_cpu_and_counts_launches(dev):
+    """Greedy tokens equal the CPU's.  The decode step runs as a CUDA
+    graph: the wrappers count each kernel once while it is captured, the
+    replays count nothing, so the launches that ran are the eager ones
+    (sparse prefill chunks and the warm step before the capture) plus
+    the captured ones times the replays."""
     cfg = reduced(get_config("llama31_8b"))
     params = api.init_model(cfg, 0, device="cpu")
     sp = default_sp_stacked(params, cfg, keep_frac=0.5, tau=float("-inf"))
@@ -67,6 +72,7 @@ def test_engine_on_card_matches_cpu_and_counts_launches(dev):
     prompts = [np.random.default_rng(1).integers(0, 256, n) for n in (20, 9)]
     outs = []
     for d in (dev, torch.device("cpu")):
+        K.reset_launch_counts()
         eng = Engine(
             P.tree_map(lambda t, d=d: t.to(d), params), cfg,
             EngineConfig(max_slots=2, max_len=64, prefill_chunk=16,
@@ -74,16 +80,22 @@ def test_engine_on_card_matches_cpu_and_counts_launches(dev):
             device=d)
         for p in prompts:
             eng.submit(p, 4)
-        K.reset_launch_counts()
         outs.append(eng.run())
+        g = eng.decode_graphs
+        assert g.builds == 1 and g.steps == [eng.stats.decode_steps]
         if d.type == "cuda":
-            steps = eng.stats.decode_steps + eng.stats.prefill_sparse_chunks
-            assert K.launch_counts == {
-                "score_select": 7 * cfg.num_layers * steps,
-                "sparse_matmul_shared": 7 * cfg.num_layers * steps,
+            per = 7 * cfg.num_layers
+            ran = eng.stats.decode_steps + eng.stats.prefill_sparse_chunks \
+                + 1                                   # + the warm step
+            assert g.captured[0] == {"score_select": per,
+                                     "sparse_matmul_shared": per,
+                                     "sparse_matmul_per_seq": 0}
+            assert g.launches(K.launch_counts) == {
+                "score_select": per * ran, "sparse_matmul_shared": per * ran,
                 "sparse_matmul_per_seq": 0}
+            assert K.launch_counts["score_select"] == per * (
+                eng.stats.prefill_sparse_chunks + 2)  # warm + capture
     assert outs[0] == outs[1]
-
 
 
 def test_calibration_on_card(dev):
@@ -348,3 +360,112 @@ def test_pallas_projection_is_three_launches(dev):
     launched = sum(e.count for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA)
     assert launched == 3, [e.key for e in prof.key_averages()]
+
+
+# ---------------------------------------------------------------------------
+# the decode step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _bf16_engine(dev, policy, sp=True, **kw):
+    """A reduced llama31_8b in bf16 on the card, its slots decoding:
+    8 requests prefilled into 8 slots (24 new tokens each, so none has
+    finished when the last prefill ends)."""
+    import dataclasses
+    cfg = dataclasses.replace(reduced(get_config("llama31_8b")),
+                              dtype="bfloat16")
+    params = api.init_model(cfg, 0, device=dev)
+    tree = default_sp_stacked(params, cfg, keep_frac=0.5,
+                              tau=float("-inf")) if sp else None
+    eng = Engine(params, cfg, EngineConfig(
+        max_slots=8, max_len=64, prefill_chunk=16, policy=policy, **kw),
+        tree, device=dev)
+    rng = np.random.default_rng(3)
+    for n in (20, 9, 33, 17, 40, 12, 25, 30):
+        eng.submit(rng.integers(0, cfg.vocab_size, n), 24)
+    while eng.scheduler.prefilling or eng.scheduler.has_queued():
+        eng.step()
+    return eng
+
+
+@pytest.mark.parametrize("backend", ["off", "pallas"])
+def test_graph_replay_equals_the_eager_step(dev, backend):
+    """The captured step against the plain step on the same inputs
+    (bf16, 3e-2 as the reference's bf16 kernel tests): the same greedy
+    tokens.  The eager step writes the new K/V first; the replay writes
+    the same values at the same positions."""
+    pol = SparsityPolicy.uniform(backend, k_max_frac=0.5, block=16)
+    eng = _bf16_engine(dev, pol, sp=backend != "off")
+    g = eng.decode_graphs
+    for _ in range(3):
+        tokens, positions, active = eng.decode_inputs()
+        assert active.sum() == 8
+        want = g.eager(0, tokens, positions, active).float().clone()
+        nxt, got = g(0, tokens, positions, active)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+        assert np.array_equal(nxt, torch.argmax(want, -1).cpu().numpy())
+        eng.step()                          # advance one real decode step
+    assert g.builds == 1
+
+
+def test_forced_rung_switches_never_rebuild(dev):
+    """Every rung's graph is captured at warmup; switching rungs at every
+    decode step replays them and builds nothing.  Tokens equal the CPU
+    engine's under the same switches."""
+    from repro_torch.sparsity import PolicyLadder
+    cfg = reduced(get_config("llama31_8b"))
+    params = api.init_model(cfg, 0, device="cpu")
+    ladder = PolicyLadder.uniform(params, cfg, budgets=(0.0, 0.5, 0.7),
+                                  backend="pallas", block=16)
+    outs, steps = [], []
+    for d in (dev, torch.device("cpu")):
+        rungs = PolicyLadder(
+            budgets=ladder.budgets, policies=ladder.policies,
+            sps=tuple(P.tree_map(lambda t, d=d: t.to(d),
+                                 _with_tau(sp, float("-inf")))
+                      for sp in ladder.sps))
+        eng = Engine(P.tree_map(lambda t, d=d: t.to(d), params), cfg,
+                     EngineConfig(max_slots=2, max_len=64, prefill_chunk=16),
+                     ladder=rungs, device=d)
+        eng.warmup()
+        assert eng.decode_retraces_after_warmup == 0
+        assert eng.decode_graphs.builds == 3
+        rng = np.random.default_rng(1)
+        for n in (20, 9, 14):
+            eng.submit(rng.integers(0, 256, n), 9)
+        while eng.scheduler.has_work():
+            if eng.step() == "decode":
+                eng.set_rung((eng.rung + 1) % 3)
+        assert eng.decode_retraces_after_warmup == 0
+        assert all(n > 0 for n in eng.decode_graphs.steps)
+        outs.append({r: (rs.tokens, rs.token_rungs)
+                     for r, rs in eng.states.items()})
+        steps.append(eng.decode_graphs.steps)
+    assert outs[0] == outs[1] and steps[0] == steps[1]
+
+
+def _with_tau(tree, value):
+    if isinstance(tree, dict):
+        return {k: (torch.full_like(v, value) if k == "tau" else
+                    _with_tau(v, value)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_with_tau(v, value) for v in tree]
+    return tree
+
+
+def test_sparse_chunk_after_capture_keeps_the_captured_scratch(dev,
+                                                               monkeypatch):
+    """The engine reserves the split-K scratch before its first capture,
+    so sparse prefill chunks after it reuse the tensors the graph
+    writes, and the graph holds them."""
+    monkeypatch.setattr(K, "_scratch", {})
+    pol = SparsityPolicy.uniform("pallas", k_max_frac=0.5, block=16)
+    eng = _bf16_engine(dev, pol)            # captured at the first decode
+    ws, cnt = K.scratch_tensors(dev)
+    assert ws is not None and eng.decode_graphs.scratch[0] == (ws, cnt)
+    sparse = eng.stats.prefill_sparse_chunks
+    rng = np.random.default_rng(5)
+    eng.submit(rng.integers(0, 256, 48), 4)    # chunks after the capture
+    eng.run()
+    assert eng.stats.prefill_sparse_chunks > sparse
+    assert K.scratch_tensors(dev)[0] is ws and K.scratch_tensors(dev)[1] is cnt

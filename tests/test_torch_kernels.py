@@ -411,6 +411,27 @@ def test_matmul_scratch_matches_the_plan(monkeypatch, B, n, m, kb, per_seq):
     assert TK.matmul_scratch(plan, "cpu") == (ws3, cnt3)
 
 
+@pytest.mark.parametrize("B,n,m,blk,elem", [
+    (8, 4096, 1024, 128, 2), (32, 4096, 1024, 128, 2),
+    (32, 14336, 4096, 128, 2), (8, 4096, 14336, 128, 2),
+    (32, 64, 256, 16, 4), (16, 384, 131, 128, 4)])
+def test_reserved_scratch_covers_every_kept_block_count(monkeypatch, B, n, m,
+                                                        blk, elem):
+    """The scratch reserved for a shape before a capture holds every
+    plan of that shape, whatever kb the layer keeps, so no launch in a
+    captured graph or after it reallocates it."""
+    monkeypatch.setattr(TK, "_scratch", {})
+    TK.reserve_matmul_scratch(B, n, m, blk, "cpu", elem)
+    ws, cnt = TK.scratch_tensors("cpu")
+    for kb in range(1, n // blk + 1):
+        plan = TK.launch_plan(B, n, m, kb, blk, False, elem)
+        if plan.splits > 1:
+            assert ws is not None and ws.numel() >= plan.workspace
+            assert cnt.numel() >= plan.counters
+            assert TK.matmul_scratch(plan, "cpu") == (ws, cnt)
+    assert TK.scratch_tensors(torch.device("cpu")) == (ws, cnt)
+
+
 def test_plan_geometry_matches_the_kernel_header():
     """The plan's column tiles and per-seq slice limit are the ones
     csrc/gather_mma.cuh compiles (its C entries refuse others)."""
