@@ -43,14 +43,19 @@ In order, it:
    with ragged prompts of 64-448 tokens, 32 new tokens each, dense and
    under ``SparsityPolicy.uniform("pallas", k_max_frac=0.5)`` with an
    uncalibrated sp tree (``keep_frac=0.5``, ``tau=-inf``), each twice in
-   the order dense, pallas, pallas, dense.  The decode step runs as a
-   CUDA graph captured once per engine (``serving/graphs.py``).  The
-   kernels' launch counts are zeroed just before each engine is built
-   and read just after its run; on a ``pallas`` run the launches that
-   ran (each launch recorded in the capture taken once per replay) must
-   equal the sparse projections executed (224 per decode step, per
-   sparse prefill chunk and per warm step before a capture), on a dense
-   run zero.  A window of each run's decode steps is traced with
+   the order dense, pallas, pallas, dense, then once more each with the
+   prefill chunks run through the plain chunk step (the path before the
+   chunk step was captured; same tokens required), printing chunk p50,
+   TTFT p50, prefill and run time of graph and eager chunks side by
+   side.  The decode step runs as a CUDA graph per rung and each prefill
+   chunk as a CUDA graph per (rung, phase policy)
+   (``serving/graphs.py``).  The kernels' launch counts are zeroed just
+   before each engine is built and read just after its run; the
+   launches that ran (each launch recorded in a capture taken once per
+   replay, ``Engine.launches``) must equal the sparse passes executed
+   (224 per replay of a sparse decode or chunk graph, per eager warm call
+   before each such capture and per eager sparse chunk), on a dense run
+   zero.  A window of each run's decode steps is traced with
    ``torch.profiler`` for the device busy share of those same steps;
 6. calibrates a ``pallas`` policy ladder (``sparsity.calibrate_ladder``,
    paper Alg. 1-4 per rung, with the serve CLI's ``--calib-quick``
@@ -67,14 +72,28 @@ In order, it:
 8. saves the ladder as a v4 artifact under ``build/``, loads it back and
    serves phase 5's trace from it twice under the SLO controller
    (``tpot_p95=1e6``, ``max_queue=2``, ``dwell=2``): at least two rungs
-   visited, ``"queue"`` and ``"idle"`` transitions, no decode step built
-   after warmup (every rung's graph is captured once), a rung for every
-   token, the same tokens and transitions in both runs, launches as in
-   phase 5;
+   visited, ``"queue"`` and ``"idle"`` transitions, no decode or chunk
+   step built after warmup (every step's graph is captured once), a
+   rung for every token, the same tokens and transitions in both runs,
+   launches as in phase 5;
 9. holds the captured decode step against the eager one at full width,
    B = 8, dense and ``pallas``: equal greedy tokens, the logits' max abs
    error, host and device time per step;
-10. prints one JSON line describing every kernel, then, as its last line,
+10. holds the captured chunk step against the eager one at full width,
+   B = 32 (one chunk), dense and ``pallas``, chunk by chunk along the
+   trace's longest prompt: equal greedy tokens and pool bytes, the
+   logits' max abs error, host ms per chunk of each;
+11. serves phase 5's trace with speculative decoding: verifier-only
+   decode (the ladder pinned at its dense rung), spec on the calibrated
+   ladder (drafter rung 1, gamma 2) and spec on a keep-all ``pallas``
+   ladder (its drafter computes dense's function through the kernels, so
+   drafts are accepted); each spec run must give verifier-only decode's
+   tokens (a request may diverge only where the verifier's top-2 logit
+   gap is under 3e-2, printed), build no verify, decode or chunk step
+   after warmup and launch the kernels as in phase 5, and the keep-all
+   run must accept drafts; prints acceptance rate, accepted per verify,
+   draft and verify ms per round, decode tok/s and TTFT p50;
+12. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run; those of ``sparse_matmul_per_seq`` from phase 3's
@@ -87,6 +106,9 @@ result line.  It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
+import gc
 import json
 import math
 import os
@@ -818,88 +840,156 @@ def serving_trace(cfg) -> dict:
 
 
 def serve_once(name, params, cfg, policy, sp, trace, dev, K, ladder=None,
-               slo=None) -> dict:
+               slo=None, spec=None, eager_chunks=False,
+               window=WINDOW) -> dict:
     """One run of the trace through a fresh ``Engine`` (from ``policy``
-    and ``sp``, or from ``ladder`` under ``slo``), with the kernels'
-    launch counts zeroed just before the engine is built and read just
-    after the run.  The decode step runs as a CUDA graph per rung: the
-    wrappers count a kernel once where it is captured, and its replays
-    count nothing, so the launches that ran are the counts with each
-    captured launch taken once per replay (``DecodeSteps.launches``).
-    On a sparse rung they must equal the sparse projections executed:
-    224 per decode step, per sparse prefill chunk and per rung's eager
-    warm step before its capture; a dense run launches none."""
+    and ``sp``, or from ``ladder`` under ``slo`` or ``spec``), with the
+    kernels' launch counts zeroed just before the engine is built and
+    read just after the run.  Decode, chunk and verify steps run as CUDA
+    graphs: the wrappers count a kernel once where it is captured, and
+    its replays count nothing, so the launches that ran are the counts
+    with each captured launch taken once per replay
+    (``Engine.launches``).  They must equal the sparse passes executed:
+    224 per replay of a sparse decode or chunk graph, per eager warm call
+    before each such capture, and per eager sparse chunk; a dense run
+    launches none.  ``eager_chunks`` runs the prefill chunks through the
+    plain chunk step instead of their graphs (the path before the chunk
+    step was captured), for the before/after comparison."""
     from repro_torch import obs
     from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.metrics import percentile
 
     gen = trace["gen"]
     K.reset_launch_counts()
-    eng = Engine(params, cfg, EngineConfig(policy=policy, slo=slo,
-                                           **trace["ecfg"]),
-                 sp, device=dev, ladder=ladder)
+    eng = Engine(params, cfg, EngineConfig(
+        policy=policy, slo=slo, spec=spec, **trace["ecfg"]), sp,
+        device=dev, ladder=ladder)
+    if eager_chunks:
+        eng._chunk = EagerChunks(eng._chunk)
     for p in trace["prompts"]:
         eng.submit(p, gen)
     t0 = obs.now()
-    out, res = drive(eng)
+    out, res = drive(eng, window)
     torch.cuda.synchronize()
     res["wall_s"] = obs.now() - t0
     counts = dict(K.launch_counts)
-    g = eng.decode_graphs
-    launches = g.launches(counts)
     for rid, toks in out.items():
         if len(toks) != gen or not all(0 <= t < cfg.vocab_size
                                        for t in toks):
             raise AssertionError(f"{name}: request {rid} gave {toks}")
-    per_pass = 7 * cfg.num_layers
-    served = ("score_select", "sparse_matmul_shared")
-    policies = ladder.policies if ladder is not None else [eng.policy]
-    sparse = [not p.for_phase("decode").is_dense for p in policies]
     if policy is not None and ladder is None and not policy.is_dense:
         if trace["sparse_chunks"] != res["prefill_sparse_chunks"]:
             raise AssertionError(
                 f"{name}: sparse prefill chunks: engine "
                 f"{res['prefill_sparse_chunks']} != expected "
                 f"{trace['sparse_chunks']}")
-    if not any(sparse):
-        if any(counts.values()):
-            raise AssertionError(f"{name}: dense run launched kernels: "
-                                 f"{counts}")
-    else:
-        steps = sum(n + 1 for n, sp_r, built in zip(
-            g.steps, sparse, [g.built(r) for r in range(len(g))])
-            if sp_r and built)
-        want = per_pass * (steps + res["prefill_sparse_chunks"])
-        for k in served:
-            for r, sp_r in enumerate(sparse):
-                if g.built(r) and g.captured[r][k] != (per_pass if sp_r
-                                                       else 0):
-                    raise AssertionError(
-                        f"{name}: rung {r}'s graph captured "
-                        f"{g.captured[r][k]} {k} launches")
-            if launches[k] != want:
-                raise AssertionError(
-                    f"{name}: {k} launched {launches[k]} times, expected "
-                    f"{want} = {per_pass} x ({steps} decode steps and warm "
-                    f"steps on sparse rungs + "
-                    f"{res['prefill_sparse_chunks']} sparse prefill chunks)")
-        if launches["sparse_matmul_per_seq"]:
-            raise AssertionError(f"{name}: a serving run launched "
-                                 "sparse_matmul_per_seq")
-        res["launches"] = {k: launches[k] for k in served}
-        res["launches_counted"] = {k: counts[k] for k in served}
-        res["launches_per_decode_step"] = per_pass
+    check_launches(name, eng, ladder, counts, res, cfg)
+    g, ch = eng.decode_graphs, eng.chunk_graphs
     res["decode_replays"] = list(g.steps)
+    res["chunk_replays"] = sum(ch.steps)
     res["captures"] = g.builds
+    res["chunk_captures"] = ch.builds
     if eng.controller is not None:
         c = eng.controller
         res["transitions"] = list(c.transitions)
         res["residency"] = list(c.residency)
-        res["decode_retraces_after_warmup"] = \
-            eng.decode_retraces_after_warmup
         res["token_rungs"] = {rid: list(rs.token_rungs)
                               for rid, rs in eng.states.items()}
+    if eng.controller is not None or eng.spec_decoder is not None:
+        res["decode_retraces_after_warmup"] = \
+            eng.decode_retraces_after_warmup
+        res["chunk_retraces_after_warmup"] = eng.chunk_retraces_after_warmup
+        if eng.chunk_retraces_after_warmup != 0:
+            raise AssertionError(
+                f"{name}: {eng.chunk_retraces_after_warmup} chunk builds "
+                "after warmup")
+    if eng.spec_decoder is not None:
+        st = eng.stats
+        res["verify_retraces_after_warmup"] = \
+            eng.verify_retraces_after_warmup
+        res["spec"] = {
+            "rounds": st.spec_rounds,
+            "accept_rate": st.spec_accepted_tokens
+            / max(1, st.spec_draft_tokens),
+            "accepted_per_verify": st.spec_accepted_tokens
+            / max(1, st.spec_verifies),
+            "committed_tokens": st.spec_committed_tokens,
+            "draft_ms_per_round_p50": 1e3 * percentile(st.spec_draft_s, 50),
+            "verify_ms_per_round_p50": 1e3 * percentile(st.spec_verify_s,
+                                                        50),
+            "snapshot": eng.spec_decoder.snapshot()}
     res["tokens"] = out
+    del eng
+    gc.collect()
     return res
+
+
+def check_launches(name, eng, ladder, counts, res, cfg) -> None:
+    """The launches that ran in ``eng``'s run (``counts`` read just
+    after it, zeroed just before the engine was built) against the
+    sparse passes it executed; records them in ``res``."""
+    launches = eng.launches(counts)
+    per_pass = 7 * cfg.num_layers
+    served = ("score_select", "sparse_matmul_shared")
+    g, ch = eng.decode_graphs, eng.chunk_graphs
+    # (steps object, is each key's step sparse)
+    policies = ladder.policies if ladder is not None else [eng.policy]
+    kinds = [(g, [not p.for_phase("decode").is_dense for p in policies]),
+             (ch, [not pol.is_dense for _r, pol in ch.keys])]
+    if eng.spec_decoder is not None:
+        vs = eng.spec_decoder.verify_steps
+        kinds.append((vs, [False] * len(vs)))
+    passes, graph_sparse_chunks = 0, 0
+    for steps, sparse in kinds:
+        for i, sp_i in enumerate(sparse):
+            if not steps.built(i):
+                continue
+            want_cap = per_pass if sp_i else 0
+            for k in served:
+                if steps.captured[i][k] != want_cap:
+                    raise AssertionError(
+                        f"{name}: {type(steps).__name__} {steps.keys[i]}'s "
+                        f"graph captured {steps.captured[i][k]} {k} "
+                        f"launches, expected {want_cap}")
+            if sp_i:
+                passes += steps.steps[i] + 1       # replays + warm call
+                if steps is ch:
+                    graph_sparse_chunks += steps.steps[i]
+    eager_sparse = res["prefill_sparse_chunks"] - graph_sparse_chunks
+    passes += eager_sparse
+    for k in served:
+        if launches[k] != per_pass * passes:
+            raise AssertionError(
+                f"{name}: {k} launched {launches[k]} times, expected "
+                f"{per_pass * passes} = {per_pass} x {passes} sparse passes "
+                f"(graph replays and warm calls of sparse decode and "
+                f"chunk steps, and {eager_sparse} eager sparse chunks)")
+    if launches["sparse_matmul_per_seq"]:
+        raise AssertionError(f"{name}: a serving run launched "
+                             "sparse_matmul_per_seq")
+    if passes:
+        res["launches"] = {k: launches[k] for k in served}
+        res["launches_counted"] = {k: counts[k] for k in served}
+        res["launches_per_decode_step"] = per_pass
+
+
+class EagerChunks:
+    """The engine's chunk steps with every chunk run through the plain
+    step (``ChunkSteps.eager``) and nothing built: the prefill path as
+    it was before the chunk step was captured, for the before/after
+    comparison of phase 5 only."""
+
+    def __init__(self, steps):
+        self._steps = steps
+
+    def __getattr__(self, name):
+        return getattr(self._steps, name)
+
+    def build(self, i: int) -> None:
+        pass
+
+    def __call__(self, i, tokens, offset, slot, weights):
+        return self._steps.eager(i, tokens, offset, slot, weights)
 
 
 def _fmt(res: dict) -> str:
@@ -925,6 +1015,8 @@ def serve_full_width(dev, K, cfg, params, trace) -> dict:
                      s, device=dev)
         eng.submit(trace["prompts"][0][:40], 2)
         eng.run()
+        del eng
+        gc.collect()
 
     # each mode runs twice, in the order dense, pallas, pallas, dense, so
     # the spread between a mode's two runs shows the host's variance
@@ -938,7 +1030,31 @@ def serve_full_width(dev, K, cfg, params, trace) -> dict:
                                  "differ from the first's")
         runs[name].append(res)
         print(f"{name:6s} run {len(runs[name])}: {_fmt(res)}")
-    for name, rs in runs.items():
+    # the same trace with the prefill chunks run eagerly (the path before
+    # the chunk step was captured): the before/after of this call
+    for name in ("dense", "pallas"):
+        pol, s = modes[name]
+        res = serve_once(f"{name} eager chunks", params, cfg, pol, s, trace,
+                         dev, K, eager_chunks=True)
+        if res["tokens"] != runs[name][0]["tokens"]:
+            raise AssertionError(f"{name}: eager chunks gave other greedy "
+                                 "tokens than the chunk graphs")
+        if res["chunk_captures"] or res["chunk_replays"]:
+            raise AssertionError(f"{name} eager chunks: a chunk graph ran")
+        runs[f"{name} eager chunks"] = [res]
+        print(f"{name:6s} eager chunks: {_fmt(res)}")
+    for name in ("dense", "pallas"):
+        e = runs[f"{name} eager chunks"][0]
+        for i, r in enumerate(runs[name]):
+            print(f"{name} run {i + 1} against its eager-chunk run: chunk "
+                  f"p50 {r['prefill_chunk_p50_ms']:.2f} / "
+                  f"{e['prefill_chunk_p50_ms']:.2f} ms, TTFT p50 "
+                  f"{r['ttft_p50_ms']:.1f} / {e['ttft_p50_ms']:.1f} ms, "
+                  f"prefill {r['prefill_s']:.2f} / {e['prefill_s']:.2f} s, "
+                  f"run {r['wall_s']:.2f} / {e['wall_s']:.2f} s "
+                  "(graph / eager); greedy tokens equal")
+    for name in ("dense", "pallas"):
+        rs = runs[name]
         p50 = [r["decode_step_p50_ms"] for r in rs]
         print(f"{name:6s}: decode step p50 {p50[0]:.2f} / {p50[1]:.2f} ms in "
               f"its two runs (spread {100 * (max(p50) / min(p50) - 1):.1f}%); "
@@ -1289,6 +1405,305 @@ def graph_vs_eager(dev, cfg, params, trace, steps: int = 8) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the captured chunk step against the eager one
+# ---------------------------------------------------------------------------
+
+def chunk_graph_vs_eager(dev, cfg, params, trace) -> dict:
+    """At full width, one request's chunks of B = 32 tokens, dense and
+    uncalibrated ``pallas`` (the sparse prefill phase's step): for each
+    chunk of the trace's longest prompt the eager step, then the graph
+    replay on the same inputs (the eager step writes the chunk's K/V
+    first, the replay the same values again).  Greedy tokens of every
+    row, logits and the slot's pool bytes must be equal; prints the
+    logits' max abs error and the host ms per chunk of each, until the
+    argmax is on the host."""
+    from repro_torch import obs
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.metrics import percentile
+    from repro_torch.sparsity import SparsityPolicy
+
+    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
+    C = trace["ecfg"]["prefill_chunk"]
+    prompt = max(trace["prompts"], key=len)
+    n = len(prompt) // C
+    out = {}
+    for name, pol, s in (
+            ("dense", SparsityPolicy.dense(), None),
+            ("pallas", SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
+             sp)):
+        eng = Engine(params, cfg, EngineConfig(policy=pol, **trace["ecfg"]),
+                     s, device=dev)
+        eng.warmup()
+        ch = eng.chunk_graphs
+        i = ch.index(0, pol.for_phase("prefill_sparse"))
+        slot = eng.pool.alloc()
+        weights = np.ones(C, np.float32)
+        err, times = 0.0, {"eager": [], "graph": []}
+        for c in range(n):
+            tokens = prompt[c * C:(c + 1) * C][None].astype(np.int64)
+            res = {}
+            for kind in ("eager", "graph"):
+                torch.cuda.synchronize()
+                t0 = obs.now()
+                if kind == "eager":
+                    logits = ch.eager(i, tokens, c * C, slot, weights)
+                else:
+                    logits = ch(i, tokens, c * C, slot, weights)
+                nxt = torch.argmax(logits[0], -1).cpu().numpy()
+                times[kind].append(1e3 * (obs.now() - t0))
+                rows = torch.cat([e["self"][k][:, slot].reshape(-1)
+                                  for grp in eng.pool.caches for e in grp
+                                  for k in ("k", "v")])
+                res[kind] = (nxt, logits.float().clone(), rows)
+            if not np.array_equal(res["eager"][0], res["graph"][0]):
+                raise AssertionError(f"{name}: chunk {c}: graph tokens "
+                                     "differ from the eager step's")
+            if not torch.equal(res["eager"][2], res["graph"][2]):
+                raise AssertionError(f"{name}: chunk {c}: the graph wrote "
+                                     "other pool bytes than the eager step")
+            err = max(err, max_err(res["graph"][1], res["eager"][1]))
+        if ch.steps[i] != n:
+            raise AssertionError(f"{name}: {ch.steps[i]} chunk replays")
+        row = {"chunks": n, "logits_max_abs_err": err,
+               "eager_host_ms_p50": percentile(times["eager"], 50),
+               "graph_host_ms_p50": percentile(times["graph"], 50)}
+        out[name] = row
+        print(f"chunk graph vs eager, {name}, B={C}, {n} chunks: greedy "
+              f"tokens and pool bytes equal; logits max abs err {err:.3g}; "
+              f"host ms per chunk eager {row['eager_host_ms_p50']:.2f} / "
+              f"graph {row['graph_host_ms_p50']:.2f} (p50)")
+        del eng, res
+        gc.collect()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: speculative decoding
+# ---------------------------------------------------------------------------
+
+# near-tie rule of the f32 parity runs: a spec run may leave verifier-only
+# decode's tokens only where the verifier's own top-2 logits lie closer
+# than the bf16 tolerance of the reference's kernel tests
+NEAR_TIE = 3e-2
+
+
+def serve_spec(dev, K, cfg, params, trace, ladder) -> dict:
+    """Phase 5's trace at full width, three runs: verifier-only decode
+    (the calibrated ladder pinned at its dense rung 0), spec decoding on
+    the calibrated ladder (drafter rung 1, gamma 2), and spec decoding on
+    a keep-all ladder (0.0 dense; 0.01 ``pallas`` with keep_frac 1,
+    tau -inf, k_max_frac 1), whose drafter computes dense's function
+    through the Hopper kernels so that drafts are accepted and the
+    multi-token commit runs.  Each spec run must build nothing after
+    warmup and launch the kernels as ``serve_once`` checks; the keep-all
+    run must accept drafts.
+
+    Token parity is held twice.  In bf16, the served dtype and the timed
+    runs, the verify (a multi-token forward) and decode are different
+    computations: ``verify_vs_decode`` measures how far their logits
+    part on one state, and a request may leave verifier-only decode's
+    tokens only where the verifier's own top-2 gap is under twice that
+    error.  The same three runs in f32 (the model and ladders cast up)
+    hold the algorithm exactly: there a request may leave verifier-only
+    decode only at a gap under ``NEAR_TIE``."""
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.models import params as P
+    from repro_torch.serving import SpecConfig
+    from repro_torch.sparsity import PolicyLadder, SparsityPolicy
+
+    keep_sp = default_sp_stacked(params, cfg, keep_frac=1.0,
+                                 tau=float("-inf"))
+    keep_all = PolicyLadder(
+        budgets=(0.0, 0.01),
+        policies=(SparsityPolicy.dense(),
+                  SparsityPolicy.uniform("pallas", k_max_frac=1.0)),
+        sps=(keep_sp, keep_sp))
+    spec = SpecConfig(gamma=2, drafter_rung=1)
+    runs = spec_runs("", dev, K, cfg, params, trace, ladder, keep_all,
+                     spec, None)
+    # the same runs in f32: the algorithm's parity, free of bf16 rounding
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    up = functools.partial(P.tree_map, lambda t: t.float()
+                           if t.is_floating_point() else t)
+    params32 = up(params)
+    runs.update(spec_runs(" f32", dev, K, cfg32, params32, trace,
+                          PolicyLadder(budgets=ladder.budgets,
+                                       policies=ladder.policies,
+                                       sps=tuple(up(t) for t in ladder.sps)),
+                          PolicyLadder(budgets=keep_all.budgets,
+                                       policies=keep_all.policies,
+                                       sps=tuple(up(t)
+                                                 for t in keep_all.sps)),
+                          spec, NEAR_TIE))
+    del params32
+    gc.collect()
+    return runs
+
+
+def spec_runs(tag, dev, K, cfg, params, trace, ladder, keep_all, spec,
+              near_tie) -> dict:
+    """Verifier-only decode, spec on ``ladder`` and on ``keep_all``, and
+    the verify against sequential decode; ``near_tie`` None bounds a
+    divergence by twice the measured verify-decode logit error."""
+    ref = serve_once("verifier only" + tag, params, cfg, None, None, trace,
+                     dev, K, ladder=ladder, window=0)
+    print(f"verifier only{tag}: {_fmt(ref)}")
+    vvd = verify_vs_decode(dev, cfg, params, trace, keep_all, spec)
+    if near_tie is None:
+        near_tie = 2 * vvd["logits_max_abs_err"]
+    runs = {"verifier only" + tag: ref, "verify vs decode" + tag: vvd}
+    gaps = None
+    for name, lad in (("spec calibrated" + tag, ladder),
+                      ("spec keep-all" + tag, keep_all)):
+        res = serve_once(name, params, cfg, None, None, trace, dev, K,
+                         ladder=lad, spec=spec, window=0)
+        if res["verify_retraces_after_warmup"] != 0:
+            raise AssertionError(f"{name}: verify builds after warmup")
+        if res["tokens"] != ref["tokens"] and gaps is None:
+            gaps = verifier_gaps(dev, cfg, params, trace, ladder,
+                                 ref["tokens"])
+            q = np.quantile(list(gaps.values()), [0.01, 0.1, 0.5])
+            runs["verifier gaps" + tag] = {
+                "p1": q[0], "p10": q[1], "p50": q[2],
+                "share_under_near_tie": float(np.mean(
+                    [v < NEAR_TIE for v in gaps.values()]))}
+            print(f"verifier only{tag}: top-2 logit gap of its decode "
+                  f"tokens p1 {q[0]:.4g}, p10 {q[1]:.4g}, p50 {q[2]:.4g}; "
+                  f"share under {NEAR_TIE}: "
+                  f"{runs['verifier gaps' + tag]['share_under_near_tie']:.4f}")
+        res["divergences"] = near_ties(name, ref["tokens"], res["tokens"],
+                                       gaps, near_tie)
+        sp_ = res["spec"]
+        print(f"{name}: acceptance rate {sp_['accept_rate']:.4f}, accepted "
+              f"per verify {sp_['accepted_per_verify']:.4f}, draft "
+              f"{sp_['draft_ms_per_round_p50']:.2f} ms and verify "
+              f"{sp_['verify_ms_per_round_p50']:.2f} ms per round (p50), "
+              f"decode tok/s {res['decode_tok_s']:.1f} (verifier only "
+              f"{ref['decode_tok_s']:.1f}), TTFT p50 "
+              f"{res['ttft_p50_ms']:.1f} ms; {len(res['divergences'])} of "
+              f"{len(ref['tokens'])} requests leave verifier-only decode, "
+              f"each at a top-2 gap under {near_tie:.4g}; {_fmt(res)}")
+        runs[name] = res
+    if not runs["spec keep-all" + tag]["spec"]["accept_rate"] > 0:
+        raise AssertionError(f"spec keep-all{tag}: no draft accepted")
+    return runs
+
+
+def verifier_gaps(dev, cfg, params, trace, ladder, want) -> dict:
+    """Verifier-only decode once more with its decode step wrapped:
+    {(request, token index): top-2 gap of the logits that emitted that
+    token}; the run must emit ``want`` again."""
+    from repro_torch.serving import Engine, EngineConfig
+
+    eng = Engine(params, cfg, EngineConfig(**trace["ecfg"]), device=dev,
+                 ladder=ladder)
+    eng._decode = GapRecorder(eng, eng._decode)
+    for p in trace["prompts"]:
+        eng.submit(p, trace["gen"])
+    if eng.run() != want:
+        raise AssertionError("verifier-only decode changed its tokens")
+    gaps = eng._decode.gaps
+    del eng
+    gc.collect()
+    return gaps
+
+
+class GapRecorder:
+    """An engine's decode steps, recording each decoding request's top-2
+    logit gap at the token each step emits (one extra host read per
+    step: for the near-tie check only, never in a timed run)."""
+
+    def __init__(self, eng, steps):
+        self._eng = eng
+        self._steps = steps
+        self.gaps = {}
+
+    def __getattr__(self, name):
+        return getattr(self._steps, name)
+
+    def __call__(self, rung, tokens, positions, active):
+        nxt, logits = self._steps(rung, tokens, positions, active)
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1]).cpu().numpy()
+        for slot, rs in self._eng.scheduler.decoding.items():
+            self.gaps[(rs.request.request_id, len(rs.tokens))] = \
+                float(gap[slot])
+        return nxt, logits
+
+
+def near_ties(name, want, got, gaps, limit) -> list:
+    """Each request whose spec tokens leave ``want`` (verifier-only
+    decode) at token j: (request, j, the verifier's top-2 logit gap
+    there); raises unless every gap is under ``limit``."""
+    out = []
+    for rid, a in want.items():
+        b = got[rid]
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        gap = gaps.get((rid, j), float("inf"))   # j = 0 comes from prefill
+        out.append((rid, j, gap))
+        print(f"{name}: request {rid} leaves verifier-only decode at token "
+              f"{j} ({b[j]} for {a[j]}); the verifier's top-2 logit gap "
+              f"there is {gap:.4g}")
+        if not gap < limit:
+            raise AssertionError(
+                f"{name}: request {rid} diverges at token {j}, where the "
+                f"verifier's top-2 gap {gap:.4g} is not under {limit:.4g}")
+    return out
+
+
+def verify_vs_decode(dev, cfg, params, trace, ladder, spec) -> dict:
+    """At full width, 8 slots decoding (the trace's first 8 prompts cut
+    to 64 tokens): g+1 sequential dense decode steps on teacher-forced
+    tokens against one verify over the same tokens from the same pool
+    state.  Prints the logits' max abs error, the largest logit and the
+    greedy tokens that differ (the two are different computations, equal
+    up to rounding)."""
+    from repro_torch.serving import Engine, EngineConfig
+
+    eng = Engine(params, cfg, EngineConfig(spec=spec, **trace["ecfg"]),
+                 device=dev, ladder=ladder)
+    for p in trace["prompts"][:8]:
+        eng.submit(p[:64], 64)
+    while eng.scheduler.prefilling or eng.scheduler.has_queued():
+        eng.step()
+    g = spec.gamma
+    tokens, positions, active = eng.decode_inputs()
+    rng = np.random.default_rng(SEED + 11)
+    teach = np.stack([tokens] + [rng.integers(0, cfg.vocab_size, len(tokens))
+                                 for _ in range(g)], 1)        # (S, g+1)
+    leaves = [e["self"][k] for grp in eng.pool.caches for e in grp
+              for k in ("k", "v")]
+    state = [t.clone() for t in leaves]
+    seq = []
+    for i in range(g + 1):
+        _, logits = eng.decode_graphs(0, teach[:, i].copy(), positions + i,
+                                      active)
+        seq.append(logits.float().clone())
+    for t, s0 in zip(leaves, state):
+        t.copy_(s0)
+    ver, vlog = eng.spec_decoder.verify_steps(
+        g, torch.from_numpy(teach).to(dev), torch.from_numpy(positions).to(
+            dev), torch.from_numpy(active).to(dev)[:, None].expand(-1, g + 1))
+    seq = torch.stack(seq, 1)                               # (S, g+1, V)
+    err = max_err(vlog.float(), seq)
+    differ = int((ver != seq.argmax(-1)).sum())
+    row = {"logits_max_abs_err": err,
+           "logits_max_abs": float(seq.abs().max()),
+           "greedy_tokens_differing": differ,
+           "greedy_tokens": int(seq.shape[0] * seq.shape[1])}
+    print(f"verify vs {g + 1} sequential decode steps, full width, "
+          f"{cfg.dtype}, 8 slots: logits max abs err {err:.4g} (largest |logit| "
+          f"{row['logits_max_abs']:.4g}); greedy tokens differing "
+          f"{differ} of {row['greedy_tokens']}")
+    del eng, state
+    gc.collect()
+    return row
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -1299,7 +1714,9 @@ def drive(eng, window: int = WINDOW) -> tuple:
     time is the device busy share; tracing adds host time to those
     steps, so the share is also given against the unprofiled p50.  The
     headline metrics (decode tok/s, step p50/p95) come from the other
-    decode steps, which run unprofiled."""
+    decode steps, which run unprofiled.  ``window=0`` traces nothing
+    (a speculative round emits a varying number of tokens, so its tail
+    need not hold ``window`` rounds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.metrics import percentile
@@ -1307,18 +1724,19 @@ def drive(eng, window: int = WINDOW) -> tuple:
     steps = []          # (kind, tokens emitted, wall s, profiled)
     prof, profiled, device_us = None, 0, 0.0
     while sched.has_work():
-        if (prof is None and not profiled and not sched.has_queued()
+        if (window and prof is None and not profiled
+                and not sched.has_queued()
                 and not sched.prefilling and sched.decoding
                 and max(rs.request.max_new_tokens - len(rs.tokens)
                         for rs in sched.decoding.values()) >= window):
             prof = profile(activities=[ProfilerActivity.CUDA])
             prof.start()
-        emitted = len(sched.decoding)
+        emitted = eng.stats.decode_tokens
         before = eng.stats.decode_time      # the engine's own step clock
         kind = eng.step()
         if kind == "decode":
-            steps.append((kind, emitted, eng.stats.decode_time - before,
-                          prof is not None))
+            steps.append((kind, eng.stats.decode_tokens - emitted,
+                          eng.stats.decode_time - before, prof is not None))
         elif prof is not None:
             raise AssertionError(f"a {kind} step in the profiled window")
         if prof is not None and kind == "decode":
@@ -1333,31 +1751,36 @@ def drive(eng, window: int = WINDOW) -> tuple:
     if profiled != window:
         raise AssertionError(f"profiled {profiled} decode steps, wanted "
                              f"{window}")
-    if not device_us > 0:
+    if window and not device_us > 0:
         raise AssertionError("torch.profiler recorded no device time")
     st = eng.stats
     plain = [(n, w) for _k, n, w, pr in steps if not pr]
     win = [w for _k, _n, w, pr in steps if pr]
     walls = [w for _n, w in plain]
-    return ({rid: rs.tokens for rid, rs in eng.states.items()}, {
+    res = {
         "decode_tok_s": sum(n for n, _w in plain) / sum(walls),
         "decode_step_p50_ms": 1e3 * percentile(walls, 50),
         "decode_step_p95_ms": 1e3 * percentile(walls, 95),
         "ttft_p50_ms": 1e3 * percentile(st.ttft_s, 50),
         "prefill_chunk_p50_ms": 1e3 * percentile(st.prefill_step_s, 50),
+        "prefill_s": st.prefill_time,
         "decode_steps": st.decode_steps,
         "prefill_chunks": st.prefill_chunks,
         "prefill_sparse_chunks": st.prefill_sparse_chunks,
         "generated_tokens": sum(len(rs.tokens) for rs in eng.states.values()),
-        "window_steps": len(win),
-        "window_step_wall_ms": 1e3 * sum(win) / len(win),
-        "window_step_device_ms": device_us / 1e3 / len(win),
-        "decode_device_busy": device_us / 1e6 / sum(win),
-        # the profiler lengthens the window's steps on the host; against
-        # the same run's unprofiled p50 the share is larger
-        "device_ms_over_p50": device_us / 1e3 / len(win) / (
-            1e3 * percentile(walls, 50)),
-    })
+    }
+    if window:
+        res.update({
+            "window_steps": len(win),
+            "window_step_wall_ms": 1e3 * sum(win) / len(win),
+            "window_step_device_ms": device_us / 1e3 / len(win),
+            "decode_device_busy": device_us / 1e6 / sum(win),
+            # the profiler lengthens the window's steps on the host;
+            # against the same run's unprofiled p50 the share is larger
+            "device_ms_over_p50": device_us / 1e3 / len(win) / (
+                1e3 * percentile(walls, 50)),
+        })
+    return {rid: rs.tokens for rid, rs in eng.states.items()}, res
 
 
 def _leaves(tree):
@@ -1466,6 +1889,8 @@ def main() -> int:
                                   results)
     ladder_runs = serve_ladder(dev, K, cfg, params, trace, ladder)
     gve = graph_vs_eager(dev, cfg, params, trace)
+    cgve = chunk_graph_vs_eager(dev, cfg, params, trace)
+    spec_res = serve_spec(dev, K, cfg, params, trace, ladder)
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -1473,7 +1898,10 @@ def main() -> int:
                  for n, rs in [*results.items(), ("ladder", ladder_runs)]
                  for i, r in enumerate(rs)},
         "calibrated": {k: v for k, v in calibrated.items() if k not in keep},
-        "calibration": calib, "graph_vs_eager": gve}}))
+        "spec": {n: {k: v for k, v in r.items() if k not in keep}
+                 for n, r in spec_res.items()},
+        "calibration": calib, "graph_vs_eager": gve,
+        "chunk_graph_vs_eager": cgve}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     kernels = []

@@ -33,8 +33,16 @@ uncalibrated it falls back to ``topk_shared``, as the reference CLI does.
 ``PolicyLadder.save`` writes, from this package or the JAX one) from
 rung ``--rung``; ``--slo-tpot-p95`` > 0 arms the adaptive controller,
 which moves between rungs under that TPOT target and the
-``--slo-max-queue`` queue bound.  The gateway and telemetry come with
-later slices.
+``--slo-max-queue`` queue bound.
+
+Speculative decoding: ``--spec-gamma N`` (with ``--ladder``) drafts N
+tokens per verify at the ``--spec-drafter`` rung and verifies at the
+pinned ``--rung``: token-identical output to plain decode at that rung,
+fewer verifier passes per token.  The verifier rung must decode dense
+(rung 0 of a calibrated ladder); the engine rejects sparse verifiers,
+whose shared top-k saliency would break the parity guarantee.
+``--spec-adaptive`` lets the acceptance EWMA tune gamma at runtime.
+The gateway and telemetry come with later slices.
 """
 from __future__ import annotations
 
@@ -50,7 +58,7 @@ from repro_torch.core.sp_schema import default_sp_stacked
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import api
-from repro_torch.serving import Engine, EngineConfig, SLOConfig
+from repro_torch.serving import Engine, EngineConfig, SLOConfig, SpecConfig
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
 
 
@@ -94,6 +102,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slo-max-queue", type=int, default=8,
                     help="queued requests beyond which the controller "
                          "escalates")
+    ap.add_argument("--spec-gamma", type=int, default=0,
+                    help="speculative decoding: draft tokens per verify "
+                         "(> 0 arms spec decode; needs --ladder)")
+    ap.add_argument("--spec-drafter", type=int, default=1,
+                    help="ladder rung that drafts (must be sparser than "
+                         "the verifier rung pinned by --rung)")
+    ap.add_argument("--spec-adaptive", action="store_true",
+                    help="tune gamma from the acceptance EWMA at runtime")
     return ap
 
 
@@ -122,14 +138,28 @@ def validate_args(args) -> None:
                                     or args.calib_quick):
         raise SystemExit("--ladder serves a saved ladder; drop "
                          "--policy-artifact/--calib-quick")
+    if args.spec_gamma > 0:
+        if args.ladder is None:
+            raise SystemExit("--spec-gamma needs --ladder: the drafter "
+                             "and verifier are ladder rungs")
+        if args.slo_tpot_p95 > 0:
+            raise SystemExit("--spec-gamma conflicts with --slo-tpot-p95: "
+                             "spec decoding pins the verifier rung")
+    elif args.spec_adaptive or args.spec_drafter != 1:
+        raise SystemExit("--spec-drafter/--spec-adaptive need "
+                         "--spec-gamma > 0 to arm speculative decoding")
 
 
 def validate_rungs(args, num_rungs: int) -> None:
-    """Range-check ``--rung`` against the loaded ladder."""
+    """Range-check rung-valued flags against the loaded ladder."""
     if not 0 <= args.rung < num_rungs:
         raise SystemExit(
             f"--rung {args.rung} out of range: the loaded ladder has "
             f"rungs 0..{num_rungs - 1}")
+    if args.spec_gamma > 0 and not 0 <= args.spec_drafter < num_rungs:
+        raise SystemExit(
+            f"--spec-drafter {args.spec_drafter} out of range: the "
+            f"loaded ladder has rungs 0..{num_rungs - 1}")
 
 
 def build_policy(args, params, cfg, prompts, device):
@@ -185,10 +215,17 @@ def main(argv=None):
     if args.slo_tpot_p95 > 0:
         slo = SLOConfig(tpot_p95=args.slo_tpot_p95,
                         max_queue=args.slo_max_queue)
+    spec = None
+    if args.spec_gamma > 0:
+        spec = SpecConfig(gamma=args.spec_gamma,
+                          drafter_rung=args.spec_drafter,
+                          verifier_rung=args.rung,
+                          adaptive=args.spec_adaptive,
+                          gamma_max=max(4, args.spec_gamma))
     # one slot per request, room for prompt + generation
     ecfg = EngineConfig(max_slots=args.batch,
                         max_len=args.prompt_len + args.gen, policy=policy,
-                        slo=slo, initial_rung=args.rung)
+                        slo=slo, initial_rung=args.rung, spec=spec)
     engine = Engine(params, cfg, ecfg, sp, device=device, ladder=ladder)
     t0 = obs.now()
     for b in range(args.batch):
@@ -204,6 +241,11 @@ def main(argv=None):
     if engine.controller is not None:
         print("controller:", engine.controller.snapshot(),
               "transitions:", engine.controller.transitions)
+    if engine.spec_decoder is not None:
+        print("spec:", engine.spec_decoder.snapshot())
+        print("retraces after warmup: decode",
+              engine.decode_retraces_after_warmup, "verify",
+              engine.verify_retraces_after_warmup)
     print("sample:", out[0][:16])
     return out
 

@@ -1,6 +1,7 @@
 """Public model API (port of the JAX package's ``models/api.py``): the
 cache schema, model init, and the step functions the serving engine
-calls (slot decode, chunked prefill, whole-prompt prefill)."""
+calls (slot decode, chunked prefill, speculative verify, whole-prompt
+prefill)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -63,12 +64,31 @@ def make_slot_decode_step(cfg: ModelConfig):
 
 def make_chunk_prefill_step(cfg: ModelConfig):
     """Chunked prefill of one request directly into the slot pool: tokens
-    (1,C) at chunk-start ``offset`` (int) for pool ``slot`` (int).  Pad
-    tokens of the final chunk carry zero ``weights``.  Returns logits for
-    every chunk position and the (in-place updated) pool."""
+    (1,C) at chunk-start ``offset`` (a (1,) int tensor) for pool ``slot``
+    (a 0-d int tensor), both on the device so the step can be captured.
+    Pad tokens of the final chunk carry zero ``weights``.  Returns logits
+    for every chunk position and the (in-place updated) pool."""
     def chunk_prefill_step(params, tokens, offset, slot, caches, sp=None,
                            weights=None, policy=None):
         return M.forward(params, cfg, tokens=tokens, mode="chunk",
                          caches=caches, positions=offset, sp=sp, slot=slot,
                          policy=policy, token_weights=weights)
     return chunk_prefill_step
+
+
+def make_verify_step(cfg: ModelConfig):
+    """Speculative-decoding verify: a fixed-length multi-token decode over
+    the slot pool, on the chunk step's write-in-place path.  ``tokens``
+    (S, gamma+1): row s is slot s's last committed token followed by its
+    gamma drafts, at per-slot start offsets ``positions`` (S,).  K/V of
+    every window position are projected under the verifier's policy and
+    written in place before the window attends, so the committed prefix
+    is always the verifier's.  ``weights`` (S, gamma+1) masks inactive
+    slots out of the shared saliency.  Returns logits for every window
+    position (S, gamma+1, V) and the (in-place updated) pool."""
+    def verify_step(params, tokens, positions, caches, sp=None,
+                    weights=None, policy=None):
+        return M.forward(params, cfg, tokens=tokens, mode="verify",
+                         caches=caches, positions=positions, sp=sp,
+                         policy=policy, token_weights=weights)
+    return verify_step

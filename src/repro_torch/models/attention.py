@@ -1,9 +1,10 @@
 """Attention (port of the JAX package's ``models/attention.py``): causal
 prefill/train attention, single-query decode attention against the
-pre-transposed cache plus an explicit new-token term, chunked-prefill
-attention at one shared offset, and the in-place decode cache write.
-Sliding windows, cross-attention and per-row chunk offsets (speculative
-verify) come with the archs and features that use them.
+pre-transposed cache plus an explicit new-token term, multi-token
+attention against the cache at a shared or per-row device offset
+(chunked prefill, speculative verify), and the in-place cache writes of
+one token (decode) and of a window of tokens (chunk, verify).  Sliding
+windows and cross-attention come with the archs that use them.
 
 The reference wrote these in jnp, not Pallas, so plain torch ops are the
 port.  Scores and softmax run in f32 as in the reference
@@ -79,13 +80,15 @@ def decode_attention(q, k_cache, v_cache, positions, k_new, v_new, *,
 
 
 def chunk_attention(q, k_cache, v_cache, offset, *, attn_softcap: float = 0.0):
-    """Chunked-prefill attention: C new queries against a slot's cache
-    that already holds the chunk's own K/V at [offset, offset+C), so the
-    causal mask ``t <= qpos`` covers the past context and the in-chunk
-    triangle in one pass.
+    """Multi-token attention: C new queries per row against a cache that
+    already holds their own K/V at [offset, offset+C), so the causal mask
+    ``t <= qpos`` covers the past context and the in-chunk triangle in
+    one pass.
 
     q: (B,C,H,hd); k_cache: (B,KV,hd,T); v_cache: (B,KV,T,hd); offset: the
-    chunk-start position (int) shared across the batch."""
+    start position as a device tensor, 0-d or (1,) shared across the batch
+    (chunked prefill) or (B,) per row (speculative verify).  It is never
+    read on the host, so the step can be captured as a CUDA graph."""
     B, C, H, hd = q.shape
     KV, T = k_cache.shape[1], k_cache.shape[3]
     G = H // KV
@@ -93,13 +96,30 @@ def chunk_attention(q, k_cache, v_cache, offset, *, attn_softcap: float = 0.0):
     qr = q.reshape(B, C, KV, G, hd).permute(0, 2, 3, 1, 4).float()
     s = torch.matmul(qr, k_cache.float()[:, :, None]) * scale   # (B,KV,G,C,T)
     s = _softcap(s, attn_softcap)
-    qpos = offset + torch.arange(C, device=q.device)
-    valid = torch.arange(T, device=q.device)[None, :] <= qpos[:, None]  # (C,T)
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    off = torch.as_tensor(offset, device=q.device).reshape(-1)   # (1,)|(B,)
+    qpos = off[:, None] + torch.arange(C, device=q.device)       # (1|B,C)
+    valid = torch.arange(T, device=q.device) <= qpos[..., None]  # (1|B,C,T)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, -1)
     out = torch.matmul(p.to(v_cache.dtype).float(),
                        v_cache.float()[:, :, None])          # (B,KV,G,C,hd)
     return out.permute(0, 3, 1, 2, 4).reshape(B, C, H, hd).to(q.dtype)
+
+
+def cache_write_window(k_cache, v_cache, k_new, v_new, rows, offsets):
+    """Write C new positions per row into a layer's caches, in place.
+
+    k_cache: (S,KV,hd,T); v_cache: (S,KV,T,hd); k/v_new: (B,C,KV,hd) as
+    projected; rows (B,) the pool rows written; offsets (B,) each row's
+    first position.  Both index tensors stay on the device (one
+    ``index_put_`` per cache, no host read), where the reference uses a
+    donated ``dynamic_update_slice`` per row."""
+    C = k_new.shape[1]
+    t = offsets.long()[:, None] + torch.arange(C, device=offsets.device)
+    r = rows.long()[:, None]                                      # (B,1)
+    k_cache[r, :, :, t] = k_new.to(k_cache.dtype)      # indexed: (B,C,KV,hd)
+    v_cache[r, :, t, :] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
 
 
 def cache_write_kv(k_cache, v_cache, k_new, v_new, positions):

@@ -10,8 +10,11 @@ through ``SparsityPolicy.resolve_depth``.
 
 Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
 emits caches), ``decode`` (one token per row against the pool caches,
-written in place) and ``chunk`` (one request's prefill chunk written in
-place into its pool slot).  ``verify`` comes with speculative decoding.
+written in place), ``chunk`` (one request's prefill chunk written in
+place into its pool slot) and ``verify`` (a window of tokens per pool
+row at per-row offsets, written in place: speculative decoding).  The
+chunk and verify offsets and the chunk's slot are device tensors, read
+by the device alone, so both steps can be captured as CUDA graphs.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from repro_torch.models.mlp import mlp_apply, mlp_schema
 from repro_torch.models.params import ParamSpec, stacked
 
 SUPPORTED_KIND = ("attn", "dense")
-MODES = ("train", "prefill", "decode", "chunk")
+MODES = ("train", "prefill", "decode", "chunk", "verify")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -92,16 +95,20 @@ def _index(tree, r: int):
 
 
 def attn_apply(p, x, cfg: ModelConfig, sp=None, cache=None, positions=None,
-               mode: str = "train", slot: int = 0, policy=None,
+               mode: str = "train", slot=None, policy=None,
                token_weights=None):
     """Self-attention for one layer.
 
     ``decode``: x (B,1,D), ``positions`` (B,) tensor, ``cache`` the
     layer's pool views, written in place after the new token is attended
-    explicitly.  ``chunk``: x (B,C,D) one request's chunk, ``positions``
-    the chunk-start offset as a Python int, ``slot`` its pool slot; the
-    chunk's K/V are written in place at (slot, offset) before attention
-    (where the reference uses a donated ``dynamic_update_slice``)."""
+    explicitly.  ``chunk``: x (1,C,D) one request's chunk, ``positions``
+    the chunk-start offset as a (1,) tensor, ``slot`` its pool slot as a
+    0-d tensor; the chunk's K/V are written at (slot, offset) and the
+    slot's row is then read by index.  ``verify``: x (S,C,D) one window
+    per pool row, ``positions`` (S,) per-row offsets; the window's K/V
+    are written and the whole pool attended in place.  Both write before
+    they attend, as the reference's donated ``dynamic_update_slice``
+    does."""
     sp = sp or {}
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -118,21 +125,27 @@ def attn_apply(p, x, cfg: ModelConfig, sp=None, cache=None, positions=None,
     if cfg.rope_theta:
         if mode == "decode":
             pos = positions[:, None]
-        elif mode == "chunk":
-            pos = (positions + torch.arange(S, device=x.device))[None]
+        elif mode in ("chunk", "verify"):
+            pos = positions.reshape(-1, 1) + torch.arange(S, device=x.device)
         else:
             pos = torch.arange(S, device=x.device)[None]
         cos, sin = rope_angles(pos, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    if mode == "chunk":
+    if mode in ("chunk", "verify"):
         kc, vc = cache["k"], cache["v"]          # pool: (S,KV,hd,T)/(S,KV,T,hd)
-        off = int(positions)
-        kc[slot:slot + B, :, :, off:off + S] = k.permute(0, 2, 3, 1)
-        vc[slot:slot + B, :, off:off + S, :] = v.permute(0, 2, 1, 3)
-        out = attn_lib.chunk_attention(q, kc[slot:slot + B], vc[slot:slot + B],
-                                       off, attn_softcap=cfg.attn_softcap)
+        if mode == "chunk":
+            rows, offs = slot.reshape(1), positions.reshape(1)
+        else:
+            rows, offs = torch.arange(B, device=x.device), positions
+        attn_lib.cache_write_window(kc, vc, k, v, rows, offs)
+        if mode == "chunk":
+            ks, vs = kc.index_select(0, rows), vc.index_select(0, rows)
+        else:
+            ks, vs = kc, vc                      # every pool row, in place
+        out = attn_lib.chunk_attention(q, ks, vs, offs,
+                                       attn_softcap=cfg.attn_softcap)
         return proj("wo", out.reshape(B, S, H * hd)), {"k": kc, "v": vc}
 
     if mode == "decode":
@@ -154,7 +167,7 @@ def attn_apply(p, x, cfg: ModelConfig, sp=None, cache=None, positions=None,
 
 
 def layer_apply(p, x, cfg: ModelConfig, sp=None, cache=None, positions=None,
-                mode: str = "train", slot: int = 0, policy=None,
+                mode: str = "train", slot=None, policy=None,
                 token_weights=None):
     """One pre-norm decoder layer.  ``policy`` is already depth-resolved;
     None runs dense.  Returns (x, {"self": cache} or None)."""
@@ -173,11 +186,11 @@ def layer_apply(p, x, cfg: ModelConfig, sp=None, cache=None, positions=None,
 
 
 def run_groups(groups, x, cfg: ModelConfig, *, mode="train", caches=None,
-               positions=None, sp=None, slot: int = 0, policy=None,
+               positions=None, sp=None, slot=None, policy=None,
                token_weights=None):
     """Run every stacked layer group in depth order.  Returns (x, caches):
-    the pool caches updated in place for decode/chunk, fresh stacked
-    caches for prefill, None for train."""
+    the pool caches updated in place for decode/chunk/verify, fresh
+    stacked caches for prefill, None for train."""
     fresh = []
     depth = 0
     for gi, (pattern, reps) in enumerate(cfg.layer_groups()):
@@ -204,7 +217,7 @@ def run_groups(groups, x, cfg: ModelConfig, *, mode="train", caches=None,
                           for n in ("k", "v")}} for per in made))
     if mode == "prefill":
         return x, fresh
-    return x, (caches if mode in ("decode", "chunk") else None)
+    return x, (caches if mode in ("decode", "chunk", "verify") else None)
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
@@ -231,24 +244,25 @@ def lm_logits(params, x, cfg: ModelConfig):
 
 
 def forward(params, cfg: ModelConfig, *, tokens, mode="train", caches=None,
-            positions=None, sp=None, slot: int = 0, policy=None,
+            positions=None, sp=None, slot=None, policy=None,
             token_weights=None):
     """Unified forward.
 
     train/prefill: tokens (B,S).
     decode:        tokens (B,), positions (B,) tensor, caches = the pool.
-    chunk:         tokens (B,C) one request's prefill chunk, positions =
-                   chunk-start offset (int), slot = its pool slot, caches
-                   = the full slot pool.
+    chunk:         tokens (1,C) one request's prefill chunk, positions =
+                   chunk-start offset (a (1,) tensor), slot = its pool
+                   slot (a 0-d tensor), caches = the full slot pool.
+    verify:        tokens (S,C) one window per pool row, positions (S,)
+                   per-row start offsets, caches = the full slot pool.
 
     Returns (logits, caches): train -> (B,S,V), None; prefill -> (B,V)
     at the last position, fresh caches; decode -> (B,V), pool updated in
-    place; chunk -> (B,C,V), pool updated in place.
+    place; chunk/verify -> (B,C,V), pool updated in place.
     """
     if mode not in MODES:
         raise NotImplementedError(
-            f"forward mode {mode!r}: the port runs {MODES} (verify comes "
-            "with speculative decoding)")
+            f"forward mode {mode!r}: the port runs {MODES}")
     if policy is None:
         policy = sparse_linear.DENSE
     if mode == "decode":

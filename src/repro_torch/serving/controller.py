@@ -29,7 +29,9 @@ signal will oscillate:
 ``priority_aware`` and ``quality_aware`` are kept as the reference has
 them; the port's engine refuses both until the priority scheduler and
 the quality monitor are ported.  The speculative-decoding sibling,
-``SpecController``, comes with speculative decoding.
+:class:`SpecController`, tunes the draft length (and optionally the
+drafter rung) from the acceptance rate; on the card a switch only
+selects another captured verify or decode graph.
 """
 from __future__ import annotations
 
@@ -250,3 +252,101 @@ class AdaptiveController:
         if self.slo.quality_aware:
             snap["quality_deescalations"] = self.quality_deescalations
         return snap
+
+
+class SpecController:
+    """Adaptive speculative-decoding controller: tunes the draft length
+    gamma — and optionally the drafter rung — from the measured acceptance
+    EWMA, since acceptance is workload-dependent.
+
+    Same stability machinery as :class:`AdaptiveController`: the per-round
+    accepted-draft fraction feeds an EWMA (reset on every switch so the
+    old operating point doesn't bleed into the new one's estimate), and a
+    dwell of ``dwell`` verify rounds rate-limits switches.  When the EWMA
+    is high (``raise_at``) the drafts are cheap and trustworthy, so gamma
+    grows toward ``gamma_max``; once gamma is maxed a drafter-adaptive
+    controller instead moves the drafter to a *sparser* rung (cheaper
+    drafts).  When the EWMA is low (``lower_at``) the verifier is throwing
+    drafts away, so gamma shrinks toward ``gamma_min``; at the floor a
+    drafter-adaptive controller falls back to a *denser* drafter rung
+    (more faithful drafts).  Every operating point the controller can
+    reach is precompiled by ``Engine.warmup()``, so switches are
+    retrace-free."""
+
+    def __init__(self, gamma: int, gamma_min: int, gamma_max: int, *,
+                 drafter_rung: int, drafter_min: int, drafter_max: int,
+                 adapt_drafter: bool = False, alpha: float = 0.2,
+                 raise_at: float = 0.8, lower_at: float = 0.4,
+                 dwell: int = 8):
+        if not 1 <= gamma_min <= gamma <= gamma_max:
+            raise ValueError(
+                f"need 1 <= gamma_min <= gamma <= gamma_max, got "
+                f"({gamma_min}, {gamma}, {gamma_max})")
+        if not drafter_min <= drafter_rung <= drafter_max:
+            raise ValueError(
+                f"drafter rung {drafter_rung} outside "
+                f"[{drafter_min}, {drafter_max}]")
+        if not 0.0 <= lower_at < raise_at <= 1.0:
+            raise ValueError(
+                f"need 0 <= lower_at < raise_at <= 1, got "
+                f"({lower_at}, {raise_at})")
+        if not 0.0 < alpha <= 1.0:
+            raise ValueError(f"alpha must be in (0, 1], got {alpha}")
+        if dwell < 1:
+            raise ValueError(f"dwell must be >= 1, got {dwell}")
+        self.gamma = gamma
+        self.gamma_min, self.gamma_max = gamma_min, gamma_max
+        self.drafter_rung = drafter_rung
+        self.drafter_min, self.drafter_max = drafter_min, drafter_max
+        self.adapt_drafter = adapt_drafter
+        self.alpha = alpha
+        self.raise_at, self.lower_at = raise_at, lower_at
+        self.dwell = dwell
+        self.step = 0
+        self._since_switch = dwell           # free to act immediately
+        self._ewma: Optional[float] = None
+        self.transitions: List[Tuple[int, int, int, str]] = \
+            []                               # (step, gamma, drafter, reason)
+
+    @property
+    def accept_ewma(self) -> Optional[float]:
+        return self._ewma
+
+    def _switch(self, gamma: int, drafter: int, reason: str) -> None:
+        self.gamma, self.drafter_rung = gamma, drafter
+        self.transitions.append((self.step, gamma, drafter, reason))
+        self._since_switch = 0
+        self._ewma = None        # the old operating point's acceptance
+        #                          doesn't predict the new one's
+
+    def update(self, accept_frac: float) -> Tuple[int, int]:
+        """One tick per spec round with the round's mean accepted-draft
+        fraction over active slots; returns the (gamma, drafter_rung) the
+        next round should run."""
+        self.step += 1
+        self._since_switch += 1
+        a = self.alpha
+        self._ewma = accept_frac if self._ewma is None else \
+            (1 - a) * self._ewma + a * accept_frac
+        if self._since_switch < self.dwell:
+            return self.gamma, self.drafter_rung
+        if self._ewma >= self.raise_at:
+            if self.gamma < self.gamma_max:
+                self._switch(self.gamma + 1, self.drafter_rung, "accept")
+            elif self.adapt_drafter and self.drafter_rung < self.drafter_max:
+                self._switch(self.gamma, self.drafter_rung + 1, "accept")
+        elif self._ewma <= self.lower_at:
+            if self.gamma > self.gamma_min:
+                self._switch(self.gamma - 1, self.drafter_rung, "reject")
+            elif self.adapt_drafter and self.drafter_rung > self.drafter_min:
+                self._switch(self.gamma, self.drafter_rung - 1, "reject")
+        return self.gamma, self.drafter_rung
+
+    def snapshot(self) -> dict:
+        return {
+            "spec_gamma": self.gamma,
+            "spec_drafter_rung": self.drafter_rung,
+            "spec_accept_ewma": None if self._ewma is None
+            else round(self._ewma, 4),
+            "spec_switches": len(self.transitions),
+        }

@@ -19,18 +19,28 @@ Adaptive serving: instead of one policy the engine can serve a
 :class:`repro_torch.sparsity.PolicyLadder` — calibrated policies at
 ascending sparsity budgets.  With an :class:`SLOConfig` an
 :class:`AdaptiveController` switches the decode and prefill-sparse
-phases between rungs as load changes.  Each rung's decode step is built
-once (``repro_torch.serving.graphs``: a CUDA graph on the card, captured
-by :meth:`Engine.warmup` when a controller is armed, else at the rung's
-first decode step), so a rung switch only selects another graph;
-``decode_retraces_after_warmup`` counts builds after warmup, as the
-reference counts retraces.  Chunked prefill runs eagerly.
+phases between rungs as load changes.
 
-The reference's speculative decoding, prefix cache, preemption and
-priority scheduling, telemetry, flight recorder and quality probes (and
-the controller's ``priority_aware``/``quality_aware`` modes, which read
-them) are not ported yet: asking for any of them raises
-``NotImplementedError``.
+Every step is built once (``repro_torch.serving.graphs``: a CUDA graph
+on the card): each rung's decode step, each rung's chunked-prefill step
+per prefill phase policy, and under speculative decoding the verify for
+every reachable gamma.  :meth:`Engine.warmup` builds them all (it runs
+at construction when a controller or speculative decoding is armed);
+otherwise a step is built at its first use, writing only the pool's
+slack.  A rung or gamma switch only selects another graph;
+``decode_retraces_after_warmup``, ``chunk_retraces_after_warmup`` and
+``verify_retraces_after_warmup`` count builds after warmup, as the
+reference counts retraces.
+
+Speculative decoding (``EngineConfig.spec``, a ladder required): the
+decode action runs :class:`repro_torch.serving.spec.SpecDecoder`, in
+which sparse rungs draft and the dense verifier rung verifies; the
+output is token-identical to verifier-only decode.
+
+The reference's prefix cache, preemption and priority scheduling,
+telemetry, flight recorder and quality probes (and the controller's
+``priority_aware``/``quality_aware`` modes, which read them) are not
+ported yet: asking for any of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,15 +58,17 @@ from repro_torch.kernels.ops import channel_plan
 from repro_torch.models import api
 from repro_torch.models import model as M
 from repro_torch.serving.controller import AdaptiveController, SLOConfig
-from repro_torch.serving.graphs import DecodeSteps
+from repro_torch.serving import graphs
+from repro_torch.serving.graphs import ChunkSteps, DecodeSteps, GraphSpace
 from repro_torch.serving.kv_pool import SlotKVPool
 from repro_torch.serving.metrics import EngineStats
 from repro_torch.serving.request import (FinishReason, Request, RequestState,
                                          Status)
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.spec import SpecConfig, SpecDecoder
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
 
-_NOT_PORTED = ("spec", "prefix_cache", "scheduler")
+_NOT_PORTED = ("prefix_cache", "scheduler")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +79,9 @@ class EngineConfig:
 
     ``slo`` enables the adaptive controller (requires a ladder);
     ``initial_rung`` is the rung a ladder engine starts on (and stays on
-    when no SLO is configured — a pinned rung).  ``spec``,
+    when no SLO is configured — a pinned rung).  ``spec`` arms
+    self-speculative decoding (requires a ladder: sparse rungs draft, the
+    dense verifier rung verifies; see :mod:`repro_torch.serving.spec`).
     ``prefix_cache`` and ``scheduler`` keep the reference's names and
     raise ``NotImplementedError`` when set, as do the SLO's
     ``priority_aware`` and ``quality_aware`` modes."""
@@ -80,7 +94,7 @@ class EngineConfig:
     eos_id: Optional[int] = None     # default per-request EOS
     slo: Optional[SLOConfig] = None  # adaptive serving objectives
     initial_rung: int = 0            # ladder rung at engine start
-    spec: object = None
+    spec: Optional[SpecConfig] = None  # self-speculative decoding
     prefix_cache: bool = False
     scheduler: object = None
 
@@ -92,6 +106,9 @@ class EngineConfig:
             raise TypeError(
                 f"policy must be a SparsityPolicy, got {type(pol)!r}")
         object.__setattr__(self, "policy", pol)
+        if self.spec is not None and not isinstance(self.spec, SpecConfig):
+            raise TypeError(
+                f"spec must be a SpecConfig, got {type(self.spec)!r}")
         if self.slo is not None:
             if not isinstance(self.slo, SLOConfig):
                 raise TypeError(
@@ -173,13 +190,21 @@ class Engine:
         if ecfg.slo is not None:
             self.controller = AdaptiveController(
                 len(self._rung_policies), ecfg.slo, initial_rung=self._rung)
+        if ecfg.spec is not None:
+            self._check_spec(ecfg)
         # the pool holds slack past max_len: pad tokens of a request's
         # final prefill chunk land in [max_len, pool_len-1), and the last
         # position is scratch — inactive slots in a decode step still
         # write somewhere, and every real position may belong to a
         # mid-prefill prompt.  Scratch is beyond every reachable position,
-        # so the decode valid-mask never admits it.
-        self.pool_len = ecfg.max_len + ecfg.prefill_chunk
+        # so the decode valid-mask never admits it.  Spec decoding needs
+        # the slack to also fit a (gamma+1)-token verify window
+        # (inactive-slot windows and draft overshoot past a request's
+        # budget both land there).
+        slack = ecfg.prefill_chunk
+        if ecfg.spec is not None:
+            slack = max(slack, ecfg.spec.max_gamma + 1)
+        self.pool_len = ecfg.max_len + slack
         self.pool = SlotKVPool(cfg, ecfg.max_slots, self.pool_len,
                                self.device)
         self.scheduler = Scheduler()
@@ -188,17 +213,55 @@ class Engine:
         self._next_id = 0
         self.prefill_strategy = ("chunked" if ecfg.prefill_strategy == "auto"
                                  else ecfg.prefill_strategy)
-        self._cstep = api.make_chunk_prefill_step(cfg)
         self._pstep = api.make_prefill_step(cfg)
+        self.graph_space = GraphSpace(self.device, self._scratch_shapes())
         self._decode = DecodeSteps(
             api.make_slot_decode_step(cfg), params, self.pool.caches,
             [(dec, s) for (_, _, dec), s in zip(self._rung_phases,
                                                 self._rung_sp)],
-            ecfg.max_slots, self.pool_len - 1, self.device,
-            reserve=self._scratch_shapes())
-        self._warm_builds: Optional[int] = None
-        if self.controller is not None:
+            ecfg.max_slots, self.pool_len - 1, self.graph_space)
+        # a chunk's inactive inputs write [max_len, max_len + C): slack
+        self._chunk = ChunkSteps(
+            api.make_chunk_prefill_step(cfg), params, self.pool.caches,
+            [(pd, ps, s) for (pd, ps, _), s in zip(self._rung_phases,
+                                                   self._rung_sp)],
+            ecfg.prefill_chunk, ecfg.max_len, self.graph_space)
+        self._warm_builds: Optional[tuple] = None
+        self.spec_decoder: Optional[SpecDecoder] = None
+        if ecfg.spec is not None:
+            self.spec_decoder = SpecDecoder(self, ecfg.spec)
+        if self.controller is not None or self.spec_decoder is not None:
             self.warmup()
+
+    def _check_spec(self, ecfg: EngineConfig) -> None:
+        """The reference's preconditions of speculative decoding."""
+        spec = ecfg.spec
+        if self.ladder is None:
+            raise ValueError(
+                "EngineConfig.spec needs a PolicyLadder: the drafter "
+                "and verifier are ladder rungs")
+        if ecfg.slo is not None:
+            raise ValueError(
+                "spec and slo are mutually exclusive: the spec "
+                "controller adapts gamma/drafter from acceptance, and "
+                "the verifier rung is pinned")
+        if spec.drafter_rung >= len(self.ladder):
+            raise ValueError(
+                f"drafter_rung {spec.drafter_rung} outside the "
+                f"{len(self.ladder)}-rung ladder")
+        if ecfg.initial_rung != spec.verifier_rung:
+            raise ValueError(
+                "a spec engine serves at the verifier rung; set "
+                f"initial_rung == verifier_rung ({spec.verifier_rung})")
+        ver_pol = self._rung_phases[spec.verifier_rung][2]
+        if not ver_pol.is_dense:
+            raise ValueError(
+                f"verifier rung {spec.verifier_rung} decodes "
+                "under a sparse policy; the token-parity guarantee "
+                "needs a dense verifier — shared top-k saliency "
+                "depends on the call's token rows, so a multi-token "
+                "verify forward and single-token decode would pick "
+                "different channel sets and diverge")
 
     def _scratch_shapes(self) -> List[tuple]:
         """(B, n, m, blk, elem_bytes) of every ``pallas`` matmul the
@@ -251,34 +314,81 @@ class Engine:
 
     @torch.no_grad()
     def warmup(self) -> None:
-        """Build every rung's decode step (on the card: one eager warm
-        step and one CUDA-graph capture per rung), then zero the
-        post-warmup build baseline.  Only valid on an idle engine, as in
-        the reference.  Rung switches after this build nothing
-        (``decode_retraces_after_warmup`` stays 0)."""
+        """Build every rung's decode step and, for chunked prefill, its
+        chunk step per prefill phase policy, plus under spec decoding
+        the verify for every reachable gamma (on the card: one eager warm
+        call and one CUDA-graph capture each), then zero the post-warmup
+        build baseline.  Only valid on an idle engine, as in the
+        reference.  Rung and gamma switches after this build nothing
+        (the ``*_retraces_after_warmup`` stay 0)."""
         if self.scheduler.has_work() or self.pool.num_occupied:
             raise RuntimeError(
                 "warmup() on a busy engine would corrupt live KV state; "
                 "call it before submitting requests")
         for r in range(self.num_rungs):
             self._decode.build(r)
+        if self.prefill_strategy == "chunked":
+            for i in range(len(self._chunk)):
+                self._chunk.build(i)
+        if self.spec_decoder is not None:
+            vs = self.spec_decoder.verify_steps   # one step per gamma
+            for i in range(len(vs)):
+                vs.build(i)
         sync(self.device)
-        self._warm_builds = self._decode.builds
+        self._warm_builds = tuple(0 if s is None else s.builds
+                                  for s in self._step_kinds())
+
+    def _step_kinds(self) -> tuple:
+        """(decode, chunk, verify) steps; verify is None without spec."""
+        return (self._decode, self._chunk,
+                None if self.spec_decoder is None
+                else self.spec_decoder.verify_steps)
+
+    def _retraces(self, kind: int) -> Optional[int]:
+        steps = self._step_kinds()[kind]
+        if self._warm_builds is None or steps is None:
+            return None
+        return steps.builds - self._warm_builds[kind]
 
     @property
     def decode_retraces_after_warmup(self) -> Optional[int]:
         """Decode-step builds since :meth:`warmup` (captures on the
         card); None before warmup.  Stays 0 however often the controller
-        switches rungs."""
-        if self._warm_builds is None:
-            return None
-        return self._decode.builds - self._warm_builds
+        switches rungs (draft steps included: they replay the drafter
+        rung's decode step)."""
+        return self._retraces(0)
+
+    @property
+    def chunk_retraces_after_warmup(self) -> Optional[int]:
+        """Chunk-step builds since :meth:`warmup`; None before warmup.
+        Stays 0 across rung switches."""
+        return self._retraces(1)
+
+    @property
+    def verify_retraces_after_warmup(self) -> Optional[int]:
+        """Verify builds since :meth:`warmup`; None before warmup or
+        without spec decoding.  Stays 0 across gamma switches: every
+        reachable gamma's verify is built at warmup."""
+        return self._retraces(2)
 
     @property
     def decode_graphs(self) -> DecodeSteps:
         """The per-rung decode steps: builds, steps (replays on the
         card) and the kernel launches recorded in each capture."""
         return self._decode
+
+    @property
+    def chunk_graphs(self) -> ChunkSteps:
+        """The chunk steps, one per (rung, prefill phase policy)."""
+        return self._chunk
+
+    def launches(self, counts: Dict[str, int]) -> Dict[str, int]:
+        """The kernel launches that ran over a span whose wrapper counts
+        are ``counts``, where the span holds every build and step of this
+        engine: each launch recorded in a capture taken once per replay
+        (:func:`repro_torch.serving.graphs.launches`)."""
+        return graphs.launches(counts, *(s for s in self._step_kinds()
+                                         if s is not None))
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, eos_id: Optional[int] = None,
@@ -311,7 +421,10 @@ class Engine:
             else:
                 self._prefill_whole(self.scheduler.prefill_group())
         elif action == "decode":
-            self._decode_step()
+            if self.spec_decoder is not None:
+                self.spec_decoder.step()
+            else:
+                self._decode_step()
         return action
 
     def run(self) -> Dict[int, List[int]]:
@@ -351,11 +464,11 @@ class Engine:
         weights = np.zeros((C,), np.float32)
         weights[:real] = 1.0
         policy = self._phase_policy(off, req.prompt_len)
+        i = self._chunk.index(self._rung, policy)
+        # a step not built yet (no warmup) builds outside the timed step
+        self._chunk.build(i)
         t0 = obs.now()
-        logits, _ = self._cstep(
-            self.params, torch.from_numpy(chunk).to(self.device), off,
-            rs.slot, self.pool.caches, self.sp,
-            torch.from_numpy(weights).to(self.device), policy=policy)
+        logits = self._chunk(i, chunk, off, rs.slot, weights)
         sync(self.device)
         t1 = obs.now()
         dt = t1 - t0

@@ -4,15 +4,17 @@
 One fixed ``(max_slots, max_len)`` cache tree is allocated up front from
 ``api.cache_schema`` and lives for the engine's lifetime; requests borrow
 a slot (the batch index) and return it on completion.  The forward
-writes decode and chunked-prefill K/V into the pool tensors in place
-(where the reference donates the pool through each jitted step).
-Rollback, prefix segments and suspend/resume come with speculative
-decoding, the prefix cache and preemption."""
+writes decode, chunked-prefill and verify K/V into the pool tensors in
+place (where the reference donates the pool through each jitted step).
+Rollback truncates rejected draft positions out of the pool
+(speculative decoding).  Prefix segments and suspend/resume come with
+the prefix cache and preemption."""
 from __future__ import annotations
 
 from typing import List, Set
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
@@ -25,6 +27,13 @@ class SlotKVPool:
         self.max_slots = max_slots
         self.max_len = max_len
         self.caches = api.init_caches(cfg, max_slots, max_len, device)
+        # rollback truncates by absolute time position, which is only
+        # meaningful when every leaf is a full-length self-attn cache
+        # (K (reps,S,KV,hd,T), V (reps,S,KV,T,hd))
+        self._can_rollback = all(
+            e["self"]["k"].shape[-1] == max_len
+            and e["self"]["v"].shape[-2] == max_len
+            for g in self.caches for e in g)
         self._free: List[int] = list(range(max_slots))[::-1]   # pop() -> 0 first
         self._free_set: Set[int] = set(self._free)
         self.lengths = np.zeros(max_slots, np.int64)
@@ -69,6 +78,51 @@ class SlotKVPool:
                 f"commit: slot {slot} length {new_len} exceeds the pool's "
                 f"{self.max_len}")
         self.lengths[slot] = new_len
+
+    def rollback(self, slot: int, n: int) -> None:
+        """Truncate the last ``n`` committed positions of ``slot``: zero
+        their cache entries in place and shrink the slot's length, so
+        rejected draft tokens leave no trace: the cache is bit-identical
+        to one that never saw them."""
+        self.rollback_many({slot: n})
+
+    def rollback_many(self, per_slot) -> None:
+        """Roll back several slots in one masked write per cache leaf
+        (the spec engine truncates every rejected draft suffix of a round
+        at once).  ``per_slot``: {slot: n}.  Validates every entry before
+        touching anything."""
+        starts = np.copy(self.lengths)
+        for slot, n in per_slot.items():
+            self._check_allocated(slot, "rollback")
+            length = int(self.lengths[slot])
+            if not 0 <= n <= length:
+                raise ValueError(
+                    f"rollback: slot {slot} cannot roll back {n} of "
+                    f"{length} positions")
+            starts[slot] = length - n
+        if all(n == 0 for n in per_slot.values()):
+            return
+        if not self._can_rollback:
+            raise ValueError(
+                "rollback needs full-length self-attention caches; "
+                "rolling-window and SSM cache layouts cannot truncate by "
+                "position")
+        # one (S, T) drop mask from device copies of the two (S,) vectors,
+        # so no shape depends on how much is rolled back
+        k0 = self.caches[0][0]["self"]["k"]
+        t = torch.arange(k0.shape[-1], device=k0.device)
+        s = torch.from_numpy(starts).to(k0.device)[:, None]
+        e = torch.from_numpy(self.lengths).to(k0.device)[:, None]
+        drop = (t >= s) & (t < e)                           # (S, T)
+        S, T = drop.shape
+        drop_k, drop_v = drop.view(1, S, 1, 1, T), drop.view(1, S, 1, T, 1)
+        with torch.no_grad():
+            for g in self.caches:
+                for entry in g:
+                    entry["self"]["k"].masked_fill_(drop_k, 0)
+                    entry["self"]["v"].masked_fill_(drop_v, 0)
+        for slot in per_slot:
+            self.lengths[slot] = starts[slot]
 
     def insert(self, prefill_caches, src_idx: int, slot: int,
                length: int) -> None:

@@ -1,6 +1,7 @@
 """Engine statistics (port of the core of the JAX package's
 ``serving/metrics.py``): per-phase step counts and latencies, throughput,
-queue depth and slot occupancy, TTFT and the inter-token (TPOT) gaps.
+queue depth and slot occupancy, TTFT and the inter-token (TPOT) gaps,
+and the speculative-decoding counters and per-round series.
 
 Per-sample series are fixed-capacity :class:`RingBuffer`s keeping exact
 whole-run count and sum; :func:`percentile` gives exact nearest-rank
@@ -77,6 +78,21 @@ class EngineStats:
     prefill_step_s: RingBuffer = dataclasses.field(default_factory=RingBuffer)
     tpot_s: RingBuffer = dataclasses.field(default_factory=RingBuffer)
     ttft_s: RingBuffer = dataclasses.field(default_factory=RingBuffer)
+    # --- speculative decoding -------------------------------------------
+    spec_rounds: int = 0                     # spec rounds (draft + verify)
+    spec_draft_steps: int = 0                # single-token drafter steps
+    spec_verifies: int = 0                   # per-slot verify outcomes
+    spec_draft_tokens: int = 0               # drafted tokens (gamma/slot)
+    spec_accepted_tokens: int = 0            # drafts surviving verification
+    spec_committed_tokens: int = 0           # emitted by spec (incl. bonus)
+    # per-round phase latencies: one draft sample covers the round's gamma
+    # sequential drafter steps, one verify sample the batched verify
+    spec_draft_s: RingBuffer = dataclasses.field(default_factory=RingBuffer)
+    spec_verify_s: RingBuffer = dataclasses.field(default_factory=RingBuffer)
+    # per-slot per-round accepted-draft counts (the acceptance series; the
+    # whole-run rate comes from the exact counters above)
+    spec_accepted_per_verify: RingBuffer = dataclasses.field(
+        default_factory=RingBuffer)
 
     def sample(self, queue_depth: int, occupied_slots: int) -> None:
         self.queue_depth.append(queue_depth)
@@ -116,4 +132,20 @@ class EngineStats:
             if ring:
                 out[f"{name}_p50_s"] = percentile(ring, 50)
                 out[f"{name}_p95_s"] = percentile(ring, 95)
+        if self.spec_rounds:
+            out["spec_rounds"] = self.spec_rounds
+            out["spec_committed_tokens"] = self.spec_committed_tokens
+            out["spec_accept_rate"] = (self.spec_accepted_tokens
+                                       / max(1, self.spec_draft_tokens))
+            out["spec_accepted_per_verify"] = (self.spec_accepted_tokens
+                                               / max(1, self.spec_verifies))
+            ring = self.spec_accepted_per_verify
+            if ring:
+                out["spec_accepted_per_verify_p50"] = percentile(ring, 50)
+                out["spec_accepted_per_verify_p95"] = percentile(ring, 95)
+            for name, ring in (("spec_draft", self.spec_draft_s),
+                               ("spec_verify", self.spec_verify_s)):
+                if ring:
+                    out[f"{name}_p50_s"] = percentile(ring, 50)
+                    out[f"{name}_p95_s"] = percentile(ring, 95)
         return out

@@ -110,7 +110,6 @@ def test_engine_needs_a_card_unless_asked_for_cpu(model, monkeypatch):
 @pytest.mark.parametrize("field,value", [
     ("slo", SLOConfig(tpot_p95=1.0, priority_aware=True)),
     ("slo", SLOConfig(tpot_p95=1.0, quality_aware=True)),
-    ("spec", object()),
     ("prefix_cache", True),
     ("scheduler", object())])
 def test_unported_engine_features_raise(field, value):

@@ -60,10 +60,10 @@ def test_kernels_match_plain_versions(dev, B, n, m, blk, dtype):
 
 
 def test_engine_on_card_matches_cpu_and_counts_launches(dev):
-    """Greedy tokens equal the CPU's.  The decode step runs as a CUDA
-    graph: the wrappers count each kernel once while it is captured, the
-    replays count nothing, so the launches that ran are the eager ones
-    (sparse prefill chunks and the warm step before the capture) plus
+    """Greedy tokens equal the CPU's.  The decode step and the sparse
+    prefill phase's chunk step run as CUDA graphs: the wrappers count
+    each kernel once while it is captured, the replays count nothing, so
+    the launches that ran are the warm calls before the captures plus
     the captured ones times the replays."""
     cfg = reduced(get_config("llama31_8b"))
     params = api.init_model(cfg, 0, device="cpu")
@@ -81,20 +81,24 @@ def test_engine_on_card_matches_cpu_and_counts_launches(dev):
         for p in prompts:
             eng.submit(p, 4)
         outs.append(eng.run())
-        g = eng.decode_graphs
+        g, ch = eng.decode_graphs, eng.chunk_graphs
         assert g.builds == 1 and g.steps == [eng.stats.decode_steps]
+        sparse_chunk = ch.index(0, pol.for_phase("prefill_sparse"))
+        assert ch.builds == 2
+        assert ch.steps[sparse_chunk] == eng.stats.prefill_sparse_chunks > 0
         if d.type == "cuda":
             per = 7 * cfg.num_layers
             ran = eng.stats.decode_steps + eng.stats.prefill_sparse_chunks \
-                + 1                                   # + the warm step
-            assert g.captured[0] == {"score_select": per,
-                                     "sparse_matmul_shared": per,
-                                     "sparse_matmul_per_seq": 0}
-            assert g.launches(K.launch_counts) == {
+                + 2                          # + the two warm calls
+            for steps, i in ((g, 0), (ch, sparse_chunk)):
+                assert steps.captured[i] == {"score_select": per,
+                                             "sparse_matmul_shared": per,
+                                             "sparse_matmul_per_seq": 0}
+            assert eng.launches(K.launch_counts) == {
                 "score_select": per * ran, "sparse_matmul_shared": per * ran,
                 "sparse_matmul_per_seq": 0}
-            assert K.launch_counts["score_select"] == per * (
-                eng.stats.prefill_sparse_chunks + 2)  # warm + capture
+            # warm + capture of the decode and the sparse chunk graphs
+            assert K.launch_counts["score_select"] == per * 4
     assert outs[0] == outs[1]
 
 
@@ -469,3 +473,116 @@ def test_sparse_chunk_after_capture_keeps_the_captured_scratch(dev,
     eng.run()
     assert eng.stats.prefill_sparse_chunks > sparse
     assert K.scratch_tensors(dev)[0] is ws and K.scratch_tensors(dev)[1] is cnt
+
+
+# ---------------------------------------------------------------------------
+# the chunk and verify steps as CUDA graphs, speculative decoding
+# ---------------------------------------------------------------------------
+
+def _pool_bytes(eng, slot=None):
+    rows = [e["self"][k] if slot is None else e["self"][k][:, slot]
+            for grp in eng.pool.caches for e in grp for k in ("k", "v")]
+    return torch.cat([r.reshape(-1) for r in rows]).clone()
+
+
+@pytest.mark.parametrize("backend", ["off", "pallas"])
+def test_chunk_graph_equals_the_eager_chunk(dev, backend):
+    """The captured chunk step against the plain one on the same inputs,
+    chunk by chunk along one prompt: bit-equal logits and the same pool
+    bytes (the eager step writes the chunk's K/V, the replay the same
+    values again)."""
+    pol = SparsityPolicy.uniform(backend, k_max_frac=0.5, block=16)
+    eng = _bf16_engine(dev, pol, sp=backend != "off")
+    ch = eng.chunk_graphs
+    i = ch.index(0, pol.for_phase("prefill_sparse"))
+    assert ch.built(i)
+    slot = eng.pool.alloc() if eng.pool.num_free else 0
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, eng.cfg.vocab_size, 48)
+    w = np.ones(16, np.float32)
+    for c in range(3):
+        toks = prompt[16 * c:16 * (c + 1)][None].astype(np.int64)
+        want = ch.eager(i, toks, 16 * c, slot, w).clone()
+        want_pool = _pool_bytes(eng)
+        got = ch(i, toks, 16 * c, slot, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(_pool_bytes(eng), want_pool)
+
+
+def test_verify_graph_equals_the_eager_verify(dev):
+    """The captured verify against the plain one on the same inputs:
+    bit-equal logits and greedy tokens, the same pool bytes."""
+    from repro_torch.serving import SpecConfig
+    from repro_torch.sparsity import PolicyLadder
+    import dataclasses
+    cfg = dataclasses.replace(reduced(get_config("llama31_8b")),
+                              dtype="bfloat16")
+    params = api.init_model(cfg, 0, device=dev)
+    ladder = PolicyLadder.uniform(params, cfg, budgets=(0.0, 0.5),
+                                  backend="pallas", block=16)
+    ladder = PolicyLadder(budgets=ladder.budgets, policies=ladder.policies,
+                          sps=tuple(_with_tau(sp, float("-inf"))
+                                    for sp in ladder.sps))
+    eng = Engine(params, cfg, EngineConfig(
+        max_slots=4, max_len=64, prefill_chunk=16,
+        spec=SpecConfig(gamma=3, drafter_rung=1)), ladder=ladder,
+        device=dev)
+    vs = eng.spec_decoder.verify_steps
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 4))).to(dev)
+    pos = torch.tensor([0, 5, 20, eng.pool_len - 4], device=dev)
+    wts = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)[:, None].expand(
+        4, 4)
+    want = vs.eager(toks, pos, wts).clone()
+    want_pool = _pool_bytes(eng)
+    ver, got = vs(3, toks, pos, wts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(ver, torch.argmax(want, -1))
+    assert torch.equal(_pool_bytes(eng), want_pool)
+    assert vs.builds == 1 and vs.steps == [1]
+
+
+def test_spec_engine_on_card_matches_cpu_and_builds_once(dev):
+    """The reduced spec engine (f32) gives the CPU's tokens and spec
+    counters on the card.  Every decode, chunk and verify graph is
+    captured at warmup: gamma and rung switches build nothing after."""
+    from repro_torch.serving import SpecConfig
+    from repro_torch.sparsity import PolicyLadder
+    cfg = reduced(get_config("llama31_8b"))
+    params = api.init_model(cfg, 0, device="cpu")
+    base = PolicyLadder.uniform(params, cfg, budgets=(0.0, 0.5, 0.7),
+                                backend="pallas", block=16)
+    spec = SpecConfig(gamma=2, drafter_rung=1, adaptive=True, gamma_min=1,
+                      gamma_max=3, adapt_drafter=True, dwell=2)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        ladder = PolicyLadder(
+            budgets=base.budgets, policies=base.policies,
+            sps=tuple(P.tree_map(lambda t, d=d: t.to(d),
+                                 _with_tau(sp, float("-inf")))
+                      for sp in base.sps))
+        eng = Engine(P.tree_map(lambda t, d=d: t.to(d), params), cfg,
+                     EngineConfig(max_slots=2, max_len=64, prefill_chunk=16,
+                                  spec=spec), ladder=ladder, device=d)
+        built = (eng.decode_graphs.builds, eng.chunk_graphs.builds,
+                 eng.spec_decoder.verify_steps.builds)
+        assert built == (3, 5, 3)
+        rng = np.random.default_rng(1)
+        for n in (20, 9, 14):
+            eng.submit(rng.integers(0, 256, n), 12)
+        gammas = []
+        while eng.scheduler.has_work():
+            if eng.step() == "decode":
+                gammas.append(eng.spec_decoder.gamma)
+                eng.spec_decoder.set_gamma(1 + len(gammas) % 3)
+        assert (eng.decode_retraces_after_warmup,
+                eng.chunk_retraces_after_warmup,
+                eng.verify_retraces_after_warmup) == (0, 0, 0)
+        assert all(n > 0 for n in eng.spec_decoder.verify_steps.steps)
+        st = eng.stats
+        outs.append(({r: rs.tokens for r, rs in eng.states.items()},
+                     st.spec_rounds, st.spec_accepted_tokens,
+                     st.spec_committed_tokens, gammas))
+    assert outs[0] == outs[1]

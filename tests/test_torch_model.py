@@ -319,7 +319,8 @@ def test_chunk_logits_match_jax(model, backend):
     tcaches = P.from_numpy(caches)
     tl, _ = TM.forward(model["params"], model["cfg"],
                        tokens=torch.from_numpy(toks), mode="chunk",
-                       caches=tcaches, positions=off, slot=slot,
+                       caches=tcaches, positions=torch.full((1,), off),
+                       slot=torch.tensor(slot),
                        sp=model["sp"], policy=tpol,
                        token_weights=torch.from_numpy(weights))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_ATOL)
@@ -339,9 +340,9 @@ def test_train_logits_match_jax(model):
 
 
 def test_unported_paths_raise(model):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="forward mode"):
         TM.forward(model["params"], model["cfg"],
-                   tokens=torch.zeros(1, 2, dtype=torch.long), mode="verify")
+                   tokens=torch.zeros(1, 2, dtype=torch.long), mode="encode")
     with pytest.raises(NotImplementedError):
         TM.model_schema(get_config("mamba2_130m"))
     with pytest.raises(NotImplementedError):
