@@ -93,7 +93,33 @@ In order, it:
    after warmup and launch the kernels as in phase 5, and the keep-all
    run must accept drafts; prints acceptance rate, accepted per verify,
    draft and verify ms per round, decode tok/s and TTFT p50;
-12. prints one JSON line describing every kernel, then, as its last line,
+12. serves the prefix cache at full width (8 slots, ``max_len`` 512, chunk
+   32, ``prefill_dense_frac`` 1.0): a 256-token system prompt from SEED,
+   12 requests of it plus a unique 16-, 32- or 64-token suffix (32 new
+   tokens each, all at once) after one priming request, through a cold
+   and a cache engine, dense and ``pallas`` (cold dense, cache dense,
+   cold pallas, cache pallas).  Every trace request must hit at 256 or
+   more, the cache-dense tokens must equal the cold-dense tokens, the
+   slot bytes over [0, P) after a hit plus its suffix prefill must be
+   bit-equal to a cold prefill for one request of each suffix length in
+   both modes, no step may be built after warmup, no pool tensor may
+   move, and the ``pallas`` runs' launches are checked as in phase 5.
+   Prints hit rate, matched lengths, prompt tokens saved, prefill
+   chunks, chunk p50, TTFT p50, prefill s, decode p50, run s, cached
+   tokens and segments, and each segment copy's ms and GB/s (CUDA
+   events);
+13. serves preemption at full width (phase 12's engine, dense decode,
+   ``SchedulerConfig(preemption=True)``): phase 5's first 8 prompts as
+   best-effort requests (64 new tokens) driven until each holds 2
+   tokens, then 4 interactive requests (32-96-token prompts from the
+   seed, 16 new tokens); the same config and submit order without
+   preemption is the reference.  Every request's tokens must be equal
+   in the two runs, ``preemptions == resumes >= 1``, nothing built after
+   warmup, no pool tensor moved, and a direct suspend -> resume of 300
+   positions into another slot must leave the bytes bit-equal.  Prints
+   suspend and resume ms, interactive TTFT p50 and best-effort finish
+   time with and without preemption;
+14. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run; those of ``sparse_matmul_per_seq`` from phase 3's
@@ -1704,6 +1730,373 @@ def verify_vs_decode(dev, cfg, params, trace, ladder, spec) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the prefix cache
+# ---------------------------------------------------------------------------
+
+def prefix_trace(cfg) -> dict:
+    """Phase 12's trace: a 256-token system prompt from SEED, 12 requests
+    each the system prompt plus a unique suffix of 16, 32 or 64 tokens
+    (chosen from the seed), 32 new tokens each, all arriving at once;
+    before them one priming request (the system prompt plus a 64-token
+    suffix outside the trace, 2 new tokens), run to completion."""
+    rng = np.random.default_rng(SEED + 12)
+    system = rng.integers(0, cfg.vocab_size, 256)
+    suffix = [int(n) for n in rng.choice([16, 32, 64], 12)]
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, n)])
+               for n in suffix]
+    prime = np.concatenate([system, rng.integers(0, cfg.vocab_size, 64)])
+    # the first request of each suffix length: its slot bytes are held
+    watch = sorted({n: i for i, n in reversed(list(enumerate(suffix)))}
+                   .values())
+    if len(watch) != 3:
+        raise AssertionError(f"suffix lengths {suffix} lack one of 16/32/64")
+    return {"prompts": prompts, "prime": prime, "suffix": suffix,
+            "watch": watch, "gen": 32,
+            "ecfg": dict(max_slots=8, max_len=512, prefill_chunk=32,
+                         prefill_dense_frac=1.0)}
+
+
+def _pool_leaves(eng):
+    return [e["self"][k] for grp in eng.pool.caches for e in grp
+            for k in ("k", "v")]
+
+
+def _slot_prefix(eng, slot: int, n: int) -> list:
+    """Slot ``slot``'s K/V over positions [0, n), every leaf, cloned."""
+    return [t[:, slot, ..., :n].clone() if i % 2 == 0
+            else t[:, slot, :, :n].clone()
+            for i, t in enumerate(_pool_leaves(eng))]
+
+
+def _bytes_per_token(eng) -> int:
+    """Bytes of one position of one slot across every cache leaf (128 KiB
+    for full-width llama31_8b in bf16)."""
+    return sum(t[:, 0].numel() // t.shape[-1 if i % 2 == 0 else -2]
+               * t.element_size() for i, t in enumerate(_pool_leaves(eng)))
+
+
+class SegmentTimer:
+    """Wraps a pool's ``extract_prefix`` and ``write_prefix`` with CUDA
+    events: per copy, its length in positions and its device ms (read
+    after the run, so timing adds no host sync to the serving path)."""
+
+    def __init__(self, pool):
+        self.calls = {"extract": [], "write": []}
+        for kind, attr in (("extract", "extract_prefix"),
+                           ("write", "write_prefix")):
+            setattr(pool, attr, self._wrap(kind, getattr(pool, attr)))
+
+    def _wrap(self, kind, fn):
+        def run(*args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args)
+            e1.record()
+            n = args[1] if kind == "extract" else \
+                args[0][0][0]["self"]["k"].shape[-1]
+            self.calls[kind].append((e0, e1, n))
+            return out
+        return run
+
+    def summary(self, bytes_per_token: int) -> dict:
+        torch.cuda.synchronize()
+        out = {}
+        for kind, calls in self.calls.items():
+            ms = [a.elapsed_time(b) for a, b, _n in calls]
+            gbs = [n * bytes_per_token / (t * 1e6)
+                   for t, (_a, _b, n) in zip(ms, calls)]
+            out[kind] = {"copies": len(calls),
+                         "positions": [n for _a, _b, n in calls],
+                         "ms_p50": float(np.median(ms)) if ms else None,
+                         "gb_s_p50": float(np.median(gbs)) if gbs else None}
+        return out
+
+
+def record_prefills(eng, ids) -> dict:
+    """Wrap ``eng._start_decode`` to keep the slot bytes [0, P) of the
+    requests ``ids`` at the end of their prefill (before decode writes
+    position P)."""
+    got = {}
+    start = eng._start_decode
+
+    def wrapped(rs, first):
+        rid = rs.request.request_id
+        if rid in ids:
+            got[rid] = _slot_prefix(eng, rs.slot, rs.request.prompt_len)
+        start(rs, first)
+    eng._start_decode = wrapped
+    return got
+
+
+def first_difference(a: list, b: list) -> str:
+    """Where two lists of per-leaf tensors first part: leaf, index and
+    the gap there."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not torch.equal(x, y):
+            d = (x.float() - y.float()).abs()
+            j = np.unravel_index(int(d.argmax()), tuple(d.shape))
+            return (f"leaf {i} ({'kv'[i % 2]}), index {tuple(int(v) for v in j)}"
+                    f", max abs gap {float(d.max()):.4g}, "
+                    f"{int((d > 0).sum())} elements differ")
+    return "no difference"
+
+
+def prefix_run(name, params, cfg, policy, sp, pt, dev, K, cache) -> dict:
+    """One engine, the priming request, then the trace, with the kernels'
+    launch counts zeroed just before the engine is built and read just
+    after the run.  The trace's stats start after the priming request."""
+    from repro_torch import obs
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.metrics import EngineStats
+
+    K.reset_launch_counts()
+    eng = Engine(params, cfg, EngineConfig(
+        policy=policy, prefix_cache=cache, **pt["ecfg"]), sp, device=dev)
+    ptrs = [t.data_ptr() for t in _pool_leaves(eng)]
+    timer = SegmentTimer(eng.pool)
+    eng.submit(pt["prime"], 2)
+    eng.run()
+    eng.stats = EngineStats()
+    watched = record_prefills(eng, {1 + i for i in pt["watch"]})
+    for p in pt["prompts"]:
+        eng.submit(p, pt["gen"])
+    t0 = obs.now()
+    out, res = drive(eng, 0)
+    torch.cuda.synchronize()
+    res["wall_s"] = obs.now() - t0
+    counts = dict(K.launch_counts)
+    check_launches(name, eng, None, counts, res, cfg)
+    tokens = {rid: out[rid] for rid in range(1, 1 + len(pt["prompts"]))}
+    for rid, toks in tokens.items():
+        if len(toks) != pt["gen"] or not all(0 <= t < cfg.vocab_size
+                                             for t in toks):
+            raise AssertionError(f"{name}: request {rid} gave {toks}")
+    if [t.data_ptr() for t in _pool_leaves(eng)] != ptrs:
+        raise AssertionError(f"{name}: a pool tensor moved")
+    st = eng.stats
+    res.update({
+        "prefix_lookups": st.prefix_lookups, "prefix_hits": st.prefix_hits,
+        "hit_rate": st.prefix_hits / max(1, st.prefix_lookups),
+        "hit_len": [int(v) for v in st.prefix_hit_len],
+        "prompt_tokens_saved": st.prefix_tokens_saved,
+        "segments": timer.summary(_bytes_per_token(eng))})
+    if cache:
+        pc = eng.prefix_cache
+        res["cached_tokens"] = pc.cached_tokens
+        res["cached_segments"] = pc.num_segments
+        res["builds_after_warmup"] = (eng.decode_retraces_after_warmup,
+                                      eng.chunk_retraces_after_warmup)
+        if res["builds_after_warmup"] != (0, 0):
+            raise AssertionError(f"{name}: (decode, chunk) builds after "
+                                 f"warmup {res['builds_after_warmup']}")
+        if st.prefix_hits != len(pt["prompts"]) or min(res["hit_len"]) < 256:
+            raise AssertionError(
+                f"{name}: {st.prefix_hits} of {len(pt['prompts'])} requests "
+                f"hit, matched lengths {res['hit_len']} (each must be >= 256)")
+    res["tokens"] = tokens
+    res["watched"] = watched
+    del eng
+    gc.collect()
+    return res
+
+
+def serve_prefix_cache(dev, K, cfg, params) -> dict:
+    """Phase 12: cold dense, cache dense, cold ``pallas``, cache
+    ``pallas`` on the shared-system-prompt trace."""
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.sparsity import SparsityPolicy
+
+    pt = prefix_trace(cfg)
+    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
+    modes = {"dense": (SparsityPolicy.dense(), None),
+             "pallas": (SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
+                        sp)}
+    runs = {}
+    for mode, cache in (("dense", False), ("dense", True),
+                        ("pallas", False), ("pallas", True)):
+        name = f"{'cache' if cache else 'cold'} {mode}"
+        pol, s = modes[mode]
+        runs[name] = prefix_run(name, params, cfg, pol, s, pt, dev, K, cache)
+        r = runs[name]
+        seg = r["segments"]
+        print(f"prefix {name}: hit rate {r['hit_rate']:.3f}, matched "
+              f"{r['hit_len']}, prompt tokens saved "
+              f"{r['prompt_tokens_saved']}, prefill chunks "
+              f"{r['prefill_chunks']}, chunk p50 "
+              f"{r['prefill_chunk_p50_ms']:.2f} ms, TTFT p50 "
+              f"{r['ttft_p50_ms']:.1f} ms, prefill {r['prefill_s']:.3f} s, "
+              f"decode p50 {r['decode_step_p50_ms']:.2f} ms, run "
+              f"{r['wall_s']:.3f} s, cached tokens "
+              f"{r.get('cached_tokens')} in {r.get('cached_segments')} "
+              f"segments; extract {seg['extract']['copies']} x "
+              f"{seg['extract']['ms_p50']} ms p50 "
+              f"({seg['extract']['gb_s_p50']} GB/s), write "
+              f"{seg['write']['copies']} x {seg['write']['ms_p50']} ms p50 "
+              f"({seg['write']['gb_s_p50']} GB/s)")
+    if runs["cache dense"]["tokens"] != runs["cold dense"]["tokens"]:
+        bad = [rid for rid, t in runs["cold dense"]["tokens"].items()
+               if runs["cache dense"]["tokens"][rid] != t]
+        raise AssertionError(f"cache dense: requests {bad} leave the cold "
+                             "dense run's tokens")
+    for mode in ("dense", "pallas"):
+        cold, warm = runs[f"cold {mode}"], runs[f"cache {mode}"]
+        for i in pt["watch"]:
+            a, b = cold["watched"][1 + i], warm["watched"][1 + i]
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(
+                    f"{mode}: request {1 + i} (suffix {pt['suffix'][i]}): "
+                    "slot bytes over [0, P) after a hit differ from a cold "
+                    f"prefill: {first_difference(a, b)}")
+        print(f"prefix {mode}: slot bytes over [0, P) after a hit plus the "
+              "suffix prefill are bit-equal to a cold prefill for suffixes "
+              f"{[pt['suffix'][i] for i in pt['watch']]}")
+    print(f"prefix dense: cache tokens equal cold tokens for all "
+          f"{len(pt['prompts'])} requests; pallas runs held by slot bytes "
+          "(the shared top-k depends on the batch)")
+    for r in runs.values():
+        del r["watched"]
+    runs["trace"] = {"suffix": pt["suffix"], "system_prompt": 256,
+                     "gen": pt["gen"], **pt["ecfg"]}
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 13: preemption
+# ---------------------------------------------------------------------------
+
+class CallTimer:
+    """Host ms of each call of one pool method, the card synced on both
+    sides (suspend's device-to-host copy blocks; resume's copy does
+    not)."""
+
+    def __init__(self, pool, attr):
+        from repro_torch import obs
+        self.ms = []
+        fn = getattr(pool, attr)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = obs.now()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.ms.append(1e3 * (obs.now() - t0))
+            return out
+        setattr(pool, attr, run)
+
+
+def preempt_run(name, params, cfg, trace, inter, dev, preempt) -> dict:
+    """8 best-effort requests (phase 5's first 8 prompts, 64 new tokens)
+    driven until each holds 2 tokens, then 4 interactive requests (16
+    new tokens), to the end."""
+    from repro_torch import obs
+    from repro_torch.serving import Engine, EngineConfig, SchedulerConfig
+    from repro_torch.serving.metrics import percentile
+
+    eng = Engine(params, cfg, EngineConfig(
+        scheduler=SchedulerConfig(preemption=preempt),
+        prefill_dense_frac=1.0, **trace["ecfg"]), device=dev)
+    ptrs = [t.data_ptr() for t in _pool_leaves(eng)]
+    sus, res_t = CallTimer(eng.pool, "suspend"), CallTimer(eng.pool, "resume")
+    t0 = obs.now()
+    be = [eng.submit(p, 64, priority="best-effort")
+          for p in trace["prompts"][:8]]
+    for _ in range(4096):
+        if len(eng.scheduler.decoding) == 8 and all(len(rs.tokens) >= 2
+                                                    for rs in be):
+            break
+        eng.step()
+    else:
+        raise AssertionError(f"{name}: the best-effort requests never all "
+                             "reached 2 tokens")
+    t_int = obs.now()
+    ia = [eng.submit(p, 16, priority="interactive") for p in inter]
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = obs.now() - t0
+    if [t.data_ptr() for t in _pool_leaves(eng)] != ptrs:
+        raise AssertionError(f"{name}: a pool tensor moved")
+    st = eng.stats
+    res = {
+        "preemptions": st.preemptions, "resumes": st.resumes,
+        "suspend_ms": sus.ms, "resume_ms": res_t.ms,
+        "interactive_ttft_p50_ms": 1e3 * percentile(
+            [rs.first_token_time - rs.request.arrival_time for rs in ia], 50),
+        "best_effort_finish_s": [rs.finish_time - t_int for rs in be],
+        "best_effort_last_finish_s": max(rs.finish_time for rs in be) - t_int,
+        "interactive_last_finish_s": max(rs.finish_time
+                                         for rs in ia) - t_int,
+        "wall_s": wall, "decode_steps": st.decode_steps,
+        "prefill_chunks": st.prefill_chunks}
+    if preempt:
+        res["builds_after_warmup"] = (eng.decode_retraces_after_warmup,
+                                      eng.chunk_retraces_after_warmup)
+        if res["builds_after_warmup"] != (0, 0):
+            raise AssertionError(f"{name}: (decode, chunk) builds after "
+                                 f"warmup {res['builds_after_warmup']}")
+        if not st.preemptions == st.resumes >= 1:
+            raise AssertionError(f"{name}: {st.preemptions} preemptions, "
+                                 f"{st.resumes} resumes")
+        res["direct"] = direct_suspend_resume(eng, sus, res_t)
+    res["tokens"] = out
+    del eng
+    gc.collect()
+    return res
+
+
+def direct_suspend_resume(eng, sus, res_t, length: int = 300) -> dict:
+    """On the idle engine: suspend a slot holding ``length`` positions of
+    the run's K/V, resume it into another slot; the second slot's bytes
+    over [0, length) must equal the first's."""
+    pool = eng.pool
+    a = pool.alloc()
+    pool.lengths[a] = length
+    seg = pool.suspend(a, eng.ecfg.prefill_chunk)
+    b = pool.alloc()
+    pool.resume(seg, b)
+    torch.cuda.synchronize()
+    x, y = _slot_prefix(eng, a, length), _slot_prefix(eng, b, length)
+    if not all(torch.equal(u, v) for u, v in zip(x, y)):
+        raise AssertionError("suspend -> resume into another slot changed "
+                             f"the bytes: {first_difference(x, y)}")
+    pool.free(a)
+    pool.free(b)
+    mb = seg.phys * _bytes_per_token(eng) / 1e6
+    return {"length": length, "phys": seg.phys, "segment_mb": mb,
+            "suspend_ms": sus.ms[-1], "resume_ms": res_t.ms[-1]}
+
+
+def serve_preemption(dev, cfg, params, trace) -> dict:
+    """Phase 13: the preempted run, then the same engine config and
+    submit order without preemption."""
+    rng = np.random.default_rng(SEED + 13)
+    inter = [rng.integers(0, cfg.vocab_size, int(n))
+             for n in rng.integers(32, 97, 4)]
+    runs = {name: preempt_run(name, params, cfg, trace, inter, dev, pre)
+            for name, pre in (("preempted", True), ("no preemption", False))}
+    a, b = runs["preempted"], runs["no preemption"]
+    if a["tokens"] != b["tokens"]:
+        bad = {rid: next(j for j, (x, y) in enumerate(zip(t, a["tokens"][rid]))
+                         if x != y)
+               for rid, t in b["tokens"].items() if a["tokens"][rid] != t}
+        raise AssertionError(f"preempted: requests leave the run without "
+                             f"preemption at (request: token) {bad}")
+    d = a["direct"]
+    print(f"preemption: {a['preemptions']} preemptions, {a['resumes']} "
+          f"resumes; suspend ms {[round(v, 3) for v in a['suspend_ms']]}, "
+          f"resume ms {[round(v, 3) for v in a['resume_ms']]}; direct "
+          f"suspend -> resume of {d['length']} positions ({d['phys']} "
+          f"copied, {d['segment_mb']:.1f} MB): {d['suspend_ms']:.3f} / "
+          f"{d['resume_ms']:.3f} ms, bytes bit-equal; interactive TTFT p50 "
+          f"{a['interactive_ttft_p50_ms']:.1f} ms (without preemption "
+          f"{b['interactive_ttft_p50_ms']:.1f}); best-effort last finish "
+          f"{a['best_effort_last_finish_s']:.3f} s after the interactive "
+          f"arrival ({b['best_effort_last_finish_s']:.3f} without); tokens "
+          "equal in both runs")
+    return runs
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -1891,6 +2284,8 @@ def main() -> int:
     gve = graph_vs_eager(dev, cfg, params, trace)
     cgve = chunk_graph_vs_eager(dev, cfg, params, trace)
     spec_res = serve_spec(dev, K, cfg, params, trace, ladder)
+    prefix_res = serve_prefix_cache(dev, K, cfg, params)
+    preempt_res = serve_preemption(dev, cfg, params, trace)
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -1901,7 +2296,11 @@ def main() -> int:
         "spec": {n: {k: v for k, v in r.items() if k not in keep}
                  for n, r in spec_res.items()},
         "calibration": calib, "graph_vs_eager": gve,
-        "chunk_graph_vs_eager": cgve}}))
+        "chunk_graph_vs_eager": cgve,
+        "prefix_cache": {n: {k: v for k, v in r.items() if k not in keep}
+                         for n, r in prefix_res.items()},
+        "preemption": {n: {k: v for k, v in r.items() if k not in keep}
+                       for n, r in preempt_res.items()}}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     kernels = []

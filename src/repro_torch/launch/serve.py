@@ -42,7 +42,17 @@ fewer verifier passes per token.  The verifier rung must decode dense
 (rung 0 of a calibrated ladder); the engine rejects sparse verifiers,
 whose shared top-k saliency would break the parity guarantee.
 ``--spec-adaptive`` lets the acceptance EWMA tune gamma at runtime.
-The gateway and telemetry come with later slices.
+
+Prefix caching: ``--prefix-cache`` reuses KV across requests that share
+a prompt prefix (a radix tree over token ids); ``--prefix-cache-tokens``
+bounds the cached tokens (LRU eviction, 0 = unbounded).  It needs a
+prefix-deterministic prefill: dense (``--sparsity 0``) or ``mask``, and
+the engine refuses the rest.  Admission control: ``--max-queue N``
+bounds the admission queue (a submission beyond it raises
+``QueueFull``), and ``--preemption`` suspends the least important
+decoding request to host memory when a more important arrival needs its
+slot; the victim resumes bit-identically.  The gateway and telemetry
+come with later slices.
 """
 from __future__ import annotations
 
@@ -58,7 +68,8 @@ from repro_torch.core.sp_schema import default_sp_stacked
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import api
-from repro_torch.serving import Engine, EngineConfig, SLOConfig, SpecConfig
+from repro_torch.serving import (Engine, EngineConfig, SchedulerConfig,
+                                 SLOConfig, SpecConfig)
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
 
 
@@ -110,6 +121,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "the verifier rung pinned by --rung)")
     ap.add_argument("--spec-adaptive", action="store_true",
                     help="tune gamma from the acceptance EWMA at runtime")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="reuse KV across requests sharing a prompt "
+                         "prefix (radix tree over token ids; needs "
+                         "chunked prefill + dense/mask prefill policy)")
+    ap.add_argument("--prefix-cache-tokens", type=int, default=0,
+                    help="cached-token budget for --prefix-cache "
+                         "(LRU eviction; 0 = unbounded)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission queue: reject new submissions "
+                         "beyond this many queued requests (0 = unbounded)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="suspend the least-important decoding request to "
+                         "host memory when a more important arrival needs "
+                         "its KV slot; the victim resumes bit-identically")
     return ap
 
 
@@ -128,6 +153,11 @@ def validate_args(args) -> None:
                          "--calib-quick")
     if args.rung < 0:
         raise SystemExit(f"--rung must be >= 0, got {args.rung}")
+    if args.max_queue < 0:
+        raise SystemExit(f"--max-queue must be >= 0, got {args.max_queue}")
+    if args.prefix_cache_tokens and not args.prefix_cache:
+        raise SystemExit("--prefix-cache-tokens needs --prefix-cache to "
+                         "arm the prefix cache")
     if args.slo_tpot_p95 > 0 and args.ladder is None:
         raise SystemExit("--slo-tpot-p95 needs --ladder: the controller "
                          "switches between ladder rungs")
@@ -222,10 +252,17 @@ def main(argv=None):
                           verifier_rung=args.rung,
                           adaptive=args.spec_adaptive,
                           gamma_max=max(4, args.spec_gamma))
+    scheduler = None
+    if args.max_queue or args.preemption:
+        scheduler = SchedulerConfig(max_queue=args.max_queue,
+                                    preemption=args.preemption)
     # one slot per request, room for prompt + generation
     ecfg = EngineConfig(max_slots=args.batch,
                         max_len=args.prompt_len + args.gen, policy=policy,
-                        slo=slo, initial_rung=args.rung, spec=spec)
+                        slo=slo, initial_rung=args.rung, spec=spec,
+                        prefix_cache=args.prefix_cache,
+                        prefix_cache_tokens=args.prefix_cache_tokens,
+                        scheduler=scheduler)
     engine = Engine(params, cfg, ecfg, sp, device=device, ladder=ladder)
     t0 = obs.now()
     for b in range(args.batch):
@@ -246,6 +283,8 @@ def main(argv=None):
         print("retraces after warmup: decode",
               engine.decode_retraces_after_warmup, "verify",
               engine.verify_retraces_after_warmup)
+    if engine.prefix_cache is not None:
+        print("prefix cache:", engine.prefix_cache.snapshot())
     print("sample:", out[0][:16])
     return out
 

@@ -1,5 +1,5 @@
 """Public model API (port of the JAX package's ``models/api.py``): the
-cache schema, model init, and the step functions the serving engine
+cache and prefix-segment schemas, model init, and the step functions the serving engine
 calls (slot decode, chunked prefill, speculative verify, whole-prompt
 prefill)."""
 from __future__ import annotations
@@ -28,6 +28,15 @@ def cache_schema(cfg: ModelConfig, batch: int, cache_len: int):
                                   None), init="zeros"),
             }} for _ in pattern))
     return groups
+
+
+def prefix_segment_schema(cfg: ModelConfig, length: int):
+    """Schema of one slot's KV *prefix segment*, the unit the serving
+    prefix cache and preemption copy out of and into the slot pool: the
+    cache tree of one sequence (batch 1) cut to ``length`` positions.
+    Deriving it from :func:`cache_schema` keeps the segment layout and
+    the pool layout in lockstep."""
+    return cache_schema(cfg, 1, length)
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):

@@ -27,8 +27,9 @@ signal will oscillate:
   cycle when the lower rung fundamentally cannot meet the SLO.
 
 ``priority_aware`` and ``quality_aware`` are kept as the reference has
-them; the port's engine refuses both until the priority scheduler and
-the quality monitor are ported.  The speculative-decoding sibling,
+them; the port's engine feeds ``priority_aware`` the best-effort share
+of its decode batch, and refuses ``quality_aware`` until the quality
+monitor is ported.  The speculative-decoding sibling,
 :class:`SpecController`, tunes the draft length (and optionally the
 drafter rung) from the acceptance rate; on the card a switch only
 selects another captured verify or decode graph.

@@ -1,7 +1,8 @@
 """Continuous-batching inference engine (port of the core of the JAX
 package's ``serving/engine.py``).
 
-One engine owns the slot KV pool, the FIFO scheduler and the phase steps.
+One engine owns the slot KV pool, the priority scheduler and the phase
+steps.
 Sparsity is phase-aware per the paper's §5.1 recipe: prefill chunks that
 start in the first ``prefill_dense_frac`` of the prompt run dense, later
 chunks and every decode step run under the configured
@@ -37,10 +38,34 @@ decode action runs :class:`repro_torch.serving.spec.SpecDecoder`, in
 which sparse rungs draft and the dense verifier rung verifies; the
 output is token-identical to verifier-only decode.
 
-The reference's prefix cache, preemption and priority scheduling,
-telemetry, flight recorder and quality probes (and the controller's
-``priority_aware``/``quality_aware`` modes, which read them) are not
-ported yet: asking for any of them raises ``NotImplementedError``.
+Prefix caching (``EngineConfig.prefix_cache``): completed prefills are
+published into a radix tree over prompt token ids
+(``repro_torch.serving.prefix_cache``), and an admission that shares a
+cached prefix copies it into its slot and chunk-prefills only the
+un-cached suffix.  Requires chunked prefill and *prefix-deterministic*
+prefill policies (validated at construction: dense or per-token
+``mask``, identical across rungs and prompt lengths), which is what
+makes a cache-hit generation bit-identical to cold prefill.
+
+Admission control and preemption (``EngineConfig.scheduler``): a
+bounded admission queue (``submit`` raises
+:class:`repro_torch.serving.scheduler.QueueFull` with a retry
+estimate), per-request queue-wait deadlines (``FinishReason.EXPIRED``),
+strict-priority + per-tenant-WFQ admission order, and — with
+``SchedulerConfig.preemption`` — suspension of a strictly less
+important decoding victim to host memory (``SlotKVPool.suspend``/
+``resume``) so an interactive arrival gets its slot now.  Preemption
+happens only at the admission boundary, where every slot's KV length
+equals its request's committed position (spec rounds commit and roll
+back entirely inside their step), so a resumed request's remaining
+generation is bit-identical to an unpreempted run.  Segment copies (a
+hit, a publish, a suspend, a resume) are ``copy_`` into or out of the
+pool tensors, which keep their addresses: the captured graphs go on
+reading them, and nothing is built after warmup.
+
+The reference's telemetry, flight recorder and quality probes (and the
+controller's ``quality_aware`` mode, which reads them) are not ported
+yet: asking for any of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -62,13 +87,13 @@ from repro_torch.serving import graphs
 from repro_torch.serving.graphs import ChunkSteps, DecodeSteps, GraphSpace
 from repro_torch.serving.kv_pool import SlotKVPool
 from repro_torch.serving.metrics import EngineStats
-from repro_torch.serving.request import (FinishReason, Request, RequestState,
-                                         Status)
-from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.request import (FinishReason, Priority, Request,
+                                         RequestState, Status)
+from repro_torch.serving.scheduler import (QueueFull, Scheduler,
+                                           SchedulerConfig)
 from repro_torch.serving.spec import SpecConfig, SpecDecoder
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
-
-_NOT_PORTED = ("prefix_cache", "scheduler")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,9 +107,16 @@ class EngineConfig:
     when no SLO is configured — a pinned rung).  ``spec`` arms
     self-speculative decoding (requires a ladder: sparse rungs draft, the
     dense verifier rung verifies; see :mod:`repro_torch.serving.spec`).
-    ``prefix_cache`` and ``scheduler`` keep the reference's names and
-    raise ``NotImplementedError`` when set, as do the SLO's
-    ``priority_aware`` and ``quality_aware`` modes."""
+
+    ``prefix_cache`` arms radix-tree KV prefix reuse
+    (:mod:`repro_torch.serving.prefix_cache`): completed prefills publish
+    into the tree, admissions sharing a cached prefix skip straight to
+    the un-cached suffix.  ``prefix_cache_tokens`` bounds the cached
+    physical tokens (0 = unbounded; LRU eviction of unpinned leaves).
+    Needs chunked prefill and prefix-deterministic prefill policies,
+    validated at engine construction.  ``scheduler`` arms admission
+    control and preemption (None = unbounded FIFO-equivalent defaults).
+    The SLO's ``quality_aware`` mode raises ``NotImplementedError``."""
     max_slots: int = 8
     max_len: int = 512
     prefill_chunk: int = 32
@@ -95,8 +127,9 @@ class EngineConfig:
     slo: Optional[SLOConfig] = None  # adaptive serving objectives
     initial_rung: int = 0            # ladder rung at engine start
     spec: Optional[SpecConfig] = None  # self-speculative decoding
-    prefix_cache: bool = False
-    scheduler: object = None
+    prefix_cache: bool = False       # radix-tree KV prefix reuse
+    prefix_cache_tokens: int = 0     # cached-token budget (0 = unbounded)
+    scheduler: Optional[SchedulerConfig] = None  # admission + preemption
 
     def __post_init__(self):
         pol = self.policy
@@ -113,20 +146,18 @@ class EngineConfig:
             if not isinstance(self.slo, SLOConfig):
                 raise TypeError(
                     f"slo must be an SLOConfig, got {type(self.slo)!r}")
-            for mode, needs in (("priority_aware", "the priority scheduler"),
-                                ("quality_aware", "the quality monitor")):
-                if getattr(self.slo, mode):
-                    raise NotImplementedError(
-                        f"SLOConfig.{mode} needs {needs}, which is not "
-                        "ported yet (see ROADMAP.md queue 1)")
+            if self.slo.quality_aware:
+                raise NotImplementedError(
+                    "SLOConfig.quality_aware needs the quality monitor, "
+                    "which is not ported yet (see ROADMAP.md queue 1)")
+        if self.scheduler is not None and not isinstance(
+                self.scheduler, SchedulerConfig):
+            raise TypeError(
+                f"scheduler must be a SchedulerConfig, "
+                f"got {type(self.scheduler)!r}")
         if self.initial_rung < 0:
             raise ValueError(
                 f"initial_rung must be >= 0, got {self.initial_rung}")
-        for name in _NOT_PORTED:
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"EngineConfig.{name} is not ported yet (see ROADMAP.md "
-                    "queue 1)")
         if not 0 <= self.prefill_dense_frac <= 1:
             raise ValueError(
                 f"prefill_dense_frac must be in [0, 1], "
@@ -137,6 +168,14 @@ class EngineConfig:
         for name in ("max_slots", "max_len", "prefill_chunk"):
             if getattr(self, name) <= 0:
                 raise ValueError(f"{name} must be positive")
+        if self.prefix_cache_tokens < 0:
+            raise ValueError(
+                f"prefix_cache_tokens must be >= 0, "
+                f"got {self.prefix_cache_tokens}")
+        if self.prefix_cache and self.prefill_strategy == "whole":
+            raise ValueError(
+                "prefix_cache needs chunked prefill: whole-prompt "
+                "prefill cannot start at a matched prefix length")
 
 
 class Engine:
@@ -207,12 +246,26 @@ class Engine:
         self.pool_len = ecfg.max_len + slack
         self.pool = SlotKVPool(cfg, ecfg.max_slots, self.pool_len,
                                self.device)
-        self.scheduler = Scheduler()
+        self.scheduler = Scheduler(ecfg.scheduler)
+        self._preemptible = (ecfg.scheduler is not None
+                             and ecfg.scheduler.preemption)
+        if self._preemptible and not self.pool.can_cache_prefix:
+            raise ValueError(
+                "preemption needs full-length self-attention caches: "
+                "suspend/resume snapshots slice the time axis by "
+                "absolute position (same precondition as the prefix "
+                "cache and rollback)")
         self.stats = EngineStats()
         self.states: Dict[int, RequestState] = {}
         self._next_id = 0
         self.prefill_strategy = ("chunked" if ecfg.prefill_strategy == "auto"
                                  else ecfg.prefill_strategy)
+        self.prefix_cache: Optional[PrefixCache] = None
+        if ecfg.prefix_cache:
+            self._check_prefix_cache()
+            self.prefix_cache = PrefixCache(
+                self.pool, ecfg.prefill_chunk, ecfg.prefix_cache_tokens,
+                stats_fn=lambda: self.stats)
         self._pstep = api.make_prefill_step(cfg)
         self.graph_space = GraphSpace(self.device, self._scratch_shapes())
         self._decode = DecodeSteps(
@@ -230,7 +283,8 @@ class Engine:
         self.spec_decoder: Optional[SpecDecoder] = None
         if ecfg.spec is not None:
             self.spec_decoder = SpecDecoder(self, ecfg.spec)
-        if self.controller is not None or self.spec_decoder is not None:
+        if self.controller is not None or self.spec_decoder is not None \
+                or self.prefix_cache is not None or self._preemptible:
             self.warmup()
 
     def _check_spec(self, ecfg: EngineConfig) -> None:
@@ -262,6 +316,59 @@ class Engine:
                 "depends on the call's token rows, so a multi-token "
                 "verify forward and single-token decode would pick "
                 "different channel sets and diverge")
+
+    def _check_prefix_cache(self) -> None:
+        """The reference's preconditions of the prefix cache.  Bit-exact
+        reuse needs every rung's *effective* prefill policy to be
+        independent of the prompt length and prefix-deterministic, or a
+        cached prefix would differ from what a cold prefill of the
+        reusing request computes.  A multi-rung engine must prefill
+        *dense*: rung sp trees differ, so even the per-token ``mask``
+        backend would make cached KV rung-dependent."""
+        if self.prefill_strategy != "chunked":
+            raise ValueError(
+                "prefix_cache needs the chunked prefill strategy "
+                f"(this arch resolved to {self.prefill_strategy!r}): "
+                "rolling-window/SSM caches cannot resume mid-prompt")
+        effective = [self._effective_prefill_policy(r)
+                     for r in range(len(self._rung_phases))]
+        if len(effective) > 1:
+            if not all(p.is_dense for p in effective):
+                raise ValueError(
+                    "prefix_cache on a ladder engine needs every "
+                    "rung to prefill dense (a prefix cached at one "
+                    "rung seeds requests served at any rung, and "
+                    "rung sp trees differ); build the ladder with "
+                    "dense_phases=('prefill_dense', 'prefill_sparse')")
+        elif not effective[0].prefix_deterministic():
+            raise ValueError(
+                f"prefix_cache needs a prefix-deterministic prefill "
+                f"policy (per-token backends 'off'/'mask'), got "
+                f"{effective[0].backend!r}: shared top-k saliency "
+                "depends on the call's token rows, so cached KV "
+                "would bake in the donor request's chunking and "
+                "break the token-parity guarantee")
+
+    def _effective_prefill_policy(self, rung: int) -> SparsityPolicy:
+        """The one policy every prefill chunk of ``rung`` runs under —
+        well-defined only when the §5.1 phase split cannot produce
+        prompt-length-dependent KV (the prefix-cache precondition)."""
+        pd, ps, _ = self._rung_phases[rung]
+        f = self.ecfg.prefill_dense_frac
+        if f >= 1.0:
+            return pd
+        if f <= 0.0:
+            return ps
+        if pd != ps:
+            raise ValueError(
+                f"prefix_cache with prefill_dense_frac={f} needs rung "
+                f"{rung}'s prefill_dense and prefill_sparse phase "
+                "policies to be equal: the dense/sparse boundary scales "
+                "with the prompt length, so a cached prefix would carry "
+                "a different phase split than a cold prefill of the "
+                "reusing request (set prefill_dense_frac to 0 or 1, or "
+                "make both phases dense)")
+        return pd
 
     def _scratch_shapes(self) -> List[tuple]:
         """(B, n, m, blk, elem_bytes) of every ``pallas`` matmul the
@@ -320,7 +427,10 @@ class Engine:
         call and one CUDA-graph capture each), then zero the post-warmup
         build baseline.  Only valid on an idle engine, as in the
         reference.  Rung and gamma switches after this build nothing
-        (the ``*_retraces_after_warmup`` stay 0)."""
+        (the ``*_retraces_after_warmup`` stay 0), and neither do prefix
+        hits, publishes, suspends or resumes: a segment copy is a
+        ``copy_``, with nothing to build (the reference precompiles one
+        extract/write executable per quantized length here)."""
         if self.scheduler.has_work() or self.pool.num_occupied:
             raise RuntimeError(
                 "warmup() on a busy engine would corrupt live KV state; "
@@ -392,15 +502,34 @@ class Engine:
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, eos_id: Optional[int] = None,
-               arrival_time: Optional[float] = None) -> RequestState:
+               arrival_time: Optional[float] = None, *,
+               priority: Priority = Priority.STANDARD,
+               tenant: str = "default",
+               queue_deadline_s: Optional[float] = None) -> RequestState:
+        """Queue one request.  ``priority`` is a :class:`Priority` or its
+        name (``"best-effort"``); a queue at ``SchedulerConfig.max_queue``
+        raises :class:`QueueFull` with a retry estimate."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0 or prompt.size >= self.ecfg.max_len:
             raise ValueError(
                 f"prompt length {prompt.size} outside (0, {self.ecfg.max_len})")
+        priority = (Priority.parse(priority) if isinstance(priority, str)
+                    else Priority(priority))
+        if queue_deadline_s is not None and queue_deadline_s <= 0:
+            raise ValueError(
+                f"queue_deadline_s must be positive, got {queue_deadline_s}")
+        if not self.scheduler.can_accept():
+            self.stats.rejected += 1
+            raise QueueFull(
+                f"admission queue at capacity "
+                f"({self.scheduler.cfg.max_queue})",
+                retry_after=self._retry_after())
         max_new = min(max_new_tokens, self.ecfg.max_len - prompt.size)
         req = Request(self._next_id, prompt, max_new,
                       eos_id if eos_id is not None else self.ecfg.eos_id,
-                      obs.now() if arrival_time is None else arrival_time)
+                      obs.now() if arrival_time is None else arrival_time,
+                      priority=priority, tenant=tenant,
+                      queue_deadline_s=queue_deadline_s)
         self._next_id += 1
         rs = RequestState(req)
         self.states[req.request_id] = rs
@@ -408,10 +537,20 @@ class Engine:
         self.stats.submitted += 1
         return rs
 
+    def _retry_after(self) -> float:
+        """Polite-client retry hint: roughly how long until the queued
+        work drains — queued requests x observed mean tokens per request
+        x mean inter-token gap, floored at 1 s (and 1 s before any
+        traffic has calibrated the means)."""
+        s = self.stats
+        tokens_per_req = s.decode_tokens / s.finished if s.finished else 0.0
+        gap = s.tpot_s.mean if s.tpot_s.count else 0.0
+        return max(1.0, self.scheduler.queue_depth * tokens_per_req * gap)
+
     @torch.no_grad()
     def step(self) -> str:
-        """Admit queued requests into free slots, then run one
-        scheduler-chosen phase step."""
+        """Admit (expiring, resuming and preempting as the scheduler
+        config allows), then run one scheduler-chosen phase step."""
         self._admit()
         self.stats.sample(self.scheduler.queue_depth, self.pool.num_occupied)
         action = self.scheduler.next_action()
@@ -433,13 +572,93 @@ class Engine:
             self.step()
         return {rid: rs.tokens for rid, rs in self.states.items()}
 
+    # ------------------------------------------------------------------
+    # admission, preemption, resume
+    # ------------------------------------------------------------------
     def _admit(self) -> None:
+        """One admission pass: expire deadline-missed queued requests,
+        then fill free slots — resuming suspended requests and admitting
+        queued ones in priority order, suspending a strictly less
+        important decoding victim when preemption is armed and the pool
+        is full.  Runs before every phase step, so always at a committed
+        KV boundary."""
         sched = self.scheduler
-        while sched.has_queued() and self.pool.num_free:
-            rs = sched.pop_admit()
-            rs.slot = self.pool.alloc()
-            rs.status = Status.PREFILL
-            sched.prefilling.append(rs)
+        now = obs.now()
+        for rs in sched.expire(now):
+            self._expire(rs, now)
+        while True:
+            rs_s = sched.peek_resume()
+            head_p = sched.head_priority()
+            if rs_s is None and head_p is None:
+                return
+            # a suspended request outranks a queued one of the same
+            # class: it arrived earlier and already holds partial work
+            take_suspended = rs_s is not None and (
+                head_p is None or rs_s.request.priority <= head_p)
+            target_p = rs_s.request.priority if take_suspended else head_p
+            if self.pool.num_free == 0:
+                victim = (sched.pick_victim(target_p)
+                          if self._preemptible else None)
+                if victim is None:
+                    return
+                self._preempt(victim)
+            if take_suspended:
+                self._resume(sched.pop_resume())
+            else:
+                self._admit_queued(sched.pop_admit(), now)
+
+    def _expire(self, rs: RequestState, now: float) -> None:
+        rs.finish_reason = FinishReason.EXPIRED
+        rs.finish_time = now
+        rs.status = Status.FINISHED
+        self.stats.expired += 1
+
+    def _admit_queued(self, rs: RequestState, now: float) -> None:
+        rs.slot = self.pool.alloc()
+        if self.prefix_cache is not None:
+            self.prefix_cache.admit(rs)     # hit: the cursor jumps past
+        rs.status = Status.PREFILL          # the cached prefix
+        self.scheduler.prefilling.append(rs)
+        self.stats.observe_queue_wait(max(0.0, now - rs.request.arrival_time))
+
+    def _preempt(self, victim: RequestState) -> None:
+        """Suspend a decoding victim: copy its KV state to host memory at
+        a chunk-quantized length and free the slot.  Admission boundary
+        only: the slot's KV length equals the victim's committed
+        position, which is what makes the later resume bit-identical."""
+        t = obs.now()
+        req = victim.request
+        slot = victim.slot
+        seg = self.pool.suspend(slot, self.ecfg.prefill_chunk)
+        if seg.length != victim.position:
+            raise RuntimeError(
+                f"preempt: slot {slot} KV length {seg.length} != request "
+                f"{req.request_id} position {victim.position}; suspension "
+                "must happen at a committed boundary")
+        self.scheduler.suspend(victim)      # pops decoding via the slot
+        self.pool.free(slot)                # the host copy has completed
+        victim.suspended = seg
+        victim.suspend_time = t
+        victim.preemptions += 1
+        victim.slot = -1
+        self.stats.preemptions += 1
+
+    def _resume(self, rs: RequestState) -> None:
+        """Restore a suspended request into a freshly allocated slot:
+        write its host-side segment back in place and rejoin the decoding
+        set at the exact committed position — generation continues
+        bit-identically."""
+        t = obs.now()
+        slot = self.pool.alloc()
+        self.pool.resume(rs.suspended, slot)
+        rs.suspended = None
+        rs.slot = slot
+        rs.status = Status.DECODE
+        self.scheduler.decoding[slot] = rs
+        self.stats.resumes += 1
+        if rs.suspend_time is not None:
+            self.stats.observe_preempted(t - rs.suspend_time)
+            rs.suspend_time = None
 
     # ------------------------------------------------------------------
     def _phase_policy(self, offset: int, prompt_len: int) -> SparsityPolicy:
@@ -480,6 +699,10 @@ class Engine:
         rs.next_offset = off + real
         self.pool.lengths[rs.slot] = rs.next_offset
         if rs.done_prefill:
+            if self.prefix_cache is not None:
+                # release the admission pin and cache this prompt's
+                # prefix before decode can extend the slot
+                self.prefix_cache.publish(rs)
             first = int(torch.argmax(logits[0, real - 1]))
             self._start_decode(rs, first)
 
@@ -553,9 +776,16 @@ class Engine:
             self.pool.commit(slot, 1)
             self._maybe_finish(rs, tok)
         if self.controller is not None:
+            be_frac = None
+            if self.controller.slo.priority_aware:
+                be_frac = (sum(
+                    1 for rs in decoding.values()
+                    if rs.request.priority == Priority.BEST_EFFORT
+                ) / len(decoding)) if decoding else 0.0
             new_rung = self.controller.update(
                 gaps, queue_depth=self.scheduler.queue_depth,
-                occupancy=self.pool.num_occupied)
+                occupancy=self.pool.num_occupied,
+                best_effort_frac=be_frac)
             if new_rung != self._rung:
                 self.set_rung(new_rung)
 

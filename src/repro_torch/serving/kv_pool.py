@@ -1,4 +1,4 @@
-"""Slot-based KV cache pool (port of the core of the JAX package's
+"""Slot-based KV cache pool (port of the JAX package's
 ``serving/kv_pool.py``).
 
 One fixed ``(max_slots, max_len)`` cache tree is allocated up front from
@@ -7,17 +7,76 @@ a slot (the batch index) and return it on completion.  The forward
 writes decode, chunked-prefill and verify K/V into the pool tensors in
 place (where the reference donates the pool through each jitted step).
 Rollback truncates rejected draft positions out of the pool
-(speculative decoding).  Prefix segments and suspend/resume come with
-the prefix cache and preemption."""
+(speculative decoding).
+
+The pool tensors are never rebound: the engine's captured CUDA graphs
+(``serving/graphs.py``) hold them by address.  So where the reference
+returns a new pool from a donated ``dynamic_update_slice``, every write
+here is a ``copy_`` into a slice of the existing tensors.
+
+Prefix caching adds an immutable segment layer
+(``repro_torch.serving.prefix_cache``): ``extract_prefix`` copies the
+first ``length`` cache positions of a slot out of the pool into a fresh
+segment tree (``api.prefix_segment_schema``: batch 1, ``length``
+positions; one strided copy per cache leaf) and ``write_prefix`` copies
+a segment back into a slot at offset 0, in place.  Segments are never
+mutated — a slot that received one only ever appends *past* the copied
+prefix — so one cached prefix can seed any number of slots.  A copy
+builds nothing (no graph: a segment's address differs per segment), so
+there is nothing to warm and no build to count.
+
+Preemption generalizes the same two primitives into whole-slot
+``suspend``/``resume``: ``suspend`` extracts the slot's live prefix at a
+chunk-quantized length and moves it to host memory (a blocking copy, so
+the slot can be freed the moment it returns), and ``resume`` writes it
+back into any slot and restores the exact live length.  The quantized
+tail past the live length holds whatever the victim's last forward left
+there, and is never attended: decode masks positions ``>= length`` and
+any later write overwrites them — the argument that makes prefix-segment
+admission safe too.
+"""
 from __future__ import annotations
 
-from typing import List, Set
+import dataclasses
+from typing import Any, List, Set
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
+from repro_torch.models import params as P
+
+
+def _rows(path, leaf, slot: int, length: int) -> torch.Tensor:
+    """The view of ``slot``'s first ``length`` positions of one cache
+    leaf, batch dim kept: K (reps,1,KV,hd,length), V (reps,1,KV,length,hd)."""
+    rows = leaf[:, slot:slot + 1]
+    return rows[..., :length] if path[-1] == "k" else rows[..., :length, :]
+
+
+def _time_len(path, leaf) -> int:
+    return leaf.shape[-1] if path[-1] == "k" else leaf.shape[-2]
+
+
+def _leaves(tree) -> list:
+    """(path, leaf) of every cache leaf, in tree order."""
+    out = []
+    P.tree_map_with_path(lambda p, leaf: out.append((p, leaf)), tree)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SuspendedSlot:
+    """Host-side snapshot of a preempted slot's KV state.
+
+    ``caches`` is a segment tree (leaf batch dims 1, time dim ``phys``)
+    in host memory; ``length`` is the exact live length at suspension;
+    ``phys`` the chunk-quantized extent that was copied (``length``
+    rounded up to a multiple of the suspend quantum)."""
+    caches: Any
+    length: int
+    phys: int
 
 
 class SlotKVPool:
@@ -137,3 +196,82 @@ class SlotKVPool:
                 pk[:, slot, :, :, :t] = fk[:, src_idx]
                 pv[:, slot, :, :t, :] = fv[:, src_idx]
         self.lengths[slot] = length
+
+    # ---- prefix segments (repro_torch.serving.prefix_cache) -------------
+    @property
+    def can_cache_prefix(self) -> bool:
+        """Prefix segments slice the time axis by absolute position —
+        only meaningful for full-length self-attention caches (the
+        precondition of rollback too)."""
+        return self._can_rollback
+
+    def extract_prefix(self, slot: int, length: int):
+        """Copy cache positions ``[0, length)`` of ``slot`` out of the
+        pool into a fresh segment tree (leaf batch dims 1): one strided
+        copy per cache leaf."""
+        self._check_allocated(slot, "extract_prefix")
+        if not self.can_cache_prefix:
+            raise ValueError(
+                "extract_prefix needs full-length self-attention caches")
+        if not 0 < length <= self.max_len:
+            raise ValueError(
+                f"extract_prefix: length {length} outside (0, {self.max_len}]")
+        return P.tree_map_with_path(
+            lambda p, leaf: _rows(p, leaf, slot, length).clone(
+                memory_format=torch.contiguous_format), self.caches)
+
+    def write_prefix(self, seg, slot: int) -> None:
+        """Copy a segment into ``slot`` at offset 0, in place (one
+        ``copy_`` per cache leaf; the pool tensors keep their addresses).
+        The *whole* segment is copied: positions past the caller's
+        matched length are overwritten by the suffix prefill or decode
+        before they can be attended, and masked until then.  The segment
+        itself is only read (it seeds arbitrarily many slots)."""
+        self._check_allocated(slot, "write_prefix")
+        if not self.can_cache_prefix:
+            raise ValueError(
+                "write_prefix needs full-length self-attention caches")
+        seg_leaves = _leaves(seg)
+        seg_t = {_time_len(p, leaf) for p, leaf in seg_leaves}
+        if len(seg_t) != 1 or not 0 < min(seg_t) <= self.max_len:
+            raise ValueError(
+                f"write_prefix: segment time dims {sorted(seg_t)} do not "
+                f"fit this pool's (0, {self.max_len}] positions")
+        t = seg_t.pop()
+        with torch.no_grad():
+            for (p, pl), (_, sl) in zip(_leaves(self.caches), seg_leaves):
+                _rows(p, pl, slot, t).copy_(sl)
+
+    # ---- whole-slot suspend/resume (preemption) --------------------------
+    def suspend(self, slot: int, quantum: int) -> SuspendedSlot:
+        """Snapshot ``slot``'s live KV state to host memory so the slot
+        can be freed and the request resumed later bit-identically.
+
+        The copy length is the slot's live length rounded up to a
+        multiple of ``quantum`` (the engine's prefill chunk), as the
+        reference quantizes it.  The device-to-host copy blocks, so the
+        caller may free the slot as soon as this returns; this method
+        only reads the pool."""
+        self._check_allocated(slot, "suspend")
+        if quantum <= 0:
+            raise ValueError(f"suspend: quantum {quantum} must be positive")
+        length = int(self.lengths[slot])
+        if length <= 0:
+            raise ValueError(
+                f"suspend: slot {slot} has no committed positions")
+        phys = min(-(-length // quantum) * quantum, self.max_len)
+        seg = self.extract_prefix(slot, phys)
+        return SuspendedSlot(caches=P.tree_map(lambda t: t.to("cpu"), seg),
+                             length=length, phys=phys)
+
+    def resume(self, seg: SuspendedSlot, slot: int) -> None:
+        """Restore a suspended request's KV state into (freshly
+        allocated) ``slot``, in place, and reinstate its exact live
+        length.  Positions in ``[length, phys)`` hold what they held at
+        suspension and stay unattendable, so the restored slot equals the
+        suspended one over every attendable position."""
+        if not isinstance(seg, SuspendedSlot):
+            raise TypeError(
+                f"resume: expected a SuspendedSlot, got {type(seg).__name__}")
+        self.write_prefix(seg.caches, slot)
+        self.lengths[slot] = seg.length

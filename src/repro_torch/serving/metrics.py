@@ -1,13 +1,17 @@
 """Engine statistics (port of the core of the JAX package's
 ``serving/metrics.py``): per-phase step counts and latencies, throughput,
 queue depth and slot occupancy, TTFT and the inter-token (TPOT) gaps,
-and the speculative-decoding counters and per-round series.
+the speculative-decoding counters and per-round series, the prefix-cache
+counters, and the admission-control and preemption counters.
 
 Per-sample series are fixed-capacity :class:`RingBuffer`s keeping exact
 whole-run count and sum; :func:`percentile` gives exact nearest-rank
 values over a ring's window (the whole run until it holds ``capacity``
-samples).  The reference's whole-run bucketed histograms come with the
-observability slice, where the Prometheus exposition needs them."""
+samples).  The reference backs its SLO-facing percentiles (TPOT, TTFT,
+queue wait, preempted time) with whole-run bucketed histograms, which
+come with the gateway slice, where the Prometheus exposition needs
+them; until then :meth:`EngineStats.summary` takes every p50/p95,
+queue wait and preempted time included, from the rings."""
 from __future__ import annotations
 
 import dataclasses
@@ -93,10 +97,32 @@ class EngineStats:
     # whole-run rate comes from the exact counters above)
     spec_accepted_per_verify: RingBuffer = dataclasses.field(
         default_factory=RingBuffer)
+    # --- prefix caching --------------------------------------------------
+    prefix_lookups: int = 0                  # admissions that consulted it
+    prefix_hits: int = 0                     # admissions that reused KV
+    prefix_tokens_saved: int = 0             # prompt tokens not prefilled
+    prefix_evicted_segments: int = 0         # segments dropped by LRU
+    # matched prefix length per hit (the reuse-depth series)
+    prefix_hit_len: RingBuffer = dataclasses.field(default_factory=RingBuffer)
+    # --- admission control + preemption ----------------------------------
+    preemptions: int = 0                     # decoding requests suspended
+    resumes: int = 0                         # suspended requests restored
+    rejected: int = 0                        # submissions refused (queue full)
+    expired: int = 0                         # queue-wait deadline passed
+    # seconds a request spent queued before admission / suspended before
+    # its resume
+    queue_wait_s: RingBuffer = dataclasses.field(default_factory=RingBuffer)
+    preempted_s: RingBuffer = dataclasses.field(default_factory=RingBuffer)
 
     def sample(self, queue_depth: int, occupied_slots: int) -> None:
         self.queue_depth.append(queue_depth)
         self.occupancy.append(occupied_slots)
+
+    def observe_queue_wait(self, v: float) -> None:
+        self.queue_wait_s.append(v)
+
+    def observe_preempted(self, v: float) -> None:
+        self.preempted_s.append(v)
 
     @property
     def decode_tps(self) -> float:
@@ -109,8 +135,9 @@ class EngineStats:
 
     def summary(self) -> Dict[str, float]:
         """Whole-run counters plus exact nearest-rank p50/p95 of the
-        per-step latencies and TTFT over the retained window (the whole
-        run while it holds fewer than ``capacity`` samples)."""
+        per-step latencies, TTFT, TPOT, queue wait and preempted time
+        over the retained window (the whole run while it holds fewer than
+        ``capacity`` samples)."""
         out = {
             "submitted": self.submitted,
             "finished": self.finished,
@@ -148,4 +175,22 @@ class EngineStats:
                 if ring:
                     out[f"{name}_p50_s"] = percentile(ring, 50)
                     out[f"{name}_p95_s"] = percentile(ring, 95)
+        if self.prefix_lookups:
+            out["prefix_hit_rate"] = self.prefix_hits / self.prefix_lookups
+            out["prefix_tokens_saved"] = self.prefix_tokens_saved
+            if self.prefix_hit_len:
+                out["prefix_hit_len_p50"] = percentile(self.prefix_hit_len,
+                                                       50)
+        if self.queue_wait_s:
+            out["queue_wait_p50_s"] = percentile(self.queue_wait_s, 50)
+            out["queue_wait_p95_s"] = percentile(self.queue_wait_s, 95)
+        if self.rejected or self.expired:
+            out["rejected"] = self.rejected
+            out["expired"] = self.expired
+        if self.preemptions:
+            out["preemptions"] = self.preemptions
+            out["resumes"] = self.resumes
+            if self.preempted_s:
+                out["preempted_p50_s"] = percentile(self.preempted_s, 50)
+                out["preempted_p95_s"] = percentile(self.preempted_s, 95)
         return out

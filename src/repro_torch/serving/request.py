@@ -1,31 +1,60 @@
 """Request lifecycle for the continuous-batching engine (port of the JAX
-package's ``serving/request.py``; priority classes, tenants and
-preemption state come with the scheduler slice).
+package's ``serving/request.py``; the gateway's streaming and completion
+hooks come with the gateway slice).
 
-A ``Request`` is the immutable submission; ``RequestState`` is the
-engine-side record of its slot, prefill cursor, generated tokens and
-timing.  The prompt occupies cache positions ``[0, P)``; the i-th decode
-step consumes the latest token at position ``P + i`` (the first
-generated token comes from the prefill logits, not a decode step)."""
+A ``Request`` is the immutable submission (prompt, budget, stop rules,
+priority class, tenant); ``RequestState`` is the engine-side record of
+its slot, prefill cursor, generated tokens and timing.  The prompt
+occupies cache positions ``[0, P)``; the i-th decode step consumes the
+latest token at position ``P + i`` (the first generated token comes from
+the prefill logits, not a decode step).
+
+Priority scheduling adds three service classes (lower value = more
+important) and two lifecycle states: a queued request whose queue-wait
+deadline passes finishes with ``FinishReason.EXPIRED`` without ever
+touching a slot, and a decoding request preempted by the scheduler moves
+to ``Status.SUSPENDED``: its KV state lives in host memory
+(``RequestState.suspended``) until a slot frees up and the engine
+resumes it bit-identically."""
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
+
+
+class Priority(enum.IntEnum):
+    """Service class; lower value = more important.  Admission is strict
+    priority across classes; preemption only ever suspends a victim whose
+    class is *strictly* less important than the arrival's."""
+    INTERACTIVE = 0
+    STANDARD = 1
+    BEST_EFFORT = 2
+
+    @classmethod
+    def parse(cls, name: str) -> "Priority":
+        try:
+            return cls[str(name).strip().upper().replace("-", "_")]
+        except KeyError:
+            raise ValueError(
+                f"unknown priority {name!r}; expected one of "
+                f"{[p.name.lower() for p in cls]}") from None
 
 
 class Status(enum.Enum):
     QUEUED = "queued"          # waiting for a slot
     PREFILL = "prefill"        # slot assigned, prompt being processed
     DECODE = "decode"          # generating tokens
+    SUSPENDED = "suspended"    # preempted; KV state held in host memory
     FINISHED = "finished"
 
 
 class FinishReason(enum.Enum):
     MAX_TOKENS = "max_tokens"
     EOS = "eos"
+    EXPIRED = "expired"        # queue-wait deadline passed before admission
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +64,10 @@ class Request:
     max_new_tokens: int
     eos_id: Optional[int] = None
     arrival_time: float = 0.0
+    priority: Priority = Priority.STANDARD
+    tenant: str = "default"
+    # admission deadline, seconds after arrival_time; None = wait forever
+    queue_deadline_s: Optional[float] = None
 
     @property
     def prompt_len(self) -> int:
@@ -56,6 +89,11 @@ class RequestState:
     # ladder serving: rung index active when each token was emitted
     # (parallel to ``tokens``; stays empty on fixed-policy engines)
     token_rungs: List[int] = dataclasses.field(default_factory=list)
+    # preemption bookkeeping: the host-side SuspendedSlot while suspended,
+    # the clock reading of the suspension, lifetime preemption count
+    suspended: Optional[Any] = None
+    suspend_time: Optional[float] = None
+    preemptions: int = 0
 
     @property
     def position(self) -> int:

@@ -20,12 +20,15 @@ from repro.core.sp_schema import default_sp_stacked as jdefault_sp
 from repro.models import api as japi
 from repro.serving import Engine as JEngine
 from repro.serving import EngineConfig as JEngineConfig
+from repro.serving import SchedulerConfig as JSchedulerConfig
+from repro.serving import SLOConfig as JSLOConfig
 from repro.sparsity import SparsityPolicy as JPolicy
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import sparse_matmul as K
 from repro_torch.launch import serve
 from repro_torch.models import params as P
-from repro_torch.serving import Engine, EngineConfig, SLOConfig, SlotKVPool
+from repro_torch.serving import (Engine, EngineConfig, SchedulerConfig,
+                                 SLOConfig, SlotKVPool)
 from repro_torch.sparsity import SparsityPolicy
 
 TRACE = dict(max_slots=2, max_len=64, prefill_chunk=16)
@@ -107,14 +110,34 @@ def test_engine_needs_a_card_unless_asked_for_cpu(model, monkeypatch):
                     "--gen", "2"])
 
 
-@pytest.mark.parametrize("field,value", [
-    ("slo", SLOConfig(tpot_p95=1.0, priority_aware=True)),
-    ("slo", SLOConfig(tpot_p95=1.0, quality_aware=True)),
-    ("prefix_cache", True),
-    ("scheduler", object())])
-def test_unported_engine_features_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        EngineConfig(**{field: value})
+@pytest.mark.parametrize("field,value,jvalue,refused", [
+    pytest.param("slo", SLOConfig(tpot_p95=1.0, priority_aware=True),
+                 JSLOConfig(tpot_p95=1.0, priority_aware=True), None,
+                 id="slo-value0"),
+    pytest.param("slo", SLOConfig(tpot_p95=1.0, quality_aware=True),
+                 JSLOConfig(tpot_p95=1.0, quality_aware=True),
+                 NotImplementedError, id="slo-value1"),
+    pytest.param("prefix_cache", True, True, None, id="prefix_cache-True"),
+    pytest.param("scheduler", object(), object(), TypeError,
+                 id="scheduler-value3"),
+    pytest.param("scheduler", SchedulerConfig(max_queue=2, preemption=True),
+                 JSchedulerConfig(max_queue=2, preemption=True), None,
+                 id="scheduler-value4")])
+def test_unported_engine_features_raise(field, value, jvalue, refused):
+    """The engine features of the reference are accepted or refused as
+    the JAX ``EngineConfig`` accepts or refuses them; only
+    ``quality_aware``, which needs the unported quality monitor, still
+    raises ``NotImplementedError``."""
+    if refused is TypeError:
+        with pytest.raises(TypeError):
+            JEngineConfig(**{field: jvalue})
+    else:
+        JEngineConfig(**{field: jvalue})
+    if refused is None:
+        assert getattr(EngineConfig(**{field: value}), field) == value
+    else:
+        with pytest.raises(refused):
+            EngineConfig(**{field: value})
 
 
 def test_unported_engine_arguments_raise(model):

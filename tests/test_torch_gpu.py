@@ -586,3 +586,145 @@ def test_spec_engine_on_card_matches_cpu_and_builds_once(dev):
                      st.spec_rounds, st.spec_accepted_tokens,
                      st.spec_committed_tokens, gammas))
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# prefix cache and preemption: segment copies into the captured pool
+# ---------------------------------------------------------------------------
+
+def _bf16_model(dev):
+    import dataclasses
+    cfg = dataclasses.replace(reduced(get_config("llama31_8b")),
+                              dtype="bfloat16")
+    return cfg, api.init_model(cfg, 0, device=dev)
+
+
+def _slot_prefix(eng, slot, n):
+    """Slot ``slot``'s K/V over positions [0, n), every leaf, cloned."""
+    return [e["self"][k][:, slot, ..., :n].clone() if k == "k"
+            else e["self"][k][:, slot, :, :n].clone()
+            for grp in eng.pool.caches for e in grp for k in ("k", "v")]
+
+
+def _ptrs(eng):
+    return [e["self"][k].data_ptr() for grp in eng.pool.caches
+            for e in grp for k in ("k", "v")]
+
+
+def _record_prefills(eng, want):
+    """Wrap ``eng._start_decode`` to keep the slot bytes [0, P) of the
+    requests in ``want`` (by prompt length) when their prefill ends."""
+    got = {}
+    start = eng._start_decode
+
+    def wrapped(rs, first):
+        P = rs.request.prompt_len
+        if P in want:
+            got[P] = _slot_prefix(eng, rs.slot, P)
+        start(rs, first)
+    eng._start_decode = wrapped
+    return got
+
+
+def test_prefix_hit_slot_bytes_equal_cold_prefill(dev):
+    """bf16 on the card, cache and preemption armed: a hit plus its
+    suffix prefill leaves the slot's bytes over [0, P) bit-equal to a
+    cold prefill of the same prompt; the first decode replay after the
+    hit reads the copied bytes (the tokens equal the cold engine's); the
+    pool tensors keep their addresses; nothing is built after warmup."""
+    from repro_torch.serving import SchedulerConfig
+    cfg, params = _bf16_model(dev)
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, cfg.vocab_size, 32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, s)])
+               for s in (8, 5, 12, 20)]
+    runs = []
+    for cache in (False, True):
+        eng = Engine(params, cfg, EngineConfig(
+            max_slots=4, max_len=64, prefill_chunk=16, prefill_dense_frac=1.0,
+            prefix_cache=cache,
+            scheduler=SchedulerConfig(preemption=True) if cache else None),
+            device=dev)
+        ptrs = _ptrs(eng)
+        got = _record_prefills(eng, {37, 44, 52})
+        eng.submit(prompts[0], 2)           # the donor
+        eng.run()
+        for p in prompts[1:]:
+            eng.submit(p, 6)
+        out = eng.run()
+        assert _ptrs(eng) == ptrs
+        if cache:
+            assert eng.stats.prefix_hits == 3
+            assert list(eng.stats.prefix_hit_len) == [32, 32, 32]
+            assert (eng.decode_retraces_after_warmup,
+                    eng.chunk_retraces_after_warmup) == (0, 0)
+        runs.append((out, got))
+    assert runs[0][0] == runs[1][0]
+    for P in (37, 44, 52):
+        for a, b in zip(runs[0][1][P], runs[1][1][P]):
+            assert torch.equal(a, b), f"prompt of {P}: slot bytes differ"
+
+
+def test_suspend_resume_bit_exact_on_card(dev):
+    """suspend() copies a slot's segment to host memory; resume() writes
+    it into another slot in place: bit-equal over [0, phys), the pool
+    tensors at their addresses."""
+    from repro_torch.serving import SlotKVPool
+    cfg, _ = _bf16_model(dev)
+    pool = SlotKVPool(cfg, 3, 40, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for grp in pool.caches:
+        for e in grp:
+            for k in ("k", "v"):
+                e["self"][k].copy_(torch.randn(e["self"][k].shape,
+                                               device=dev, generator=gen))
+    ptrs = [e["self"][k].data_ptr() for grp in pool.caches for e in grp
+            for k in ("k", "v")]
+    src, dst = pool.alloc(), pool.alloc()
+    pool.lengths[src] = 27
+    seg = pool.suspend(src, quantum=8)
+    assert (seg.length, seg.phys) == (27, 32)
+    assert all(t.device.type == "cpu" for grp in seg.caches for e in grp
+               for t in e["self"].values())
+    pool.free(src)
+    pool.resume(seg, dst)
+    torch.cuda.synchronize()
+    assert pool.lengths[dst] == 27
+    for grp in pool.caches:
+        for e in grp:
+            k, v = e["self"]["k"], e["self"]["v"]
+            assert torch.equal(k[:, dst, ..., :32], k[:, src, ..., :32])
+            assert torch.equal(v[:, dst, :, :32], v[:, src, :, :32])
+    assert [e["self"][k].data_ptr() for grp in pool.caches for e in grp
+            for k in ("k", "v")] == ptrs
+
+
+def test_preempted_engine_on_card_matches_uncontended(dev):
+    """bf16 on the card, dense decode, the same 2 slots in both runs: an
+    interactive arrival preempts a best-effort request, which resumes in
+    another slot and finishes with the tokens of the run without
+    preemption; nothing is built after warmup."""
+    from repro_torch.serving import SchedulerConfig
+    cfg, params = _bf16_model(dev)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 33, 12)]
+    outs = []
+    for preempt in (False, True):
+        eng = Engine(params, cfg, EngineConfig(
+            max_slots=2, max_len=64, prefill_chunk=16,
+            scheduler=SchedulerConfig(preemption=preempt)), device=dev)
+        ptrs = _ptrs(eng)
+        for p in prompts[:2]:
+            eng.submit(p, 16, priority="best-effort")
+        while not (len(eng.scheduler.decoding) == 2 and all(
+                len(rs.tokens) >= 2
+                for rs in eng.scheduler.decoding.values())):
+            eng.step()
+        eng.submit(prompts[2], 6, priority="interactive")
+        outs.append(eng.run())
+        assert _ptrs(eng) == ptrs
+        if preempt:
+            assert eng.stats.preemptions == eng.stats.resumes >= 1
+            assert (eng.decode_retraces_after_warmup,
+                    eng.chunk_retraces_after_warmup) == (0, 0)
+    assert outs[0] == outs[1]
