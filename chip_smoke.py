@@ -119,7 +119,33 @@ In order, it:
    positions into another slot must leave the bytes bit-equal.  Prints
    suspend and resume ms, interactive TTFT p50 and best-effort finish
    time with and without preemption;
-14. prints one JSON line describing every kernel, then, as its last line,
+14. serves through the HTTP gateway (``serving/gateway.py``) at full
+   width: phase 5's dense engine runs phase 5's trace directly, four
+   times without and four times with ``Telemetry.full()`` (alternating;
+   their decode p50s give the telemetry's cost per step), then
+   through a gateway with ``Telemetry.full()`` (event sink, trace sink)
+   and a thread scraping ``/metrics`` every 50 ms, then through a gateway
+   with ``NULL_TELEMETRY`` and no scraper; the 12 requests go at once
+   from stdlib clients on threads, every other one streaming (SSE).
+   Every answer must be 200, the tokens equal the direct run's, nothing
+   be built after warmup, every scrape pass ``validate_exposition`` with
+   no counter falling, the exported trace pass
+   ``validate_chrome_trace`` with one ``submit`` and one ``finish`` per
+   request.  Prints HTTP TTFT p50 (client clock) beside the direct
+   run's TTFT of the same requests, decode tok/s and decode p50 of all
+   three.  Then phase 8's calibrated ladder under its SLO controller
+   behind a gateway: every request completes, the launches equal the
+   sparse passes executed (as in phase 5), the transitions are printed,
+   and a ``ProfilerSession`` window over 8 decode steps at a sparse rung
+   must hold ``score_select`` and ``sparse_matmul_shared`` kernels in its
+   exported trace.  Then a burst of 12 into a queue bounded at 2: some
+   429 with ``Retry-After`` >= 1, the rest 200, ``rejected`` equal to the
+   429s.  Last, ``python -m repro_torch.launch.serve --gateway --reduced``
+   in a subprocess gets one streaming request and SIGTERM while it is in
+   flight: the request finishes, the process exits 0, its trace and event
+   files are complete.  An exception on any thread (recorded through
+   ``threading.excepthook``) or a client timeout fails the phase;
+15. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run; those of ``sparse_matmul_per_seq`` from phase 3's
@@ -138,8 +164,11 @@ import gc
 import json
 import math
 import os
+import signal
+import socket
 import subprocess
 import sys
+import threading
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -2097,6 +2126,496 @@ def serve_preemption(dev, cfg, params, trace) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the HTTP gateway, metrics, spans and the event log
+# ---------------------------------------------------------------------------
+
+# a client waits at most this long for one response
+HTTP_TIMEOUT_S = 120.0
+
+
+def http_request(port: int, method: str, path: str, body=None) -> dict:
+    """One request from a stdlib client on a raw socket (the gateway
+    closes the connection after each response).  Returns the status,
+    the headers, the body, and on the client clock the time of the first
+    token event (``ttft_s``, streaming only) and of the last byte
+    (``total_s``)."""
+    from repro_torch import obs
+    payload = b"" if body is None else json.dumps(body).encode()
+    head = f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
+    if body is not None:
+        head += f"Content-Length: {len(payload)}\r\n"
+    t0 = obs.now()
+    ttft = None
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=HTTP_TIMEOUT_S) as sock:
+        sock.sendall(head.encode() + b"\r\n" + payload)
+        raw = b""
+        while True:
+            chunk = sock.recv(65536)
+            if not chunk:
+                break
+            raw += chunk
+            if ttft is None and b'"token"' in raw:
+                ttft = obs.now() - t0
+    total = obs.now() - t0
+    head_b, _, rest = raw.partition(b"\r\n\r\n")
+    lines = head_b.decode("latin-1").split("\r\n")
+    headers = dict(ln.split(": ", 1) for ln in lines[1:])
+    return {"status": int(lines[0].split()[1]), "headers": headers,
+            "body": rest, "ttft_s": ttft, "total_s": total}
+
+
+def generated_tokens(resp: dict, stream: bool) -> list:
+    """The tokens of a 200 answer to ``POST /v1/generate``."""
+    if not stream:
+        return json.loads(resp["body"])["tokens"]
+    out, buf = b"", resp["body"]
+    while buf:
+        size, _, buf = buf.partition(b"\r\n")
+        n = int(size, 16)
+        if n == 0:
+            break
+        out += buf[:n]
+        buf = buf[n + 2:]
+    events = [e[len("data: "):] for e in out.decode().split("\n\n") if e]
+    if events[-1] != "[DONE]" or not json.loads(events[-2]).get("done"):
+        raise AssertionError(f"SSE stream ends with {events[-2:]}")
+    return [json.loads(e)["token"] for e in events[:-2]]
+
+
+def burst(port: int, bodies: list) -> list:
+    """POST every body at once, one client thread each -> responses in
+    order.  A client that gets no answer within ``HTTP_TIMEOUT_S``
+    fails."""
+    out = [None] * len(bodies)
+    errors = []
+
+    def one(i):
+        try:
+            out[i] = http_request(port, "POST", "/v1/generate", bodies[i])
+        except Exception as e:                      # noqa: BLE001
+            errors.append((i, repr(e)))
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT_S + 5)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"HTTP clients failed or timed out: {errors}")
+    return out
+
+
+class Scraper:
+    """A thread that GETs ``/metrics`` every ``every_s`` seconds: every
+    scrape must pass ``validate_exposition`` and no counter may fall
+    between two scrapes."""
+
+    def __init__(self, port: int, every_s: float = 0.05):
+        self.port, self.every_s = port, every_s
+        self.scrapes, self.errors = 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="scraper")
+        self._thread.start()
+
+    def _run(self):
+        from repro_torch import obs
+        last = {}
+        while not self._stop.wait(self.every_s):
+            try:
+                r = http_request(self.port, "GET", "/metrics")
+                text = r["body"].decode()
+                if r["status"] != 200:
+                    raise AssertionError(f"/metrics answered {r['status']}")
+                obs.validate_exposition(text)
+                types, samples = obs.parse_exposition(text)
+                now = {n: v for n, _lb, v in samples
+                       if types.get(n) == "counter"}
+                fell = [k for k in now if now[k] < last.get(k, 0.0)]
+                if fell:
+                    raise AssertionError(f"counters fell: {fell}")
+                last = now
+                self.scrapes += 1
+            except Exception as e:                  # noqa: BLE001
+                self.errors.append(repr(e))
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(HTTP_TIMEOUT_S)
+        if self.errors or self.scrapes == 0:
+            raise AssertionError(f"/metrics scraper: {self.scrapes} good "
+                                 f"scrapes, errors {self.errors[:3]}")
+
+
+def ring_numbers(eng) -> dict:
+    """Decode tok/s (tokens of decode steps over their time) and decode
+    p50 ms from the engine's rings, as ``drive`` reports them."""
+    from repro_torch.serving.metrics import percentile
+    st = eng.stats
+    first = sum(1 for rs in eng.states.values() if rs.tokens)
+    return {"decode_tok_s": (st.decode_tokens - first) / st.decode_time,
+            "decode_step_p50_ms": 1e3 * percentile(st.decode_step_s, 50),
+            "decode_steps": st.decode_steps,
+            "prefill_chunks": st.prefill_chunks}
+
+
+def gateway_run(name, eng, trace, scrape: bool, stream_every: int = 2
+                ) -> dict:
+    """Serve the trace's prompts through a ``Gateway`` over ``eng`` (a
+    warmed engine), all at once over HTTP, every ``stream_every``-th
+    request streaming (SSE) and the others JSON; optionally with a
+    ``/metrics`` scraper.  Returns the tokens per prompt, the HTTP TTFT
+    of the streaming requests (client clock) and the ring numbers."""
+    from repro_torch.serving import Gateway
+    from repro_torch.serving.metrics import percentile
+    gw = Gateway(eng, port=0)
+    port = gw.start()
+    scraper = Scraper(port) if scrape else None
+    bodies = [{"prompt": [int(t) for t in p], "max_new_tokens": trace["gen"],
+               "stream": i % stream_every == 0}
+              for i, p in enumerate(trace["prompts"])]
+    try:
+        resps = burst(port, bodies)
+    finally:
+        if scraper is not None:
+            scraper.stop()
+        gw.stop()
+    bad = [(i, r["status"]) for i, r in enumerate(resps)
+           if r["status"] != 200]
+    if bad:
+        raise AssertionError(f"{name}: answers other than 200: {bad}")
+    tokens = {i: generated_tokens(r, b["stream"])
+              for i, (r, b) in enumerate(zip(resps, bodies))}
+    ttft = [r["ttft_s"] for r, b in zip(resps, bodies) if b["stream"]]
+    # the same requests' TTFT on the engine clock (from the engine
+    # thread's submit), found by prompt
+    by_prompt = {tuple(rs.request.prompt.tolist()): rs
+                 for rs in eng.states.values()}
+    engine_ttft = [rs.first_token_time - rs.request.arrival_time
+                   for rs in (by_prompt[tuple(b["prompt"])]
+                              for b in bodies if b["stream"])]
+    res = {"tokens": tokens, "http_ttft_p50_ms": 1e3 * percentile(ttft, 50),
+           "engine_ttft_p50_ms": 1e3 * percentile(engine_ttft, 50),
+           "streams": len(ttft), "scrapes": scraper.scrapes if scrape else 0,
+           **ring_numbers(eng)}
+    print(f"gateway {name}: {_fmt(res)}")
+    return res
+
+
+def direct_run(eng, trace) -> dict:
+    """The trace submitted at once to ``eng`` (idle, warmed), run to the
+    end: its tokens, run time, the streaming half's TTFT p50 (engine
+    clock; the requests ``gateway_run`` streams) and the ring numbers,
+    on fresh request ids and stats."""
+    from repro_torch import obs
+    from repro_torch.serving.metrics import EngineStats, percentile
+    eng.reset_ids()
+    eng.stats = EngineStats()
+    for p in trace["prompts"]:
+        eng.submit(p, trace["gen"])
+    t0 = obs.now()
+    tokens = eng.run()
+    torch.cuda.synchronize()
+    wall = obs.now() - t0
+    ttft = [eng.states[i].first_token_time
+            - eng.states[i].request.arrival_time
+            for i in range(0, len(trace["prompts"]), 2)]
+    return {"tokens": dict(tokens), "run_s": wall,
+            "ttft_p50_ms": 1e3 * percentile(ttft, 50), **ring_numbers(eng)}
+
+
+def serve_gateway(dev, K, cfg, params, trace, ladder) -> dict:
+    """Phase 14: the dense engine of phase 5 served directly, through a
+    gateway with full telemetry and a scraper, and through a gateway
+    with ``NULL_TELEMETRY``; phase 8's ladder under its SLO controller
+    through a gateway, with a ``ProfilerSession`` window over 8 of its
+    decode steps; a burst of 12 into a queue bounded at 2 (429s); and
+    ``serve --gateway`` in a subprocess drained by SIGTERM."""
+    from repro_torch import obs
+    from repro_torch.serving import Engine, EngineConfig, SLOConfig
+
+    t_phase = obs.now()
+    crashed = []
+    hook = threading.excepthook
+
+    def record(args):
+        crashed.append(f"{args.thread.name}: {args.exc_type.__name__}: "
+                       f"{args.exc_value}")
+        hook(args)
+    threading.excepthook = record
+    out_dir = os.path.join(HERE, "build", "chip_smoke", "gateway")
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        res = {}
+        ecfg = EngineConfig(**trace["ecfg"])
+
+        # -- dense: direct runs without and with Telemetry.full() (no
+        # sinks), four each in the order bare, full, full, bare (twice),
+        # then through a gateway with full telemetry + scraper and a
+        # bare gateway
+        engines = {"bare": Engine(params, cfg, ecfg, device=dev),
+                   "full": Engine(params, cfg, ecfg, device=dev,
+                                  telemetry=obs.Telemetry.full())}
+        direct, runs = None, {"bare": [], "full": []}
+        for kind in ("bare", "full", "full", "bare") * 2:
+            eng = engines[kind]
+            eng.warmup()
+            r = direct_run(eng, trace)
+            if direct is None:
+                direct = r.pop("tokens")
+            elif r.pop("tokens") != direct:
+                raise AssertionError(f"direct {kind}: tokens differ")
+            runs[kind].append(r)
+            print(f"gateway direct run, {kind} telemetry: {_fmt(r)}")
+        res["direct"] = runs
+        del engines, eng
+        trace_path = os.path.join(out_dir, "dense_trace.json")
+        events_path = os.path.join(out_dir, "dense_events.jsonl")
+        for p in (trace_path, events_path):
+            if os.path.exists(p):
+                os.remove(p)
+        tel = obs.Telemetry.full(events_sink=events_path)
+        tel.trace_sink = trace_path
+        eng = Engine(params, cfg, ecfg, device=dev, telemetry=tel)
+        eng.warmup()
+        r = gateway_run("dense, full telemetry + scraper", eng, trace, True)
+        if r.pop("tokens") != direct:
+            raise AssertionError("dense through the gateway: tokens differ "
+                                 "from the direct run")
+        if (eng.decode_retraces_after_warmup,
+                eng.chunk_retraces_after_warmup) != (0, 0):
+            raise AssertionError("dense through the gateway: a step was "
+                                 "built after warmup")
+        with open(trace_path) as f:
+            doc = json.load(f)
+        obs.validate_chrome_trace(doc)
+        for kind in ("submit", "finish"):
+            got = sorted(e["tid"] for e in doc["traceEvents"]
+                         if e["name"] == kind and e["ph"] == "i")
+            if got != [i + 1 for i in range(len(trace["prompts"]))]:
+                raise AssertionError(f"trace: {kind} instants on tracks "
+                                     f"{got}, want one per request")
+        with open(events_path) as f:
+            logged = [json.loads(ln) for ln in f]
+        late = [e for e in logged
+                if e["kind"] == "compile" and e["after_warmup"]]
+        if late or not logged:
+            raise AssertionError(f"event log: {len(logged)} events, "
+                                 f"builds after warmup {late}")
+        r.update(trace_events=len(doc["traceEvents"]), logged=len(logged))
+        res["telemetry"] = r
+        del eng
+        eng = Engine(params, cfg, ecfg, device=dev)
+        eng.warmup()
+        r = gateway_run("dense, NULL_TELEMETRY, no scraper", eng, trace,
+                        False)
+        if r.pop("tokens") != direct:
+            raise AssertionError("dense through the bare gateway: tokens "
+                                 "differ from the direct run")
+        res["bare"] = r
+        del eng
+        gc.collect()
+
+        # -- pallas: the calibrated ladder under phase 8's controller
+        slo = SLOConfig(tpot_p95=1e6, max_queue=2, dwell=2, hysteresis=0.25)
+        K.reset_launch_counts()
+        eng = Engine(params, cfg, EngineConfig(slo=slo, **trace["ecfg"]),
+                     device=dev, ladder=ladder)
+        prof = obs.ProfilerSession(os.path.join(out_dir, "profile"))
+        served = {}
+
+        def serve():
+            try:
+                served["res"] = gateway_run(
+                    "pallas ladder under the SLO controller", eng, trace,
+                    False)
+            except BaseException as e:              # noqa: BLE001
+                served["error"] = e
+        clients = threading.Thread(target=serve, name="clients")
+        clients.start()
+        # the profiler starts and stops on this (the main) thread, over 8
+        # decode steps at a sparse rung replayed by the engine thread;
+        # the counters read here are Python ints
+        window, tick = {}, threading.Event()
+        while eng.stats.decode_steps < 1 or eng.rung == 0:
+            if not clients.is_alive():
+                break
+            tick.wait(0.0005)
+        else:
+            first = eng.stats.decode_steps
+            window["started"] = prof.start()
+            while eng.stats.decode_steps < first + WINDOW \
+                    and clients.is_alive():
+                tick.wait(0.0005)
+            window["stopped"] = prof.stop()
+            window["steps"] = eng.stats.decode_steps - first
+        clients.join(HTTP_TIMEOUT_S + 10)
+        if "error" in served:
+            raise served["error"]
+        r = served["res"]
+        counts = dict(K.launch_counts)
+        r["prefill_sparse_chunks"] = eng.stats.prefill_sparse_chunks
+        check_launches("pallas gateway", eng, ladder, counts, r, cfg)
+        if any(len(t) != trace["gen"] for t in r.pop("tokens").values()):
+            raise AssertionError("pallas gateway: a request came back short")
+        if eng.decode_retraces_after_warmup != 0:
+            raise AssertionError("pallas gateway: decode built after warmup")
+        r["transitions"] = list(eng.controller.transitions)
+        if not window.get("started") or not window.get("stopped"):
+            raise AssertionError(f"profiler window {window}: "
+                                 f"error {prof.error}")
+        with open(prof.trace_path) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+        seen = {k: sum(1 for n in names if k in n)
+                for k in ("score_select", "sparse_matmul_shared")}
+        if not all(seen.values()):
+            raise AssertionError(f"profiler trace {prof.trace_path}: kernel "
+                                 f"launches {seen} of {len(names)}")
+        r["profile"] = {"decode_steps": window["steps"],
+                        "kernels": len(names), **seen}
+        res["pallas"] = r
+        print(f"gateway pallas: transitions {r['transitions']}; launches "
+              f"{r['launches']}; profiler window over {window['steps']} "
+              f"decode steps holds {seen} of {len(names)} kernels")
+        del eng
+        gc.collect()
+
+        # -- backpressure: a burst of 12 into a queue bounded at 2
+        from repro_torch.serving import Gateway, SchedulerConfig
+        eng = Engine(params, cfg, EngineConfig(
+            scheduler=SchedulerConfig(max_queue=2), **trace["ecfg"]),
+            device=dev)
+        gw = Gateway(eng, port=0)
+        port = gw.start()
+        try:
+            resps = burst(port, [{"prompt": [int(t) for t in p],
+                                  "max_new_tokens": 8}
+                                 for p in trace["prompts"]])
+        finally:
+            gw.stop()
+        codes = [x["status"] for x in resps]
+        n429 = codes.count(429)
+        retry = [int(x["headers"]["Retry-After"]) for x in resps
+                 if x["status"] == 429]
+        if not 0 < n429 < len(codes) or set(codes) != {200, 429} \
+                or min(retry) < 1 or eng.stats.rejected != n429:
+            raise AssertionError(f"backpressure: codes {codes}, Retry-After "
+                                 f"{retry}, rejected {eng.stats.rejected}")
+        res["backpressure"] = {"200": codes.count(200), "429": n429,
+                               "retry_after_s": retry}
+        print(f"gateway backpressure: {codes.count(200)} x 200, {n429} x 429 "
+              f"(Retry-After {sorted(set(retry))} s), engine rejected "
+              f"{eng.stats.rejected}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        res["drain"] = drain_subprocess(out_dir, dev)
+    finally:
+        threading.excepthook = hook
+    if crashed:
+        raise AssertionError(f"exceptions on threads: {crashed}")
+    res["wall_s"] = obs.now() - t_phase
+    # the direct run beside the gateway's is the last bare one (the
+    # first run of a process pays first-use costs)
+    d, t, b = res["direct"]["bare"][-1], res["telemetry"], res["bare"]
+    p50 = {k: [r["decode_step_p50_ms"] for r in v]
+           for k, v in res["direct"].items()}
+    print(f"gateway: HTTP TTFT p50 {t['http_ttft_p50_ms']:.1f} ms with "
+          f"full telemetry + {t['scrapes']} scrapes (engine clock "
+          f"{t['engine_ttft_p50_ms']:.1f}), {b['http_ttft_p50_ms']:.1f} ms "
+          f"bare (engine clock {b['engine_ttft_p50_ms']:.1f}), direct run "
+          f"{d['ttft_p50_ms']:.1f} ms (the same {t['streams']} prompts); "
+          f"decode tok/s {t['decode_tok_s']:.1f} / {b['decode_tok_s']:.1f} "
+          f"/ {d['decode_tok_s']:.1f}; decode p50 "
+          f"{t['decode_step_p50_ms']:.2f} / {b['decode_step_p50_ms']:.2f} / "
+          f"{d['decode_step_p50_ms']:.2f} ms (gateway + telemetry + scraper "
+          f"/ bare gateway / direct); direct decode p50 bare "
+          f"{[round(v, 2) for v in p50['bare']]} ms (median "
+          f"{np.median(p50['bare']):.2f}), full telemetry "
+          f"{[round(v, 2) for v in p50['full']]} ms (median "
+          f"{np.median(p50['full']):.2f}); tokens equal; phase 14 took "
+          f"{res['wall_s']:.1f} s")
+    return res
+
+
+def drain_subprocess(out_dir: str, dev) -> dict:
+    """``python -m repro_torch.launch.serve --gateway --reduced`` on the
+    card in a subprocess: one streaming request, SIGTERM while it is in
+    flight; the request must finish, the process exit 0, and its
+    ``--trace-out`` and ``--events-out`` files be complete."""
+    from repro_torch import obs
+    trace = os.path.join(out_dir, "drain_trace.json")
+    events = os.path.join(out_dir, "drain_events.jsonl")
+    for p in (trace, events):
+        if os.path.exists(p):
+            os.remove(p)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = obs.now()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+         "--device", dev.type, "--sparsity", "0", "--gateway", "--gateway-port", "0",
+         "--max-slots", "2", "--prompt-len", "16", "--gen", "48",
+         "--trace-out", trace, "--events-out", events],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=HERE)
+    try:
+        port = None
+        for line in proc.stdout:
+            if line.startswith("gateway listening on http://"):
+                port = int(line.split()[3].rsplit(":", 1)[1])
+                break
+        if port is None:
+            raise AssertionError("serve --gateway never printed its port")
+        payload = json.dumps({"prompt": list(range(1, 17)),
+                              "max_new_tokens": 48, "stream": True}).encode()
+        with socket.create_connection(("127.0.0.1", port),
+                                      timeout=HTTP_TIMEOUT_S) as sock:
+            sock.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+                         b"Content-Length: " + str(len(payload)).encode()
+                         + b"\r\n\r\n" + payload)
+            raw = b""
+            while b'"token"' not in raw:
+                chunk = sock.recv(65536)
+                if not chunk:
+                    break
+                raw += chunk
+            proc.send_signal(signal.SIGTERM)
+            in_flight = raw.count(b'"token"')
+            while True:
+                chunk = sock.recv(65536)
+                if not chunk:
+                    break
+                raw += chunk
+        rest = proc.communicate(timeout=HTTP_TIMEOUT_S)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --gateway exited {proc.returncode}:\n"
+                             f"{rest[-2000:]}")
+    _, _, body = raw.partition(b"\r\n\r\n")
+    toks = generated_tokens({"body": body}, True)
+    if len(toks) != 48:
+        raise AssertionError(f"drain: the in-flight request got {len(toks)} "
+                             "of 48 tokens")
+    with open(trace) as f:
+        n_trace = obs.validate_chrome_trace(json.load(f))
+    with open(events) as f:
+        n_events = len([json.loads(ln) for ln in f])
+    out = {"tokens_before_sigterm": in_flight, "tokens": len(toks),
+           "exit": proc.returncode, "trace_events": n_trace,
+           "logged": n_events, "wall_s": obs.now() - t0}
+    print(f"gateway drain: SIGTERM after {in_flight} streamed tokens, the "
+          f"request finished with {len(toks)}, exit 0, trace "
+          f"{n_trace} events, event log {n_events} lines, "
+          f"{out['wall_s']:.1f} s")
+    return out
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -2286,6 +2805,7 @@ def main() -> int:
     spec_res = serve_spec(dev, K, cfg, params, trace, ladder)
     prefix_res = serve_prefix_cache(dev, K, cfg, params)
     preempt_res = serve_preemption(dev, cfg, params, trace)
+    gateway_res = serve_gateway(dev, K, cfg, params, trace, ladder)
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -2300,7 +2820,8 @@ def main() -> int:
         "prefix_cache": {n: {k: v for k, v in r.items() if k not in keep}
                          for n, r in prefix_res.items()},
         "preemption": {n: {k: v for k, v in r.items() if k not in keep}
-                       for n, r in preempt_res.items()}}}))
+                       for n, r in preempt_res.items()},
+        "gateway": gateway_res}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     kernels = []

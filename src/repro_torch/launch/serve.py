@@ -51,12 +51,39 @@ the engine refuses the rest.  Admission control: ``--max-queue N``
 bounds the admission queue (a submission beyond it raises
 ``QueueFull``), and ``--preemption`` suspends the least important
 decoding request to host memory when a more important arrival needs its
-slot; the victim resumes bit-identically.  The gateway and telemetry
-come with later slices.
+slot; the victim resumes bit-identically.  ``--max-slots``,
+``--max-len``, ``--chunk`` and ``--prefill-strategy`` size the engine
+(by default one slot per request, room for prompt + generation, chunks
+of 32).
+
+Gateway: ``--gateway`` serves the HTTP/1.1 + SSE API front door
+(``repro_torch.serving.gateway``) instead of replaying the synthetic
+prompts — ``POST /v1/generate`` (streaming and not), ``GET /v1/health``,
+``GET /metrics`` — on ``--gateway-host``/``--gateway-port``
+(``--gateway-port 0`` binds an ephemeral port, and the CLI prints
+``gateway listening on http://HOST:PORT`` once it accepts connections,
+so a script can connect).  Every step is built before it listens.
+``--max-queue`` rejections surface as HTTP 429 with ``Retry-After``.
+SIGTERM/Ctrl-C stops accepting connections, drains in-flight requests,
+flushes the telemetry sinks and exits 0.
+
+Observability (``repro_torch.obs``): ``--metrics-out`` appends JSONL
+engine snapshots every ``--metrics-every`` steps by default;
+``--metrics-format prom`` instead rewrites the file with a Prometheus
+text-exposition dump, and ``--metrics-port`` serves the same text live
+at ``http://127.0.0.1:PORT/metrics``.  ``--trace-out`` writes a Chrome
+trace-event JSON of per-request spans, ``--events-out`` streams the
+structured event log (rung and gamma switches with reasons, prefix
+evictions, KV rollbacks, admission decisions, graph builds) as JSONL,
+and ``--profile-dir`` captures a ``torch.profiler`` trace of the whole
+run there.  Tokens are identical with telemetry on or off.  The
+reference's quality-probe and flight-recorder flags, and ``--legacy``
+(its static-batch loop), are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 import torch
 
@@ -70,6 +97,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.serving import (Engine, EngineConfig, SchedulerConfig,
                                  SLOConfig, SpecConfig)
+from repro_torch.serving.metrics import latency_percentiles
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
 
 
@@ -135,16 +163,62 @@ def build_parser() -> argparse.ArgumentParser:
                     help="suspend the least-important decoding request to "
                          "host memory when a more important arrival needs "
                          "its KV slot; the victim resumes bit-identically")
+    ap.add_argument("--max-slots", type=int, default=0,
+                    help="KV pool slots (0 = batch size)")
+    ap.add_argument("--max-len", type=int, default=0,
+                    help="KV pool length (0 = prompt+gen)")
+    ap.add_argument("--chunk", type=int, default=32,
+                    help="prefill chunk size (chunked strategy)")
+    ap.add_argument("--prefill-strategy", default="auto",
+                    choices=["auto", "chunked", "whole"])
+    ap.add_argument("--metrics-out", default=None,
+                    help="write engine/controller metrics to this file "
+                         "while serving (format per --metrics-format)")
+    ap.add_argument("--metrics-every", type=int, default=16,
+                    help="engine steps between metrics writes")
+    ap.add_argument("--metrics-format", default="jsonl",
+                    choices=["jsonl", "prom"],
+                    help="--metrics-out format: append JSONL snapshots, "
+                         "or rewrite a Prometheus text-exposition dump "
+                         "(textfile-collector style)")
+    ap.add_argument("--metrics-port", type=int, default=0,
+                    help="serve live Prometheus exposition at "
+                         "http://127.0.0.1:PORT/metrics (0 = off)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write per-request spans as Chrome trace-event "
+                         "JSON (Perfetto-loadable) to this file")
+    ap.add_argument("--events-out", default=None,
+                    help="stream the structured event log (rung/gamma "
+                         "switches, evictions, rollbacks, graph builds) "
+                         "as JSONL to this file")
+    ap.add_argument("--profile-dir", default=None,
+                    help="capture a torch.profiler trace of the run into "
+                         "this directory")
+    ap.add_argument("--gateway", action="store_true",
+                    help="serve the HTTP/1.1 + SSE API front door "
+                         "(repro_torch.serving.gateway) instead of "
+                         "replaying synthetic prompts; SIGTERM/Ctrl-C "
+                         "drains in-flight requests before exiting")
+    ap.add_argument("--gateway-host", default="127.0.0.1",
+                    help="gateway listen address (needs --gateway)")
+    ap.add_argument("--gateway-port", type=int, default=8080,
+                    help="gateway listen port (0 = ephemeral, printed once "
+                         "bound; needs --gateway)")
     return ap
 
 
 def validate_args(args) -> None:
     if not 0.0 <= args.sparsity < 1.0:
         raise SystemExit(f"--sparsity must be in [0, 1), got {args.sparsity}")
-    for name in ("prompt-len", "gen", "batch"):
+    for name in ("prompt-len", "gen", "batch", "chunk", "metrics-every"):
         v = getattr(args, name.replace("-", "_"))
         if v <= 0:
             raise SystemExit(f"--{name} must be > 0, got {v}")
+    for name in ("max-slots", "max-len"):
+        v = getattr(args, name.replace("-", "_"))
+        if v < 0:
+            raise SystemExit(f"--{name} must be >= 0 (0 = from the "
+                             f"requests), got {v}")
     if args.sensitive_backend is not None and not args.calib_quick:
         raise SystemExit("--sensitive-backend needs a calibrated plan: "
                          "add --calib-quick")
@@ -178,6 +252,20 @@ def validate_args(args) -> None:
     elif args.spec_adaptive or args.spec_drafter != 1:
         raise SystemExit("--spec-drafter/--spec-adaptive need "
                          "--spec-gamma > 0 to arm speculative decoding")
+    if args.gateway:
+        if args.metrics_out:
+            raise SystemExit("--gateway owns the engine loop; drop "
+                             "--metrics-out and scrape GET /metrics "
+                             "instead")
+        if args.metrics_port:
+            raise SystemExit("--gateway already serves /metrics on its "
+                             "own port; drop --metrics-port")
+        if args.gateway_port < 0:
+            raise SystemExit(f"--gateway-port must be >= 0 "
+                             f"(0 = ephemeral), got {args.gateway_port}")
+    elif (args.gateway_host != "127.0.0.1" or args.gateway_port != 8080):
+        raise SystemExit("--gateway-host/--gateway-port need --gateway "
+                         "to start the API front door")
 
 
 def validate_rungs(args, num_rungs: int) -> None:
@@ -256,25 +344,74 @@ def main(argv=None):
     if args.max_queue or args.preemption:
         scheduler = SchedulerConfig(max_queue=args.max_queue,
                                     preemption=args.preemption)
-    # one slot per request, room for prompt + generation
-    ecfg = EngineConfig(max_slots=args.batch,
-                        max_len=args.prompt_len + args.gen, policy=policy,
-                        slo=slo, initial_rung=args.rung, spec=spec,
-                        prefix_cache=args.prefix_cache,
-                        prefix_cache_tokens=args.prefix_cache_tokens,
-                        scheduler=scheduler)
-    engine = Engine(params, cfg, ecfg, sp, device=device, ladder=ladder)
+    ecfg = EngineConfig(
+        max_slots=args.max_slots or args.batch,
+        max_len=args.max_len or args.prompt_len + args.gen,
+        prefill_chunk=args.chunk, policy=policy,
+        prefill_strategy=args.prefill_strategy,
+        slo=slo, initial_rung=args.rung, spec=spec,
+        prefix_cache=args.prefix_cache,
+        prefix_cache_tokens=args.prefix_cache_tokens,
+        scheduler=scheduler)
+    telemetry = None
+    if args.trace_out or args.events_out or args.profile_dir:
+        # trace_sink makes Engine.close() (context-manager exit, or the
+        # gateway's drain) export the Chrome trace even when serving
+        # raises
+        telemetry = obs.Telemetry(
+            tracer=obs.SpanTracer() if args.trace_out else None,
+            events=obs.EventLog(sink=args.events_out)
+            if args.events_out else None,
+            annotate_dispatch=args.profile_dir is not None,
+            profiler=obs.ProfilerSession(args.profile_dir)
+            if args.profile_dir else None,
+            trace_sink=args.trace_out)
+    engine = Engine(params, cfg, ecfg, sp, device=device, ladder=ladder,
+                    telemetry=telemetry)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+
+    if args.gateway:
+        from repro_torch.serving.gateway import Gateway
+        gw = Gateway(engine, host=args.gateway_host, port=args.gateway_port)
+        gw.on_ready = lambda port: print(
+            f"gateway listening on http://{args.gateway_host}:{port} "
+            f"(POST /v1/generate, GET /v1/health, GET /metrics) on "
+            f"{where}; SIGTERM/Ctrl-C drains", flush=True)
+        _start_profiler(telemetry)
+        gw.serve_forever()
+        print("gateway drained; engine stats:", engine.stats.summary())
+        _report_telemetry(args, telemetry)
+        return {}
+
+    server = None
+    if args.metrics_port:
+        server = obs.serve_metrics(engine.metrics_exposition,
+                                   port=args.metrics_port)
+        print(f"serving metrics at "
+              f"http://127.0.0.1:{server.server_port}/metrics")
+    _start_profiler(telemetry)
     t0 = obs.now()
     for b in range(args.batch):
         engine.submit(prompts[b], args.gen)
-    out = engine.run()
+    try:
+        # the context manager closes the engine (and flushes every
+        # telemetry sink) even when the loop raises
+        with engine:
+            out = run_with_metrics(engine, args.metrics_out,
+                                   args.metrics_every, args.metrics_format)
+    finally:
+        if server is not None:
+            server.shutdown()
+        _report_telemetry(args, telemetry)
     dt = obs.now() - t0
     n = sum(len(t) for t in out.values())
-    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
-             else "cpu")
     print(f"generated {n} tokens in {dt:.2f}s ({n / dt:.1f} tok/s on "
           f"{where})")
     print("engine stats:", engine.stats.summary())
+    print("latency:", {k: round(v, 3) for k, v in
+                       latency_percentiles(engine.states.values()).items()
+                       if v is not None})
     if engine.controller is not None:
         print("controller:", engine.controller.snapshot(),
               "transitions:", engine.controller.transitions)
@@ -287,6 +424,65 @@ def main(argv=None):
         print("prefix cache:", engine.prefix_cache.snapshot())
     print("sample:", out[0][:16])
     return out
+
+
+def _start_profiler(telemetry) -> None:
+    if (telemetry is not None and telemetry.profiler is not None
+            and not telemetry.profiler.start()):
+        print("profiler capture unavailable:", telemetry.profiler.error)
+
+
+def _report_telemetry(args, telemetry) -> None:
+    """Say what ``Engine.close()`` flushed (the export itself already
+    happened inside close — this only reports)."""
+    if telemetry is None:
+        return
+    if telemetry.tracer is not None:
+        print(f"wrote {len(telemetry.tracer.events)} trace events "
+              f"to {args.trace_out}")
+    if telemetry.events is not None:
+        print(f"logged {telemetry.events.count} events"
+              + (f" to {args.events_out}" if args.events_out else ""))
+    if telemetry.profiler is not None and telemetry.profiler.error is None:
+        print(f"wrote profiler trace to {telemetry.profiler.trace_path}")
+
+
+def run_with_metrics(engine, metrics_out=None, every: int = 16,
+                     fmt: str = "jsonl"):
+    """Drive the engine to completion, writing metrics every ``every``
+    steps (and once at the end) when ``metrics_out`` is set.
+
+    ``fmt="jsonl"`` appends engine snapshots; ``fmt="prom"`` rewrites
+    the file with the current Prometheus text exposition each time —
+    the node-exporter textfile-collector pattern, scrapeable without a
+    port."""
+    if metrics_out is None:
+        return engine.run()
+    if fmt not in ("jsonl", "prom"):
+        raise ValueError(f"unknown metrics format {fmt!r}")
+
+    if fmt == "prom":
+        def write():
+            with open(metrics_out, "w") as f:
+                f.write(engine.metrics_exposition())
+        steps = 0
+        while engine.scheduler.has_work():
+            engine.step()
+            steps += 1
+            if steps % every == 0:
+                write()
+        write()
+        return {rid: rs.tokens for rid, rs in engine.states.items()}
+
+    steps = 0
+    with open(metrics_out, "a") as f:
+        while engine.scheduler.has_work():
+            engine.step()
+            steps += 1
+            if steps % every == 0:
+                f.write(json.dumps(engine.snapshot()) + "\n")
+        f.write(json.dumps(engine.snapshot()) + "\n")
+    return {rid: rs.tokens for rid, rs in engine.states.items()}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """The calibration side of the JAX package's ``obs/quality.py``: the
 helpers that :func:`repro_torch.sparsity.ladder.calibrate_ladder` uses to
 record a ladder's quality baselines.  The serving-time
-``QualityMonitor`` that compares live traffic against them comes with
-the observability slice."""
+``QualityMonitor`` that compares live traffic against them is not
+ported yet (``ROADMAP.md`` queue 1 item 6)."""
 from __future__ import annotations
 
 import numpy as np

@@ -63,19 +63,35 @@ hit, a publish, a suspend, a resume) are ``copy_`` into or out of the
 pool tensors, which keep their addresses: the captured graphs go on
 reading them, and nothing is built after warmup.
 
-The reference's telemetry, flight recorder and quality probes (and the
+Telemetry: ``Engine(..., telemetry=repro_torch.obs.Telemetry(...))``
+arms per-request span tracing (Chrome trace JSON), the structured event
+log (rung switches with controller reasons, gamma changes, prefix
+evictions, KV rollbacks, admission and preemption decisions, and one
+``compile`` record per graph build, flagged ``after_warmup``) and
+per-dispatch profiler ranges, at the reference's emit sites.  Telemetry
+only *observes* host-side state — tokens are identical with it on or
+off — and the default ``NULL_TELEMETRY`` costs nothing: every emit site
+is an ``is not None`` check and ``annotate()`` returns a shared null
+context.  :meth:`Engine.snapshot`, :meth:`Engine.metrics_exposition`
+and the request hooks (``submit(..., on_token=, on_finish=)``) are what
+the gateway (``repro_torch.serving.gateway``) serves from;
+:meth:`Engine.close` (or the context manager) flushes every sink.
+
+The reference's flight recorder and quality probes (and the
 controller's ``quality_aware`` mode, which reads them) are not ported
 yet: asking for any of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.obs import NULL_TELEMETRY, Telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, sync
 from repro_torch.core.unstacked import sparsifiable_leaves
@@ -94,6 +110,11 @@ from repro_torch.serving.scheduler import (QueueFull, Scheduler,
                                            SchedulerConfig)
 from repro_torch.serving.spec import SpecConfig, SpecDecoder
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
+
+# Engine.snapshot() JSONL format version: the reference's (its v7 record;
+# the quality and flight fields are absent, as in a reference engine
+# where neither is armed).
+SNAPSHOT_SCHEMA_VERSION = 7
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,10 +202,15 @@ class EngineConfig:
 class Engine:
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
                  sp=None, *, device="cuda",
-                 ladder: Optional[PolicyLadder] = None, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry is not ported yet (see ROADMAP.md queue 1)")
+                 ladder: Optional[PolicyLadder] = None,
+                 telemetry: Telemetry = NULL_TELEMETRY):
+        if telemetry is None:
+            telemetry = NULL_TELEMETRY
+        elif not isinstance(telemetry, Telemetry):
+            raise TypeError(
+                f"telemetry must be a repro_torch.obs.Telemetry, "
+                f"got {type(telemetry)!r}")
+        self.obs = telemetry
         M.check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -258,6 +284,7 @@ class Engine:
         self.stats = EngineStats()
         self.states: Dict[int, RequestState] = {}
         self._next_id = 0
+        self._closed = False
         self.prefill_strategy = ("chunked" if ecfg.prefill_strategy == "auto"
                                  else ecfg.prefill_strategy)
         self.prefix_cache: Optional[PrefixCache] = None
@@ -265,7 +292,7 @@ class Engine:
             self._check_prefix_cache()
             self.prefix_cache = PrefixCache(
                 self.pool, ecfg.prefill_chunk, ecfg.prefix_cache_tokens,
-                stats_fn=lambda: self.stats)
+                stats_fn=lambda: self.stats, obs_fn=lambda: self.obs)
         self._pstep = api.make_prefill_step(cfg)
         self.graph_space = GraphSpace(self.device, self._scratch_shapes())
         self._decode = DecodeSteps(
@@ -280,9 +307,19 @@ class Engine:
                                                    self._rung_sp)],
             ecfg.prefill_chunk, ecfg.max_len, self.graph_space)
         self._warm_builds: Optional[tuple] = None
+        # compile records; the steps hold the engine weakly (no
+        # reference cycle through its graphs)
+        me = weakref.ref(self)
+        self._decode.on_build = lambda rung: me()._record_compile(
+            "decode", rung)
+        self._chunk.on_build = lambda key: me()._record_compile(
+            "chunk", key[0])
         self.spec_decoder: Optional[SpecDecoder] = None
         if ecfg.spec is not None:
             self.spec_decoder = SpecDecoder(self, ecfg.spec)
+            self.spec_decoder.verify_steps.on_build = \
+                lambda _gamma: me()._record_compile(
+                    "verify", ecfg.spec.verifier_rung)
         if self.controller is not None or self.spec_decoder is not None \
                 or self.prefix_cache is not None or self._preemptible:
             self.warmup()
@@ -501,14 +538,39 @@ class Engine:
                                          if s is not None))
 
     # ------------------------------------------------------------------
+    # telemetry plumbing
+    # ------------------------------------------------------------------
+    def _record_compile(self, phase: str, rung: int) -> None:
+        """Called as a step's build starts (``serving/graphs.py``), so
+        every emission is one build: a capture on the card, where the
+        reference records one trace.  A build after warmup breaks the
+        built-once discipline, and is flagged so the event log shows
+        which step broke it."""
+        ev = self.obs.events
+        if ev is not None:
+            ev.emit("compile", phase=phase, rung=rung,
+                    after_warmup=self._warm_builds is not None)
+
+    def metrics_exposition(self) -> str:
+        """This engine's live stats in Prometheus text-exposition format
+        (built per call, off the hot path, from Python counters only —
+        see :func:`repro_torch.obs.metrics.engine_registry`)."""
+        return obs.engine_exposition(self)
+
+    # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, eos_id: Optional[int] = None,
-               arrival_time: Optional[float] = None, *,
+               arrival_time: Optional[float] = None, on_token=None, *,
                priority: Priority = Priority.STANDARD,
                tenant: str = "default",
-               queue_deadline_s: Optional[float] = None) -> RequestState:
+               queue_deadline_s: Optional[float] = None,
+               on_finish=None) -> RequestState:
         """Queue one request.  ``priority`` is a :class:`Priority` or its
         name (``"best-effort"``); a queue at ``SchedulerConfig.max_queue``
-        raises :class:`QueueFull` with a retry estimate."""
+        raises :class:`QueueFull` with a retry estimate.  ``on_token``
+        (``(request_id, token)``) runs per emitted token and
+        ``on_finish`` (``(state)``) once at the end, expiry included."""
+        if self._closed:
+            raise RuntimeError("submit() on a closed engine")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0 or prompt.size >= self.ecfg.max_len:
             raise ValueError(
@@ -520,10 +582,15 @@ class Engine:
                 f"queue_deadline_s must be positive, got {queue_deadline_s}")
         if not self.scheduler.can_accept():
             self.stats.rejected += 1
+            retry = self._retry_after()
+            if self.obs.events is not None:
+                self.obs.events.emit(
+                    "reject", reason="queue_full",
+                    queue_depth=self.scheduler.queue_depth,
+                    retry_after_s=round(retry, 3))
             raise QueueFull(
                 f"admission queue at capacity "
-                f"({self.scheduler.cfg.max_queue})",
-                retry_after=self._retry_after())
+                f"({self.scheduler.cfg.max_queue})", retry_after=retry)
         max_new = min(max_new_tokens, self.ecfg.max_len - prompt.size)
         req = Request(self._next_id, prompt, max_new,
                       eos_id if eos_id is not None else self.ecfg.eos_id,
@@ -531,10 +598,17 @@ class Engine:
                       priority=priority, tenant=tenant,
                       queue_deadline_s=queue_deadline_s)
         self._next_id += 1
-        rs = RequestState(req)
+        rs = RequestState(req, on_token=on_token, on_finish=on_finish)
         self.states[req.request_id] = rs
         self.scheduler.enqueue(rs)
         self.stats.submitted += 1
+        tr = self.obs.tracer
+        if tr is not None:
+            tr.thread_name(req.request_id + 1, f"req {req.request_id}")
+            tr.instant("submit", tid=req.request_id + 1,
+                       request=req.request_id, prompt_len=req.prompt_len,
+                       max_new_tokens=max_new, priority=priority.name.lower(),
+                       tenant=tenant)
         return rs
 
     def _retry_after(self) -> float:
@@ -553,6 +627,10 @@ class Engine:
         config allows), then run one scheduler-chosen phase step."""
         self._admit()
         self.stats.sample(self.scheduler.queue_depth, self.pool.num_occupied)
+        if self.obs.tracer is not None:
+            self.obs.tracer.counter(
+                "engine_load", queue_depth=self.scheduler.queue_depth,
+                occupancy=self.pool.num_occupied)
         action = self.scheduler.next_action()
         if action == "prefill":
             if self.prefill_strategy == "chunked":
@@ -608,10 +686,21 @@ class Engine:
                 self._admit_queued(sched.pop_admit(), now)
 
     def _expire(self, rs: RequestState, now: float) -> None:
+        req = rs.request
         rs.finish_reason = FinishReason.EXPIRED
         rs.finish_time = now
         rs.status = Status.FINISHED
         self.stats.expired += 1
+        waited = now - req.arrival_time
+        if self.obs.events is not None:
+            self.obs.events.emit(
+                "reject", reason="deadline", request=req.request_id,
+                waited_s=round(waited, 4),
+                deadline_s=req.queue_deadline_s)
+        if self.obs.tracer is not None:
+            self.obs.tracer.instant(
+                "expire", tid=req.request_id + 1, waited_s=waited)
+        rs.finished()
 
     def _admit_queued(self, rs: RequestState, now: float) -> None:
         rs.slot = self.pool.alloc()
@@ -620,6 +709,11 @@ class Engine:
         rs.status = Status.PREFILL          # the cached prefix
         self.scheduler.prefilling.append(rs)
         self.stats.observe_queue_wait(max(0.0, now - rs.request.arrival_time))
+        if self.obs.tracer is not None:
+            self.obs.tracer.instant(
+                "admit", tid=rs.request.request_id + 1, slot=rs.slot,
+                cached_prefix=rs.next_offset,
+                priority=rs.request.priority.name.lower())
 
     def _preempt(self, victim: RequestState) -> None:
         """Suspend a decoding victim: copy its KV state to host memory at
@@ -642,6 +736,16 @@ class Engine:
         victim.preemptions += 1
         victim.slot = -1
         self.stats.preemptions += 1
+        if self.obs.events is not None:
+            self.obs.events.emit(
+                "preempt", t=t, request=req.request_id, slot=slot,
+                kv_length=seg.length, kv_phys=seg.phys,
+                priority=req.priority.name.lower(),
+                tokens_done=len(victim.tokens))
+        if self.obs.tracer is not None:
+            self.obs.tracer.instant(
+                "preempt", t=t, tid=req.request_id + 1, slot=slot,
+                kv_length=seg.length)
 
     def _resume(self, rs: RequestState) -> None:
         """Restore a suspended request into a freshly allocated slot:
@@ -649,16 +753,30 @@ class Engine:
         set at the exact committed position — generation continues
         bit-identically."""
         t = obs.now()
+        req = rs.request
         slot = self.pool.alloc()
         self.pool.resume(rs.suspended, slot)
+        kv_length = rs.suspended.length
         rs.suspended = None
         rs.slot = slot
         rs.status = Status.DECODE
         self.scheduler.decoding[slot] = rs
         self.stats.resumes += 1
+        suspended_s = None
         if rs.suspend_time is not None:
-            self.stats.observe_preempted(t - rs.suspend_time)
+            suspended_s = t - rs.suspend_time
+            self.stats.observe_preempted(suspended_s)
             rs.suspend_time = None
+        if self.obs.events is not None:
+            self.obs.events.emit(
+                "resume", t=t, request=req.request_id, slot=slot,
+                kv_length=kv_length,
+                suspended_s=None if suspended_s is None
+                else round(suspended_s, 4))
+        if self.obs.tracer is not None:
+            self.obs.tracer.instant(
+                "resume", t=t, tid=req.request_id + 1, slot=slot,
+                kv_length=kv_length)
 
     # ------------------------------------------------------------------
     def _phase_policy(self, offset: int, prompt_len: int) -> SparsityPolicy:
@@ -687,15 +805,20 @@ class Engine:
         # a step not built yet (no warmup) builds outside the timed step
         self._chunk.build(i)
         t0 = obs.now()
-        logits = self._chunk(i, chunk, off, rs.slot, weights)
-        sync(self.device)
+        with self.obs.annotate("repro/prefill_chunk"):
+            logits = self._chunk(i, chunk, off, rs.slot, weights)
+            sync(self.device)
         t1 = obs.now()
         dt = t1 - t0
         self.stats.prefill_time += dt
-        self.stats.prefill_step_s.append(dt)
+        self.stats.observe_prefill_step(dt)
         self.stats.prefill_chunks += 1
         self.stats.prefill_sparse_chunks += int(not policy.is_dense)
         self.stats.prefill_tokens += real
+        if self.obs.tracer is not None:
+            self.obs.tracer.complete(
+                "prefill_chunk", t0, t1, tid=req.request_id + 1,
+                slot=rs.slot, offset=off, tokens=real, rung=self._rung)
         rs.next_offset = off + real
         self.pool.lengths[rs.slot] = rs.next_offset
         if rs.done_prefill:
@@ -714,16 +837,21 @@ class Engine:
         pd, ps, _ = self._rung_phases[self._rung]
         policy = ps if self.ecfg.prefill_dense_frac <= 0.0 else pd
         t0 = obs.now()
-        logits, caches = self._pstep(
-            self.params, torch.from_numpy(tokens).to(self.device), self.sp,
-            policy=policy)
-        sync(self.device)
+        with self.obs.annotate("repro/prefill_whole"):
+            logits, caches = self._pstep(
+                self.params, torch.from_numpy(tokens).to(self.device),
+                self.sp, policy=policy)
+            sync(self.device)
         t1 = obs.now()
         dt = t1 - t0
         self.stats.prefill_time += dt
-        self.stats.prefill_step_s.append(dt)
+        self.stats.observe_prefill_step(dt)
         self.stats.prefill_chunks += 1
         self.stats.prefill_tokens += P * len(group)
+        if self.obs.tracer is not None:
+            self.obs.tracer.complete(
+                "prefill_whole", t0, t1, prompt_len=P, batch=len(group),
+                rung=self._rung)
         first = torch.argmax(logits, -1).cpu().numpy()
         for b, rs in enumerate(group):
             self.pool.insert(caches, b, rs.slot, P)
@@ -733,7 +861,13 @@ class Engine:
     def _start_decode(self, rs: RequestState, first_token: int) -> None:
         rs.first_token_time = obs.now()
         rs.last_token_time = rs.first_token_time
-        self.stats.ttft_s.append(rs.first_token_time - rs.request.arrival_time)
+        self.stats.observe_ttft(
+            rs.first_token_time - rs.request.arrival_time)
+        if self.obs.tracer is not None:
+            self.obs.tracer.instant(
+                "first_token", t=rs.first_token_time,
+                tid=rs.request.request_id + 1, slot=rs.slot,
+                ttft_s=rs.first_token_time - rs.request.arrival_time)
         self._emit(rs, first_token)
         self.scheduler.to_decode(rs)
         self._maybe_finish(rs, first_token)
@@ -760,17 +894,22 @@ class Engine:
         # a rung not built yet (no warmup) builds outside the timed step
         self._decode.build(self._rung)
         t0 = obs.now()
-        nxt, _ = self._decode(self._rung, tokens, positions, active)
+        with self.obs.annotate("repro/decode"):
+            nxt, _ = self._decode(self._rung, tokens, positions, active)
         t1 = obs.now()
         self.stats.decode_time += t1 - t0
-        self.stats.decode_step_s.append(t1 - t0)
+        self.stats.observe_decode_step(t1 - t0)
         self.stats.decode_steps += 1
+        if self.obs.tracer is not None:
+            self.obs.tracer.complete(
+                "decode_step", t0, t1, active=len(decoding),
+                rung=self._rung)
         gaps = []
         for slot, rs in list(decoding.items()):
             tok = int(nxt[slot])
             if rs.last_token_time is not None:
                 gaps.append(t1 - rs.last_token_time)
-                self.stats.tpot_s.append(gaps[-1])
+                self.stats.observe_tpot(gaps[-1])
             rs.last_token_time = t1
             self._emit(rs, tok)
             self.pool.commit(slot, 1)
@@ -787,7 +926,21 @@ class Engine:
                 occupancy=self.pool.num_occupied,
                 best_effort_frac=be_frac)
             if new_rung != self._rung:
+                old = self._rung
                 self.set_rung(new_rung)
+                tr = self.controller.transitions[-1] \
+                    if self.controller.transitions else None
+                reason = tr[3] if tr is not None else None
+                if self.obs.events is not None:
+                    self.obs.events.emit(
+                        "rung_switch", t=t1, from_rung=old,
+                        to_rung=new_rung, reason=reason,
+                        controller_step=self.controller.step,
+                        queue_depth=self.scheduler.queue_depth)
+                if self.obs.tracer is not None:
+                    self.obs.tracer.instant(
+                        "rung_switch", t=t1, from_rung=old,
+                        to_rung=new_rung, reason=reason)
 
     def _maybe_finish(self, rs: RequestState, token: int) -> None:
         req = rs.request
@@ -798,9 +951,101 @@ class Engine:
         else:
             return
         rs.finish_time = obs.now()
+        if self.obs.tracer is not None:
+            self.obs.tracer.instant(
+                "finish", t=rs.finish_time,
+                tid=req.request_id + 1, slot=rs.slot,
+                reason=rs.finish_reason.value,
+                tokens=len(rs.tokens))
         self.scheduler.finish(rs)
         self.pool.free(rs.slot)
         self.stats.finished += 1
+        rs.finished()
+
+    # ------------------------------------------------------------------
+    def snapshot(self) -> dict:
+        """One metrics record (JSONL-friendly): engine load, latency
+        signals and — under a controller — rung state, in the
+        reference's schema (``schema_version``
+        :data:`SNAPSHOT_SCHEMA_VERSION`)."""
+        s = self.stats
+        out = {
+            "schema_version": SNAPSHOT_SCHEMA_VERSION,
+            "t": obs.now(),
+            "queue_depth": self.scheduler.queue_depth,
+            "occupancy": self.pool.num_occupied,
+            "submitted": s.submitted,
+            "finished": s.finished,
+            "decode_steps": s.decode_steps,
+            "decode_tokens": s.decode_tokens,
+            "decode_tps": round(s.decode_tps, 1),
+            # whole-run histogram quantiles (bucket upper bounds);
+            # *_window_s keeps the recent-window estimate
+            "tpot_p50_s": None if not s.tpot_hist
+            else round(s.tpot_hist.quantile(50), 6),
+            "tpot_p95_s": None if not s.tpot_hist
+            else round(s.tpot_hist.quantile(95), 6),
+            "tpot_p95_window_s": None if not s.tpot_s
+            else round(s.window_tpot_p95(), 6),
+        }
+        if self.ladder is not None:
+            out["rung"] = self._rung
+            out["budget"] = self.ladder.budgets[self._rung]
+        if self.controller is not None:
+            out.update(self.controller.snapshot())
+        if self.spec_decoder is not None:
+            out.update(self.spec_decoder.snapshot())
+            out["spec_accept_rate"] = round(
+                s.spec_accepted_tokens / max(1, s.spec_draft_tokens), 4)
+        if self.prefix_cache is not None:
+            out.update(self.prefix_cache.snapshot())
+        if self.ecfg.scheduler is not None:
+            out["suspended"] = len(self.scheduler.suspended)
+            out["preemptions"] = s.preemptions
+            out["resumes"] = s.resumes
+            out["rejected"] = s.rejected
+            out["expired"] = s.expired
+            out["queue_wait_p95_s"] = None if not s.queue_wait_hist \
+                else round(s.queue_wait_hist.quantile(95), 6)
+        if self.obs.enabled:
+            if self.obs.events is not None:
+                out["telemetry_events"] = self.obs.events.count
+            if self.obs.tracer is not None:
+                out["telemetry_spans"] = len(self.obs.tracer.events)
+        return out
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+    def reset_ids(self) -> None:
+        """Restart this engine's request-id namespace at 0 and drop
+        finished request states, so replays of one trace on a warm
+        engine keep ids aligned across engines and reps.  Only valid on
+        an idle engine (no queued, in-flight or suspended requests)."""
+        if self.scheduler.has_work() or self.pool.num_occupied:
+            raise RuntimeError(
+                "reset_ids() on a busy engine would orphan live requests")
+        self._next_id = 0
+        self.states = {}
+
+    def close(self) -> None:
+        """Flush and close the engine's telemetry sinks (event log,
+        trace export, profiler session) so artifacts are never
+        truncated.  Idempotent; further ``submit`` calls raise, but
+        existing state stays readable.  Prefer the context-manager form
+        (``with Engine(...) as eng:``) so sinks close even when the
+        driving loop raises."""
+        if self._closed:
+            return
+        self._closed = True
+        self.obs.close()
+
+    def __enter__(self) -> "Engine":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.close()
+        return False
 
 
 def _backends(pol: SparsityPolicy) -> set:

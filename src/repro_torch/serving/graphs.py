@@ -28,6 +28,10 @@ request's cache.  The steps never run at once, so every graph of an
 engine shares one memory pool (:class:`GraphSpace`).
 
 A capture or a replay that fails raises; nothing falls back to eager.
+A CUDA graph destroyed while another is being captured invalidates
+that capture, and Python destroys a graph held by a dead reference
+cycle whenever its collector happens to run; so each capture first
+collects such garbage and runs with the automatic collector off.
 Before the first capture of any kind the split-K scratch of the matmul
 kernels is reserved for every launch the engine can make, and each
 graph keeps references to the scratch it captured
@@ -43,6 +47,7 @@ recorded while capturing counts once, and its replays count nothing;
 """
 from __future__ import annotations
 
+import gc
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -79,8 +84,17 @@ class GraphSpace:
         torch.cuda.current_stream(self.device).wait_stream(side)
         c1 = dict(K.launch_counts)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
-            outs = run()
+        # no dead graph may be destroyed inside the capture (see the
+        # module docstring)
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                outs = run()
+        finally:
+            if was_enabled:
+                gc.enable()
         c2 = dict(K.launch_counts)
         # the graph writes the scratch it captured: hold it for as long
         # as the graph lives
@@ -93,7 +107,9 @@ class _Steps:
     ``steps`` counts the steps run (graph replays on the card),
     ``captured`` the kernel launches recorded while capturing its graph
     and ``scratch`` the split-K scratch its graph writes, held for the
-    graph's lifetime (both empty on the CPU)."""
+    graph's lifetime (both empty on the CPU).  ``on_build``, when set,
+    is called with a key as that key's build starts (the engine's
+    ``compile`` event)."""
 
     def __init__(self, keys: Sequence, space: GraphSpace):
         self.keys = list(keys)
@@ -107,6 +123,7 @@ class _Steps:
         self.scratch: List[tuple] = [() for _ in range(n)]
         self._built = [False] * n
         self._graphs: List[Optional[tuple]] = [None] * n
+        self.on_build = None
 
     def __len__(self) -> int:
         return len(self.keys)
@@ -120,6 +137,8 @@ class _Steps:
         if self._built[i]:
             return
         self.builds += 1
+        if self.on_build is not None:
+            self.on_build(self.keys[i])
         if self.space.cuda:
             self._inactive(i)
             graph, outs, self.captured[i], self.scratch[i] = \

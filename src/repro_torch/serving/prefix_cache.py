@@ -44,14 +44,20 @@ backend (``off`` dense or ``mask``), and the effective prefill policy
 does not depend on the prompt length.  The engine validates this at
 construction (:meth:`repro_torch.sparsity.SparsityPolicy.prefix_deterministic`).
 
-The reference's telemetry spans and eviction events come with the
-observability slice; its ``PrefixCache.warm`` precompiles the segment
-copies, and a copy here builds nothing, so it has no counterpart.
+Telemetry (``obs_fn`` returns the engine's live ``Telemetry``): an
+admission records a ``prefix_lookup`` span, an eviction a
+``prefix_evict`` event, and the segment copies run under the
+``repro/prefix_write`` and ``repro/prefix_extract`` profiler ranges, as
+in the reference.  Its ``PrefixCache.warm`` precompiles the segment
+copies; a copy here builds nothing, so it has no counterpart.
 """
 from __future__ import annotations
 
 import heapq
 from typing import Callable, Dict, List, Optional, Tuple
+
+from repro_torch.obs import NULL_CONTEXT
+from repro_torch.obs import now as _obs_now
 
 
 class RadixNode:
@@ -341,10 +347,11 @@ class PrefixCache:
     unbounded); eviction runs after each publish.  ``stats_fn`` returns
     the engine's live :class:`EngineStats` (a caller may swap the
     engine's stats object between runs, so the cache must not capture
-    one instance)."""
+    one instance); ``obs_fn`` its ``Telemetry``."""
 
     def __init__(self, pool, chunk: int, capacity_tokens: int = 0,
-                 stats_fn: Optional[Callable] = None):
+                 stats_fn: Optional[Callable] = None,
+                 obs_fn: Optional[Callable] = None):
         if chunk <= 0:
             raise ValueError(f"chunk must be positive, got {chunk}")
         if capacity_tokens < 0:
@@ -360,6 +367,7 @@ class PrefixCache:
         self.capacity_tokens = capacity_tokens
         self.tree = RadixTree()
         self._stats_fn = stats_fn
+        self._obs_fn = obs_fn
         self._pins: Dict[int, RadixNode] = {}   # request_id -> source node
 
     # ------------------------------------------------------------------
@@ -369,6 +377,9 @@ class PrefixCache:
 
     def _stats(self):
         return self._stats_fn() if self._stats_fn is not None else None
+
+    def _obs(self):
+        return self._obs_fn() if self._obs_fn is not None else None
 
     @property
     def cached_tokens(self) -> int:
@@ -394,25 +405,36 @@ class PrefixCache:
         chunk-prefilled.  Pins the source node until :meth:`publish`.
         Returns the matched length (0 = miss)."""
         stats = self._stats()
+        tele = self._obs()
         if stats is not None:
             stats.prefix_lookups += 1
+        t0 = _obs_now() if tele is not None and tele.tracer is not None \
+            else None
         prompt = tuple(int(t) for t in rs.request.prompt)
         src, n = self.tree.match(prompt, limit=len(prompt) - 1)
-        if src is None or n <= 0:
-            return 0
-        # the whole physical segment is copied; only the matched [0, n)
-        # prefix is live — the copied tail is overwritten or masked
-        # before anything can attend it
-        self.pool.write_prefix(src.payload, rs.slot)
-        self.pool.lengths[rs.slot] = n
-        rs.next_offset = n
-        self.tree.pin(src)
-        self._pins[rs.request.request_id] = src
-        if stats is not None:
-            stats.prefix_hits += 1
-            stats.prefix_tokens_saved += n
-            stats.prefix_hit_len.append(n)
-        return n
+        hit = src is not None and n > 0
+        if hit:
+            # the whole physical segment is copied; only the matched
+            # [0, n) prefix is live — the copied tail is overwritten or
+            # masked before anything can attend it
+            ctx = tele.annotate("repro/prefix_write") if tele is not None \
+                else NULL_CONTEXT
+            with ctx:
+                self.pool.write_prefix(src.payload, rs.slot)
+            self.pool.lengths[rs.slot] = n
+            rs.next_offset = n
+            self.tree.pin(src)
+            self._pins[rs.request.request_id] = src
+            if stats is not None:
+                stats.prefix_hits += 1
+                stats.prefix_tokens_saved += n
+                stats.prefix_hit_len.append(n)
+        if t0 is not None:
+            tele.tracer.complete(
+                "prefix_lookup", t0, _obs_now(),
+                tid=rs.request.request_id + 1, slot=rs.slot, hit=hit,
+                matched=n if hit else 0)
+        return n if hit else 0
 
     def release(self, rs) -> None:
         """Unpin the source node ``rs`` admitted against, if any."""
@@ -433,13 +455,25 @@ class PrefixCache:
             self.tree.touch(existing)
             return
         phys = self._phys(len(prompt))
-        seg = self.pool.extract_prefix(rs.slot, phys)
+        tele = self._obs()
+        ctx = tele.annotate("repro/prefix_extract") if tele is not None \
+            else NULL_CONTEXT
+        with ctx:
+            seg = self.pool.extract_prefix(rs.slot, phys)
         self.tree.insert(prompt, seg, phys)
         if self.capacity_tokens:
+            before = self.tree.total_size   # evict() zeroes victim sizes
             evicted = self.tree.evict(self.capacity_tokens)
             stats = self._stats()
             if stats is not None:
                 stats.prefix_evicted_segments += len(evicted)
+            if evicted and tele is not None and tele.events is not None:
+                tele.events.emit(
+                    "prefix_evict", segments=len(evicted),
+                    tokens=before - self.tree.total_size,
+                    depths=[n.end for n in evicted],
+                    cached_tokens=self.tree.total_size,
+                    trigger_request=rs.request.request_id)
 
     # ------------------------------------------------------------------
     def snapshot(self) -> dict:

@@ -1,6 +1,5 @@
 """Request lifecycle for the continuous-batching engine (port of the JAX
-package's ``serving/request.py``; the gateway's streaming and completion
-hooks come with the gateway slice).
+package's ``serving/request.py``).
 
 A ``Request`` is the immutable submission (prompt, budget, stop rules,
 priority class, tenant); ``RequestState`` is the engine-side record of
@@ -20,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 
@@ -89,6 +88,12 @@ class RequestState:
     # ladder serving: rung index active when each token was emitted
     # (parallel to ``tokens``; stays empty on fixed-policy engines)
     token_rungs: List[int] = dataclasses.field(default_factory=list)
+    # streaming hook: called as on_token(request_id, token) per new token
+    on_token: Optional[Callable[[int, int], None]] = None
+    # completion hook: called as on_finish(state) exactly once, after the
+    # engine's finish bookkeeping (including deadline expiry) — the
+    # gateway's end-of-stream signal
+    on_finish: Optional[Callable[["RequestState"], None]] = None
     # preemption bookkeeping: the host-side SuspendedSlot while suspended,
     # the clock reading of the suspension, lifetime preemption count
     suspended: Optional[Any] = None
@@ -107,3 +112,9 @@ class RequestState:
     def emit(self, token: int) -> None:
         self.tokens.append(token)
         self.last_token = token
+        if self.on_token is not None:
+            self.on_token(self.request.request_id, token)
+
+    def finished(self) -> None:
+        if self.on_finish is not None:
+            self.on_finish(self)

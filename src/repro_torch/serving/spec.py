@@ -190,22 +190,24 @@ class SpecDecoder:
         # output is overwritten by the next replay, so each column is
         # copied out first
         t0 = obs.now()
-        drafts = torch.empty((S, g), dtype=torch.long, device=dev)
-        toks = cur_d
-        for i in range(g):
-            nxt, _ = eng._decode.replay(self.drafter_rung, toks, pos[i],
-                                        act_d)
-            drafts[:, i].copy_(nxt)
-            toks = drafts[:, i]
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with eng.obs.annotate("repro/spec_draft"):
+            drafts = torch.empty((S, g), dtype=torch.long, device=dev)
+            toks = cur_d
+            for i in range(g):
+                nxt, _ = eng._decode.replay(self.drafter_rung, toks, pos[i],
+                                            act_d)
+                drafts[:, i].copy_(nxt)
+                toks = drafts[:, i]
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         t1 = obs.now()
 
         # --- verify: one batched (g+1)-token forward --------------------
-        vtokens = torch.cat([cur_d[:, None], drafts], 1)
-        weights = act_d[:, None].expand(S, g + 1)
-        ver, _ = self.verify_steps(g, vtokens, pos[0], weights)
-        both = torch.cat([drafts, ver], 1).cpu().numpy()    # one host read
+        with eng.obs.annotate("repro/spec_verify"):
+            vtokens = torch.cat([cur_d[:, None], drafts], 1)
+            weights = act_d[:, None].expand(S, g + 1)
+            ver, _ = self.verify_steps(g, vtokens, pos[0], weights)
+            both = torch.cat([drafts, ver], 1).cpu().numpy()  # one read
         drafts_h, ver_h = both[:, :g], both[:, g:]
         t2 = obs.now()
 
@@ -213,8 +215,15 @@ class SpecDecoder:
         stats.spec_rounds += 1
         stats.spec_draft_steps += g
         stats.decode_steps += g
-        stats.spec_draft_s.append(t1 - t0)
-        stats.spec_verify_s.append(t2 - t1)
+        stats.observe_spec_draft(t1 - t0)
+        stats.observe_spec_verify(t2 - t1)
+        tracer = eng.obs.tracer
+        if tracer is not None:
+            tracer.complete("spec_draft", t0, t1, gamma=g,
+                            drafter_rung=self.drafter_rung,
+                            active=len(decoding))
+            tracer.complete("spec_verify", t1, t2, gamma=g,
+                            verifier_rung=self.verifier_rung)
 
         # --- accept, then one batched rollback, then emit ---------------
         accept_fracs = []
@@ -242,11 +251,16 @@ class SpecDecoder:
             eng.pool.commit(slot, g + 1)
             rollbacks[slot] = g + 1 - m
             commits[slot] = (rs, cand[:m], n_acc)
-        eng.pool.rollback_many(rollbacks)
+        with eng.obs.annotate("repro/spec_rollback"):
+            eng.pool.rollback_many(rollbacks)
         t3 = obs.now()
         # the round's decode cost includes the rollback: real per-round
         # work plain decode doesn't pay
         stats.decode_time += t3 - t0
+        if tracer is not None:
+            tracer.complete("spec_commit", t2, t3,
+                            rollback_tokens=sum(rollbacks.values()))
+        events = eng.obs.events
 
         for slot, (rs, committed, n_acc) in commits.items():
             m = len(committed)
@@ -255,11 +269,17 @@ class SpecDecoder:
             stats.spec_draft_tokens += g
             stats.spec_accepted_tokens += n_acc
             stats.spec_committed_tokens += m
-            stats.spec_accepted_per_verify.append(n_acc)
+            stats.observe_spec_accepted(n_acc)
+            if events is not None and rollbacks[slot] > 0:
+                events.emit(
+                    "kv_rollback", t=t3, slot=slot,
+                    request=rs.request.request_id,
+                    tokens=rollbacks[slot], accepted=n_acc,
+                    committed=m, gamma=g)
             if rs.last_token_time is not None:
                 gap = (t3 - rs.last_token_time) / m   # amortized TPOT
                 for _ in range(m):
-                    stats.tpot_s.append(gap)
+                    stats.observe_tpot(gap)
             rs.last_token_time = t3
             for tok in committed:
                 eng._emit(rs, tok)
@@ -268,7 +288,23 @@ class SpecDecoder:
         # --- adapt -------------------------------------------------------
         frac = float(np.mean(accept_fracs))
         if self.controller is not None:
+            old_g, old_d = self.gamma, self.drafter_rung
             self.gamma, self.drafter_rung = self.controller.update(frac)
+            if (self.gamma, self.drafter_rung) != (old_g, old_d):
+                reason = self.controller.transitions[-1][3] \
+                    if self.controller.transitions else None
+                if events is not None:
+                    events.emit(
+                        "gamma_switch" if self.gamma != old_g
+                        else "drafter_switch", t=t3,
+                        from_gamma=old_g, to_gamma=self.gamma,
+                        from_drafter=old_d, to_drafter=self.drafter_rung,
+                        reason=reason,
+                        accept_ewma=self.controller.accept_ewma)
+                if tracer is not None:
+                    tracer.instant(
+                        "spec_switch", t=t3, gamma=self.gamma,
+                        drafter_rung=self.drafter_rung, reason=reason)
         else:
             a = self.scfg.accept_ewma_alpha
             self._accept_ewma = frac if self._accept_ewma is None else \

@@ -141,7 +141,14 @@ def test_unported_engine_features_raise(field, value, jvalue, refused):
 
 
 def test_unported_engine_arguments_raise(model):
-    with pytest.raises(NotImplementedError):
+    """Telemetry is ported; its quality probes and flight recorder are
+    not, and arming either raises.  A telemetry argument that is not a
+    ``Telemetry`` is refused as the reference refuses it."""
+    from repro_torch.obs import Telemetry
+    for field in ("quality", "flight"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            Telemetry(**{field: object()})
+    with pytest.raises(TypeError, match="Telemetry"):
         Engine(model["params"], model["cfg"], EngineConfig(**TRACE),
                device="cpu", telemetry=object())
 

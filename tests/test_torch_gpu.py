@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port on the card: its CUDA kernels against their plain versions,
+the engine's captured steps, and the gateway and telemetry around them.
 
 Marked ``gpu``: each test skips without a CUDA card (decided inside the
 test, never at import).  On a machine with one, without JAX:
@@ -727,4 +728,211 @@ def test_preempted_engine_on_card_matches_uncontended(dev):
             assert eng.stats.preemptions == eng.stats.resumes >= 1
             assert (eng.decode_retraces_after_warmup,
                     eng.chunk_retraces_after_warmup) == (0, 0)
+    assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# the gateway and telemetry on the card
+# ---------------------------------------------------------------------------
+
+def _http(port, body=None, path="/v1/generate"):
+    """One request on a raw socket -> (status, body bytes)."""
+    import json
+    import socket
+    payload = b"" if body is None else json.dumps(body).encode()
+    method = "GET" if body is None else "POST"
+    with socket.create_connection(("127.0.0.1", port), timeout=120) as s:
+        s.sendall(f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
+                  f"Content-Length: {len(payload)}\r\n\r\n".encode()
+                  + payload)
+        raw = b""
+        while True:
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            raw += chunk
+    head, _, rest = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), rest
+
+
+def _sse_tokens(body):
+    import json
+    out, buf = b"", body
+    while buf:
+        size, _, buf = buf.partition(b"\r\n")
+        n = int(size, 16)
+        if n == 0:
+            break
+        out += buf[:n]
+        buf = buf[n + 2:]
+    events = [e[len("data: "):] for e in out.decode().split("\n\n") if e]
+    assert events[-1] == "[DONE]" and json.loads(events[-2])["done"]
+    return [json.loads(e)["token"] for e in events[:-2]]
+
+
+def _reduced_pallas(dev):
+    cfg = reduced(get_config("llama31_8b"))
+    params = api.init_model(cfg, 0, device=dev)
+    sp = default_sp_stacked(params, cfg, keep_frac=0.5, tau=float("-inf"))
+    pol = SparsityPolicy.uniform("pallas", k_max_frac=0.5, block=16)
+    return cfg, params, sp, pol
+
+
+def test_gateway_on_card_serves_the_direct_runs_tokens(dev):
+    """A gateway over a reduced ``pallas`` engine on the card answers
+    JSON and SSE requests, one after another, with the tokens of the same
+    requests run directly on another engine; every step ran on the
+    gateway's engine thread (graphs replayed there, built before it
+    listened), and nothing was built after warmup."""
+    import json
+    import threading
+    from repro_torch import obs
+    from repro_torch.serving import Gateway
+    cfg, params, sp, pol = _reduced_pallas(dev)
+    ecfg = EngineConfig(max_slots=2, max_len=64, prefill_chunk=16,
+                        policy=pol)
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in (20, 9, 33)]
+    direct = Engine(params, cfg, ecfg, sp, device=dev)
+    want = []
+    for p in prompts:
+        rs = direct.submit(p, 8)
+        direct.run()
+        want.append(rs.tokens)
+    eng = Engine(params, cfg, ecfg, sp, device=dev)
+    gw = Gateway(eng, port=0)
+    assert eng.decode_retraces_after_warmup == 0
+    threads, real_step = set(), eng.step
+
+    def step():
+        threads.add(threading.current_thread().name)
+        return real_step()
+    eng.step = step
+    port = gw.start()
+    try:
+        got = []
+        for i, p in enumerate(prompts):
+            stream = i % 2 == 1
+            status, body = _http(port, {"prompt": p, "max_new_tokens": 8,
+                                        "stream": stream})
+            assert status == 200
+            got.append(_sse_tokens(body) if stream
+                       else json.loads(body)["tokens"])
+        status, body = _http(port, path="/metrics")
+        assert status == 200 and obs.validate_exposition(body.decode()) > 0
+    finally:
+        gw.stop()
+    assert got == want
+    assert threads == {"gateway-engine"}
+    assert sum(eng.decode_graphs.steps) == eng.stats.decode_steps > 0
+    assert (eng.decode_retraces_after_warmup,
+            eng.chunk_retraces_after_warmup) == (0, 0)
+
+
+def test_metrics_scrape_during_a_capture(dev):
+    """Scrapes on another thread while the main thread captures every
+    graph (``Engine.warmup``): each scrape is valid, and the captures
+    hold (a sync or a device read from the scraping thread would break a
+    capture: the engine then serves the tokens of an engine warmed
+    alone)."""
+    import threading
+    from repro_torch import obs
+    cfg, params, sp, pol = _reduced_pallas(dev)
+    ecfg = EngineConfig(max_slots=2, max_len=64, prefill_chunk=16,
+                        policy=pol)
+    eng = Engine(params, cfg, ecfg, sp, device=dev)
+    done, scrapes, errors = threading.Event(), [], []
+
+    def scrape():
+        try:
+            while not done.is_set():
+                scrapes.append(obs.validate_exposition(
+                    eng.metrics_exposition()))
+        except Exception as e:                      # noqa: BLE001
+            errors.append(e)
+    t = threading.Thread(target=scrape)
+    t.start()
+    try:
+        eng.warmup()
+        torch.cuda.synchronize()
+    finally:
+        done.set()
+        t.join(timeout=60)
+    assert not errors and scrapes and not t.is_alive()
+    ref = Engine(params, cfg, ecfg, sp, device=dev)
+    ref.warmup()
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 9)]
+    outs = []
+    for e in (eng, ref):
+        for p in prompts:
+            e.submit(p, 6)
+        outs.append(e.run())
+    assert outs[0] == outs[1]
+    assert eng.decode_retraces_after_warmup == 0
+
+
+def test_profiler_session_trace_holds_the_kernels(dev, tmp_path):
+    """A ``ProfilerSession`` window over decode steps of a ``pallas``
+    engine exports a Chrome trace that holds the ``score_select`` and
+    ``sparse_matmul_shared`` launches its graph replays made, and the
+    engine's dispatch ranges when dispatch annotations are armed."""
+    import json
+    from repro_torch import obs
+    cfg, params, sp, pol = _reduced_pallas(dev)
+    tel = obs.Telemetry.full(profile_dir=str(tmp_path / "prof"))
+    eng = Engine(params, cfg, EngineConfig(
+        max_slots=2, max_len=64, prefill_chunk=16, policy=pol), sp,
+        device=dev, telemetry=tel)
+    eng.warmup()
+    for n in (20, 9):
+        eng.submit(np.random.default_rng(n).integers(0, cfg.vocab_size, n),
+                   12)
+    while eng.scheduler.prefilling or eng.scheduler.has_queued():
+        eng.step()
+    assert tel.profiler.start()
+    for _ in range(4):
+        assert eng.step() == "decode"
+    assert tel.profiler.stop() and tel.profiler.error is None
+    with open(tel.profiler.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    for k in ("score_select", "sparse_matmul_shared"):
+        assert any(k in n for n in kernels), (k, kernels[:20])
+    assert "repro/decode" in {e.get("name") for e in events}
+    eng.run()
+    eng.close()
+
+
+def test_a_dead_engine_in_a_cycle_never_breaks_a_capture(dev):
+    """Destroying a CUDA graph while another is captured invalidates the
+    capture, and an engine dropped inside a reference cycle keeps its
+    graphs until the collector runs.  With the collector made to run at
+    nearly every allocation, a second engine still captures every step
+    (each capture collects first and runs with the collector off), and
+    serves the tokens of an engine built alone."""
+    import gc
+    cfg, params, sp, pol = _reduced_pallas(dev)
+    ecfg = EngineConfig(max_slots=2, max_len=64, prefill_chunk=16,
+                        policy=pol)
+    old = gc.get_threshold()
+    dead = Engine(params, cfg, ecfg, sp, device=dev)
+    dead.warmup()
+    dead.cycle = dead
+    del dead
+    try:
+        gc.set_threshold(1)
+        eng = Engine(params, cfg, ecfg, sp, device=dev)
+        eng.warmup()
+    finally:
+        gc.set_threshold(*old)
+    ref = Engine(params, cfg, ecfg, sp, device=dev)
+    prompts = [np.random.default_rng(n).integers(0, cfg.vocab_size, n)
+               for n in (20, 9)]
+    outs = []
+    for e in (eng, ref):
+        for p in prompts:
+            e.submit(p, 6)
+        outs.append(e.run())
     assert outs[0] == outs[1]

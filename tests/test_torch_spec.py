@@ -350,8 +350,9 @@ def test_spec_engine_equals_jax_and_verifier_only(model, backend):
     assert eng.spec_decoder.verify_steps.steps == [s.spec_rounds]
     summ = s.summary()
     assert summ["spec_rounds"] == s.spec_rounds
-    assert summ["spec_accept_rate"] == pytest.approx(
-        s.spec_accepted_tokens / s.spec_draft_tokens)
+    # the reference's summary: rates rounded as it rounds them
+    assert summ["spec_accept_rate"] == round(
+        s.spec_accepted_tokens / s.spec_draft_tokens, 4)
     assert {"spec_draft_p50_s", "spec_verify_p95_s",
             "spec_accepted_per_verify_p50"} <= set(summ)
     assert eng.spec_decoder.snapshot()["spec_gamma"] == 2
