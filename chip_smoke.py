@@ -120,8 +120,8 @@ In order, it:
    suspend and resume ms, interactive TTFT p50 and best-effort finish
    time with and without preemption;
 14. serves through the HTTP gateway (``serving/gateway.py``) at full
-   width: phase 5's dense engine runs phase 5's trace directly, four
-   times without and four times with ``Telemetry.full()`` (alternating;
+   width: phase 5's dense engine runs phase 5's trace directly, twice
+   without and twice with ``Telemetry.full()`` (alternating;
    their decode p50s give the telemetry's cost per step), then
    through a gateway with ``Telemetry.full()`` (event sink, trace sink)
    and a thread scraping ``/metrics`` every 50 ms, then through a gateway
@@ -145,7 +145,30 @@ In order, it:
    flight: the request finishes, the process exits 0, its trace and event
    files are complete.  An exception on any thread (recorded through
    ``threading.excepthook``) or a client timeout fails the phase;
-15. prints one JSON line describing every kernel, then, as its last line,
+15. the quality monitor and the flight recorder, at full width on phase
+   8's ladder and SLO with phase 5's trace: served without and with a
+   ``QualityMonitor`` (every decode step probed, a recon pass every 4th
+   probe over 16 tokens): tokens and rungs equal, the probe and recon
+   steps built once at warmup (nothing after), the probes equal to the
+   decode steps, the launches equal to the sparse passes (the probe and
+   the recon pass launch no sparse kernel), decode utilization per rung
+   in (0, 1.05], each rung-0 probe that names another token than the
+   served decode reported with the decode's top-2 gap (``near_ties``);
+   prints per rung agreement, top-k overlap, recon mean against the
+   calibration baseline and utilization, and the probe's and the recon
+   pass's host and device ms.  Then a forced drift (block 5 of rung 1
+   re-baselined to its lowest-scoring channels) under
+   ``SLOConfig(quality_aware=True)``: one ``saliency_drift`` event naming
+   it, pressure above 0, and a ``quality`` step down to rung 0.  Then
+   the ladder with preemption recorded into a JSONL sink and replayed
+   into a fresh engine over the same params: ``ReplayReport.ok``, every
+   token, rung and decision equal, nothing built after warmup (prints
+   the replay's and the params fingerprint's time).  Then
+   ``GET /v1/debug/flight`` through a gateway returns the ring; last,
+   ``serve --gateway --reduced --flight-record --flight-dump-dir`` in a
+   subprocess dumps its ring on SIGUSR1, and ``python -m
+   repro_torch.obs.flight.replay`` replays the dump with exit 0;
+16. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run; those of ``sparse_matmul_per_seq`` from phase 3's
@@ -226,15 +249,6 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-
-
-def peak_rates(name: str):
-    """(bytes/s, bf16 FLOP/s, f32 FLOP/s) of the card, from NVIDIA's data
-    sheets: H100 SXM 3.35 TB/s, 989 TF bf16, 67 TF f32; PCIe 2.0 TB/s,
-    756 TF bf16, 51 TF f32."""
-    if "PCIe" in name:
-        return 2.0e12, 756e12, 51e12
-    return 3.35e12, 989e12, 67e12
 
 
 def bound_ms(nbytes: float, flops: float, dtype, rates):
@@ -2351,14 +2365,14 @@ def serve_gateway(dev, K, cfg, params, trace, ladder) -> dict:
         ecfg = EngineConfig(**trace["ecfg"])
 
         # -- dense: direct runs without and with Telemetry.full() (no
-        # sinks), four each in the order bare, full, full, bare (twice),
+        # sinks), two each in the order bare, full, full, bare,
         # then through a gateway with full telemetry + scraper and a
         # bare gateway
         engines = {"bare": Engine(params, cfg, ecfg, device=dev),
                    "full": Engine(params, cfg, ecfg, device=dev,
                                   telemetry=obs.Telemetry.full())}
         direct, runs = None, {"bare": [], "full": []}
-        for kind in ("bare", "full", "full", "bare") * 2:
+        for kind in ("bare", "full", "full", "bare"):
             eng = engines[kind]
             eng.warmup()
             r = direct_run(eng, trace)
@@ -2616,6 +2630,501 @@ def drain_subprocess(out_dir: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the quality monitor and the flight recorder
+# ---------------------------------------------------------------------------
+
+# the monitor of the probed run: every decode step probed, a recon pass on
+# every 4th probe over a 16-token window
+QUALITY = dict(probe_rate=1.0, recon_every=4, recon_window=16)
+# phase 8's SLO: the TPOT target is out of reach, the queue decides
+PHASE8_SLO = dict(tpot_p95=1e6, max_queue=2, dwell=2, hysteresis=0.25)
+# the largest |verify - decode| of one state's bf16 logits at full width
+# (this script's phase 11 on an NVIDIA H100 80GB HBM3 at 700 W): a rung-0
+# probe may name another token than the served decode only where the
+# decode's top-2 gap is under twice the probe's own distance from it,
+# and that distance stays under twice this
+VERIFY_DECODE_BF16 = 0.26
+
+
+def _timed(obj, attr: str, sync: bool = False) -> list:
+    """Replace the bound method ``obj.attr`` by one that keeps each
+    call's host ms (after a device sync when ``sync``); returns the
+    list."""
+    from repro_torch import obs
+    fn = getattr(obj, attr)
+    ms = []
+
+    def run(*args, **kw):
+        t0 = obs.now()
+        out = fn(*args, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        ms.append(1e3 * (obs.now() - t0))
+        return out
+    setattr(obj, attr, run)
+    return ms
+
+
+class ProbeTies:
+    """Wraps a monitor's ``observe``: at rung 0 (the probe's own dense
+    policy, decode against a window-1 verify) it keeps, per active slot,
+    the probe's argmax, the served token, the served logits' top-2 gap
+    and the largest |probe - decode| logit difference (one extra device
+    reduction and host read per probe: the near-tie check only)."""
+
+    def __init__(self, q):
+        self.fn = q.observe
+        self.want, self.got, self.gaps, self.err = {}, {}, {}, 0.0
+        self.limits = {}
+        self.n = 0
+        q.observe = self
+
+    def __call__(self, engine, probe, logits, nxt, active, t):
+        if engine.rung == 0:
+            pl, sl = probe.float(), logits.float()
+            diff = (pl - sl).abs().amax(-1).cpu().numpy()
+            top = torch.topk(sl, 2, dim=-1).values
+            gap = (top[:, 0] - top[:, 1]).cpu().numpy()
+            pa = pl.argmax(-1).cpu().numpy()
+            for slot in np.nonzero(np.asarray(active) > 0)[0]:
+                key = f"probe {self.n} slot {slot}"
+                self.want[key] = [int(pa[slot])]
+                self.got[key] = [int(nxt[slot])]
+                self.gaps[(key, 0)] = float(gap[slot])
+                self.limits[key] = 2.0 * float(diff[slot])
+                self.err = max(self.err, float(diff[slot]))
+        self.n += 1
+        return self.fn(engine, probe, logits, nxt, active, t)
+
+
+def quality_run(name, params, cfg, trace, ladder, dev, K, monitor) -> dict:
+    """Phase 5's trace on the calibrated ladder under phase 8's SLO, with
+    or without a ``QualityMonitor(**QUALITY)``; launch counts zeroed
+    just before the engine is built and read just after the run."""
+    from repro_torch import obs
+    from repro_torch.serving import Engine, EngineConfig, SLOConfig
+    from repro_torch.serving.metrics import percentile
+
+    K.reset_launch_counts()
+    q = obs.QualityMonitor(**QUALITY) if monitor else None
+    eng = Engine(params, cfg, EngineConfig(slo=SLOConfig(**PHASE8_SLO),
+                                           **trace["ecfg"]),
+                 device=dev, ladder=ladder,
+                 telemetry=obs.Telemetry(quality=q) if monitor else None)
+    ms, ties = {}, None
+    if q is not None:
+        ms = {"probe": _timed(q, "run_probe"),        # waits for the probe
+              "observe": _timed(q, "observe"),
+              "recon": _timed(q, "_recon_pass", sync=True)}
+        ties = ProbeTies(q)
+    for p in trace["prompts"]:
+        eng.submit(p, trace["gen"])
+    t0 = obs.now()
+    out = eng.run()
+    torch.cuda.synchronize()
+    st = eng.stats
+    res = {"run_s": obs.now() - t0, "tokens": out,
+           "token_rungs": {r: list(rs.token_rungs)
+                           for r, rs in eng.states.items()},
+           "transitions": list(eng.controller.transitions),
+           "decode_steps": st.decode_steps,
+           "decode_step_p50_ms": 1e3 * percentile(st.decode_step_s, 50),
+           "prefill_sparse_chunks": st.prefill_sparse_chunks}
+    counts = dict(K.launch_counts)
+    check_launches(name, eng, ladder, counts, res, cfg)
+    builds = {"decode": eng.decode_retraces_after_warmup,
+              "chunk": eng.chunk_retraces_after_warmup,
+              "probe": eng.probe_retraces_after_warmup}
+    if any(v not in (0, None) for v in builds.values()):
+        raise AssertionError(f"{name}: builds after warmup {builds}")
+    res["builds_after_warmup"] = builds
+    if q is not None:
+        zero = {"score_select": 0, "sparse_matmul_shared": 0,
+                "sparse_matmul_per_seq": 0}
+        for steps in q.steps():
+            if steps.builds != 1 or steps.captured != [zero]:
+                raise AssertionError(
+                    f"{name}: {type(steps).__name__} built "
+                    f"{steps.builds} times, captured {steps.captured}")
+        if not q.probes == st.decode_steps == q.probe_steps.steps[0]:
+            raise AssertionError(
+                f"{name}: {q.probes} probes ({q.probe_steps.steps[0]} "
+                f"replays) for {st.decode_steps} decode steps")
+        if not q.recon_passes == q.recon_steps.steps[0] > 0:
+            raise AssertionError(f"{name}: {q.recon_passes} recon passes")
+        util = q.decode_utilization(st.decode_step_hist.mean)
+        if not all(0 < u <= 1.05 for u in util.values()):
+            raise AssertionError(f"{name}: decode utilization {util}: the "
+                                 "step-cost count is wrong")
+        text = eng.metrics_exposition()
+        obs.validate_exposition(text)
+        if "repro_quality_decode_utilization_rung0" not in text:
+            raise AssertionError(f"{name}: exposition lacks the quality "
+                                 "rows")
+        near = near_ties(f"{name} rung-0 probe", ties.want, ties.got,
+                         ties.gaps, 2.0 * ties.err) if ties.want else []
+        for key, _j, gap in near:
+            if not gap < ties.limits[key]:
+                raise AssertionError(
+                    f"{name}: {key}: the probe's token differs where the "
+                    f"decode's top-2 gap {gap:.4g} is not under twice its "
+                    f"distance from the probe ({ties.limits[key]:.4g})")
+        if ties.err >= 2 * VERIFY_DECODE_BF16:
+            raise AssertionError(
+                f"{name}: rung-0 probe and decode logits differ by up to "
+                f"{ties.err:.4g}")
+        per_rung = {}
+        for r in range(eng.num_rungs):
+            a, o, e = (q.agreement_hists[r], q.overlap_hists[r],
+                       q.recon_hists[r])
+            per_rung[r] = {
+                "probes": a.count,
+                "agreement": a.sum / a.count if a.count else None,
+                "topk_overlap": o.sum / o.count if o.count else None,
+                "recon_mean": e.sum / e.count if e.count else None,
+                "recon_baseline": q.recon_baseline_mean(r),
+                "decode_utilization": util.get(r),
+                "roofline_decode_gflop": q.roofline[("decode", r)]["flops"]
+                / 1e9,
+                "roofline_decode_gb": q.roofline[("decode", r)]["bytes"]
+                / 1e9}
+        # device time of one probe and one recon replay (CUDA events,
+        # after the run: replays of the captured graphs on their last
+        # inputs, writing only positions no request reads any more)
+        dev_ms = {}
+        for kind, steps in (("probe", q.probe_steps),
+                            ("recon", q.recon_steps)):
+            graph = steps._graphs[0][0]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            graph.replay()
+            start.record()
+            for _ in range(10):
+                graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            dev_ms[kind] = start.elapsed_time(end) / 10
+        res.update({
+            "per_rung": per_rung, "probes": q.probes,
+            "recon_passes": q.recon_passes,
+            "rung0_probe_disagreements": len(near),
+            "rung0_probe_max_abs_logit_diff": ties.err,
+            "probe_host_ms_p50": percentile(ms["probe"], 50),
+            "observe_host_ms_p50": percentile(ms["observe"], 50),
+            "recon_host_ms_p50": percentile(ms["recon"], 50),
+            "probe_device_ms": dev_ms["probe"],
+            "recon_device_ms": dev_ms["recon"],
+            "snapshot": {k: v for k, v in eng.snapshot().items()
+                         if k.startswith("quality_")}})
+    del eng
+    gc.collect()
+    return res
+
+
+def forced_drift(params, cfg, trace, ladder, dev) -> dict:
+    """Rung 1 of the ladder under ``SLOConfig(quality_aware=True)``
+    (phase 8's SLO otherwise, queue bound 8 so the 4 requests never
+    queue), with every recon pass's block ``BLOCK`` re-baselined to the
+    32 channels that score lowest on the first prompt's window:
+    a ``saliency_drift`` event naming (``BLOCK``, rung 1) must fire, the
+    pressure rise above 0, and the controller step down to rung 0 with
+    reason ``quality``."""
+    from repro_torch import obs
+    from repro_torch.obs.quality import saliency_channels, unstack_sp
+    from repro_torch.serving import Engine, EngineConfig, SLOConfig
+
+    block = 5
+    q = obs.QualityMonitor(probe_rate=1.0, recon_every=1, recon_window=16)
+    ev = obs.EventLog(capacity=1024)
+    slo = SLOConfig(**dict(PHASE8_SLO, max_queue=8, quality_aware=True))
+    eng = Engine(params, cfg, EngineConfig(slo=slo, initial_rung=1,
+                                           **trace["ecfg"]),
+                 device=dev, ladder=ladder,
+                 telemetry=obs.Telemetry(quality=q, events=ev))
+    window = np.asarray(trace["prompts"][0][-16:], np.int64).reshape(1, 16)
+    _errs, feats = q.recon_steps(window, eng._rung_sp[1])
+    feats = feats.float().cpu().numpy()
+    g, alpha = q._g_alpha[1][block]
+    k = q.cfg.saliency_topk
+    lowest = np.argsort(feats[block] * np.maximum(g, 1e-12) ** alpha)[:k]
+    if np.intersect1d(lowest, saliency_channels(feats[block], g, alpha,
+                                                k)).size:
+        raise AssertionError("forced drift: the lowest channels overlap "
+                             "the live set")
+    q.seed_reference(1, block, lowest)
+    pressure = []
+    update = q._update_pressure
+
+    def track(rung):
+        update(rung)
+        pressure.append((rung, q.pressure))
+    q._update_pressure = track
+    for p in trace["prompts"][:4]:
+        eng.submit(p, 16)
+    eng.run()
+    drift = [e for e in ev.events("saliency_drift")
+             if e["block"] == block and e["rung"] == 1]
+    quality = [t for t in eng.controller.transitions if t[3] == "quality"]
+    if len(drift) != 1 or not any(r == 1 and v > 0 for r, v in pressure):
+        raise AssertionError(f"forced drift: events {drift}, pressure "
+                             f"{pressure[:8]}")
+    if not quality or quality[0][1:3] != (1, 0):
+        raise AssertionError(f"quality_aware: transitions "
+                             f"{eng.controller.transitions}")
+    if eng.probe_retraces_after_warmup != 0:
+        raise AssertionError("forced drift: a quality step was built after "
+                             "warmup")
+    res = {"drift_event": {k: drift[0][k] for k in ("block", "rung",
+                                                     "overlap")},
+           "drift_events": q.drift_events,
+           "max_pressure_rung1": max(v for r, v in pressure if r == 1),
+           "transitions": list(eng.controller.transitions),
+           "quality_deescalations": eng.controller.quality_deescalations}
+    del eng
+    gc.collect()
+    return res
+
+
+def record_and_replay(params, cfg, trace, ladder, dev, out_dir) -> dict:
+    """The ladder under phase 8's SLO with preemption, recorded into a
+    JSONL sink: phase 5's first 11 prompts best-effort (64 new tokens,
+    as in phase 13; 3 queue, so the controller escalates), driven until 8 decode with 2
+    tokens each, then its last prompt and the first three's first 64
+    tokens interactive (16 new tokens), which preempt.  The
+    recording replays into a fresh engine over the same params (no
+    second copy of the weights): ``ReplayReport.ok``, every token,
+    rung and decision equal, nothing built after warmup."""
+    from repro_torch import obs
+    from repro_torch.obs.flight import params_fingerprint, replay
+    from repro_torch.serving import (Engine, EngineConfig, SchedulerConfig,
+                                     SLOConfig)
+
+    t0 = obs.now()
+    fp = params_fingerprint(params)
+    fp_s = obs.now() - t0
+    t0 = obs.now()
+    params_fingerprint(params)
+    fp_again_s = obs.now() - t0
+    sink = os.path.join(out_dir, "ladder_flight.jsonl")
+    ecfg = EngineConfig(slo=SLOConfig(**PHASE8_SLO),
+                        scheduler=SchedulerConfig(preemption=True),
+                        **trace["ecfg"])
+    fr = obs.FlightRecorder(sink=sink, capacity=1 << 16)
+    t0 = obs.now()
+    with Engine(params, cfg, ecfg, device=dev, ladder=ladder,
+                telemetry=obs.Telemetry(flight=fr)) as eng:
+        prompts = trace["prompts"]
+        for p in prompts[:11]:
+            eng.submit(p, 64, priority="best-effort")
+        decoding = eng.scheduler.decoding
+        for _ in range(4096):
+            if len(decoding) == 8 and all(len(rs.tokens) >= 2
+                                          for rs in decoding.values()):
+                break
+            eng.step()
+        else:
+            raise AssertionError("recording: 8 best-effort requests never "
+                                 "decoded at once")
+        for p in [prompts[11]] + [q[:64] for q in prompts[:3]]:
+            eng.submit(p, 16, priority="interactive")
+        eng.run()
+        record_s = obs.now() - t0
+        tokens = {r: list(rs.tokens) for r, rs in eng.states.items()}
+    decisions = fr.records("decision")
+    kinds = {r["kind"] for r in decisions}
+    if not {"rung_switch", "preempt", "resume"} <= kinds:
+        raise AssertionError(f"recording: decisions {sorted(kinds)}")
+    del eng
+    gc.collect()
+    t0 = obs.now()
+    report = replay.replay(sink, engine_factory=lambda clock, tel: Engine(
+        params, cfg, ecfg, device=dev, ladder=ladder, telemetry=tel,
+        clock=clock))
+    replay_s = obs.now() - t0
+    if not report.ok or report.requests != len(tokens) or any(
+            report.retraces.values()):
+        raise AssertionError(f"replay: {report.to_dict()}")
+    finishes = {r["request"]: r["tokens"] for r in fr.records("finish")}
+    if finishes != tokens:
+        raise AssertionError("recording: finish records differ from the "
+                             "served tokens")
+    res = {"records": fr.count, "decisions": len(decisions),
+           "decision_kinds": sorted(kinds), "requests": report.requests,
+           "tokens": report.tokens, "record_s": record_s,
+           "replay_s": replay_s, "params_fingerprint": fp,
+           "fingerprint_s": fp_s, "fingerprint_again_s": fp_again_s,
+           "retraces": report.retraces}
+    return res
+
+
+def flight_gateway(params, cfg, trace, ladder, dev) -> dict:
+    """The ladder behind a gateway with a flight recorder: one request,
+    then ``GET /v1/debug/flight`` returns the whole ring (header, the
+    submission, clock reads, the finish with the served tokens)."""
+    from repro_torch import obs
+    from repro_torch.serving import Engine, EngineConfig, Gateway, SLOConfig
+
+    fr = obs.FlightRecorder()
+    eng = Engine(params, cfg, EngineConfig(slo=SLOConfig(**PHASE8_SLO),
+                                           **trace["ecfg"]),
+                 device=dev, ladder=ladder,
+                 telemetry=obs.Telemetry(flight=fr))
+    gw = Gateway(eng, port=0)
+    port = gw.start()
+    try:
+        body = {"prompt": [int(t) for t in trace["prompts"][0]],
+                "max_new_tokens": 8}
+        gen = http_request(port, "POST", "/v1/generate", body)
+        got = http_request(port, "GET", "/v1/debug/flight")
+    finally:
+        gw.stop()
+    snap = json.loads(got["body"])
+    toks = generated_tokens(gen, False)
+    kinds = [r["k"] for r in snap["records"]]
+    if got["status"] != 200 or not snap["complete"] or \
+            not snap["count"] == len(snap["records"]) == fr.count or \
+            kinds[:2] != ["header", "submit"] or "clock" not in kinds or \
+            snap["records"][-1] != {"k": "finish", "request": 0,
+                                    "reason": "max_tokens", "tokens": toks,
+                                    "token_rungs": snap["records"][-1][
+                                        "token_rungs"]}:
+        raise AssertionError(f"/v1/debug/flight: status {got['status']}, "
+                             f"kinds {kinds[:6]}..., count "
+                             f"{snap.get('count')}")
+    res = {"status": got["status"], "records": snap["count"],
+           "bytes": len(got["body"])}
+    del eng, gw
+    gc.collect()
+    return res
+
+
+def sigusr1_subprocess(out_dir: str, dev) -> dict:
+    """``python -m repro_torch.launch.serve --gateway --reduced
+    --flight-record PATH --flight-dump-dir D`` on the card: one request,
+    SIGUSR1 (the dump), SIGTERM (exit 0); the dump replays through
+    ``python -m repro_torch.obs.flight.replay`` (engine rebuilt from its
+    header) with exit 0."""
+    from repro_torch import obs
+    sink = os.path.join(out_dir, "cli_flight.jsonl")
+    dumps = os.path.join(out_dir, "cli_dumps")
+    dump = os.path.join(dumps, "flight-sigusr1-0.jsonl")
+    for p in (sink, dump):
+        if os.path.exists(p):
+            os.remove(p)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = obs.now()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+         "--device", dev.type, "--sparsity", "0", "--gateway",
+         "--gateway-port", "0", "--max-slots", "2", "--prompt-len", "16",
+         "--gen", "16", "--flight-record", sink, "--flight-dump-dir", dumps],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=HERE)
+    try:
+        port = None
+        for line in proc.stdout:
+            if line.startswith("gateway listening on http://"):
+                port = int(line.split()[3].rsplit(":", 1)[1])
+                break
+        if port is None:
+            raise AssertionError("serve --gateway never printed its port")
+        r = http_request(port, "POST", "/v1/generate",
+                         {"prompt": list(range(1, 17)),
+                          "max_new_tokens": 12})
+        if r["status"] != 200:
+            raise AssertionError(f"serve --flight-record: {r['status']}")
+        proc.send_signal(signal.SIGUSR1)
+        tick = threading.Event()
+        for _ in range(2000):
+            if os.path.exists(dump):
+                with open(dump) as f:
+                    if sum(1 for _ in f) > 2:
+                        break
+            tick.wait(0.01)
+        proc.send_signal(signal.SIGTERM)
+        rest = proc.communicate(timeout=HTTP_TIMEOUT_S)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --flight-record exited "
+                             f"{proc.returncode}:\n{rest[-2000:]}")
+    t1 = obs.now()
+    rep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.flight.replay", dump,
+         "--device", dev.type],
+        capture_output=True, text=True, env=env, cwd=HERE,
+        timeout=HTTP_TIMEOUT_S * 2)
+    report = json.loads(rep.stdout) if rep.stdout.strip().startswith("{") \
+        else {}
+    if rep.returncode != 0 or not report.get("ok") or \
+            report.get("tokens") != 12:
+        raise AssertionError(f"replay of the SIGUSR1 dump exited "
+                             f"{rep.returncode}: {rep.stdout[-2000:]}"
+                             f"{rep.stderr[-2000:]}")
+    return {"serve_s": t1 - t0, "replay_s": obs.now() - t1,
+            "records_compared": report["records_compared"],
+            "retraces": report["retraces"]}
+
+
+def serve_quality_flight(dev, K, cfg, params, trace, ladder) -> dict:
+    """Phase 15 at full width on the calibrated ladder: probed against
+    unprobed serving, the forced drift and the quality de-escalation,
+    record and replay, the flight ring through a gateway, and the serve
+    CLI's SIGUSR1 dump replayed by the replay CLI."""
+    from repro_torch import obs
+
+    t_phase = obs.now()
+    out_dir = os.path.join(HERE, "build", "chip_smoke", "flight")
+    os.makedirs(out_dir, exist_ok=True)
+    res = {}
+    runs = {}
+    for name, monitor in (("unprobed", False), ("probed", True)):
+        runs[name] = quality_run(f"quality {name}", params, cfg, trace,
+                                 ladder, dev, K, monitor)
+    a, b = runs["unprobed"], runs["probed"]
+    if a["tokens"] != b["tokens"] or a["token_rungs"] != b["token_rungs"]:
+        raise AssertionError("probed serving changed a served token or its "
+                             "rung")
+    for r, v in b["per_rung"].items():
+        print(f"quality rung {r}: {v['probes']} probes, agreement "
+              f"{v['agreement']}, top-k overlap {v['topk_overlap']}, recon "
+              f"mean {v['recon_mean']} against calibration "
+              f"{v['recon_baseline']}, decode utilization "
+              f"{v['decode_utilization']:.4f} ({v['roofline_decode_gb']:.2f}"
+              f" GB, {v['roofline_decode_gflop']:.1f} GFLOP per step)")
+    print(f"quality: tokens and rungs equal with and without probes; "
+          f"{b['probes']} probes = decode steps, {b['recon_passes']} recon "
+          f"passes, 0 builds after warmup; probe {b['probe_host_ms_p50']:.2f}"
+          f" ms host p50 ({b['probe_device_ms']:.2f} ms device), observe "
+          f"{b['observe_host_ms_p50']:.2f} ms, recon "
+          f"{b['recon_host_ms_p50']:.2f} ms host p50 "
+          f"({b['recon_device_ms']:.2f} ms device); decode p50 "
+          f"{a['decode_step_p50_ms']:.2f} / {b['decode_step_p50_ms']:.2f} "
+          f"ms, run {a['run_s']:.2f} / {b['run_s']:.2f} s (unprobed / "
+          f"probed); launches {b.get('launches')}; rung-0 probe "
+          f"disagreements {b['rung0_probe_disagreements']}, max |probe - "
+          f"decode| {b['rung0_probe_max_abs_logit_diff']:.4g}")
+    keep = ("tokens", "token_rungs")
+    res["quality"] = {n: {k: v for k, v in r.items() if k not in keep}
+                      for n, r in runs.items()}
+    del runs
+    res["drift"] = forced_drift(params, cfg, trace, ladder, dev)
+    print(f"forced drift: {res['drift']}")
+    res["replay"] = record_and_replay(params, cfg, trace, ladder, dev,
+                                      out_dir)
+    print(f"record and replay: {_fmt(res['replay'])}")
+    res["gateway"] = flight_gateway(params, cfg, trace, ladder, dev)
+    print(f"/v1/debug/flight: {res['gateway']}")
+    res["cli"] = sigusr1_subprocess(out_dir, dev)
+    print(f"serve --flight-record, SIGUSR1 dump replayed: {res['cli']}")
+    res["phase_s"] = obs.now() - t_phase
+    print(f"phase 15 took {res['phase_s']:.1f} s")
+    return res
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -2767,7 +3276,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    rates = peak_rates(name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
     t_start = t0 = obs.now()
@@ -2783,29 +3291,53 @@ def main() -> int:
                       "src": args.src}))
     if args.host_only:
         return 0
+    # the data-sheet rates the kernel bounds and the quality monitor's
+    # decode utilization share
+    from repro_torch.launch import constants
+    rates = constants.peak_rates(name)
     if proj["launches_per_projection"] != 3:
         raise AssertionError("a pallas projection should launch 3 kernels "
                              "(score_select, the matmul, the cast)")
+
+    # each phase's wall time, printed after the serving line
+    phase_s, mark = {}, [obs.now()]
+
+    def took(phase):
+        phase_s[phase] = round(obs.now() - mark[0], 1)
+        mark[0] = obs.now()
 
     errs = check_kernel_shapes(K, ref, dev)
     rows, errs2 = main_path_kernels(K, ref, build, dev, rates)
     ps_rows, ps_err, ps_launches = per_seq_kernel(K, ref, ops, build, dev,
                                                   rates)
     layer_summary(rows, ps_rows, proj)
+    took("3 kernels")
     reduced_model_check(dev)
+    took("4 reduced model")
     cfg, params = full_width_model(dev)
     trace = serving_trace(cfg)
     results = serve_full_width(dev, K, cfg, params, trace)
+    took("5 full width")
     ladder, calib = calibrate_full_width(cfg, params)
+    took("6 calibration")
     calibrated = serve_calibrated(dev, K, cfg, params, trace, ladder,
                                   results)
+    took("7 calibrated plan")
     ladder_runs = serve_ladder(dev, K, cfg, params, trace, ladder)
+    took("8 ladder")
     gve = graph_vs_eager(dev, cfg, params, trace)
     cgve = chunk_graph_vs_eager(dev, cfg, params, trace)
+    took("9-10 graph against eager")
     spec_res = serve_spec(dev, K, cfg, params, trace, ladder)
+    took("11 spec")
     prefix_res = serve_prefix_cache(dev, K, cfg, params)
+    took("12 prefix cache")
     preempt_res = serve_preemption(dev, cfg, params, trace)
+    took("13 preemption")
     gateway_res = serve_gateway(dev, K, cfg, params, trace, ladder)
+    took("14 gateway")
+    quality_flight = serve_quality_flight(dev, K, cfg, params, trace, ladder)
+    took("15 quality and flight")
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -2821,7 +3353,7 @@ def main() -> int:
                          for n, r in prefix_res.items()},
         "preemption": {n: {k: v for k, v in r.items() if k not in keep}
                        for n, r in preempt_res.items()},
-        "gateway": gateway_res}}))
+        "gateway": gateway_res, "quality_flight": quality_flight}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     kernels = []
@@ -2858,6 +3390,7 @@ def main() -> int:
                      else "operations"),
         "library_ms": sum(p["library_ms"] for p in per),
     })
+    print(json.dumps({"phase_s": phase_s}))
     print(f"chip_smoke.py phases took {obs.now() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

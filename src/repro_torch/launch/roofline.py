@@ -1,0 +1,109 @@
+"""FLOPs and bytes of one serving step, counted from the model config and
+the sparsity policy (the port's counterpart of the JAX package's
+``launch/roofline.executable_costs``, which reads them from XLA's
+``cost_analysis()``; PyTorch has no such analysis).
+
+:func:`step_costs` counts what the step must do at the least:
+
+* every projection's weight bytes as its kernel reads them (all of them
+  dense; the ``k_max_frac · nb`` gathered channel blocks under
+  ``pallas``, the gathered rows under ``topk_shared``/``topk_block``)
+  and ``2·rows·in·out`` FLOPs per product over the channels it reads;
+* the attention's K and V reads at the pool length in the cache dtype,
+  and its two products (scores and values, ``4·rows·H·hd·T`` FLOPs);
+* the embedding rows gathered and the LM head;
+* the norms' weights (their elementwise work is no product, and is left
+  out of the FLOPs as ``torch.utils.flop_counter`` leaves it out).
+
+Activations that stay on chip are not counted.  The quality monitor
+(``obs/quality.py``) uses it for its per-rung roofline counters and
+decode utilization, and ``chip_smoke.py`` prints it beside the measured
+steps."""
+from __future__ import annotations
+
+from typing import Tuple
+
+from repro_torch.kernels.ops import channel_plan
+
+_ELEM = {"bfloat16": 2, "float32": 4}
+
+
+def _sp_leaf(sp, gi: int, j: int, path: str):
+    """Layer (group gi, pattern slot j)'s sp leaf at ``path``, or None."""
+    if sp is None:
+        return None
+    node = sp[gi].get(f"l{j}")
+    for part in path.split("/"):
+        if not isinstance(node, dict) or part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def _projection(rows: int, n: int, m: int, backend: str, policy,
+                elem: int) -> Tuple[float, float]:
+    """(FLOPs, weight bytes) of one (rows, n) @ (n, m) projection."""
+    if backend == "pallas":
+        blk, _, nb = channel_plan(n, policy.block)
+        k = max(1, min(nb, round(nb * policy.k_max_frac))) * blk
+    elif backend == "topk_shared":
+        k = max(1, round(n * policy.k_max_frac))
+    elif backend == "topk_block":
+        b = policy.block
+        nb = max(n // b, 1) + (1 if n % b else 0)
+        k = max(1, round(nb * policy.k_max_frac)) * b
+    else:                       # off, mask: the whole weight
+        k = n
+    return 2.0 * rows * k * m, float(k * m * elem)
+
+
+def step_costs(cfg, ecfg, policy, sp, phase: str, gamma=None
+               ) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one engine step.
+
+    ``phase``: ``"decode"`` (the batched slot decode, ``max_slots`` rows),
+    ``"chunk"`` (one request's prefill chunk, ``prefill_chunk`` rows
+    against one slot's cache) or ``"verify"`` (the speculative verify,
+    ``max_slots · (gamma + 1)`` rows).  ``policy`` is the policy the step
+    runs (a rung's phase policy) and ``sp`` its stacked sp tree (None
+    runs every projection dense, as ``core/sparse_linear.project``
+    does)."""
+    if phase not in ("decode", "chunk", "verify"):
+        raise ValueError(f"unknown step phase {phase!r}")
+    if phase == "verify" and gamma is None:
+        raise ValueError("a verify step needs its gamma")
+    elem = _ELEM[cfg.dtype]
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    S, C = ecfg.max_slots, ecfg.prefill_chunk
+    T = ecfg.pool_len
+    rows = {"decode": S, "chunk": C, "verify": S * ((gamma or 0) + 1)}[phase]
+    slots_read = 1 if phase == "chunk" else S
+    shapes = (("attn/wq", d, H * hd), ("attn/wk", d, KV * hd),
+              ("attn/wv", d, KV * hd), ("attn/wo", H * hd, d),
+              ("mlp/wi_gate", d, cfg.d_ff), ("mlp/wi_up", d, cfg.d_ff),
+              ("mlp/wo", cfg.d_ff, d))
+    flops = 0.0
+    nbytes = float(rows * d * elem)                  # embedding rows
+    depth = 0
+    for gi, (pattern, reps) in enumerate(cfg.layer_groups()):
+        for _r in range(reps):
+            for j in range(len(pattern)):
+                lpol = policy.resolve_depth(depth)
+                for role, n, m in shapes:
+                    backend = lpol.backend_at(role=role)
+                    if _sp_leaf(sp, gi, j, role) is None:
+                        backend = "off"
+                    f, b = _projection(rows, n, m, backend, lpol, elem)
+                    flops += f
+                    nbytes += b
+                # K and V of every slot the step attends, at the pool
+                # length, then the two attention products
+                nbytes += 2.0 * slots_read * KV * hd * T * elem
+                flops += 4.0 * rows * H * hd * T
+                nbytes += 2.0 * d * elem                 # ln1, ln2
+                depth += 1
+    nbytes += d * elem                               # final norm
+    flops += 2.0 * rows * d * cfg.vocab_size         # LM head
+    nbytes += float(cfg.vocab_size * d * elem)
+    return flops, nbytes

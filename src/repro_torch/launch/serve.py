@@ -76,14 +76,27 @@ trace-event JSON of per-request spans, ``--events-out`` streams the
 structured event log (rung and gamma switches with reasons, prefix
 evictions, KV rollbacks, admission decisions, graph builds) as JSONL,
 and ``--profile-dir`` captures a ``torch.profiler`` trace of the whole
-run there.  Tokens are identical with telemetry on or off.  The
-reference's quality-probe and flight-recorder flags, and ``--legacy``
-(its static-batch loop), are not ported yet.
+run there.  Tokens are identical with telemetry on or off.
+
+Quality and flight (``repro_torch.obs.quality``, ``repro_torch.obs.flight``):
+``--quality-probe-rate R`` shadow-probes that fraction of decode steps
+against the dense reference (agreement, Eq. 6 reconstruction error,
+saliency drift past ``--quality-drift-threshold``, roofline counters;
+all in the exposition and the snapshots).  ``--flight-record`` arms the
+flight recorder's ring of ``--flight-ring`` records; ``--flight-record
+PATH`` also streams the complete recording to PATH, which ``python -m
+repro_torch.obs.flight.replay PATH`` replays bit for bit.
+``--flight-dump-dir D`` receives the ring on a trigger: an exception,
+an SLO breach, a saliency-drift edge, ``GET /v1/debug/flight`` or
+SIGUSR1 (``kill -USR1 <pid>``).  The reference's ``--legacy`` (its
+static-batch loop) is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import signal
 
 import torch
 
@@ -194,6 +207,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile-dir", default=None,
                     help="capture a torch.profiler trace of the run into "
                          "this directory")
+    ap.add_argument("--quality-probe-rate", type=float, default=0.0,
+                    help="sample this fraction of decode steps through a "
+                         "shadow dense probe (token agreement, recon "
+                         "error, saliency drift, roofline counters; "
+                         "0 = off)")
+    ap.add_argument("--quality-drift-threshold", type=float, default=None,
+                    help="EWMA saliency-overlap level below which a "
+                         "saliency_drift event fires, in (0, 1) (needs "
+                         "--quality-probe-rate > 0; default 0.5)")
     ap.add_argument("--gateway", action="store_true",
                     help="serve the HTTP/1.1 + SSE API front door "
                          "(repro_torch.serving.gateway) instead of "
@@ -204,6 +226,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gateway-port", type=int, default=8080,
                     help="gateway listen port (0 = ephemeral, printed once "
                          "bound; needs --gateway)")
+    ap.add_argument("--flight-record", nargs="?", const="", default=None,
+                    metavar="PATH",
+                    help="arm the flight recorder (repro_torch.obs.flight): "
+                         "bare = black-box ring only; with PATH, also "
+                         "stream the complete recording as JSONL to PATH "
+                         "(replayable via python -m "
+                         "repro_torch.obs.flight.replay)")
+    ap.add_argument("--flight-ring", type=int, default=4096,
+                    help="flight-recorder ring capacity in records "
+                         "(needs --flight-record)")
+    ap.add_argument("--flight-dump-dir", default=None,
+                    help="directory for triggered black-box dumps "
+                         "(exception / SLO breach / saliency drift / "
+                         "SIGUSR1 / GET /v1/debug/flight; needs "
+                         "--flight-record)")
     return ap
 
 
@@ -266,6 +303,38 @@ def validate_args(args) -> None:
     elif (args.gateway_host != "127.0.0.1" or args.gateway_port != 8080):
         raise SystemExit("--gateway-host/--gateway-port need --gateway "
                          "to start the API front door")
+    if args.quality_probe_rate < 0 or args.quality_probe_rate > 1:
+        raise SystemExit(
+            f"--quality-probe-rate must be in (0, 1], or 0 to disable "
+            f"probing, got {args.quality_probe_rate}")
+    if args.quality_drift_threshold is not None:
+        if args.quality_probe_rate <= 0:
+            raise SystemExit("--quality-drift-threshold needs "
+                             "--quality-probe-rate > 0 to arm the "
+                             "quality monitor")
+        if not 0.0 < args.quality_drift_threshold < 1.0:
+            raise SystemExit(
+                f"--quality-drift-threshold must be in (0, 1), got "
+                f"{args.quality_drift_threshold}")
+    if args.flight_ring <= 0:
+        raise SystemExit(f"--flight-ring must be > 0, got "
+                         f"{args.flight_ring}")
+    if args.flight_record is None:
+        if args.flight_ring != 4096:
+            raise SystemExit("--flight-ring needs --flight-record to arm "
+                             "the flight recorder")
+        if args.flight_dump_dir is not None:
+            raise SystemExit("--flight-dump-dir needs --flight-record to "
+                             "arm the flight recorder")
+    if args.flight_dump_dir is not None:
+        d = args.flight_dump_dir
+        if os.path.exists(d):
+            if not os.path.isdir(d):
+                raise SystemExit(f"--flight-dump-dir {d!r} exists and is "
+                                 "not a directory")
+            if not os.access(d, os.W_OK):
+                raise SystemExit(f"--flight-dump-dir {d!r} is not "
+                                 "writable")
 
 
 def validate_rungs(args, num_rungs: int) -> None:
@@ -354,7 +423,24 @@ def main(argv=None):
         prefix_cache_tokens=args.prefix_cache_tokens,
         scheduler=scheduler)
     telemetry = None
-    if args.trace_out or args.events_out or args.profile_dir:
+    flight = None
+    if args.flight_record is not None:
+        flight = obs.FlightRecorder(
+            capacity=args.flight_ring,
+            sink=args.flight_record or None,
+            dump_dir=args.flight_dump_dir,
+            meta={"arch": args.arch, "reduced": args.reduced,
+                  "seed": args.seed,
+                  "ladder_path": None if args.ladder is None
+                  else os.path.abspath(args.ladder)})
+    if (args.trace_out or args.events_out or args.profile_dir
+            or args.quality_probe_rate > 0 or flight is not None):
+        quality = None
+        if args.quality_probe_rate > 0:
+            qkw = dict(probe_rate=args.quality_probe_rate)
+            if args.quality_drift_threshold is not None:
+                qkw["drift_threshold"] = args.quality_drift_threshold
+            quality = obs.QualityMonitor(obs.QualityConfig(**qkw))
         # trace_sink makes Engine.close() (context-manager exit, or the
         # gateway's drain) export the Chrome trace even when serving
         # raises
@@ -365,9 +451,14 @@ def main(argv=None):
             annotate_dispatch=args.profile_dir is not None,
             profiler=obs.ProfilerSession(args.profile_dir)
             if args.profile_dir else None,
+            quality=quality,
+            flight=flight,
             trace_sink=args.trace_out)
     engine = Engine(params, cfg, ecfg, sp, device=device, ladder=ladder,
                     telemetry=telemetry)
+    if flight is not None and hasattr(signal, "SIGUSR1"):
+        # operator-triggered black-box dump: kill -USR1 <pid>
+        signal.signal(signal.SIGUSR1, lambda *_: flight.dump("sigusr1"))
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
 

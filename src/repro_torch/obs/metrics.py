@@ -23,8 +23,10 @@ thread observes mid-render cannot make them disagree (the reference
 reads ``count`` separately; the two render the same bytes whenever no
 sample lands mid-render).
 
-The reference's quality-monitor and flight-recorder rows are left out
-until those modules are ported: they are absent, not zeros.
+The quality-monitor and flight-recorder rows are the reference's names;
+the ``repro_quality_roofline_*`` values and the decode utilization are
+the port's own count (:func:`repro_torch.launch.roofline.step_costs`),
+where the reference reads XLA's cost analysis.
 
 ``validate_exposition`` is the parser the tests and the chip smoke
 share: it asserts the text parses, counters are non-negative, and every
@@ -310,6 +312,54 @@ def engine_registry(engine) -> MetricsRegistry:
                                "seconds queued before admission")
         reg.register_histogram("repro_preempted_seconds", s.preempted_hist,
                                "seconds suspended before resume")
+    fr = getattr(getattr(engine, "obs", None), "flight", None)
+    if fr is not None:
+        c("repro_flight_records_total", fr.count,
+          "records captured by the flight recorder")
+        c("repro_flight_dropped_total", fr.dropped,
+          "records evicted from the flight ring (0 = ring-replayable)")
+        c("repro_flight_dumps_total", len(fr.dumps),
+          "triggered black-box dumps written")
+    q = getattr(getattr(engine, "obs", None), "quality", None)
+    if q is not None and q.armed:
+        # per-rung families are name-suffixed: the registry renders
+        # label-free samples, and rung cardinality is small and fixed
+        c("repro_quality_probes_total", q.probes,
+          "decode steps shadow-probed against the dense reference")
+        c("repro_quality_probe_tokens_total", q.probe_tokens,
+          "tokens compared by shadow probes")
+        c("repro_quality_recon_passes_total", q.recon_passes,
+          "online block-reconstruction evaluations")
+        c("repro_quality_drift_events_total", q.drift_events,
+          "saliency-drift threshold crossings")
+        g("repro_quality_pressure", q.pressure,
+          "active-rung saliency-drift pressure in [0, 1]")
+        for r in range(len(q.agreement_hists)):
+            reg.register_histogram(
+                f"repro_quality_probe_agreement_rung{r}",
+                q.agreement_hists[r],
+                f"probe argmax-token agreement vs dense, rung {r}")
+            reg.register_histogram(
+                f"repro_quality_topk_overlap_rung{r}", q.overlap_hists[r],
+                f"probe top-k logit-set overlap vs dense, rung {r}")
+            reg.register_histogram(
+                f"repro_quality_recon_error_rung{r}", q.recon_hists[r],
+                f"online Eq.6 block reconstruction MSE, rung {r}")
+            base = q.recon_baseline_mean(r)
+            if base is not None:
+                g(f"repro_quality_recon_baseline_rung{r}", base,
+                  f"calibration-time mean block reconstruction MSE, "
+                  f"rung {r}")
+        for (phase, r), cost in sorted(q.roofline.items()):
+            g(f"repro_quality_roofline_flops_{phase}_rung{r}",
+              cost["flops"], f"step FLOPs, {phase} at rung {r}")
+            g(f"repro_quality_roofline_bytes_{phase}_rung{r}",
+              cost["bytes"], f"step bytes moved, {phase} at rung {r}")
+        step_mean = s.decode_step_hist.mean if s.decode_step_hist else 0.0
+        for r, util in sorted(q.decode_utilization(step_mean).items()):
+            g(f"repro_quality_decode_utilization_rung{r}", util,
+              f"roofline step time over measured mean decode step, "
+              f"rung {r}")
     return reg
 
 

@@ -77,9 +77,22 @@ and the request hooks (``submit(..., on_token=, on_finish=)``) are what
 the gateway (``repro_torch.serving.gateway``) serves from;
 :meth:`Engine.close` (or the context manager) flushes every sink.
 
-The reference's flight recorder and quality probes (and the
-controller's ``quality_aware`` mode, which reads them) are not ported
-yet: asking for any of them raises ``NotImplementedError``.
+Quality probes: ``Telemetry(quality=QualityMonitor(...))`` arms live
+sparsity-quality observability (``repro_torch.obs.quality``): sampled
+shadow dense probes (run *before* the real decode step, so served tokens
+are unchanged), online Eq. 6 reconstruction error, saliency drift and
+per-rung roofline counters.  Its probe and recon steps are built at
+warmup (``probe_retraces_after_warmup`` stays 0), and with
+``SLOConfig.quality_aware`` the controller reads the drift pressure as a
+de-escalation hint.
+
+Injected clock and flight recorder: every engine time read goes through
+``Engine(..., clock=...)`` (default the shared
+:data:`repro_torch.obs.SYSTEM_CLOCK`) with a call-site tag
+(:meth:`Engine._now`).  ``Telemetry(flight=FlightRecorder(...))`` wraps
+that clock and records submissions, clock reads, runtime decisions and
+finishes (``repro_torch.obs.flight``), from which
+``repro_torch.obs.flight.replay`` re-drives a fresh engine bit for bit.
 """
 from __future__ import annotations
 
@@ -111,9 +124,10 @@ from repro_torch.serving.scheduler import (QueueFull, Scheduler,
 from repro_torch.serving.spec import SpecConfig, SpecDecoder
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
 
-# Engine.snapshot() JSONL format version: the reference's (its v7 record;
-# the quality and flight fields are absent, as in a reference engine
-# where neither is armed).
+# Engine.snapshot() JSONL format version: the reference's v7 record (the
+# quality fields when a QualityMonitor is armed, the flight fields when a
+# FlightRecorder is; "t" is an out-of-band read, never part of a flight
+# recording's clock stream).
 SNAPSHOT_SCHEMA_VERSION = 7
 
 
@@ -136,8 +150,7 @@ class EngineConfig:
     physical tokens (0 = unbounded; LRU eviction of unpinned leaves).
     Needs chunked prefill and prefix-deterministic prefill policies,
     validated at engine construction.  ``scheduler`` arms admission
-    control and preemption (None = unbounded FIFO-equivalent defaults).
-    The SLO's ``quality_aware`` mode raises ``NotImplementedError``."""
+    control and preemption (None = unbounded FIFO-equivalent defaults)."""
     max_slots: int = 8
     max_len: int = 512
     prefill_chunk: int = 32
@@ -167,10 +180,6 @@ class EngineConfig:
             if not isinstance(self.slo, SLOConfig):
                 raise TypeError(
                     f"slo must be an SLOConfig, got {type(self.slo)!r}")
-            if self.slo.quality_aware:
-                raise NotImplementedError(
-                    "SLOConfig.quality_aware needs the quality monitor, "
-                    "which is not ported yet (see ROADMAP.md queue 1)")
         if self.scheduler is not None and not isinstance(
                 self.scheduler, SchedulerConfig):
             raise TypeError(
@@ -198,12 +207,28 @@ class EngineConfig:
                 "prefix_cache needs chunked prefill: whole-prompt "
                 "prefill cannot start at a matched prefix length")
 
+    @property
+    def pool_len(self) -> int:
+        """The slot pool's length: slack past ``max_len``.  Pad tokens of
+        a request's final prefill chunk land in [max_len, pool_len-1),
+        and the last position is scratch: inactive slots in a decode step
+        still write somewhere, and every real position may belong to a
+        mid-prefill prompt.  Scratch is beyond every reachable position,
+        so the decode valid-mask never admits it.  Spec decoding needs
+        the slack to also fit a (gamma+1)-token verify window
+        (inactive-slot windows and draft overshoot past a request's
+        budget both land there)."""
+        slack = self.prefill_chunk
+        if self.spec is not None:
+            slack = max(slack, self.spec.max_gamma + 1)
+        return self.max_len + slack
+
 
 class Engine:
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
                  sp=None, *, device="cuda",
                  ladder: Optional[PolicyLadder] = None,
-                 telemetry: Telemetry = NULL_TELEMETRY):
+                 telemetry: Telemetry = NULL_TELEMETRY, clock=None):
         if telemetry is None:
             telemetry = NULL_TELEMETRY
         elif not isinstance(telemetry, Telemetry):
@@ -251,25 +276,25 @@ class Engine:
             (pol.for_phase("prefill_dense"), pol.for_phase("prefill_sparse"),
              pol.for_phase("decode")) for pol in self._rung_policies]
         self._rung = ecfg.initial_rung if ladder is not None else 0
+        # injected clock: every engine time read goes through
+        # self.clock.now(site).  The default is the shared SYSTEM_CLOCK
+        # singleton; a flight recorder wraps it so each observation is
+        # captured, and replay substitutes a ReplayClock
+        if clock is None:
+            clock = obs.SYSTEM_CLOCK
+        elif not hasattr(clock, "now"):
+            raise TypeError(
+                f"clock must expose now(site), got {type(clock)!r}")
+        self.clock = clock
+        if self.obs.flight is not None:
+            self.clock = self.obs.flight.attach_engine(self)
         self.controller = None
         if ecfg.slo is not None:
             self.controller = AdaptiveController(
                 len(self._rung_policies), ecfg.slo, initial_rung=self._rung)
         if ecfg.spec is not None:
             self._check_spec(ecfg)
-        # the pool holds slack past max_len: pad tokens of a request's
-        # final prefill chunk land in [max_len, pool_len-1), and the last
-        # position is scratch — inactive slots in a decode step still
-        # write somewhere, and every real position may belong to a
-        # mid-prefill prompt.  Scratch is beyond every reachable position,
-        # so the decode valid-mask never admits it.  Spec decoding needs
-        # the slack to also fit a (gamma+1)-token verify window
-        # (inactive-slot windows and draft overshoot past a request's
-        # budget both land there).
-        slack = ecfg.prefill_chunk
-        if ecfg.spec is not None:
-            slack = max(slack, ecfg.spec.max_gamma + 1)
-        self.pool_len = ecfg.max_len + slack
+        self.pool_len = ecfg.pool_len
         self.pool = SlotKVPool(cfg, ecfg.max_slots, self.pool_len,
                                self.device)
         self.scheduler = Scheduler(ecfg.scheduler)
@@ -321,7 +346,8 @@ class Engine:
                 lambda _gamma: me()._record_compile(
                     "verify", ecfg.spec.verifier_rung)
         if self.controller is not None or self.spec_decoder is not None \
-                or self.prefix_cache is not None or self._preemptible:
+                or self.prefix_cache is not None or self._preemptible \
+                or self.obs.quality is not None:
             self.warmup()
 
     def _check_spec(self, ecfg: EngineConfig) -> None:
@@ -481,6 +507,11 @@ class Engine:
             vs = self.spec_decoder.verify_steps   # one step per gamma
             for i in range(len(vs)):
                 vs.build(i)
+        if self.obs.quality is not None:
+            # builds the shadow-probe and recon steps and fills the
+            # roofline counters before the build baseline below, so those
+            # builds count as warmup and live probing builds nothing
+            self.obs.quality.attach(self)
         sync(self.device)
         self._warm_builds = tuple(0 if s is None else s.builds
                                   for s in self._step_kinds())
@@ -519,6 +550,17 @@ class Engine:
         return self._retraces(2)
 
     @property
+    def probe_retraces_after_warmup(self) -> Optional[int]:
+        """Quality probe and recon builds since :meth:`warmup`; None
+        without an armed :class:`repro_torch.obs.quality.QualityMonitor`.
+        Stays 0 under live probing: both steps are built at warmup with
+        the shapes the hot path uses."""
+        q = self.obs.quality
+        if q is None or not q.armed:
+            return None
+        return q.retraces_after_warmup
+
+    @property
     def decode_graphs(self) -> DecodeSteps:
         """The per-rung decode steps: builds, steps (replays on the
         card) and the kernel launches recorded in each capture."""
@@ -534,8 +576,10 @@ class Engine:
         are ``counts``, where the span holds every build and step of this
         engine: each launch recorded in a capture taken once per replay
         (:func:`repro_torch.serving.graphs.launches`)."""
-        return graphs.launches(counts, *(s for s in self._step_kinds()
-                                         if s is not None))
+        steps = [s for s in self._step_kinds() if s is not None]
+        if self.obs.quality is not None:
+            steps.extend(self.obs.quality.steps())
+        return graphs.launches(counts, *steps)
 
     # ------------------------------------------------------------------
     # telemetry plumbing
@@ -580,6 +624,13 @@ class Engine:
         if queue_deadline_s is not None and queue_deadline_s <= 0:
             raise ValueError(
                 f"queue_deadline_s must be positive, got {queue_deadline_s}")
+        fr = self.obs.flight
+        if fr is not None:
+            # submit intent first, then its clock read(s), then the
+            # decision: the replay loop re-issues the call verbatim
+            # when it meets this record at the shared cursor
+            fr.record_submit(prompt, max_new_tokens, eos_id, arrival_time,
+                             priority, tenant, queue_deadline_s)
         if not self.scheduler.can_accept():
             self.stats.rejected += 1
             retry = self._retry_after()
@@ -588,13 +639,18 @@ class Engine:
                     "reject", reason="queue_full",
                     queue_depth=self.scheduler.queue_depth,
                     retry_after_s=round(retry, 3))
+            if fr is not None:
+                fr.decision("reject", reason="queue_full",
+                            queue_depth=self.scheduler.queue_depth,
+                            retry_after_s=round(retry, 3))
             raise QueueFull(
                 f"admission queue at capacity "
                 f"({self.scheduler.cfg.max_queue})", retry_after=retry)
         max_new = min(max_new_tokens, self.ecfg.max_len - prompt.size)
         req = Request(self._next_id, prompt, max_new,
                       eos_id if eos_id is not None else self.ecfg.eos_id,
-                      obs.now() if arrival_time is None else arrival_time,
+                      self._now("submit.arrival") if arrival_time is None
+                      else arrival_time,
                       priority=priority, tenant=tenant,
                       queue_deadline_s=queue_deadline_s)
         self._next_id += 1
@@ -661,7 +717,7 @@ class Engine:
         is full.  Runs before every phase step, so always at a committed
         KV boundary."""
         sched = self.scheduler
-        now = obs.now()
+        now = self._now("admit.sweep")
         for rs in sched.expire(now):
             self._expire(rs, now)
         while True:
@@ -700,6 +756,13 @@ class Engine:
         if self.obs.tracer is not None:
             self.obs.tracer.instant(
                 "expire", tid=req.request_id + 1, waited_s=waited)
+        fr = self.obs.flight
+        if fr is not None:
+            fr.decision("reject", reason="deadline", request=req.request_id,
+                        waited_s=round(waited, 4),
+                        deadline_s=req.queue_deadline_s)
+            fr.finish(req.request_id, rs.finish_reason.value,
+                      rs.tokens, rs.token_rungs)
         rs.finished()
 
     def _admit_queued(self, rs: RequestState, now: float) -> None:
@@ -720,7 +783,7 @@ class Engine:
         a chunk-quantized length and free the slot.  Admission boundary
         only: the slot's KV length equals the victim's committed
         position, which is what makes the later resume bit-identical."""
-        t = obs.now()
+        t = self._now("preempt")
         req = victim.request
         slot = victim.slot
         seg = self.pool.suspend(slot, self.ecfg.prefill_chunk)
@@ -746,13 +809,18 @@ class Engine:
             self.obs.tracer.instant(
                 "preempt", t=t, tid=req.request_id + 1, slot=slot,
                 kv_length=seg.length)
+        fr = self.obs.flight
+        if fr is not None:
+            fr.decision("preempt", request=req.request_id, slot=slot,
+                        kv_length=seg.length,
+                        tokens_done=len(victim.tokens))
 
     def _resume(self, rs: RequestState) -> None:
         """Restore a suspended request into a freshly allocated slot:
         write its host-side segment back in place and rejoin the decoding
         set at the exact committed position — generation continues
         bit-identically."""
-        t = obs.now()
+        t = self._now("resume")
         req = rs.request
         slot = self.pool.alloc()
         self.pool.resume(rs.suspended, slot)
@@ -777,6 +845,10 @@ class Engine:
             self.obs.tracer.instant(
                 "resume", t=t, tid=req.request_id + 1, slot=slot,
                 kv_length=kv_length)
+        fr = self.obs.flight
+        if fr is not None:
+            fr.decision("resume", request=req.request_id, slot=slot,
+                        kv_length=kv_length)
 
     # ------------------------------------------------------------------
     def _phase_policy(self, offset: int, prompt_len: int) -> SparsityPolicy:
@@ -804,11 +876,11 @@ class Engine:
         i = self._chunk.index(self._rung, policy)
         # a step not built yet (no warmup) builds outside the timed step
         self._chunk.build(i)
-        t0 = obs.now()
+        t0 = self._now("prefill_chunk.t0")
         with self.obs.annotate("repro/prefill_chunk"):
             logits = self._chunk(i, chunk, off, rs.slot, weights)
             sync(self.device)
-        t1 = obs.now()
+        t1 = self._now("prefill_chunk.t1")
         dt = t1 - t0
         self.stats.prefill_time += dt
         self.stats.observe_prefill_step(dt)
@@ -836,13 +908,13 @@ class Engine:
         # fraction > 0 makes the whole prompt dense
         pd, ps, _ = self._rung_phases[self._rung]
         policy = ps if self.ecfg.prefill_dense_frac <= 0.0 else pd
-        t0 = obs.now()
+        t0 = self._now("prefill_whole.t0")
         with self.obs.annotate("repro/prefill_whole"):
             logits, caches = self._pstep(
                 self.params, torch.from_numpy(tokens).to(self.device),
                 self.sp, policy=policy)
             sync(self.device)
-        t1 = obs.now()
+        t1 = self._now("prefill_whole.t1")
         dt = t1 - t0
         self.stats.prefill_time += dt
         self.stats.observe_prefill_step(dt)
@@ -859,7 +931,7 @@ class Engine:
             self._start_decode(rs, int(first[b]))
 
     def _start_decode(self, rs: RequestState, first_token: int) -> None:
-        rs.first_token_time = obs.now()
+        rs.first_token_time = self._now("first_token")
         rs.last_token_time = rs.first_token_time
         self.stats.observe_ttft(
             rs.first_token_time - rs.request.arrival_time)
@@ -893,10 +965,19 @@ class Engine:
         decoding = self.scheduler.decoding
         # a rung not built yet (no warmup) builds outside the timed step
         self._decode.build(self._rung)
-        t0 = obs.now()
+        # shadow dense quality probe (sampled): runs *before* the real
+        # decode so its K/V writes land exactly on the positions the
+        # serving step below overwrites before reading them; served
+        # tokens and cache are bit-identical to a probe-free run, and the
+        # probe stays outside the timed decode region
+        q = self.obs.quality
+        probe = None
+        if q is not None and q.should_probe():
+            probe = q.run_probe(self, tokens, positions, active)
+        t0 = self._now("decode.t0")
         with self.obs.annotate("repro/decode"):
-            nxt, _ = self._decode(self._rung, tokens, positions, active)
-        t1 = obs.now()
+            nxt, logits = self._decode(self._rung, tokens, positions, active)
+        t1 = self._now("decode.t1")
         self.stats.decode_time += t1 - t0
         self.stats.observe_decode_step(t1 - t0)
         self.stats.decode_steps += 1
@@ -914,6 +995,8 @@ class Engine:
             self._emit(rs, tok)
             self.pool.commit(slot, 1)
             self._maybe_finish(rs, tok)
+        if q is not None and probe is not None:
+            q.observe(self, probe, logits, nxt, active, t1)
         if self.controller is not None:
             be_frac = None
             if self.controller.slo.priority_aware:
@@ -921,10 +1004,14 @@ class Engine:
                     1 for rs in decoding.values()
                     if rs.request.priority == Priority.BEST_EFFORT
                 ) / len(decoding)) if decoding else 0.0
+            qp = None
+            if self.controller.slo.quality_aware and q is not None \
+                    and q.armed:
+                qp = q.pressure
             new_rung = self.controller.update(
                 gaps, queue_depth=self.scheduler.queue_depth,
                 occupancy=self.pool.num_occupied,
-                best_effort_frac=be_frac)
+                best_effort_frac=be_frac, quality_pressure=qp)
             if new_rung != self._rung:
                 old = self._rung
                 self.set_rung(new_rung)
@@ -941,6 +1028,12 @@ class Engine:
                     self.obs.tracer.instant(
                         "rung_switch", t=t1, from_rung=old,
                         to_rung=new_rung, reason=reason)
+                fr = self.obs.flight
+                if fr is not None:
+                    fr.decision("rung_switch", from_rung=old,
+                                to_rung=new_rung, reason=reason,
+                                controller_step=self.controller.step,
+                                queue_depth=self.scheduler.queue_depth)
 
     def _maybe_finish(self, rs: RequestState, token: int) -> None:
         req = rs.request
@@ -950,13 +1043,17 @@ class Engine:
             rs.finish_reason = FinishReason.MAX_TOKENS
         else:
             return
-        rs.finish_time = obs.now()
+        rs.finish_time = self._now("finish")
         if self.obs.tracer is not None:
             self.obs.tracer.instant(
                 "finish", t=rs.finish_time,
                 tid=req.request_id + 1, slot=rs.slot,
                 reason=rs.finish_reason.value,
                 tokens=len(rs.tokens))
+        fr = self.obs.flight
+        if fr is not None:
+            fr.finish(req.request_id, rs.finish_reason.value,
+                      rs.tokens, rs.token_rungs)
         self.scheduler.finish(rs)
         self.pool.free(rs.slot)
         self.stats.finished += 1
@@ -971,6 +1068,8 @@ class Engine:
         s = self.stats
         out = {
             "schema_version": SNAPSHOT_SCHEMA_VERSION,
+            # a raw out-of-band read, not self._now(): observability
+            # reads never consume records of a ReplayClock stream
             "t": obs.now(),
             "queue_depth": self.scheduler.queue_depth,
             "occupancy": self.pool.num_occupied,
@@ -1012,6 +1111,13 @@ class Engine:
                 out["telemetry_events"] = self.obs.events.count
             if self.obs.tracer is not None:
                 out["telemetry_spans"] = len(self.obs.tracer.events)
+        if self.obs.quality is not None and self.obs.quality.armed:
+            out.update(self.obs.quality.snapshot())
+        if self.obs.flight is not None:
+            fr = self.obs.flight
+            out["flight_records"] = fr.count
+            out["flight_dropped"] = fr.dropped
+            out["flight_dumps"] = len(fr.dumps)
         return out
 
     # ------------------------------------------------------------------
@@ -1044,8 +1150,18 @@ class Engine:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc_type is not None and self.obs.flight is not None:
+            # black-box trigger: the driving loop died; dump the ring
+            # before the sinks close so the incident is capturable
+            self.obs.flight.dump("exception")
         self.close()
         return False
+
+    def _now(self, site: str = "") -> float:
+        """One engine clock read, tagged with its consuming call site:
+        the flight recorder logs the tag next to each observation, so a
+        replay divergence names the exact site that desynchronized."""
+        return self.clock.now(site)
 
 
 def _backends(pol: SparsityPolicy) -> set:

@@ -18,8 +18,9 @@ owns the engine loop in a background thread and exposes:
   suspended count, rung).
 * ``GET /metrics`` — the engine's Prometheus text exposition
   (``repro_torch.obs.metrics.engine_exposition``).
-* ``GET /v1/debug/flight`` — **404**: the flight recorder is not ported
-  yet (``ROADMAP.md`` queue 1 item 6).
+* ``GET /v1/debug/flight`` — the flight recorder's ring contents and
+  counters, plus a triggered dump when the recorder has a dump dir
+  (``repro_torch.obs.flight``); 404 without a recorder.
 
 On every route both packages serve, bodies, status codes and headers
 are the reference's, byte for byte.
@@ -306,10 +307,21 @@ class Gateway:
                     content_type="text/plain; version=0.0.4"))
                 await writer.drain()
             elif method == "GET" and path == "/v1/debug/flight":
-                writer.write(self._json_response(
-                    404, "Not Found",
-                    {"error": "no flight recorder armed (the flight "
-                              "recorder is not ported yet)"}))
+                fr = self.engine.obs.flight
+                if fr is None:
+                    writer.write(self._json_response(
+                        404, "Not Found",
+                        {"error": "no flight recorder armed "
+                                  "(serve with --flight-record)"}))
+                else:
+                    # the recorder copies its ring before reading it (the
+                    # engine thread appends meanwhile); also a black-box
+                    # dump trigger when a dump dir is configured
+                    snap = fr.debug_snapshot()
+                    dump_path = fr.dump("http")
+                    if dump_path is not None:
+                        snap["dump_path"] = dump_path
+                    writer.write(self._json_response(200, "OK", snap))
                 await writer.drain()
             elif method == "POST" and path == "/v1/generate":
                 await self._generate(writer, body)

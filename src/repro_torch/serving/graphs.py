@@ -13,7 +13,11 @@ and replayed:
 - :class:`ChunkSteps`: one request's prefill chunk at ``(1, C)``, one
   graph per (rung, prefill phase policy);
 - :class:`VerifySteps`: the speculative verify at ``(S, gamma + 1)``,
-  one graph per draft length gamma.
+  one graph per draft length gamma; the quality monitor's shadow dense
+  probe is one more, a window-1 verify (gamma 0) under the dense
+  reference policy;
+- :class:`ReconSteps`: the quality monitor's Eq. 6 reconstruction pass
+  at ``(1, window)``, one graph for every rung (a staging sp tree).
 
 Each keeps static input buffers, filled with ``copy_`` (or ``fill_``)
 before a replay; the pool caches are written in place, and the params
@@ -54,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import sparse_matmul as K
+from repro_torch.models import params as P
 
 
 class GraphSpace:
@@ -393,3 +398,86 @@ class VerifySteps(_Steps):
         static_weights.copy_(weights)
         logits, ver = self._replay(i)
         return ver, logits
+
+
+class ReconSteps(_Steps):
+    """The quality monitor's reconstruction pass at ``(1, window)``, one
+    step: one dense unstacked forward collecting every block's input,
+    then each block re-run under the paper's per-token ``mask`` numerics
+    with the rung's per-depth sp, against the next block's dense input
+    (the last block against its own dense output).  Returns the per-block
+    Eq. 6 MSEs ``(L,)`` and each block input's mean ``|x|`` ``(L, d)``,
+    both f32.  It writes no cache.
+
+    Ladder rungs share one sp schema, so one step serves every rung: on
+    the card the graph reads a staging copy of an sp tree, into which
+    each call copies its rung's tree (a few dozen small tensors) before
+    the replay.  One capture, whatever the ladder's length, where a graph
+    per rung would add one capture (and its memory) per rung."""
+
+    def __init__(self, cfg, params, sp, window: int, space: GraphSpace):
+        from repro_torch.core import unstacked as U
+        from repro_torch.sparsity import SparsityPolicy
+        super().__init__([0], space)
+        self._cfg = cfg
+        self._params = params
+        self._layers = U.unstack_layers(cfg, params)
+        self._mask = SparsityPolicy.uniform("mask")
+        self.window = window
+        if space.cuda:
+            self._tokens = torch.zeros((1, window), dtype=torch.long,
+                                       device=space.device)
+            self._sp = P.tree_map(torch.clone, sp)
+
+    def _eager(self, tokens, sp):
+        from repro_torch.models import model as M
+        from repro_torch.obs.quality import unstack_sp
+        cfg, layers = self._cfg, self._layers
+        per_depth = unstack_sp(cfg, sp)
+        x = M.embed_tokens(self._params, tokens, cfg)
+        block_io = []
+        for dl in layers:
+            block_io.append(x)
+            x, _ = M.layer_apply(dl.params, x, cfg, None, None, None,
+                                 "train")
+        refs = block_io[1:] + [x]
+        errs, feats = [], []
+        for d, dl in enumerate(layers):
+            x_in = block_io[d]
+            y, _ = M.layer_apply(dl.params, x_in, cfg, per_depth[d], None,
+                                 None, "train",
+                                 policy=self._mask.resolve_depth(d))
+            errs.append(torch.mean(torch.square(y.float()
+                                                - refs[d].float())))
+            feats.append(torch.mean(torch.abs(x_in.float()), dim=(0, 1)))
+        return torch.stack(errs), torch.stack(feats)
+
+    def _inactive(self, i: int) -> None:
+        self._tokens.zero_()
+
+    def _run(self, i: int) -> tuple:
+        return self._eager(self._tokens, self._sp)
+
+    def __call__(self, tokens: np.ndarray, sp):
+        """The pass over ``tokens`` ``(1, window)`` under the sp tree
+        ``sp`` -> (errs (L,), feats (L, d)) on the device; on the card
+        the graph's static outputs, overwritten by its next replay."""
+        self.build(0)
+        if not self.space.cuda:
+            self.steps[0] += 1
+            return self._eager(torch.from_numpy(tokens).to(self.device), sp)
+        self._tokens.copy_(torch.from_numpy(tokens))
+        _tree_copy_(self._sp, sp)
+        return self._replay(0)
+
+
+def _tree_copy_(dst, src) -> None:
+    """Copy every leaf of ``src`` into ``dst``'s leaf at the same path."""
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            _tree_copy_(v, src[k])
+    elif isinstance(dst, (list, tuple)):
+        for a, b in zip(dst, src):
+            _tree_copy_(a, b)
+    else:
+        dst.copy_(src)

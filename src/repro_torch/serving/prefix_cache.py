@@ -474,6 +474,12 @@ class PrefixCache:
                     depths=[n.end for n in evicted],
                     cached_tokens=self.tree.total_size,
                     trigger_request=rs.request.request_id)
+            if evicted and tele is not None and tele.flight is not None:
+                tele.flight.decision(
+                    "prefix_evict", segments=len(evicted),
+                    tokens=before - self.tree.total_size,
+                    cached_tokens=self.tree.total_size,
+                    trigger_request=rs.request.request_id)
 
     # ------------------------------------------------------------------
     def snapshot(self) -> dict:

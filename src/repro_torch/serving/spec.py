@@ -32,7 +32,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import obs
 from repro_torch.models import api
 from repro_torch.serving.controller import SpecController
 from repro_torch.serving.graphs import VerifySteps
@@ -189,7 +188,7 @@ class SpecDecoder:
         # each draft feeds the next as a device copy; the replay's static
         # output is overwritten by the next replay, so each column is
         # copied out first
-        t0 = obs.now()
+        t0 = eng._now("spec.t0")
         with eng.obs.annotate("repro/spec_draft"):
             drafts = torch.empty((S, g), dtype=torch.long, device=dev)
             toks = cur_d
@@ -200,7 +199,7 @@ class SpecDecoder:
                 toks = drafts[:, i]
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-        t1 = obs.now()
+        t1 = eng._now("spec.t1")
 
         # --- verify: one batched (g+1)-token forward --------------------
         with eng.obs.annotate("repro/spec_verify"):
@@ -209,7 +208,7 @@ class SpecDecoder:
             ver, _ = self.verify_steps(g, vtokens, pos[0], weights)
             both = torch.cat([drafts, ver], 1).cpu().numpy()  # one read
         drafts_h, ver_h = both[:, :g], both[:, g:]
-        t2 = obs.now()
+        t2 = eng._now("spec.t2")
 
         stats = eng.stats
         stats.spec_rounds += 1
@@ -253,7 +252,7 @@ class SpecDecoder:
             commits[slot] = (rs, cand[:m], n_acc)
         with eng.obs.annotate("repro/spec_rollback"):
             eng.pool.rollback_many(rollbacks)
-        t3 = obs.now()
+        t3 = eng._now("spec.t3")
         # the round's decode cost includes the rollback: real per-round
         # work plain decode doesn't pay
         stats.decode_time += t3 - t0
@@ -305,6 +304,14 @@ class SpecDecoder:
                     tracer.instant(
                         "spec_switch", t=t3, gamma=self.gamma,
                         drafter_rung=self.drafter_rung, reason=reason)
+                fr = eng.obs.flight
+                if fr is not None:
+                    fr.decision(
+                        "gamma_switch" if self.gamma != old_g
+                        else "drafter_switch",
+                        from_gamma=old_g, to_gamma=self.gamma,
+                        from_drafter=old_d, to_drafter=self.drafter_rung,
+                        reason=reason)
         else:
             a = self.scfg.accept_ewma_alpha
             self._accept_ewma = frac if self._accept_ewma is None else \

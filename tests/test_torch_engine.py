@@ -115,8 +115,8 @@ def test_engine_needs_a_card_unless_asked_for_cpu(model, monkeypatch):
                  JSLOConfig(tpot_p95=1.0, priority_aware=True), None,
                  id="slo-value0"),
     pytest.param("slo", SLOConfig(tpot_p95=1.0, quality_aware=True),
-                 JSLOConfig(tpot_p95=1.0, quality_aware=True),
-                 NotImplementedError, id="slo-value1"),
+                 JSLOConfig(tpot_p95=1.0, quality_aware=True), None,
+                 id="slo-value1"),
     pytest.param("prefix_cache", True, True, None, id="prefix_cache-True"),
     pytest.param("scheduler", object(), object(), TypeError,
                  id="scheduler-value3"),
@@ -125,9 +125,8 @@ def test_engine_needs_a_card_unless_asked_for_cpu(model, monkeypatch):
                  id="scheduler-value4")])
 def test_unported_engine_features_raise(field, value, jvalue, refused):
     """The engine features of the reference are accepted or refused as
-    the JAX ``EngineConfig`` accepts or refuses them; only
-    ``quality_aware``, which needs the unported quality monitor, still
-    raises ``NotImplementedError``."""
+    the JAX ``EngineConfig`` accepts or refuses them (``quality_aware``
+    included, now that the quality monitor is ported)."""
     if refused is TypeError:
         with pytest.raises(TypeError):
             JEngineConfig(**{field: jvalue})
@@ -141,16 +140,24 @@ def test_unported_engine_features_raise(field, value, jvalue, refused):
 
 
 def test_unported_engine_arguments_raise(model):
-    """Telemetry is ported; its quality probes and flight recorder are
-    not, and arming either raises.  A telemetry argument that is not a
-    ``Telemetry`` is refused as the reference refuses it."""
-    from repro_torch.obs import Telemetry
-    for field in ("quality", "flight"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Telemetry(**{field: object()})
+    """Telemetry is ported with its quality probes and flight recorder:
+    arming both is accepted, as the reference accepts it.  A telemetry
+    argument that is not a ``Telemetry`` and a clock without ``now`` are
+    refused as the reference refuses them."""
+    from repro_torch import obs
+    tel = obs.Telemetry(quality=obs.QualityMonitor(probe_rate=1.0),
+                        flight=obs.FlightRecorder())
+    assert tel.enabled
+    eng = Engine(model["params"], model["cfg"], EngineConfig(**TRACE),
+                 device="cpu", telemetry=tel)
+    assert tel.quality.armed and eng.probe_retraces_after_warmup == 0
+    assert eng.clock is not obs.SYSTEM_CLOCK
     with pytest.raises(TypeError, match="Telemetry"):
         Engine(model["params"], model["cfg"], EngineConfig(**TRACE),
                device="cpu", telemetry=object())
+    with pytest.raises(TypeError, match="now"):
+        Engine(model["params"], model["cfg"], EngineConfig(**TRACE),
+               device="cpu", clock=object())
 
 
 def test_kv_pool_slot_bookkeeping(model):

@@ -6,14 +6,16 @@ raw HTTP responses (status line, headers and body, JSON or chunked SSE)
 must be byte-equal, and so must the 400/404/429/503/504 answers (429's
 ``Retry-After`` is a time estimate: both must carry one of at least 1).
 ``/v1/health`` has the same keys (and, idle, the same bytes), and
-``/v1/debug/flight`` answers 404 because the port has no flight
-recorder yet.  Also: concurrent ``/metrics`` scrapes during decode
-(every scrape valid, counters never fall), drain closing the engine, an
-engine-thread exception answered with 500 and re-raised, the serve CLI's
-accepted and refused flags against the JAX CLI's messages
-(``tests/test_gateway.py``, without its quality, flight and ``--legacy``
-rows), its metrics sinks, and ``serve --gateway`` in a subprocess
-draining an in-flight streaming request on SIGTERM and exiting 0."""
+``/v1/debug/flight`` gives the JAX gateway's bytes: its 404 without a
+recorder, and with one (both engines on one scripted clock) the same
+ring and the same dump.  Also: concurrent ``/metrics`` scrapes during
+decode (every scrape valid, counters never fall), drain closing the
+engine, an engine-thread exception answered with 500 and re-raised, the
+serve CLI's accepted and refused flags against the JAX CLI's messages
+(``tests/test_gateway.py``, without its ``--legacy`` rows), its metrics
+sinks, and ``serve --gateway`` in a subprocess draining an in-flight
+streaming request on SIGTERM and exiting 0, and dumping its flight ring
+on SIGUSR1 into a dump that replays."""
 import json
 import os
 import signal
@@ -195,9 +197,96 @@ def test_error_and_health_answers_equal_jax(gateways, method, path, body):
 
 def test_debug_flight_is_404_without_a_recorder(gateways):
     _, ports = gateways
-    for port in ports:
-        status, _, body = _split(_raw(port, "GET", "/v1/debug/flight"))
-        assert status == 404 and "flight" in json.loads(body)["error"]
+    raws = [_raw(port, "GET", "/v1/debug/flight") for port in ports]
+    assert raws[1] == raws[0]
+    status, _, body = _split(raws[1])
+    assert status == 404 and "flight-record" in json.loads(body)["error"]
+
+
+class _ScriptedClock:
+    """The n-th read returns ``100 + n/250``, in both packages alike."""
+
+    def __init__(self):
+        self.n = 0
+
+    def now(self, site=""):
+        self.n += 1
+        return 100.0 + self.n / 250
+
+
+def test_debug_flight_serves_the_ring_and_a_dump_like_jax(model, tmp_path):
+    """With a recorder (and both engines on one scripted clock) the raw
+    ``/v1/debug/flight`` answer is the JAX gateway's byte for byte: the
+    same ring after the same request, the same counters, and a dump whose
+    file holds the same records."""
+    from repro.obs import Telemetry as JTelemetry
+    from repro.obs.flight import FlightRecorder as JFlightRecorder
+    kw = dict(max_slots=2, max_len=32, prefill_chunk=8)
+    raws, dumps = [], []
+    for pkg in ("jax", "port"):
+        # equal-length directory names keep Content-Length comparable
+        dump_dir = tmp_path / {"jax": "jaxdump", "port": "ptdump0"}[pkg]
+        if pkg == "jax":
+            fr = JFlightRecorder(dump_dir=str(dump_dir))
+            eng = JEngine(model["jparams"], model["jcfg"],
+                          JEngineConfig(**kw), None,
+                          telemetry=JTelemetry(flight=fr),
+                          clock=_ScriptedClock())
+            gw = JGateway(eng, port=0)
+        else:
+            fr = obs.FlightRecorder(dump_dir=str(dump_dir))
+            eng = Engine(model["params"], model["cfg"], EngineConfig(**kw),
+                         device="cpu", telemetry=obs.Telemetry(flight=fr),
+                         clock=_ScriptedClock())
+            gw = Gateway(eng, port=0)
+        port = gw.start()
+        try:
+            _raw(port, "POST", "/v1/generate",
+                 {"prompt": _prompt(model["cfg"], 9), "max_new_tokens": 4})
+            raws.append(_raw(port, "GET", "/v1/debug/flight"))
+        finally:
+            gw.stop()
+        dumps.append((dump_dir / "flight-http-0.jsonl").read_bytes())
+    # the dump path differs by directory; everything else is equal
+    assert raws[1].replace(b"ptdump0", b"jaxdump") == raws[0]
+    assert dumps[1] == dumps[0]
+    status, _, body = _split(raws[1])
+    snap = json.loads(body)
+    assert status == 200 and snap["complete"] and snap["dropped"] == 0
+    assert snap["count"] == snap["retained"] == len(snap["records"])
+    assert [r["k"] for r in snap["records"]][:3] == [
+        "header", "submit", "clock"]
+    assert snap["records"][-1]["k"] == "finish"
+    assert snap["dump_path"].endswith("flight-http-0.jsonl")
+
+
+def test_debug_flight_copy_survives_concurrent_appends(model):
+    """The handler copies the ring while the engine thread appends: a
+    reader on another thread never sees "deque mutated during
+    iteration", and every copy is a consistent prefix of the history."""
+    fr = obs.FlightRecorder(capacity=64)
+    fr._attached = True
+    stop = threading.Event()
+
+    def writer():
+        i = 0
+        while not stop.is_set():
+            fr._append({"k": "clock", "t": float(i), "s": "x"})
+            i += 1
+
+    th = threading.Thread(target=writer)
+    th.start()
+    try:
+        for _ in range(300):
+            snap = fr.debug_snapshot()
+            ts = [r["t"] for r in snap["records"]]
+            assert ts == sorted(ts)
+            assert snap["retained"] == len(ts) <= 64
+            if ts:
+                assert ts[-1] == snap["count"] - 1
+    finally:
+        stop.set()
+        th.join()
 
 
 def test_draining_answers_503_like_jax(gateways, model):
@@ -421,6 +510,19 @@ def test_gateway_steps_the_engine_on_its_own_thread(model):
     (["--gateway", "--gateway-port", "-1"], "gateway-port must be >= 0"),
     (["--gateway-port", "9999"], "need --gateway"),
     (["--gateway-host", "0.0.0.0"], "need --gateway"),
+    (["--quality-probe-rate", "1.5"], "quality-probe-rate"),
+    (["--quality-probe-rate", "-0.1"], "quality-probe-rate"),
+    (["--quality-drift-threshold", "0.3"], "quality-probe-rate > 0"),
+    (["--quality-probe-rate", "0.5", "--quality-drift-threshold", "1.0"],
+     "quality-drift-threshold must be in"),
+    (["--quality-probe-rate", "0.5", "--quality-drift-threshold", "0.0"],
+     "quality-drift-threshold must be in"),
+    (["--flight-record", "f.jsonl", "--flight-ring", "0"],
+     "--flight-ring must be > 0"),
+    (["--flight-record", "f.jsonl", "--flight-ring", "-8"],
+     "--flight-ring must be > 0"),
+    (["--flight-ring", "1024"], "needs --flight-record"),
+    (["--flight-dump-dir", "/tmp"], "needs --flight-record"),
 ])
 def test_serve_cli_rejects_bad_flags_like_jax(argv, msg):
     errs = []
@@ -453,9 +555,30 @@ def test_serve_cli_accepts_good_flags():
                  ["--metrics-out", "m.prom", "--metrics-format", "prom",
                   "--metrics-every", "4", "--metrics-port", "9100"],
                  ["--max-slots", "4", "--max-len", "128", "--chunk", "16",
-                  "--prefill-strategy", "whole"]):
+                  "--prefill-strategy", "whole"],
+                 ["--quality-probe-rate", "0.25"],
+                 ["--quality-probe-rate", "1.0",
+                  "--quality-drift-threshold", "0.3"],
+                 ["--flight-record"],          # bounded ring, no sink
+                 ["--flight-record", "f.jsonl", "--flight-ring", "1024",
+                  "--flight-dump-dir", ROOT],
+                 ["--gateway", "--flight-record", "f.jsonl"]):
         for mod in (serve, jserve):
             mod.validate_args(mod.build_parser().parse_args(argv))
+
+
+def test_serve_cli_flight_dump_dir_must_be_writable_dir_like_jax(tmp_path):
+    not_dir = tmp_path / "plainfile"
+    not_dir.write_text("x")
+    errs = []
+    for mod in (serve, jserve):
+        args = mod.build_parser().parse_args(
+            ["--flight-record", "f.jsonl", "--flight-dump-dir",
+             str(not_dir)])
+        with pytest.raises(SystemExit, match="not a directory") as exc:
+            mod.validate_args(args)
+        errs.append(str(exc.value))
+    assert errs[0] == errs[1]
 
 
 def test_serve_cli_rung_range_checked_against_ladder():
@@ -546,3 +669,56 @@ def test_serve_gateway_drains_on_sigterm(tmp_path):
     with open(events) as f:
         kinds = [json.loads(ln)["kind"] for ln in f]
     assert kinds and set(kinds) == {"compile"}
+
+
+def test_serve_gateway_dumps_its_flight_ring_on_sigusr1(tmp_path):
+    """``serve --gateway --flight-record PATH --flight-dump-dir D``: after
+    one request, SIGUSR1 writes the ring to ``D/flight-sigusr1-0.jsonl``;
+    SIGTERM then seals the sink; both files replay through ``python -m
+    repro_torch.obs.flight.replay`` (the engine rebuilt from the header)
+    with exit 0."""
+    sink, dump_dir = str(tmp_path / "f.jsonl"), tmp_path / "dumps"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+         "--device", "cpu", "--sparsity", "0", "--gateway",
+         "--gateway-port", "0", "--max-slots", "2", "--prompt-len", "16",
+         "--gen", "16", "--flight-record", sink, "--flight-dump-dir",
+         str(dump_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT)
+    try:
+        port = None
+        for line in proc.stdout:
+            if line.startswith("gateway listening on http://"):
+                port = int(line.split()[3].rsplit(":", 1)[1])
+                break
+        assert port is not None, "the gateway never printed its port"
+        status, _, body = _split(_raw(port, "POST", "/v1/generate", {
+            "prompt": list(range(1, 13)), "max_new_tokens": 6}))
+        assert status == 200
+        proc.send_signal(signal.SIGUSR1)
+        dump = dump_dir / "flight-sigusr1-0.jsonl"
+        for _ in range(600):
+            if dump.exists() and dump.read_text().count("\n") > 2:
+                break
+            threading.Event().wait(0.05)
+        proc.send_signal(signal.SIGTERM)
+        rest = proc.communicate(timeout=120)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, rest
+    with open(dump) as f:
+        prologue = json.loads(f.readline())
+    assert prologue["reason"] == "sigusr1" and prologue["complete"]
+    for path in (str(dump), sink):
+        rep = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.flight.replay", path,
+             "--device", "cpu"], capture_output=True, text=True, env=env,
+            cwd=ROOT, timeout=300)
+        assert rep.returncode == 0, rep.stdout + rep.stderr
+        report = json.loads(rep.stdout)
+        assert report["ok"] and report["requests"] == 1
+        assert report["tokens"] == 6

@@ -936,3 +936,130 @@ def test_a_dead_engine_in_a_cycle_never_breaks_a_capture(dev):
             e.submit(p, 6)
         outs.append(e.run())
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# the quality monitor and the flight recorder on the card
+# ---------------------------------------------------------------------------
+
+def _bf16_ladder_engine(dev, telemetry=None, **kw):
+    """A reduced llama31_8b in bf16 on the card serving a ``pallas``
+    ladder (0.0/0.5/0.7, block 16, tau=-inf) from rung 1."""
+    import dataclasses
+    from repro_torch.sparsity import PolicyLadder
+    cfg = dataclasses.replace(reduced(get_config("llama31_8b")),
+                              dtype="bfloat16")
+    params = kw.pop("params", None) or api.init_model(cfg, 0, device=dev)
+    lad = PolicyLadder.uniform(params, cfg, budgets=(0.0, 0.5, 0.7),
+                               backend="pallas", block=16)
+    lad = PolicyLadder(budgets=lad.budgets, policies=lad.policies,
+                       sps=tuple(_with_tau(sp, float("-inf"))
+                                 for sp in lad.sps))
+    ecfg = EngineConfig(max_slots=4, max_len=64, prefill_chunk=16,
+                        initial_rung=kw.pop("rung", 1), **kw)
+    return Engine(params, cfg, ecfg, ladder=lad, device=dev,
+                  telemetry=telemetry), params
+
+
+def _serve_prompts(eng, n=6, gen=12, seed=4):
+    rng = np.random.default_rng(seed)
+    for L in (20, 9, 33, 17, 40, 12)[:n]:
+        eng.submit(rng.integers(0, eng.cfg.vocab_size, L), gen)
+    eng.run()
+    return {r: (rs.tokens, rs.token_rungs) for r, rs in eng.states.items()}
+
+
+def test_quality_probe_and_recon_graphs_built_once(dev):
+    """The probe (a window-1 dense verify) and the recon pass are each
+    captured once at warmup and replayed per probe and per recon pass;
+    nothing is built after warmup, and neither launches a sparse kernel:
+    the engine's launches equal its sparse passes."""
+    from repro_torch import obs
+    K.reset_launch_counts()
+    q = obs.QualityMonitor(probe_rate=1.0, recon_every=1, recon_window=8)
+    eng, _ = _bf16_ladder_engine(dev, obs.Telemetry(quality=q))
+    _serve_prompts(eng)
+    assert q.probe_steps.builds == 1 and q.recon_steps.builds == 1
+    assert eng.probe_retraces_after_warmup == 0
+    assert eng.decode_retraces_after_warmup == 0
+    assert q.probe_steps.steps == [q.probes] and q.probes == \
+        eng.stats.decode_steps
+    assert q.recon_steps.steps == [q.recon_passes] and q.recon_passes > 0
+    zero = {"score_select": 0, "sparse_matmul_shared": 0,
+            "sparse_matmul_per_seq": 0}
+    assert q.probe_steps.captured == [zero]
+    assert q.recon_steps.captured == [zero]
+    # each sparse graph: its eager warm call, then one run per replay
+    per = 7 * eng.cfg.num_layers
+    dec, ch = eng.decode_graphs, eng.chunk_graphs
+    passes = sum(dec.steps[r] + 1 for r in (1, 2)) + sum(
+        ch.steps[i] + 1 for i, k in enumerate(ch.keys)
+        if not k[1].is_dense)
+    ran = eng.launches(K.launch_counts)
+    assert ran["score_select"] == ran["sparse_matmul_shared"] \
+        == per * passes
+    u = q.decode_utilization(eng.stats.decode_step_hist.mean)
+    assert set(u) == {0, 1, 2} and all(0 < v <= 1.05 for v in u.values())
+
+
+def test_recon_graph_equals_the_eager_pass_on_every_rung(dev):
+    """One recon graph serves every rung through its staging sp tree:
+    each rung's replay equals the eager pass under that rung's sp."""
+    from repro_torch import obs
+    q = obs.QualityMonitor(probe_rate=1.0, recon_every=1, recon_window=8)
+    eng, _ = _bf16_ladder_engine(dev, obs.Telemetry(quality=q))
+    tokens = np.arange(1, 9, dtype=np.int64).reshape(1, 8)
+    for r in (2, 0, 1):
+        want = q.recon_steps._eager(torch.from_numpy(tokens).to(dev),
+                                    eng._rung_sp[r])
+        want = tuple(t.clone() for t in want)
+        got = q.recon_steps(tokens, eng._rung_sp[r])
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    assert q.recon_steps.builds == 1
+
+
+def test_probes_leave_bf16_tokens_unchanged(dev):
+    """Probing every decode step (with recon passes) serves the tokens
+    and rung residency of a probe-free run, bit for bit, in bf16."""
+    from repro_torch import obs
+    q = obs.QualityMonitor(probe_rate=1.0, recon_every=2, recon_window=8)
+    probed, params = _bf16_ladder_engine(dev, obs.Telemetry(quality=q))
+    bare, _ = _bf16_ladder_engine(dev, params=params)
+    assert _serve_prompts(probed) == _serve_prompts(bare)
+    assert q.probes > 0 and q.recon_passes > 0
+
+
+def test_record_replay_bit_identical_in_bf16(dev, tmp_path):
+    """The controller (an impossible TPOT target) with preemption on the
+    card in bf16: the recording replays into a fresh engine sharing the
+    params, every token, rung and decision equal, nothing built after
+    warmup."""
+    from repro_torch import obs
+    from repro_torch.obs.flight import replay
+    from repro_torch.serving import SchedulerConfig, SLOConfig
+    sink = str(tmp_path / "f.jsonl")
+    kw = dict(slo=SLOConfig(tpot_p95=1e-9, max_queue=2),
+              scheduler=SchedulerConfig(max_queue=8, preemption=True),
+              rung=0)
+    fr = obs.FlightRecorder(sink=sink)
+    eng, params = _bf16_ladder_engine(dev, obs.Telemetry(flight=fr),
+                                      **dict(kw))
+    rng = np.random.default_rng(7)
+    with eng:
+        for L in (20, 33, 17, 12):
+            eng.submit(rng.integers(0, 256, L), 24,
+                       priority="best-effort")
+        for _ in range(12):
+            eng.step()
+        eng.submit(rng.integers(0, 256, 9), 8, priority="interactive")
+        eng.run()
+    kinds = {r["kind"] for r in fr.records("decision")}
+    assert {"rung_switch", "preempt", "resume"} <= kinds
+    report = replay.replay(sink, engine_factory=lambda clock, tel: Engine(
+        params, eng.cfg, eng.ecfg, ladder=eng.ladder, device=dev,
+        telemetry=tel, clock=clock))
+    assert report.ok, report.failures
+    assert report.requests == 5
+    assert all(v == 0 for v in report.retraces.values())

@@ -36,6 +36,10 @@ def imported_modules(source: str):
 def test_the_walk_sees_the_whole_port():
     assert len(FILES) > 20
     assert ROOT / "src" / "repro_torch" / "kernels" / "ops.py" in FILES
+    for rel in ("obs/clock.py", "obs/quality.py", "obs/flight/__init__.py",
+                "obs/flight/replay.py", "launch/constants.py",
+                "launch/roofline.py"):
+        assert ROOT / "src" / "repro_torch" / rel in FILES, rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

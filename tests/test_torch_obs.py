@@ -571,3 +571,65 @@ def test_profiler_session_window_and_annotations(model, tmp_path):
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"repro/decode", "repro/prefill_chunk"} <= names
     eng.close()
+
+
+def test_quality_and_flight_rows_equal_jax(model):
+    """A ladder engine with full telemetry, the quality monitor and the
+    flight recorder, beside the JAX engine: tokens, events and spans
+    equal (quality probes and a drift edge included), the exposition's
+    ``repro_quality_*`` and ``repro_flight_*`` series equal JAX's with
+    equal values but for the roofline count and the recon error sums (the
+    port counts FLOPs and bytes itself; the sums agree to rtol 1e-4), and
+    the snapshot's v7 quality and flight keys equal JAX's."""
+    jl, tl = _ladders(model, "topk_block", block=16)
+    kw = dict(max_slots=2, max_len=32, prefill_chunk=8, initial_rung=1)
+    qkw = dict(probe_rate=0.5, recon_every=1, recon_window=8,
+               saliency_topk=8, drift_threshold=0.9, drift_alpha=1.0)
+    jtel = jobs.Telemetry(tracer=jobs.SpanTracer(), events=jobs.EventLog(),
+                          quality=jobs.QualityMonitor(**qkw),
+                          flight=jobs.FlightRecorder())
+    ttel = obs.Telemetry(tracer=obs.SpanTracer(), events=obs.EventLog(),
+                         quality=obs.QualityMonitor(**qkw),
+                         flight=obs.FlightRecorder())
+    jeng = JEngine(model["jparams"], model["jcfg"], JEngineConfig(**kw),
+                   ladder=jl, telemetry=jtel)
+    teng = Engine(model["params"], model["cfg"], EngineConfig(**kw),
+                  device="cpu", ladder=tl, telemetry=ttel)
+    prompts = _prompts(model["cfg"], 3, 10, step=3)
+    outs = []
+    for eng in (jeng, teng):
+        for p in prompts:
+            eng.submit(p, 8)
+        outs.append(eng.run())
+    assert outs[1] == outs[0]
+    assert _events(ttel) == _events(jtel)
+    assert "saliency_drift" in {e["kind"] for e in _events(ttel)}
+    assert _spans(ttel) == _spans(jtel)
+    assert {e["phase"] for e in ttel.events.events("compile")} >= {
+        "quality_probe", "quality_recon"}
+    ttypes, tsamples = _exposition(teng)
+    jtypes, jsamples = _exposition(jeng)
+    assert ttypes == jtypes and set(tsamples) == set(jsamples)
+    rows = [k for k in tsamples
+            if k[0].startswith(("repro_quality_", "repro_flight_"))]
+    assert any(k[0].startswith("repro_flight_") for k in rows)
+    for k in rows:
+        if "roofline" in k[0] or "utilization" in k[0]:
+            assert tsamples[k] > 0
+        elif k[0].startswith("repro_quality_recon_error") and \
+                k[0].endswith("_sum"):
+            assert tsamples[k] == pytest.approx(jsamples[k], rel=1e-4)
+        else:
+            assert tsamples[k] == jsamples[k], k
+    tsnap, jsnap = teng.snapshot(), jeng.snapshot()
+    assert list(tsnap) == list(jsnap)
+    keys = [k for k in tsnap if k.startswith(("quality_", "flight_"))]
+    assert {"quality_probes", "quality_pressure", "flight_records",
+            "flight_dropped", "flight_dumps"} <= set(keys)
+    for k in keys:
+        if k in ("quality_recon_mean", "quality_recon_vs_baseline"):
+            assert tsnap[k] == pytest.approx(jsnap[k], rel=1e-3)
+        else:
+            assert tsnap[k] == jsnap[k], k
+    teng.close()
+    jeng.close()
