@@ -35,9 +35,17 @@ In order, it:
    ``sparse_matmul_per_seq`` gets a distinct random half of the blocks
    per row there, and its only entry point,
    ``ops.wisparse_project(per_seq=True)``, is driven at every projection
-   shape and held against ``per_seq=False``;
+   shape and held against ``per_seq=False``.  ``score_select`` and
+   ``sparse_matmul_shared`` are then held and timed the same way at
+   gemma2_2b's seven projection shapes (B = 8 and 32), with a
+   per-decode-layer summary, and held (not timed) at the row counts of
+   phase 16's whole-prompt prefills (64-448, 4314, 4430 and 2 x 4326
+   rows), tau -inf and finite, no row weights;
 4. checks a reduced llama31_8b on the card against the same model on the
    CPU (plain kernel versions): forward logits and served greedy tokens;
+   then a reduced gemma2_2b (f32, window 32) the same way: prefill logits
+   and rolled caches over 80 tokens, and the tokens of a whole-prefill
+   ``pallas`` engine serving prompts past the window;
 5. serves full-width llama31_8b (32 layers, d_model 4096, bf16, random
    weights from a fixed seed) through the port's ``Engine``: 12 requests
    with ragged prompts of 64-448 tokens, 32 new tokens each, dense and
@@ -168,7 +176,23 @@ In order, it:
    ``serve --gateway --reduced --flight-record --flight-dump-dir`` in a
    subprocess dumps its ring on SIGUSR1, and ``python -m
    repro_torch.obs.flight.replay`` replays the dump with exit 0;
-16. prints one JSON line describing every kernel, then, as its last line,
+16. serves full-width gemma2_2b (26 layers, d_model 2304, 8 heads with 4
+   KV heads of 256, d_ff 9216, vocab 256000, local/global layers with a
+   4096 window, softcaps, bf16, random weights from SEED): 8 slots,
+   ``max_len`` 4608, 12 requests of 32 new tokens (4 prompts of
+   4100-4500 tokens, two of one length, and 8 of phase 5's lengths),
+   dense, ``pallas``, ``pallas``, dense (uncalibrated), ``pallas`` with
+   ``prefill_dense_frac`` 0 (whole prompts through the kernels) and a
+   0.5 plan calibrated at full width with the ``--calib-quick`` budget.
+   Each run must resolve the ``whole`` strategy, decode with rows past
+   the window (rolled caches), build no decode step after warmup and
+   launch each kernel 182 times per sparse pass (graph replays, the
+   warm call, sparse whole prefills); the dense runs must repeat their
+   tokens, the captured decode step must equal the eager one at rolled
+   positions, and ``serve --arch gemma2_2b --reduced`` must exit 0.
+   Prints decode tok/s, p50/p95, TTFT p50, whole-prefill ms per prompt
+   length, device ms per traced decode step and the phase's wall time;
+17. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run; those of ``sparse_matmul_per_seq`` from phase 3's
@@ -209,6 +233,11 @@ LAYER = [("attn/wq", 4096, 4096), ("attn/wk", 4096, 1024),
          ("attn/wv", 4096, 1024), ("attn/wo", 4096, 4096),
          ("mlp/wi_gate", 4096, 14336), ("mlp/wi_up", 4096, 14336),
          ("mlp/wo", 14336, 4096)]
+# gemma2_2b projections of one layer (8 heads and 4 KV heads of 256)
+GEMMA_LAYER = [("attn/wq", 2304, 2048), ("attn/wk", 2304, 1024),
+               ("attn/wv", 2304, 1024), ("attn/wo", 2048, 2304),
+               ("mlp/wi_gate", 2304, 9216), ("mlp/wi_up", 2304, 9216),
+               ("mlp/wo", 9216, 2304)]
 BLK = 128
 KEEP = 0.5
 # Tolerances.  Kernel and plain version both upcast their inputs to f32
@@ -223,6 +252,12 @@ RTOL = ATOL = 1e-4
 LOGIT_ATOL = 1e-4
 # decode steps of each serving run traced by torch.profiler (busy share)
 WINDOW = 8
+# The reduced Gemma checks (phase 4, tests/test_torch_gemma.py and
+# tests/test_torch_gpu.py) scale every attention and MLP weight by this:
+# at the default init the tied, sqrt(d)-scaled embedding dominates the
+# residual stream and every reduced Gemma emits one token forever, which
+# no token comparison could tell apart.
+GEMMA_WEIGHT_SCALE = 8.0
 # Times of the v1 matmul kernels (one thread block per 64 columns walking
 # the kept blocks on CUDA cores; us, CUDA-graph replay, bf16, 50% kept,
 # cold L2, this script on an NVIDIA H100 80GB HBM3 at 700 W), printed
@@ -352,13 +387,14 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_select(name: str, got, want, kb_l: int) -> float:
+def check_select(name: str, got, want, kb_l: int, unranked) -> float:
     """``score_select``'s (xm, idx, bs) against its plain version's: bs
     within the tolerance; idx equal, or else every pair of ids that
     differ has plain block scores within the bs tolerance of each other
     (a near tie that the summation order breaks either way; printed); xm
-    bit-equal to the plain mask zeroed outside the first ``kb_l`` blocks
-    of the kernel's own idx (the plain xm itself when idx is equal).
+    bit-equal to the plain score mask before the rank mask (``unranked()``,
+    ``ref_score_mask``'s xm) zeroed outside the first ``kb_l`` blocks of
+    the kernel's own idx (the plain xm itself when idx is equal).
     Returns the largest bs error."""
     xm, idx, bs = got
     xm_r, idx_r, bs_r = want
@@ -377,8 +413,9 @@ def check_select(name: str, got, want, kb_l: int) -> float:
         blk = xm.shape[1] // bs.numel()
         kept = torch.zeros(bs.numel(), dtype=torch.bool, device=xm.device)
         kept[idx[:kb_l].long()] = True
-        xm_r = torch.where(kept.repeat_interleave(blk)[None], xm_r,
-                           torch.zeros_like(xm_r))
+        xm_u = unranked()
+        xm_r = torch.where(kept.repeat_interleave(blk)[None], xm_u,
+                           torch.zeros_like(xm_u))
         if torch.unique(idx).numel() != idx.numel():
             raise AssertionError(f"{name}: idx repeats a block: {idx}")
     if not torch.equal(xm, xm_r):
@@ -442,7 +479,8 @@ def check_kernel_shapes(K, ref, dev) -> dict:
                         errs["score_select"], check_select(
                             name, got, ref.ref_score_select(
                                 xs, gt, a, t, kf, blk, kb, rw),
-                            rank_limit(keep, nb, kb)))
+                            rank_limit(keep, nb, kb),
+                            lambda: xm_r))
                     bit_equal(name, lambda: K.score_select(
                         xs, gt, a, t, kf, kb=kb, blk=blk, row_weights=rw))
     errs["sparse_matmul_per_seq"] = 0.0
@@ -487,20 +525,23 @@ def direct_select(build, x, g, alpha, tau, keep, rw, kb):
     return fn
 
 
-def main_path_kernels(K, ref, build, dev, rates) -> tuple:
-    """The kernels at llama31_8b's projection shapes, bf16.
-    ``score_select`` at B = 8 (decode), 32 (one prefill chunk) and 448
-    (a whole prompt), alpha 1 and a finite tau (a quarter of the mean
-    g, so about a fifth of the channels fall below it), k_frac 0.5 with
-    keep_frac 0.5 and 0.375.
+def main_path_kernels(K, ref, build, dev, rates, layer=LAYER,
+                      batches=(8, 32, 448), v1=True) -> tuple:
+    """The kernels at one model's projection shapes (``layer``: llama31_8b's
+    by default, gemma2_2b's for phase 16's path), bf16.
+    ``score_select`` at each B of ``batches`` (8 decode slots, 32 one
+    prefill chunk, 448 a whole prompt), alpha 1 and a finite tau (a
+    quarter of the mean g, so about a fifth of the channels fall below
+    it), k_frac 0.5 with keep_frac 0.5 and 0.375.
     ``sparse_matmul_shared`` at B = 8 and 32 on the kept blocks of
     ``score_select`` (keep_frac 0.5), its weights rotated through copies
-    that exceed the 50 MB L2 so each launch reads them cold."""
+    that exceed the 50 MB L2 so each launch reads them cold; ``v1``
+    prints the v1 kernel's llama31_8b times beside them."""
     rng = np.random.default_rng(SEED + 1)
     rows = []
     errs = {"score_select": 0.0, "sparse_matmul_shared": 0.0}
-    for B in (8, 32, 448):
-        for role, n, m in LAYER:
+    for B in batches:
+        for role, n, m in layer:
             dt = torch.bfloat16
             x = torch.from_numpy(rng.standard_normal((B, n)).astype(
                 np.float32)).to(dev, dt)
@@ -521,7 +562,8 @@ def main_path_kernels(K, ref, build, dev, rates) -> tuple:
                 errs["score_select"] = max(errs["score_select"], check_select(
                     name, got, ref.ref_score_select(x, g, alpha, tau, kf, BLK,
                                                     kb, rw),
-                    rank_limit(keep, nb, kb)))
+                    rank_limit(keep, nb, kb), lambda: ref.ref_score_mask(
+                        x, g, alpha, tau, BLK, rw)[0]))
                 bit_equal(name, lambda: K.score_select(
                     x, g, alpha, tau, kf, kb=kb, blk=BLK, row_weights=rw))
             xk, idx, _ = got                    # keep_frac 0.5
@@ -573,15 +615,63 @@ def main_path_kernels(K, ref, build, dev, rates) -> tuple:
                     "library_ms": t_mm_lib, "bound_ms": mm_bound,
                     "bound_by": mm_by, "splits": plan.splits,
                     "blocks": math.prod(plan.grid)}
-                line += (f" | sparse_matmul_shared {t_mm * 1e3:8.2f} us (v1 "
-                         f"{V1_US[B, role][0]:7.2f}, plain "
-                         f"{t_mm_plain * 1e3:8.2f}, torch.matmul dense "
+                old = f"v1 {V1_US[B, role][0]:7.2f}, " if v1 else ""
+                line += (f" | sparse_matmul_shared {t_mm * 1e3:8.2f} us ({old}"
+                         f"plain {t_mm_plain * 1e3:8.2f}, torch.matmul dense "
                          f"{t_mm_lib * 1e3:8.2f}, bound "
                          f"{mm_bound * 1e3:6.2f} = "
                          f"{100 * mm_bound / t_mm:5.1f}%, grid {plan.grid})")
             rows.append(row)
             print(line)
     return rows, errs
+
+
+def whole_prefill_kernels(K, ref, dev, rows, layer=GEMMA_LAYER) -> dict:
+    """``score_select`` and then ``sparse_matmul_shared`` on its kept
+    blocks at every B of ``rows`` (phase 16's whole-prompt prefills, up
+    to 2 x 4326 rows) and each of ``layer``'s projection shapes, bf16, no
+    row weights (as ``_prefill_whole`` passes none), alpha 1, k_frac and
+    keep_frac 0.5, tau -inf (the uncalibrated runs) and a finite tau (a
+    quarter of the mean g), held against their plain versions as
+    ``main_path_kernels`` holds them, two launches bit-equal.  Checked,
+    not timed."""
+    errs = {"score_select": 0.0, "sparse_matmul_shared": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    alpha = torch.tensor(1.0, device=dev)
+    kf = torch.tensor(KEEP, device=dev)
+    for role, n, m in layer:
+        w = (torch.randn(n, m, device=dev, generator=gen) * 0.02).to(
+            torch.bfloat16)
+        g = torch.sqrt((w.float() ** 2).sum(1))
+        nb = n // BLK
+        kb = round(nb * KEEP)
+        for B in rows:
+            x = torch.randn(B, n, device=dev, generator=gen).to(torch.bfloat16)
+            for tau in (torch.tensor(-math.inf, device=dev), 0.25 * g.mean()):
+                name = f"{role} B={B} tau={float(tau):.3g}"
+                got = K.score_select(x, g, alpha, tau, kf, kb=kb, blk=BLK)
+                torch.cuda.synchronize()
+                errs["score_select"] = max(errs["score_select"], check_select(
+                    f"score_select {name}", got, ref.ref_score_select(
+                        x, g, alpha, tau, kf, BLK, kb),
+                    rank_limit(KEEP, nb, kb), lambda: ref.ref_score_mask(
+                        x, g, alpha, tau, BLK)[0]))
+                bit_equal(f"score_select {name}", lambda: K.score_select(
+                    x, g, alpha, tau, kf, kb=kb, blk=BLK))
+                xk, idx, _ = got
+                y = K.sparse_matmul_shared(xk, w, idx, blk=BLK)
+                torch.cuda.synchronize()
+                errs["sparse_matmul_shared"] = max(
+                    errs["sparse_matmul_shared"], check_close(
+                        f"sparse_matmul_shared {name}", y,
+                        ref.ref_sparse_matmul_shared(xk, w, idx, BLK)))
+                bit_equal(f"sparse_matmul_shared {name}",
+                          lambda: K.sparse_matmul_shared(xk, w, idx, blk=BLK))
+            del x
+    print(f"whole-prefill kernels: score_select and sparse_matmul_shared at "
+          f"B = {rows} x {len(layer)} gemma2_2b shapes x 2 taus agree with "
+          f"their plain versions (max abs err {errs})")
+    return errs
 
 
 def projection_us(ops, dev) -> dict:
@@ -825,6 +915,30 @@ def layer_summary(rows, ps_rows, proj) -> None:
                   f"than v1 at {faster}/{len(per)} shapes")
 
 
+def gemma_layer_summary(rows) -> dict:
+    """Per gemma2_2b decode layer (its 7 projection shapes summed) at B =
+    8 and 32: ``score_select`` and ``sparse_matmul_shared`` against their
+    bounds, plain versions and dense ``torch.matmul``."""
+    out = {}
+    for B in (8, 32):
+        row = {}
+        for name in ("score_select", "sparse_matmul_shared"):
+            per = [r[name] for r in rows if r["B"] == B]
+            row[name] = {k: sum(p[k] for p in per) for k in
+                         ("ms", "plain_ms", "bound_ms")}
+            lib = [p["library_ms"] for p in per]
+            row[name]["library_ms"] = None if lib[0] is None else sum(lib)
+            r = row[name]
+            print(f"gemma2_2b per decode layer B={B:2d} {name:20s} "
+                  f"{r['ms'] * 1e3:8.2f} us (plain {r['plain_ms'] * 1e3:8.2f}"
+                  + ("" if r["library_ms"] is None else
+                     f", torch.matmul dense {r['library_ms'] * 1e3:7.2f}")
+                  + f", bound {r['bound_ms'] * 1e3:6.2f} = "
+                  f"{100 * r['bound_ms'] / r['ms']:5.1f}%)")
+        out[f"B{B}"] = row
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: reduced model, card against CPU
 # ---------------------------------------------------------------------------
@@ -869,6 +983,71 @@ def reduced_model_check(dev) -> None:
                              f"!= CPU {outs[1]}")
     print(f"reduced llama31_8b on the card vs CPU: logits max abs err "
           f"{err:.2e} (<= {LOGIT_ATOL}); engine tokens equal {outs[0]}")
+
+
+def scale_gemma_weights(params, factor: float = GEMMA_WEIGHT_SCALE):
+    """Every attention and MLP weight of a port params tree times
+    ``factor``, in place (see GEMMA_WEIGHT_SCALE); returns the tree."""
+    for group in params["groups"]:
+        for layer in group.values():
+            for part in ("attn", "mlp"):
+                for w in layer[part].values():
+                    w.mul_(factor)
+    return params
+
+
+def reduced_gemma_check(dev) -> None:
+    """Reduced gemma2_2b (f32, window 32; ``scale_gemma_weights``) on
+    the card against the CPU: prefill logits over 80 tokens (past the
+    window) within LOGIT_ATOL, and the tokens a whole-prefill engine
+    serves under uncalibrated ``pallas`` with ``prefill_dense_frac`` 0
+    (prompts of 40, 70 and 70 tokens, decode past the window's wrap)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.models import api, model as M, params as P
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.sparsity import SparsityPolicy
+
+    cfg = reduced(get_config("gemma2_2b"))
+    cpu = torch.device("cpu")
+    params_c = scale_gemma_weights(api.init_model(cfg, SEED, device=cpu))
+    sp_c = default_sp_stacked(params_c, cfg, keep_frac=KEEP,
+                              tau=float("-inf"))
+    params_g = P.tree_map(lambda t: t.to(dev), params_c)
+    sp_g = P.tree_map(lambda t: t.to(dev), sp_c)
+    pol = SparsityPolicy.uniform("pallas", k_max_frac=KEEP, block=16)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 80)))
+    with torch.no_grad():
+        lg, cg = M.forward(params_g, cfg, tokens=toks.to(dev),
+                           mode="prefill", sp=sp_g, policy=pol)
+        lc, cc = M.forward(params_c, cfg, tokens=toks, mode="prefill",
+                           sp=sp_c, policy=pol)
+    err = max_err(lg.cpu(), lc)
+    cache_err = max(max_err(a.cpu(), b) for a, b in zip(_leaves(cg),
+                                                        _leaves(cc)))
+    if not (err <= LOGIT_ATOL and cache_err <= LOGIT_ATOL):
+        raise AssertionError(f"reduced gemma2 prefill: card vs CPU logits "
+                             f"err {err}, rolled caches err {cache_err}")
+    outs = []
+    prompts = [rng.integers(0, cfg.vocab_size, p) for p in (40, 70, 70)]
+    for d, params, sp in ((dev, params_g, sp_g), (cpu, params_c, sp_c)):
+        eng = Engine(params, cfg, EngineConfig(
+            max_slots=3, max_len=128, prefill_chunk=16, policy=pol,
+            prefill_dense_frac=0.0), sp, device=d)
+        if eng.prefill_strategy != "whole":
+            raise AssertionError(f"reduced gemma2 resolved to "
+                                 f"{eng.prefill_strategy!r}")
+        for p in prompts:
+            eng.submit(p, 24)
+        outs.append(eng.run())
+    if outs[0] != outs[1]:
+        raise AssertionError(f"reduced gemma2 engine tokens: card {outs[0]} "
+                             f"!= CPU {outs[1]}")
+    print(f"reduced gemma2_2b on the card vs CPU: prefill logits max abs err "
+          f"{err:.2e}, rolled caches {cache_err:.2e} (<= {LOGIT_ATOL}); "
+          f"whole-prefill pallas engine tokens equal "
+          f"({len({t for ts in outs[0].values() for t in ts})} distinct)")
 
 
 # ---------------------------------------------------------------------------
@@ -3125,6 +3304,361 @@ def serve_quality_flight(dev, K, cfg, params, trace, ladder) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: gemma2_2b at full width (whole-prompt prefill, rolling windows)
+# ---------------------------------------------------------------------------
+
+GEMMA_ECFG = dict(max_slots=8, max_len=4608, prefill_chunk=32)
+GEMMA_SERVED = ("score_select", "sparse_matmul_shared")
+
+
+def gemma_model(dev):
+    """gemma2_2b at full width and depth, random weights from SEED."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = get_config("gemma2_2b")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \
+        (26, 2304, 8, 4, 256, 9216, 256000)
+    t0 = obs.now()
+    params = api.init_model(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"gemma2_2b: {n_params / 1e9:.2f}B params ({cfg.dtype}), init "
+          f"{obs.now() - t0:.1f} s, device memory "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    return cfg, params
+
+
+def gemma_lens() -> tuple:
+    """Phase 16's prompt lengths (4 of 4100-4500 tokens, two of one
+    length, then phase 5's first 8), and the generator that draws the
+    prompts' tokens next."""
+    rng = np.random.default_rng(SEED)
+    short = [int(p) for p in rng.integers(64, 449, 12)[:8]]
+    rng = np.random.default_rng(SEED + 16)
+    a, b, c = (int(x) for x in rng.choice(np.arange(4100, 4501), 3,
+                                          replace=False))
+    return [a, b, c, c] + short, rng
+
+
+def gemma_prefill_rows() -> list:
+    """The token rows of each whole-prompt prefill of phase 16's trace
+    (one batch per prompt length: its length times its requests), the B
+    that pass gives both kernels."""
+    lens, _ = gemma_lens()
+    return sorted({n * lens.count(n) for n in lens})
+
+
+def gemma_trace(cfg) -> dict:
+    """Phase 16's trace: 4 prompts of 4100-4500 tokens (two of one
+    length, so one whole-prompt prefill has B = 2), then 8 of phase 5's
+    64-448-token lengths, 32 new tokens each, all at once into 8 slots."""
+    lens, rng = gemma_lens()
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    return {"prompts": prompts, "lens": lens, "gen": 32,
+            "ecfg": dict(GEMMA_ECFG)}
+
+
+def gemma_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
+              window=WINDOW) -> dict:
+    """One run of phase 16's trace through a fresh, warmed ``Engine``,
+    the kernels' counts zeroed just before it is built and read just
+    after the run.  Checks the ``whole`` strategy, decode steps with a
+    row past the window (its local layers' caches rolled), no decode
+    step built after warmup, and the launches against the sparse passes
+    executed: 182 (26 layers x 7 projections) of each kernel per replay
+    of a sparse decode graph, per its eager warm call and per eager
+    whole-prompt prefill run sparse (``prefill_dense_frac`` 0)."""
+    from repro_torch import obs
+    from repro_torch.serving import Engine, EngineConfig
+
+    K.reset_launch_counts()
+    eng = Engine(params, cfg, EngineConfig(
+        policy=policy, prefill_dense_frac=frac, **trace["ecfg"]), sp,
+        device=dev)
+    eng.warmup()
+    if eng.prefill_strategy != "whole":
+        raise AssertionError(f"{name}: gemma2_2b resolved to "
+                             f"{eng.prefill_strategy!r}, expected 'whole'")
+    win = cfg.sliding_window
+    rolled, prefills = [0], []
+    decode_step, prefill_whole = eng._decode_step, eng._prefill_whole
+
+    def counted_decode():
+        if any(rs.position >= win for rs in eng.scheduler.decoding.values()):
+            rolled[0] += 1
+        decode_step()
+
+    def timed_prefill(group):
+        t0 = obs.now()
+        prefill_whole(group)
+        prefills.append((group[0].request.prompt_len, len(group),
+                         1e3 * (obs.now() - t0)))
+
+    eng._decode_step, eng._prefill_whole = counted_decode, timed_prefill
+    for p in trace["prompts"]:
+        eng.submit(p, trace["gen"])
+    t0 = obs.now()
+    out, res = drive(eng, window)
+    torch.cuda.synchronize()
+    res["wall_s"] = obs.now() - t0
+    counts = dict(K.launch_counts)
+    for rid, toks in out.items():
+        if len(toks) != trace["gen"] or not all(0 <= t < cfg.vocab_size
+                                                for t in toks):
+            raise AssertionError(f"{name}: request {rid} gave {toks}")
+    if rolled[0] == 0:
+        raise AssertionError(f"{name}: no decode step at a position past "
+                             f"the {win}-token window")
+    if eng.decode_retraces_after_warmup != 0:
+        raise AssertionError(f"{name}: {eng.decode_retraces_after_warmup} "
+                             "decode builds after warmup")
+    if len(prefills) != len(set(trace["lens"])) or \
+            max(b for _, b, _ in prefills) != 2:
+        raise AssertionError(f"{name}: whole prefills {prefills}: expected "
+                             "one per prompt length, one of B = 2")
+    per_pass = 7 * cfg.num_layers
+    sparse_decode = not policy.for_phase("decode").is_dense
+    prefill_phase = "prefill_sparse" if frac <= 0.0 else "prefill_dense"
+    sparse_prefill = not policy.for_phase(prefill_phase).is_dense
+    g = eng.decode_graphs
+    passes = (g.steps[0] + 1 if sparse_decode else 0) + \
+        (len(prefills) if sparse_prefill else 0)
+    launches = eng.launches(counts)
+    for k in GEMMA_SERVED:
+        want_cap = per_pass if sparse_decode else 0
+        if g.captured[0][k] != want_cap:
+            raise AssertionError(f"{name}: the decode graph captured "
+                                 f"{g.captured[0][k]} {k}, expected "
+                                 f"{want_cap}")
+        if launches[k] != per_pass * passes:
+            raise AssertionError(
+                f"{name}: {k} launched {launches[k]} times, expected "
+                f"{per_pass * passes} = {per_pass} x {passes} sparse passes")
+    if launches["sparse_matmul_per_seq"]:
+        raise AssertionError(f"{name}: sparse_matmul_per_seq launched")
+    res.update({
+        "strategy": eng.prefill_strategy,
+        "rolled_decode_steps": rolled[0],
+        "decode_retraces_after_warmup": eng.decode_retraces_after_warmup,
+        "decode_replays": list(g.steps),
+        "whole_prefills": [[n, b, ms] for n, b, ms in prefills],
+        "sparse_passes": passes,
+        "launches": {k: launches[k] for k in GEMMA_SERVED},
+        "launches_counted": {k: counts[k] for k in GEMMA_SERVED},
+        "launches_per_pass": per_pass,
+        "distinct_tokens": len({t for ts in out.values() for t in ts}),
+        "tokens": out})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def gemma_calibrate(cfg, params) -> tuple:
+    """A 0.5 ``pallas`` plan of the full-width model (paper Alg. 1-4,
+    ``core/pipeline.run_pipeline`` with the serve CLI's ``--calib-quick``
+    budget) on 4 x 128 synthetic tokens: its budget and finite
+    thresholds are checked.  Returns (policy, sp, info)."""
+    from repro_torch import obs
+    from repro_torch.core import calibration, pipeline
+    from repro_torch.core.allocation import EvoConfig, weighted_average
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    evo = EvoConfig(generations=2, offspring=4, eps=0.1)
+    toks = SyntheticLM(DataConfig(cfg.vocab_size, 128, 4)).batch(0)
+    t0 = obs.now()
+    ctx = calibration.build_context(params, cfg, {"tokens": toks})
+    plan = pipeline.run_pipeline(params, cfg, None, KEEP, evo=evo,
+                                 delta=0.25, coord_passes=0, ctx=ctx)
+    torch.cuda.synchronize()
+    took_s = obs.now() - t0
+    avg = weighted_average(ctx, np.asarray(plan.block_ratios))
+    if not KEEP - evo.eps <= avg <= KEEP + 1e-9:
+        raise AssertionError(f"gemma2 plan: size-weighted block ratio {avg} "
+                             f"outside [{KEEP - evo.eps}, {KEEP}]")
+    bad = [k for k, t in plan.taus.items()
+           if plan.layer_ratios[k] > 0 and not math.isfinite(t)]
+    if bad or len(plan.taus) != 7 * cfg.num_layers:
+        raise AssertionError(f"gemma2 plan: {len(plan.taus)} taus, "
+                             f"non-finite where sparsified: {bad}")
+    info = {"calibration_s": took_s, "weighted_ratio": avg,
+            "summary": plan.summary()}
+    print(f"gemma2_2b 0.5 plan calibrated in {took_s:.1f} s "
+          f"(--calib-quick budget, 512 tokens): {plan.summary()}")
+    policy, sp = plan.to_policy(backend="pallas"), plan.stacked_sp
+    del ctx
+    torch.cuda.empty_cache()
+    return policy, sp, info
+
+
+def gemma_graph_vs_eager(dev, cfg, params, sp, trace, steps: int = 4
+                         ) -> dict:
+    """The captured decode step against the eager one at rolled
+    positions: the trace's 4 long prompts (past the 4096 window) and 4
+    short ones prefilled, then at each of ``steps`` decode steps the
+    eager step and the graph replay on the same inputs, dense and
+    uncalibrated ``pallas``.  Greedy tokens must be equal; prints the
+    logits' max abs error."""
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.sparsity import SparsityPolicy
+
+    out = {}
+    for name, pol, s in (
+            ("dense", SparsityPolicy.dense(), None),
+            ("pallas", SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
+             sp)):
+        eng = Engine(params, cfg, EngineConfig(policy=pol, **trace["ecfg"]),
+                     s, device=dev)
+        for p in trace["prompts"][:8]:
+            eng.submit(p, 64)
+        while eng.scheduler.prefilling or eng.scheduler.has_queued():
+            eng.step()
+        g = eng.decode_graphs
+        err, rolled = 0.0, 0
+        for _ in range(steps):
+            tokens, positions, active = eng.decode_inputs()
+            if active.sum() != 8:
+                raise AssertionError(f"{name}: {active.sum()} active slots")
+            rolled += int((positions[active > 0] >= cfg.sliding_window).sum())
+            logits = g.eager(0, tokens, positions, active)
+            want = (torch.argmax(logits, -1).cpu().numpy(),
+                    logits.float().clone())
+            nxt, logits = g(0, tokens, positions, active)
+            if not np.array_equal(want[0], nxt):
+                raise AssertionError(f"gemma2 {name}: graph replay tokens "
+                                     f"{nxt} != eager {want[0]}")
+            err = max(err, max_err(logits.float(), want[1]))
+            eng.step()
+        if rolled == 0:
+            raise AssertionError(f"gemma2 {name}: no row past the window")
+        out[name] = {"logits_max_abs_err": err, "rolled_rows": rolled,
+                     "steps": steps,
+                     "eager_step_top_ops": eager_step_ops(g, eng)}
+        print(f"gemma2 graph vs eager, {name}, B=8, {steps} steps with "
+              f"{rolled} rolled rows: greedy tokens equal; logits max abs "
+              f"err {err:.3g}")
+        del eng
+        gc.collect()
+    return out
+
+
+def eager_step_ops(g, eng, top: int = 8) -> list:
+    """One eager decode step under ``torch.profiler`` (the card only):
+    its ``top`` operators by device time, [name, ms, share of the
+    step's device time] (the graph replays the same kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    tokens, positions, active = eng.decode_inputs()
+    g.eager(0, tokens, positions, active)          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.eager(0, tokens, positions, active)
+        torch.cuda.synchronize()
+    ev = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    total = sum(ms for _, ms in ev)
+    ev.sort(key=lambda e: -e[1])
+    rows = [[k[:60], ms, ms / total] for k, ms in ev[:top]]
+    print(f"eager decode step at rolled positions: {total:.2f} ms on the "
+          "device; top ops " + "; ".join(f"{k} {ms:.2f} ms ({100 * f:.0f}%)"
+                                         for k, ms, f in rows))
+    return rows
+
+
+def gemma_serve_cli(dev) -> dict:
+    """``python -m repro_torch.launch.serve --arch gemma2_2b --reduced``
+    on the card, in a subprocess: it must exit 0."""
+    from repro_torch import obs
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = obs.now()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gemma2_2b", "--reduced", "--prompt-len", "96", "--gen", "40"],
+        env=env, cwd=HERE, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --arch gemma2_2b --reduced exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    print(f"serve --arch gemma2_2b --reduced: exit 0 in "
+          f"{obs.now() - t0:.1f} s; {lines[-1] if lines else ''}")
+    return {"exit": proc.returncode, "wall_s": obs.now() - t0}
+
+
+def serve_gemma(dev, K) -> dict:
+    """Phase 16: full-width gemma2_2b through the port's ``Engine``:
+    dense, ``pallas``, ``pallas``, dense (uncalibrated: keep_frac =
+    k_max_frac = 0.5, tau -inf), ``pallas`` with ``prefill_dense_frac``
+    0 (the whole prompts through the kernels at up to 2 x 4500 rows),
+    and a 0.5 plan calibrated at full width; then the captured decode
+    step against the eager one at rolled positions, and the serve CLI."""
+    from repro_torch import obs
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.serving.metrics import percentile
+    from repro_torch.sparsity import SparsityPolicy
+
+    t_phase = obs.now()
+    cfg, params = gemma_model(dev)
+    trace = gemma_trace(cfg)
+    print(f"phase 16 trace: prompt lengths {trace['lens']}, "
+          f"{trace['gen']} new tokens each, {trace['ecfg']}")
+    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
+    modes = {"dense": (SparsityPolicy.dense(), None),
+             "pallas": (SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
+                        sp)}
+    runs = {}
+    for name in ("dense", "pallas", "pallas", "dense"):
+        pol, s = modes[name]
+        res = gemma_run(name, params, cfg, pol, s, trace, dev, K)
+        if name in runs and res["tokens"] != runs[name][0]["tokens"]:
+            raise AssertionError(f"gemma2 {name}: the second run's greedy "
+                                 "tokens differ from the first's")
+        runs.setdefault(name, []).append(res)
+    pol, s = modes["pallas"]
+    runs["pallas sparse prefill"] = [gemma_run(
+        "pallas sparse prefill", params, cfg, pol, s, trace, dev, K,
+        frac=0.0)]
+    policy, plan_sp, calib = gemma_calibrate(cfg, params)
+    runs["calibrated"] = [gemma_run("calibrated", params, cfg, policy,
+                                    plan_sp, trace, dev, K)]
+    del plan_sp
+    keys = ("decode_tok_s", "decode_step_p50_ms", "decode_step_p95_ms",
+            "ttft_p50_ms", "window_step_device_ms", "wall_s",
+            "rolled_decode_steps", "sparse_passes", "distinct_tokens")
+    for name, rs in runs.items():
+        for i, r in enumerate(rs):
+            pre = ", ".join(f"{n}x{b} {ms:.1f}" for n, b, ms in
+                            r["whole_prefills"])
+            print(f"gemma2 {name} {i + 1}: " + ", ".join(
+                f"{k} {r[k]:.4g}" if isinstance(r[k], float)
+                else f"{k} {r[k]}" for k in keys)
+                + f"; launches {r['launches']}; whole-prefill ms per "
+                f"prompt length x batch: {pre}")
+    gve = gemma_graph_vs_eager(dev, cfg, params, sp, trace)
+    cli = gemma_serve_cli(dev)
+    d = runs["dense"]
+    long_ms = [ms for n, _b, ms in d[0]["whole_prefills"] if n > 4096]
+    print(f"gemma2 dense: greedy tokens equal in both runs; decode p50 "
+          f"{d[0]['decode_step_p50_ms']:.2f} / "
+          f"{d[1]['decode_step_p50_ms']:.2f} ms; whole-prefill ms p50 over "
+          f"the 4100-4500-token prompts {percentile(long_ms, 50):.1f}")
+    keep = ("tokens",)
+    out = {"runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
+                                      if k not in keep}
+                    for n, rs in runs.items() for i, r in enumerate(rs)},
+           "calibration": calib, "graph_vs_eager": gve, "serve_cli": cli,
+           "trace_lens": trace["lens"]}
+    del params, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = obs.now() - t_phase
+    print(f"phase 16 took {out['wall_s']:.1f} s")
+    return out
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -3308,11 +3842,18 @@ def main() -> int:
 
     errs = check_kernel_shapes(K, ref, dev)
     rows, errs2 = main_path_kernels(K, ref, build, dev, rates)
+    # gemma2_2b's seven projection shapes: phase 16's path
+    g_rows, errs3 = main_path_kernels(K, ref, build, dev, rates,
+                                      layer=GEMMA_LAYER, batches=(8, 32),
+                                      v1=False)
+    errs4 = whole_prefill_kernels(K, ref, dev, gemma_prefill_rows())
     ps_rows, ps_err, ps_launches = per_seq_kernel(K, ref, ops, build, dev,
                                                   rates)
     layer_summary(rows, ps_rows, proj)
+    gemma_layer = gemma_layer_summary(g_rows)
     took("3 kernels")
     reduced_model_check(dev)
+    reduced_gemma_check(dev)
     took("4 reduced model")
     cfg, params = full_width_model(dev)
     trace = serving_trace(cfg)
@@ -3338,6 +3879,11 @@ def main() -> int:
     took("14 gateway")
     quality_flight = serve_quality_flight(dev, K, cfg, params, trace, ladder)
     took("15 quality and flight")
+    del params, ladder
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma = serve_gemma(dev, K)
+    took("16 gemma2_2b")
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -3353,7 +3899,8 @@ def main() -> int:
                          for n, r in prefix_res.items()},
         "preemption": {n: {k: v for k, v in r.items() if k not in keep}
                        for n, r in preempt_res.items()},
-        "gateway": gateway_res, "quality_flight": quality_flight}}))
+        "gateway": gateway_res, "quality_flight": quality_flight,
+        "gemma2_2b": {**gemma, "kernels_per_decode_layer": gemma_layer}}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     kernels = []
@@ -3367,7 +3914,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/kernels/sparse_matmul.py:{line}",
             "launches": results["pallas"][0]["launches"][kname],
-            "max_abs_err": max(errs[kname], errs2[kname]),
+            "max_abs_err": max(errs[kname], errs2[kname], errs3[kname],
+                               errs4[kname]),
             # one decode layer's 7 projections at B = 8, summed
             "ms": sum(p["ms"] for p in per),
             "plain_ms": sum(p["plain_ms"] for p in per),

@@ -3,8 +3,10 @@ search (port of the JAX package's ``core/unstacked.py``).
 
 Calibration unstacks the layer groups into a list of per-depth layers and
 reuses the model's own ``layer_apply``, so the numerics are the serving
-forward's.  The port supports ``("attn", "dense")`` layers, as its model
-does; encoder frames and patch embeddings raise ``NotImplementedError``.
+forward's.  The port supports the layers its model runs (``attn``,
+``local`` and ``global`` attention with a dense MLP, each layer run as
+its own kind); encoder frames and patch embeddings raise
+``NotImplementedError``.
 
 The capture hook keys activations on ``id(w)``, and ``tensor[r]`` makes a
 new Python object on every call.  So :func:`unstack_layers` builds each
@@ -148,8 +150,8 @@ def forward_unstacked(params, cfg: ModelConfig, tokens, *, layers=None,
         if collect_block_inputs:
             block_inputs.append(x)
         sp = per_depth_sp[dl.depth] if per_depth_sp is not None else None
-        x, _ = M.layer_apply(dl.params, x, cfg, sp, None, None, "train",
-                             policy=policy.resolve_depth(dl.depth))
+        x, _ = M.layer_apply(dl.params, x, cfg, dl.kind, sp, None, None,
+                             "train", policy=policy.resolve_depth(dl.depth))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return M.lm_logits(params, x, cfg), block_inputs
 
@@ -162,6 +164,6 @@ def block_forward(dl: DepthLayer, x, cfg: ModelConfig, sp=None, enc_out=None,
         raise NotImplementedError("cross-attention comes with the enc-dec "
                                   "slice")
     policy = policy if policy is not None else _sl.DENSE
-    out, _ = M.layer_apply(dl.params, x, cfg, sp, None, None, "train",
-                           policy=policy.resolve_depth(dl.depth))
+    out, _ = M.layer_apply(dl.params, x, cfg, dl.kind, sp, None, None,
+                           "train", policy=policy.resolve_depth(dl.depth))
     return out

@@ -9,9 +9,12 @@ the sparsity policy (the port's counterpart of the JAX package's
   dense; the ``k_max_frac · nb`` gathered channel blocks under
   ``pallas``, the gathered rows under ``topk_shared``/``topk_block``)
   and ``2·rows·in·out`` FLOPs per product over the channels it reads;
-* the attention's K and V reads at the pool length in the cache dtype,
-  and its two products (scores and values, ``4·rows·H·hd·T`` FLOPs);
-* the embedding rows gathered and the LM head;
+* the attention's K and V reads at each layer's cache length in the
+  cache dtype (the pool length, or the window on a ``local`` layer,
+  whose cache rolls), and its two products (scores and values,
+  ``4·rows·H·hd·T`` FLOPs);
+* the embedding rows gathered and the LM head (the embedding itself
+  when the head is tied, as in the Gemma family);
 * the norms' weights (their elementwise work is no product, and is left
   out of the FLOPs as ``torch.utils.flop_counter`` leaves it out).
 
@@ -24,6 +27,7 @@ from __future__ import annotations
 from typing import Tuple
 
 from repro_torch.kernels.ops import channel_plan
+from repro_torch.models.model import chunkable
 
 _ELEM = {"bfloat16": 2, "float32": 4}
 
@@ -67,11 +71,14 @@ def step_costs(cfg, ecfg, policy, sp, phase: str, gamma=None
     ``max_slots · (gamma + 1)`` rows).  ``policy`` is the policy the step
     runs (a rung's phase policy) and ``sp`` its stacked sp tree (None
     runs every projection dense, as ``core/sparse_linear.project``
-    does)."""
+    does).  An arch with ``local`` layers has no chunk or verify step."""
     if phase not in ("decode", "chunk", "verify"):
         raise ValueError(f"unknown step phase {phase!r}")
     if phase == "verify" and gamma is None:
         raise ValueError("a verify step needs its gamma")
+    if phase != "decode" and not chunkable(cfg):
+        raise ValueError(
+            f"{cfg.name} has local-attention layers: no {phase} step")
     elem = _ELEM[cfg.dtype]
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim
@@ -88,7 +95,8 @@ def step_costs(cfg, ecfg, policy, sp, phase: str, gamma=None
     depth = 0
     for gi, (pattern, reps) in enumerate(cfg.layer_groups()):
         for _r in range(reps):
-            for j in range(len(pattern)):
+            for j, (mixer, _ffn) in enumerate(pattern):
+                Tl = min(cfg.sliding_window, T) if mixer == "local" else T
                 lpol = policy.resolve_depth(depth)
                 for role, n, m in shapes:
                     backend = lpol.backend_at(role=role)
@@ -97,10 +105,10 @@ def step_costs(cfg, ecfg, policy, sp, phase: str, gamma=None
                     f, b = _projection(rows, n, m, backend, lpol, elem)
                     flops += f
                     nbytes += b
-                # K and V of every slot the step attends, at the pool
-                # length, then the two attention products
-                nbytes += 2.0 * slots_read * KV * hd * T * elem
-                flops += 4.0 * rows * H * hd * T
+                # K and V of every slot the step attends, at the
+                # layer's cache length, then the two attention products
+                nbytes += 2.0 * slots_read * KV * hd * Tl * elem
+                flops += 4.0 * rows * H * hd * Tl
                 nbytes += 2.0 * d * elem                 # ln1, ln2
                 depth += 1
     nbytes += d * elem                               # final norm

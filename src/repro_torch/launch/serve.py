@@ -4,11 +4,17 @@ engine (``repro_torch.serving``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31_8b \\
         --mode pallas --sparsity 0.5 --batch 8 --prompt-len 128 --gen 32
 
-Full width and the card are the defaults; ``--reduced`` (the tiny
-same-family config) and ``--device cpu`` are opt-ins.  Weights are random
-from ``--seed``.  The paper's §5.1 recipe applies: the first half of each
-prompt prefills dense, later chunks and every decode step run under the
-``--mode`` backend.
+``--arch`` takes the dense decoders the port serves: llama31_8b (the
+default), deepseek_67b and the Gemma family, gemma_2b, gemma2_2b and
+gemma3_4b.  gemma2_2b and gemma3_4b have ``local`` layers, whose
+rolling-window caches resolve ``--prefill-strategy auto`` to whole-prompt
+prefill and rule out ``--prefix-cache``, ``--preemption``,
+``--spec-gamma`` and ``--quality-probe-rate``, which the engine refuses
+as the reference's does.  Full width and the card are the defaults;
+``--reduced`` (the tiny same-family config) and ``--device cpu`` are
+opt-ins.  Weights are random from ``--seed``.  The paper's §5.1 recipe
+applies: the first half of each prompt prefills dense, later chunks and
+every decode step run under the ``--mode`` backend.
 
 The prompts are the JAX CLI's: ``SyntheticLM(DataConfig(vocab,
 prompt_len, batch)).batch(0)``.

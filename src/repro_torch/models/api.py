@@ -13,27 +13,36 @@ from repro_torch.models import params as P
 def cache_schema(cfg: ModelConfig, batch: int, cache_len: int):
     """ParamSpec tree mirroring the cache structure ``run_groups`` takes:
     list over groups -> tuple over pattern positions -> {"self": {k, v}},
-    in the decode layouts K (reps,B,KV,hd,T) and V (reps,B,KV,T,hd)."""
+    in the decode layouts K (reps,B,KV,hd,T) and V (reps,B,KV,T,hd).
+    ``T`` is ``cache_len``, and ``min(sliding_window, cache_len)`` on a
+    ``local`` layer (its rolling window)."""
     M.check_supported(cfg)
     KV, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def kv_pair(reps, T):
+        return {"self": {
+            "k": P.ParamSpec((reps, batch, KV, hd, T),
+                             ("layers", "batch", "kv_heads", None, "kv_seq"),
+                             init="zeros"),
+            "v": P.ParamSpec((reps, batch, KV, T, hd),
+                             ("layers", "batch", "kv_heads", "kv_seq", None),
+                             init="zeros"),
+        }}
+
     groups = []
     for pattern, reps in cfg.layer_groups():
         groups.append(tuple(
-            {"self": {
-                "k": P.ParamSpec((reps, batch, KV, hd, cache_len),
-                                 ("layers", "batch", "kv_heads", None,
-                                  "kv_seq"), init="zeros"),
-                "v": P.ParamSpec((reps, batch, KV, cache_len, hd),
-                                 ("layers", "batch", "kv_heads", "kv_seq",
-                                  None), init="zeros"),
-            }} for _ in pattern))
+            kv_pair(reps, min(cfg.sliding_window, cache_len)
+                    if mixer == "local" else cache_len)
+            for mixer, _ffn in pattern))
     return groups
 
 
 def prefix_segment_schema(cfg: ModelConfig, length: int):
     """Schema of one slot's KV *prefix segment*, the unit the serving
     prefix cache and preemption copy out of and into the slot pool: the
-    cache tree of one sequence (batch 1) cut to ``length`` positions.
+    cache tree of one sequence (batch 1) cut to ``length`` positions
+    (the window of a ``local`` layer, where that is shorter).
     Deriving it from :func:`cache_schema` keeps the segment layout and
     the pool layout in lockstep."""
     return cache_schema(cfg, 1, length)
@@ -94,7 +103,17 @@ def make_verify_step(cfg: ModelConfig):
     written in place before the window attends, so the committed prefix
     is always the verifier's.  ``weights`` (S, gamma+1) masks inactive
     slots out of the shared saliency.  Returns logits for every window
-    position (S, gamma+1, V) and the (in-place updated) pool."""
+    position (S, gamma+1, V) and the (in-place updated) pool.
+
+    Refused at once on an arch with ``local`` layers (the reference
+    refuses the verify forward there): a rolling-window cache cannot
+    roll back, so neither speculative decoding nor the quality monitor's
+    probe, a window-1 verify, runs on it."""
+    if not M.chunkable(cfg):
+        raise NotImplementedError(
+            "speculative verify does not support local-attention "
+            "layers (rolling-window caches cannot roll back)")
+
     def verify_step(params, tokens, positions, caches, sp=None,
                     weights=None, policy=None):
         return M.forward(params, cfg, tokens=tokens, mode="verify",

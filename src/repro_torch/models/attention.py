@@ -1,56 +1,70 @@
 """Attention (port of the JAX package's ``models/attention.py``): causal
-prefill/train attention, single-query decode attention against the
-pre-transposed cache plus an explicit new-token term, multi-token
-attention against the cache at a shared or per-row device offset
-(chunked prefill, speculative verify), and the in-place cache writes of
-one token (decode) and of a window of tokens (chunk, verify).  Sliding
-windows and cross-attention come with the archs that use them.
+prefill/train attention, optionally limited to a sliding window (gemma's
+``local`` layers), single-query decode attention against the
+pre-transposed cache plus an explicit new-token term, over a full-length
+or a rolling-window cache, multi-token attention against the cache at a
+shared or per-row device offset (chunked prefill, speculative verify),
+and the in-place cache writes of one token (decode, rolling or not) and
+of a window of tokens (chunk, verify).  Cross-attention and bidirectional
+attention come with the archs that use them.
 
 The reference wrote these in jnp, not Pallas, so plain torch ops are the
 port.  Scores and softmax run in f32 as in the reference
 (``preferred_element_type=f32``): operands are upcast before each
 product, and probabilities are cast to the cache dtype before the PV
 product, where the reference casts them.  Caches keep the reference
-layouts: K ``(B, KV, hd, T)`` and V ``(B, KV, T, hd)``.
+layouts: K ``(B, KV, hd, T)`` and V ``(B, KV, T, hd)``; a rolling cache
+(``T`` equal to the window) holds position ``p`` in slot ``p % T``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models.layers import softcap as _softcap
+
 NEG_INF = -1e30
 
 
-def _softcap(s, cap: float):
-    return cap * torch.tanh(s / cap) if cap else s
-
-
-def flash_attention(q, k, v, *, attn_softcap: float = 0.0):
+def flash_attention(q, k, v, *, window: int = 0, attn_softcap: float = 0.0):
     """Causal attention.  q: (B,S,H,hd); k, v: (B,S,KV,hd) -> (B,S,H,hd).
 
-    One pass over the whole key range (the reference's online softmax
-    over 1024-key chunks is the same computation for S <= 1024, and equal
-    up to f32 rounding beyond)."""
+    ``window`` > 0 keeps, for the query at position q, the keys at
+    positions t with ``q - window < t <= q`` (the reference's
+    ``_local_attention``, which it takes when ``window < S``).
+
+    One masked pass over the whole key range.  Without a window the
+    reference's online softmax over 1024-key chunks is the same
+    computation for S <= 1024 and equal up to f32 rounding beyond; it
+    casts the unnormalised probabilities to v's dtype and divides after
+    the PV product.  Its window path normalises first (a softmax per
+    query chunk), then casts, and so does this one.  The f32 scores of
+    one call take ``B*H*S*S*4`` bytes (650 MB at B = 1, H = 8, S = 4500)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     scale = hd ** -0.5
+    local = bool(window) and window < S
     qr = q.reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4).float()
     kr = k.permute(0, 2, 3, 1).float()[:, :, None]         # (B,KV,1,hd,T)
     s = _softcap(torch.matmul(qr, kr) * scale, attn_softcap)  # (B,KV,G,S,T)
     pos = torch.arange(S, device=q.device)
     mask = pos[None, :] <= pos[:, None]
+    if local:
+        mask &= pos[None, :] > pos[:, None] - window
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(-1)
+    if local:
+        p = torch.softmax(s, -1)
+    else:
+        p = torch.exp(s - s.amax(-1, keepdim=True))
     vr = v.permute(0, 2, 1, 3)[:, :, None]                 # (B,KV,1,T,hd)
     out = torch.matmul(p.to(v.dtype).float(), vr.float())
-    out = out / torch.clamp(l, min=1e-30)[..., None]
+    if not local:
+        out = out / torch.clamp(p.sum(-1), min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, positions, k_new, v_new, *,
-                     attn_softcap: float = 0.0):
+                     rolling: bool = False, attn_softcap: float = 0.0):
     """Single new query vs a pre-transposed cache plus an explicit
     new-token term.
 
@@ -58,14 +72,24 @@ def decode_attention(q, k_cache, v_cache, positions, k_new, v_new, *,
     (B,): cache slots at ``positions`` and beyond are masked.  k_new/v_new
     (B,KV,hd) carry the current token, attended explicitly (an online
     softmax over [cache, new token]) and written to the cache separately
-    by :func:`cache_write_kv`."""
+    by :func:`cache_write_kv`.
+
+    ``rolling``: slot ``p % T`` holds position ``p`` (a local layer's
+    window cache).  Before the position wraps, the slots below it are
+    valid; after, every slot but ``positions % T``, which holds the
+    position that just left the window.  The mask is computed on the
+    device from the positions tensor, so the step can be captured."""
     B, H, hd = q.shape
     KV, T = k_cache.shape[1], k_cache.shape[3]
     G = H // KV
     scale = hd ** -0.5
     qr = q.reshape(B, KV, G, hd).float()
     s = _softcap(torch.matmul(qr, k_cache.float()) * scale, attn_softcap)
-    valid = torch.arange(T, device=q.device)[None, :] < positions[:, None]
+    slot = torch.arange(T, device=q.device)[None, :]
+    pos = positions[:, None]
+    valid = slot < pos
+    if rolling:
+        valid = torch.where(pos < T, valid, slot != pos % T)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     s_new = (qr * k_new.float()[:, :, None, :]).sum(-1) * scale
     s_new = _softcap(s_new, attn_softcap)
@@ -122,16 +146,20 @@ def cache_write_window(k_cache, v_cache, k_new, v_new, rows, offsets):
     return k_cache, v_cache
 
 
-def cache_write_kv(k_cache, v_cache, k_new, v_new, positions):
+def cache_write_kv(k_cache, v_cache, k_new, v_new, positions, *,
+                   rolling: bool = False):
     """Write one token per row into a layer's caches, in place.
 
     k_cache: (B,KV,hd,T); v_cache: (B,KV,T,hd); k/v_new: (B,KV,hd);
-    positions (B,).  The reference returns updated copies through a
-    donated ``dynamic_update_slice``; here the pool tensors are updated
-    in place (``index_put_``) and returned for the same call shape."""
-    B = k_cache.shape[0]
+    positions (B,); ``rolling`` writes position p at slot ``p % T``.  The
+    reference returns updated copies through a donated
+    ``dynamic_update_slice``; here the pool tensors are updated in place
+    (``index_put_``) and returned for the same call shape."""
+    B, T = k_cache.shape[0], k_cache.shape[-1]
     rows = torch.arange(B, device=k_cache.device)
     pos = positions.long()
+    if rolling:
+        pos = pos % T
     k_cache[rows, :, :, pos] = k_new.to(k_cache.dtype)
     v_cache[rows, :, pos, :] = v_new.to(v_cache.dtype)
     return k_cache, v_cache

@@ -1,6 +1,6 @@
 """Shared primitive layers (port of the JAX package's ``models/layers.py``):
 the sparsity-aware dense projection, RMSNorm, half-split rotary
-embeddings and SiLU."""
+embeddings, the logit softcap, SiLU and tanh-approximated GELU."""
 from __future__ import annotations
 
 import torch
@@ -23,6 +23,19 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     var = xf.square().mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(dt)
+
+
+def softcap(x, cap: float):
+    """``cap * tanh(x / cap)``; a zero cap leaves x as it is (gemma2's
+    attention and final-logit caps)."""
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def gelu(x):
+    """GELU with the tanh approximation, as ``jax.nn.gelu(approximate=True)``."""
+    return F.gelu(x, approximate="tanh")
 
 
 def silu(x):

@@ -1,5 +1,7 @@
-"""Model assembly for dense-attention decoders (port of the JAX package's
-``models/model.py`` for ``("attn", "dense")`` layers — llama31_8b).
+"""Model assembly for dense decoders (port of the JAX package's
+``models/model.py`` for layers whose mixer is ``attn``, ``local`` or
+``global`` attention and whose FFN is a dense gated MLP: llama31_8b and
+the Gemma family, gemma_2b, gemma2_2b and gemma3_4b).
 
 Parameters keep the reference's stacked layout: ``params["groups"][g]``
 is a dict of ``(reps, ...)`` tensors per pattern position (``"l0"``), so
@@ -8,6 +10,11 @@ a group with ``lax.scan``, the port runs a Python loop over the stacked
 layers, indexing each rep's view; per-block policies fold in per layer
 through ``SparsityPolicy.resolve_depth``.
 
+``local`` layers attend over the last ``cfg.sliding_window`` positions.
+Their prefill caches keep only those positions, rolled so that slot
+``p % window`` holds position ``p``, and decode reads and writes them
+as a rolling window whenever the cache's time length equals the window.
+
 Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
 emits caches), ``decode`` (one token per row against the pool caches,
 written in place), ``chunk`` (one request's prefill chunk written in
@@ -15,6 +22,8 @@ place into its pool slot) and ``verify`` (a window of tokens per pool
 row at per-row offsets, written in place: speculative decoding).  The
 chunk and verify offsets and the chunk's slot are device tensors, read
 by the device alone, so both steps can be captured as CUDA graphs.
+Chunk and verify refuse ``local`` layers, as the reference does: a
+rolling window cannot resume mid-prompt or roll back.
 """
 from __future__ import annotations
 
@@ -23,20 +32,34 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_linear
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import apply_rope, dense, rmsnorm, rope_angles
+from repro_torch.models.layers import (apply_rope, dense, rmsnorm,
+                                       rope_angles, softcap)
 from repro_torch.models.mlp import mlp_apply, mlp_schema
 from repro_torch.models.params import ParamSpec, stacked
 
-SUPPORTED_KIND = ("attn", "dense")
+ATTN_KINDS = ("attn", "local", "global")
+# mixers whose caches are full length, so chunk and verify can write them
+# at any offset; a ``local`` layer's window cache rolls
+CHUNKABLE_MIXERS = ("attn", "global")
 MODES = ("train", "prefill", "decode", "chunk", "verify")
+
+
+def chunkable(cfg: ModelConfig) -> bool:
+    """Whether every layer of ``cfg`` runs the chunk and verify modes."""
+    return {m for m, _ in cfg.layer_kinds()} <= set(CHUNKABLE_MIXERS)
+
+
+def _supported_kind(kind) -> bool:
+    mixer, ffn = kind
+    return mixer in ATTN_KINDS and ffn == "dense"
 
 
 def check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds())
-    if kinds != {SUPPORTED_KIND} or cfg.family in ("encdec", "vlm"):
+    if cfg.family != "dense" or not all(map(_supported_kind, kinds)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense-attention decoders "
-            f"({SUPPORTED_KIND} layers); got family {cfg.family!r} with "
+            f"{cfg.name}: the port serves dense decoders (mixers "
+            f"{ATTN_KINDS}, dense FFN); got family {cfg.family!r} with "
             f"layer kinds {sorted(kinds)}")
 
 
@@ -55,7 +78,7 @@ def attn_schema(cfg: ModelConfig):
 
 
 def layer_schema(cfg: ModelConfig, kind):
-    if tuple(kind) != SUPPORTED_KIND:
+    if not _supported_kind(kind):
         raise NotImplementedError(f"layer kind {kind} is not ported")
     return {
         "ln1": ParamSpec((cfg.d_model,), (None,), init="zeros"),
@@ -94,10 +117,10 @@ def _index(tree, r: int):
     return tree[r]
 
 
-def attn_apply(p, x, cfg: ModelConfig, sp=None, cache=None, positions=None,
-               mode: str = "train", slot=None, policy=None,
-               token_weights=None):
-    """Self-attention for one layer.
+def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
+               cache=None, positions=None, mode: str = "train", slot=None,
+               policy=None, token_weights=None):
+    """Self-attention for one layer of mixer ``kind``.
 
     ``decode``: x (B,1,D), ``positions`` (B,) tensor, ``cache`` the
     layer's pool views, written in place after the new token is attended
@@ -108,11 +131,25 @@ def attn_apply(p, x, cfg: ModelConfig, sp=None, cache=None, positions=None,
     per pool row, ``positions`` (S,) per-row offsets; the window's K/V
     are written and the whole pool attended in place.  Both write before
     they attend, as the reference's donated ``dynamic_update_slice``
-    does."""
+    does.
+
+    A ``local`` layer attends over the last ``cfg.sliding_window``
+    positions; in ``prefill`` its cache keeps the last window of them,
+    rolled so that slot ``p % window`` holds position ``p``, and in
+    ``decode`` a cache whose time length is the window rolls."""
     sp = sp or {}
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    win = cfg.sliding_window if kind == "local" else 0
     tw = token_weights
+    if win and mode == "verify":
+        raise NotImplementedError(
+            "speculative verify does not support local-attention "
+            "layers (rolling-window caches cannot roll back)")
+    if win and mode == "chunk":
+        raise NotImplementedError(
+            "chunked prefill does not support local-attention layers; "
+            "use the engine's whole-prompt prefill strategy")
 
     def proj(name, xin):
         return dense(xin, p[name], sp.get(name), policy=policy,
@@ -150,32 +187,42 @@ def attn_apply(p, x, cfg: ModelConfig, sp=None, cache=None, positions=None,
 
     if mode == "decode":
         kc, vc = cache["k"], cache["v"]
+        rolling = bool(win) and win == kc.shape[-1]
         k_new, v_new = k[:, 0], v[:, 0]               # (B,KV,hd)
         out = attn_lib.decode_attention(
-            q[:, 0], kc, vc, positions, k_new, v_new,
+            q[:, 0], kc, vc, positions, k_new, v_new, rolling=rolling,
             attn_softcap=cfg.attn_softcap)[:, None]
-        attn_lib.cache_write_kv(kc, vc, k_new, v_new, positions)
+        attn_lib.cache_write_kv(kc, vc, k_new, v_new, positions,
+                                rolling=rolling)
         new_cache = {"k": kc, "v": vc}
     else:
-        out = attn_lib.flash_attention(q, k, v, attn_softcap=cfg.attn_softcap)
+        out = attn_lib.flash_attention(q, k, v, window=win,
+                                       attn_softcap=cfg.attn_softcap)
         new_cache = None
         if mode == "prefill":
+            ck, cv = k, v
+            if win and win < S:                  # rolling window cache
+                # slot j of k[:, -win:] holds position S-win+j; roll right
+                # by S % win so slot (p % win) holds position p
+                ck = torch.roll(k[:, -win:], S % win, dims=1)
+                cv = torch.roll(v[:, -win:], S % win, dims=1)
             # decode-layout caches: K as (B,KV,hd,T), V as (B,KV,T,hd)
-            new_cache = {"k": k.permute(0, 2, 3, 1).contiguous(),
-                         "v": v.permute(0, 2, 1, 3).contiguous()}
+            new_cache = {"k": ck.permute(0, 2, 3, 1).contiguous(),
+                         "v": cv.permute(0, 2, 1, 3).contiguous()}
     return proj("wo", out.reshape(B, S, H * hd)), new_cache
 
 
-def layer_apply(p, x, cfg: ModelConfig, sp=None, cache=None, positions=None,
-                mode: str = "train", slot=None, policy=None,
+def layer_apply(p, x, cfg: ModelConfig, kind, sp=None, cache=None,
+                positions=None, mode: str = "train", slot=None, policy=None,
                 token_weights=None):
-    """One pre-norm decoder layer.  ``policy`` is already depth-resolved;
-    None runs dense.  Returns (x, {"self": cache} or None)."""
+    """One pre-norm decoder layer of ``kind`` (mixer, ffn).  ``policy``
+    is already depth-resolved; None runs dense.  Returns
+    (x, {"self": cache} or None)."""
     if policy is None:
         policy = sparse_linear.DENSE
     sp = sp or {}
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    h, nc = attn_apply(p["attn"], h, cfg, sp.get("attn"),
+    h, nc = attn_apply(p["attn"], h, cfg, kind[0], sp.get("attn"),
                        (cache or {}).get("self"), positions, mode, slot=slot,
                        policy=policy, token_weights=token_weights)
     x = x + h
@@ -199,11 +246,11 @@ def run_groups(groups, x, cfg: ModelConfig, *, mode="train", caches=None,
         gsp = sp[gi] if sp is not None else None
         made = [[] for _ in pattern]
         for r in range(reps):
-            for j, _kind in enumerate(pattern):
+            for j, kind in enumerate(pattern):
                 lpol = policy.resolve_depth(depth) if policy is not None \
                     else None
                 x, nc = layer_apply(
-                    _index(gp[f"l{j}"], r), x, cfg,
+                    _index(gp[f"l{j}"], r), x, cfg, kind,
                     _index(gsp[f"l{j}"], r) if gsp is not None else None,
                     _index(gc[j], r) if gc is not None else None,
                     positions, mode, slot=slot, policy=lpol,
@@ -238,9 +285,7 @@ def lm_logits(params, x, cfg: ModelConfig):
         logits = torch.mm(x2, w, out_dtype=torch.float32)
     else:
         logits = x2.float() @ w.float()
-    if cfg.logit_softcap:
-        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits.reshape(B, S, -1)
+    return softcap(logits, cfg.logit_softcap).reshape(B, S, -1)
 
 
 def forward(params, cfg: ModelConfig, *, tokens, mode="train", caches=None,

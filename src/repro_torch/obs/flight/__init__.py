@@ -48,6 +48,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import threading
 import weakref
 from typing import Any, Dict, List, Optional
 
@@ -214,8 +215,8 @@ class FlightRecorder:
                    CLI (arch, reduced, seed, ladder_path, ...).
 
     The engine thread appends while the gateway's thread may read: every
-    reader copies the ring first (:meth:`_snapshot`), retrying the copy
-    if an append lands in the middle of it.
+    reader copies the ring first (:meth:`_snapshot`), under the lock that
+    each append takes.
     """
 
     def __init__(self, capacity: int = 4096, sink: Optional[str] = None,
@@ -231,6 +232,10 @@ class FlightRecorder:
         self.meta = dict(meta or {})
         self._ring = collections.deque(maxlen=capacity)
         self.count = 0
+        # the ring and the count change together, under this lock, so a
+        # reader on another thread (the gateway's debug handler) copies a
+        # ring whose last record is record ``count - 1``
+        self._lock = threading.Lock()
         self.dumps: List[str] = []
         self._header: Optional[dict] = None
         self._attached = False
@@ -275,8 +280,9 @@ class FlightRecorder:
     # record kinds
     # ------------------------------------------------------------------
     def _append(self, rec: dict) -> None:
-        self._ring.append(rec)
-        self.count += 1
+        with self._lock:
+            self._ring.append(rec)
+            self.count += 1
         if self._fh is not None:
             self._fh.write(json.dumps(rec) + "\n")
             self._fh.flush()
@@ -328,19 +334,11 @@ class FlightRecorder:
     # dump-on-trigger
     # ------------------------------------------------------------------
     def _snapshot(self) -> tuple:
-        """(ring copy, count) consistent with each other.  Copying a
-        deque that another thread appends to can raise "deque mutated
-        during iteration"; the copy is retried until one pass sees no
-        append (the engine thread appends a few records per step, so
-        this ends at once)."""
-        while True:
-            count = self.count
-            try:
-                records = list(self._ring)
-            except RuntimeError:
-                continue
-            if self.count == count:
-                return records, count
+        """(ring copy, count) consistent with each other: taken under the
+        lock ``_append`` holds, so the engine thread cannot append between
+        the two reads or while the deque is copied."""
+        with self._lock:
+            return list(self._ring), self.count
 
     def dump(self, reason: str) -> Optional[str]:
         """Write the ring's current contents to

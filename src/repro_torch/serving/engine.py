@@ -13,8 +13,15 @@ position past every reachable one.
 
 Prefill strategies: ``"chunked"`` (fixed-size chunks written straight
 into the pool slot) and ``"whole"`` (one whole-prompt forward, batched
-over same-length prompts, then inserted into the pool); ``"auto"``
-resolves to chunked for the dense-attention archs the port serves.
+over same-length prompts, then inserted into the pool: rolled into the
+window on ``local`` layers).  ``"auto"`` resolves as the reference does:
+chunked when every mixer is ``attn`` or ``global``, whole otherwise
+(gemma2_2b and gemma3_4b, whose ``local`` layers keep rolling-window
+caches).  Chunked prefill, speculative decoding, the prefix cache,
+preemption and the quality probe need full-length caches, and are
+refused on a whole-strategy arch with the reference's exception types.
+Whole-prompt prefill runs eagerly (the reference compiles it per prompt
+length); its kernel launches count once each in the wrappers' counts.
 
 Adaptive serving: instead of one policy the engine can serve a
 :class:`repro_torch.sparsity.PolicyLadder` — calibrated policies at
@@ -292,8 +299,10 @@ class Engine:
         if ecfg.slo is not None:
             self.controller = AdaptiveController(
                 len(self._rung_policies), ecfg.slo, initial_rung=self._rung)
+        mixers = {m for m, _ in cfg.layer_kinds()}
+        chunkable = M.chunkable(cfg)
         if ecfg.spec is not None:
-            self._check_spec(ecfg)
+            self._check_spec(ecfg, mixers, chunkable)
         self.pool_len = ecfg.pool_len
         self.pool = SlotKVPool(cfg, ecfg.max_slots, self.pool_len,
                                self.device)
@@ -310,8 +319,14 @@ class Engine:
         self.states: Dict[int, RequestState] = {}
         self._next_id = 0
         self._closed = False
-        self.prefill_strategy = ("chunked" if ecfg.prefill_strategy == "auto"
-                                 else ecfg.prefill_strategy)
+        if ecfg.prefill_strategy == "auto":
+            self.prefill_strategy = "chunked" if chunkable else "whole"
+        else:
+            if ecfg.prefill_strategy == "chunked" and not chunkable:
+                raise ValueError(
+                    f"chunked prefill needs plain-attention mixers, got "
+                    f"{mixers}")
+            self.prefill_strategy = ecfg.prefill_strategy
         self.prefix_cache: Optional[PrefixCache] = None
         if ecfg.prefix_cache:
             self._check_prefix_cache()
@@ -350,7 +365,8 @@ class Engine:
                 or self.obs.quality is not None:
             self.warmup()
 
-    def _check_spec(self, ecfg: EngineConfig) -> None:
+    def _check_spec(self, ecfg: EngineConfig, mixers: set,
+                    chunkable: bool) -> None:
         """The reference's preconditions of speculative decoding."""
         spec = ecfg.spec
         if self.ladder is None:
@@ -362,6 +378,12 @@ class Engine:
                 "spec and slo are mutually exclusive: the spec "
                 "controller adapts gamma/drafter from acceptance, and "
                 "the verifier rung is pinned")
+        if not chunkable:
+            raise ValueError(
+                "speculative decoding needs plain-attention mixers "
+                f"(got {mixers}): the verify forward reuses the "
+                "chunked write-in-place path and rollback needs "
+                "full-length caches")
         if spec.drafter_rung >= len(self.ladder):
             raise ValueError(
                 f"drafter_rung {spec.drafter_rung} outside the "
@@ -575,7 +597,9 @@ class Engine:
         """The kernel launches that ran over a span whose wrapper counts
         are ``counts``, where the span holds every build and step of this
         engine: each launch recorded in a capture taken once per replay
-        (:func:`repro_torch.serving.graphs.launches`)."""
+        (:func:`repro_torch.serving.graphs.launches`).  Eager passes (a
+        whole-prompt prefill, a step's warm call) are in ``counts``
+        once each already."""
         steps = [s for s in self._step_kinds() if s is not None]
         if self.obs.quality is not None:
             steps.extend(self.obs.quality.steps())

@@ -27,8 +27,10 @@ side stream (library build, cuBLAS handles, allocator), with inactive
 inputs that write only the pool's slack, past every position a request
 can hold: a decode step the scratch position, a chunk the ``C``
 positions from ``max_len``, a verify the last ``gamma + 1`` positions.
-A build in the middle of serving therefore never touches a live
-request's cache.  The steps never run at once, so every graph of an
+A rolling-window leaf (a ``local`` layer) has no slack: there the decode
+warm call's write lands on a live slot, so the decode build restores
+that column after it.  A build in the middle of serving therefore never
+changes a live request's cache.  The steps never run at once, so every graph of an
 engine shares one memory pool (:class:`GraphSpace`).
 
 A capture or a replay that fails raises; nothing falls back to eager.
@@ -181,12 +183,32 @@ def launches(counts: Dict[str, int], *steps: _Steps) -> Dict[str, int]:
     return out
 
 
+def scratch_columns(caches, scratch_pos: int) -> list:
+    """Views of the one time column of every cache leaf that a decode
+    step with every slot inactive writes: ``scratch_pos``, or
+    ``scratch_pos % T`` in a leaf of T < the pool length (a ``local``
+    layer's rolling window, ``cache_write_kv(rolling=True)``).  In a full
+    length leaf that column is scratch; in a rolling one it is a live
+    position of every slot whose request has passed the window."""
+    out = []
+    for group in caches:
+        for entry in group:
+            k, v = entry["self"]["k"], entry["self"]["v"]
+            T = k.shape[-1]
+            c = scratch_pos % T
+            out.extend((k[..., c], v[..., c, :]))
+    return out
+
+
 class DecodeSteps(_Steps):
     """One batched slot-decode step per rung.
 
     ``step`` is ``api.make_slot_decode_step(cfg)``; ``rungs`` lists each
     rung's (decode-phase policy, sp tree).  Inactive slots write
-    ``scratch_pos``."""
+    ``scratch_pos``, and in a rolling-window leaf its slot modulo the
+    window, which may hold a live request's position: so a build on the
+    card keeps a copy of those columns (:func:`scratch_columns`, a few
+    KB per layer) and puts them back after its warm call."""
 
     def __init__(self, step, params, caches, rungs: Sequence[tuple],
                  max_slots: int, scratch_pos: int, space: GraphSpace):
@@ -227,6 +249,16 @@ class DecodeSteps(_Steps):
         logits = self._eager(rung, self._tokens, self._positions,
                              self._active)
         return logits, torch.argmax(logits, -1)
+
+    def build(self, i: int) -> None:
+        if self.built(i) or not self.space.cuda:
+            return super().build(i)
+        cols = scratch_columns(self._caches, self._scratch_pos)
+        saved = [c.clone() for c in cols]
+        super().build(i)
+        with torch.no_grad():
+            for c, kept in zip(cols, saved):
+                c.copy_(kept)
 
     def __call__(self, rung: int, tokens: np.ndarray, positions: np.ndarray,
                  active: np.ndarray):
@@ -438,14 +470,14 @@ class ReconSteps(_Steps):
         block_io = []
         for dl in layers:
             block_io.append(x)
-            x, _ = M.layer_apply(dl.params, x, cfg, None, None, None,
-                                 "train")
+            x, _ = M.layer_apply(dl.params, x, cfg, dl.kind, None, None,
+                                 None, "train")
         refs = block_io[1:] + [x]
         errs, feats = [], []
         for d, dl in enumerate(layers):
             x_in = block_io[d]
-            y, _ = M.layer_apply(dl.params, x_in, cfg, per_depth[d], None,
-                                 None, "train",
+            y, _ = M.layer_apply(dl.params, x_in, cfg, dl.kind,
+                                 per_depth[d], None, None, "train",
                                  policy=self._mask.resolve_depth(d))
             errs.append(torch.mean(torch.square(y.float()
                                                 - refs[d].float())))

@@ -3,7 +3,11 @@
 
 One fixed ``(max_slots, max_len)`` cache tree is allocated up front from
 ``api.cache_schema`` and lives for the engine's lifetime; requests borrow
-a slot (the batch index) and return it on completion.  The forward
+a slot (the batch index) and return it on completion.  Each leaf keeps
+its own time length: ``max_len``, or a ``local`` layer's window where
+that is shorter, into which ``insert`` copies a rolled prefill cache
+whole.  A pool with such a leaf cannot roll back, extract or write
+prefix segments (the reference's precondition, ``can_cache_prefix``).  The forward
 writes decode, chunked-prefill and verify K/V into the pool tensors in
 place (where the reference donates the pool through each jitted step).
 Rollback truncates rejected draft positions out of the pool

@@ -8,6 +8,9 @@ test, never at import).  On a machine with one, without JAX:
 
 Tolerance: kernel and plain version both upcast to f32 exactly and
 accumulate in f32, so they differ only in summation order (1e-4)."""
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,11 @@ from repro_torch.serving import Engine, EngineConfig
 from repro_torch.sparsity import SparsityPolicy
 
 pytestmark = pytest.mark.gpu
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -58,6 +66,40 @@ def test_kernels_match_plain_versions(dev, B, n, m, blk, dtype):
     torch.testing.assert_close(
         y, ref.ref_sparse_matmul_per_seq(xm, w, ids, blk), rtol=1e-4,
         atol=1e-4)
+
+
+def test_gemma2_whole_prefill_engine_on_card_matches_cpu(dev):
+    """Reduced gemma2_2b (window 32), its decode graph built at the first
+    decode step while the requests' windows are live: the build's warm
+    call writes the scratch slot of every rolling window and puts it
+    back, so greedy tokens equal the CPU's.  A sparse whole-prompt pass
+    launches each kernel once per projection, eagerly."""
+    cfg = reduced(get_config("gemma2_2b"))
+    params = chip_smoke.scale_gemma_weights(
+        api.init_model(cfg, 0, device="cpu"))
+    sp = default_sp_stacked(params, cfg, keep_frac=0.5, tau=float("-inf"))
+    pol = SparsityPolicy.uniform("pallas", k_max_frac=0.5, block=16)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 256, n) for n in (40, 70, 70)]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        K.reset_launch_counts()
+        eng = Engine(
+            P.tree_map(lambda t, d=d: t.to(d), params), cfg,
+            EngineConfig(max_slots=3, max_len=128, prefill_chunk=16,
+                         policy=pol, prefill_dense_frac=0.0),
+            P.tree_map(lambda t, d=d: t.to(d), sp), device=d)
+        assert eng.prefill_strategy == "whole"
+        for p in prompts:
+            eng.submit(p, 24)
+        outs.append(eng.run())
+        if d.type == "cuda":
+            per = 7 * cfg.num_layers
+            passes = eng.stats.prefill_chunks + eng.stats.decode_steps + 1
+            assert eng.stats.prefill_chunks == 2       # 40, then 70 x 2
+            assert eng.launches(K.launch_counts)["score_select"] == \
+                per * passes
+    assert outs[0] == outs[1]
 
 
 def test_engine_on_card_matches_cpu_and_counts_launches(dev):
