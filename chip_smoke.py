@@ -40,12 +40,21 @@ In order, it:
    gemma2_2b's seven projection shapes (B = 8 and 32), with a
    per-decode-layer summary, and held (not timed) at the row counts of
    phase 16's whole-prompt prefills (64-448, 4314, 4430 and 2 x 4326
-   rows), tau -inf and finite, no row weights;
+   rows), tau -inf and finite, no row weights.  Both are held and timed
+   at granite_moe_3b_a800m's four attention shapes (B = 8, 32), and the
+   expert-batched ``score_select_experts`` and
+   ``sparse_matmul_shared_experts`` at its three expert shapes (48
+   experts, R = 8 and 9 rows each, bf16, tau -inf and finite): xm
+   bit-equal and ids equal or tied per expert, the pad experts' zero rows
+   giving ids 0..kb-1, the matmul within the tolerance, two launches
+   bit-equal, timed beside the plain versions and dense ``torch.bmm``;
 4. checks a reduced llama31_8b on the card against the same model on the
    CPU (plain kernel versions): forward logits and served greedy tokens;
    then a reduced gemma2_2b (f32, window 32) the same way: prefill logits
    and rolled caches over 80 tokens, and the tokens of a whole-prefill
-   ``pallas`` engine serving prompts past the window;
+   ``pallas`` engine serving prompts past the window; then a reduced
+   granite_moe_3b_a800m with 20 experts padded to 32: prefill logits and
+   the tokens of a chunked ``pallas`` engine;
 5. serves full-width llama31_8b (32 layers, d_model 4096, bf16, random
    weights from a fixed seed) through the port's ``Engine``: 12 requests
    with ragged prompts of 64-448 tokens, 32 new tokens each, dense and
@@ -192,10 +201,26 @@ In order, it:
    positions, and ``serve --arch gemma2_2b --reduced`` must exit 0.
    Prints decode tok/s, p50/p95, TTFT p50, whole-prefill ms per prompt
    length, device ms per traced decode step and the phase's wall time;
-17. prints one JSON line describing every kernel, then, as its last line,
+17. serves full-width granite_moe_3b_a800m (32 layers, d_model 1536, 24
+   heads with 8 KV heads of 64, 40 experts padded to 48, top-8, expert
+   d_ff 512, bf16, random weights from SEED) on phase 5's trace: dense,
+   ``pallas``, ``pallas``, dense (uncalibrated), each warmed first.  Each
+   run must resolve the ``chunked`` strategy and build no decode or chunk
+   step after warmup; each sparse pass must launch ``score_select`` and
+   ``sparse_matmul_shared`` 128 times (32 layers x 4 attention
+   projections) and each ``_experts`` kernel 96 times (32 x 3
+   expert-batched projections), 224 launches of each kernel in all; the
+   dense runs must repeat their tokens and the captured decode step must
+   equal the eager one.  Prints decode tok/s, p50/p95, TTFT p50, chunk
+   p50, the capacity drops per chunk, device ms per traced decode step,
+   the top ops of one eager decode step, and runs ``serve --arch
+   granite_moe_3b_a800m --mode pallas`` at full width (exit 0);
+18. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
-   run; those of ``sparse_matmul_per_seq`` from phase 3's
+   run (whose llama31_8b decode layer their times are), those of the
+   ``_experts`` kernels from phase 17's first ``pallas`` run, and those
+   of ``sparse_matmul_per_seq`` from phase 3's
    ``wisparse_project(per_seq=True)`` calls, since no serving path
    reaches that kernel.
 
@@ -238,6 +263,15 @@ GEMMA_LAYER = [("attn/wq", 2304, 2048), ("attn/wk", 2304, 1024),
                ("attn/wv", 2304, 1024), ("attn/wo", 2048, 2304),
                ("mlp/wi_gate", 2304, 9216), ("mlp/wi_up", 2304, 9216),
                ("mlp/wo", 9216, 2304)]
+# granite_moe_3b_a800m: its attention projections (24 heads and 8 KV
+# heads of 64) and its expert projections, each launched once for all 48
+# experts (40 routed + 8 pad), 8 rows in decode (8 slots x capacity 1)
+# and 9 in a 32-token chunk (capacity 9)
+GRANITE_ATTN = [("attn/wq", 1536, 1536), ("attn/wk", 1536, 512),
+                ("attn/wv", 1536, 512), ("attn/wo", 1536, 1536)]
+GRANITE_EXPERTS = [("moe/wi_gate", 1536, 512), ("moe/wi_up", 1536, 512),
+                   ("moe/wo", 512, 1536)]
+GRANITE_E = 48
 BLK = 128
 KEEP = 0.5
 # Tolerances.  Kernel and plain version both upcast their inputs to f32
@@ -626,6 +660,129 @@ def main_path_kernels(K, ref, build, dev, rates, layer=LAYER,
     return rows, errs
 
 
+def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
+    """The expert-batched ``score_select`` and ``sparse_matmul_shared`` at
+    granite_moe_3b_a800m's three expert shapes, 48 experts, each R of
+    ``rows`` (8 decode rows, 9 of a 32-token chunk), bf16, alpha 1,
+    k_frac 0.5, keep_frac 0.5 and 0.375, tau -inf (the uncalibrated
+    runs) and finite (a quarter of the mean g).  Experts 40-47 (the pad
+    experts, which no token chooses) have zero rows.  Per expert: xm
+    bit-equal to the plain version, ids equal or tied within the
+    tolerance (``check_select``), the matmul within 1e-4 + 1e-4 |ref|
+    on the kernel's own kept blocks; two launches of each bit-equal.
+    Timed at tau -inf by CUDA-graph replay (the weights rotated through
+    copies beyond L2) beside the plain versions, dense ``torch.bmm`` and
+    the bound (bytes over the card's memory rate)."""
+    out = []
+    errs = {"score_select": 0.0, "sparse_matmul_shared": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    E = GRANITE_E
+    alpha = torch.tensor(1.0, device=dev)
+    for R in rows:
+        for role, n, m in GRANITE_EXPERTS:
+            x = torch.randn(E, R, n, device=dev, generator=gen)
+            x[40:] = 0
+            x = x.to(torch.bfloat16)
+            w = (torch.randn(E, n, m, device=dev, generator=gen) * 0.02).to(
+                torch.bfloat16)
+            g = torch.sqrt((w.float() ** 2).sum(2))
+            nb = n // BLK
+            kb = round(nb * KEEP)
+            for tau in (0.25 * g.mean(), torch.tensor(-math.inf, device=dev)):
+                for keep in (0.375, KEEP):
+                    kf = torch.tensor(keep, device=dev)
+                    name = f"score_select experts {role} R={R} " \
+                        f"tau={float(tau):.3g} keep={keep}"
+                    got = K.score_select_experts(x, g, alpha, tau, kf, kb=kb,
+                                                 blk=BLK)
+                    torch.cuda.synchronize()
+                    want = ref.ref_score_select_experts(x, g, alpha, tau, kf,
+                                                        BLK, kb)
+                    unranked = ref.ref_score_mask_experts(x, g, alpha, tau,
+                                                          BLK)[0]
+                    for e in range(E):
+                        errs["score_select"] = max(
+                            errs["score_select"], check_select(
+                                f"{name} expert {e}",
+                                tuple(t[e] for t in got),
+                                tuple(t[e] for t in want),
+                                rank_limit(keep, nb, kb),
+                                lambda e=e: unranked[e]))
+                    if got[1][40:].tolist() != [list(range(kb))] * (E - 40):
+                        raise AssertionError(f"{name}: the zero experts' ids "
+                                             f"{got[1][40:].tolist()}")
+                    bit_equal(name, lambda: K.score_select_experts(
+                        x, g, alpha, tau, kf, kb=kb, blk=BLK))
+                xk, idx, _ = got                    # keep_frac 0.5
+                y = K.sparse_matmul_shared_experts(xk, w, idx, blk=BLK)
+                torch.cuda.synchronize()
+                mname = f"sparse_matmul_shared experts {role} R={R} " \
+                    f"tau={float(tau):.3g}"
+                errs["sparse_matmul_shared"] = max(
+                    errs["sparse_matmul_shared"], check_close(
+                        mname, y, ref.ref_sparse_matmul_shared_experts(
+                            xk, w, idx, BLK)))
+                bit_equal(mname, lambda: K.sparse_matmul_shared_experts(
+                    xk, w, idx, blk=BLK))
+            # timed at tau -inf, keep_frac 0.5 (the served runs' sp tree)
+            copies = max(1, math.ceil(200e6 / w.nbytes))
+            ws = [w] + [w.clone() for _ in range(copies - 1)]
+            t_sel = graph_ms(lambda i: K.score_select_experts(
+                x, g, alpha, tau, kf, kb=kb, blk=BLK))
+            t_sel_plain = graph_ms(lambda i: ref.ref_score_select_experts(
+                x, g, alpha, tau, kf, BLK, kb))
+            t_mm = graph_ms(lambda i: K.sparse_matmul_shared_experts(
+                xk, ws[i % copies], idx, blk=BLK))
+            t_mm_plain = graph_ms(lambda i: ref.ref_sparse_matmul_shared_experts(
+                xk, ws[i % copies], idx, BLK))
+            t_bmm = graph_ms(lambda i: torch.bmm(x, ws[i % copies]))
+            del ws
+            # x read, xm written, g, the three scalars, bs and idx
+            sel_bytes = 2 * E * R * n * 2 + E * n * 4 + 12 + E * (nb + kb) * 4
+            sel_bound, sel_by = bound_ms(sel_bytes, 6.0 * E * R * n,
+                                         torch.float32, rates)
+            # the kept x blocks and weight rows of every expert, the ids, y
+            mm_bytes = E * (R * kb * BLK * 2 + kb * BLK * m * 2 + kb * 4
+                            + R * m * 4)
+            mm_bound, mm_by = bound_ms(mm_bytes, 2.0 * E * R * kb * BLK * m,
+                                       torch.bfloat16, rates)
+            plan = K.launch_plan(R, n, m, kb, BLK, False, 2, E)
+            out.append({
+                "R": R, "role": role, "E": E, "n": n, "m": m, "kb": kb,
+                "score_select": {"ms": t_sel, "plain_ms": t_sel_plain,
+                                 "library_ms": None, "bound_ms": sel_bound,
+                                 "bound_by": sel_by},
+                "sparse_matmul_shared": {
+                    "ms": t_mm, "plain_ms": t_mm_plain, "library_ms": t_bmm,
+                    "bound_ms": mm_bound, "bound_by": mm_by,
+                    "splits": plan.splits, "blocks": math.prod(plan.grid)}})
+            print(f"  experts E={E} R={R} {role:12s} n={n:5d} m={m:5d} "
+                  f"kb={kb:2d} | score_select {t_sel * 1e3:7.2f} us (plain "
+                  f"{t_sel_plain * 1e3:8.2f}, bound {sel_bound * 1e3:5.2f}) | "
+                  f"sparse_matmul_shared {t_mm * 1e3:7.2f} us (plain "
+                  f"{t_mm_plain * 1e3:8.2f}, torch.bmm dense "
+                  f"{t_bmm * 1e3:7.2f}, bound {mm_bound * 1e3:6.2f} = "
+                  f"{100 * mm_bound / t_mm:5.1f}%, grid {plan.grid})")
+            del x, w
+    for R in rows:
+        per = [r for r in out if r["R"] == R]
+        line = f"granite per layer, 3 expert-batched projections, R={R}:"
+        for name in ("score_select", "sparse_matmul_shared"):
+            tot = {k: sum(r[name][k] for r in per)
+                   for k in ("ms", "plain_ms", "bound_ms")}
+            lib = [r[name]["library_ms"] for r in per]
+            line += (f" {name} {tot['ms'] * 1e3:7.2f} us (plain "
+                     f"{tot['plain_ms'] * 1e3:8.2f}"
+                     + ("" if lib[0] is None else
+                        f", torch.bmm dense {sum(lib) * 1e3:7.2f}")
+                     + f", bound {tot['bound_ms'] * 1e3:6.2f});")
+        print(line)
+    print(f"expert kernels: 48 experts x granite's 3 expert shapes x R = "
+          f"{list(rows)} x 2 taus agree with their plain versions (max abs "
+          f"err {errs})")
+    return out, errs
+
+
 def whole_prefill_kernels(K, ref, dev, rows, layer=GEMMA_LAYER) -> dict:
     """``score_select`` and then ``sparse_matmul_shared`` on its kept
     blocks at every B of ``rows`` (phase 16's whole-prompt prefills, up
@@ -986,12 +1143,14 @@ def reduced_model_check(dev) -> None:
 
 
 def scale_gemma_weights(params, factor: float = GEMMA_WEIGHT_SCALE):
-    """Every attention and MLP weight of a port params tree times
-    ``factor``, in place (see GEMMA_WEIGHT_SCALE); returns the tree."""
+    """Every attention, MLP and MoE (router and expert) weight of a port
+    params tree times ``factor``, in place (see GEMMA_WEIGHT_SCALE; a
+    reduced granite, whose head is tied too, emits its last prompt token
+    forever at the init); returns the tree."""
     for group in params["groups"]:
         for layer in group.values():
-            for part in ("attn", "mlp"):
-                for w in layer[part].values():
+            for part in ("attn", "mlp", "moe"):
+                for w in layer.get(part, {}).values():
                     w.mul_(factor)
     return params
 
@@ -1050,6 +1209,59 @@ def reduced_gemma_check(dev) -> None:
           f"({len({t for ts in outs[0].values() for t in ts})} distinct)")
 
 
+def reduced_granite_check(dev) -> None:
+    """Reduced granite_moe_3b_a800m with 20 experts, top-4 (padded to 32:
+    12 pad experts, as the full width pads 40 to 48; f32;
+    ``scale_gemma_weights``) on the card against the CPU: prefill logits
+    over 40 tokens within LOGIT_ATOL, and the tokens a chunked
+    ``pallas`` engine serves (prompts of 20, 9 and 33 tokens: partial
+    last chunks, whose pad rows route; 4 slots, one free)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.models import api, model as M, params as P
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.sparsity import SparsityPolicy
+
+    cfg = dataclasses.replace(reduced(get_config("granite_moe_3b_a800m")),
+                              num_experts=20, num_experts_per_tok=4)
+    cpu = torch.device("cpu")
+    params_c = scale_gemma_weights(api.init_model(cfg, SEED, device=cpu))
+    sp_c = default_sp_stacked(params_c, cfg, keep_frac=KEEP,
+                              tau=float("-inf"))
+    params_g = P.tree_map(lambda t: t.to(dev), params_c)
+    sp_g = P.tree_map(lambda t: t.to(dev), sp_c)
+    pol = SparsityPolicy.uniform("pallas", k_max_frac=KEEP, block=16)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    with torch.no_grad():
+        lg, _ = M.forward(params_g, cfg, tokens=toks.to(dev), mode="prefill",
+                          sp=sp_g, policy=pol)
+        lc, _ = M.forward(params_c, cfg, tokens=toks, mode="prefill",
+                          sp=sp_c, policy=pol)
+    err = max_err(lg.cpu(), lc)
+    if not err <= LOGIT_ATOL:
+        raise AssertionError(f"reduced granite logits: card vs CPU err {err}")
+    outs = []
+    prompts = [rng.integers(0, cfg.vocab_size, p) for p in (20, 9, 33)]
+    for d, params, sp in ((dev, params_g, sp_g), (cpu, params_c, sp_c)):
+        eng = Engine(params, cfg, EngineConfig(
+            max_slots=4, max_len=64, prefill_chunk=16, policy=pol), sp,
+            device=d)
+        if eng.prefill_strategy != "chunked":
+            raise AssertionError(f"reduced granite resolved to "
+                                 f"{eng.prefill_strategy!r}")
+        for p in prompts:
+            eng.submit(p, 16)
+        outs.append(eng.run())
+    if outs[0] != outs[1]:
+        raise AssertionError(f"reduced granite engine tokens: card {outs[0]} "
+                             f"!= CPU {outs[1]}")
+    print(f"reduced granite_moe_3b_a800m (20 experts, 12 pad) on the card vs "
+          f"CPU: prefill logits max abs err {err:.2e} (<= {LOGIT_ATOL}); "
+          f"chunked pallas engine tokens equal "
+          f"({len({t for ts in outs[0].values() for t in ts})} distinct)")
+
+
 # ---------------------------------------------------------------------------
 # phase 5: full-width serving
 # ---------------------------------------------------------------------------
@@ -1089,7 +1301,7 @@ def serving_trace(cfg) -> dict:
 
 def serve_once(name, params, cfg, policy, sp, trace, dev, K, ladder=None,
                slo=None, spec=None, eager_chunks=False,
-               window=WINDOW) -> dict:
+               window=WINDOW, warm=False) -> dict:
     """One run of the trace through a fresh ``Engine`` (from ``policy``
     and ``sp``, or from ``ladder`` under ``slo`` or ``spec``), with the
     kernels' launch counts zeroed just before the engine is built and
@@ -1102,7 +1314,9 @@ def serve_once(name, params, cfg, policy, sp, trace, dev, K, ladder=None,
     before each such capture, and per eager sparse chunk; a dense run
     launches none.  ``eager_chunks`` runs the prefill chunks through the
     plain chunk step instead of their graphs (the path before the chunk
-    step was captured), for the before/after comparison."""
+    step was captured), for the before/after comparison.  ``warm``
+    builds every step before the trace (``Engine.warmup``) and checks
+    that the run builds no decode or chunk step after it."""
     from repro_torch import obs
     from repro_torch.serving import Engine, EngineConfig
     from repro_torch.serving.metrics import percentile
@@ -1114,6 +1328,8 @@ def serve_once(name, params, cfg, policy, sp, trace, dev, K, ladder=None,
         device=dev, ladder=ladder)
     if eager_chunks:
         eng._chunk = EagerChunks(eng._chunk)
+    if warm:
+        eng.warmup()
     for p in trace["prompts"]:
         eng.submit(p, gen)
     t0 = obs.now()
@@ -1143,6 +1359,15 @@ def serve_once(name, params, cfg, policy, sp, trace, dev, K, ladder=None,
         res["residency"] = list(c.residency)
         res["token_rungs"] = {rid: list(rs.token_rungs)
                               for rid, rs in eng.states.items()}
+    res["strategy"] = eng.prefill_strategy
+    res["distinct_tokens"] = len({t for ts in out.values() for t in ts})
+    if warm:
+        builds = (eng.decode_retraces_after_warmup,
+                  eng.chunk_retraces_after_warmup)
+        if builds != (0, 0):
+            raise AssertionError(f"{name}: (decode, chunk) builds after "
+                                 f"warmup {builds}")
+        res["builds_after_warmup"] = list(builds)
     if eng.controller is not None or eng.spec_decoder is not None:
         res["decode_retraces_after_warmup"] = \
             eng.decode_retraces_after_warmup
@@ -1172,13 +1397,27 @@ def serve_once(name, params, cfg, policy, sp, trace, dev, K, ladder=None,
     return res
 
 
+def pass_launches(cfg) -> dict:
+    """Launches of each kernel in one sparse pass of ``cfg``: 4 attention
+    projections and 3 FFN ones per layer, those of a MoE layer each one
+    expert-batched launch for all its experts (granite_moe_3b_a800m: 128
+    of ``score_select`` and of ``sparse_matmul_shared``, 96 of each
+    ``_experts`` kernel; llama31_8b: 224 and 0)."""
+    moe = sum(1 for _, ffn in cfg.layer_kinds() if ffn == "moe")
+    plain = 7 * cfg.num_layers - 3 * moe
+    return {"score_select": plain, "sparse_matmul_shared": plain,
+            "score_select_experts": 3 * moe,
+            "sparse_matmul_shared_experts": 3 * moe}
+
+
 def check_launches(name, eng, ladder, counts, res, cfg) -> None:
     """The launches that ran in ``eng``'s run (``counts`` read just
     after it, zeroed just before the engine was built) against the
-    sparse passes it executed; records them in ``res``."""
+    sparse passes it executed, kernel by kernel (:func:`pass_launches`);
+    records them in ``res``."""
     launches = eng.launches(counts)
-    per_pass = 7 * cfg.num_layers
-    served = ("score_select", "sparse_matmul_shared")
+    per_pass = pass_launches(cfg)
+    served = tuple(per_pass)
     g, ch = eng.decode_graphs, eng.chunk_graphs
     # (steps object, is each key's step sparse)
     policies = ladder.policies if ladder is not None else [eng.policy]
@@ -1192,8 +1431,8 @@ def check_launches(name, eng, ladder, counts, res, cfg) -> None:
         for i, sp_i in enumerate(sparse):
             if not steps.built(i):
                 continue
-            want_cap = per_pass if sp_i else 0
             for k in served:
+                want_cap = per_pass[k] if sp_i else 0
                 if steps.captured[i][k] != want_cap:
                     raise AssertionError(
                         f"{name}: {type(steps).__name__} {steps.keys[i]}'s "
@@ -1206,11 +1445,11 @@ def check_launches(name, eng, ladder, counts, res, cfg) -> None:
     eager_sparse = res["prefill_sparse_chunks"] - graph_sparse_chunks
     passes += eager_sparse
     for k in served:
-        if launches[k] != per_pass * passes:
+        if launches[k] != per_pass[k] * passes:
             raise AssertionError(
                 f"{name}: {k} launched {launches[k]} times, expected "
-                f"{per_pass * passes} = {per_pass} x {passes} sparse passes "
-                f"(graph replays and warm calls of sparse decode and "
+                f"{per_pass[k] * passes} = {per_pass[k]} x {passes} sparse "
+                f"passes (graph replays and warm calls of sparse decode and "
                 f"chunk steps, and {eager_sparse} eager sparse chunks)")
     if launches["sparse_matmul_per_seq"]:
         raise AssertionError(f"{name}: a serving run launched "
@@ -1219,6 +1458,7 @@ def check_launches(name, eng, ladder, counts, res, cfg) -> None:
         res["launches"] = {k: launches[k] for k in served}
         res["launches_counted"] = {k: counts[k] for k in served}
         res["launches_per_decode_step"] = per_pass
+        res["sparse_passes"] = passes
 
 
 class EagerChunks:
@@ -2919,8 +3159,7 @@ def quality_run(name, params, cfg, trace, ladder, dev, K, monitor) -> dict:
         raise AssertionError(f"{name}: builds after warmup {builds}")
     res["builds_after_warmup"] = builds
     if q is not None:
-        zero = {"score_select": 0, "sparse_matmul_shared": 0,
-                "sparse_matmul_per_seq": 0}
+        zero = dict.fromkeys(K.launch_counts, 0)
         for steps in q.steps():
             if steps.builds != 1 or steps.captured != [zero]:
                 raise AssertionError(
@@ -3420,7 +3659,7 @@ def gemma_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
             max(b for _, b, _ in prefills) != 2:
         raise AssertionError(f"{name}: whole prefills {prefills}: expected "
                              "one per prompt length, one of B = 2")
-    per_pass = 7 * cfg.num_layers
+    per_pass = pass_launches(cfg)
     sparse_decode = not policy.for_phase("decode").is_dense
     prefill_phase = "prefill_sparse" if frac <= 0.0 else "prefill_dense"
     sparse_prefill = not policy.for_phase(prefill_phase).is_dense
@@ -3428,16 +3667,17 @@ def gemma_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
     passes = (g.steps[0] + 1 if sparse_decode else 0) + \
         (len(prefills) if sparse_prefill else 0)
     launches = eng.launches(counts)
-    for k in GEMMA_SERVED:
-        want_cap = per_pass if sparse_decode else 0
+    for k in per_pass:
+        want_cap = per_pass[k] if sparse_decode else 0
         if g.captured[0][k] != want_cap:
             raise AssertionError(f"{name}: the decode graph captured "
                                  f"{g.captured[0][k]} {k}, expected "
                                  f"{want_cap}")
-        if launches[k] != per_pass * passes:
+        if launches[k] != per_pass[k] * passes:
             raise AssertionError(
                 f"{name}: {k} launched {launches[k]} times, expected "
-                f"{per_pass * passes} = {per_pass} x {passes} sparse passes")
+                f"{per_pass[k] * passes} = {per_pass[k]} x {passes} sparse "
+                "passes")
     if launches["sparse_matmul_per_seq"]:
         raise AssertionError(f"{name}: sparse_matmul_per_seq launched")
     res.update({
@@ -3659,6 +3899,242 @@ def serve_gemma(dev, K) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: granite_moe_3b_a800m at full width (MoE, expert-batched kernels)
+# ---------------------------------------------------------------------------
+
+def granite_model(dev):
+    """granite_moe_3b_a800m at full width and depth, random weights from
+    SEED: 40 experts padded to 48, top-8, expert d_ff 512."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = get_config("granite_moe_3b_a800m")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.expert_d_ff, cfg.num_experts,
+            cfg.num_experts_padded, cfg.num_experts_per_tok,
+            cfg.vocab_size) == (32, 1536, 24, 8, 64, 512, 40, 48, 8, 49155)
+    t0 = obs.now()
+    params = api.init_model(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"granite_moe_3b_a800m: {n_params / 1e9:.2f}B params ({cfg.dtype}, "
+          f"48 experts computed per layer), init {obs.now() - t0:.1f} s, "
+          f"device memory {torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    return cfg, params
+
+
+def granite_run(name, params, cfg, policy, sp, trace, dev, K) -> dict:
+    """One run of phase 5's trace through a fresh, warmed ``Engine``
+    (``serve_once(warm=True)``: no decode or chunk step built after
+    warmup, the sparse prefill chunks, and the launches against the
+    sparse passes, :func:`pass_launches`: per pass 128 of each 2-D kernel
+    for 32 layers x 4 attention projections and 96 of each expert kernel
+    for 32 x 3 expert-batched ones), which must resolve ``chunked``."""
+    res = serve_once(f"granite {name}", params, cfg, policy, sp, trace, dev,
+                     K, warm=True)
+    if res["strategy"] != "chunked":
+        raise AssertionError(f"granite {name}: resolved to "
+                             f"{res['strategy']!r}, expected 'chunked'")
+    torch.cuda.empty_cache()
+    return res
+
+
+def capacity_drops(dev, cfg, params, trace) -> dict:
+    """The expert assignments that each 32-token prefill chunk drops past
+    the capacity (C = 9), summed over the 32 MoE layers, in a dense run
+    of the trace's prefills with the chunks run eagerly and
+    ``models/moe.dispatch`` wrapped to keep each chunk's overflow (a
+    diagnostic: the served runs' captured chunks cannot be observed
+    from the host).  Decode never drops (one token per group)."""
+    from repro_torch.models import moe
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.sparsity import SparsityPolicy
+
+    C = trace["ecfg"]["prefill_chunk"]
+    over = []
+    real = moe.dispatch
+
+    def recording(topk, S, cap, E):
+        disp, pos, counts = real(topk, S, cap, E)
+        if S == C and topk.shape[0] == 1:
+            over.append((counts - cap).clamp(min=0).sum())
+        return disp, pos, counts
+
+    eng = Engine(params, cfg, EngineConfig(policy=SparsityPolicy.dense(),
+                                           **trace["ecfg"]), None, device=dev)
+    eng._chunk = EagerChunks(eng._chunk)
+    moe.dispatch = recording
+    try:
+        for p in trace["prompts"]:
+            eng.submit(p, 1)
+        eng.run()
+    finally:
+        moe.dispatch = real
+    per_layer = torch.stack(over).reshape(-1, cfg.num_layers).cpu()
+    per_chunk = per_layer.sum(1).double()
+    chunks = per_chunk.numel()
+    if chunks != eng.stats.prefill_chunks:
+        raise AssertionError(f"capacity drops: {chunks} chunks recorded, "
+                             f"{eng.stats.prefill_chunks} run")
+    assigned = chunks * cfg.num_layers * C * cfg.num_experts_per_tok
+    res = {"chunks": chunks, "capacity": moe._capacity(C, cfg),
+           "dropped_per_chunk_mean": float(per_chunk.mean()),
+           "dropped_per_chunk_max": float(per_chunk.max()),
+           "dropped_share": float(per_chunk.sum()) / assigned}
+    print(f"granite capacity drops (dense, eager chunks): {chunks} chunks of "
+          f"{C} tokens at C = {res['capacity']}: "
+          f"{res['dropped_per_chunk_mean']:.1f} assignments dropped per chunk "
+          f"over {cfg.num_layers} layers (max {res['dropped_per_chunk_max']:.0f}), "
+          f"{100 * res['dropped_share']:.2f}% of the chunks' "
+          f"{cfg.num_experts_per_tok}-expert assignments")
+    del eng
+    gc.collect()
+    return res
+
+
+def granite_graph_vs_eager(dev, cfg, params, sp, trace, steps: int = 4
+                           ) -> dict:
+    """The captured decode step against the eager one, 8 prompts
+    prefilled, dense and uncalibrated ``pallas``: greedy tokens equal at
+    each of ``steps`` steps; prints the logits' max abs error and the
+    top ops of one eager decode step."""
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.sparsity import SparsityPolicy
+
+    out = {}
+    for name, pol, s in (
+            ("dense", SparsityPolicy.dense(), None),
+            ("pallas", SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
+             sp)):
+        eng = Engine(params, cfg, EngineConfig(policy=pol, **trace["ecfg"]),
+                     s, device=dev)
+        for p in trace["prompts"][:8]:
+            eng.submit(p, 64)
+        while eng.scheduler.prefilling or eng.scheduler.has_queued():
+            eng.step()
+        g = eng.decode_graphs
+        err = 0.0
+        for _ in range(steps):
+            tokens, positions, active = eng.decode_inputs()
+            if active.sum() != 8:
+                raise AssertionError(f"granite {name}: {active.sum()} active "
+                                     "slots")
+            logits = g.eager(0, tokens, positions, active)
+            want = (torch.argmax(logits, -1).cpu().numpy(),
+                    logits.float().clone())
+            nxt, logits = g(0, tokens, positions, active)
+            if not np.array_equal(want[0], nxt):
+                raise AssertionError(f"granite {name}: graph replay tokens "
+                                     f"{nxt} != eager {want[0]}")
+            err = max(err, max_err(logits.float(), want[1]))
+            eng.step()
+        out[name] = {"logits_max_abs_err": err, "steps": steps,
+                     "eager_step_top_ops": eager_step_ops(g, eng)}
+        print(f"granite graph vs eager, {name}, B=8, {steps} steps: greedy "
+              f"tokens equal; logits max abs err {err:.3g}")
+        del eng
+        gc.collect()
+    return out
+
+
+def granite_serve_cli(dev) -> dict:
+    """``python -m repro_torch.launch.serve --arch granite_moe_3b_a800m
+    --mode pallas`` at full width on the card, in a subprocess (4
+    prompts of 64 tokens, 8 new tokens each): it must exit 0."""
+    from repro_torch import obs
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = obs.now()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "granite_moe_3b_a800m", "--mode", "pallas", "--batch", "4",
+         "--prompt-len", "64", "--gen", "8"],
+        env=env, cwd=HERE, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --arch granite_moe_3b_a800m exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    print(f"serve --arch granite_moe_3b_a800m --mode pallas: exit 0 in "
+          f"{obs.now() - t0:.1f} s; {lines[-1] if lines else ''}")
+    return {"exit": proc.returncode, "wall_s": obs.now() - t0}
+
+
+def serve_granite(dev, K) -> dict:
+    """Phase 17: full-width granite_moe_3b_a800m through the port's
+    ``Engine`` on phase 5's trace: dense, ``pallas``, ``pallas``, dense
+    (uncalibrated: keep_frac = k_max_frac = 0.5, tau -inf); then the
+    capacity drops per chunk, the captured decode step against the eager
+    one, and the serve CLI at full width."""
+    from repro_torch import obs
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.launch import constants
+    from repro_torch.launch.roofline import step_costs
+    from repro_torch.serving import EngineConfig
+    from repro_torch.sparsity import SparsityPolicy
+
+    t_phase = obs.now()
+    cfg, params = granite_model(dev)
+    trace = serving_trace(cfg)
+    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
+    modes = {"dense": (SparsityPolicy.dense(), None),
+             "pallas": (SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
+                        sp)}
+    ecfg = EngineConfig(**trace["ecfg"])
+    bounds = {}
+    for name, (pol, s) in modes.items():
+        _, nbytes = step_costs(cfg, ecfg, pol, s, "decode")
+        bounds[name] = {"decode_step_gb": nbytes / 1e9,
+                        "decode_step_bound_ms": 1e3 * nbytes
+                        / constants.HBM_BW}
+    print(f"granite decode step bytes (step_costs): dense "
+          f"{bounds['dense']['decode_step_gb']:.2f} GB = "
+          f"{bounds['dense']['decode_step_bound_ms']:.2f} ms, pallas "
+          f"{bounds['pallas']['decode_step_gb']:.2f} GB = "
+          f"{bounds['pallas']['decode_step_bound_ms']:.2f} ms at 3.35 TB/s")
+    runs = {}
+    for name in ("dense", "pallas", "pallas", "dense"):
+        pol, s = modes[name]
+        res = granite_run(name, params, cfg, pol, s, trace, dev, K)
+        if name in runs and res["tokens"] != runs[name][0]["tokens"]:
+            raise AssertionError(f"granite {name}: the second run's greedy "
+                                 "tokens differ from the first's")
+        runs.setdefault(name, []).append(res)
+        print(f"granite {name} run {len(runs[name])}: {_fmt(res)}")
+    drops = capacity_drops(dev, cfg, params, trace)
+    gve = granite_graph_vs_eager(dev, cfg, params, sp, trace)
+    cli = granite_serve_cli(dev)
+    for name in ("dense", "pallas"):
+        rs = runs[name]
+        print(f"granite {name}: decode tok/s "
+              f"{rs[0]['decode_tok_s']:.1f} / {rs[1]['decode_tok_s']:.1f}, "
+              f"decode p50 {rs[0]['decode_step_p50_ms']:.2f} / "
+              f"{rs[1]['decode_step_p50_ms']:.2f} ms, p95 "
+              f"{rs[0]['decode_step_p95_ms']:.2f} / "
+              f"{rs[1]['decode_step_p95_ms']:.2f} ms, TTFT p50 "
+              f"{rs[0]['ttft_p50_ms']:.1f} / {rs[1]['ttft_p50_ms']:.1f} ms, "
+              f"chunk p50 {rs[0]['prefill_chunk_p50_ms']:.2f} / "
+              f"{rs[1]['prefill_chunk_p50_ms']:.2f} ms, device ms per traced "
+              f"decode step {rs[0]['window_step_device_ms']:.2f} / "
+              f"{rs[1]['window_step_device_ms']:.2f} (bound "
+              f"{bounds[name]['decode_step_bound_ms']:.2f}); greedy tokens "
+              "equal in both runs")
+    print(f"granite greedy tokens equal to dense at the same position: "
+          f"{agreement(runs['dense'][0], runs['pallas'][0]):.3f} (random "
+          "weights; informative only)")
+    out = {"runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
+                                      if k != "tokens"}
+                    for n, rs in runs.items() for i, r in enumerate(rs)},
+           "step_bounds": bounds, "capacity_drops": drops,
+           "graph_vs_eager": gve, "serve_cli": cli}
+    del params, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = obs.now() - t_phase
+    print(f"phase 17 took {out['wall_s']:.1f} s")
+    return out
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -3809,8 +4285,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+    card = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
 
     t_start = t0 = obs.now()
     build.library()
@@ -3828,7 +4304,7 @@ def main() -> int:
     # the data-sheet rates the kernel bounds and the quality monitor's
     # decode utilization share
     from repro_torch.launch import constants
-    rates = constants.peak_rates(name)
+    rates = constants.peak_rates(card)
     if proj["launches_per_projection"] != 3:
         raise AssertionError("a pallas projection should launch 3 kernels "
                              "(score_select, the matmul, the cast)")
@@ -3847,6 +4323,12 @@ def main() -> int:
                                       layer=GEMMA_LAYER, batches=(8, 32),
                                       v1=False)
     errs4 = whole_prefill_kernels(K, ref, dev, gemma_prefill_rows())
+    # granite_moe_3b_a800m: its attention shapes through the 2-D kernels
+    # and its expert shapes through the expert-batched ones (phase 17)
+    ga_rows, errs5 = main_path_kernels(K, ref, build, dev, rates,
+                                       layer=GRANITE_ATTN, batches=(8, 32),
+                                       v1=False)
+    ge_rows, errs6 = expert_kernels(K, ref, dev, rates)
     ps_rows, ps_err, ps_launches = per_seq_kernel(K, ref, ops, build, dev,
                                                   rates)
     layer_summary(rows, ps_rows, proj)
@@ -3854,6 +4336,7 @@ def main() -> int:
     took("3 kernels")
     reduced_model_check(dev)
     reduced_gemma_check(dev)
+    reduced_granite_check(dev)
     took("4 reduced model")
     cfg, params = full_width_model(dev)
     trace = serving_trace(cfg)
@@ -3884,6 +4367,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     gemma = serve_gemma(dev, K)
     took("16 gemma2_2b")
+    granite = serve_granite(dev, K)
+    took("17 granite_moe_3b_a800m")
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -3900,30 +4385,43 @@ def main() -> int:
         "preemption": {n: {k: v for k, v in r.items() if k not in keep}
                        for n, r in preempt_res.items()},
         "gateway": gateway_res, "quality_flight": quality_flight,
-        "gemma2_2b": {**gemma, "kernels_per_decode_layer": gemma_layer}}}))
+        "gemma2_2b": {**gemma, "kernels_per_decode_layer": gemma_layer},
+        "granite_moe_3b_a800m": {**granite, "attention_kernels": ga_rows,
+                                 "expert_kernels": ge_rows}}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
+    expert_rows = [r for r in ge_rows if r["R"] == 8]
     kernels = []
     for kname, src, line in (("score_select", "score_select.cu", 319),
                              ("sparse_matmul_shared",
                               "sparse_matmul_shared.cu", 211)):
-        per = [r[kname] for r in decode_rows]
-        lib = [p["library_ms"] for p in per]
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": f"src/repro/kernels/sparse_matmul.py:{line}",
-            "launches": results["pallas"][0]["launches"][kname],
-            "max_abs_err": max(errs[kname], errs2[kname], errs3[kname],
-                               errs4[kname]),
-            # one decode layer's 7 projections at B = 8, summed
-            "ms": sum(p["ms"] for p in per),
-            "plain_ms": sum(p["plain_ms"] for p in per),
-            "bound_ms": sum(p["bound_ms"] for p in per),
-            "bound_by": ("bytes" if all(p["bound_by"] == "bytes"
-                                         for p in per) else "operations"),
-            "library_ms": None if lib[0] is None else sum(lib),
-        })
+        for row, per, launches, err in (
+                # one llama31_8b decode layer's 7 projections at B = 8,
+                # and their launches in phase 5's first pallas run
+                (kname, [r[kname] for r in decode_rows],
+                 results["pallas"][0]["launches"][kname],
+                 max(errs[kname], errs2[kname], errs3[kname], errs4[kname],
+                     errs5[kname])),
+                # one granite decode layer's 3 expert-batched projections
+                # (48 experts, R = 8), and the expert kernel's launches in
+                # phase 17's first pallas run
+                (kname + "_experts", [r[kname] for r in expert_rows],
+                 granite["runs"]["pallas 1"]["launches"][kname + "_experts"],
+                 errs6[kname])):
+            lib = [p["library_ms"] for p in per]
+            kernels.append({
+                "name": row, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": f"src/repro/kernels/sparse_matmul.py:{line}",
+                "launches": launches,
+                "max_abs_err": err,
+                "ms": sum(p["ms"] for p in per),
+                "plain_ms": sum(p["plain_ms"] for p in per),
+                "bound_ms": sum(p["bound_ms"] for p in per),
+                "bound_by": ("bytes" if all(p["bound_by"] == "bytes"
+                                             for p in per) else "operations"),
+                "library_ms": None if lib[0] is None else sum(lib),
+            })
     per = [r for r in ps_rows if r["B"] == 8]
     kernels.append({
         "name": "sparse_matmul_per_seq", "route": "cuda",
@@ -3942,7 +4440,7 @@ def main() -> int:
     print(f"chip_smoke.py phases took {obs.now() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))
     return 0
 

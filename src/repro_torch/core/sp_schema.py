@@ -31,20 +31,21 @@ def default_sp_stacked(params, cfg: ModelConfig, keep_frac: float = 1.0,
                     sub = rec(v)
                     if sub:
                         out[k] = sub
-                elif k in SPARSIFIABLE and torch.is_tensor(v) and v.dim() == 3:
-                    # stacked weight (reps, n, m); one rep at a time keeps
-                    # the f32 temporaries at one layer's size
-                    g = torch.stack([sl.column_norms(v[r])
-                                     for r in range(v.shape[0])])
+                elif k in SPARSIFIABLE and torch.is_tensor(v) and \
+                        v.dim() in (3, 4):
+                    # stacked weight (reps, n, m), or (reps, E, n, m) with
+                    # one g per expert; one matrix at a time keeps the f32
+                    # temporaries at one expert's size
+                    g = torch.stack([
+                        sl.column_norms(v[r]) if v.dim() == 3 else
+                        torch.stack([sl.column_norms(we) for we in v[r]])
+                        for r in range(v.shape[0])])
                     ones = torch.ones(v.shape[0], dtype=torch.float32,
                                       device=v.device)
                     out[k] = {"g": g,
                               "alpha": ones * alpha,
                               "tau": ones * tau,
                               "keep_frac": ones * keep_frac}
-                elif k in SPARSIFIABLE and torch.is_tensor(v) and v.dim() > 3:
-                    raise NotImplementedError(
-                        "per-expert (MoE) sp trees come with the MoE slice")
             return out
 
         groups.append({f"l{j}": rec(gp[f"l{j}"])

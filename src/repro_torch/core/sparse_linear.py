@@ -25,8 +25,8 @@ import torch
 from repro_torch.kernels.select import topk_ids
 from repro_torch.sparsity import VALID_BACKENDS, SparsityPolicy
 
-__all__ = ["SparsityPolicy", "VALID_BACKENDS", "DENSE", "project", "scores",
-           "column_norms", "default_sp"]
+__all__ = ["SparsityPolicy", "VALID_BACKENDS", "DENSE", "project",
+           "project_experts", "scores", "column_norms", "default_sp"]
 
 # the default execution when no policy is passed: plain dense matmuls
 DENSE = SparsityPolicy.dense()
@@ -70,18 +70,58 @@ def project(x, w, sp: Optional[dict] = None, *,
         policy = DENSE
     if policy.capture is not None:
         policy.capture.record(w, x)
+    return _dispatch(x, w, sp, policy, role, token_weights=token_weights)
+
+
+def project_experts(x, w, sp: Optional[dict] = None, *,
+                    policy: Optional[SparsityPolicy] = None,
+                    role: Optional[str] = None):
+    """One expert-batched projection: x (E, R, n), w (E, n, m) -> (E, R,
+    m) in x's dtype, expert e's equal to ``project(x[e], w[e], {**sp,
+    "g": sp["g"][e]})`` under the same policy: the reference's
+    ``jax.vmap`` of ``dense()`` over a MoE layer's experts
+    (``models/moe.py``).  ``sp["g"]`` is (E, n); ``alpha``, ``tau`` and
+    ``keep_frac`` are the layer's, shared by its experts.  There are no
+    token weights: dispatch permutes and capacity-bounds the rows.  A
+    calibration capture is refused (MoE calibration is not ported yet,
+    ROADMAP Queue 1 item 1.8)."""
+    if policy is None:
+        policy = DENSE
+    if policy.capture is not None:
+        raise NotImplementedError(
+            f"{role}: calibration capture on expert projections is not "
+            "ported (MoE calibration, ROADMAP Queue 1 item 1.8)")
+    return _dispatch(x, w, sp, policy, role, experts=True)
+
+
+def _dispatch(x, w, sp, policy, role, *, token_weights=None,
+              experts: bool = False):
+    """The backends of :func:`project` (x (..., n), w (n, *out)) and, with
+    ``experts``, of :func:`project_experts` (x (E, R, n), w (E, n, m), g
+    (E, n))."""
     backend = policy.backend_at(role=role)
+    mm = torch.bmm if experts else _matmul
     if sp is None or backend == "off":
-        return _matmul(x, w)
+        return mm(x, w)
+    g = sp["g"][:, None, :] if experts else sp["g"]
     if backend == "mask":
-        s = scores(x, sp["g"], sp["alpha"])
-        m = (s >= sp["tau"]).to(x.dtype)               # Eq. 5
-        return _matmul(x * m, w)
+        m = (scores(x, g, sp["alpha"]) >= sp["tau"]).to(x.dtype)   # Eq. 5
+        return mm(x * m, w)
     if backend in ("topk_shared", "topk_block"):
-        return _topk_gather(x, w, sp, policy, backend=backend,
-                            token_weights=token_weights)
+        if experts:
+            sal = scores(x, g, sp["alpha"]).mean(1)              # (E, n)
+            return _topk_gather(x, w, sal, sp, policy, backend)
+        n_in = w.shape[0]
+        xf = x.reshape(1, -1, n_in)
+        sal = _saliency(xf[0], sp, token_weights)[None]          # (1, n)
+        y = _topk_gather(xf, w.reshape(1, n_in, -1), sal, sp, policy,
+                         backend)
+        return y[0].reshape(x.shape[:-1] + w.shape[1:])
     if backend == "pallas":
         from repro_torch.kernels import ops as kops
+        if experts:
+            return kops.wisparse_project_experts(
+                x, w, sp, block=policy.block, k_frac=policy.k_max_frac)
         return kops.wisparse_project(x, w, sp, block=policy.block,
                                      k_frac=policy.k_max_frac,
                                      token_weights=token_weights)
@@ -89,46 +129,44 @@ def project(x, w, sp: Optional[dict] = None, *,
         f"unknown sparsity backend {backend}")
 
 
-def _topk_gather(x, w, sp, policy, *, backend: str, token_weights=None):
-    """Shared-mask gather path: aggregate weight-aware scores over all
-    tokens in the call, keep the top k_max channels (static), mask ranks
-    beyond the layer's own keep_frac, gather the matching weight rows and
-    run a compact f32 matmul.
+def _topk_gather(x, w, sal, sp, policy, backend: str):
+    """Shared-mask gather path, per batch entry e of x (E, R, n), w (E, n,
+    m) and its saliency ``sal`` (E, n) aggregated over e's rows (a plain
+    projection is E = 1): keep the top k_max channels (static) in
+    ``lax.top_k`` order, mask ranks beyond the layer's own keep_frac,
+    gather the matching weight rows and run a compact f32 matmul.
 
     ``topk_block`` selects whole blocks by the *sum of the mean,
     unthresholded* saliency — a different rule from the ``pallas``
     kernels' thresholded, row-weighted block scores; both are kept as the
     reference has them."""
-    n_in = w.shape[0]
-    xf = x.reshape(-1, n_in)
-    sal = _saliency(xf, sp, token_weights)                       # (n_in,)
+    E, R, n_in = x.shape
+    m = w.shape[2]
     dev = x.device
     if backend == "topk_block":
         b = policy.block
         nb = max(n_in // b, 1)
         if n_in % b:
-            pad = nb * b + b - n_in
-            sal = torch.nn.functional.pad(sal, (0, pad))
+            sal = torch.nn.functional.pad(sal, (0, nb * b + b - n_in))
             nb += 1
-        blk = sal.reshape(nb, -1).sum(1)
+        blk = sal.reshape(E, nb, -1).sum(2)
         kb_max = max(1, round(nb * policy.k_max_frac))
-        bidx = topk_ids(blk, kb_max)
-        idx = (bidx[:, None] * b + torch.arange(b, device=dev)[None, :]
-               ).reshape(-1)
+        bidx = topk_ids(blk, kb_max)                              # (E, kb)
+        idx = (bidx[:, :, None] * b + torch.arange(b, device=dev)
+               ).reshape(E, -1)
         # the reference clamps tail-block ids to the last channel
         idx = torch.clamp(idx, max=n_in - 1)
         k_l = torch.round(sp["keep_frac"] * nb)
-        rank_ok = torch.arange(kb_max, device=dev) < k_l
-        rank_ok = rank_ok.repeat_interleave(b)
+        rank_ok = (torch.arange(kb_max, device=dev) < k_l).repeat_interleave(b)
     else:
         k_max = max(1, round(n_in * policy.k_max_frac))
-        idx = topk_ids(sal, k_max)
+        idx = topk_ids(sal, k_max)                                # (E, k)
         k_l = torch.round(sp["keep_frac"] * n_in)
         rank_ok = torch.arange(k_max, device=dev) < k_l
-    ws = w.reshape(n_in, -1).index_select(0, idx)                # (k, m)
-    xs = xf.index_select(1, idx) * rank_ok.to(x.dtype)
-    y = xs.float() @ ws.float()
-    return y.to(x.dtype).reshape(x.shape[:-1] + w.shape[1:])
+    k = idx.shape[1]
+    ws = w.gather(1, idx[:, :, None].expand(E, k, m))            # (E, k, m)
+    xs = x.gather(2, idx[:, None, :].expand(E, R, k)) * rank_ok.to(x.dtype)
+    return torch.bmm(xs.float(), ws.float()).to(x.dtype)
 
 
 def column_norms(w) -> torch.Tensor:

@@ -4,9 +4,10 @@ search (port of the JAX package's ``core/unstacked.py``).
 Calibration unstacks the layer groups into a list of per-depth layers and
 reuses the model's own ``layer_apply``, so the numerics are the serving
 forward's.  The port supports the layers its model runs (``attn``,
-``local`` and ``global`` attention with a dense MLP, each layer run as
-its own kind); encoder frames and patch embeddings raise
-``NotImplementedError``.
+``local`` and ``global`` attention with a dense MLP or a MoE FFN, each
+layer run as its own kind); encoder frames and patch embeddings raise
+``NotImplementedError``, and so does a calibration capture on a MoE
+layer's expert projections.
 
 The capture hook keys activations on ``id(w)``, and ``tensor[r]`` makes a
 new Python object on every call.  So :func:`unstack_layers` builds each
@@ -100,10 +101,12 @@ def default_layer_sp(layer_params: dict):
                 sub = rec(v)
                 if sub:
                     out[k] = sub
+            elif k in SPARSIFIABLE and v.dim() == 3:
+                # MoE (E, n_in, n_out): one g per expert
+                out[k] = {**sl.default_sp(v[0]),
+                          "g": torch.stack([sl.column_norms(we)
+                                            for we in v])}
             elif k in SPARSIFIABLE and v.dim() >= 2:
-                if v.dim() > 2:
-                    raise NotImplementedError(
-                        "per-expert (MoE) sp trees come with the MoE slice")
                 out[k] = sl.default_sp(v)
         return out
 

@@ -37,6 +37,13 @@ SIGNATURES = {
     # splits, dtype, stream
     "wisparse_sparse_matmul_shared": (_P,) * 6 + (_I,) * 9 + (_P,),
     "wisparse_sparse_matmul_per_seq": (_P,) * 6 + (_I,) * 9 + (_P,),
+    # the expert-batched forms (a leading expert axis E):
+    # x, g, alpha, tau, keep_frac, xm, idx, bs, E, B, n, blk, kb, dtype,
+    # stream
+    "wisparse_score_select_experts": (_P,) * 8 + (_I,) * 6 + (_P,),
+    # x, w, idx, y, workspace, counters, E, B, n, m, blk, kb, rows, cols,
+    # splits, dtype, stream
+    "wisparse_sparse_matmul_shared_experts": (_P,) * 6 + (_I,) * 10 + (_P,),
 }
 
 

@@ -391,19 +391,21 @@ __device__ __forceinline__ void store4(float* p, const float4& v, int left,
 }
 
 // Epilogue, after the result tile is complete in shared memory.  S == 1:
-// write y.  Otherwise write this slice's partial to ws[s] (S x B x m f32);
-// the last of the S blocks of the tile to arrive (an int counter per tile,
-// which it resets) sums ws[0..S-1] in that order and writes y.  No float
-// atomics: the result does not depend on arrival order.  Each thread
+// write y.  Otherwise write this slice's partial to ws + s * plane (a
+// B x m f32 plane per slice: plane = B * m, or E * B * m in the
+// expert-batched launch, whose ws points at its expert's part); the last
+// of the S blocks of the tile to arrive (an int counter per tile, which it
+// resets) sums the S partials in the order s = 0..S-1 and writes y.  No
+// float atomics: the result does not depend on arrival order.  Each thread
 // handles groups of 4 neighbouring columns.
 template <typename T, int NB, bool kPerSeq>
 __device__ __forceinline__ void finish(const float* out, float* __restrict__ y,
                                        float* ws, int* counters, int B, int m,
                                        int row0, int col0, int S, int s,
-                                       int tile, bool v4) {
+                                       int tile, bool v4, size_t plane) {
   constexpr int C4 = Geom<T>::kCols / 4;
   __shared__ int last;
-  float* dst = S == 1 ? y : ws + static_cast<size_t>(s) * B * m;
+  float* dst = S == 1 ? y : ws + static_cast<size_t>(s) * plane;
   for (int e = threadIdx.x; e < NB * C4; e += kThreads) {
     const int r = e / C4;
     const int c = (e - r * C4) * 4;
@@ -423,7 +425,6 @@ __device__ __forceinline__ void finish(const float* out, float* __restrict__ y,
   // partials issued together, then added in the order s = 0..S-1
   constexpr int EPT = (NB * C4 + kThreads - 1) / kThreads;
   constexpr int QC = EPT >= 4 ? 2 : 4;  // <= 8 float4 loads (128 columns)
-  const size_t plane = static_cast<size_t>(B) * m;
   size_t off[EPT];
   int left[EPT];
   float4 sum[EPT];
@@ -480,11 +481,13 @@ inline bool out4_ok(const void* y, const void* ws, int m) {
 }
 
 // The host's tile geometry fits the kernel: `rows` batch rows per tile
-// (8, 16 or 32) in at most 65535 row tiles, and a column tile of kCols.
+// (8, 16 or 32) in at most 65535 row tiles over all E experts, and a
+// column tile of kCols.
 template <typename T>
-inline bool tiles_ok(int B, int rows, int cols) {
+inline bool tiles_ok(int B, int rows, int cols, int E = 1) {
   return (rows == 8 || rows == 16 || rows == 32) &&
-         (B + rows - 1) / rows <= 65535 && cols == Geom<T>::kCols;
+         static_cast<long long>((B + rows - 1) / rows) * E <= 65535 &&
+         cols == Geom<T>::kCols;
 }
 
 // Allow the kernel's dynamic shared memory above the 48 KB default, once

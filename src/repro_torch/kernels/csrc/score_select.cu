@@ -52,6 +52,18 @@
 //   torch.round and jnp.round do.
 // One cluster uses 8-16 of the 132 SMs, so at a whole-prompt B (hundreds
 // of rows) the time grows with B, far from the bound.
+// Expert axis: the reference runs this kernel under jax.vmap over a MoE
+// layer's experts (src/repro/models/moe.py:93-112), one selection per
+// expert.  Here that is one launch of a (C, E) grid with cluster
+// dimension (C, 1, 1): cluster y is expert y, whose x, g, xm, idx and bs
+// are strided by expert, while alpha, tau and keep_frac are the layer's
+// and shared.  C = min(16, nb, SMs / E), so that every expert's cluster
+// runs at once: at granite_moe_3b_a800m's 48 experts of 8 rows, 2 blocks
+// each.  Clusters of min(16, nb) = 12 ran 48 x 12 blocks in waves, 28 us
+// per launch at n = 1536 (chip_smoke.py on an NVIDIA H100 80GB HBM3 at
+// 700 W; PERF.md).  The map_shared_rank exchange addresses cluster ranks, so
+// it stays inside one expert's cluster.  An expert that no token chose
+// has zero rows: every block sum is 0, and the ids come out 0..kb-1.
 // Measured result: PERF.md (chip_smoke.py, per projection shape).
 #include <cooperative_groups.h>
 
@@ -155,6 +167,13 @@ score_select_kernel(const T* __restrict__ x, const float* __restrict__ g,
   const int C = static_cast<int>(cluster.num_blocks());
   const int c = static_cast<int>(cluster.block_rank());
   const int nb = n / blk;
+  // expert blockIdx.y's slices (E = 1: the only one)
+  const size_t ex = blockIdx.y;
+  x += ex * B * n;
+  xm += ex * B * n;
+  g += ex * n;
+  bs += ex * nb;
+  if (idx != nullptr) idx += ex * kb;
   const int j0 = c * nb / C;
   const int nloc = (c + 1) * nb / C - j0;      // >= 1: the host keeps C <= nb
   const int lmax = (nb + C - 1) / C;
@@ -344,33 +363,48 @@ score_select_kernel(const T* __restrict__ x, const float* __restrict__ g,
 }
 
 // Dynamic shared memory above 48 KB and clusters above 8 blocks need a
-// function attribute, set once per device.
+// function attribute, set once per device; the device's SM count is read
+// at the same time and kept for later launches in ``sms``.
+int sm_counts[32] = {};
+
 template <typename Kern>
-cudaError_t prepare(Kern kern, unsigned& done) {
+cudaError_t prepare(Kern kern, unsigned& done, int& sms) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const unsigned bit = 1u << (dev & 31);
-  if (done & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kMaxSmem));
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(kern,
-                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e == cudaSuccess) done |= bit;
-  return e;
+  if (!(done & bit)) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kMaxSmem));
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(&sm_counts[dev & 31],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (e != cudaSuccess) return e;
+    done |= bit;
+  }
+  sms = sm_counts[dev & 31];
+  return cudaSuccess;
 }
 
 template <typename T, bool kWide>
 int launch(const void* x, const void* g, const void* alpha, const void* tau,
            const void* keep, const void* rw, void* xm, void* idx, void* bs,
-           int B, int n, int blk, int kb, cudaStream_t st) {
+           int E, int B, int n, int blk, int kb, cudaStream_t st) {
   static unsigned done = 0;
   auto kern = score_select_kernel<T, kWide>;
-  cudaError_t e = prepare(kern, done);
+  int sms = 0;
+  cudaError_t e = prepare(kern, done, sms);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int nb = n / blk;
-  const int C = std::min(kCluster, nb);
+  // the E experts' clusters share the card: each takes at most SMs / E
+  // blocks, so that all of them run at once
+  const int C = std::min({kCluster, nb, std::max(1, sms / E)});
   const int lmax = (nb + C - 1) / C;
   const int vmax = lmax * (blk / Unit<T, kWide>::kElems);
   const size_t smem =
@@ -379,7 +413,7 @@ int launch(const void* x, const void* g, const void* alpha, const void* tau,
                        std::max(kThreads, vmax));
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C);
+  cfg.gridDim = dim3(C, E);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -403,18 +437,40 @@ int launch(const void* x, const void* g, const void* alpha, const void* tau,
 template <typename T>
 int dispatch(const void* x, const void* g, const void* alpha,
              const void* tau, const void* keep, const void* rw, void* xm,
-             void* idx, void* bs, int B, int n, int blk, int kb,
+             void* idx, void* bs, int E, int B, int n, int blk, int kb,
              cudaStream_t st) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  // every expert's rows start 16-byte aligned too: blk (so n) is a
+  // multiple of the 16-byte unit
   const bool wide = blk % kVec == 0 &&
                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(xm) % 16 == 0;
   if (wide) {
-    return launch<T, true>(x, g, alpha, tau, keep, rw, xm, idx, bs, B, n,
+    return launch<T, true>(x, g, alpha, tau, keep, rw, xm, idx, bs, E, B, n,
                            blk, kb, st);
   }
-  return launch<T, false>(x, g, alpha, tau, keep, rw, xm, idx, bs, B, n, blk,
-                          kb, st);
+  return launch<T, false>(x, g, alpha, tau, keep, rw, xm, idx, bs, E, B, n,
+                          blk, kb, st);
+}
+
+int entry(const void* x, const void* g, const void* alpha, const void* tau,
+          const void* keep_frac, const void* rw, void* xm, void* idx,
+          void* bs, int E, int B, int n, int blk, int kb, int dtype,
+          void* stream) {
+  if (E <= 0 || E > 65535 || B <= 0 || n <= 0 || blk <= 0 || n % blk != 0 ||
+      n / blk > kMaxBlocks || kb < 1 || kb > n / blk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) {
+    return dispatch<float>(x, g, alpha, tau, keep_frac, rw, xm, idx, bs, E, B,
+                           n, blk, kb, st);
+  }
+  if (dtype == kBFloat16) {
+    return dispatch<__nv_bfloat16>(x, g, alpha, tau, keep_frac, rw, xm, idx,
+                                   bs, E, B, n, blk, kb, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -430,19 +486,20 @@ extern "C" int wisparse_score_select(const void* x, const void* g,
                                      void* xm, void* idx, void* bs, int B,
                                      int n, int blk, int kb, int dtype,
                                      void* stream) {
-  using namespace wisparse;
-  if (B <= 0 || n <= 0 || blk <= 0 || n % blk != 0 || n / blk > kMaxBlocks ||
-      kb < 1 || kb > n / blk) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) {
-    return dispatch<float>(x, g, alpha, tau, keep_frac, rw, xm, idx, bs, B, n,
-                           blk, kb, st);
-  }
-  if (dtype == kBFloat16) {
-    return dispatch<__nv_bfloat16>(x, g, alpha, tau, keep_frac, rw, xm, idx,
-                                   bs, B, n, blk, kb, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return wisparse::entry(x, g, alpha, tau, keep_frac, rw, xm, idx, bs, 1, B,
+                         n, blk, kb, dtype, stream);
+}
+
+// The expert-batched form: x, xm (E, B, n); g (E, n); idx (E, kb); bs
+// (E, n / blk); alpha, tau and keep_frac shared; no row weights.  One
+// cluster per expert.  Returns cudaGetLastError().
+extern "C" int wisparse_score_select_experts(const void* x, const void* g,
+                                             const void* alpha,
+                                             const void* tau,
+                                             const void* keep_frac, void* xm,
+                                             void* idx, void* bs, int E,
+                                             int B, int n, int blk, int kb,
+                                             int dtype, void* stream) {
+  return wisparse::entry(x, g, alpha, tau, keep_frac, nullptr, xm, idx, bs,
+                         E, B, n, blk, kb, dtype, stream);
 }

@@ -121,7 +121,7 @@ sparse_matmul_per_seq_kernel(const T* __restrict__ x,
   __syncthreads();
   gm::finish<T, NB, true>(out, y, ws, counters, B, m, row0, col0, S, s,
                           blockIdx.z * gridDim.x + blockIdx.x,
-                          (flags & 2) != 0);
+                          (flags & 2) != 0, static_cast<size_t>(B) * m);
 }
 
 template <typename T, int NB>

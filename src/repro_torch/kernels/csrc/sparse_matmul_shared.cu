@@ -31,6 +31,13 @@
 //   on CUDA-core FMA in the same grid (64-column tiles).
 // - The S partial tiles are summed in the order s = 0..S-1 by the last
 //   block of a column tile to finish: no float atomics, bit-identical runs.
+// Expert axis: the reference runs this kernel under jax.vmap over a MoE
+// layer's experts (src/repro/models/moe.py:93-112), one kept-block list
+// and one weight slab per expert.  Here that is one launch whose grid's z
+// runs over (expert, row tile): x (E, B, n), W (E, n, m), idx (E, kb) and
+// y (E, B, m) are strided by expert, the split-K partials are planes of
+// E x B x m, and the arrival counters are indexed per (expert, row tile,
+// column tile).
 // Measured result: PERF.md (chip_smoke.py, per projection shape).
 #include "gather_mma.cuh"
 
@@ -49,8 +56,17 @@ sparse_matmul_shared_kernel(const T* __restrict__ x, const T* __restrict__ w,
   T* xring = wring + L::kStages * L::kWStage;
   const int col0 = blockIdx.x * L::kCols;
   const int s = blockIdx.y;
-  const int row0 = blockIdx.z * NB;
+  const int tiles_b = (B + NB - 1) / NB;
+  const int row0 = (blockIdx.z % tiles_b) * NB;
   const int nb = n / blk;
+  // expert blockIdx.z / tiles_b's slices (one expert: the only one)
+  const size_t ex = blockIdx.z / tiles_b;
+  const size_t plane = static_cast<size_t>(gridDim.z / tiles_b) * B * m;
+  x += ex * B * n;
+  w += ex * n * m;
+  idx += ex * kb;
+  y += ex * B * m;
+  if (ws != nullptr) ws += ex * B * m;
   const int p0 = static_cast<int>(static_cast<long long>(s) * kb / S);
   const int p1 = static_cast<int>(static_cast<long long>(s + 1) * kb / S);
   const int nchunks = (blk + L::kKC - 1) / L::kKC;
@@ -90,19 +106,19 @@ sparse_matmul_shared_kernel(const T* __restrict__ x, const T* __restrict__ w,
   __syncthreads();
   gm::finish<T, NB, false>(out, y, ws, counters, B, m, row0, col0, S, s,
                            blockIdx.z * gridDim.x + blockIdx.x,
-                           (flags & 2) != 0);
+                           (flags & 2) != 0, plane);
 }
 
 template <typename T, int NB>
 int launch_shared(const void* x, const void* w, const void* idx, void* y,
-                  void* ws, void* counters, int B, int n, int m, int blk,
-                  int kb, int S, cudaStream_t st) {
+                  void* ws, void* counters, int E, int B, int n, int m,
+                  int blk, int kb, int S, cudaStream_t st) {
   using L = gm::Layout<T, NB, false>;
   static unsigned done = 0;
   auto kern = sparse_matmul_shared_kernel<T, NB>;
   cudaError_t e = gm::allow_smem(kern, L::kBytes, done);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((m + L::kCols - 1) / L::kCols, S, (B + NB - 1) / NB);
+  const dim3 grid((m + L::kCols - 1) / L::kCols, S, (B + NB - 1) / NB * E);
   kern<<<grid, gm::kThreads, L::kBytes, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const int*>(idx), static_cast<float*>(y),
@@ -114,22 +130,44 @@ int launch_shared(const void* x, const void* w, const void* idx, void* y,
 
 template <typename T>
 int dispatch_shared(const void* x, const void* w, const void* idx, void* y,
-                    void* ws, void* counters, int B, int n, int m, int blk,
-                    int kb, int rows, int cols, int S, cudaStream_t st) {
-  if (!gm::tiles_ok<T>(B, rows, cols)) {
+                    void* ws, void* counters, int E, int B, int n, int m,
+                    int blk, int kb, int rows, int cols, int S,
+                    cudaStream_t st) {
+  if (!gm::tiles_ok<T>(B, rows, cols, E)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (rows) {
     case 8:
-      return launch_shared<T, 8>(x, w, idx, y, ws, counters, B, n, m, blk,
+      return launch_shared<T, 8>(x, w, idx, y, ws, counters, E, B, n, m, blk,
                                  kb, S, st);
     case 16:
-      return launch_shared<T, 16>(x, w, idx, y, ws, counters, B, n, m, blk,
-                                  kb, S, st);
+      return launch_shared<T, 16>(x, w, idx, y, ws, counters, E, B, n, m,
+                                  blk, kb, S, st);
     default:
-      return launch_shared<T, 32>(x, w, idx, y, ws, counters, B, n, m, blk,
-                                  kb, S, st);
+      return launch_shared<T, 32>(x, w, idx, y, ws, counters, E, B, n, m,
+                                  blk, kb, S, st);
   }
+}
+
+int entry_shared(const void* x, const void* w, const void* idx, void* y,
+                 void* ws, void* counters, int E, int B, int n, int m,
+                 int blk, int kb, int rows, int cols, int S, int dtype,
+                 void* stream) {
+  if (E <= 0 || B <= 0 || n <= 0 || m <= 0 || blk <= 0 || kb <= 0 ||
+      n % blk != 0 || S < 1 || S > kb || S > 65535 ||
+      (S > 1 && (ws == nullptr || counters == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) {
+    return dispatch_shared<float>(x, w, idx, y, ws, counters, E, B, n, m, blk,
+                                  kb, rows, cols, S, st);
+  }
+  if (dtype == kBFloat16) {
+    return dispatch_shared<__nv_bfloat16>(x, w, idx, y, ws, counters, E, B, n,
+                                          m, blk, kb, rows, cols, S, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -147,20 +185,18 @@ extern "C" int wisparse_sparse_matmul_shared(const void* x, const void* w,
                                              int n, int m, int blk, int kb,
                                              int rows, int cols, int S,
                                              int dtype, void* stream) {
-  using namespace wisparse;
-  if (B <= 0 || n <= 0 || m <= 0 || blk <= 0 || kb <= 0 || n % blk != 0 ||
-      S < 1 || S > kb || S > 65535 ||
-      (S > 1 && (ws == nullptr || counters == nullptr))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) {
-    return dispatch_shared<float>(x, w, idx, y, ws, counters, B, n, m, blk,
-                                  kb, rows, cols, S, st);
-  }
-  if (dtype == kBFloat16) {
-    return dispatch_shared<__nv_bfloat16>(x, w, idx, y, ws, counters, B, n,
-                                          m, blk, kb, rows, cols, S, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return wisparse::entry_shared(x, w, idx, y, ws, counters, 1, B, n, m, blk,
+                                kb, rows, cols, S, dtype, stream);
+}
+
+// The expert-batched form: x (E, B, n) and w (E, n, m) of `dtype`; idx
+// (E, kb) int32; y (E, B, m) f32.  For S > 1, ws: S x E x B x m f32 and
+// counters: one int32 per (expert, row tile, column tile).  Returns
+// cudaGetLastError().
+extern "C" int wisparse_sparse_matmul_shared_experts(
+    const void* x, const void* w, const void* idx, void* y, void* ws,
+    void* counters, int E, int B, int n, int m, int blk, int kb, int rows,
+    int cols, int S, int dtype, void* stream) {
+  return wisparse::entry_shared(x, w, idx, y, ws, counters, E, B, n, m, blk,
+                                kb, rows, cols, S, dtype, stream);
 }

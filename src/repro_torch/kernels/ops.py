@@ -81,3 +81,28 @@ def wisparse_project(x, w, sp, *, block: int = 128, k_frac: float = 1.0,
     else:
         y = K.sparse_matmul_shared(xm, w2.contiguous(), idx, blk=blk)
     return y.to(x.dtype).reshape(lead + w.shape[1:])
+
+
+def wisparse_project_experts(x, w, sp, *, block: int = 128,
+                             k_frac: float = 1.0):
+    """x: (E, R, n); w: (E, n, m); sp: ``g`` (E, n) per expert, ``alpha``,
+    ``tau`` and ``keep_frac`` the layer's.  Returns (E, R, m) in x's
+    dtype, expert e's equal to ``wisparse_project(x[e], w[e], {**sp, "g":
+    g[e]})``: the reference's ``jax.vmap`` of its projection over a MoE
+    layer's experts, with no token weights.  Still 3 launches for every
+    expert at once: ``score_select_experts``, ``sparse_matmul_shared_experts``
+    and the cast."""
+    E, R, n = x.shape
+    blk, n_padded, nb = channel_plan(n, block)
+    g = sp["g"]
+    pad = n_padded - n
+    if pad:
+        x = F.pad(x, (0, pad))
+        w = F.pad(w, (0, 0, 0, pad))
+        g = F.pad(g, (0, pad))
+    kb = max(1, min(nb, round(nb * k_frac)))
+    xm, idx, _ = K.score_select_experts(x.contiguous(), g.contiguous(),
+                                        sp["alpha"], sp["tau"],
+                                        sp["keep_frac"], kb=kb, blk=blk)
+    y = K.sparse_matmul_shared_experts(xm, w.contiguous(), idx, blk=blk)
+    return y.to(x.dtype)

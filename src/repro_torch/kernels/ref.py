@@ -79,3 +79,59 @@ def ref_wisparse_project(x, w, sp, k_blocks: int, blk: int):
     xm, idx, _ = ref_score_select(x, sp["g"], sp["alpha"], sp["tau"],
                                   sp["keep_frac"], blk, k_blocks)
     return ref_sparse_matmul_shared(xm, w, idx, blk)
+
+
+# ---------------------------------------------------------------------------
+# Expert-batched forms: what the reference's ``jax.vmap`` over experts
+# makes of each kernel (``models/moe.py``).  Expert e of each result is
+# the plain version above on expert e's inputs; alpha, tau and keep_frac
+# are shared by the experts, as one layer's sp leaf shares them.
+# ---------------------------------------------------------------------------
+
+def ref_sparse_matmul_shared_experts(x, w, block_idx, blk: int):
+    """x (E, R, n), w (E, n, m), block_idx (E, kb) -> y (E, R, m) f32,
+    y[e] = ``ref_sparse_matmul_shared(x[e], w[e], block_idx[e], blk)``."""
+    E, R, n = x.shape
+    m = w.shape[2]
+    nb = n // blk
+    idx = block_idx.long().clamp(0, nb - 1)
+    kb = idx.shape[1]
+    xs = x.reshape(E, R, nb, blk).gather(
+        2, idx[:, None, :, None].expand(E, R, kb, blk)).float()
+    ws = w.reshape(E, nb, blk, m).gather(
+        1, idx[:, :, None, None].expand(E, kb, blk, m)).float()
+    return torch.einsum("erkc,ekcm->erm", xs, ws)
+
+
+def ref_score_mask_experts(x, g, alpha, tau, blk: int):
+    """x (E, R, n), g (E, n) -> (xm (E, R, n), bs (E, n // blk)):
+    :func:`ref_score_mask` per expert, with no row weights (expert rows
+    are dispatched tokens, which carry none)."""
+    E, R, n = x.shape
+    gf = torch.clamp(g.float(), min=1e-12)
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    s = x.float().abs() * torch.pow(gf, a)[:, None, :]
+    keep = s >= torch.as_tensor(tau, dtype=torch.float32, device=x.device)
+    xm = torch.where(keep, x, torch.zeros_like(x))
+    ks = torch.where(keep, s, torch.zeros_like(s))
+    bs = ks.sum(1).reshape(E, n // blk, blk).sum(-1)
+    return xm, bs
+
+
+def ref_score_select_experts(x, g, alpha, tau, keep_frac, blk: int, kb: int):
+    """(xm (E, R, n), idx (E, kb) int32, bs (E, nb)): expert e's are
+    ``ref_score_select(x[e], g[e], alpha, tau, keep_frac, blk, kb)``.
+    An expert that no token chose has zero rows, so every block sum is 0
+    and its ids are 0..kb-1, as ``lax.top_k`` gives them."""
+    xm, bs = ref_score_mask_experts(x, g, alpha, tau, blk)
+    E, _, n = x.shape
+    nb = n // blk
+    idx = topk_ids(bs, kb)
+    kf = torch.as_tensor(keep_frac, dtype=torch.float32, device=x.device)
+    kb_l = torch.round(kf * nb)
+    ok = (torch.arange(kb, device=x.device) < kb_l).expand(E, kb)
+    keep_blocks = torch.zeros(E, nb, dtype=torch.bool,
+                              device=x.device).scatter(1, idx, ok)
+    keep = keep_blocks.repeat_interleave(blk, dim=1)[:, None, :]
+    xm = torch.where(keep, xm, torch.zeros_like(xm))
+    return xm, idx.to(torch.int32), bs

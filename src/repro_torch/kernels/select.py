@@ -6,8 +6,9 @@ import torch
 
 
 def topk_ids(scores, k: int):
-    """Ids of the ``k`` largest ``scores``, largest first, the lower id
-    first among equal values: ``jax.lax.top_k``'s order (``torch.topk``
-    orders ties otherwise, which changes the kept set when k cuts through
-    them)."""
-    return torch.sort(scores, descending=True, stable=True).indices[:k]
+    """Ids of the ``k`` largest ``scores`` along the last dim, largest
+    first, the lower id first among equal values: ``jax.lax.top_k``'s
+    order (``torch.topk`` orders ties otherwise, which changes the kept
+    set when k cuts through them)."""
+    return torch.sort(scores, dim=-1, descending=True,
+                      stable=True).indices[..., :k]

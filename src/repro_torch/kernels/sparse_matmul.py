@@ -2,8 +2,12 @@
 ``kernels/sparse_matmul.py``).
 
 ``score_select`` (with ``score_mask``, the same kernel without the
-selection), ``sparse_matmul_shared`` and ``sparse_matmul_per_seq`` take
-the route by the device of the tensors they are given: a CUDA tensor
+selection), ``sparse_matmul_shared`` and ``sparse_matmul_per_seq``, and
+the expert-batched ``score_select_experts`` and
+``sparse_matmul_shared_experts`` (one launch for all of a MoE layer's
+experts, what the reference's ``jax.vmap`` over experts makes of its
+kernels; each counted under its own name), take the route by the device
+of the tensors they are given: a CUDA tensor
 launches the CUDA kernel in ``csrc/`` (built at first use by
 :mod:`repro_torch.kernels.build`) or raises; a CPU tensor runs the
 plain PyTorch version in :mod:`repro_torch.kernels.ref`.  There is no
@@ -35,7 +39,8 @@ DEFAULT_BLK = 128
 
 # kernel name -> launches since the last reset_launch_counts()
 launch_counts = {"score_select": 0, "sparse_matmul_shared": 0,
-                 "sparse_matmul_per_seq": 0}
+                 "sparse_matmul_per_seq": 0, "score_select_experts": 0,
+                 "sparse_matmul_shared_experts": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -59,9 +64,10 @@ MAX_SPLITS = 16
 class LaunchPlan:
     """Grid and scratch of one block-gather matmul launch.
 
-    The grid is (tiles_m, splits, tiles_b); ``workspace`` f32 values of
-    split-K partials and ``counters`` int32 arrival counters are needed
-    when ``splits > 1`` (both 0 otherwise)."""
+    The grid is (tiles_m, splits, tiles_b x experts); ``workspace`` f32
+    values of split-K partials and ``counters`` int32 arrival counters
+    (one per expert and tile) are needed when ``splits > 1`` (both 0
+    otherwise)."""
     rows: int          # batch rows per thread block
     cols: int          # columns per thread block
     tiles_m: int
@@ -70,10 +76,11 @@ class LaunchPlan:
     units: int         # kb positions (shared) or nb block ids (per-seq)
     workspace: int
     counters: int
+    experts: int = 1
 
     @property
     def grid(self):
-        return (self.tiles_m, self.splits, self.tiles_b)
+        return (self.tiles_m, self.splits, self.tiles_b * self.experts)
 
     def slice(self, s: int) -> range:
         """Positions of idx (shared) or block ids (per-seq) of slice s."""
@@ -83,11 +90,14 @@ class LaunchPlan:
 
 @functools.lru_cache(maxsize=1024)
 def launch_plan(B: int, n: int, m: int, kb: int, blk: int, per_seq: bool,
-                elem_bytes: int = 2) -> LaunchPlan:
+                elem_bytes: int = 2, experts: int = 1) -> LaunchPlan:
     """Split-K plan of ``sparse_matmul_shared`` (slices of the kb
     positions of idx) or ``sparse_matmul_per_seq`` (slices of the n/blk
-    block ids), from the shapes alone: no device read.  Cached per shape
-    (a decode step asks for the same few plans 224 times)."""
+    block ids), from the shapes alone: no device read.  ``experts``: the
+    expert-batched launch of ``sparse_matmul_shared_experts``, whose
+    experts are thread blocks too (granite_moe_3b_a800m's 48 experts make
+    4 x 48 or 12 x 48 tiles, so one split).  Cached per shape (a decode
+    step asks for the same few plans 224 times)."""
     nb = n // blk
     rows = 8 if B <= 8 else 16 if B <= 16 else 32
     cols = TILE_COLS[elem_bytes]
@@ -96,13 +106,13 @@ def launch_plan(B: int, n: int, m: int, kb: int, blk: int, per_seq: bool,
     units = nb if per_seq else kb
     target = TARGET_BLOCKS_PER_SEQ if per_seq else TARGET_BLOCKS_SHARED
     splits = max(1, min(units, MAX_SPLITS,
-                        round(target / (tiles_m * tiles_b))))
+                        round(target / (tiles_m * tiles_b * experts))))
     if per_seq:
         splits = max(splits, math.ceil(nb / MAX_SLICE_BLOCKS))
     split = splits > 1
     return LaunchPlan(rows, cols, tiles_m, tiles_b, splits, units,
-                      splits * B * m if split else 0,
-                      tiles_m * tiles_b if split else 0)
+                      splits * experts * B * m if split else 0,
+                      tiles_m * tiles_b * experts if split else 0, experts)
 
 
 # device -> (f32 workspace, zeroed int32 arrival counters) shared by the
@@ -154,12 +164,13 @@ def matmul_scratch(plan: LaunchPlan, device):
 
 
 def reserve_matmul_scratch(B: int, n: int, m: int, blk: int, device,
-                           elem_bytes: int = 2) -> None:
+                           elem_bytes: int = 2, experts: int = 1) -> None:
     """Grow ``device``'s scratch to what ``sparse_matmul_shared`` at
-    (B, n, m) can need for any kept-block count: the plan's split grows
-    with kb, so kb = n/blk bounds it."""
-    matmul_scratch(launch_plan(B, n, m, n // blk, blk, False, elem_bytes),
-                   device)
+    (B, n, m) (with ``experts``: ``sparse_matmul_shared_experts`` at
+    (experts, B, n, m)) can need for any kept-block count: the plan's
+    split grows with kb, so kb = n/blk bounds it."""
+    matmul_scratch(launch_plan(B, n, m, n // blk, blk, False, elem_bytes,
+                               experts), device)
 
 
 def scratch_tensors(device) -> tuple:
@@ -246,18 +257,21 @@ def _f32_scalar(v, device, what: str):
 
 def _launch_score(x, g, alpha, tau, keep_frac, blk, kb, row_weights):
     """Check the inputs of a CUDA ``score_select`` launch (with the
-    selection when ``keep_frac`` is given, else the mask alone), launch
-    it on the current stream and count it.  Messages are formatted only
-    on failure: this runs 224 times per decode step."""
-    B, n = x.shape
+    selection when ``keep_frac`` is given, else the mask alone; x (B, n),
+    or (E, B, n) for the expert-batched entry, which takes no row
+    weights), launch it on the current stream and count it.  Messages
+    are formatted only on failure: this runs 224 times per decode
+    step."""
+    *lead, B, n = x.shape
+    lead = tuple(lead)
     dev = x.device
     if x.dtype not in _DTYPE_CODES or not x.is_contiguous():
         raise ValueError(f"score_select: x must be a contiguous float32 or "
                          f"bfloat16 tensor, got {x.dtype}")
-    if not (g.shape == (n,) and g.dtype == torch.float32 and g.device == dev
-            and g.is_contiguous()):
-        raise ValueError(f"score_select: g must be a contiguous ({n},) f32 "
-                         f"tensor on {dev}")
+    if not (g.shape == lead + (n,) and g.dtype == torch.float32
+            and g.device == dev and g.is_contiguous()):
+        raise ValueError(f"score_select: g must be a contiguous "
+                         f"{lead + (n,)} f32 tensor on {dev}")
     a = _f32_scalar(alpha, dev, "alpha")
     t = _f32_scalar(tau, dev, "tau")
     select = keep_frac is not None
@@ -271,17 +285,48 @@ def _launch_score(x, g, alpha, tau, keep_frac, blk, kb, row_weights):
             raise ValueError(f"score_select: row_weights must be ({B},) on "
                              f"{dev}")
     xm = torch.empty_like(x)
-    bs = torch.empty(n // blk, dtype=torch.float32, device=dev)
-    idx = torch.empty(kb, dtype=torch.int32, device=dev) if select else None
-    err = build.library().wisparse_score_select(
-        x.data_ptr(), g.data_ptr(), a.data_ptr(), t.data_ptr(),
-        kf.data_ptr() if select else None,
-        None if rw is None else rw.data_ptr(), xm.data_ptr(),
-        idx.data_ptr() if select else None, bs.data_ptr(), B, n, blk, kb,
-        _DTYPE_CODES[x.dtype], _stream(dev))
-    _raise_on(err, "score_select")
-    launch_counts["score_select"] += 1
+    bs = torch.empty(lead + (n // blk,), dtype=torch.float32, device=dev)
+    idx = torch.empty(lead + (kb,), dtype=torch.int32, device=dev) \
+        if select else None
+    args = (x.data_ptr(), g.data_ptr(), a.data_ptr(), t.data_ptr(),
+            kf.data_ptr() if select else None)
+    outs = (xm.data_ptr(), idx.data_ptr() if select else None, bs.data_ptr())
+    if lead:
+        err = build.library().wisparse_score_select_experts(
+            *args, *outs, lead[0], B, n, blk, kb, _DTYPE_CODES[x.dtype],
+            _stream(dev))
+    else:
+        err = build.library().wisparse_score_select(
+            *args, None if rw is None else rw.data_ptr(), *outs, B, n, blk,
+            kb, _DTYPE_CODES[x.dtype], _stream(dev))
+    name = "score_select_experts" if lead else "score_select"
+    _raise_on(err, name)
+    launch_counts[name] += 1
     return xm, idx, bs
+
+
+def score_select_experts(x, g, alpha, tau, keep_frac, *, kb: int,
+                         blk: int = DEFAULT_BLK):
+    """The expert-batched :func:`score_select`: x (E, R, n), g (E, n);
+    returns (xm (E, R, n) in x.dtype, idx (E, kb) int32, bs (E, n//blk)
+    f32), expert e's equal to ``score_select(x[e], g[e], ...)``.  alpha,
+    tau and keep_frac are the layer's, shared by its experts; there are no
+    row weights (expert rows are dispatched tokens).  One launch (one
+    thread-block cluster per expert), counted as a
+    ``score_select_experts``."""
+    E, R, n = x.shape
+    blk = min(blk, n)
+    if n % blk:
+        raise ValueError(f"channel dim {n} is not a multiple of blk {blk}")
+    if not 1 <= kb <= n // blk:
+        raise ValueError(f"kb {kb} outside [1, {n // blk}]")
+    if x.device.type == "cpu":
+        return ref.ref_score_select_experts(x, g, alpha, tau, keep_frac, blk,
+                                            kb)
+    if not x.is_cuda:
+        raise ValueError(f"score_select_experts: unsupported device "
+                         f"{x.device}")
+    return _launch_score(x, g, alpha, tau, keep_frac, blk, kb, None)
 
 
 def sparse_matmul_shared(x, w, block_idx, *, blk: int = DEFAULT_BLK):
@@ -298,18 +343,31 @@ def sparse_matmul_shared(x, w, block_idx, *, blk: int = DEFAULT_BLK):
     _check(block_idx.dim() == 1, "block_idx must be 1-d")
     if x.device.type == "cpu":
         return ref.ref_sparse_matmul_shared(x, w, block_idx, blk)
-    _check(x.is_cuda, f"sparse_matmul_shared: unsupported device {x.device}")
-    _check(x.dtype in _DTYPE_CODES and w.dtype == x.dtype,
-           f"sparse_matmul_shared: x {x.dtype} / w {w.dtype} must be one of "
-           "float32/bfloat16, and equal")
-    _check(block_idx.dtype == torch.int32, "block_idx must be int32")
-    _check(w.device == x.device and block_idx.device == x.device,
-           "sparse_matmul_shared: x, w and block_idx must share a device")
-    _check(x.is_contiguous() and w.is_contiguous()
-           and block_idx.is_contiguous(),
-           "sparse_matmul_shared: inputs must be contiguous")
+    _check_cuda_matmul("sparse_matmul_shared", x, w, block_idx)
     return _launch_matmul("sparse_matmul_shared", x, w, block_idx, blk,
                           block_idx.shape[0], per_seq=False)
+
+
+def sparse_matmul_shared_experts(x, w, block_idx, *,
+                                 blk: int = DEFAULT_BLK):
+    """The expert-batched :func:`sparse_matmul_shared`: x (E, R, n)
+    already masked, w (E, n, m) of x's dtype, block_idx (E, kb) int32 (one
+    kept-block list per expert).  Returns y (E, R, m) float32 with
+    ``y[e] = sparse_matmul_shared(x[e], w[e], block_idx[e])``.  One launch
+    over every expert, counted as a ``sparse_matmul_shared_experts``."""
+    E, R, n = x.shape
+    m = w.shape[2]
+    blk = min(blk, n)
+    _check(w.shape[:2] == (E, n),
+           f"w {tuple(w.shape)} is not ({E}, {n}, m) for x {tuple(x.shape)}")
+    _check(n % blk == 0, f"channel dim {n} is not a multiple of blk {blk}")
+    _check(block_idx.dim() == 2 and block_idx.shape[0] == E,
+           f"block_idx must be ({E}, kb), got {tuple(block_idx.shape)}")
+    if x.device.type == "cpu":
+        return ref.ref_sparse_matmul_shared_experts(x, w, block_idx, blk)
+    _check_cuda_matmul("sparse_matmul_shared_experts", x, w, block_idx)
+    return _launch_matmul("sparse_matmul_shared_experts", x, w, block_idx,
+                          blk, block_idx.shape[1], per_seq=False)
 
 
 def sparse_matmul_per_seq(x, w, block_idx, *, blk: int = DEFAULT_BLK):
@@ -328,32 +386,43 @@ def sparse_matmul_per_seq(x, w, block_idx, *, blk: int = DEFAULT_BLK):
            f"block_idx must be ({B}, kb), got {tuple(block_idx.shape)}")
     if x.device.type == "cpu":
         return ref.ref_sparse_matmul_per_seq(x, w, block_idx, blk)
-    _check(x.is_cuda, f"sparse_matmul_per_seq: unsupported device {x.device}")
-    _check(x.dtype in _DTYPE_CODES and w.dtype == x.dtype,
-           f"sparse_matmul_per_seq: x {x.dtype} / w {w.dtype} must be one "
-           "of float32/bfloat16, and equal")
-    _check(block_idx.dtype == torch.int32, "block_idx must be int32")
-    _check(w.device == x.device and block_idx.device == x.device,
-           "sparse_matmul_per_seq: x, w and block_idx must share a device")
-    _check(x.is_contiguous() and w.is_contiguous()
-           and block_idx.is_contiguous(),
-           "sparse_matmul_per_seq: inputs must be contiguous")
+    _check_cuda_matmul("sparse_matmul_per_seq", x, w, block_idx)
     return _launch_matmul("sparse_matmul_per_seq", x, w, block_idx, blk,
                           block_idx.shape[1], per_seq=True)
 
 
+def _check_cuda_matmul(name, x, w, block_idx) -> None:
+    """The CUDA matmul kernels' input contract: x on a card, x and w of
+    one kernel dtype, int32 ids, one device, contiguous."""
+    _check(x.is_cuda, f"{name}: unsupported device {x.device}")
+    _check(x.dtype in _DTYPE_CODES and w.dtype == x.dtype,
+           f"{name}: x {x.dtype} / w {w.dtype} must be one of "
+           "float32/bfloat16, and equal")
+    _check(block_idx.dtype == torch.int32, "block_idx must be int32")
+    _check(w.device == x.device and block_idx.device == x.device,
+           f"{name}: x, w and block_idx must share a device")
+    _check(x.is_contiguous() and w.is_contiguous()
+           and block_idx.is_contiguous(),
+           f"{name}: inputs must be contiguous")
+
+
 def _launch_matmul(name, x, w, block_idx, blk, kb, *, per_seq):
-    """Launch the checked inputs on the kernel ``name`` and count it."""
-    B, n = x.shape
-    m = w.shape[1]
-    plan = launch_plan(B, n, m, kb, blk, per_seq, x.element_size())
-    y = torch.empty(B, m, dtype=torch.float32, device=x.device)
+    """Launch the checked inputs on the kernel ``name`` and count it: x
+    (B, n), or (E, B, n) for ``sparse_matmul_shared_experts``."""
+    *lead, B, n = x.shape
+    E = lead[0] if lead else 1
+    m = w.shape[-1]
+    plan = launch_plan(B, n, m, kb, blk, per_seq, x.element_size(), E)
+    y = torch.empty(tuple(lead) + (B, m), dtype=torch.float32,
+                    device=x.device)
     ws, cnt = matmul_scratch(plan, x.device)
+    ptrs = (_ptr(x), _ptr(w), _ptr(block_idx), _ptr(y),
+            None if ws is None else _ptr(ws),
+            None if cnt is None else _ptr(cnt))
+    geom = (n, m, blk, kb, plan.rows, plan.cols, plan.splits,
+            _DTYPE_CODES[x.dtype], _stream(x.device))
     err = getattr(build.library(), "wisparse_" + name)(
-        _ptr(x), _ptr(w), _ptr(block_idx), _ptr(y),
-        None if ws is None else _ptr(ws), None if cnt is None else _ptr(cnt),
-        B, n, m, blk, kb, plan.rows, plan.cols, plan.splits,
-        _DTYPE_CODES[x.dtype], _stream(x.device))
+        *ptrs, *lead, B, *geom)
     _raise_on(err, name)
     launch_counts[name] += 1
     return y

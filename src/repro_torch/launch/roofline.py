@@ -9,6 +9,13 @@ the sparsity policy (the port's counterpart of the JAX package's
   dense; the ``k_max_frac · nb`` gathered channel blocks under
   ``pallas``, the gathered rows under ``topk_shared``/``topk_block``)
   and ``2·rows·in·out`` FLOPs per product over the channels it reads;
+* a MoE layer's router product (``2·rows·d·E`` FLOPs over the
+  ``d × E`` router, read once) and its three expert projections as the
+  port computes them: every one of the ``E`` experts, the pad experts
+  included, over its ``groups · C`` dispatched rows (``C`` the capacity
+  of the step's tokens per group, ``models/moe._capacity``), each
+  expert's weight read as its projection reads it (its ``k_max_frac``
+  share under ``pallas`` and the gather backends);
 * the attention's K and V reads at each layer's cache length in the
   cache dtype (the pool length, or the window on a ``local`` layer,
   whose cache rolls), and its two products (scores and values,
@@ -28,6 +35,7 @@ from typing import Tuple
 
 from repro_torch.kernels.ops import channel_plan
 from repro_torch.models.model import chunkable
+from repro_torch.models.moe import expert_rows
 
 _ELEM = {"bfloat16": 2, "float32": 4}
 
@@ -84,27 +92,41 @@ def step_costs(cfg, ecfg, policy, sp, phase: str, gamma=None
         cfg.head_dim
     S, C = ecfg.max_slots, ecfg.prefill_chunk
     T = ecfg.pool_len
-    rows = {"decode": S, "chunk": C, "verify": S * ((gamma or 0) + 1)}[phase]
+    # x of the step: (groups, tokens per group, d)
+    groups, tokens = {"decode": (S, 1), "chunk": (1, C),
+                      "verify": (S, (gamma or 0) + 1)}[phase]
+    rows = groups * tokens
     slots_read = 1 if phase == "chunk" else S
-    shapes = (("attn/wq", d, H * hd), ("attn/wk", d, KV * hd),
-              ("attn/wv", d, KV * hd), ("attn/wo", H * hd, d),
-              ("mlp/wi_gate", d, cfg.d_ff), ("mlp/wi_up", d, cfg.d_ff),
-              ("mlp/wo", cfg.d_ff, d))
+    attn = (("attn/wq", d, H * hd), ("attn/wk", d, KV * hd),
+            ("attn/wv", d, KV * hd), ("attn/wo", H * hd, d))
+    ffn_shapes = {
+        "dense": (("mlp/wi_gate", d, cfg.d_ff), ("mlp/wi_up", d, cfg.d_ff),
+                  ("mlp/wo", cfg.d_ff, d)),
+        "moe": (("moe/wi_gate", d, cfg.expert_d_ff),
+                ("moe/wi_up", d, cfg.expert_d_ff),
+                ("moe/wo", cfg.expert_d_ff, d))}
+    E = cfg.num_experts_padded
+    e_rows = expert_rows(cfg, groups, tokens) if E else 0
     flops = 0.0
     nbytes = float(rows * d * elem)                  # embedding rows
     depth = 0
     for gi, (pattern, reps) in enumerate(cfg.layer_groups()):
         for _r in range(reps):
-            for j, (mixer, _ffn) in enumerate(pattern):
+            for j, (mixer, ffn) in enumerate(pattern):
                 Tl = min(cfg.sliding_window, T) if mixer == "local" else T
                 lpol = policy.resolve_depth(depth)
-                for role, n, m in shapes:
+                for role, n, m in attn + ffn_shapes[ffn]:
+                    expert = role.startswith("moe/")
                     backend = lpol.backend_at(role=role)
                     if _sp_leaf(sp, gi, j, role) is None:
                         backend = "off"
-                    f, b = _projection(rows, n, m, backend, lpol, elem)
-                    flops += f
-                    nbytes += b
+                    f, b = _projection(e_rows if expert else rows, n, m,
+                                       backend, lpol, elem)
+                    flops += f * (E if expert else 1)
+                    nbytes += b * (E if expert else 1)
+                if ffn == "moe":         # the router, in f32 from x's dtype
+                    flops += 2.0 * rows * d * E
+                    nbytes += float(d * E * elem)
                 # K and V of every slot the step attends, at the
                 # layer's cache length, then the two attention products
                 nbytes += 2.0 * slots_read * KV * hd * Tl * elem

@@ -4,9 +4,11 @@ engine (``repro_torch.serving``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31_8b \\
         --mode pallas --sparsity 0.5 --batch 8 --prompt-len 128 --gen 32
 
-``--arch`` takes the dense decoders the port serves: llama31_8b (the
-default), deepseek_67b and the Gemma family, gemma_2b, gemma2_2b and
-gemma3_4b.  gemma2_2b and gemma3_4b have ``local`` layers, whose
+``--arch`` takes the decoders the port serves: llama31_8b (the
+default), deepseek_67b, the Gemma family, gemma_2b, gemma2_2b and
+gemma3_4b, and the granite MoE models, granite_moe_1b_a400m and
+granite_moe_3b_a800m (``--calib-quick`` is refused on these: MoE
+calibration is not ported).  gemma2_2b and gemma3_4b have ``local`` layers, whose
 rolling-window caches resolve ``--prefill-strategy auto`` to whole-prompt
 prefill and rule out ``--prefix-cache``, ``--preemption``,
 ``--spec-gamma`` and ``--quality-probe-rate``, which the engine refuses

@@ -1,7 +1,9 @@
-"""Model assembly for dense decoders (port of the JAX package's
+"""Model assembly for decoders (port of the JAX package's
 ``models/model.py`` for layers whose mixer is ``attn``, ``local`` or
-``global`` attention and whose FFN is a dense gated MLP: llama31_8b and
-the Gemma family, gemma_2b, gemma2_2b and gemma3_4b).
+``global`` attention and whose FFN is a dense gated MLP or a
+Mixture-of-Experts FFN: llama31_8b, deepseek_67b, the Gemma family
+(gemma_2b, gemma2_2b, gemma3_4b) and the granite MoE models
+(granite_moe_1b_a400m, granite_moe_3b_a800m)).
 
 Parameters keep the reference's stacked layout: ``params["groups"][g]``
 is a dict of ``(reps, ...)`` tensors per pattern position (``"l0"``), so
@@ -35,9 +37,12 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (apply_rope, dense, rmsnorm,
                                        rope_angles, softcap)
 from repro_torch.models.mlp import mlp_apply, mlp_schema
+from repro_torch.models.moe import moe_apply, moe_schema
 from repro_torch.models.params import ParamSpec, stacked
 
 ATTN_KINDS = ("attn", "local", "global")
+FFN_KINDS = ("dense", "moe")
+FAMILIES = ("dense", "moe")
 # mixers whose caches are full length, so chunk and verify can write them
 # at any offset; a ``local`` layer's window cache rolls
 CHUNKABLE_MIXERS = ("attn", "global")
@@ -51,16 +56,19 @@ def chunkable(cfg: ModelConfig) -> bool:
 
 def _supported_kind(kind) -> bool:
     mixer, ffn = kind
-    return mixer in ATTN_KINDS and ffn == "dense"
+    return mixer in ATTN_KINDS and ffn in FFN_KINDS
 
 
 def check_supported(cfg: ModelConfig) -> None:
+    """Refuse what the port does not run: SSM mixers, cross-attention
+    (enc-dec) and the VLM patch prefix."""
     kinds = set(cfg.layer_kinds())
-    if cfg.family != "dense" or not all(map(_supported_kind, kinds)):
+    if cfg.family not in FAMILIES or cfg.vision_prefix or \
+            not all(map(_supported_kind, kinds)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense decoders (mixers "
-            f"{ATTN_KINDS}, dense FFN); got family {cfg.family!r} with "
-            f"layer kinds {sorted(kinds)}")
+            f"{cfg.name}: the port serves decoders (mixers {ATTN_KINDS}, "
+            f"FFNs {FFN_KINDS}, families {FAMILIES}); got family "
+            f"{cfg.family!r} with layer kinds {sorted(kinds)}")
 
 
 # ---------------------------------------------------------------------------
@@ -80,11 +88,12 @@ def attn_schema(cfg: ModelConfig):
 def layer_schema(cfg: ModelConfig, kind):
     if not _supported_kind(kind):
         raise NotImplementedError(f"layer kind {kind} is not ported")
+    ffn = "moe" if kind[1] == "moe" else "mlp"
     return {
         "ln1": ParamSpec((cfg.d_model,), (None,), init="zeros"),
         "attn": attn_schema(cfg),
         "ln2": ParamSpec((cfg.d_model,), (None,), init="zeros"),
-        "mlp": mlp_schema(cfg),
+        ffn: moe_schema(cfg) if ffn == "moe" else mlp_schema(cfg),
     }
 
 
@@ -227,8 +236,12 @@ def layer_apply(p, x, cfg: ModelConfig, kind, sp=None, cache=None,
                        policy=policy, token_weights=token_weights)
     x = x + h
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_apply(p["mlp"], h, cfg, sp.get("mlp"), policy=policy,
-                      token_weights=token_weights)
+    if kind[1] == "moe":
+        # expert rows are dispatched tokens: no token weights
+        x = x + moe_apply(p["moe"], h, cfg, sp.get("moe"), policy=policy)
+    else:
+        x = x + mlp_apply(p["mlp"], h, cfg, sp.get("mlp"), policy=policy,
+                          token_weights=token_weights)
     return x, ({"self": nc} if nc is not None else None)
 
 

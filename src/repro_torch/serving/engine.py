@@ -118,6 +118,7 @@ from repro_torch.core.unstacked import sparsifiable_leaves
 from repro_torch.kernels.ops import channel_plan
 from repro_torch.models import api
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.serving.controller import AdaptiveController, SLOConfig
 from repro_torch.serving import graphs
 from repro_torch.serving.graphs import ChunkSteps, DecodeSteps, GraphSpace
@@ -456,27 +457,44 @@ class Engine:
         return pd
 
     def _scratch_shapes(self) -> List[tuple]:
-        """(B, n, m, blk, elem_bytes) of every ``pallas`` matmul the
-        engine can launch before or after a capture: each sparsifiable
-        weight at B = max_slots (decode) and, for chunked prefill, at
-        B = prefill_chunk (a chunk's token rows)."""
+        """(B, n, m, blk, elem_bytes, experts) of every ``pallas`` matmul
+        the engine can launch before or after a capture: each
+        sparsifiable weight at B = max_slots (decode) and, for chunked
+        prefill, at B = prefill_chunk (a chunk's token rows).  A MoE
+        layer's (reps, E, n, m) expert weights launch once for all E
+        experts, at the rows each expert sees (``moe.expert_rows``) in
+        decode, a chunk and each speculative verify window."""
         blocks = {pol.block for pol in self._rung_policies
                   if "pallas" in _backends(pol)}
         if not blocks or self.device.type != "cuda":
             return []
-        rows = {self.ecfg.max_slots}
+        cfg, ecfg = self.cfg, self.ecfg
+        S = ecfg.max_slots
+        # x of each captured step: (groups, tokens per group)
+        steps = [(S, 1)]
         if self.prefill_strategy == "chunked":
-            rows.add(self.ecfg.prefill_chunk)
+            steps.append((1, ecfg.prefill_chunk))
+        if ecfg.spec is not None:
+            steps += [(S, g + 1) for g in range(ecfg.spec.max_gamma + 1)]
+        rows = {S} | ({ecfg.prefill_chunk}
+                      if self.prefill_strategy == "chunked" else set())
+        expert_rows = {moe.expert_rows(cfg, b, t) for b, t in steps} \
+            if cfg.num_experts else set()
         elem = self.params["embed"].element_size()
         shapes = set()
         for group in self.params["groups"]:
             for layer in group.values():
-                for _path, w in sparsifiable_leaves(layer):  # (reps, n, m)
-                    n, m = w.shape[1], int(np.prod(w.shape[2:]))
+                for _path, w in sparsifiable_leaves(layer):
+                    if w.dim() == 4:                 # (reps, E, n, m)
+                        E, n, m = w.shape[1:]
+                        rs = expert_rows
+                    else:                            # (reps, n, m)
+                        E, n, m = 1, w.shape[1], int(np.prod(w.shape[2:]))
+                        rs = rows
                     for block in blocks:
                         blk, n_padded, _ = channel_plan(n, block)
-                        shapes.update((B, n_padded, m, blk, elem)
-                                      for B in rows)
+                        shapes.update((B, n_padded, m, blk, elem, E)
+                                      for B in rs)
         return sorted(shapes)
 
     # ------------------------------------------------------------------

@@ -27,10 +27,15 @@ side stream (library build, cuBLAS handles, allocator), with inactive
 inputs that write only the pool's slack, past every position a request
 can hold: a decode step the scratch position, a chunk the ``C``
 positions from ``max_len``, a verify the last ``gamma + 1`` positions.
-A rolling-window leaf (a ``local`` layer) has no slack: there the decode
-warm call's write lands on a live slot, so the decode build restores
-that column after it.  A build in the middle of serving therefore never
-changes a live request's cache.  The steps never run at once, so every graph of an
+Each build then puts back what its warm call wrote (``_Steps.written``),
+so a build leaves the pool as it found it.  A rolling-window leaf (a
+``local`` layer) has no slack: there the decode warm call's write lands
+on a live slot.  And an inactive decode row attends its slot's slack:
+in a MoE layer its expert rows join the active tokens' in each
+expert's shared block selection (no token weights there, as in the
+reference), so slack left by a build would change served tokens.  A
+build in the middle of serving therefore changes nothing a later step
+computes.  The steps never run at once, so every graph of an
 engine shares one memory pool (:class:`GraphSpace`).
 
 A capture or a replay that fails raises; nothing falls back to eager.
@@ -65,11 +70,11 @@ from repro_torch.models import params as P
 
 class GraphSpace:
     """What an engine's captured steps share: the device, one graph
-    memory pool, and the ``(B, n, m, blk, elem_bytes)`` matmul shapes
-    whose split-K scratch is reserved before the first capture."""
+    memory pool, and the ``(B, n, m, blk, elem_bytes, experts)`` matmul
+    shapes whose split-K scratch is reserved before the first capture."""
 
     def __init__(self, device: torch.device,
-                 reserve: Sequence[Tuple[int, int, int, int, int]] = ()):
+                 reserve: Sequence[Tuple[int, ...]] = ()):
         self.device = device
         self.cuda = device.type == "cuda"
         self._reserve = list(reserve)
@@ -81,8 +86,9 @@ class GraphSpace:
         capture.  Returns (graph, run's outputs in the graph's memory,
         the kernel launches recorded while capturing, the split-K scratch
         the graph writes)."""
-        for args in self._reserve:
-            K.reserve_matmul_scratch(*args[:4], self.device, args[4])
+        for B, n, m, blk, elem, experts in self._reserve:
+            K.reserve_matmul_scratch(B, n, m, blk, self.device, elem,
+                                     experts)
         self._reserve = []
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -140,7 +146,8 @@ class _Steps:
 
     def build(self, i: int) -> None:
         """Build step ``i`` once: on the card, one eager warm call and the
-        capture of its graph, with the inactive inputs."""
+        capture of its graph, with the inactive inputs; the cache columns
+        the warm call writes are put back after it."""
         if self._built[i]:
             return
         self.builds += 1
@@ -148,9 +155,14 @@ class _Steps:
             self.on_build(self.keys[i])
         if self.space.cuda:
             self._inactive(i)
+            cols = self.written(i)
+            saved = [c.clone() for c in cols]
             graph, outs, self.captured[i], self.scratch[i] = \
                 self.space.capture(lambda: self._run(i))
             self._graphs[i] = (graph,) + tuple(outs)
+            with torch.no_grad():
+                for c, kept in zip(cols, saved):
+                    c.copy_(kept)
         self._built[i] = True
 
     def _replay(self, i: int) -> tuple:
@@ -160,6 +172,11 @@ class _Steps:
         graph, *outs = self._graphs[i]
         graph.replay()
         return tuple(outs)
+
+    def written(self, i: int) -> list:
+        """Views of the pool's cache columns that step ``i`` writes on
+        its inactive inputs (none by default)."""
+        return []
 
     # the static inputs' inactive values, and one step on them
     def _inactive(self, i: int) -> None:
@@ -200,15 +217,27 @@ def scratch_columns(caches, scratch_pos: int) -> list:
     return out
 
 
+def window_columns(caches, slots: slice, start: int, length: int) -> list:
+    """Views of positions ``[start, start + length)`` of the pool rows
+    ``slots`` in every cache leaf (full-length leaves: the chunk and
+    verify steps run on no rolling window)."""
+    out = []
+    for group in caches:
+        for entry in group:
+            k, v = entry["self"]["k"], entry["self"]["v"]
+            out.extend((k[:, slots, ..., start:start + length],
+                        v[:, slots, :, start:start + length]))
+    return out
+
+
 class DecodeSteps(_Steps):
     """One batched slot-decode step per rung.
 
     ``step`` is ``api.make_slot_decode_step(cfg)``; ``rungs`` lists each
     rung's (decode-phase policy, sp tree).  Inactive slots write
     ``scratch_pos``, and in a rolling-window leaf its slot modulo the
-    window, which may hold a live request's position: so a build on the
-    card keeps a copy of those columns (:func:`scratch_columns`, a few
-    KB per layer) and puts them back after its warm call."""
+    window, which may hold a live request's position: the columns a
+    build puts back (:func:`scratch_columns`, a few KB per layer)."""
 
     def __init__(self, step, params, caches, rungs: Sequence[tuple],
                  max_slots: int, scratch_pos: int, space: GraphSpace):
@@ -250,15 +279,8 @@ class DecodeSteps(_Steps):
                              self._active)
         return logits, torch.argmax(logits, -1)
 
-    def build(self, i: int) -> None:
-        if self.built(i) or not self.space.cuda:
-            return super().build(i)
-        cols = scratch_columns(self._caches, self._scratch_pos)
-        saved = [c.clone() for c in cols]
-        super().build(i)
-        with torch.no_grad():
-            for c, kept in zip(cols, saved):
-                c.copy_(kept)
+    def written(self, i: int) -> list:
+        return scratch_columns(self._caches, self._scratch_pos)
 
     def __call__(self, rung: int, tokens: np.ndarray, positions: np.ndarray,
                  active: np.ndarray):
@@ -341,6 +363,10 @@ class ChunkSteps(_Steps):
                                self._caches, sp, weights, policy=policy)
         return logits
 
+    def written(self, i: int) -> list:
+        return window_columns(self._caches, slice(0, 1), self._slack,
+                              self._tokens.shape[1])
+
     def _inactive(self, i: int) -> None:
         self._tokens.zero_()
         self._offset.fill_(self._slack)
@@ -400,6 +426,11 @@ class VerifySteps(_Steps):
                                self._caches, self._sp, weights,
                                policy=self._policy)
         return logits
+
+    def written(self, i: int) -> list:
+        g1 = self.keys[i] + 1
+        return window_columns(self._caches, slice(None), self._pool_len - g1,
+                              g1)
 
     def _inactive(self, i: int) -> None:
         g = self.keys[i]

@@ -98,7 +98,9 @@ def test_pallas_route_counts_no_launches_on_cpu(model):
         **TRACE), model["sp"], device="cpu")
     _run(eng, model["prompts"][:1])
     assert K.launch_counts == {"score_select": 0, "sparse_matmul_shared": 0,
-                               "sparse_matmul_per_seq": 0}
+                               "sparse_matmul_per_seq": 0,
+                               "score_select_experts": 0,
+                               "sparse_matmul_shared_experts": 0}
 
 
 def test_engine_needs_a_card_unless_asked_for_cpu(model, monkeypatch):

@@ -366,12 +366,17 @@ def test_params_round_trip_the_tied_gemma_trees():
             P.tree_map(lambda t: tuple(t.shape), m["params"])
 
 
-def test_check_supported_admits_the_gemma_family_only():
+def test_check_supported_admits_gemma_and_granite_and_refuses_ssm_encdec_vlm():
+    """Among the archs outside llama's layout, the port admits the Gemma
+    family and the granite MoE models; SSM (mamba2, jamba's mamba
+    layers), enc-dec (whisper) and the VLM prefix (internvl2) stay
+    refused."""
     for name in ("gemma_2b", "gemma2_2b", "gemma3_4b", "llama31_8b",
-                 "deepseek_67b"):
+                 "deepseek_67b", "granite_moe_1b_a400m",
+                 "granite_moe_3b_a800m"):
         TM.check_supported(get_config(name))
-    for name in ("granite_moe_1b_a400m", "mamba2_130m", "whisper_large_v3",
-                 "internvl2_26b", "jamba_v01_52b"):
+    for name in ("mamba2_130m", "whisper_large_v3", "internvl2_26b",
+                 "jamba_v01_52b"):
         with pytest.raises(NotImplementedError):
             TM.check_supported(get_config(name))
 
@@ -519,7 +524,8 @@ def test_whole_prefill_launch_count_on_cpu_is_zero():
     _run(teng, _prompts()[:2], 4)
     assert teng.launches(K.launch_counts) == {
         "score_select": 0, "sparse_matmul_shared": 0,
-        "sparse_matmul_per_seq": 0}
+        "sparse_matmul_per_seq": 0, "score_select_experts": 0,
+        "sparse_matmul_shared_experts": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -134,12 +134,14 @@ def test_engine_on_card_matches_cpu_and_counts_launches(dev):
             ran = eng.stats.decode_steps + eng.stats.prefill_sparse_chunks \
                 + 2                          # + the two warm calls
             for steps, i in ((g, 0), (ch, sparse_chunk)):
-                assert steps.captured[i] == {"score_select": per,
-                                             "sparse_matmul_shared": per,
-                                             "sparse_matmul_per_seq": 0}
+                assert steps.captured[i] == {
+                    "score_select": per, "sparse_matmul_shared": per,
+                    "sparse_matmul_per_seq": 0, "score_select_experts": 0,
+                    "sparse_matmul_shared_experts": 0}
             assert eng.launches(K.launch_counts) == {
                 "score_select": per * ran, "sparse_matmul_shared": per * ran,
-                "sparse_matmul_per_seq": 0}
+                "sparse_matmul_per_seq": 0, "score_select_experts": 0,
+                "sparse_matmul_shared_experts": 0}
             # warm + capture of the decode and the sparse chunk graphs
             assert K.launch_counts["score_select"] == per * 4
     assert outs[0] == outs[1]
@@ -321,6 +323,136 @@ def test_score_select_matches_plain_version(dev, B, n, keep_frac, dtype):
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
     again = K.score_select(x, g, alpha, tau, kf, kb=kb, row_weights=rw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _separated_experts(dev, E, R, n, dtype, blk=128, seed=6):
+    """Per expert, :func:`_separated`'s tie-free x and g; expert 1 is all
+    zero (an expert that no token chose)."""
+    xs, gs = zip(*(_separated(dev, R, n, dtype, blk, seed + e)
+                   for e in range(E)))
+    x = torch.stack(xs)
+    x[1] = 0
+    return x.contiguous(), torch.stack(gs).contiguous()
+
+
+# granite_moe_3b_a800m's expert projections (48 experts, 8 decode rows or
+# 9 rows of a 32-token chunk), and an awkward f32 shape
+EXPERT_SHAPES = [(48, 8, 1536, 512), (48, 9, 512, 1536), (5, 13, 384, 131)]
+
+
+@pytest.mark.parametrize("E,R,n,m", EXPERT_SHAPES)
+@pytest.mark.parametrize("tau", [float("-inf"), 0.05])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_kernels_match_plain_versions(dev, E, R, n, m, tau, dtype):
+    """The expert-batched ``score_select`` (one cluster per expert) and
+    ``sparse_matmul_shared`` (experts in the grid) against their plain
+    versions: xm and idx bit-equal at tie-free block scores, the
+    all-zero expert's ids 0..kb-1, bs and y to 1e-4, two launches
+    bit-equal, one launch each."""
+    x, g = _separated_experts(dev, E, R, n, dtype)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w = (torch.randn(E, n, m, device=dev, generator=gen) * 0.1).to(dtype)
+    alpha, t = torch.tensor(0.7, device=dev), torch.tensor(tau, device=dev)
+    kf = torch.tensor(0.375, device=dev)
+    kb = max(1, round(n // 128 * 0.5))
+    K.reset_launch_counts()
+    got = K.score_select_experts(x, g, alpha, t, kf, kb=kb)
+    y = K.sparse_matmul_shared_experts(got[0], w, got[1])
+    assert K.launch_counts == {"score_select": 0, "sparse_matmul_shared": 0,
+                               "sparse_matmul_per_seq": 0,
+                               "score_select_experts": 1,
+                               "sparse_matmul_shared_experts": 1}
+    want = ref.ref_score_select_experts(x, g, alpha, t, kf, 128, kb)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert got[1][1].tolist() == list(range(kb))
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
+    _close(y, ref.ref_sparse_matmul_shared_experts(got[0], w, got[1], 128))
+    again = K.score_select_experts(x, g, alpha, t, kf, kb=kb)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(y, K.sparse_matmul_shared_experts(got[0], w, got[1]))
+
+
+@pytest.mark.parametrize("E,R,n,m,kb", [(4, 40, 256, 128, 2),
+                                        (3, 33, 1024, 256, 7)])
+def test_expert_matmul_split_k(dev, E, R, n, m, kb):
+    """Few experts and tiles split K: the partials are per (expert,
+    tile), summed in a fixed order."""
+    plan = K.launch_plan(R, n, m, kb, 128, False, 2, E)
+    assert plan.splits > 1, plan
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(E, R, n, device=dev, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(E, n, m, device=dev, generator=gen) * 0.1).to(
+        torch.bfloat16)
+    idx = torch.stack([torch.randperm(n // 128, device=dev,
+                                      generator=gen)[:kb]
+                       for _ in range(E)]).to(torch.int32)
+    y = K.sparse_matmul_shared_experts(x, w, idx)
+    _close(y, ref.ref_sparse_matmul_shared_experts(x, w, idx, 128))
+    assert torch.equal(y, K.sparse_matmul_shared_experts(x, w, idx))
+
+
+def test_wisparse_project_experts_on_card_matches_cpu(dev):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    E, R, n, m = 6, 9, 320, 96
+    x = torch.randn(E, R, n, device=dev, generator=gen)
+    w = torch.randn(E, n, m, device=dev, generator=gen) * 0.1
+    sp = {"g": torch.rand(E, n, device=dev, generator=gen) + 0.1,
+          "alpha": torch.tensor(0.7, device=dev),
+          "tau": torch.tensor(-1.0, device=dev),
+          "keep_frac": torch.tensor(0.5, device=dev)}
+    got = ops.wisparse_project_experts(x, w, sp, block=64, k_frac=0.5)
+    want = ops.wisparse_project_experts(
+        x.cpu(), w.cpu(), {k: v.cpu() for k, v in sp.items()}, block=64,
+        k_frac=0.5)
+    _close(got.cpu(), want)
+
+
+def test_granite_engine_on_card_matches_cpu_and_counts_launches(dev):
+    """Reduced granite_moe_3b_a800m with 20 experts (12 pad experts),
+    its attention and MoE weights scaled as in ``tests/test_torch_moe.py``:
+    greedy tokens equal the CPU's, and every sparse pass launches
+    ``score_select`` and ``sparse_matmul_shared`` 4 times per layer (the
+    attention projections) and each ``_experts`` kernel 3 times (the
+    expert-batched ones), once per replay of a captured step."""
+    import dataclasses
+    cfg = dataclasses.replace(reduced(get_config("granite_moe_3b_a800m")),
+                              num_experts=20, num_experts_per_tok=4)
+    params = chip_smoke.scale_gemma_weights(
+        api.init_model(cfg, 0, device="cpu"))
+    sp = default_sp_stacked(params, cfg, keep_frac=0.5, tau=float("-inf"))
+    pol = SparsityPolicy.uniform("pallas", k_max_frac=0.5, block=16)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, n) for n in (20, 9, 33)]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        K.reset_launch_counts()
+        eng = Engine(
+            P.tree_map(lambda t, d=d: t.to(d), params), cfg,
+            EngineConfig(max_slots=4, max_len=64, prefill_chunk=16,
+                         policy=pol), P.tree_map(lambda t, d=d: t.to(d), sp),
+            device=d)
+        assert eng.prefill_strategy == "chunked"
+        for p in prompts:
+            eng.submit(p, 8)
+        outs.append(eng.run())
+        if d.type == "cuda":
+            attn, experts = 4 * cfg.num_layers, 3 * cfg.num_layers
+            per = {"score_select": attn, "sparse_matmul_shared": attn,
+                   "sparse_matmul_per_seq": 0,
+                   "score_select_experts": experts,
+                   "sparse_matmul_shared_experts": experts}
+            g, ch = eng.decode_graphs, eng.chunk_graphs
+            sparse_chunk = ch.index(0, pol.for_phase("prefill_sparse"))
+            assert g.captured[0] == per
+            assert ch.captured[sparse_chunk] == per
+            ran = eng.stats.decode_steps + eng.stats.prefill_sparse_chunks \
+                + 2
+            assert eng.launches(K.launch_counts) == {
+                k: v * ran for k, v in per.items()}
+            assert ch.steps[sparse_chunk] == eng.stats.prefill_sparse_chunks
+    assert outs[0] == outs[1]
+    assert len({t for ts in outs[0].values() for t in ts}) > 8
 
 
 @pytest.mark.parametrize("B,n,blk,offset", [(3, 300, 100, 0),
@@ -1028,7 +1160,8 @@ def test_quality_probe_and_recon_graphs_built_once(dev):
         eng.stats.decode_steps
     assert q.recon_steps.steps == [q.recon_passes] and q.recon_passes > 0
     zero = {"score_select": 0, "sparse_matmul_shared": 0,
-            "sparse_matmul_per_seq": 0}
+            "sparse_matmul_per_seq": 0, "score_select_experts": 0,
+            "sparse_matmul_shared_experts": 0}
     assert q.probe_steps.captured == [zero]
     assert q.recon_steps.captured == [zero]
     # each sparse graph: its eager warm call, then one run per replay

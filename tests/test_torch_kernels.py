@@ -281,7 +281,9 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     assert torch.equal(TK.sparse_matmul_per_seq(tx, tw, ids),
                        ref.ref_sparse_matmul_per_seq(tx, tw, ids, 128))
     assert TK.launch_counts == {"score_select": 0, "sparse_matmul_shared": 0,
-                                "sparse_matmul_per_seq": 0}
+                                "sparse_matmul_per_seq": 0,
+                                "score_select_experts": 0,
+                                "sparse_matmul_shared_experts": 0}
 
 
 def test_non_cpu_tensors_never_fall_back():
