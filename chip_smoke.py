@@ -47,14 +47,22 @@ In order, it:
    experts, R = 8 and 9 rows each, bf16, tau -inf and finite): xm
    bit-equal and ids equal or tied per expert, the pad experts' zero rows
    giving ids 0..kb-1, the matmul within the tolerance, two launches
-   bit-equal, timed beside the plain versions and dense ``torch.bmm``;
+   bit-equal, timed beside the plain versions and dense ``torch.bmm``.
+   ``score_select`` and ``sparse_matmul_shared`` are then held and timed
+   at mamba2_130m's six projection shapes (n = 768 into m = 1536, 1536,
+   128, 128 and 24, and n = 1536 into m = 768; B = 8 and 32), with a
+   per-decode-layer summary, and held at the row counts of phase 18's
+   whole-prompt prefills (64-448, 4099 and 3 x 8192 rows);
 4. checks a reduced llama31_8b on the card against the same model on the
    CPU (plain kernel versions): forward logits and served greedy tokens;
    then a reduced gemma2_2b (f32, window 32) the same way: prefill logits
    and rolled caches over 80 tokens, and the tokens of a whole-prefill
    ``pallas`` engine serving prompts past the window; then a reduced
    granite_moe_3b_a800m with 20 experts padded to 32: prefill logits and
-   the tokens of a chunked ``pallas`` engine;
+   the tokens of a chunked ``pallas`` engine; then a reduced mamba2_130m
+   and a reduced jamba_v01_52b (f32): prefill logits, 4 decode steps'
+   logits from a pool holding the prefills, and the tokens of a
+   whole-prefill ``pallas`` engine;
 5. serves full-width llama31_8b (32 layers, d_model 4096, bf16, random
    weights from a fixed seed) through the port's ``Engine``: 12 requests
    with ragged prompts of 64-448 tokens, 32 new tokens each, dense and
@@ -215,12 +223,31 @@ In order, it:
    p50, the capacity drops per chunk, device ms per traced decode step,
    the top ops of one eager decode step, and runs ``serve --arch
    granite_moe_3b_a800m --mode pallas`` at full width (exit 0);
-18. prints one JSON line describing every kernel, then, as its last line,
+18. serves full-width mamba2_130m (24 layers, d_model 768, d_inner 1536,
+   24 heads of 64, state 128, conv 4, vocab 50280, tied head, bf16,
+   random weights from SEED): 8 slots, whole-prompt prefill, 12 prompts
+   of 32 new tokens (3 of 8192 tokens, which batch as one whole prefill,
+   one of 4099, a prime length on which the SSD chunk length falls to
+   1, and 8 of phase 5's lengths), dense, ``pallas``, ``pallas``, dense
+   (uncalibrated) and ``pallas`` with ``prefill_dense_frac`` 0.  Each
+   run must resolve the ``whole`` strategy, build no decode step after
+   warmup and launch each kernel 144 times (24 layers x 6 projections,
+   derived from the policy) per sparse pass (graph replays, the warm
+   call, sparse whole prefills); each mode's two runs must give the same
+   tokens, a decode step built on a busy engine must leave every SSM
+   leaf bit-equal, the captured decode step must equal the eager one,
+   and ``serve --arch mamba2_130m`` (full width) and ``serve --arch
+   jamba_v01_52b --reduced`` must exit 0.  Prints decode tok/s, p50/p95,
+   TTFT p50, whole-prefill ms per prompt length, device ms per traced
+   decode step and the top ops of one eager step, and the decode step's
+   byte bound split into conv/SSM state and the rest;
+19. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run (whose llama31_8b decode layer their times are), those of the
-   ``_experts`` kernels from phase 17's first ``pallas`` run, and those
-   of ``sparse_matmul_per_seq`` from phase 3's
+   ``_experts`` kernels from phase 17's first ``pallas`` run (the 2-D
+   kernels' ``max_abs_err`` covers every shape phase 3 held, mamba2's
+   included), and those of ``sparse_matmul_per_seq`` from phase 3's
    ``wisparse_project(per_seq=True)`` calls, since no serving path
    reaches that kernel.
 
@@ -272,6 +299,21 @@ GRANITE_ATTN = [("attn/wq", 1536, 1536), ("attn/wk", 1536, 512),
 GRANITE_EXPERTS = [("moe/wi_gate", 1536, 512), ("moe/wi_up", 1536, 512),
                    ("moe/wo", 512, 1536)]
 GRANITE_E = 48
+# mamba2_130m projections of one layer (d_model 768, d_inner 1536, state
+# 128, 24 heads): in_B, in_C and in_dt are a single ragged column tile
+MAMBA_LAYER = [("mamba/in_z", 768, 1536), ("mamba/in_x", 768, 1536),
+               ("mamba/in_B", 768, 128), ("mamba/in_C", 768, 128),
+               ("mamba/in_dt", 768, 24), ("mamba/out_proj", 1536, 768)]
+# the projection roles of each mixer and FFN kind: one launch of each
+# 2-D kernel per role that runs pallas (an expert role: one of each
+# _experts kernel for all the layer's experts)
+KIND_ROLES = {
+    "attn": ("attn/wq", "attn/wk", "attn/wv", "attn/wo"),
+    "mamba": tuple(r for r, _n, _m in MAMBA_LAYER),
+    "dense": ("mlp/wi_gate", "mlp/wi_up", "mlp/wo"),
+    "moe": ("moe/wi_gate", "moe/wi_up", "moe/wo"),
+    "none": ()}
+KIND_ROLES["local"] = KIND_ROLES["global"] = KIND_ROLES["attn"]
 BLK = 128
 KEEP = 0.5
 # Tolerances.  Kernel and plain version both upcast their inputs to f32
@@ -783,10 +825,12 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
     return out, errs
 
 
-def whole_prefill_kernels(K, ref, dev, rows, layer=GEMMA_LAYER) -> dict:
+def whole_prefill_kernels(K, ref, dev, rows, layer=GEMMA_LAYER,
+                          model="gemma2_2b") -> dict:
     """``score_select`` and then ``sparse_matmul_shared`` on its kept
     blocks at every B of ``rows`` (phase 16's whole-prompt prefills, up
-    to 2 x 4326 rows) and each of ``layer``'s projection shapes, bf16, no
+    to 2 x 4326 rows, or phase 18's, up to 3 x 8192) and each of
+    ``layer``'s projection shapes (``model``'s), bf16, no
     row weights (as ``_prefill_whole`` passes none), alpha 1, k_frac and
     keep_frac 0.5, tau -inf (the uncalibrated runs) and a finite tau (a
     quarter of the mean g), held against their plain versions as
@@ -826,7 +870,7 @@ def whole_prefill_kernels(K, ref, dev, rows, layer=GEMMA_LAYER) -> dict:
                           lambda: K.sparse_matmul_shared(xk, w, idx, blk=BLK))
             del x
     print(f"whole-prefill kernels: score_select and sparse_matmul_shared at "
-          f"B = {rows} x {len(layer)} gemma2_2b shapes x 2 taus agree with "
+          f"B = {rows} x {len(layer)} {model} shapes x 2 taus agree with "
           f"their plain versions (max abs err {errs})")
     return errs
 
@@ -1072,10 +1116,11 @@ def layer_summary(rows, ps_rows, proj) -> None:
                   f"than v1 at {faster}/{len(per)} shapes")
 
 
-def gemma_layer_summary(rows) -> dict:
-    """Per gemma2_2b decode layer (its 7 projection shapes summed) at B =
-    8 and 32: ``score_select`` and ``sparse_matmul_shared`` against their
-    bounds, plain versions and dense ``torch.matmul``."""
+def gemma_layer_summary(rows, model: str = "gemma2_2b") -> dict:
+    """Per ``model`` decode layer (its projection shapes summed: 7 of
+    gemma2_2b, 6 of mamba2_130m) at B = 8 and 32: ``score_select`` and
+    ``sparse_matmul_shared`` against their bounds, plain versions and
+    dense ``torch.matmul``."""
     out = {}
     for B in (8, 32):
         row = {}
@@ -1086,7 +1131,7 @@ def gemma_layer_summary(rows) -> dict:
             lib = [p["library_ms"] for p in per]
             row[name]["library_ms"] = None if lib[0] is None else sum(lib)
             r = row[name]
-            print(f"gemma2_2b per decode layer B={B:2d} {name:20s} "
+            print(f"{model} per decode layer B={B:2d} {name:20s} "
                   f"{r['ms'] * 1e3:8.2f} us (plain {r['plain_ms'] * 1e3:8.2f}"
                   + ("" if r["library_ms"] is None else
                      f", torch.matmul dense {r['library_ms'] * 1e3:7.2f}")
@@ -1262,6 +1307,79 @@ def reduced_granite_check(dev) -> None:
           f"({len({t for ts in outs[0].values() for t in ts})} distinct)")
 
 
+def reduced_ssm_check(dev, arch: str) -> dict:
+    """Reduced ``arch`` (mamba2_130m, or jamba_v01_52b: mamba and
+    attention mixers, dense and MoE FFNs; f32) on the card against the
+    CPU, under uncalibrated ``pallas``: prefill logits over 2 x 37
+    tokens, the logits of 4 decode steps from a 3-slot pool holding both
+    prefills (slot 1 inactive, the CPU's greedy tokens fed to both), all
+    within LOGIT_ATOL, and the tokens of a whole-prefill engine with
+    ``prefill_dense_frac`` 0 (prompts of 40, 17 and 70 tokens)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.models import api, model as M, params as P
+    from repro_torch.serving import Engine, EngineConfig, SlotKVPool
+    from repro_torch.sparsity import SparsityPolicy
+
+    cfg = reduced(get_config(arch))
+    cpu = torch.device("cpu")
+    params_c = api.init_model(cfg, SEED, device=cpu)
+    sp_c = default_sp_stacked(params_c, cfg, keep_frac=KEEP,
+                              tau=float("-inf"))
+    params_g = P.tree_map(lambda t: t.to(dev), params_c)
+    sp_g = P.tree_map(lambda t: t.to(dev), sp_c)
+    pol = SparsityPolicy.uniform("pallas", k_max_frac=KEEP, block=16)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 37)))
+    sides = ((dev, params_g, sp_g), (cpu, params_c, sp_c))
+    pools, logits = [], []
+    with torch.no_grad():
+        for d, params, sp in sides:
+            lg, caches = M.forward(params, cfg, tokens=toks.to(d),
+                                   mode="prefill", sp=sp, policy=pol)
+            pool = SlotKVPool(cfg, 3, 64, device=d)
+            slots = [pool.alloc() for _ in range(3)]
+            pool.insert(caches, 0, slots[0], 37)
+            pool.insert(caches, 1, slots[2], 37)
+            pools.append(pool)
+            logits.append(lg)
+        err = max_err(logits[0].cpu(), logits[1])
+        nxt = torch.argmax(logits[1], -1)
+        tokens = torch.stack([nxt[0], torch.tensor(0), nxt[1]])
+        positions = torch.tensor([37, 63, 37])
+        active = torch.tensor([1.0, 0.0, 1.0])
+        step = api.make_slot_decode_step(cfg)
+        for _ in range(4):
+            outs = [step(params, tokens.to(d), positions.to(d),
+                         pool.caches, sp, active.to(d), policy=pol)[0]
+                    for (d, params, sp), pool in zip(sides, pools)]
+            err = max(err, max_err(outs[0].cpu(), outs[1]))
+            tokens = torch.argmax(outs[1], -1) * active.long()
+            positions = positions + active.long()
+    if not err <= LOGIT_ATOL:
+        raise AssertionError(f"reduced {arch}: card vs CPU logits err {err}")
+    outs = []
+    prompts = [rng.integers(0, cfg.vocab_size, p) for p in (40, 17, 70)]
+    for d, params, sp in sides:
+        eng = Engine(params, cfg, EngineConfig(
+            max_slots=3, max_len=128, prefill_chunk=16, policy=pol,
+            prefill_dense_frac=0.0), sp, device=d)
+        if eng.prefill_strategy != "whole":
+            raise AssertionError(f"reduced {arch} resolved to "
+                                 f"{eng.prefill_strategy!r}")
+        for p in prompts:
+            eng.submit(p, 24)
+        outs.append(eng.run())
+    if outs[0] != outs[1]:
+        raise AssertionError(f"reduced {arch} engine tokens: card {outs[0]} "
+                             f"!= CPU {outs[1]}")
+    distinct = len({t for ts in outs[0].values() for t in ts})
+    print(f"reduced {arch} on the card vs CPU: prefill and 4 decode steps' "
+          f"logits max abs err {err:.2e} (<= {LOGIT_ATOL}); whole-prefill "
+          f"pallas engine tokens equal ({distinct} distinct)")
+    return {"logits_max_abs_err": err, "distinct_tokens": distinct}
+
+
 # ---------------------------------------------------------------------------
 # phase 5: full-width serving
 # ---------------------------------------------------------------------------
@@ -1397,17 +1515,27 @@ def serve_once(name, params, cfg, policy, sp, trace, dev, K, ladder=None,
     return res
 
 
-def pass_launches(cfg) -> dict:
-    """Launches of each kernel in one sparse pass of ``cfg``: 4 attention
-    projections and 3 FFN ones per layer, those of a MoE layer each one
-    expert-batched launch for all its experts (granite_moe_3b_a800m: 128
-    of ``score_select`` and of ``sparse_matmul_shared``, 96 of each
-    ``_experts`` kernel; llama31_8b: 224 and 0)."""
-    moe = sum(1 for _, ffn in cfg.layer_kinds() if ffn == "moe")
-    plain = 7 * cfg.num_layers - 3 * moe
+def pass_launches(cfg, policy=None) -> dict:
+    """Launches of each kernel in one sparse pass of ``cfg`` under
+    ``policy`` (None: every projection under ``pallas``): one of
+    ``score_select`` and of ``sparse_matmul_shared`` per 2-D projection
+    whose role runs ``pallas`` at its depth (``KIND_ROLES``: 4 per
+    attention mixer, 6 per mamba mixer, 3 per dense MLP), one of each
+    ``_experts`` kernel per expert projection (3 per MoE layer, for all
+    its experts).  llama31_8b: 224 and 0; granite_moe_3b_a800m: 128 and
+    96; mamba2_130m: 144 and 0."""
+    plain = experts = 0
+    for depth, kind in enumerate(cfg.layer_kinds()):
+        lpol = None if policy is None else policy.resolve_depth(depth)
+        for role in KIND_ROLES[kind[0]] + KIND_ROLES[kind[1]]:
+            if lpol is None or lpol.backend_at(role=role) == "pallas":
+                if role.startswith("moe/"):
+                    experts += 1
+                else:
+                    plain += 1
     return {"score_select": plain, "sparse_matmul_shared": plain,
-            "score_select_experts": 3 * moe,
-            "sparse_matmul_shared_experts": 3 * moe}
+            "score_select_experts": experts,
+            "sparse_matmul_shared_experts": experts}
 
 
 def check_launches(name, eng, ladder, counts, res, cfg) -> None:
@@ -3803,7 +3931,7 @@ def eager_step_ops(g, eng, top: int = 8) -> list:
     total = sum(ms for _, ms in ev)
     ev.sort(key=lambda e: -e[1])
     rows = [[k[:60], ms, ms / total] for k, ms in ev[:top]]
-    print(f"eager decode step at rolled positions: {total:.2f} ms on the "
+    print(f"one eager decode step: {total:.2f} ms on the "
           "device; top ops " + "; ".join(f"{k} {ms:.2f} ms ({100 * f:.0f}%)"
                                          for k, ms, f in rows))
     return rows
@@ -4135,6 +4263,368 @@ def serve_granite(dev, K) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: mamba2_130m at full width (SSD scan, O(1) decode state)
+# ---------------------------------------------------------------------------
+
+# max_len is bookkeeping only: an attention-free model's pool has no time
+# axis
+MAMBA_ECFG = dict(max_slots=8, max_len=8448, prefill_chunk=32)
+
+
+def mamba_model(dev):
+    """mamba2_130m at full width and depth, random weights from SEED: 24
+    layers, d_model 768, d_inner 1536, 24 heads of 64, state 128, conv 4,
+    vocab 50280, tied head, bf16."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = get_config("mamba2_130m")
+    assert (cfg.num_layers, cfg.d_model, cfg.d_inner, cfg.ssm_nheads,
+            cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv, cfg.vocab_size,
+            cfg.tie_embeddings, cfg.dtype) == \
+        (24, 768, 1536, 24, 64, 128, 4, 50280, True, "bfloat16")
+    t0 = obs.now()
+    params = api.init_model(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"mamba2_130m: {n_params / 1e6:.1f}M params ({cfg.dtype}), init "
+          f"{obs.now() - t0:.1f} s, device memory "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    return cfg, params
+
+
+def mamba_lens() -> list:
+    """Phase 18's prompt lengths: 3 of 8192 tokens (one whole prefill of
+    B = 3), one of 4099 (prime: the reference's chunk rule falls to
+    L = 1), then phase 5's first 8 (64-448)."""
+    rng = np.random.default_rng(SEED)
+    short = [int(p) for p in rng.integers(64, 449, 12)[:8]]
+    return [8192, 8192, 8192, 4099] + short
+
+
+def mamba_prefill_rows() -> list:
+    """The token rows of each whole-prompt prefill of phase 18's trace
+    (one batch per prompt length), the B that pass gives both kernels."""
+    lens = mamba_lens()
+    return sorted({n * lens.count(n) for n in lens})
+
+
+def mamba_trace(cfg) -> dict:
+    """Phase 18's trace: the 12 prompts of :func:`mamba_lens`, submitted
+    in that order (the first 8 admitted at once, so the three 8192-token
+    prompts batch into one whole prefill), 32 new tokens each."""
+    rng = np.random.default_rng(SEED + 18)
+    lens = mamba_lens()
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    return {"prompts": prompts, "lens": lens, "gen": 32,
+            "ecfg": dict(MAMBA_ECFG)}
+
+
+def ssm_state_bytes(eng) -> int:
+    """Bytes of every slot's conv windows and f32 SSM state in ``eng``'s
+    pool (a decode step reads them once and writes them once)."""
+    from repro_torch.serving import graphs
+    return sum(t.nbytes for t in graphs.ssm_leaves(eng.pool.caches))
+
+
+def mamba_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
+              window=WINDOW) -> dict:
+    """One run of phase 18's trace through a fresh, warmed ``Engine``,
+    the kernels' counts zeroed just before it is built and read just
+    after the run.  Checks the ``whole`` strategy, one whole prefill per
+    prompt length (the 8192-token batch at B = 3), no decode step built
+    after warmup, and the launches against the sparse passes executed:
+    :func:`pass_launches` under the decode policy (144 = 24 layers x 6
+    projections) per replay of a sparse decode graph and per its eager
+    warm call, and under the prefill policy per whole prefill run sparse
+    (``prefill_dense_frac`` 0)."""
+    from repro_torch import obs
+    from repro_torch.serving import Engine, EngineConfig
+
+    K.reset_launch_counts()
+    eng = Engine(params, cfg, EngineConfig(
+        policy=policy, prefill_dense_frac=frac, **trace["ecfg"]), sp,
+        device=dev)
+    eng.warmup()
+    if eng.prefill_strategy != "whole":
+        raise AssertionError(f"{name}: mamba2_130m resolved to "
+                             f"{eng.prefill_strategy!r}, expected 'whole'")
+    prefills, prefill_whole = [], eng._prefill_whole
+
+    def timed_prefill(group):
+        t0 = obs.now()
+        prefill_whole(group)
+        torch.cuda.synchronize()
+        prefills.append((group[0].request.prompt_len, len(group),
+                         1e3 * (obs.now() - t0)))
+
+    eng._prefill_whole = timed_prefill
+    for p in trace["prompts"]:
+        eng.submit(p, trace["gen"])
+    t0 = obs.now()
+    out, res = drive(eng, window)
+    torch.cuda.synchronize()
+    res["wall_s"] = obs.now() - t0
+    counts = dict(K.launch_counts)
+    for rid, toks in out.items():
+        if len(toks) != trace["gen"] or not all(0 <= t < cfg.vocab_size
+                                                for t in toks):
+            raise AssertionError(f"{name}: request {rid} gave {toks}")
+    if eng.decode_retraces_after_warmup != 0:
+        raise AssertionError(f"{name}: {eng.decode_retraces_after_warmup} "
+                             "decode builds after warmup")
+    if len(prefills) != len(set(trace["lens"])) or \
+            max(b for _, b, _ in prefills) != 3:
+        raise AssertionError(f"{name}: whole prefills {prefills}: expected "
+                             "one per prompt length, one of B = 3")
+    dec_pol = policy.for_phase("decode")
+    pre_pol = policy.for_phase("prefill_sparse" if frac <= 0.0
+                               else "prefill_dense")
+    per_pass = pass_launches(cfg, dec_pol)
+    per_prefill = pass_launches(cfg, pre_pol)
+    sparse_decode, sparse_prefill = not dec_pol.is_dense, \
+        not pre_pol.is_dense
+    g = eng.decode_graphs
+    launches = eng.launches(counts)
+    for k in per_pass:
+        want_cap = per_pass[k] if sparse_decode else 0
+        if g.captured[0].get(k, 0) != want_cap:
+            raise AssertionError(f"{name}: the decode graph captured "
+                                 f"{g.captured[0].get(k, 0)} {k}, expected "
+                                 f"{want_cap}")
+        want = (per_pass[k] * (g.steps[0] + 1) if sparse_decode else 0) + \
+            (per_prefill[k] * len(prefills) if sparse_prefill else 0)
+        if launches[k] != want:
+            raise AssertionError(
+                f"{name}: {k} launched {launches[k]} times, expected {want} "
+                f"({per_pass[k]} per sparse decode pass x "
+                f"{g.steps[0] + 1}, {per_prefill[k]} per whole prefill x "
+                f"{len(prefills) if sparse_prefill else 0})")
+    if launches["sparse_matmul_per_seq"]:
+        raise AssertionError(f"{name}: sparse_matmul_per_seq launched")
+    distinct = len({t for ts in out.values() for t in ts})
+    if distinct < 2:
+        raise AssertionError(f"{name}: every request emitted one token")
+    res.update({
+        "strategy": eng.prefill_strategy,
+        "decode_retraces_after_warmup": eng.decode_retraces_after_warmup,
+        "decode_replays": list(g.steps),
+        "whole_prefills": [[n, b, ms] for n, b, ms in prefills],
+        "sparse_passes": (g.steps[0] + 1 if sparse_decode else 0)
+        + (len(prefills) if sparse_prefill else 0),
+        "launches": {k: launches[k] for k in GEMMA_SERVED},
+        "launches_counted": {k: counts[k] for k in GEMMA_SERVED},
+        "launches_per_pass": per_pass,
+        "state_bytes": ssm_state_bytes(eng),
+        "distinct_tokens": distinct,
+        "tokens": out})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mamba_graph_vs_eager(dev, cfg, params, sp, trace, steps: int = 4
+                         ) -> dict:
+    """Phase 18's 8 short prompts prefilled whole into an engine whose
+    decode step is not built yet, dense and uncalibrated ``pallas``.
+    First the decode graph is built on that busy engine: its warm call
+    runs every slot inactive, which advances every slot's conv windows
+    and SSM state, and the build must put them back, every live slot's
+    rows bit-equal.  Then, at each of ``steps`` decode steps, the eager
+    step and the graph replay from the same pool state (restored between
+    them: a decode step advances the state in place): greedy tokens must
+    be equal; prints the logits' max abs error and the top ops of one
+    eager step."""
+    from repro_torch.serving import Engine, EngineConfig, graphs
+    from repro_torch.sparsity import SparsityPolicy
+
+    out = {}
+    for name, pol, s in (
+            ("dense", SparsityPolicy.dense(), None),
+            ("pallas", SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
+             sp)):
+        eng = Engine(params, cfg, EngineConfig(policy=pol, **trace["ecfg"]),
+                     s, device=dev)
+        for p in trace["prompts"][4:]:
+            eng.submit(p, 64)
+        eng._admit()
+        while eng.scheduler.prefilling:
+            eng._prefill_whole(eng.scheduler.prefill_group())
+        g = eng.decode_graphs
+        leaves = graphs.ssm_leaves(eng.pool.caches)
+        live = [t.clone() for t in leaves]
+        if g.built(0):
+            raise AssertionError(f"mamba2 {name}: decode graph built early")
+        g.build(0)
+        torch.cuda.synchronize()
+        moved = [i for i, (a, b) in enumerate(zip(leaves, live))
+                 if not torch.equal(a, b)]
+        if moved:
+            raise AssertionError(f"mamba2 {name}: the decode build on a busy "
+                                 f"engine changed SSM leaves {moved}")
+        err = 0.0
+        for _ in range(steps):
+            tokens, positions, active = eng.decode_inputs()
+            if active.sum() != 8:
+                raise AssertionError(f"mamba2 {name}: {active.sum()} active "
+                                     "slots")
+            before = [t.clone() for t in leaves]
+            logits = g.eager(0, tokens, positions, active)
+            want = (torch.argmax(logits, -1).cpu().numpy(),
+                    logits.float().clone())
+            for t, b in zip(leaves, before):
+                t.copy_(b)
+            nxt, logits = g(0, tokens, positions, active)
+            if not np.array_equal(want[0], nxt):
+                raise AssertionError(f"mamba2 {name}: graph replay tokens "
+                                     f"{nxt} != eager {want[0]}")
+            err = max(err, max_err(logits.float(), want[1]))
+            for t, b in zip(leaves, before):
+                t.copy_(b)
+            eng.step()
+        # the last use of this engine: one eager step under the profiler
+        # (it advances the pool's state)
+        out[name] = {"logits_max_abs_err": err, "steps": steps,
+                     "busy_build_leaves_equal": len(leaves),
+                     "eager_step_top_ops": eager_step_ops(g, eng)}
+        print(f"mamba2 {name}: the decode graph built on a busy engine left "
+              f"all {len(leaves)} SSM leaves bit-equal; graph vs eager, B=8, "
+              f"{steps} steps: greedy tokens equal; logits max abs err "
+              f"{err:.3g}")
+        del eng
+        gc.collect()
+    return out
+
+
+def mamba_serve_cli(dev) -> dict:
+    """The serve CLI on the card, each in a subprocess that must exit 0:
+    ``--arch mamba2_130m --mode pallas`` at full width (4 prompts of 64
+    tokens, 8 new tokens each) and ``--arch jamba_v01_52b --reduced``."""
+    from repro_torch import obs
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    res = {}
+    for tag, argv in (
+            ("mamba2_130m", ["--arch", "mamba2_130m", "--mode", "pallas",
+                             "--batch", "4", "--prompt-len", "64", "--gen",
+                             "8"]),
+            ("jamba_v01_52b --reduced", ["--arch", "jamba_v01_52b",
+                                         "--reduced", "--mode", "pallas",
+                                         "--prompt-len", "40", "--gen",
+                                         "8"])):
+        t0 = obs.now()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+            env=env, cwd=HERE, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"serve --arch {tag} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        lines = proc.stdout.strip().splitlines()
+        print(f"serve --arch {tag}: exit 0 in {obs.now() - t0:.1f} s; "
+              f"{lines[-1] if lines else ''}")
+        res[tag] = {"exit": proc.returncode, "wall_s": obs.now() - t0}
+    return res
+
+
+def serve_mamba(dev, K) -> dict:
+    """Phase 18: full-width mamba2_130m through the port's ``Engine``
+    (8 slots, whole-prompt prefill, the decode step captured once):
+    dense, ``pallas``, ``pallas``, dense (uncalibrated: keep_frac =
+    k_max_frac = 0.5, tau -inf), and ``pallas`` with
+    ``prefill_dense_frac`` 0 (the whole prompts through the kernels, up
+    to 3 x 8192 rows); then the busy build and the captured decode step
+    against the eager one, and the serve CLI."""
+    from repro_torch import obs
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.launch import constants
+    from repro_torch.launch.roofline import step_costs
+    from repro_torch.models.ssm import chunk_len
+    from repro_torch.serving import EngineConfig
+    from repro_torch.sparsity import SparsityPolicy
+
+    t_phase = obs.now()
+    cfg, params = mamba_model(dev)
+    trace = mamba_trace(cfg)
+    print(f"phase 18 trace: prompt lengths {trace['lens']}, "
+          f"{trace['gen']} new tokens each, {trace['ecfg']}; SSD chunk "
+          f"length L at 8192: {chunk_len(8192, cfg.ssm_chunk)}, at 4099: "
+          f"{chunk_len(4099, cfg.ssm_chunk)}")
+    if chunk_len(4099, cfg.ssm_chunk) != 1:
+        raise AssertionError("4099 should fall to L = 1")
+    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
+    modes = {"dense": (SparsityPolicy.dense(), None),
+             "pallas": (SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
+                        sp)}
+    ecfg = EngineConfig(**trace["ecfg"])
+    runs = {}
+    for name in ("dense", "pallas", "pallas", "dense"):
+        pol, s = modes[name]
+        res = mamba_run(name, params, cfg, pol, s, trace, dev, K)
+        if name in runs and res["tokens"] != runs[name][0]["tokens"]:
+            raise AssertionError(f"mamba2 {name}: the second run's greedy "
+                                 "tokens differ from the first's")
+        runs.setdefault(name, []).append(res)
+    pol, s = modes["pallas"]
+    runs["pallas sparse prefill"] = [mamba_run(
+        "pallas sparse prefill", params, cfg, pol, s, trace, dev, K,
+        frac=0.0)]
+    state = runs["dense"][0]["state_bytes"]
+    bounds = {}
+    for name, (pol, s) in modes.items():
+        _, nbytes = step_costs(cfg, ecfg, pol, s, "decode")
+        bounds[name] = {
+            "decode_step_gb": nbytes / 1e9,
+            "state_gb": 2 * state / 1e9,
+            "weights_and_rest_gb": (nbytes - 2 * state) / 1e9,
+            "decode_step_bound_ms": 1e3 * nbytes / constants.HBM_BW}
+        print(f"mamba2 {name} decode step bytes (step_costs): "
+              f"{nbytes / 1e9:.4f} GB = {2 * state / 1e9:.4f} GB of conv "
+              f"windows and SSM state (read and written) + "
+              f"{(nbytes - 2 * state) / 1e9:.4f} GB of weights, head and "
+              f"the rest; bound {bounds[name]['decode_step_bound_ms']:.3f} "
+              "ms at 3.35 TB/s")
+    keys = ("decode_tok_s", "decode_step_p50_ms", "decode_step_p95_ms",
+            "ttft_p50_ms", "window_step_device_ms", "decode_device_busy",
+            "wall_s", "sparse_passes", "decode_retraces_after_warmup",
+            "distinct_tokens")
+    for name, rs in runs.items():
+        for i, r in enumerate(rs):
+            pre = ", ".join(f"{n}x{b} {ms:.1f}" for n, b, ms in
+                            r["whole_prefills"])
+            print(f"mamba2 {name} {i + 1}: " + ", ".join(
+                f"{k} {r[k]:.4g}" if isinstance(r[k], float)
+                else f"{k} {r[k]}" for k in keys)
+                + f"; launches {r['launches']} ({r['launches_per_pass']} "
+                f"per sparse pass); whole-prefill ms per prompt length x "
+                f"batch: {pre}")
+    gve = mamba_graph_vs_eager(dev, cfg, params, sp, trace)
+    cli = mamba_serve_cli(dev)
+    for name in ("dense", "pallas"):
+        rs = runs[name]
+        print(f"mamba2 {name}: greedy tokens equal in both runs; decode p50 "
+              f"{rs[0]['decode_step_p50_ms']:.3f} / "
+              f"{rs[1]['decode_step_p50_ms']:.3f} ms, device ms per traced "
+              f"decode step {rs[0]['window_step_device_ms']:.3f} / "
+              f"{rs[1]['window_step_device_ms']:.3f} (bound "
+              f"{bounds[name]['decode_step_bound_ms']:.3f})")
+    print(f"mamba2 greedy tokens equal to dense at the same position: "
+          f"{agreement(runs['dense'][0], runs['pallas'][0]):.3f} (random "
+          "weights; informative only)")
+    out = {"runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
+                                      if k != "tokens"}
+                    for n, rs in runs.items() for i, r in enumerate(rs)},
+           "step_bounds": bounds, "graph_vs_eager": gve, "serve_cli": cli,
+           "trace_lens": trace["lens"]}
+    del params, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = obs.now() - t_phase
+    print(f"phase 18 took {out['wall_s']:.1f} s")
+    return out
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -4329,14 +4819,24 @@ def main() -> int:
                                        layer=GRANITE_ATTN, batches=(8, 32),
                                        v1=False)
     ge_rows, errs6 = expert_kernels(K, ref, dev, rates)
+    # mamba2_130m's six projection shapes (phase 18), B = 8 and 32 timed,
+    # and at the row counts of phase 18's whole-prompt prefills
+    m_rows, errs7 = main_path_kernels(K, ref, build, dev, rates,
+                                      layer=MAMBA_LAYER, batches=(8, 32),
+                                      v1=False)
+    errs8 = whole_prefill_kernels(K, ref, dev, mamba_prefill_rows(),
+                                  layer=MAMBA_LAYER, model="mamba2_130m")
     ps_rows, ps_err, ps_launches = per_seq_kernel(K, ref, ops, build, dev,
                                                   rates)
     layer_summary(rows, ps_rows, proj)
     gemma_layer = gemma_layer_summary(g_rows)
+    mamba_layer = gemma_layer_summary(m_rows, "mamba2_130m")
     took("3 kernels")
     reduced_model_check(dev)
     reduced_gemma_check(dev)
     reduced_granite_check(dev)
+    reduced_ssm = {a: reduced_ssm_check(dev, a)
+                   for a in ("mamba2_130m", "jamba_v01_52b")}
     took("4 reduced model")
     cfg, params = full_width_model(dev)
     trace = serving_trace(cfg)
@@ -4369,6 +4869,8 @@ def main() -> int:
     took("16 gemma2_2b")
     granite = serve_granite(dev, K)
     took("17 granite_moe_3b_a800m")
+    mamba = serve_mamba(dev, K)
+    took("18 mamba2_130m")
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -4387,7 +4889,10 @@ def main() -> int:
         "gateway": gateway_res, "quality_flight": quality_flight,
         "gemma2_2b": {**gemma, "kernels_per_decode_layer": gemma_layer},
         "granite_moe_3b_a800m": {**granite, "attention_kernels": ga_rows,
-                                 "expert_kernels": ge_rows}}}))
+                                 "expert_kernels": ge_rows},
+        "mamba2_130m": {**mamba, "kernels": m_rows,
+                        "kernels_per_decode_layer": mamba_layer},
+        "reduced_ssm": reduced_ssm}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     expert_rows = [r for r in ge_rows if r["R"] == 8]
@@ -4401,7 +4906,7 @@ def main() -> int:
                 (kname, [r[kname] for r in decode_rows],
                  results["pallas"][0]["launches"][kname],
                  max(errs[kname], errs2[kname], errs3[kname], errs4[kname],
-                     errs5[kname])),
+                     errs5[kname], errs7[kname], errs8[kname])),
                 # one granite decode layer's 3 expert-batched projections
                 # (48 experts, R = 8), and the expert kernel's launches in
                 # phase 17's first pallas run

@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_linear as sl
 from repro_torch.core import unstacked as U
+from repro_torch.models import model as M
 from repro_torch.sparsity import CaptureSink, SparsityPolicy
 
 Key = Tuple[int, str]                       # (depth, leaf path e.g. "attn/wq")
@@ -122,6 +123,10 @@ def build_context(params, cfg: ModelConfig, batch) -> CalibContext:
     """Run the dense model once over the calibration batch, capturing every
     linear's inputs and each block's dense input/output.  ``batch["tokens"]``
     (numpy or a tensor) moves to the params' device."""
+    if M.has_ssm(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: calibration over SSM (mamba) layers is not "
+            "ported (SSM calibration, ROADMAP Queue 1 item 1.8)")
     layers = U.unstack_layers(cfg, params)
     device = params["embed"].device
     tokens = torch.as_tensor(batch["tokens"]).to(device, torch.long)

@@ -4,10 +4,12 @@ search (port of the JAX package's ``core/unstacked.py``).
 Calibration unstacks the layer groups into a list of per-depth layers and
 reuses the model's own ``layer_apply``, so the numerics are the serving
 forward's.  The port supports the layers its model runs (``attn``,
-``local`` and ``global`` attention with a dense MLP or a MoE FFN, each
-layer run as its own kind); encoder frames and patch embeddings raise
-``NotImplementedError``, and so does a calibration capture on a MoE
-layer's expert projections.
+``local`` and ``global`` attention or a ``mamba`` block, with a dense
+MLP, a MoE FFN or none, each layer run as its own kind); encoder frames
+and patch embeddings raise ``NotImplementedError``, and so does a
+calibration capture on a MoE layer's expert projections.  Calibration
+itself refuses archs with ``mamba`` layers
+(``calibration.build_context``).
 
 The capture hook keys activations on ``id(w)``, and ``tensor[r]`` makes a
 new Python object on every call.  So :func:`unstack_layers` builds each

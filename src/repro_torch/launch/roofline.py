@@ -20,6 +20,14 @@ the sparsity policy (the port's counterpart of the JAX package's
   cache dtype (the pool length, or the window on a ``local`` layer,
   whose cache rolls), and its two products (scores and values,
   ``4·rows·H·hd·T`` FLOPs);
+* a ``mamba`` layer's six projections (``in_z``, ``in_x``, ``in_B``,
+  ``in_C``, ``in_dt``, ``out_proj``) as above, its conv weights,
+  ``A_log``, ``D``, ``dt_bias`` and gated-norm weight, and every slot's
+  conv windows (model dtype) and f32 SSM state, each read once and
+  written once; its products are the conv's tap sums (``2·rows·W·C``
+  over the ``C = d_inner + 2·N`` conv channels) and the state's
+  read-out (``2·rows·H·P·N``), while the state update (an outer
+  product, scaled and added) is elementwise;
 * the embedding rows gathered and the LM head (the embedding itself
   when the head is tied, as in the Gemma family);
 * the norms' weights (their elementwise work is no product, and is left
@@ -79,14 +87,16 @@ def step_costs(cfg, ecfg, policy, sp, phase: str, gamma=None
     ``max_slots · (gamma + 1)`` rows).  ``policy`` is the policy the step
     runs (a rung's phase policy) and ``sp`` its stacked sp tree (None
     runs every projection dense, as ``core/sparse_linear.project``
-    does).  An arch with ``local`` layers has no chunk or verify step."""
+    does).  An arch with ``local`` or ``mamba`` layers has no chunk or
+    verify step."""
     if phase not in ("decode", "chunk", "verify"):
         raise ValueError(f"unknown step phase {phase!r}")
     if phase == "verify" and gamma is None:
         raise ValueError("a verify step needs its gamma")
     if phase != "decode" and not chunkable(cfg):
         raise ValueError(
-            f"{cfg.name} has local-attention layers: no {phase} step")
+            f"{cfg.name} has local-attention or SSM layers: no {phase} "
+            "step")
     elem = _ELEM[cfg.dtype]
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim
@@ -99,12 +109,18 @@ def step_costs(cfg, ecfg, policy, sp, phase: str, gamma=None
     slots_read = 1 if phase == "chunk" else S
     attn = (("attn/wq", d, H * hd), ("attn/wk", d, KV * hd),
             ("attn/wv", d, KV * hd), ("attn/wo", H * hd, d))
+    di, N, Hs = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
+    W, conv_c = cfg.ssm_conv, cfg.d_inner + 2 * cfg.ssm_state
+    mamba = (("mamba/in_z", d, di), ("mamba/in_x", d, di),
+             ("mamba/in_B", d, N), ("mamba/in_C", d, N),
+             ("mamba/in_dt", d, Hs), ("mamba/out_proj", di, d))
     ffn_shapes = {
         "dense": (("mlp/wi_gate", d, cfg.d_ff), ("mlp/wi_up", d, cfg.d_ff),
                   ("mlp/wo", cfg.d_ff, d)),
         "moe": (("moe/wi_gate", d, cfg.expert_d_ff),
                 ("moe/wi_up", d, cfg.expert_d_ff),
-                ("moe/wo", cfg.expert_d_ff, d))}
+                ("moe/wo", cfg.expert_d_ff, d)),
+        "none": ()}
     E = cfg.num_experts_padded
     e_rows = expert_rows(cfg, groups, tokens) if E else 0
     flops = 0.0
@@ -115,7 +131,8 @@ def step_costs(cfg, ecfg, policy, sp, phase: str, gamma=None
             for j, (mixer, ffn) in enumerate(pattern):
                 Tl = min(cfg.sliding_window, T) if mixer == "local" else T
                 lpol = policy.resolve_depth(depth)
-                for role, n, m in attn + ffn_shapes[ffn]:
+                mix = mamba if mixer == "mamba" else attn
+                for role, n, m in mix + ffn_shapes[ffn]:
                     expert = role.startswith("moe/")
                     backend = lpol.backend_at(role=role)
                     if _sp_leaf(sp, gi, j, role) is None:
@@ -127,11 +144,25 @@ def step_costs(cfg, ecfg, policy, sp, phase: str, gamma=None
                 if ffn == "moe":         # the router, in f32 from x's dtype
                     flops += 2.0 * rows * d * E
                     nbytes += float(d * E * elem)
-                # K and V of every slot the step attends, at the
-                # layer's cache length, then the two attention products
-                nbytes += 2.0 * slots_read * KV * hd * Tl * elem
-                flops += 4.0 * rows * H * hd * Tl
-                nbytes += 2.0 * d * elem                 # ln1, ln2
+                if mixer == "mamba":
+                    # conv weights, A_log, D and dt_bias (f32), the norm;
+                    # every slot's conv windows and f32 state, read and
+                    # written; the conv sums and the state's read-out
+                    nbytes += float(W * conv_c * elem + 3 * Hs * 4
+                                    + di * elem)
+                    nbytes += 2.0 * slots_read * (
+                        (W - 1) * conv_c * elem
+                        + Hs * cfg.ssm_head_dim * N * 4)
+                    flops += 2.0 * rows * W * conv_c \
+                        + 2.0 * rows * Hs * cfg.ssm_head_dim * N
+                else:
+                    # K and V of every slot the step attends, at the
+                    # layer's cache length, then the two attention
+                    # products
+                    nbytes += 2.0 * slots_read * KV * hd * Tl * elem
+                    flops += 4.0 * rows * H * hd * Tl
+                # ln1, and ln2 where the layer has an FFN
+                nbytes += (1.0 if ffn == "none" else 2.0) * d * elem
                 depth += 1
     nbytes += d * elem                               # final norm
     flops += 2.0 * rows * d * cfg.vocab_size         # LM head

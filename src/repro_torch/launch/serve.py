@@ -6,13 +6,16 @@ engine (``repro_torch.serving``).
 
 ``--arch`` takes the decoders the port serves: llama31_8b (the
 default), deepseek_67b, the Gemma family, gemma_2b, gemma2_2b and
-gemma3_4b, and the granite MoE models, granite_moe_1b_a400m and
-granite_moe_3b_a800m (``--calib-quick`` is refused on these: MoE
-calibration is not ported).  gemma2_2b and gemma3_4b have ``local`` layers, whose
-rolling-window caches resolve ``--prefill-strategy auto`` to whole-prompt
-prefill and rule out ``--prefix-cache``, ``--preemption``,
-``--spec-gamma`` and ``--quality-probe-rate``, which the engine refuses
-as the reference's does.  Full width and the card are the defaults;
+gemma3_4b, the granite MoE models, granite_moe_1b_a400m and
+granite_moe_3b_a800m, mamba2_130m and the jamba_v01_52b hybrid (which
+fits the card only ``--reduced``); ``--calib-quick`` is refused on the
+MoE and SSM archs, whose calibration is not ported.  gemma2_2b and
+gemma3_4b have ``local`` layers, whose rolling-window caches, and
+mamba2_130m and jamba ``mamba`` layers, whose conv and SSM state have no
+time axis, resolve ``--prefill-strategy auto`` to whole-prompt prefill
+and rule out ``--prefix-cache``, ``--preemption``, ``--spec-gamma`` and
+``--quality-probe-rate``, which the engine refuses as the reference's
+does.  Full width and the card are the defaults;
 ``--reduced`` (the tiny same-family config) and ``--device cpu`` are
 opt-ins.  Weights are random from ``--seed``.  The paper's §5.1 recipe
 applies: the first half of each prompt prefills dense, later chunks and

@@ -12,10 +12,14 @@ from repro_torch.models import params as P
 
 def cache_schema(cfg: ModelConfig, batch: int, cache_len: int):
     """ParamSpec tree mirroring the cache structure ``run_groups`` takes:
-    list over groups -> tuple over pattern positions -> {"self": {k, v}},
-    in the decode layouts K (reps,B,KV,hd,T) and V (reps,B,KV,T,hd).
-    ``T`` is ``cache_len``, and ``min(sliding_window, cache_len)`` on a
-    ``local`` layer (its rolling window)."""
+    list over groups -> tuple over pattern positions -> one entry per
+    layer: ``{"self": {k, v}}`` on an attention layer, in the decode
+    layouts K (reps,B,KV,hd,T) and V (reps,B,KV,T,hd), where ``T`` is
+    ``cache_len``, or ``min(sliding_window, cache_len)`` on a ``local``
+    layer (its rolling window); ``{"ssm": {conv_x, conv_B, conv_C,
+    ssm}}`` on a ``mamba`` layer: the last ``W - 1`` projected inputs
+    (reps,B,W-1,C) in the model dtype and the f32 state (reps,B,H,P,N),
+    with no time axis."""
     M.check_supported(cfg)
     KV, hd = cfg.num_kv_heads, cfg.head_dim
 
@@ -29,9 +33,25 @@ def cache_schema(cfg: ModelConfig, batch: int, cache_len: int):
                              init="zeros"),
         }}
 
+    def ssm_state(reps):
+        w, di, n = cfg.ssm_conv, cfg.d_inner, cfg.ssm_state
+        H, Pd = cfg.ssm_nheads, cfg.ssm_head_dim
+
+        def conv(c, axis):
+            return P.ParamSpec((reps, batch, w - 1, c),
+                               ("layers", "batch", None, axis), init="zeros")
+        return {"ssm": {
+            "conv_x": conv(di, "mlp"), "conv_B": conv(n, None),
+            "conv_C": conv(n, None),
+            "ssm": P.ParamSpec((reps, batch, H, Pd, n),
+                               ("layers", "batch", "ssm_heads", None, None),
+                               init="zeros", dtype="float32"),
+        }}
+
     groups = []
     for pattern, reps in cfg.layer_groups():
         groups.append(tuple(
+            ssm_state(reps) if mixer == "mamba" else
             kv_pair(reps, min(cfg.sliding_window, cache_len)
                     if mixer == "local" else cache_len)
             for mixer, _ffn in pattern))
@@ -105,10 +125,15 @@ def make_verify_step(cfg: ModelConfig):
     slots out of the shared saliency.  Returns logits for every window
     position (S, gamma+1, V) and the (in-place updated) pool.
 
-    Refused at once on an arch with ``local`` layers (the reference
-    refuses the verify forward there): a rolling-window cache cannot
+    Refused at once on an arch with ``mamba`` or ``local`` layers (the
+    reference refuses the verify forward there): an SSM state has no
+    time axis to write a window into, and a rolling-window cache cannot
     roll back, so neither speculative decoding nor the quality monitor's
-    probe, a window-1 verify, runs on it."""
+    probe, a window-1 verify, runs on them."""
+    if M.has_ssm(cfg):
+        raise NotImplementedError(
+            "chunked prefill / speculative verify do not support SSM "
+            "layers; use the engine's whole-prompt prefill strategy")
     if not M.chunkable(cfg):
         raise NotImplementedError(
             "speculative verify does not support local-attention "

@@ -1,9 +1,10 @@
 """Model assembly for decoders (port of the JAX package's
 ``models/model.py`` for layers whose mixer is ``attn``, ``local`` or
-``global`` attention and whose FFN is a dense gated MLP or a
-Mixture-of-Experts FFN: llama31_8b, deepseek_67b, the Gemma family
-(gemma_2b, gemma2_2b, gemma3_4b) and the granite MoE models
-(granite_moe_1b_a400m, granite_moe_3b_a800m)).
+``global`` attention or a Mamba2 SSD block and whose FFN is a dense
+gated MLP, a Mixture-of-Experts FFN or none: llama31_8b, deepseek_67b,
+the Gemma family (gemma_2b, gemma2_2b, gemma3_4b), the granite MoE
+models (granite_moe_1b_a400m, granite_moe_3b_a800m), mamba2_130m and the
+jamba hybrid).
 
 Parameters keep the reference's stacked layout: ``params["groups"][g]``
 is a dict of ``(reps, ...)`` tensors per pattern position (``"l0"``), so
@@ -25,7 +26,8 @@ row at per-row offsets, written in place: speculative decoding).  The
 chunk and verify offsets and the chunk's slot are device tensors, read
 by the device alone, so both steps can be captured as CUDA graphs.
 Chunk and verify refuse ``local`` layers, as the reference does: a
-rolling window cannot resume mid-prompt or roll back.
+rolling window cannot resume mid-prompt or roll back; and ``mamba``
+layers, whose state has no time axis to write at an offset.
 """
 from __future__ import annotations
 
@@ -39,12 +41,15 @@ from repro_torch.models.layers import (apply_rope, dense, rmsnorm,
 from repro_torch.models.mlp import mlp_apply, mlp_schema
 from repro_torch.models.moe import moe_apply, moe_schema
 from repro_torch.models.params import ParamSpec, stacked
+from repro_torch.models.ssm import mamba_apply, mamba_schema
 
 ATTN_KINDS = ("attn", "local", "global")
-FFN_KINDS = ("dense", "moe")
-FAMILIES = ("dense", "moe")
+MIXERS = ATTN_KINDS + ("mamba",)
+FFN_KINDS = ("dense", "moe", "none")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # mixers whose caches are full length, so chunk and verify can write them
-# at any offset; a ``local`` layer's window cache rolls
+# at any offset; a ``local`` layer's window cache rolls, and a ``mamba``
+# layer's state has no time axis
 CHUNKABLE_MIXERS = ("attn", "global")
 MODES = ("train", "prefill", "decode", "chunk", "verify")
 
@@ -54,19 +59,24 @@ def chunkable(cfg: ModelConfig) -> bool:
     return {m for m, _ in cfg.layer_kinds()} <= set(CHUNKABLE_MIXERS)
 
 
+def has_ssm(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` has a ``mamba`` layer."""
+    return any(m == "mamba" for m, _ in cfg.layer_kinds())
+
+
 def _supported_kind(kind) -> bool:
     mixer, ffn = kind
-    return mixer in ATTN_KINDS and ffn in FFN_KINDS
+    return mixer in MIXERS and ffn in FFN_KINDS
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run: SSM mixers, cross-attention
-    (enc-dec) and the VLM patch prefix."""
+    """Refuse what the port does not run: cross-attention (enc-dec) and
+    the VLM patch prefix."""
     kinds = set(cfg.layer_kinds())
     if cfg.family not in FAMILIES or cfg.vision_prefix or \
             not all(map(_supported_kind, kinds)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoders (mixers {ATTN_KINDS}, "
+            f"{cfg.name}: the port serves decoders (mixers {MIXERS}, "
             f"FFNs {FFN_KINDS}, families {FAMILIES}); got family "
             f"{cfg.family!r} with layer kinds {sorted(kinds)}")
 
@@ -86,15 +96,23 @@ def attn_schema(cfg: ModelConfig):
 
 
 def layer_schema(cfg: ModelConfig, kind):
+    """One layer's params: ``ln1`` and the mixer, then ``ln2`` and the
+    FFN unless it is ``none`` (a mamba2 layer has no ``ln2``)."""
     if not _supported_kind(kind):
         raise NotImplementedError(f"layer kind {kind} is not ported")
-    ffn = "moe" if kind[1] == "moe" else "mlp"
-    return {
-        "ln1": ParamSpec((cfg.d_model,), (None,), init="zeros"),
-        "attn": attn_schema(cfg),
-        "ln2": ParamSpec((cfg.d_model,), (None,), init="zeros"),
-        ffn: moe_schema(cfg) if ffn == "moe" else mlp_schema(cfg),
-    }
+    mixer, ffn = kind
+    s = {"ln1": ParamSpec((cfg.d_model,), (None,), init="zeros")}
+    if mixer == "mamba":
+        s["mamba"] = mamba_schema(cfg)
+    else:
+        s["attn"] = attn_schema(cfg)
+    if ffn != "none":
+        s["ln2"] = ParamSpec((cfg.d_model,), (None,), init="zeros")
+        if ffn == "moe":
+            s["moe"] = moe_schema(cfg)
+        else:
+            s["mlp"] = mlp_schema(cfg)
+    return s
 
 
 def model_schema(cfg: ModelConfig):
@@ -225,24 +243,39 @@ def layer_apply(p, x, cfg: ModelConfig, kind, sp=None, cache=None,
                 positions=None, mode: str = "train", slot=None, policy=None,
                 token_weights=None):
     """One pre-norm decoder layer of ``kind`` (mixer, ffn).  ``policy``
-    is already depth-resolved; None runs dense.  Returns
-    (x, {"self": cache} or None)."""
+    is already depth-resolved; None runs dense.  Returns (x, {"self":
+    cache} on an attention layer, {"ssm": cache} on a mamba layer, or
+    None)."""
     if policy is None:
         policy = sparse_linear.DENSE
+    mixer, ffn = kind
     sp = sp or {}
+    cache = cache or {}
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    h, nc = attn_apply(p["attn"], h, cfg, kind[0], sp.get("attn"),
-                       (cache or {}).get("self"), positions, mode, slot=slot,
-                       policy=policy, token_weights=token_weights)
+    if mixer == "mamba":
+        if mode in ("chunk", "verify"):
+            raise NotImplementedError(
+                "chunked prefill / speculative verify do not support SSM "
+                "layers; use the engine's whole-prompt prefill strategy")
+        h, nc = mamba_apply(p["mamba"], h, cfg, sp.get("mamba"),
+                            cache.get("ssm"), mode, policy=policy,
+                            token_weights=token_weights)
+        key = "ssm"
+    else:
+        h, nc = attn_apply(p["attn"], h, cfg, mixer, sp.get("attn"),
+                           cache.get("self"), positions, mode, slot=slot,
+                           policy=policy, token_weights=token_weights)
+        key = "self"
     x = x + h
-    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    if kind[1] == "moe":
+    if ffn == "moe":
+        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         # expert rows are dispatched tokens: no token weights
         x = x + moe_apply(p["moe"], h, cfg, sp.get("moe"), policy=policy)
-    else:
+    elif ffn == "dense":
+        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + mlp_apply(p["mlp"], h, cfg, sp.get("mlp"), policy=policy,
                           token_weights=token_weights)
-    return x, ({"self": nc} if nc is not None else None)
+    return x, ({key: nc} if nc is not None else None)
 
 
 def run_groups(groups, x, cfg: ModelConfig, *, mode="train", caches=None,
@@ -272,12 +305,18 @@ def run_groups(groups, x, cfg: ModelConfig, *, mode="train", caches=None,
                     made[j].append(nc)
                 depth += 1
         if mode == "prefill":
-            fresh.append(tuple(
-                {"self": {n: torch.stack([c["self"][n] for c in per])
-                          for n in ("k", "v")}} for per in made))
+            fresh.append(tuple(_stack_reps(per) for per in made))
     if mode == "prefill":
         return x, fresh
     return x, (caches if mode in ("decode", "chunk", "verify") else None)
+
+
+def _stack_reps(trees):
+    """Per-rep cache trees of one pattern position -> one tree of
+    (reps, ...) tensors."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_reps([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):

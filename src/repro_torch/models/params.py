@@ -21,7 +21,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]      # logical axis name per dim
-    init: str = "normal"                 # normal|zeros|ones
+    init: str = "normal"                 # normal|zeros|ones|ssm_A|ssm_dt
     scale: float = 0.02
     dtype: Optional[str] = None          # overrides the model dtype
 
@@ -58,10 +58,17 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init in ("ssm_A", "ssm_dt"):
+        lo, hi = (1.0, 16.0) if spec.init == "ssm_A" else (1e-3, 1e-1)
+        u = torch.empty(spec.shape, dtype=torch.float32, device=device)
+        u.uniform_(lo, hi, generator=gen)
+        if spec.init == "ssm_A":
+            # A_log: log of uniform [1, 16] per head (mamba2's default)
+            return torch.log(u).to(dtype)
+        # dt bias: inverse softplus of uniform [1e-3, 1e-1]
+        return (u + torch.log(-torch.expm1(-u))).to(dtype)
     if spec.init != "normal":
-        raise NotImplementedError(
-            f"init {spec.init!r} belongs to an architecture the port does "
-            "not serve yet")
+        raise ValueError(f"unknown init {spec.init!r}")
     # truncated normal on [-2, 2] (unit std before scaling), f32, then cast
     w = torch.empty(spec.shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)

@@ -17,9 +17,11 @@ over same-length prompts, then inserted into the pool: rolled into the
 window on ``local`` layers).  ``"auto"`` resolves as the reference does:
 chunked when every mixer is ``attn`` or ``global``, whole otherwise
 (gemma2_2b and gemma3_4b, whose ``local`` layers keep rolling-window
-caches).  Chunked prefill, speculative decoding, the prefix cache,
-preemption and the quality probe need full-length caches, and are
-refused on a whole-strategy arch with the reference's exception types.
+caches, and mamba2_130m and the jamba hybrid, whose ``mamba`` layers
+keep a conv window and an SSM state with no time axis).  Chunked
+prefill, speculative decoding, the prefix cache, preemption and the
+quality probe need full-length caches, and are refused on a
+whole-strategy arch with the reference's exception types.
 Whole-prompt prefill runs eagerly (the reference compiles it per prompt
 length); its kernel launches count once each in the wrappers' counts.
 
@@ -115,6 +117,7 @@ from repro_torch.obs import NULL_TELEMETRY, Telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, sync
 from repro_torch.core.unstacked import sparsifiable_leaves
+from repro_torch.kernels import sparse_matmul as K
 from repro_torch.kernels.ops import channel_plan
 from repro_torch.models import api
 from repro_torch.models import model as M
@@ -463,12 +466,20 @@ class Engine:
         prefill, at B = prefill_chunk (a chunk's token rows).  A MoE
         layer's (reps, E, n, m) expert weights launch once for all E
         experts, at the rows each expert sees (``moe.expert_rows``) in
-        decode, a chunk and each speculative verify window."""
+        decode, a chunk and each speculative verify window.  Where a
+        whole-prompt prefill runs ``pallas``, its rows (prompts x length,
+        any count up to max_slots x max_len) add :func:`_whole_rows`, so
+        the scratch reserved before the first capture is all any launch
+        needs."""
         blocks = {pol.block for pol in self._rung_policies
                   if "pallas" in _backends(pol)}
         if not blocks or self.device.type != "cuda":
             return []
         cfg, ecfg = self.cfg, self.ecfg
+        whole = self.prefill_strategy == "whole" and any(
+            "pallas" in _backends(ps if ecfg.prefill_dense_frac <= 0.0
+                                  else pd)
+            for pd, ps, _ in self._rung_phases)
         S = ecfg.max_slots
         # x of each captured step: (groups, tokens per group)
         steps = [(S, 1)]
@@ -493,8 +504,12 @@ class Engine:
                         rs = rows
                     for block in blocks:
                         blk, n_padded, _ = channel_plan(n, block)
+                        bs = rs | (_whole_rows(
+                            n_padded, m, blk, elem, E,
+                            ecfg.max_slots * ecfg.max_len) if whole
+                            else set())
                         shapes.update((B, n_padded, m, blk, elem, E)
-                                      for B in rs)
+                                      for B in bs)
         return sorted(shapes)
 
     # ------------------------------------------------------------------
@@ -1204,6 +1219,21 @@ class Engine:
         the flight recorder logs the tag next to each observation, so a
         replay divergence names the exact site that desynchronized."""
         return self.clock.now(site)
+
+
+def _whole_rows(n: int, m: int, blk: int, elem: int, experts: int,
+                top: int) -> set:
+    """Row counts up to ``top`` at which the split-K scratch of an (n, m)
+    matmul (``experts`` of them batched) is largest for its row tile: 8,
+    16 and each multiple of 32 (``kernels/sparse_matmul.launch_plan``
+    tiles rows by 8, 16 and 32; at any kept-block count the workspace
+    and counters grow with the rows of a tile count), where the plan
+    splits at all.  Past ``132 / tiles_m`` row tiles it never does."""
+    tiles_m = -(-m // K.TILE_COLS[elem])
+    cands = [8, 16] + list(range(32, 32 * (K.TARGET_BLOCKS_SHARED // tiles_m
+                                           + 2), 32))
+    return {b for b in cands if b <= top and K.launch_plan(
+        b, n, m, n // blk, blk, False, elem, experts).splits > 1}
 
 
 def _backends(pol: SparsityPolicy) -> set:

@@ -30,7 +30,10 @@ positions from ``max_len``, a verify the last ``gamma + 1`` positions.
 Each build then puts back what its warm call wrote (``_Steps.written``),
 so a build leaves the pool as it found it.  A rolling-window leaf (a
 ``local`` layer) has no slack: there the decode warm call's write lands
-on a live slot.  And an inactive decode row attends its slot's slack:
+on a live slot.  Nor has an SSM entry (a ``mamba`` layer's conv windows
+and state): the decode warm call advances every slot's state, so a
+decode build puts those entries back whole.  And an inactive decode row
+attends its slot's slack:
 in a MoE layer its expert rows join the active tokens' in each
 expert's shared block selection (no token weights there, as in the
 reference), so slack left by a build would change served tokens.  A
@@ -206,10 +209,13 @@ def scratch_columns(caches, scratch_pos: int) -> list:
     ``scratch_pos % T`` in a leaf of T < the pool length (a ``local``
     layer's rolling window, ``cache_write_kv(rolling=True)``).  In a full
     length leaf that column is scratch; in a rolling one it is a live
-    position of every slot whose request has passed the window."""
+    position of every slot whose request has passed the window.  SSM
+    entries have no time column (:func:`ssm_leaves`)."""
     out = []
     for group in caches:
         for entry in group:
+            if "self" not in entry:
+                continue
             k, v = entry["self"]["k"], entry["self"]["v"]
             T = k.shape[-1]
             c = scratch_pos % T
@@ -220,14 +226,25 @@ def scratch_columns(caches, scratch_pos: int) -> list:
 def window_columns(caches, slots: slice, start: int, length: int) -> list:
     """Views of positions ``[start, start + length)`` of the pool rows
     ``slots`` in every cache leaf (full-length leaves: the chunk and
-    verify steps run on no rolling window)."""
+    verify steps run on no rolling window and no SSM layer)."""
     out = []
     for group in caches:
         for entry in group:
+            if "self" not in entry:
+                continue
             k, v = entry["self"]["k"], entry["self"]["v"]
             out.extend((k[:, slots, ..., start:start + length],
                         v[:, slots, :, start:start + length]))
     return out
+
+
+def ssm_leaves(caches) -> list:
+    """Every tensor of every SSM entry (a ``mamba`` layer's conv windows
+    and f32 state, all slots): a decode step with every slot inactive
+    advances them all, and their reference lets inactive slots' states
+    drift in its own decode step, so a build puts them back whole."""
+    return [leaf for group in caches for entry in group
+            for leaf in entry.get("ssm", {}).values()]
 
 
 class DecodeSteps(_Steps):
@@ -237,7 +254,9 @@ class DecodeSteps(_Steps):
     rung's (decode-phase policy, sp tree).  Inactive slots write
     ``scratch_pos``, and in a rolling-window leaf its slot modulo the
     window, which may hold a live request's position: the columns a
-    build puts back (:func:`scratch_columns`, a few KB per layer)."""
+    build puts back (:func:`scratch_columns`, a few KB per layer), with
+    every SSM entry whole (:func:`ssm_leaves`; 151 MB for mamba2_130m's
+    24 layers at 8 slots)."""
 
     def __init__(self, step, params, caches, rungs: Sequence[tuple],
                  max_slots: int, scratch_pos: int, space: GraphSpace):
@@ -280,7 +299,8 @@ class DecodeSteps(_Steps):
         return logits, torch.argmax(logits, -1)
 
     def written(self, i: int) -> list:
-        return scratch_columns(self._caches, self._scratch_pos)
+        return scratch_columns(self._caches, self._scratch_pos) + \
+            ssm_leaves(self._caches)
 
     def __call__(self, rung: int, tokens: np.ndarray, positions: np.ndarray,
                  active: np.ndarray):

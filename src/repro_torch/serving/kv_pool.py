@@ -6,8 +6,11 @@ One fixed ``(max_slots, max_len)`` cache tree is allocated up front from
 a slot (the batch index) and return it on completion.  Each leaf keeps
 its own time length: ``max_len``, or a ``local`` layer's window where
 that is shorter, into which ``insert`` copies a rolled prefill cache
-whole.  A pool with such a leaf cannot roll back, extract or write
-prefix segments (the reference's precondition, ``can_cache_prefix``).  The forward
+whole.  A ``mamba`` layer's entry (``"ssm"``: conv windows and the f32
+state) has no time axis at all: ``insert`` copies a slot's rows whole.
+A pool with a window or SSM leaf cannot roll back, extract or write
+prefix segments (the reference's precondition, ``can_cache_prefix``),
+and so cannot suspend or resume a slot either.  The forward
 writes decode, chunked-prefill and verify K/V into the pool tensors in
 place (where the reference donates the pool through each jitted step).
 Rollback truncates rejected draft positions out of the pool
@@ -92,9 +95,10 @@ class SlotKVPool:
         self.caches = api.init_caches(cfg, max_slots, max_len, device)
         # rollback truncates by absolute time position, which is only
         # meaningful when every leaf is a full-length self-attn cache
-        # (K (reps,S,KV,hd,T), V (reps,S,KV,T,hd))
+        # (K (reps,S,KV,hd,T), V (reps,S,KV,T,hd)); rolling windows index
+        # time modulo the window, and SSM state has no time
         self._can_rollback = all(
-            e["self"]["k"].shape[-1] == max_len
+            set(e) == {"self"} and e["self"]["k"].shape[-1] == max_len
             and e["self"]["v"].shape[-2] == max_len
             for g in self.caches for e in g)
         self._free: List[int] = list(range(max_slots))[::-1]   # pop() -> 0 first
@@ -189,16 +193,22 @@ class SlotKVPool:
 
     def insert(self, prefill_caches, src_idx: int, slot: int,
                length: int) -> None:
-        """Copy request ``src_idx`` of a prefill cache tree (a shorter time
-        dim is allowed) into ``slot`` at time offset 0, in place."""
+        """Copy request ``src_idx`` of a prefill cache tree into ``slot``,
+        in place: K/V at time offset 0 (a shorter time dim is allowed),
+        an SSM entry's conv windows and state whole (no time axis)."""
         self._check_allocated(slot, "insert")
-        for pool_g, pref_g in zip(self.caches, prefill_caches):
-            for pool_e, pref_e in zip(pool_g, pref_g):
-                pk, pv = pool_e["self"]["k"], pool_e["self"]["v"]
-                fk, fv = pref_e["self"]["k"], pref_e["self"]["v"]
-                t = fk.shape[-1]                 # K (reps,B,KV,hd,T)
-                pk[:, slot, :, :, :t] = fk[:, src_idx]
-                pv[:, slot, :, :t, :] = fv[:, src_idx]
+        with torch.no_grad():
+            for pool_g, pref_g in zip(self.caches, prefill_caches):
+                for pool_e, pref_e in zip(pool_g, pref_g):
+                    if "self" in pool_e:
+                        pk, pv = pool_e["self"]["k"], pool_e["self"]["v"]
+                        fk, fv = pref_e["self"]["k"], pref_e["self"]["v"]
+                        t = fk.shape[-1]             # K (reps,B,KV,hd,T)
+                        pk[:, slot, :, :, :t] = fk[:, src_idx]
+                        pv[:, slot, :, :t, :] = fv[:, src_idx]
+                    if "ssm" in pool_e:
+                        for name, pl in pool_e["ssm"].items():
+                            pl[:, slot].copy_(pref_e["ssm"][name][:, src_idx])
         self.lengths[slot] = length
 
     # ---- prefix segments (repro_torch.serving.prefix_cache) -------------

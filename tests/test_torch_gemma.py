@@ -368,15 +368,14 @@ def test_params_round_trip_the_tied_gemma_trees():
 
 def test_check_supported_admits_gemma_and_granite_and_refuses_ssm_encdec_vlm():
     """Among the archs outside llama's layout, the port admits the Gemma
-    family and the granite MoE models; SSM (mamba2, jamba's mamba
-    layers), enc-dec (whisper) and the VLM prefix (internvl2) stay
+    family, the granite MoE models and the SSM archs (mamba2, the jamba
+    hybrid); enc-dec (whisper) and the VLM prefix (internvl2) stay
     refused."""
     for name in ("gemma_2b", "gemma2_2b", "gemma3_4b", "llama31_8b",
                  "deepseek_67b", "granite_moe_1b_a400m",
-                 "granite_moe_3b_a800m"):
+                 "granite_moe_3b_a800m", "mamba2_130m", "jamba_v01_52b"):
         TM.check_supported(get_config(name))
-    for name in ("mamba2_130m", "whisper_large_v3", "internvl2_26b",
-                 "jamba_v01_52b"):
+    for name in ("whisper_large_v3", "internvl2_26b"):
         with pytest.raises(NotImplementedError):
             TM.check_supported(get_config(name))
 

@@ -408,6 +408,53 @@ def test_wisparse_project_experts_on_card_matches_cpu(dev):
     _close(got.cpu(), want)
 
 
+@pytest.mark.parametrize("arch", ["mamba2_130m", "jamba_v01_52b"])
+def test_reduced_ssm_on_card_matches_cpu(dev, arch):
+    """Reduced mamba2_130m and reduced jamba (f32, uncalibrated
+    ``pallas``) on the card against the CPU: prefill and decode logits
+    within 1e-4 and a whole-prefill engine's tokens
+    (``chip_smoke.reduced_ssm_check``)."""
+    chip_smoke.reduced_ssm_check(dev, arch)
+
+
+def test_ssm_decode_build_on_a_busy_engine_leaves_live_rows(dev):
+    """Reduced mamba2_130m under ``pallas`` on the card: three prompts
+    prefilled whole, then the decode graph built while they are live.
+    Its warm call runs every slot inactive, which advances every slot's
+    conv windows and SSM state; the build puts them back, so every SSM
+    leaf is bit-equal after it and the run's tokens equal the CPU
+    engine's.  The sparse decode graph captured one launch of each
+    kernel per projection: 6 per layer."""
+    from repro_torch.serving import graphs
+    cfg = reduced(get_config("mamba2_130m"))
+    params = api.init_model(cfg, 0, device="cpu")
+    sp = default_sp_stacked(params, cfg, keep_frac=0.5, tau=float("-inf"))
+    pol = SparsityPolicy.uniform("pallas", k_max_frac=0.5, block=16)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (23, 9, 30)]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        eng = Engine(P.tree_map(lambda t: t.to(d), params), cfg,
+                     EngineConfig(max_slots=4, max_len=64, prefill_chunk=16,
+                                  policy=pol),
+                     P.tree_map(lambda t: t.to(d), sp), device=d)
+        for p in prompts:
+            eng.submit(p, 12)
+        eng._admit()
+        while eng.scheduler.prefilling:
+            eng._prefill_whole(eng.scheduler.prefill_group())
+        leaves = graphs.ssm_leaves(eng.pool.caches)
+        live = [t.clone() for t in leaves]
+        eng.decode_graphs.build(0)
+        assert all(torch.equal(a, b) for a, b in zip(leaves, live))
+        if d.type == "cuda":
+            assert eng.decode_graphs.captured[0]["score_select"] == \
+                eng.decode_graphs.captured[0]["sparse_matmul_shared"] == \
+                6 * cfg.num_layers
+        outs.append(eng.run())
+    assert outs[0] == outs[1]
+
+
 def test_granite_engine_on_card_matches_cpu_and_counts_launches(dev):
     """Reduced granite_moe_3b_a800m with 20 experts (12 pad experts),
     its attention and MoE weights scaled as in ``tests/test_torch_moe.py``:

@@ -344,6 +344,6 @@ def test_unported_paths_raise(model):
         TM.forward(model["params"], model["cfg"],
                    tokens=torch.zeros(1, 2, dtype=torch.long), mode="encode")
     with pytest.raises(NotImplementedError):
-        TM.model_schema(get_config("mamba2_130m"))
+        TM.model_schema(get_config("internvl2_26b"))
     with pytest.raises(NotImplementedError):
         api.init_model(get_config("whisper_large_v3"), 0, device="cpu")

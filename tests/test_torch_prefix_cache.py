@@ -305,8 +305,9 @@ def test_pool_free_set_stays_consistent(model):
 
 def test_prefix_cache_rejects_sliced_layouts():
     """A pool whose layout cannot slice a prefix by position is refused
-    with the reference's error (the port serves full-length attention
-    caches only, so its SSM pool cannot be built at all)."""
+    with the reference's error: a stand-in, and the SSM pool of reduced
+    mamba2_130m (conv windows and state, no time axis), in both
+    packages."""
     fake = types.SimpleNamespace(can_cache_prefix=False)
     msgs = []
     for cls in (JPrefixCache, PrefixCache):
@@ -315,8 +316,11 @@ def test_prefix_cache_rejects_sliced_layouts():
             cls(fake, chunk=8)
         msgs.append(str(exc.value))
     assert msgs[0] == msgs[1]
-    with pytest.raises(NotImplementedError):
-        SlotKVPool(reduced(get_config("mamba2_130m")), 2, 16, device="cpu")
+    pool = SlotKVPool(reduced(get_config("mamba2_130m")), 2, 16, device="cpu")
+    assert not pool.can_cache_prefix
+    with pytest.raises(ValueError, match="full-length self-attention") as exc:
+        PrefixCache(pool, chunk=8)
+    assert str(exc.value) == msgs[0]
     for kw in (dict(chunk=0), dict(chunk=8, capacity_tokens=-1)):
         for cls in (JPrefixCache, PrefixCache):
             with pytest.raises(ValueError):
