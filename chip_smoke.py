@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --host-only [--src DIR]
+    python3 chip_smoke.py --train-only [--src DIR]
 
 In order, it:
 
 1. prints the card's name and power limit (``nvidia-smi``) and stops,
-   with a nonzero exit, when ``torch.cuda.is_available()`` is false;
+   with a nonzero exit, when ``torch.cuda.is_available()`` is false.
+   ``--train-only`` then runs phase 19a's card-against-CPU training
+   check with its TF32 control and 19b's 30 gemma2_2b steps for the
+   package under ``--src``, prints one JSON line and stops;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` (printing each kernel's register / shared-memory report),
    times each kernel wrapper's host cost per call at the decode shapes,
@@ -241,7 +245,28 @@ In order, it:
    TTFT p50, whole-prefill ms per prompt length, device ms per traced
    decode step and the top ops of one eager step, and the decode step's
    byte bound split into conv/SSM state and the rest;
-19. prints one JSON line describing every kernel, then, as its last line,
+19. trains on the card.  19a runs ``examples/train_then_sparsify.py``'s
+   recipe on reduced llama31_8b through ``launch.train.train`` (200
+   steps of 8 x 96 tokens, lr 5e-3, checkpoints every 50): once
+   uninterrupted and once preempted at step 120, whose final params must
+   be bit-equal; once on the CPU from the card run's init, whose
+   per-step losses the card's must match within ``TRAIN_LOSS_TOL``; once
+   on the card with TF32 products, whose losses must miss that limit;
+   then
+   WiSparse at 0.3/0.4/0.5 with the example's search budget (held-out
+   ppl, retention, top-1 agreement under ``mask``) and spec decoding
+   (gamma 2, the 0.5 rung of a ``pallas`` ladder calibrated on the model
+   drafting) on the trained model and on its random init, launches
+   checked as in phase 11.  19b trains full-width gemma2_2b (bf16 params,
+   f32 master, m and v) 30 steps of 2 x 1024 tokens: every loss finite,
+   the last below the first; prints step time p50, tokens/s, MFU and
+   peak memory, one step split into forward + backward and the update
+   with its top ATen ops by device time, then one step at
+   ``remat="full"``, an async checkpoint round trip of the trained
+   params (bit-equal) and the restored params served dense and
+   ``pallas`` on phase 16's 8 short prompts, launches checked as in
+   phase 16;
+20. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run (whose llama31_8b decode layer their times are), those of the
@@ -257,6 +282,7 @@ result line.  It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -3777,16 +3803,18 @@ def gemma_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
         if len(toks) != trace["gen"] or not all(0 <= t < cfg.vocab_size
                                                 for t in toks):
             raise AssertionError(f"{name}: request {rid} gave {toks}")
-    if rolled[0] == 0:
+    if max(trace["lens"]) >= win and rolled[0] == 0:
         raise AssertionError(f"{name}: no decode step at a position past "
                              f"the {win}-token window")
     if eng.decode_retraces_after_warmup != 0:
         raise AssertionError(f"{name}: {eng.decode_retraces_after_warmup} "
                              "decode builds after warmup")
+    max_b = max(trace["lens"].count(n) for n in trace["lens"])
     if len(prefills) != len(set(trace["lens"])) or \
-            max(b for _, b, _ in prefills) != 2:
+            max(b for _, b, _ in prefills) != max_b:
         raise AssertionError(f"{name}: whole prefills {prefills}: expected "
-                             "one per prompt length, one of B = 2")
+                             f"one per prompt length, the largest of B = "
+                             f"{max_b}")
     per_pass = pass_launches(cfg)
     sparse_decode = not policy.for_phase("decode").is_dense
     prefill_phase = "prefill_sparse" if frac <= 0.0 else "prefill_dense"
@@ -4625,6 +4653,503 @@ def serve_mamba(dev, K) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training on the card
+# ---------------------------------------------------------------------------
+
+# 19a: examples/train_then_sparsify.py's recipe on reduced llama31_8b
+TRAIN_RECIPE = dict(arch="llama31_8b", use_reduced=True, steps=200,
+                    batch=8, seq=96, lr=5e-3)
+TRAIN_CKPT_EVERY, TRAIN_PREEMPT_AT = 50, (120,)
+# card against CPU, each step's loss (f32, TF32 off): read at 1.43e-6
+# (this script on an NVIDIA H100 80GB HBM3 at 700 W), about a seventh of
+# this limit, which is the one-step bound of tests/test_torch_gpu.py; the
+# same recipe with TF32 products is the control the limit must reject
+TRAIN_LOSS_TOL = 1e-5
+SPARSITIES = (0.3, 0.4, 0.5)
+# the reduced model's pallas block: 4 blocks of its 64 input channels
+REDUCED_BLOCK = 16
+# 19b: full-width gemma2_2b, full depth, no checkpoints
+GEMMA_TRAIN = dict(arch="gemma2_2b", use_reduced=False, steps=30, batch=2,
+                   seq=1024, lr=1e-3)
+
+
+def eval_metrics(params, cfg, data_cfg, dev, per_depth_sp=None) -> dict:
+    """Held-out ppl, and KL and top-1 agreement against dense, under
+    ``mask`` with ``per_depth_sp`` (``benchmarks/common.eval_metrics``)."""
+    from repro_torch.core import unstacked as U
+    from repro_torch.data import eval_batch
+    from repro_torch.sparsity import SparsityPolicy
+
+    toks = torch.from_numpy(eval_batch(data_cfg, n=4)).to(dev)
+    policy = SparsityPolicy.uniform("mask") if per_depth_sp is not None \
+        else SparsityPolicy.dense()
+    with torch.no_grad():
+        logits, _ = U.forward_unstacked(params, cfg, toks,
+                                        per_depth_sp=per_depth_sp,
+                                        policy=policy)
+        dense, _ = U.forward_unstacked(params, cfg, toks)
+    lg = logits[:, :-1].float()
+    lab = toks[:, 1:].long()
+    nll = torch.logsumexp(lg, -1) - lg.gather(-1, lab[..., None])[..., 0]
+    pd = torch.log_softmax(dense.float(), -1)
+    ps = torch.log_softmax(logits.float(), -1)
+    return {"ppl": math.exp(float(nll.mean())),
+            "kl": float((pd.exp() * (pd - ps)).sum(-1).mean()),
+            "top1_agree": float((logits.argmax(-1) == dense.argmax(-1))
+                                .float().mean())}
+
+
+def spec_acceptance(name, params, cfg, data_cfg, dev, K, evo) -> dict:
+    """Calibrate a ``pallas`` ladder (0.0, 0.5) on ``params`` with the
+    example's search budget and serve 8 held-out prompts of the synthetic
+    language through the spec engine, gamma 2, the 0.5 rung drafting
+    (``serve_once`` checks its launches)."""
+    from repro_torch.core import calibration
+    from repro_torch.data import SyntheticLM
+    from repro_torch.serving import SpecConfig
+    from repro_torch.sparsity import PolicyLadder, calibrate_ladder
+
+    calib = SyntheticLM(dataclasses.replace(data_cfg, global_batch=4)
+                        ).batch(991)
+    ctx = calibration.build_context(params, cfg, {"tokens": calib})
+    lad = calibrate_ladder(params, cfg, None, (0.0, 0.5), backend="pallas",
+                           evo=evo, delta=0.25, coord_passes=0, ctx=ctx,
+                           quality_baselines=False)
+    lad = PolicyLadder(budgets=lad.budgets, policies=tuple(
+        dataclasses.replace(p, block=REDUCED_BLOCK) for p in lad.policies),
+        sps=lad.sps, block_ratios=lad.block_ratios)
+    toks = SyntheticLM(dataclasses.replace(data_cfg, global_batch=8)
+                       ).batch(20_000_000)[:, :48]
+    trace = {"prompts": list(toks), "gen": 32,
+             "ecfg": dict(max_slots=8, max_len=128, prefill_chunk=16)}
+    res = serve_once(name, params, cfg, None, None, trace, dev, K,
+                     ladder=lad, spec=SpecConfig(gamma=2, drafter_rung=1),
+                     window=0)
+    if res["verify_retraces_after_warmup"] != 0:
+        raise AssertionError(f"{name}: verify builds after warmup")
+    return res
+
+
+@contextlib.contextmanager
+def init_from(params):
+    """``launch.train.train`` starts from a copy of ``params`` in the
+    block, not from its seed's init on its device."""
+    from repro_torch.models import api, params as P
+    seeded = api.init_model
+    api.init_model = lambda cfg, seed, device: P.tree_map(
+        lambda t: t.to(device, copy=True), params)
+    try:
+        yield
+    finally:
+        api.init_model = seeded
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """TF32 on for the f32 products in the block (19a's control run)."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def card_against_cpu(dev) -> dict:
+    """19a's trainer checks: the recipe on the card through the runner
+    twice (checkpoints every 50 steps; one run preempted at step 120),
+    which must end bit-equal; on the CPU from the card run's init, each
+    step's loss the card's must match within ``TRAIN_LOSS_TOL``; and once
+    more on the card with TF32 products, the control whose distance to
+    the CPU's losses is returned beside the card's."""
+    import shutil
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import train
+    from repro_torch.models import api, params as P
+
+    root = os.path.join(HERE, "build", "chip_smoke", "train")
+    shutil.rmtree(root, ignore_errors=True)
+    # the card run's init, for the CPU run: one seed draws other numbers
+    # from the card's generator than from the CPU's
+    init = P.tree_map(lambda t: t.cpu(), api.init_model(
+        reduced(get_config(TRAIN_RECIPE["arch"])), SEED, device=dev))
+    logs = []
+    runs = {}
+    for name, kw in (("uninterrupted", {}),
+                     ("preempted", {"fail_at": TRAIN_PREEMPT_AT})):
+        t = obs.now()
+        runs[name] = train(**TRAIN_RECIPE, ckpt_every=TRAIN_CKPT_EVERY,
+                           ckpt_dir=os.path.join(root, name), device=dev,
+                           log=logs.append, **kw)
+        torch.cuda.synchronize()
+        runs[name] += (obs.now() - t,)
+    shutil.rmtree(root, ignore_errors=True)
+    params, cfg, data_cfg, hist, final, card_s = runs["uninterrupted"]
+    pre = runs["preempted"]
+    if not any(f"simulated preemption at step {TRAIN_PREEMPT_AT[0]}" in m
+               for m in logs):
+        raise AssertionError(f"19a: no preemption in the logs {logs}")
+    unequal = [i for i, (a, b) in enumerate(zip(_leaves(params),
+                                                _leaves(pre[0])))
+               if not torch.equal(a, b)]
+    if unequal or pre[4] != final:
+        raise AssertionError(f"19a: the resumed run's params differ from "
+                             f"the uninterrupted run's at leaves {unequal} "
+                             f"(held-out {pre[4]} against {final})")
+    t = obs.now()
+    with init_from(init):
+        _p, _c, _d, cpu_hist, cpu_final = train(**TRAIN_RECIPE, device="cpu",
+                                                log=lambda *a: None)
+    cpu_s = obs.now() - t
+    with tf32_products():
+        tf32_hist = train(**TRAIN_RECIPE, device=dev, log=lambda *a: None)[3]
+
+    def err(h):
+        return max(abs(a["loss"] - b["loss"])
+                   for a, b in zip(h, cpu_hist, strict=True))
+    return {"params": params, "cfg": cfg, "data_cfg": data_cfg,
+            "hist": hist, "final": final, "card_s": card_s,
+            "preempted_s": pre[5], "preempted_steps": len(pre[3]),
+            "cpu_s": cpu_s, "cpu_final": cpu_final,
+            "loss_err": err(hist), "tf32_loss_err": err(tf32_hist)}
+
+
+def train_then_sparsify(dev, K, random_accept: float) -> dict:
+    """Phase 19a: ``examples/train_then_sparsify.py`` on the card.  The
+    trainer's checks (``card_against_cpu``: resume bit-equal, losses
+    within ``TRAIN_LOSS_TOL`` of the CPU's, which the TF32 control must
+    miss), then WiSparse at 0.3/0.4/0.5 (paper Alg. 1-4, the example's
+    budget) with held-out ppl, retention and top-1 agreement under
+    ``mask``, and spec decoding on the trained model and on its random
+    init."""
+    from repro_torch import obs
+    from repro_torch.core import calibration, pipeline
+    from repro_torch.core.allocation import EvoConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import api
+
+    t0 = obs.now()
+    tr = card_against_cpu(dev)
+    params, cfg, data_cfg = tr["params"], tr["cfg"], tr["data_cfg"]
+    hist, final, loss_err = tr["hist"], tr["final"], tr["loss_err"]
+    if not loss_err <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"19a: card and CPU losses differ by "
+                             f"{loss_err} > {TRAIN_LOSS_TOL}")
+    if not tr["tf32_loss_err"] > TRAIN_LOSS_TOL:
+        raise AssertionError(f"19a: with TF32 products the card's losses "
+                             f"are within {tr['tf32_loss_err']} of the "
+                             f"CPU's, so {TRAIN_LOSS_TOL} cannot tell TF32 "
+                             f"from f32")
+    print(f"19a train_then_sparsify recipe ({TRAIN_RECIPE}, checkpoints "
+          f"every {TRAIN_CKPT_EVERY}): loss {hist[0]['loss']:.4f} -> "
+          f"{hist[-1]['loss']:.4f}, held-out {final:.4f}; card run "
+          f"{tr['card_s']:.1f} s, preempted run {tr['preempted_s']:.1f} s "
+          f"({tr['preempted_steps']} steps executed), resumed params "
+          f"bit-equal to the uninterrupted run's; CPU run {tr['cpu_s']:.1f}"
+          f" s, per-step loss card vs CPU max abs err {loss_err:.3g} (<= "
+          f"{TRAIN_LOSS_TOL}; with TF32 products {tr['tf32_loss_err']:.3g})"
+          f", held-out {tr['cpu_final']:.4f}")
+    evo = EvoConfig(generations=4, offspring=8, eps=0.1)
+    calib = SyntheticLM(dataclasses.replace(data_cfg, global_batch=4)
+                        ).batch(991)
+    t = obs.now()
+    ctx = calibration.build_context(params, cfg, {"tokens": calib})
+    dense = eval_metrics(params, cfg, data_cfg, dev)
+    quality = {"dense_ppl": dense["ppl"]}
+    for p in SPARSITIES:
+        plan = pipeline.run_pipeline(params, cfg, {"tokens": calib}, p,
+                                     evo=evo, delta=0.25, coord_passes=0,
+                                     ctx=ctx)
+        m = eval_metrics(params, cfg, data_cfg, dev, plan.per_depth_sp)
+        m["retention"] = dense["ppl"] / m["ppl"]
+        quality[str(p)] = m
+        print(f"19a WiSparse@{p:.0%}: ppl {m['ppl']:.4f} (dense "
+              f"{dense['ppl']:.4f}), retention {m['retention']:.4f}, "
+              f"top-1 agreement {m['top1_agree']:.4f}, KL {m['kl']:.4g}")
+        if not (np.isfinite(m["ppl"]) and m["top1_agree"] > 0):
+            raise AssertionError(f"19a: WiSparse@{p} gave {m}")
+    calib_s = obs.now() - t
+    t = obs.now()
+    spec = {"trained": spec_acceptance("19a spec trained", params, cfg,
+                                       data_cfg, dev, K, evo),
+            "random init": spec_acceptance(
+                "19a spec random init",
+                api.init_model(cfg, SEED, device=dev), cfg, data_cfg, dev,
+                K, evo)}
+    for name, r in spec.items():
+        print(f"19a spec decoding, {name} reduced llama31_8b (gamma 2, "
+              f"drafter: the 0.5 rung of a pallas ladder calibrated on "
+              f"it): acceptance rate {r['spec']['accept_rate']:.4f}, "
+              f"accepted per verify {r['spec']['accepted_per_verify']:.4f}, "
+              f"distinct tokens {r['distinct_tokens']}; {_fmt(r)}")
+    print(f"19a acceptance: trained {spec['trained']['spec']['accept_rate']:.4f}"
+          f", random init {spec['random init']['spec']['accept_rate']:.4f}, "
+          f"full-width random llama31_8b (phase 11) {random_accept:.4f}")
+    out = {"losses": [h["loss"] for h in hist], "final": final,
+           **{k: tr[k] for k in ("card_s", "preempted_s", "preempted_steps",
+                                 "cpu_s", "tf32_loss_err")},
+           "card_vs_cpu_loss_err": loss_err, "quality": quality,
+           "calibration_s": calib_s, "spec_s": obs.now() - t,
+           "spec": {n: {"accept_rate": r["spec"]["accept_rate"],
+                        "accepted_per_verify":
+                            r["spec"]["accepted_per_verify"],
+                        "decode_tok_s": r["decode_tok_s"],
+                        "distinct_tokens": r["distinct_tokens"],
+                        "launches": r.get("launches")}
+                    for n, r in spec.items()},
+           "spec_full_width_random": random_accept,
+           "wall_s": obs.now() - t0}
+    del params, tr
+    gc.collect()
+    return out
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """FLOPs of one train step: 6 per parameter per token, plus the
+    attention products (QK and PV, forward and the backward's two each:
+    12 B S^2 H hd per layer, every score computed, as the port does)."""
+    attn = 12 * batch * seq * seq * cfg.num_heads * cfg.head_dim * \
+        cfg.num_layers
+    return 6.0 * n_params * batch * seq + attn
+
+
+def train_step_breakdown(cfg, params, opt, ocfg, toks, top: int = 10
+                         ) -> dict:
+    """Train steps of ``params`` split on the host clock (each part ends
+    in a synchronize): the loss's forward and backward, then the AdamW
+    update, twice, the second kept; then one whole step under
+    ``torch.profiler`` for its ``top`` operators by device time (the
+    kernels each ATen op launched)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models import api, params as P
+    from repro_torch.optim import adamw
+
+    loss_fn = api.make_loss_fn(cfg)
+    leaves = P.tree_leaves(params)
+    with deterministic():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = obs.now()
+            for leaf in leaves:
+                leaf.requires_grad_(True)
+            loss = loss_fn(params, {"tokens": toks})
+            grads = torch.autograd.grad(loss, leaves)
+            for leaf in leaves:
+                leaf.requires_grad_(False)
+            torch.cuda.synchronize()
+            fwd_bwd = obs.now() - t
+            t = obs.now()
+            adamw.update(P.tree_unflatten_like(params, list(grads)), opt,
+                         params, ocfg)
+            torch.cuda.synchronize()
+            update = obs.now() - t
+            del grads, loss
+        step = api.make_train_step(cfg, ocfg)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(params, opt, {"tokens": toks})
+            torch.cuda.synchronize()
+    ev = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+          if e.device_type == DeviceType.CPU and e.self_device_time_total]
+    total = sum(ms for _, ms in ev)
+    ev.sort(key=lambda e: -e[1])
+    rows = [[k, ms, ms / total] for k, ms in ev[:top]]
+    print(f"19b one step split: forward + backward {1e3 * fwd_bwd:.1f} ms, "
+          f"AdamW update {1e3 * update:.1f} ms; one step traced: "
+          f"{total:.1f} ms on the device, top ATen ops " + "; ".join(
+              f"{k} {ms:.1f} ms ({100 * f:.0f}%)" for k, ms, f in rows))
+    return {"fwd_bwd_s": fwd_bwd, "update_s": update,
+            "device_ms": total, "top_ops": rows}
+
+
+def gemma_steps(dev, rates) -> tuple:
+    """19b's training: full-width gemma2_2b (bf16 params; f32 master, m
+    and v) 30 steps through ``launch.train.train``: every loss finite,
+    the last below the first; step time p50, tokens/s, MFU and peak
+    memory.  Returns (params, cfg, data_cfg, numbers)."""
+    from repro_torch import obs
+    from repro_torch.launch.train import train
+    from repro_torch.serving.metrics import percentile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, cfg, data_cfg, hist, final = train(**GEMMA_TRAIN, device=dev,
+                                               log=lambda *a: None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"19b: losses {losses}")
+    n_params = sum(t.numel() for t in _leaves(params))
+    state_gb = n_params * (2 + 2 + 12) / 1e9      # params, grads, f32 x 3
+    tokens = GEMMA_TRAIN["batch"] * GEMMA_TRAIN["seq"]
+    step_s = [h["step_s"] for h in hist]
+    p50 = percentile(step_s[1:], 50)
+    flops = train_flops(cfg, n_params, GEMMA_TRAIN["batch"],
+                        GEMMA_TRAIN["seq"])
+    res = {"losses": losses, "held_out": final, "n_params": n_params,
+           "step_s": step_s, "step_p50_s": p50, "first_step_s": step_s[0],
+           "tokens_per_s": tokens / p50, "flops_per_step": flops,
+           "mfu": flops / p50 / rates.flops_bf16,
+           "peak_gb": peak / 1e9, "state_gb": state_gb,
+           "logits_gb": tokens * cfg.vocab_size * 4 / 1e9}
+    print(f"19b gemma2_2b full width ({n_params / 1e9:.2f}B params, "
+          f"{GEMMA_TRAIN}): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(held-out {final:.4f}), all {len(losses)} finite; step p50 "
+          f"{1e3 * p50:.1f} ms (first {1e3 * step_s[0]:.1f}), "
+          f"{res['tokens_per_s']:.0f} tokens/s, MFU {res['mfu']:.4f} "
+          f"({flops / 1e12:.2f} TFLOP per step over "
+          f"{rates.flops_bf16 / 1e12:.0f} TFLOP/s); peak allocated "
+          f"{res['peak_gb']:.1f} GB against {state_gb:.1f} GB of state + "
+          f"{res['logits_gb']:.1f} GB of f32 logits per copy")
+    return params, cfg, data_cfg, res
+
+
+def train_gemma(dev, K, rates) -> dict:
+    """Phase 19b: ``gemma_steps``, then one step at ``remat="full"`` on a
+    copy of the trained params with a fresh optimizer, an async
+    checkpoint round trip of the trained params (bit-equal), and the
+    restored params served dense and ``pallas`` (keep 0.5, uncalibrated)
+    on phase 16's 8 short prompts."""
+    import shutil
+
+    from repro_torch import obs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models import api, params as P
+    from repro_torch.optim import adamw
+    from repro_torch.sparsity import SparsityPolicy
+
+    t0 = obs.now()
+    params, cfg, data_cfg, res = gemma_steps(dev, rates)
+
+    # on a copy of the trained params, with a fresh optimizer: the
+    # step's split, its top kernels, then one step at remat="full"
+    ocfg = adamw.AdamWConfig(lr_peak=GEMMA_TRAIN["lr"], warmup_steps=5,
+                             decay_steps=GEMMA_TRAIN["steps"])
+    copy = P.tree_map(torch.clone, params)
+    opt = adamw.init(copy, ocfg)
+    toks = torch.from_numpy(SyntheticLM(data_cfg).batch(
+        GEMMA_TRAIN["steps"])).to(dev)
+    res["breakdown"] = train_step_breakdown(cfg, copy, opt, ocfg, toks)
+    step = api.make_train_step(cfg, ocfg, remat="full")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = obs.now()
+    with deterministic():
+        copy, opt, m = step(copy, opt, {"tokens": toks})
+        remat_loss = float(m["loss"])
+    res["remat_full_step_s"] = obs.now() - t
+    res["remat_full_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["remat_full_step_peak_over_state_gb"] = \
+        (torch.cuda.max_memory_allocated() - base) / 1e9
+    if not np.isfinite(remat_loss):
+        raise AssertionError(f"19b: remat full loss {remat_loss}")
+    print(f"19b one step at remat='full': {1e3 * res['remat_full_step_s']:.1f}"
+          f" ms, loss {remat_loss:.4f}, peak allocated "
+          f"{res['remat_full_peak_gb']:.1f} GB "
+          f"({res['remat_full_step_peak_over_state_gb']:.1f} GB above the "
+          f"optimizer state and both param copies)")
+    del copy, opt, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # async checkpoint round trip
+    ck_dir = os.path.join(HERE, "build", "chip_smoke", "gemma_ckpt")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    mgr = CheckpointManager(ck_dir, keep=1, async_save=True)
+    t = obs.now()
+    mgr.save(GEMMA_TRAIN["steps"], params, {"arch": cfg.name})
+    res["ckpt_snapshot_ms"] = 1e3 * (obs.now() - t)
+    t = obs.now()
+    mgr.wait()
+    res["ckpt_write_s"] = obs.now() - t
+    res["ckpt_bytes"] = os.path.getsize(os.path.join(
+        ck_dir, f"step_{GEMMA_TRAIN['steps']:08d}", "arrays.npz"))
+    t = obs.now()
+    restored, meta = mgr.restore(params)
+    torch.cuda.synchronize()
+    res["ckpt_restore_s"] = obs.now() - t
+    unequal = [i for i, (a, b) in enumerate(zip(_leaves(params),
+                                                _leaves(restored)))
+               if not (a.dtype == b.dtype and a.device == b.device
+                       and torch.equal(a, b))]
+    if unequal or meta["step"] != GEMMA_TRAIN["steps"]:
+        raise AssertionError(f"19b: restored leaves {unequal} differ "
+                             f"(meta {meta})")
+    print(f"19b checkpoint (async): snapshot {res['ckpt_snapshot_ms']:.0f} "
+          f"ms on the calling thread, write {res['ckpt_write_s']:.1f} s "
+          f"({res['ckpt_bytes'] / 1e9:.2f} GB), restore "
+          f"{res['ckpt_restore_s']:.1f} s, every leaf bit-equal")
+    del params
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serve the restored params
+    full = gemma_trace(cfg)
+    short = {"prompts": full["prompts"][4:], "lens": full["lens"][4:],
+             "gen": full["gen"], "ecfg": full["ecfg"]}
+    sp = default_sp_stacked(restored, cfg, keep_frac=KEEP,
+                            tau=float("-inf"))
+    served = {
+        "dense": gemma_run("19b trained dense", restored, cfg,
+                           SparsityPolicy.dense(), None, short, dev, K),
+        "pallas": gemma_run("19b trained pallas", restored, cfg,
+                            SparsityPolicy.uniform("pallas",
+                                                   k_max_frac=KEEP),
+                            sp, short, dev, K)}
+    res["served_agreement"] = agreement(served["dense"], served["pallas"])
+    for name, r in served.items():
+        print(f"19b trained gemma2_2b served {name}: distinct tokens "
+              f"{r['distinct_tokens']} (random weights: 12 per run), "
+              f"decode p50 {r['decode_step_p50_ms']:.2f} ms, launches "
+              f"{r['launches']} ({r['sparse_passes']} sparse passes)")
+    print(f"19b pallas/dense token agreement on the trained weights "
+          f"{res['served_agreement']:.4f}")
+    res["served"] = {n: {k: v for k, v in r.items() if k != "tokens"}
+                     for n, r in served.items()}
+    del restored, sp, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["wall_s"] = obs.now() - t0
+    return res
+
+
+def train_on_card(dev, K, rates, random_accept: float) -> dict:
+    """Phase 19: 19a then 19b."""
+    from repro_torch import obs
+    t0 = obs.now()
+    out = {"train_then_sparsify": train_then_sparsify(dev, K, random_accept),
+           "gemma2_2b": train_gemma(dev, K, rates)}
+    out["wall_s"] = obs.now() - t0
+    print(f"phase 19 took {out['wall_s']:.1f} s")
+    return out
+
+
+def train_only(dev, card: str, src: str) -> int:
+    """``--train-only``: 19a's ``card_against_cpu`` and 19b's
+    ``gemma_steps`` for the package under ``src``, one JSON line."""
+    from repro_torch.launch import constants
+    tr = card_against_cpu(dev)
+    del tr["params"], tr["cfg"], tr["data_cfg"]
+    tr["losses"] = [h["loss"] for h in tr.pop("hist")]
+    _p, _c, _d, res = gemma_steps(dev, constants.peak_rates(card))
+    print(json.dumps({"train_only": {"src": src, "19a": tr, "19b": res}}))
+    return 0
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -4757,9 +5282,15 @@ def main() -> int:
                          "per call, the pallas projection's device time per "
                          "shape and the gather backends' device time as "
                          "JSON lines, and stop")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run phase 19a's card-against-CPU training check "
+                         "(with its TF32 control) and phase 19b's 30 "
+                         "gemma2_2b steps, print their numbers as one JSON "
+                         "line, and stop")
     ap.add_argument("--src", default=os.path.join(HERE, "src"),
                     help="directory holding the repro_torch package (for "
-                         "--host-only against another tree)")
+                         "--host-only or --train-only against another "
+                         "tree)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     if not torch.cuda.is_available():
@@ -4777,6 +5308,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
+    if args.train_only:
+        return train_only(dev, card, args.src)
 
     t_start = t0 = obs.now()
     build.library()
@@ -4871,6 +5404,9 @@ def main() -> int:
     took("17 granite_moe_3b_a800m")
     mamba = serve_mamba(dev, K)
     took("18 mamba2_130m")
+    training = train_on_card(
+        dev, K, rates, spec_res["spec calibrated"]["spec"]["accept_rate"])
+    took("19 training")
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -4892,7 +5428,7 @@ def main() -> int:
                                  "expert_kernels": ge_rows},
         "mamba2_130m": {**mamba, "kernels": m_rows,
                         "kernels_per_decode_layer": mamba_layer},
-        "reduced_ssm": reduced_ssm}}))
+        "reduced_ssm": reduced_ssm, "training": training}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     expert_rows = [r for r in ge_rows if r["R"] == 8]

@@ -118,6 +118,10 @@ def _dispatch(x, w, sp, policy, role, *, token_weights=None,
                          backend)
         return y[0].reshape(x.shape[:-1] + w.shape[1:])
     if backend == "pallas":
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            raise NotImplementedError(
+                f"{role}: the pallas kernels have no backward; train under "
+                "off, mask or topk_* (or without an sp tree)")
         from repro_torch.kernels import ops as kops
         if experts:
             return kops.wisparse_project_experts(

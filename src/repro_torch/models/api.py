@@ -1,13 +1,16 @@
 """Public model API (port of the JAX package's ``models/api.py``): the
-cache and prefix-segment schemas, model init, and the step functions the serving engine
-calls (slot decode, chunked prefill, speculative verify, whole-prompt
-prefill)."""
+cache and prefix-segment schemas, model init, the loss and the train
+step, and the step functions the serving engine calls (slot decode,
+chunked prefill, speculative verify, whole-prompt prefill)."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models import params as P
+from repro_torch.optim import adamw
 
 
 def cache_schema(cfg: ModelConfig, batch: int, cache_len: int):
@@ -79,6 +82,87 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda"):
     raises if CUDA is absent unless ``device="cpu"``)."""
     return P.init_params(M.model_schema(cfg), seed, cfg.dtype,
                          resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# Loss / steps
+# ---------------------------------------------------------------------------
+
+def token_loss(cfg: ModelConfig, logits, tokens, text_start: int = 0):
+    """Next-token CE in f32.  logits: (B,S,V) over [prefix+]text positions."""
+    lg = logits[:, text_start: -1].float() if logits.shape[1] > 1 \
+        else logits.float()
+    labels = tokens[:, 1:].long()
+    lse = torch.logsumexp(lg, -1)
+    picked = torch.take_along_dim(lg, labels[..., None], -1)[..., 0]
+    return torch.mean(lse - picked)
+
+
+def make_loss_fn(cfg: ModelConfig, remat: str = "none", policy=None):
+    """``policy``: the SparsityPolicy baked into the returned callable
+    (override per call via the ``policy=`` kwarg).  The VLM and enc-dec
+    families raise here: their forwards are not ported."""
+    M.check_supported(cfg)
+    text_start = cfg.vision_prefix if cfg.family == "vlm" else 0
+
+    def loss_fn(params, batch, sp=None, policy=policy):
+        logits, _ = M.forward(params, cfg, tokens=batch["tokens"],
+                              mode="train", sp=sp, remat=remat,
+                              policy=policy)
+        return token_loss(cfg, logits, batch["tokens"], text_start)
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                    remat: str = "none", accum_steps: int = 1, policy=None):
+    """``train_step(params, opt_state, batch, sp=None) -> (params,
+    opt_state, {"loss", "grad_norm", "lr"})``: grads of the loss over
+    every param leaf by ``torch.autograd``, then one AdamW update, which
+    writes params and state in place.  With ``accum_steps`` > 1 the batch
+    splits into ``accum_steps`` micro-batches (``reshape((accum, -1) +
+    shape)``) whose loss and grads sum in f32 from zeros, then divide.
+    A ``pallas`` projection under an sp tree raises
+    ``NotImplementedError``: the kernels have no backward, as in the
+    reference."""
+    loss_fn = make_loss_fn(cfg, remat, policy=policy)
+
+    def value_and_grad(params, leaves, batch, sp):
+        try:
+            with torch.enable_grad():
+                for leaf in leaves:
+                    leaf.requires_grad_(True)
+                loss = loss_fn(params, batch, sp)
+                grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for leaf in leaves:
+                leaf.requires_grad_(False)
+        return loss.detach(), grads
+
+    def train_step(params, opt_state, batch, sp=None):
+        leaves = P.tree_leaves(params)
+        if accum_steps == 1:
+            loss, grads = value_and_grad(params, leaves, batch, sp)
+        else:
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            mbs = {k: v.reshape((accum_steps, -1) + v.shape[1:])
+                   for k, v in batch.items()}
+            for i in range(accum_steps):
+                l, g = value_and_grad(params, leaves,
+                                      {k: v[i] for k, v in mbs.items()}, sp)
+                loss = loss + l
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi)
+                del g
+            loss = loss / accum_steps
+            grads = [acc / accum_steps for acc in grads]
+        params, opt_state, metrics = adamw.update(
+            P.tree_unflatten_like(params, grads), opt_state, params, opt_cfg)
+        return params, opt_state, {"loss": loss, **metrics}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -31,7 +31,11 @@ layers, whose state has no time axis to write at an offset.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_linear
@@ -278,12 +282,46 @@ def layer_apply(p, x, cfg: ModelConfig, kind, sp=None, cache=None,
     return x, ({key: nc} if nc is not None else None)
 
 
+def _unbind(tree, reps: int) -> list:
+    """Per-rep trees of a stacked tree, each leaf split by one
+    ``unbind``: its backward stacks the reps' grads once, where indexing
+    each rep would add a zero-filled grad of the whole stack per rep."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, reps) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per.items()} for r in range(reps)]
+    return list(torch.unbind(tree, 0))
+
+
+def _save_matmuls(_ctx, op, *_args, **_kwargs):
+    """The ``dots`` remat policy: keep the outputs of products without
+    batch dims (the projections' ``mm``), recompute the rest, as the
+    reference's ``checkpoint_dots_with_no_batch_dims``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, remat: str):
+    """``none`` keeps every activation for the backward; ``dots`` keeps
+    only the projections' outputs; anything else (``full``) keeps none
+    and recomputes the layer body in the backward."""
+    if remat == "none":
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def run_groups(groups, x, cfg: ModelConfig, *, mode="train", caches=None,
                positions=None, sp=None, slot=None, policy=None,
-               token_weights=None):
+               token_weights=None, remat: str = "none"):
     """Run every stacked layer group in depth order.  Returns (x, caches):
     the pool caches updated in place for decode/chunk/verify, fresh
-    stacked caches for prefill, None for train."""
+    stacked caches for prefill, None for train.  ``remat`` (train mode
+    only) wraps each rep's layers, as the reference wraps its scan
+    body."""
     fresh = []
     depth = 0
     for gi, (pattern, reps) in enumerate(cfg.layer_groups()):
@@ -291,19 +329,28 @@ def run_groups(groups, x, cfg: ModelConfig, *, mode="train", caches=None,
         gc = caches[gi] if caches is not None else None
         gsp = sp[gi] if sp is not None else None
         made = [[] for _ in pattern]
+        rep_params = _unbind(gp, reps) if mode == "train" else None
         for r in range(reps):
-            for j, kind in enumerate(pattern):
-                lpol = policy.resolve_depth(depth) if policy is not None \
-                    else None
-                x, nc = layer_apply(
-                    _index(gp[f"l{j}"], r), x, cfg, kind,
-                    _index(gsp[f"l{j}"], r) if gsp is not None else None,
-                    _index(gc[j], r) if gc is not None else None,
-                    positions, mode, slot=slot, policy=lpol,
-                    token_weights=token_weights)
-                if mode == "prefill":
+            def body(x, r=r, depth=depth, pattern=pattern):
+                ncs = []
+                for j, kind in enumerate(pattern):
+                    lpol = policy.resolve_depth(depth + j) \
+                        if policy is not None else None
+                    x, nc = layer_apply(
+                        rep_params[r][f"l{j}"] if rep_params is not None
+                        else _index(gp[f"l{j}"], r), x, cfg, kind,
+                        _index(gsp[f"l{j}"], r) if gsp is not None else None,
+                        _index(gc[j], r) if gc is not None else None,
+                        positions, mode, slot=slot, policy=lpol,
+                        token_weights=token_weights)
+                    ncs.append(nc)
+                return x, ncs
+            x, ncs = _remat_wrap(body, remat if mode == "train"
+                                 else "none")(x)
+            if mode == "prefill":
+                for j, nc in enumerate(ncs):
                     made[j].append(nc)
-                depth += 1
+            depth += len(pattern)
         if mode == "prefill":
             fresh.append(tuple(_stack_reps(per) for per in made))
     if mode == "prefill":
@@ -326,6 +373,62 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
     return e
 
 
+def _mm_f32(a, b):
+    """``a @ b`` of low-precision operands, accumulated and returned in
+    f32 (``torch.mm(out_dtype=)`` on the card; the CPU has no such op)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+# vocab columns per step of the head's backward: bounds its f32 temporaries
+HEAD_CHUNK = 32768
+
+
+def _split3(g):
+    """An f32 tensor as three bf16 terms whose f32 sum is ``g`` exactly
+    (8 significand bits each; bf16 has f32's exponent range)."""
+    hi = g.bfloat16()
+    r = g - hi.float()
+    mid = r.bfloat16()
+    return hi, mid, (r - mid.float()).bfloat16()
+
+
+class _HeadProduct(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=float32)`` of bf16 operands with a
+    backward, which the op lacks.  The backward multiplies the f32 logit
+    grads, as the reference's transposed f32-output ``einsum`` does: per
+    chunk of vocab columns the grads split exactly into three bf16 terms
+    (``_split3``), each multiplied on the tensor cores with f32
+    accumulation, so only the f32 sums' order differs from an f32
+    product, and no f32 copy of the (D, V) head is made."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = torch.zeros(x.shape, dtype=torch.float32, device=x.device) \
+            if ctx.needs_input_grad[0] else None
+        gw = torch.empty_like(w) if ctx.needs_input_grad[1] else None
+        xt = x.T
+        for c in range(0, w.shape[1], HEAD_CHUNK):
+            wc = w[:, c:c + HEAD_CHUNK]
+            terms = _split3(g[:, c:c + HEAD_CHUNK])
+            if gx is not None:
+                for t in terms:
+                    gx += _mm_f32(t, wc.T)
+            if gw is not None:
+                acc = _mm_f32(xt, terms[0])
+                acc += _mm_f32(xt, terms[1])
+                acc += _mm_f32(xt, terms[2])
+                gw[:, c:c + HEAD_CHUNK] = acc
+        return (None if gx is None else gx.to(x.dtype)), gw
+
+
 def lm_logits(params, x, cfg: ModelConfig):
     """(B,S,D) -> f32 logits (B,S,V), accumulated in f32."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -334,7 +437,10 @@ def lm_logits(params, x, cfg: ModelConfig):
     if x2.is_cuda and x2.dtype != torch.float32:
         # f32 output from the low-precision operands, without an f32 copy
         # of the (V, D) head
-        logits = torch.mm(x2, w, out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+            logits = _HeadProduct.apply(x2, w)
+        else:
+            logits = _mm_f32(x2, w)
     else:
         logits = x2.float() @ w.float()
     return softcap(logits, cfg.logit_softcap).reshape(B, S, -1)
@@ -342,7 +448,7 @@ def lm_logits(params, x, cfg: ModelConfig):
 
 def forward(params, cfg: ModelConfig, *, tokens, mode="train", caches=None,
             positions=None, sp=None, slot=None, policy=None,
-            token_weights=None):
+            token_weights=None, remat: str = "none"):
     """Unified forward.
 
     train/prefill: tokens (B,S).
@@ -355,7 +461,8 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="train", caches=None,
 
     Returns (logits, caches): train -> (B,S,V), None; prefill -> (B,V)
     at the last position, fresh caches; decode -> (B,V), pool updated in
-    place; chunk/verify -> (B,C,V), pool updated in place.
+    place; chunk/verify -> (B,C,V), pool updated in place.  ``remat``
+    (train mode): ``none``, ``dots`` or ``full`` (:func:`_remat_wrap`).
     """
     if mode not in MODES:
         raise NotImplementedError(
@@ -368,7 +475,7 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="train", caches=None,
     x, new_caches = run_groups(
         params["groups"], x, cfg, mode=mode, caches=caches,
         positions=positions, sp=sp, slot=slot, policy=policy,
-        token_weights=token_weights)
+        token_weights=token_weights, remat=remat)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if mode == "decode":
         return lm_logits(params, x, cfg)[:, 0], new_caches

@@ -48,6 +48,32 @@ def tree_map(fn, tree):
     return tree_map_with_path(lambda _p, leaf: fn(leaf), tree)
 
 
+def tree_flatten_with_path(tree, path=()):
+    """``[(path, leaf)]`` in the JAX package's leaf order: dict keys
+    sorted, sequences in order, None an empty subtree."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in tree_flatten_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree)
+                for kv in tree_flatten_with_path(v, path + (i,))]
+    if tree is None:
+        return []
+    return [(path, tree)]
+
+
+def tree_leaves(tree):
+    return [leaf for _p, leaf in tree_flatten_with_path(tree)]
+
+
+def tree_unflatten_like(tree, leaves):
+    """``tree``'s structure holding ``leaves``, given in the order of
+    :func:`tree_leaves`."""
+    at = {p: leaf for (p, _), leaf in zip(tree_flatten_with_path(tree),
+                                          leaves, strict=True)}
+    return tree_map_with_path(lambda p, _leaf: at[p], tree)
+
+
 def _path_str(path) -> str:
     return "/".join(str(p) for p in path)
 

@@ -1285,3 +1285,116 @@ def test_record_replay_bit_identical_in_bf16(dev, tmp_path):
     assert report.ok, report.failures
     assert report.requests == 5
     assert all(v == 0 for v in report.retraces.values())
+
+
+# -- training -----------------------------------------------------------------
+
+def _train_step_on(device, cfg, params_cpu, toks, ocfg, remat="none"):
+    from repro_torch.launch.train import deterministic
+    from repro_torch.optim import adamw
+    params = P.tree_map(lambda t: t.to(device, copy=True), params_cpu)
+    opt = adamw.init(params, ocfg)
+    step = api.make_train_step(cfg, ocfg, remat=remat)
+    with deterministic():
+        params, opt, met = step(params, opt, {"tokens": toks.to(device)})
+    return params, {k: float(v) for k, v in met.items()}
+
+
+def test_train_step_on_card_equals_cpu(dev):
+    """One train step of reduced llama31_8b (f32, TF32 off) from the same
+    weights on the card and on the CPU: loss at 1e-5, grad norm at 1e-4
+    and every updated param at the CPU parity tests' tolerances
+    (``tests/test_torch_train.py``, eps 1e-3 as there); on the card,
+    remat ``dots`` and ``full`` give params bit-equal to ``none``."""
+    from repro_torch.optim import adamw
+    cfg = reduced(get_config("llama31_8b"))
+    params = api.init_model(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 48)))
+    ocfg = adamw.AdamWConfig(lr_peak=1e-2, warmup_steps=1, decay_steps=4,
+                             eps=1e-3)
+    pc, mc = _train_step_on("cpu", cfg, params, toks, ocfg)
+    pg, mg = _train_step_on(dev, cfg, params, toks, ocfg)
+    assert abs(mg["loss"] - mc["loss"]) <= 1e-5
+    np.testing.assert_allclose(mg["grad_norm"], mc["grad_norm"], rtol=1e-4)
+    assert mg["lr"] == mc["lr"]
+    for (path, g), (_, c) in zip(P.tree_flatten_with_path(pg),
+                                 P.tree_flatten_with_path(pc)):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=str(path))
+    for remat in ("dots", "full"):
+        pr, mr = _train_step_on(dev, cfg, params, toks, ocfg, remat)
+        assert mr["loss"] == mg["loss"]
+        for a, b in zip(P.tree_leaves(pr), P.tree_leaves(pg)):
+            assert torch.equal(a, b), remat
+
+
+def test_bf16_grads_on_card_match_cpu(dev):
+    """Reduced gemma2_2b in bf16 (tied, softcapped head): the card takes
+    the head's f32-output product and its hand-written backward
+    (``model._HeadProduct``), the CPU an f32 product; the loss agrees at
+    the bf16 tolerance 3e-2 and each grad leaf within 3e-2 of its norm."""
+    import dataclasses
+    cfg = dataclasses.replace(reduced(get_config("gemma2_2b")),
+                              dtype="bfloat16")
+    params = api.init_model(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 40)))
+    out = {}
+    for d in ("cpu", dev):
+        p = P.tree_map(lambda t: t.to(d, copy=True), params)
+        leaves = P.tree_leaves(p)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss = api.make_loss_fn(cfg)(p, {"tokens": toks.to(d)})
+        grads = torch.autograd.grad(loss, leaves)
+        out[str(d)] = (float(loss), [g.float().cpu() for g in grads])
+    (lc, gc_), (lg, gg) = out["cpu"], out[str(dev)]
+    assert abs(lg - lc) <= 3e-2
+    for a, b in zip(gg, gc_):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert float((a - b).norm()) <= 3e-2 * float(b.norm()) + 1e-12
+
+
+def test_head_product_on_card_multiplies_the_f32_cotangent(dev):
+    """``model._HeadProduct`` on the card (bf16 operands, f32 logits;
+    40000 vocab columns: two chunks, the second ragged) against the f32
+    cotangent times the operands on the CPU: each grad within 1e-4 of its
+    norm, where rounding the cotangent to bf16 misses by more."""
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((512, 256))).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((256, 40000))).bfloat16()
+    g = torch.from_numpy(rng.standard_normal((512, 40000)) * 2.0 ** rng.uniform(
+        -20, 20, (512, 40000))).float()
+    xg, wg = (t.to(dev).requires_grad_(True) for t in (x, w))
+    y = M._HeadProduct.apply(xg, wg)
+    torch.testing.assert_close(y.cpu(), x.float() @ w.float(), rtol=1e-5,
+                               atol=1e-4)
+    got = torch.autograd.grad(y, (xg, wg), g.to(dev))
+    want = ((g @ w.float().T).bfloat16(), (x.float().T @ g).bfloat16())
+    gb = g.bfloat16().float()
+    cast = ((gb @ w.float().T).bfloat16(), (x.float().T @ gb).bfloat16())
+    for a, b, c in zip(got, want, cast):
+        assert a.dtype == torch.bfloat16
+        norm = float(b.float().norm())
+        assert float((a.cpu().float() - b.float()).norm()) <= 1e-4 * norm
+        assert float((c.float() - b.float()).norm()) > 1e-4 * norm
+
+
+def test_preempted_train_on_card_equals_uninterrupted(dev, tmp_path):
+    """``train()`` on the card through the runner, checkpoints every 5
+    steps, preempted at steps 7 and 21, against an uninterrupted run:
+    every param bit-equal (``train``'s deterministic kernels), and the
+    deterministic mode is off again after."""
+    from repro_torch.launch.train import train
+    kw = dict(arch="llama31_8b", use_reduced=True, steps=24, batch=8,
+              seq=96, lr=5e-3, ckpt_every=5, device=dev,
+              log=lambda *a: None)
+    a = train(**kw, ckpt_dir=str(tmp_path / "a"))
+    b = train(**kw, ckpt_dir=str(tmp_path / "b"), fail_at=(7, 21))
+    assert len(b[3]) == len(a[3]) + 3
+    for x, y in zip(P.tree_leaves(a[0]), P.tree_leaves(b[0])):
+        assert x.is_cuda and torch.equal(x, y)
+    assert a[4] == b[4]
+    assert not torch.are_deterministic_algorithms_enabled()

@@ -38,7 +38,8 @@ def test_the_walk_sees_the_whole_port():
     assert ROOT / "src" / "repro_torch" / "kernels" / "ops.py" in FILES
     for rel in ("obs/clock.py", "obs/quality.py", "obs/flight/__init__.py",
                 "obs/flight/replay.py", "launch/constants.py",
-                "launch/roofline.py"):
+                "launch/roofline.py", "launch/train.py", "optim/adamw.py",
+                "checkpoint/manager.py", "distributed/fault_tolerance.py"):
         assert ROOT / "src" / "repro_torch" / rel in FILES, rel
 
 
