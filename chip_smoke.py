@@ -728,12 +728,28 @@ def main_path_kernels(K, ref, build, dev, rates, layer=LAYER,
     return rows, errs
 
 
+def calibrated_tau(x, g, alpha: float) -> tuple:
+    """A calibrated layer's threshold over an expert projection's input:
+    the Eq. 7 median of the positive scores ``|x| * g^alpha`` of every
+    expert's rows with each expert's own g (E, n), one tau shared by the
+    experts (``CalibContext.tau_for`` at keep 0.5).  Returns (x made
+    tie-free: every element whose score lies within 0.1% of tau scaled by
+    1.05, so no decision hangs on rounding; tau)."""
+    s = x.float().abs() * torch.pow(torch.clamp(g, min=1e-12), alpha)[:, None]
+    pos = torch.sort(s[s > 0]).values
+    tau = pos[int(0.5 * pos.numel())]
+    near = (s - tau).abs() <= 1e-3 * tau
+    return torch.where(near, x * 1.05, x).to(x.dtype), tau
+
+
 def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
     """The expert-batched ``score_select`` and ``sparse_matmul_shared`` at
     granite_moe_3b_a800m's three expert shapes, 48 experts, each R of
-    ``rows`` (8 decode rows, 9 of a 32-token chunk), bf16, alpha 1,
-    k_frac 0.5, keep_frac 0.5 and 0.375, tau -inf (the uncalibrated
-    runs) and finite (a quarter of the mean g).  Experts 40-47 (the pad
+    ``rows`` (8 decode rows, 9 of a 32-token chunk), bf16, k_frac 0.5,
+    keep_frac 0.5 and 0.375, at alpha 1 with tau -inf (the uncalibrated
+    runs) and finite (a quarter of the mean g), and at alpha 0.7 with a
+    calibrated, tie-free tau shared by the experts
+    (:func:`calibrated_tau`).  Experts 40-47 (the pad
     experts, which no token chooses) have zero rows.  Per expert: xm
     bit-equal to the plain version, ids equal or tied within the
     tolerance (``check_select``), the matmul within 1e-4 + 1e-4 |ref|
@@ -756,17 +772,22 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
             g = torch.sqrt((w.float() ** 2).sum(2))
             nb = n // BLK
             kb = round(nb * KEEP)
-            for tau in (0.25 * g.mean(), torch.tensor(-math.inf, device=dev)):
+            x7, tau7 = calibrated_tau(x, g, 0.7)
+            for a, xs, tau in (
+                    (alpha, x, 0.25 * g.mean()),
+                    (torch.tensor(0.7, device=dev), x7, tau7),
+                    (alpha, x, torch.tensor(-math.inf, device=dev))):
                 for keep in (0.375, KEEP):
                     kf = torch.tensor(keep, device=dev)
                     name = f"score_select experts {role} R={R} " \
-                        f"tau={float(tau):.3g} keep={keep}"
-                    got = K.score_select_experts(x, g, alpha, tau, kf, kb=kb,
+                        f"alpha={float(a):.2g} tau={float(tau):.3g} " \
+                        f"keep={keep}"
+                    got = K.score_select_experts(xs, g, a, tau, kf, kb=kb,
                                                  blk=BLK)
                     torch.cuda.synchronize()
-                    want = ref.ref_score_select_experts(x, g, alpha, tau, kf,
+                    want = ref.ref_score_select_experts(xs, g, a, tau, kf,
                                                         BLK, kb)
-                    unranked = ref.ref_score_mask_experts(x, g, alpha, tau,
+                    unranked = ref.ref_score_mask_experts(xs, g, a, tau,
                                                           BLK)[0]
                     for e in range(E):
                         errs["score_select"] = max(
@@ -780,12 +801,12 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
                         raise AssertionError(f"{name}: the zero experts' ids "
                                              f"{got[1][40:].tolist()}")
                     bit_equal(name, lambda: K.score_select_experts(
-                        x, g, alpha, tau, kf, kb=kb, blk=BLK))
+                        xs, g, a, tau, kf, kb=kb, blk=BLK))
                 xk, idx, _ = got                    # keep_frac 0.5
                 y = K.sparse_matmul_shared_experts(xk, w, idx, blk=BLK)
                 torch.cuda.synchronize()
                 mname = f"sparse_matmul_shared experts {role} R={R} " \
-                    f"tau={float(tau):.3g}"
+                    f"alpha={float(a):.2g} tau={float(tau):.3g}"
                 errs["sparse_matmul_shared"] = max(
                     errs["sparse_matmul_shared"], check_close(
                         mname, y, ref.ref_sparse_matmul_shared_experts(
@@ -846,8 +867,8 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
                      + f", bound {tot['bound_ms'] * 1e3:6.2f});")
         print(line)
     print(f"expert kernels: 48 experts x granite's 3 expert shapes x R = "
-          f"{list(rows)} x 2 taus agree with their plain versions (max abs "
-          f"err {errs})")
+          f"{list(rows)} x 3 (alpha, tau) agree with their plain versions "
+          f"(max abs err {errs})")
     return out, errs
 
 
@@ -1280,13 +1301,92 @@ def reduced_gemma_check(dev) -> None:
           f"({len({t for ts in outs[0].values() for t in ts})} distinct)")
 
 
-def reduced_granite_check(dev) -> None:
+# the card's and the CPU's f32 calibration of one reduced model: KL gap
+# allowed where both searches pick the same plan (the block errors and
+# fitness agree to about 1e-6 relative between two CPU packages,
+# tests/torch_calib_parity.py)
+REDUCED_KL_RTOL = 1e-3
+
+
+def reduced_calibrated_check(tag, cfg, dev, params_c, params_g, prompts,
+                             ecfg, gen) -> dict:
+    """A plan of the reduced ``cfg`` calibrated on the CPU in f32 (the
+    ``--calib-quick`` stages, one generation of two offspring, on 2 x 32
+    tokens), served on the card and on the CPU under ``mask`` and under
+    ``pallas`` (block 16): equal greedy tokens.  The same calibration on
+    the card: block ratios, layer ratios and alphas against the CPU's,
+    each tau's relative gap and the KL's are printed; where the two
+    searches part, the first key that differs is named (a threshold is
+    one calibration score, so the two devices' last bits can branch a
+    near-tie: ROADMAP, reference behaviour 4), else the KLs agree within
+    REDUCED_KL_RTOL."""
+    from repro_torch.core import calibration, pipeline
+    from repro_torch.core.allocation import EvoConfig
+    from repro_torch.models import params as P
+    from repro_torch.serving import Engine, EngineConfig
+
+    evo = EvoConfig(generations=1, offspring=2, eps=0.1)
+    toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 32))
+    plans = []
+    for params in (params_c, params_g):
+        ctx = calibration.build_context(params, cfg, {"tokens": toks})
+        plan = pipeline.run_pipeline(params, cfg, None, KEEP, evo=evo,
+                                     delta=0.25, coord_passes=0, ctx=ctx)
+        plans.append((plan, ctx.fitness(plan.per_depth_sp)))
+    (cp, kl_c), (gp, kl_g) = plans
+    sp_c = cp.stacked_sp
+    sp_g = P.tree_map(lambda t: t.to(dev), sp_c)
+    tokens = {}
+    for backend in ("mask", "pallas"):
+        pol = cp.to_policy(backend=backend, block=16)
+        outs = []
+        for d, params, sp in ((dev, params_g, sp_g),
+                              (torch.device("cpu"), params_c, sp_c)):
+            eng = Engine(params, cfg, EngineConfig(policy=pol, **ecfg), sp,
+                         device=d)
+            for p in prompts:
+                eng.submit(p, gen)
+            outs.append(eng.run())
+        if outs[0] != outs[1]:
+            raise AssertionError(f"reduced {tag}, CPU-calibrated plan under "
+                                 f"{backend}: card tokens {outs[0]} != CPU "
+                                 f"{outs[1]}")
+        tokens[backend] = len({t for ts in outs[0].values() for t in ts})
+    parted = [k for k in cp.layer_ratios
+              if gp.layer_ratios[k] != cp.layer_ratios[k]
+              or gp.alphas[k] != cp.alphas[k]]
+    same_blocks = bool(np.array_equal(gp.block_ratios, cp.block_ratios))
+    gaps = [abs(gp.taus[k] - t) / abs(t) for k, t in cp.taus.items()
+            if math.isfinite(t) and t != 0]
+    kl_gap = abs(kl_g - kl_c) / abs(kl_c)
+    print(f"reduced {tag}: the CPU-calibrated plan ({cp.summary()}, "
+          f"k_max_frac {cp.to_policy().k_max_frac}) serves equal greedy "
+          f"tokens on the card and the CPU under mask and pallas "
+          f"({tokens} distinct); the card's calibration: block ratios "
+          f"{'equal' if same_blocks else 'differ: ' + str(gp.block_ratios)}"
+          f", layer ratios and alphas "
+          f"{'equal' if not parted else 'part first at ' + str(parted[0])}"
+          f", taus within {max(gaps, default=0.0):.2e} relative, KL card "
+          f"{kl_g:.6g} against CPU {kl_c:.6g} (gap {kl_gap:.2e})")
+    if same_blocks and not parted and not kl_gap <= REDUCED_KL_RTOL:
+        raise AssertionError(f"reduced {tag}: the same plan on the card and "
+                             f"the CPU, KL gap {kl_gap} > {REDUCED_KL_RTOL}")
+    return {"kl_cpu": kl_c, "kl_card": kl_g, "kl_gap": kl_gap,
+            "same_block_ratios": same_blocks,
+            "parted_at": str(parted[0]) if parted else None,
+            "tau_gap_max": max(gaps, default=0.0),
+            "k_max_frac": cp.to_policy().k_max_frac,
+            "distinct_tokens": tokens}
+
+
+def reduced_granite_check(dev) -> dict:
     """Reduced granite_moe_3b_a800m with 20 experts, top-4 (padded to 32:
     12 pad experts, as the full width pads 40 to 48; f32;
     ``scale_gemma_weights``) on the card against the CPU: prefill logits
     over 40 tokens within LOGIT_ATOL, and the tokens a chunked
     ``pallas`` engine serves (prompts of 20, 9 and 33 tokens: partial
-    last chunks, whose pad rows route; 4 slots, one free)."""
+    last chunks, whose pad rows route; 4 slots, one free); then a
+    calibrated plan (:func:`reduced_calibrated_check`)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.sp_schema import default_sp_stacked
     from repro_torch.models import api, model as M, params as P
@@ -1331,6 +1431,9 @@ def reduced_granite_check(dev) -> None:
           f"CPU: prefill logits max abs err {err:.2e} (<= {LOGIT_ATOL}); "
           f"chunked pallas engine tokens equal "
           f"({len({t for ts in outs[0].values() for t in ts})} distinct)")
+    return reduced_calibrated_check(
+        "granite_moe_3b_a800m", cfg, dev, params_c, params_g, prompts,
+        dict(max_slots=4, max_len=64, prefill_chunk=16), 16)
 
 
 def reduced_ssm_check(dev, arch: str) -> dict:
@@ -1340,7 +1443,8 @@ def reduced_ssm_check(dev, arch: str) -> dict:
     tokens, the logits of 4 decode steps from a 3-slot pool holding both
     prefills (slot 1 inactive, the CPU's greedy tokens fed to both), all
     within LOGIT_ATOL, and the tokens of a whole-prefill engine with
-    ``prefill_dense_frac`` 0 (prompts of 40, 17 and 70 tokens)."""
+    ``prefill_dense_frac`` 0 (prompts of 40, 17 and 70 tokens); then a
+    calibrated plan (:func:`reduced_calibrated_check`)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.sp_schema import default_sp_stacked
     from repro_torch.models import api, model as M, params as P
@@ -1403,7 +1507,11 @@ def reduced_ssm_check(dev, arch: str) -> dict:
     print(f"reduced {arch} on the card vs CPU: prefill and 4 decode steps' "
           f"logits max abs err {err:.2e} (<= {LOGIT_ATOL}); whole-prefill "
           f"pallas engine tokens equal ({distinct} distinct)")
-    return {"logits_max_abs_err": err, "distinct_tokens": distinct}
+    calibrated = reduced_calibrated_check(
+        arch, cfg, dev, params_c, params_g, prompts,
+        dict(max_slots=3, max_len=128, prefill_chunk=16), 24)
+    return {"logits_max_abs_err": err, "distinct_tokens": distinct,
+            "calibrated": calibrated}
 
 
 # ---------------------------------------------------------------------------
@@ -1739,23 +1847,18 @@ def _leaf_paths(node, prefix=""):
             yield from _leaf_paths(node[k], prefix + k + "/")
 
 
-def calibrate_full_width(cfg, params):
-    """WiSparse Alg. 1-4 on the full-width model as a ``pallas`` policy
-    ladder (``sparsity.calibrate_ladder``) at budgets 0.0 (dense), 0.5
-    (the cold search) and 0.7 (warm-started from the 0.5 rung), with the
-    serve CLI's ``--calib-quick`` budget, on 4 x 128 synthetic tokens,
-    with the v4 quality baselines.  Prints each rung's stage wall times;
-    checks the 0.5 rung as one plan (budget, finite thresholds, KL
-    beside the activation-only plan's) and the ladder's monotonicity.
-    Returns (ladder, info)."""
+def timed_ladder(cfg, params, evo, tag=""):
+    """``sparsity.calibrate_ladder`` of a ``pallas`` ladder at budgets
+    LADDER_BUDGETS, 0.0 (dense), 0.5 (the cold search) and 0.7
+    (warm-started from the 0.5 rung), with the serve CLI's
+    ``--calib-quick`` stages under ``evo``, on 4 x 128 synthetic tokens,
+    with the v4 quality baselines.  Prints each rung's stage wall times.
+    Returns (ladder, ctx, info)."""
     from repro_torch import obs
-    from repro_torch.core import calibration, pipeline
-    from repro_torch.core.allocation import EvoConfig, weighted_average
+    from repro_torch.core import calibration
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.obs.quality import unstack_sp
     from repro_torch.sparsity import calibrate_ladder
 
-    evo = EvoConfig(generations=2, offspring=4, eps=0.1)
     toks = SyntheticLM(DataConfig(cfg.vocab_size, 128, 4)).batch(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1764,7 +1867,7 @@ def calibrate_full_width(cfg, params):
 
     def log(msg):
         torch.cuda.synchronize()
-        print(f"  [{obs.now() - marks[0][1]:7.1f} s] {msg}")
+        print(f"  [{obs.now() - marks[0][1]:7.1f} s] {tag}{msg}")
         for stage, text in (("coarse (Alg. 3)", "coarse search"),
                             ("fine (Alg. 4)", "fine search"),
                             ("alpha (Alg. 2)", "alpha search:"),
@@ -1798,10 +1901,25 @@ def calibrate_full_width(cfg, params):
         if label in ("context", "baselines"):
             stages.append((label, t1 - t))
     total = marks[-1][1] - marks[0][1]
-    print("ladder calibration wall times (s): " + ", ".join(
+    print(f"{tag}ladder calibration wall times (s): " + ", ".join(
         f"{k} {v:.2f}" for k, v in stages) + f"; total {total:.2f}")
-    print("per rung (s): " + ", ".join(f"{k} {v:.2f}"
-                                       for k, v in rung_s.items()))
+    print(f"{tag}per rung (s): " + ", ".join(f"{k} {v:.2f}"
+                                             for k, v in rung_s.items()))
+    return ladder, ctx, {"stages_s": dict(stages), "rungs_s": rung_s,
+                         "total_s": total, "peak_gb": peak / 1e9}
+
+
+def calibrate_full_width(cfg, params):
+    """WiSparse Alg. 1-4 on the full-width model as a ``pallas`` policy
+    ladder (:func:`timed_ladder`).  Checks the 0.5 rung as one plan
+    (budget, finite thresholds, KL beside the activation-only plan's)
+    and the ladder's monotonicity.  Returns (ladder, info)."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.allocation import EvoConfig, weighted_average
+    from repro_torch.obs.quality import unstack_sp
+
+    evo = EvoConfig(generations=2, offspring=4, eps=0.1)
+    ladder, ctx, times = timed_ladder(cfg, params, evo)
 
     # the 0.5 rung is the cold search: check it as one calibrated plan
     p_target = LADDER_BUDGETS[1]
@@ -1816,7 +1934,7 @@ def calibrate_full_width(cfg, params):
     print(f"rung 2 block ratios: "
           f"{[round(float(x), 4) for x in ladder.block_ratios[2]]}")
     print(f"mean alpha {np.mean(list(alphas.values())):.4f}; device memory "
-          f"peak above the model {peak / 1e9:.2f} GB (total "
+          f"peak above the model {times['peak_gb']:.2f} GB (total "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
     print(f"KL (Eq. 8) on the calibration tokens: rung 1 {kl:.6g}, "
           f"activation-only plan {kl_act:.6g} (random weights; "
@@ -1845,12 +1963,67 @@ def calibrate_full_width(cfg, params):
           f"[{p_target - evo.eps}, {p_target}], rung 2's {avg2:.6f}; every "
           "tau of a sparsified linear is finite; the ladder is monotone "
           "per block")
-    info = {"stages_s": dict(stages), "rungs_s": rung_s, "total_s": total,
-            "peak_gb": peak / 1e9, "kl": kl, "kl_activation_only": kl_act,
+    info = {**times, "kl": kl, "kl_activation_only": kl_act,
             "weighted_ratio": avg, "weighted_ratio_rung2": avg2}
     del ctx, act
     torch.cuda.empty_cache()
     return ladder, info
+
+
+def check_calibrated_ladder(tag, cfg, ctx, ladder, evo, keys_per_layer
+                            ) -> list:
+    """Every sparse rung of a calibrated ladder: its size-weighted block
+    ratio (``allocation.weighted_average``, on the context's sizes: the
+    top-k experts' for an expert weight) within [budget - eps, budget],
+    one tau per linear (``keys_per_layer`` x layers), finite wherever a
+    linear is sparsified; the ladder monotone per block.  Prints and
+    returns each rung's KL (Eq. 8) on the calibration tokens,
+    ``k_max_frac`` and its per-layer keep-ratio range."""
+    from repro_torch.core.allocation import weighted_average
+    from repro_torch.obs.quality import unstack_sp
+
+    for lo, hi in zip(ladder.block_ratios, ladder.block_ratios[1:]):
+        if not np.all(np.asarray(hi) >= np.asarray(lo) - 1e-9):
+            raise AssertionError(f"{tag}: ladder block ratios are not "
+                                 "monotone")
+    out = []
+    for i, budget in enumerate(ladder.budgets):
+        keep = _sp_scalars(cfg, ladder.sps[i], "keep_frac")
+        taus = _sp_scalars(cfg, ladder.sps[i], "tau")
+        if len(taus) != keys_per_layer * cfg.num_layers:
+            raise AssertionError(f"{tag} rung {i}: {len(taus)} taus, "
+                                 f"expected {keys_per_layer} x "
+                                 f"{cfg.num_layers}")
+        info = {"budget": budget,
+                "k_max_frac": ladder.policies[i].k_max_frac,
+                "keep_min": min(keep.values()),
+                "keep_max": max(keep.values())}
+        if budget > 0:
+            avg = weighted_average(ctx, np.asarray(ladder.block_ratios[i]))
+            if not budget - evo.eps <= avg <= budget + 1e-9:
+                raise AssertionError(
+                    f"{tag} rung {i}: size-weighted block ratio {avg} "
+                    f"outside [{budget - evo.eps}, {budget}]")
+            bad = [k for k, t in taus.items() if keep[k] < 1.0
+                   and not math.isfinite(t)]
+            if bad:
+                raise AssertionError(f"{tag} rung {i}: non-finite taus of "
+                                     f"sparsified linears: {bad}")
+            alphas = _sp_scalars(cfg, ladder.sps[i], "alpha")
+            info.update(
+                weighted_ratio=avg,
+                kl=ctx.fitness(unstack_sp(cfg, ladder.sps[i])),
+                mean_alpha=float(np.mean(list(alphas.values()))),
+                block_ratios=[round(float(x), 4)
+                              for x in ladder.block_ratios[i]])
+        out.append(info)
+        print(f"{tag} rung {i} (budget {budget}): " + ", ".join(
+            f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in info.items()))
+    print(f"{tag}: every sparse rung within [budget - {evo.eps}, budget] "
+          f"by top-k-scaled sizes, {keys_per_layer} x {cfg.num_layers} taus "
+          "per rung, finite wherever sparsified; monotone per block")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1896,30 +2069,63 @@ def serve_calibrated(dev, K, cfg, params, trace, ladder, runs) -> dict:
 # phase 8: serve the calibrated ladder under the SLO controller
 # ---------------------------------------------------------------------------
 
-def serve_ladder(dev, K, cfg, params, trace, ladder) -> list:
-    """Save the ladder as a v4 artifact under ``build/``, load it back
-    and serve phase 5's trace from it twice under
-    ``SLOConfig(tpot_p95=1e6, max_queue=2, dwell=2, hysteresis=0.25)``:
-    the TPOT target is out of reach, so the controller acts on queue
-    depth alone and both runs must make the same transitions and tokens.
-    Each run must visit at least two rungs, escalate ("queue") and come
-    back down ("idle"), build no decode step after warmup, attribute
-    every token to a rung, and launch the kernels as ``serve_once``
-    checks."""
-    from repro_torch.serving import SLOConfig
+# phase 8's SLO: the TPOT target is out of reach, the queue decides
+PHASE8_SLO = dict(tpot_p95=1e6, max_queue=2, dwell=2, hysteresis=0.25)
+
+
+def save_and_load_ladder(ladder, name, dev):
+    """``ladder`` saved as a v4 artifact under ``build/chip_smoke/`` and
+    loaded back onto ``dev``: budgets, policies and every sp leaf equal."""
     from repro_torch.sparsity import PolicyLadder
 
-    path = os.path.join(HERE, "build", "chip_smoke", "ladder.npz")
+    path = os.path.join(HERE, "build", "chip_smoke", name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     ladder.save(path)
     loaded = PolicyLadder.load(path, device=dev)
-    if loaded.budgets != ladder.budgets or loaded.policies != \
-            ladder.policies:
-        raise AssertionError("ladder artifact: budgets or policies differ")
+    if loaded.budgets != ladder.budgets or \
+            loaded.policies != ladder.policies:
+        raise AssertionError(f"{name}: budgets or policies differ")
     for a, b in zip(loaded.sps, ladder.sps):
         ga, gb = list(_leaves(a)), list(_leaves(b))
         if len(ga) != len(gb) or not all(torch.equal(x, y)
                                          for x, y in zip(ga, gb)):
-            raise AssertionError("ladder artifact: sp trees differ")
+            raise AssertionError(f"{name}: sp trees differ")
+    print(f"ladder artifact {os.path.relpath(path, HERE)} "
+          f"({os.path.getsize(path) / 1e6:.1f} MB): budgets "
+          f"{list(loaded.budgets)}, every sp leaf equal after the round trip")
+    return loaded
+
+
+def check_ladder_run(name, res) -> None:
+    """A run under the SLO controller: at least two rungs visited, an
+    escalation ("queue") and a return ("idle"), no decode build after
+    warmup, every token attributed to a rung."""
+    reasons = {t[3] for t in res["transitions"]}
+    visited = sum(1 for r in res["residency"] if r > 0)
+    if visited < 2 or not {"queue", "idle"} <= reasons:
+        raise AssertionError(f"{name}: visited {visited} rungs, transitions "
+                             f"{res['transitions']}")
+    if res["decode_retraces_after_warmup"] != 0:
+        raise AssertionError(f"{name}: {res['decode_retraces_after_warmup']} "
+                             "decode builds after warmup")
+    for rid, toks in res["tokens"].items():
+        if len(res["token_rungs"][rid]) != len(toks):
+            raise AssertionError(f"{name}: request {rid} has "
+                                 f"{len(res['token_rungs'][rid])} token "
+                                 f"rungs for {len(toks)} tokens")
+
+
+def serve_ladder(dev, K, cfg, params, trace, ladder) -> list:
+    """Save the ladder as a v4 artifact under ``build/`` and load it back
+    (:func:`save_and_load_ladder`, the quality baselines equal too), and
+    serve phase 5's trace from it twice under PHASE8_SLO: the TPOT
+    target is out of reach, so the controller acts on queue depth alone
+    and both runs must make the same transitions and tokens.  Each run
+    must pass :func:`check_ladder_run`, capture one decode step per
+    rung, and launch the kernels as ``serve_once`` checks."""
+    from repro_torch.serving import SLOConfig
+
+    loaded = save_and_load_ladder(ladder, "ladder.npz", dev)
     if not np.array_equal(loaded.baselines["recon"],
                           ladder.baselines["recon"]) or not all(
             np.array_equal(x, y)
@@ -1927,34 +2133,16 @@ def serve_ladder(dev, K, cfg, params, trace, ladder) -> list:
                               ladder.baselines["channels"])
             for x, y in zip(ra, rb)):
         raise AssertionError("ladder artifact: quality baselines differ")
-    print(f"ladder artifact {os.path.relpath(path, HERE)} "
-          f"({os.path.getsize(path) / 1e6:.1f} MB, v4 with baselines): "
-          f"budgets {list(loaded.budgets)}, policies "
+    print(f"ladder artifact: v4 with baselines, policies "
           f"{[p.backend for p in loaded.policies]}")
-    slo = SLOConfig(tpot_p95=1e6, max_queue=2, dwell=2, hysteresis=0.25)
     runs = []
     for i in range(2):
         res = serve_once(f"ladder {i + 1}", params, cfg, None, None, trace,
-                         dev, K, ladder=loaded, slo=slo)
-        reasons = {t[3] for t in res["transitions"]}
-        visited = sum(1 for r in res["residency"] if r > 0)
-        if visited < 2 or not {"queue", "idle"} <= reasons:
-            raise AssertionError(
-                f"ladder run {i + 1}: visited {visited} rungs, transitions "
-                f"{res['transitions']}")
-        if res["decode_retraces_after_warmup"] != 0:
-            raise AssertionError(
-                f"ladder run {i + 1}: {res['decode_retraces_after_warmup']} "
-                "decode builds after warmup")
+                         dev, K, ladder=loaded, slo=SLOConfig(**PHASE8_SLO))
+        check_ladder_run(f"ladder run {i + 1}", res)
         if res["captures"] != len(loaded):
             raise AssertionError(f"ladder run {i + 1}: {res['captures']} "
                                  "captures")
-        for rid, toks in res["tokens"].items():
-            if len(res["token_rungs"][rid]) != len(toks):
-                raise AssertionError(
-                    f"ladder run {i + 1}: request {rid} has "
-                    f"{len(res['token_rungs'][rid])} token rungs for "
-                    f"{len(toks)} tokens")
         if runs and (res["tokens"] != runs[0]["tokens"]
                      or res["transitions"] != runs[0]["transitions"]
                      or res["token_rungs"] != runs[0]["token_rungs"]):
@@ -3005,7 +3193,7 @@ def serve_gateway(dev, K, cfg, params, trace, ladder) -> dict:
         gc.collect()
 
         # -- pallas: the calibrated ladder under phase 8's controller
-        slo = SLOConfig(tpot_p95=1e6, max_queue=2, dwell=2, hysteresis=0.25)
+        slo = SLOConfig(**PHASE8_SLO)
         K.reset_launch_counts()
         eng = Engine(params, cfg, EngineConfig(slo=slo, **trace["ecfg"]),
                      device=dev, ladder=ladder)
@@ -3210,8 +3398,6 @@ def drain_subprocess(out_dir: str, dev) -> dict:
 # the monitor of the probed run: every decode step probed, a recon pass on
 # every 4th probe over a 16-token window
 QUALITY = dict(probe_rate=1.0, recon_every=4, recon_window=16)
-# phase 8's SLO: the TPOT target is out of reach, the queue decides
-PHASE8_SLO = dict(tpot_p95=1e6, max_queue=2, dwell=2, hysteresis=0.25)
 # the largest |verify - decode| of one state's bf16 logits at full width
 # (this script's phase 11 on an NVIDIA H100 80GB HBM3 at 700 W): a rung-0
 # probe may name another token than the served decode only where the
@@ -4216,12 +4402,67 @@ def granite_serve_cli(dev) -> dict:
     return {"exit": proc.returncode, "wall_s": obs.now() - t0}
 
 
+def rung_table(tag, runs, keys=("decode_tok_s", "decode_step_p50_ms",
+                                "window_step_device_ms")) -> None:
+    """One line per run: ``keys`` and greedy-token agreement with the
+    first dense run."""
+    dense = runs["dense"][0]
+    for name, rs in runs.items():
+        for i, r in enumerate(rs):
+            print(f"  {tag} {name + ' ' + str(i + 1):28s} " + ", ".join(
+                f"{k} {r[k]:.4g}" for k in keys)
+                + f", tokens equal to dense {agreement(dense, r):.3f}")
+
+
+def granite_calibrated(dev, K, cfg, params, trace, runs) -> dict:
+    """Phase 17's calibrated ladder: ``timed_ladder`` at 0.0/0.5/0.7 on
+    the full-width model (per-expert capture and g, top-k-scaled block
+    budgets), checked by ``check_calibrated_ladder`` (7 x 32 taus); its
+    v4 artifact round trip; each sparse rung served pinned (phase 5's
+    trace, warmed, 0 builds after warmup, launches per sparse pass as
+    ``pass_launches``: 128 of each 2-D kernel, 96 of each ``_experts``
+    kernel), then the loaded ladder under the SLO controller.  Adds the
+    pinned runs to ``runs``."""
+    from repro_torch.core.allocation import EvoConfig
+    from repro_torch.serving import SLOConfig
+
+    evo = EvoConfig(generations=2, offspring=4, eps=0.1)
+    ladder, ctx, times = timed_ladder(cfg, params, evo, tag="granite ")
+    rungs = check_calibrated_ladder("granite", cfg, ctx, ladder, evo, 7)
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    loaded = save_and_load_ladder(ladder, "granite_ladder.npz", dev)
+    for i in range(1, len(ladder)):
+        pol, sp = loaded.rung(i)
+        res = granite_run(f"calibrated rung {i}", params, cfg, pol, sp,
+                          trace, dev, K)
+        runs[f"calibrated rung {i}"] = [res]
+        print(f"granite calibrated rung {i} (k_max_frac "
+              f"{pol.k_max_frac}): {_fmt(res)}")
+    res = serve_once("granite ladder", params, cfg, None, None, trace, dev,
+                     K, ladder=loaded, slo=SLOConfig(**PHASE8_SLO),
+                     warm=True)
+    check_ladder_run("granite ladder", res)
+    runs["ladder (SLO controller)"] = [res]
+    print(f"granite ladder under the SLO controller: {_fmt(res)}")
+    print(f"granite ladder: transitions {res['transitions']}, residency "
+          f"per rung {res['residency']}, 0 builds after warmup")
+    rung_table("granite", runs)
+    del ladder, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"calibration": times, "rungs": rungs}
+
+
 def serve_granite(dev, K) -> dict:
     """Phase 17: full-width granite_moe_3b_a800m through the port's
     ``Engine`` on phase 5's trace: dense, ``pallas``, ``pallas``, dense
-    (uncalibrated: keep_frac = k_max_frac = 0.5, tau -inf); then the
-    capacity drops per chunk, the captured decode step against the eager
-    one, and the serve CLI at full width."""
+    (uncalibrated: keep_frac = k_max_frac = 0.5, tau -inf); then a
+    calibrated ladder, its rungs and the ladder under the SLO controller
+    (:func:`granite_calibrated`), the capacity drops per chunk, the
+    captured decode step against the eager one, and the serve CLI at
+    full width."""
     from repro_torch import obs
     from repro_torch.core.sp_schema import default_sp_stacked
     from repro_torch.launch import constants
@@ -4257,6 +4498,7 @@ def serve_granite(dev, K) -> dict:
                                  "tokens differ from the first's")
         runs.setdefault(name, []).append(res)
         print(f"granite {name} run {len(runs[name])}: {_fmt(res)}")
+    calibrated = granite_calibrated(dev, K, cfg, params, trace, runs)
     drops = capacity_drops(dev, cfg, params, trace)
     gve = granite_graph_vs_eager(dev, cfg, params, sp, trace)
     cli = granite_serve_cli(dev)
@@ -4282,7 +4524,8 @@ def serve_granite(dev, K) -> dict:
                                       if k != "tokens"}
                     for n, rs in runs.items() for i, r in enumerate(rs)},
            "step_bounds": bounds, "capacity_drops": drops,
-           "graph_vs_eager": gve, "serve_cli": cli}
+           "graph_vs_eager": gve, "serve_cli": cli,
+           "calibrated": calibrated}
     del params, sp
     gc.collect()
     torch.cuda.empty_cache()
@@ -4347,6 +4590,19 @@ def mamba_trace(cfg) -> dict:
     lens = mamba_lens()
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
     return {"prompts": prompts, "lens": lens, "gen": 32,
+            "ecfg": dict(MAMBA_ECFG), "max_batch": 3}
+
+
+def mamba_short_trace(cfg) -> dict:
+    """Phase 18's calibrated runs' trace: phase 5's 12 prompt lengths
+    (64-448; the first 8 are phase 18's short prompts), 32 new tokens
+    each, into phase 18's 8 slots: 4 requests queue at the start, which
+    the SLO controller acts on."""
+    rng = np.random.default_rng(SEED)
+    lens = [int(p) for p in rng.integers(64, 449, 12)]
+    rng = np.random.default_rng(SEED + 18)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    return {"prompts": prompts, "lens": lens, "gen": 32,
             "ecfg": dict(MAMBA_ECFG)}
 
 
@@ -4358,23 +4614,28 @@ def ssm_state_bytes(eng) -> int:
 
 
 def mamba_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
-              window=WINDOW) -> dict:
-    """One run of phase 18's trace through a fresh, warmed ``Engine``,
-    the kernels' counts zeroed just before it is built and read just
-    after the run.  Checks the ``whole`` strategy, one whole prefill per
-    prompt length (the 8192-token batch at B = 3), no decode step built
-    after warmup, and the launches against the sparse passes executed:
-    :func:`pass_launches` under the decode policy (144 = 24 layers x 6
-    projections) per replay of a sparse decode graph and per its eager
-    warm call, and under the prefill policy per whole prefill run sparse
-    (``prefill_dense_frac`` 0)."""
+              window=WINDOW, ladder=None, slo=None) -> dict:
+    """One run of a phase 18 trace through a fresh, warmed ``Engine``
+    (from ``policy`` and ``sp``, or from ``ladder`` under ``slo``), the
+    kernels' counts zeroed just before it is built and read just after
+    the run.  Checks the ``whole`` strategy, every prompt prefilled whole
+    (the 8192-token batch at B = ``trace["max_batch"]`` = 3 where the
+    trace has one), no decode step built after warmup, and the launches
+    against the sparse passes executed: :func:`pass_launches` under each
+    rung's decode policy (144 = 24 layers x 6 projections) per replay of
+    a sparse decode graph and per its eager warm call, and under the
+    prefill policy per whole prefill run sparse (``prefill_dense_frac``
+    0; a ladder run prefills dense)."""
     from repro_torch import obs
     from repro_torch.serving import Engine, EngineConfig
 
+    if ladder is not None and frac <= 0.0:
+        raise ValueError("a ladder run's whole prefills run at the rung of "
+                         "the moment; keep them dense (frac > 0)")
     K.reset_launch_counts()
     eng = Engine(params, cfg, EngineConfig(
-        policy=policy, prefill_dense_frac=frac, **trace["ecfg"]), sp,
-        device=dev)
+        policy=policy, slo=slo, prefill_dense_frac=frac, **trace["ecfg"]),
+        sp, device=dev, ladder=ladder)
     eng.warmup()
     if eng.prefill_strategy != "whole":
         raise AssertionError(f"{name}: mamba2_130m resolved to "
@@ -4403,32 +4664,37 @@ def mamba_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
     if eng.decode_retraces_after_warmup != 0:
         raise AssertionError(f"{name}: {eng.decode_retraces_after_warmup} "
                              "decode builds after warmup")
-    if len(prefills) != len(set(trace["lens"])) or \
-            max(b for _, b, _ in prefills) != 3:
+    if sum(b for _, b, _ in prefills) != len(trace["prompts"]) or (
+            "max_batch" in trace
+            and max(b for _, b, _ in prefills) != trace["max_batch"]):
         raise AssertionError(f"{name}: whole prefills {prefills}: expected "
-                             "one per prompt length, one of B = 3")
-    dec_pol = policy.for_phase("decode")
-    pre_pol = policy.for_phase("prefill_sparse" if frac <= 0.0
-                               else "prefill_dense")
-    per_pass = pass_launches(cfg, dec_pol)
+                             "every prompt once, the longest batched")
+    policies = ladder.policies if ladder is not None else [policy]
+    dec_pols = [p.for_phase("decode") for p in policies]
+    pre_pol = policies[0].for_phase("prefill_sparse" if frac <= 0.0
+                                    else "prefill_dense")
     per_prefill = pass_launches(cfg, pre_pol)
-    sparse_decode, sparse_prefill = not dec_pol.is_dense, \
-        not pre_pol.is_dense
+    sparse_prefill = not pre_pol.is_dense
     g = eng.decode_graphs
     launches = eng.launches(counts)
-    for k in per_pass:
-        want_cap = per_pass[k] if sparse_decode else 0
-        if g.captured[0].get(k, 0) != want_cap:
-            raise AssertionError(f"{name}: the decode graph captured "
-                                 f"{g.captured[0].get(k, 0)} {k}, expected "
-                                 f"{want_cap}")
-        want = (per_pass[k] * (g.steps[0] + 1) if sparse_decode else 0) + \
-            (per_prefill[k] * len(prefills) if sparse_prefill else 0)
-        if launches[k] != want:
+    want = {k: per_prefill[k] * len(prefills) if sparse_prefill else 0
+            for k in GEMMA_SERVED}
+    for i, dpol in enumerate(dec_pols):
+        per_pass = pass_launches(cfg, dpol)
+        for k in GEMMA_SERVED:
+            want_cap = 0 if dpol.is_dense else per_pass[k]
+            if g.captured[i].get(k, 0) != want_cap:
+                raise AssertionError(
+                    f"{name}: rung {i}'s decode graph captured "
+                    f"{g.captured[i].get(k, 0)} {k}, expected {want_cap}")
+            if not dpol.is_dense:
+                want[k] += per_pass[k] * (g.steps[i] + 1)
+    for k in GEMMA_SERVED:
+        if launches[k] != want[k]:
             raise AssertionError(
-                f"{name}: {k} launched {launches[k]} times, expected {want} "
-                f"({per_pass[k]} per sparse decode pass x "
-                f"{g.steps[0] + 1}, {per_prefill[k]} per whole prefill x "
+                f"{name}: {k} launched {launches[k]} times, expected "
+                f"{want[k]} (per sparse decode pass x (replays + warm call) "
+                f"of each sparse rung, {per_prefill[k]} per whole prefill x "
                 f"{len(prefills) if sparse_prefill else 0})")
     if launches["sparse_matmul_per_seq"]:
         raise AssertionError(f"{name}: sparse_matmul_per_seq launched")
@@ -4440,22 +4706,30 @@ def mamba_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
         "decode_retraces_after_warmup": eng.decode_retraces_after_warmup,
         "decode_replays": list(g.steps),
         "whole_prefills": [[n, b, ms] for n, b, ms in prefills],
-        "sparse_passes": (g.steps[0] + 1 if sparse_decode else 0)
+        "sparse_passes": sum(g.steps[i] + 1 for i, d in enumerate(dec_pols)
+                             if not d.is_dense)
         + (len(prefills) if sparse_prefill else 0),
         "launches": {k: launches[k] for k in GEMMA_SERVED},
         "launches_counted": {k: counts[k] for k in GEMMA_SERVED},
-        "launches_per_pass": per_pass,
+        "launches_per_pass": pass_launches(cfg, dec_pols[0])
+        if ladder is None else [pass_launches(cfg, d) for d in dec_pols],
         "state_bytes": ssm_state_bytes(eng),
         "distinct_tokens": distinct,
         "tokens": out})
+    if eng.controller is not None:
+        c = eng.controller
+        res["transitions"] = list(c.transitions)
+        res["residency"] = list(c.residency)
+        res["token_rungs"] = {rid: list(rs.token_rungs)
+                              for rid, rs in eng.states.items()}
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return res
 
 
-def mamba_graph_vs_eager(dev, cfg, params, sp, trace, steps: int = 4
-                         ) -> dict:
+def mamba_graph_vs_eager(dev, cfg, params, sp, trace, steps: int = 4,
+                         modes=None) -> dict:
     """Phase 18's 8 short prompts prefilled whole into an engine whose
     decode step is not built yet, dense and uncalibrated ``pallas``.
     First the decode graph is built on that busy engine: its warm call
@@ -4470,7 +4744,7 @@ def mamba_graph_vs_eager(dev, cfg, params, sp, trace, steps: int = 4
     from repro_torch.sparsity import SparsityPolicy
 
     out = {}
-    for name, pol, s in (
+    for name, pol, s in modes or (
             ("dense", SparsityPolicy.dense(), None),
             ("pallas", SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
              sp)):
@@ -4527,6 +4801,61 @@ def mamba_graph_vs_eager(dev, cfg, params, sp, trace, steps: int = 4
     return out
 
 
+def mamba_calibrated(dev, K, cfg, params, sp, trace) -> dict:
+    """Phase 18's calibrated ladder: ``timed_ladder`` at 0.0/0.5/0.7 on
+    the full-width model, checked by ``check_calibrated_ladder`` (6 x 24
+    taus); its v4 artifact round trip; on :func:`mamba_short_trace`,
+    dense, uncalibrated ``pallas``, each sparse rung pinned (rung 1 is
+    the 0.5 plan) and the loaded ladder under the SLO controller, all
+    with whole prefill (dense: ``prefill_dense_frac`` 0.5); then the
+    busy decode build and graph against eager under the 0.5 plan."""
+    from repro_torch.core.allocation import EvoConfig
+    from repro_torch.serving import SLOConfig
+    from repro_torch.sparsity import SparsityPolicy
+
+    evo = EvoConfig(generations=2, offspring=4, eps=0.1)
+    ladder, ctx, times = timed_ladder(cfg, params, evo, tag="mamba2 ")
+    rungs = check_calibrated_ladder("mamba2", cfg, ctx, ladder, evo, 6)
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    loaded = save_and_load_ladder(ladder, "mamba2_ladder.npz", dev)
+    short = mamba_short_trace(cfg)
+    print(f"phase 18 calibrated trace: prompt lengths {short['lens']}, "
+          f"{short['gen']} new tokens each, {short['ecfg']}")
+    runs = {"dense": [mamba_run("short dense", params, cfg,
+                                SparsityPolicy.dense(), None, short, dev,
+                                K)],
+            "pallas (uncalibrated)": [mamba_run(
+                "short pallas", params, cfg,
+                SparsityPolicy.uniform("pallas", k_max_frac=KEEP), sp,
+                short, dev, K)]}
+    for i in range(1, len(loaded)):
+        pol, rsp = loaded.rung(i)
+        runs[f"calibrated rung {i}"] = [mamba_run(
+            f"calibrated rung {i}", params, cfg, pol, rsp, short, dev, K)]
+    res = mamba_run("mamba2 ladder", params, cfg, None, None, short, dev, K,
+                    ladder=loaded, slo=SLOConfig(**PHASE8_SLO))
+    check_ladder_run("mamba2 ladder", res)
+    runs["ladder (SLO controller)"] = [res]
+    for name, rs in runs.items():
+        print(f"mamba2 {name}: {_fmt(rs[0])}")
+    print(f"mamba2 ladder: transitions {res['transitions']}, residency per "
+          f"rung {res['residency']}, 0 builds after warmup")
+    rung_table("mamba2", runs)
+    pol, rsp = loaded.rung(1)
+    gve = mamba_graph_vs_eager(dev, cfg, params, None, trace,
+                               modes=(("calibrated 0.5", pol, rsp),))
+    del ladder, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"calibration": times, "rungs": rungs,
+            "runs": {n: {k: v for k, v in r[0].items()
+                         if k not in ("tokens", "token_rungs")}
+                     for n, r in runs.items()},
+            "graph_vs_eager": gve}
+
+
 def mamba_serve_cli(dev) -> dict:
     """The serve CLI on the card, each in a subprocess that must exit 0:
     ``--arch mamba2_130m --mode pallas`` at full width (4 prompts of 64
@@ -4563,7 +4892,8 @@ def serve_mamba(dev, K) -> dict:
     k_max_frac = 0.5, tau -inf), and ``pallas`` with
     ``prefill_dense_frac`` 0 (the whole prompts through the kernels, up
     to 3 x 8192 rows); then the busy build and the captured decode step
-    against the eager one, and the serve CLI."""
+    against the eager one, a calibrated ladder (:func:`mamba_calibrated`)
+    and the serve CLI."""
     from repro_torch import obs
     from repro_torch.core.sp_schema import default_sp_stacked
     from repro_torch.launch import constants
@@ -4628,6 +4958,7 @@ def serve_mamba(dev, K) -> dict:
                 f"per sparse pass); whole-prefill ms per prompt length x "
                 f"batch: {pre}")
     gve = mamba_graph_vs_eager(dev, cfg, params, sp, trace)
+    calibrated = mamba_calibrated(dev, K, cfg, params, sp, trace)
     cli = mamba_serve_cli(dev)
     for name in ("dense", "pallas"):
         rs = runs[name]
@@ -4644,7 +4975,7 @@ def serve_mamba(dev, K) -> dict:
                                       if k != "tokens"}
                     for n, rs in runs.items() for i, r in enumerate(rs)},
            "step_bounds": bounds, "graph_vs_eager": gve, "serve_cli": cli,
-           "trace_lens": trace["lens"]}
+           "trace_lens": trace["lens"], "calibrated": calibrated}
     del params, sp
     gc.collect()
     torch.cuda.empty_cache()
@@ -5367,7 +5698,7 @@ def main() -> int:
     took("3 kernels")
     reduced_model_check(dev)
     reduced_gemma_check(dev)
-    reduced_granite_check(dev)
+    reduced_granite = reduced_granite_check(dev)
     reduced_ssm = {a: reduced_ssm_check(dev, a)
                    for a in ("mamba2_130m", "jamba_v01_52b")}
     took("4 reduced model")
@@ -5428,7 +5759,8 @@ def main() -> int:
                                  "expert_kernels": ge_rows},
         "mamba2_130m": {**mamba, "kernels": m_rows,
                         "kernels_per_decode_layer": mamba_layer},
-        "reduced_ssm": reduced_ssm, "training": training}}))
+        "reduced_granite": reduced_granite, "reduced_ssm": reduced_ssm,
+        "training": training}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     expert_rows = [r for r in ge_rows if r["R"] == 8]

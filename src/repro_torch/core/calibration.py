@@ -13,6 +13,14 @@ floats each, about 80 GB.  The port keeps the activations where the model
 ran, computes each threshold's order statistic there, and caches only the
 scalar tau per (linear, alpha, keep ratio).  ``p`` and the index
 arithmetic stay Python floats and ints, exactly as in the reference.
+
+Every layer kind of the port calibrates: attention, dense MLP, the MoE
+FFN and the SSM mixer.  An expert weight (E, n, m) has one column-norm
+row per expert, g (E, n), its captured inputs are (E, T, n) (the
+dispatched rows of every expert, capacity padding included), one tau
+per (layer, key) is shared by the experts, and its compute weight is
+the reference's ``_active_size``: top-k x n x m, the weights a token
+actually reads.
 """
 from __future__ import annotations
 
@@ -25,7 +33,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_linear as sl
 from repro_torch.core import unstacked as U
-from repro_torch.models import model as M
 from repro_torch.sparsity import CaptureSink, SparsityPolicy
 
 Key = Tuple[int, str]                       # (depth, leaf path e.g. "attn/wq")
@@ -42,8 +49,9 @@ class CalibContext:
     batch: dict
     dense_logits: torch.Tensor
     block_io: list                          # len D+1: dense input to block d
-    acts: Dict[Key, torch.Tensor]           # captured linear inputs (T, n)
-    g: Dict[Key, torch.Tensor]              # weight-column norms (n,) f32
+    acts: Dict[Key, torch.Tensor]           # captured inputs (T, n) or
+                                            # (E, T, n) for an expert key
+    g: Dict[Key, torch.Tensor]              # column norms (n,) or (E, n)
     sizes: Dict[Key, float]                 # active-compute weights
     keys_by_depth: Dict[int, List[str]]
     enc_out: Optional[torch.Tensor] = None
@@ -53,10 +61,14 @@ class CalibContext:
     # -- thresholds (Eq. 7) ------------------------------------------------
     def scores_for(self, key: Key, alpha: float) -> torch.Tensor:
         """The positive Eq. 4 scores of one linear's captured inputs,
-        sorted ascending, on the activations' device (zero scores are
-        dropped, as the reference drops MoE capacity padding)."""
+        sorted ascending, on the activations' device.  Every zero score
+        is dropped, for every key, as the reference drops them (MoE
+        capacity padding among them); an expert key's g (E, n) scores
+        each expert's rows with its own norms."""
         x = self.acts[key]
         gf = torch.clamp(self.g[key], min=1e-12)
+        if gf.dim() == 2:
+            gf = gf[:, None, :]
         s = (x.float().abs() * torch.pow(gf, float(alpha))).reshape(-1)
         s = torch.sort(s).values
         n_pos = int((s > 0).sum())
@@ -119,14 +131,19 @@ class CalibContext:
         return sum(self.sizes[(depth, p)] for p in self.keys_by_depth[depth])
 
 
+def _active_size(cfg: ModelConfig, w) -> float:
+    """Compute weight of one linear: its element count, and for an
+    expert weight (E, n, m) the top-k experts' ``K * n * m``."""
+    if w.dim() == 3:
+        _, n, m = w.shape
+        return float(cfg.num_experts_per_tok * n * m)
+    return float(w.numel())
+
+
 def build_context(params, cfg: ModelConfig, batch) -> CalibContext:
     """Run the dense model once over the calibration batch, capturing every
     linear's inputs and each block's dense input/output.  ``batch["tokens"]``
     (numpy or a tensor) moves to the params' device."""
-    if M.has_ssm(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: calibration over SSM (mamba) layers is not "
-            "ported (SSM calibration, ROADMAP Queue 1 item 1.8)")
     layers = U.unstack_layers(cfg, params)
     device = params["embed"].device
     tokens = torch.as_tensor(batch["tokens"]).to(device, torch.long)
@@ -137,10 +154,9 @@ def build_context(params, cfg: ModelConfig, batch) -> CalibContext:
         for path, w in U.sparsifiable_leaves(dl.params):
             key = (dl.depth, path)
             id2key[id(w)] = key
-            g[key] = sl.column_norms(w)
-            # compute weight: the element count (the reference's MoE
-            # top-k scaling comes with the MoE slice)
-            sizes[key] = float(w.numel())
+            g[key] = sl.expert_column_norms(w) if w.dim() == 3 \
+                else sl.column_norms(w)
+            sizes[key] = _active_size(cfg, w)
             names.append(path)
         keys_by_depth[dl.depth] = names
 
@@ -153,12 +169,15 @@ def build_context(params, cfg: ModelConfig, batch) -> CalibContext:
         # the last block's output (the input of the final norm)
         block_io.append(U.block_forward(layers[-1], block_io[-1], cfg))
 
+    # (T, n) per linear; an expert capture is already (E, T, n)
     acts: Dict[Key, list] = {}
     for wid, x in cap:
         key = id2key.get(wid)
         if key is not None:
-            acts.setdefault(key, []).append(x.reshape(-1, x.shape[-1]))
-    acts_t = {key: chunks[0] if len(chunks) == 1 else torch.cat(chunks, 0)
+            if g[key].dim() == 1:
+                x = x.reshape(-1, x.shape[-1])
+            acts.setdefault(key, []).append(x)
+    acts_t = {key: chunks[0] if len(chunks) == 1 else torch.cat(chunks, -2)
               for key, chunks in acts.items()}
 
     return CalibContext(

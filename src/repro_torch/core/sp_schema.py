@@ -38,7 +38,7 @@ def default_sp_stacked(params, cfg: ModelConfig, keep_frac: float = 1.0,
                     # temporaries at one expert's size
                     g = torch.stack([
                         sl.column_norms(v[r]) if v.dim() == 3 else
-                        torch.stack([sl.column_norms(we) for we in v[r]])
+                        sl.expert_column_norms(v[r])
                         for r in range(v.shape[0])])
                     ones = torch.ones(v.shape[0], dtype=torch.float32,
                                       device=v.device)

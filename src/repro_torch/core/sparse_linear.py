@@ -26,7 +26,8 @@ from repro_torch.kernels.select import topk_ids
 from repro_torch.sparsity import VALID_BACKENDS, SparsityPolicy
 
 __all__ = ["SparsityPolicy", "VALID_BACKENDS", "DENSE", "project",
-           "project_experts", "scores", "column_norms", "default_sp"]
+           "project_experts", "scores", "column_norms",
+           "expert_column_norms", "default_sp"]
 
 # the default execution when no policy is passed: plain dense matmuls
 DENSE = SparsityPolicy.dense()
@@ -82,15 +83,17 @@ def project_experts(x, w, sp: Optional[dict] = None, *,
     ``jax.vmap`` of ``dense()`` over a MoE layer's experts
     (``models/moe.py``).  ``sp["g"]`` is (E, n); ``alpha``, ``tau`` and
     ``keep_frac`` are the layer's, shared by its experts.  There are no
-    token weights: dispatch permutes and capacity-bounds the rows.  A
-    calibration capture is refused (MoE calibration is not ported yet,
-    ROADMAP Queue 1 item 1.8)."""
+    token weights: dispatch permutes and capacity-bounds the rows.
+
+    A calibration capture records ``(w, x)`` only when the expert leaf
+    has no sp entry, as the reference's ``apply_dense`` does: x is (E,
+    B*C, n), each expert's rows of every group in (group, position)
+    order, the reference's (B, E, C, n) capture with the expert axis
+    moved first, capacity-padding rows included."""
     if policy is None:
         policy = DENSE
-    if policy.capture is not None:
-        raise NotImplementedError(
-            f"{role}: calibration capture on expert projections is not "
-            "ported (MoE calibration, ROADMAP Queue 1 item 1.8)")
+    if policy.capture is not None and sp is None:
+        policy.capture.record(w, x)
     return _dispatch(x, w, sp, policy, role, experts=True)
 
 
@@ -177,6 +180,12 @@ def column_norms(w) -> torch.Tensor:
     """g_i = ||W[i, :]||_2 over all output dims; w: (n_in, *out)."""
     wf = w.reshape(w.shape[0], -1).float()
     return torch.sqrt((wf * wf).sum(1))
+
+
+def expert_column_norms(w) -> torch.Tensor:
+    """(E, n_in) column norms of an expert weight (E, n_in, n_out), one
+    expert at a time (the reference's ``jax.vmap(column_norms)``)."""
+    return torch.stack([column_norms(we) for we in w])
 
 
 def default_sp(w) -> dict:

@@ -5,11 +5,11 @@ Calibration unstacks the layer groups into a list of per-depth layers and
 reuses the model's own ``layer_apply``, so the numerics are the serving
 forward's.  The port supports the layers its model runs (``attn``,
 ``local`` and ``global`` attention or a ``mamba`` block, with a dense
-MLP, a MoE FFN or none, each layer run as its own kind); encoder frames
-and patch embeddings raise ``NotImplementedError``, and so does a
-calibration capture on a MoE layer's expert projections.  Calibration
-itself refuses archs with ``mamba`` layers
-(``calibration.build_context``).
+MLP, a MoE FFN or none, each layer run as its own kind, jamba's mixed
+pattern positions included); an expert leaf's sp entry carries one g
+row per expert, (E, n) per depth and (reps, E, n) stacked.  Encoder
+frames and patch embeddings raise ``NotImplementedError`` (they come
+with the enc-dec and VLM slices).
 
 The capture hook keys activations on ``id(w)``, and ``tensor[r]`` makes a
 new Python object on every call.  So :func:`unstack_layers` builds each
@@ -106,8 +106,7 @@ def default_layer_sp(layer_params: dict):
             elif k in SPARSIFIABLE and v.dim() == 3:
                 # MoE (E, n_in, n_out): one g per expert
                 out[k] = {**sl.default_sp(v[0]),
-                          "g": torch.stack([sl.column_norms(we)
-                                            for we in v])}
+                          "g": sl.expert_column_norms(v)}
             elif k in SPARSIFIABLE and v.dim() >= 2:
                 out[k] = sl.default_sp(v)
         return out

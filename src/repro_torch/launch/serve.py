@@ -8,11 +8,11 @@ engine (``repro_torch.serving``).
 default), deepseek_67b, the Gemma family, gemma_2b, gemma2_2b and
 gemma3_4b, the granite MoE models, granite_moe_1b_a400m and
 granite_moe_3b_a800m, mamba2_130m and the jamba_v01_52b hybrid (which
-fits the card only ``--reduced``); ``--calib-quick`` is refused on the
-MoE and SSM archs, whose calibration is not ported.  gemma2_2b and
-gemma3_4b have ``local`` layers, whose rolling-window caches, and
-mamba2_130m and jamba ``mamba`` layers, whose conv and SSM state have no
-time axis, resolve ``--prefill-strategy auto`` to whole-prompt prefill
+fits the card only ``--reduced``); ``--calib-quick`` and
+``--policy-artifact`` serve a calibrated plan on every one of them.
+gemma2_2b and gemma3_4b have ``local`` layers, whose rolling-window
+caches, and mamba2_130m and jamba ``mamba`` layers, whose conv and SSM
+state have no time axis, resolve ``--prefill-strategy auto`` to whole-prompt prefill
 and rule out ``--prefix-cache``, ``--preemption``, ``--spec-gamma`` and
 ``--quality-probe-rate``, which the engine refuses as the reference's
 does.  Full width and the card are the defaults;

@@ -227,10 +227,6 @@ def test_unported_calibration_inputs_raise(m):
                              frames=torch.zeros(1))
     with pytest.raises(NotImplementedError):
         TU.unstack_layers(reduced(get_config("whisper_large_v3")), {})
-    # SSM calibration waits for ROADMAP Queue 1 item 1.8
-    with pytest.raises(NotImplementedError, match="1.8"):
-        TC.build_context({}, reduced(get_config("mamba2_130m")),
-                         {"tokens": np.zeros((1, 4), np.int64)})
 
 
 # ---------------------------------------------------------------------------

@@ -455,6 +455,48 @@ def test_ssm_decode_build_on_a_busy_engine_leaves_live_rows(dev):
     assert outs[0] == outs[1]
 
 
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m-E20", "mamba2_130m"])
+def test_cpu_calibrated_plan_serves_the_cpu_tokens_on_card(dev, arch):
+    """A plan calibrated on the CPU in f32 (paper Alg. 1-4 with the
+    ``--calib-quick`` stages) of reduced granite_moe_3b_a800m with 20
+    experts (per-expert g, top-k-scaled budgets; weights scaled as in
+    ``tests/test_torch_moe.py``) and of reduced mamba2_130m, served under
+    ``pallas`` with its finite taus: greedy tokens on the card equal the
+    CPU's."""
+    import dataclasses
+    from repro_torch.core import pipeline
+    from repro_torch.core.allocation import EvoConfig
+    name, _, experts = arch.partition("-E")
+    cfg = reduced(get_config(name))
+    params = api.init_model(cfg, 0, device="cpu")
+    if experts:
+        cfg = dataclasses.replace(cfg, num_experts=int(experts),
+                                  num_experts_per_tok=4)
+        params = chip_smoke.scale_gemma_weights(
+            api.init_model(cfg, 0, device="cpu"))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32))
+    plan = pipeline.run_pipeline(
+        params, cfg, {"tokens": toks}, 0.5,
+        evo=EvoConfig(generations=1, offspring=2, eps=0.1), delta=0.25,
+        coord_passes=0)
+    assert any(np.isfinite(t) for t in plan.taus.values())
+    pol = plan.to_policy(backend="pallas", block=16)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 9, 33)]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        eng = Engine(P.tree_map(lambda t, d=d: t.to(d), params), cfg,
+                     EngineConfig(max_slots=4, max_len=64, prefill_chunk=16,
+                                  policy=pol),
+                     P.tree_map(lambda t, d=d: t.to(d), plan.stacked_sp),
+                     device=d)
+        for p in prompts:
+            eng.submit(p, 12)
+        outs.append(eng.run())
+    assert outs[0] == outs[1]
+    assert len({t for ts in outs[0].values() for t in ts}) > 1
+
+
 def test_granite_engine_on_card_matches_cpu_and_counts_launches(dev):
     """Reduced granite_moe_3b_a800m with 20 experts (12 pad experts),
     its attention and MoE weights scaled as in ``tests/test_torch_moe.py``:

@@ -448,17 +448,43 @@ def test_moe_apply_without_sp_runs_dense():
 
 
 def test_calibration_capture_on_expert_projections_raises():
+    """(Named for the refusal it replaced.)  A dense calibration capture
+    records each expert leaf once, with its (E, B*C, d) dispatched input:
+    the reference's (B, E, C, d) capture with the expert axis first,
+    capacity-padding rows included; with an sp entry for the leaf
+    neither package records it.  ``build_context`` then keys it by the
+    weight's identity and keeps it (E, T, d)."""
+    from repro.sparsity import CaptureSink as JCaptureSink
+    from repro_torch.core import calibration
     from repro_torch.sparsity import CaptureSink
     m = _model("granite_moe_1b_a400m")
-    _, _, tp, tsp = _layer(m)
-    x = torch.from_numpy(_x((1, 4), m["cfg"].d_model, seed=3))
-    with pytest.raises(NotImplementedError, match="1.8"):
-        moe.moe_apply(tp, x, m["cfg"], tsp,
-                      policy=SparsityPolicy.dense(capture=CaptureSink()))
-    from repro_torch.core import calibration
-    with pytest.raises(NotImplementedError, match="expert projections"):
-        calibration.build_context(m["params"], m["cfg"],
-                                  {"tokens": np.zeros((1, 8), np.int64)})
+    jp, jsp, tp, tsp = _layer(m)
+    x = _x((2, 5), m["cfg"].d_model, seed=3)
+    jcap, tcap = JCaptureSink(), CaptureSink()
+    jmoe.moe_apply(jp, jnp.asarray(x), m["jcfg"],
+                   policy=JPolicy.dense(capture=jcap))
+    moe.moe_apply(tp, torch.from_numpy(x), m["cfg"],
+                  policy=SparsityPolicy.dense(capture=tcap))
+    names = ("wi_gate", "wi_up", "wo")
+    assert [wid for wid, _ in tcap] == [id(tp[n]) for n in names]
+    assert [wid for wid, _ in jcap] == [id(jp[n]) for n in names]
+    for (_, tx), (_, jx) in zip(tcap, jcap):
+        jx = np.asarray(jx)
+        want = np.moveaxis(jx, 1, 0).reshape(jx.shape[1], -1, jx.shape[-1])
+        _close(tx, want)
+    jcap, tcap = JCaptureSink(), CaptureSink()
+    jmoe.moe_apply(jp, jnp.asarray(x), m["jcfg"], jsp,
+                   policy=JPolicy.dense(capture=jcap))
+    moe.moe_apply(tp, torch.from_numpy(x), m["cfg"], tsp,
+                  policy=SparsityPolicy.dense(capture=tcap))
+    assert len(tcap) == len(jcap) == 0
+    ctx = calibration.build_context(m["params"], m["cfg"],
+                                    {"tokens": np.zeros((1, 8), np.int64)})
+    E = m["cfg"].num_experts_padded
+    for path in names:
+        x0 = ctx.acts[(0, f"moe/{path}")]
+        assert x0.dim() == 3 and x0.shape[0] == E
+        assert tuple(ctx.g[(0, f"moe/{path}")].shape) == (E, x0.shape[2])
 
 
 # ---------------------------------------------------------------------------

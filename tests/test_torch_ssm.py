@@ -392,13 +392,40 @@ def check_unstacked(m):
 
 
 def test_calibration_refuses_ssm_archs():
-    """SSM calibration is not ported (ROADMAP Queue 1 item 1.8): the
-    pipeline and the ladder refuse an arch with mamba layers at once."""
-    for arch in ARCHS:
-        cfg = reduced(get_config(arch))
-        m = {"cfg": cfg, "params": api.init_model(cfg, 0, device="cpu")}
-        batch = {"tokens": np.zeros((1, 8), np.int64)}
-        with pytest.raises(NotImplementedError, match="1.8"):
-            pipeline.run_pipeline(m["params"], m["cfg"], batch, 0.5)
-        with pytest.raises(NotImplementedError, match="1.8"):
-            calibrate_ladder(m["params"], m["cfg"], batch, (0.0, 0.5))
+    """(Named for the refusal it replaced.)  The pipeline and the ladder
+    run on the archs with mamba layers: the plan meets its budget with
+    finite taus wherever a linear is sparsified, its stacked sp tree
+    serves the model under ``mask``, and the ladder's cold rung is the
+    plan.  ``tests/test_torch_calibration_ssm.py`` and
+    ``tests/test_torch_calibration_jamba.py`` hold them against JAX.
+    On one intra-op thread: the calibration runs thousands of small ops,
+    which a test run's parallel workers would otherwise oversubscribe
+    (790 s in a run with 6 workers, 13 s alone)."""
+    from repro_torch.core.allocation import EvoConfig, weighted_average
+    evo = EvoConfig(generations=1, offspring=2, eps=0.1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for arch in ARCHS:
+            cfg = reduced(get_config(arch))
+            params = api.init_model(cfg, 0, device="cpu")
+            toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                     (2, 16))
+            batch = {"tokens": toks}
+            plan = pipeline.run_pipeline(params, cfg, batch, 0.5, evo=evo,
+                                         delta=0.25, coord_passes=0)
+            ctx = pipeline.build_context(params, cfg, batch)
+            avg = weighted_average(ctx, np.asarray(plan.block_ratios))
+            assert 0.5 - evo.eps <= avg <= 0.5 + 1e-9
+            assert all(np.isfinite(plan.taus[k])
+                       for k, r in plan.layer_ratios.items() if r > 0)
+            logits, _ = TM.forward(params, cfg, tokens=torch.as_tensor(toks),
+                                   sp=plan.stacked_sp,
+                                   policy=SparsityPolicy.uniform("mask"))
+            assert bool(torch.isfinite(logits).all())
+            ladder = calibrate_ladder(params, cfg, batch, (0.0, 0.5),
+                                      evo=evo, delta=0.25, coord_passes=0,
+                                      backend="pallas")
+            assert np.array_equal(ladder.block_ratios[1], plan.block_ratios)
+    finally:
+        torch.set_num_threads(threads)

@@ -460,7 +460,8 @@ def test_whole_rows_bound_every_whole_prompt_plan():
 
 @pytest.mark.parametrize("argv", [["--mode", "pallas"],
                                   ["--mode", "topk_shared",
-                                   "--prefill-strategy", "whole"]])
+                                   "--prefill-strategy", "whole"],
+                                  ["--mode", "pallas", "--calib-quick"]])
 def test_serve_cli_runs_mamba2(argv, capsys):
     out = serve.main(["--arch", "mamba2_130m", "--reduced", "--device", "cpu",
                       "--batch", "2", "--prompt-len", "17", "--gen", "3",
@@ -470,7 +471,6 @@ def test_serve_cli_runs_mamba2(argv, capsys):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--calib-quick"], NotImplementedError),
     (["--prefix-cache", "--sparsity", "0"], ValueError),
     (["--prefill-strategy", "chunked"], ValueError),
     (["--preemption"], ValueError),
