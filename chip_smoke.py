@@ -56,7 +56,15 @@ In order, it:
    at mamba2_130m's six projection shapes (n = 768 into m = 1536, 1536,
    128, 128 and 24, and n = 1536 into m = 768; B = 8 and 32), with a
    per-decode-layer summary, and held at the row counts of phase 18's
-   whole-prompt prefills (64-448, 4099 and 3 x 8192 rows);
+   whole-prompt prefills (64-448, 4099 and 3 x 8192 rows).  Last, both
+   are held and timed at whisper_large_v3's eight decode-layer shapes
+   (1280 into 1280 for self-attention and cross-attention's wq and wo,
+   1280 into 5120 and 5120 into 1280 for the GELU MLP) and at
+   internvl2_26b's seven (6144 into 6144, 1024, 1024, 16384 and 16384,
+   16384 into 6144), B = 8 and 32, each beside its bound and dense
+   ``torch.matmul`` with a per-decode-layer summary, and held at
+   whisper's cross wk/wv row counts (1500 and 6000 encoder rows of
+   1280), tau -inf and finite, no row weights;
 4. checks a reduced llama31_8b on the card against the same model on the
    CPU (plain kernel versions): forward logits and served greedy tokens;
    then a reduced gemma2_2b (f32, window 32) the same way: prefill logits
@@ -66,9 +74,15 @@ In order, it:
    the tokens of a chunked ``pallas`` engine; then a reduced mamba2_130m
    and a reduced jamba_v01_52b (f32): prefill logits, 4 decode steps'
    logits from a pool holding the prefills, and the tokens of a
-   whole-prefill ``pallas`` engine;
-5. serves full-width llama31_8b (32 layers, d_model 4096, bf16, random
-   weights from a fixed seed) through the port's ``Engine``: 12 requests
+   whole-prefill ``pallas`` engine; then a reduced whisper_large_v3
+   (frames, cross-attention) and a reduced internvl2_26b (patch prefix)
+   from the CPU's init: the greedy tokens of prefill then decode
+   (``generate``) equal the CPU's under ``off``, ``mask`` and
+   ``pallas``, and a whisper plan calibrated on the CPU serves the CPU's
+   tokens on the card;
+5. serves full-width llama31_8b (d_model 4096, bf16, random weights from
+   a fixed seed; phases 5-18 run the first ``SERVE_DEPTH`` = 8 layers of
+   each model, phase 20 every layer) through the port's ``Engine``: 12 requests
    with ragged prompts of 64-448 tokens, 32 new tokens each, dense and
    under ``SparsityPolicy.uniform("pallas", k_max_frac=0.5)`` with an
    uncalibrated sp tree (``keep_frac=0.5``, ``tau=-inf``), each twice in
@@ -82,7 +96,7 @@ In order, it:
    before each engine is built and read just after its run; the
    launches that ran (each launch recorded in a capture taken once per
    replay, ``Engine.launches``) must equal the sparse passes executed
-   (224 per replay of a sparse decode or chunk graph, per eager warm call
+   (56 = 8 x 7 per replay of a sparse decode or chunk graph, per eager warm call
    before each such capture and per eager sparse chunk), on a dense run
    zero.  A window of each run's decode steps is traced with
    ``torch.profiler`` for the device busy share of those same steps;
@@ -197,7 +211,7 @@ In order, it:
    ``serve --gateway --reduced --flight-record --flight-dump-dir`` in a
    subprocess dumps its ring on SIGUSR1, and ``python -m
    repro_torch.obs.flight.replay`` replays the dump with exit 0;
-16. serves full-width gemma2_2b (26 layers, d_model 2304, 8 heads with 4
+16. serves full-width gemma2_2b (8 of its 26 layers, d_model 2304, 8 heads with 4
    KV heads of 256, d_ff 9216, vocab 256000, local/global layers with a
    4096 window, softcaps, bf16, random weights from SEED): 8 slots,
    ``max_len`` 4608, 12 requests of 32 new tokens (4 prompts of
@@ -213,21 +227,21 @@ In order, it:
    positions, and ``serve --arch gemma2_2b --reduced`` must exit 0.
    Prints decode tok/s, p50/p95, TTFT p50, whole-prefill ms per prompt
    length, device ms per traced decode step and the phase's wall time;
-17. serves full-width granite_moe_3b_a800m (32 layers, d_model 1536, 24
+17. serves full-width granite_moe_3b_a800m (8 of 32 layers, d_model 1536, 24
    heads with 8 KV heads of 64, 40 experts padded to 48, top-8, expert
    d_ff 512, bf16, random weights from SEED) on phase 5's trace: dense,
    ``pallas``, ``pallas``, dense (uncalibrated), each warmed first.  Each
    run must resolve the ``chunked`` strategy and build no decode or chunk
    step after warmup; each sparse pass must launch ``score_select`` and
-   ``sparse_matmul_shared`` 128 times (32 layers x 4 attention
-   projections) and each ``_experts`` kernel 96 times (32 x 3
-   expert-batched projections), 224 launches of each kernel in all; the
+   ``sparse_matmul_shared`` 32 times (8 layers x 4 attention
+   projections) and each ``_experts`` kernel 24 times (8 x 3
+   expert-batched projections), 56 launches of each kernel in all; the
    dense runs must repeat their tokens and the captured decode step must
    equal the eager one.  Prints decode tok/s, p50/p95, TTFT p50, chunk
    p50, the capacity drops per chunk, device ms per traced decode step,
    the top ops of one eager decode step, and runs ``serve --arch
    granite_moe_3b_a800m --mode pallas`` at full width (exit 0);
-18. serves full-width mamba2_130m (24 layers, d_model 768, d_inner 1536,
+18. serves full-width mamba2_130m (8 of 24 layers, d_model 768, d_inner 1536,
    24 heads of 64, state 128, conv 4, vocab 50280, tied head, bf16,
    random weights from SEED): 8 slots, whole-prompt prefill, 12 prompts
    of 32 new tokens (3 of 8192 tokens, which batch as one whole prefill,
@@ -235,7 +249,7 @@ In order, it:
    1, and 8 of phase 5's lengths), dense, ``pallas``, ``pallas``, dense
    (uncalibrated) and ``pallas`` with ``prefill_dense_frac`` 0.  Each
    run must resolve the ``whole`` strategy, build no decode step after
-   warmup and launch each kernel 144 times (24 layers x 6 projections,
+   warmup and launch each kernel 48 times (8 layers x 6 projections,
    derived from the policy) per sparse pass (graph replays, the warm
    call, sparse whole prefills); each mode's two runs must give the same
    tokens, a decode step built on a busy engine must leave every SSM
@@ -266,7 +280,33 @@ In order, it:
    params (bit-equal) and the restored params served dense and
    ``pallas`` on phase 16's 8 short prompts, launches checked as in
    phase 16;
-20. prints one JSON line describing every kernel, then, as its last line,
+20. runs the enc-dec and VLM families at full width through
+   ``api.make_prefill_step`` and ``api.make_decode_step`` with caches
+   padded as the reference's ``_pad_caches`` (``generate``; the engine
+   refuses these families, as the reference's does).  whisper_large_v3
+   (32 + 32 layers, d_model 1280, 20 heads of 64, d_ff 5120, vocab
+   51866, 1500 frames, 1.60B parameters, bf16, random weights and frame
+   embeddings from SEED): the encoder's time, then (a) 4 utterances with
+   4-token decoder start sequences and (b) one with a 224-token prompt,
+   64 new tokens each, dense, uncalibrated ``pallas`` (keep 0.5, tau
+   -inf), ``pallas``, dense: each mode repeats its tokens; a sparse run
+   launches each kernel 320 times in its prefill (32 x 4 self, 4 cross,
+   2 MLP projections; the cross-KV stash is dense) and 256 per decode
+   step (32 x (4 + 2 + 2)), a dense run none.  8 decode steps of run (a)
+   traced per mode give device ms per step and the top ops beside the
+   step's byte bound.  Then a 0.5 plan calibrated at full width with the
+   ``--calib-quick`` stages on 2 x 64 tokens over their frames (calibration
+   s, KL, ``k_max_frac``), served on run (a) (launches as above, the
+   share of dense's tokens), and 20 training steps of 2 x 448 tokens
+   over 1500 frames at ``remat="full"`` (every loss finite, the last
+   below the first; step p50, peak memory).  Then internvl2_26b's
+   language model (48 layers, d_model 6144, 48 heads with 8 KV heads of
+   128, d_ff 16384, vocab 92553, 19.86B parameters, 39.7 GB in bf16,
+   initialised leaf by leaf on the card after every earlier model is
+   freed): 2 sequences of 256 patch embeddings and 128 tokens, 32 new
+   tokens, dense, ``pallas``, ``pallas``, dense, 336 launches of each
+   kernel per sparse pass (48 x 7), the same traces and bounds;
+21. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run (whose llama31_8b decode layer their times are), those of the
@@ -330,6 +370,23 @@ GRANITE_E = 48
 MAMBA_LAYER = [("mamba/in_z", 768, 1536), ("mamba/in_x", 768, 1536),
                ("mamba/in_B", 768, 128), ("mamba/in_C", 768, 128),
                ("mamba/in_dt", 768, 24), ("mamba/out_proj", 1536, 768)]
+# whisper_large_v3's decode-layer projections (20 heads of 64): self
+# attention, cross-attention's wq and wo (decode reads the static cross
+# cache), the plain GELU MLP; its cross wk and wv run over the encoder
+# output in prefill only, 1500 frames per utterance
+WHISPER_LAYER = [("attn/wq", 1280, 1280), ("attn/wk", 1280, 1280),
+                 ("attn/wv", 1280, 1280), ("attn/wo", 1280, 1280),
+                 ("cross/wq", 1280, 1280), ("cross/wo", 1280, 1280),
+                 ("mlp/wi", 1280, 5120), ("mlp/wo", 5120, 1280)]
+WHISPER_CROSS_KV = [("cross/wk", 1280, 1280), ("cross/wv", 1280, 1280)]
+# rows of the cross wk/wv projections: one utterance's frames, and phase
+# 20's 4 utterances
+WHISPER_CROSS_ROWS = [1500, 6000]
+# internvl2_26b's language model (48 heads and 8 KV heads of 128)
+INTERNVL_LAYER = [("attn/wq", 6144, 6144), ("attn/wk", 6144, 1024),
+                  ("attn/wv", 6144, 1024), ("attn/wo", 6144, 6144),
+                  ("mlp/wi_gate", 6144, 16384), ("mlp/wi_up", 6144, 16384),
+                  ("mlp/wo", 16384, 6144)]
 # the projection roles of each mixer and FFN kind: one launch of each
 # 2-D kernel per role that runs pallas (an expert role: one of each
 # _experts kernel for all the layer's experts)
@@ -360,6 +417,12 @@ WINDOW = 8
 # residual stream and every reduced Gemma emits one token forever, which
 # no token comparison could tell apart.
 GEMMA_WEIGHT_SCALE = 8.0
+# Depth of the full-width models that phases 5-18 serve: each keeps its
+# published widths and layer pattern and runs its first SERVE_DEPTH
+# layers, so that the whole script ends well inside its 1200 s limit.
+# Phase 19b's gemma2_2b and phase 20's whisper_large_v3 and internvl2_26b
+# run at full depth.
+SERVE_DEPTH = 8
 # Times of the v1 matmul kernels (one thread block per 64 columns walking
 # the kept blocks on CUDA cores; us, CUDA-graph replay, bf16, 50% kept,
 # cold L2, this script on an NVIDIA H100 80GB HBM3 at 700 W), printed
@@ -1235,13 +1298,16 @@ def reduced_model_check(dev) -> None:
 
 
 def scale_gemma_weights(params, factor: float = GEMMA_WEIGHT_SCALE):
-    """Every attention, MLP and MoE (router and expert) weight of a port
-    params tree times ``factor``, in place (see GEMMA_WEIGHT_SCALE; a
-    reduced granite, whose head is tied too, emits its last prompt token
-    forever at the init); returns the tree."""
-    for group in params["groups"]:
+    """Every attention, cross-attention, MLP and MoE (router and expert)
+    weight of a port params tree, the encoder's too, times ``factor``,
+    in place (see GEMMA_WEIGHT_SCALE; a reduced granite, whose head is
+    tied too, emits its last prompt token forever at the init, and a
+    reduced whisper's residual stream is its sinusoidal positions);
+    returns the tree."""
+    for group in params["groups"] + params.get("encoder", {}).get("groups",
+                                                                  []):
         for layer in group.values():
-            for part in ("attn", "mlp", "moe"):
+            for part in ("attn", "cross", "mlp", "moe"):
                 for w in layer.get(part, {}).values():
                     w.mul_(factor)
     return params
@@ -1514,23 +1580,100 @@ def reduced_ssm_check(dev, arch: str) -> dict:
             "calibrated": calibrated}
 
 
+def reduced_multimodal_check(dev, arch: str) -> dict:
+    """Reduced ``arch`` (whisper_large_v3: 2 + 2 layers, 16 frames,
+    ``scale_gemma_weights``; internvl2_26b: 2 layers, an 8-token patch
+    prefix; f32) from the CPU's init on the card: the greedy tokens of
+    :func:`generate` (prefill, padded caches, 11 decode steps) over 2 x 12
+    tokens with their frames or patches equal the CPU's under ``off``,
+    ``mask`` and ``pallas`` (block 16, uncalibrated: keep 0.5, tau
+    -inf).  Whisper then calibrates a plan on the CPU (the
+    ``--calib-quick`` stages, one generation of two offspring, 2 x 32
+    tokens over 2 x 16 frames), which serves the CPU's tokens on the
+    card under ``mask`` and ``pallas``."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import calibration, pipeline
+    from repro_torch.core.allocation import EvoConfig
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.models import api, params as P
+    from repro_torch.sparsity import SparsityPolicy
+
+    cfg = reduced(get_config(arch))
+    cpu = torch.device("cpu")
+    params_c = api.init_model(cfg, SEED, device=cpu)
+    if cfg.family == "encdec":
+        scale_gemma_weights(params_c)
+    params_g = P.tree_map(lambda t: t.to(dev), params_c)
+    rng = np.random.default_rng(SEED)
+    key, rows = (("frames", cfg.encoder_frames) if cfg.family == "encdec"
+                 else ("patch_embeds", cfg.vision_prefix))
+
+    def inputs(b):
+        return {key: torch.from_numpy(rng.standard_normal(
+            (b, rows, cfg.d_model)).astype(np.float32))}
+
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12)))
+    extra = inputs(2)
+    sp_c = default_sp_stacked(params_c, cfg, keep_frac=KEEP,
+                              tau=float("-inf"))
+
+    def both(policy, sp_c):
+        sp_g = None if sp_c is None else P.tree_map(lambda t: t.to(dev), sp_c)
+        got = generate(params_g, cfg, toks.to(dev), 12, policy=policy,
+                       sp=sp_g, **{k: v.to(dev) for k, v in extra.items()})
+        want = generate(params_c, cfg, toks, 12, policy=policy, sp=sp_c,
+                        **extra)
+        if not torch.equal(got, want):
+            raise AssertionError(f"reduced {arch} under {policy.backend}: "
+                                 f"card tokens {got.tolist()} != CPU "
+                                 f"{want.tolist()}")
+        return len(set(got.flatten().tolist()))
+
+    distinct = {b: both(SparsityPolicy.uniform(b, k_max_frac=KEEP, block=16),
+                        sp_c) for b in ("off", "mask", "pallas")}
+    out = {"distinct_tokens": distinct}
+    if cfg.family == "encdec":
+        calib = {"tokens": rng.integers(0, cfg.vocab_size, (2, 32)),
+                 **inputs(2)}
+        ctx = calibration.build_context(params_c, cfg, calib)
+        plan = pipeline.run_pipeline(
+            params_c, cfg, None, KEEP, evo=EvoConfig(generations=1,
+                                                     offspring=2, eps=0.1),
+            delta=0.25, coord_passes=0, ctx=ctx)
+        out["calibrated_distinct_tokens"] = {
+            b: both(plan.to_policy(backend=b, block=16), plan.stacked_sp)
+            for b in ("mask", "pallas")}
+        out["kl"] = ctx.fitness(plan.per_depth_sp)
+    print(f"reduced {arch} on the card vs CPU: prefill-then-decode greedy "
+          f"tokens equal under off, mask and pallas ({out})")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 5: full-width serving
 # ---------------------------------------------------------------------------
 
-def full_width_model(dev):
-    """llama31_8b at full width and depth, random weights from SEED."""
-    from repro_torch import obs
+def served_config(arch: str):
+    """``arch``'s published config cut to :data:`SERVE_DEPTH` layers."""
     from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=SERVE_DEPTH)
+
+
+def full_width_model(dev):
+    """llama31_8b at full width, SERVE_DEPTH of its 32 layers, random
+    weights from SEED."""
+    from repro_torch import obs
     from repro_torch.models import api
 
-    cfg = get_config("llama31_8b")
-    assert cfg.num_layers == 32 and cfg.d_model == 4096
+    cfg = served_config("llama31_8b")
+    assert cfg.num_layers == SERVE_DEPTH and cfg.d_model == 4096
     t0 = obs.now()
     params = api.init_model(cfg, SEED, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"llama31_8b: {n_params / 1e9:.2f}B params ({cfg.dtype}), init "
+    print(f"llama31_8b, {cfg.num_layers} of 32 layers: "
+          f"{n_params / 1e9:.2f}B params ({cfg.dtype}), init "
           f"{obs.now() - t0:.1f} s, device memory "
           f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
     return cfg, params
@@ -1562,7 +1705,8 @@ def serve_once(name, params, cfg, policy, sp, trace, dev, K, ladder=None,
     its replays count nothing, so the launches that ran are the counts
     with each captured launch taken once per replay
     (``Engine.launches``).  They must equal the sparse passes executed:
-    224 per replay of a sparse decode or chunk graph, per eager warm call
+    one per projection of every layer (:func:`pass_launches`) per
+    replay of a sparse decode or chunk graph, per eager warm call
     before each such capture, and per eager sparse chunk; a dense run
     launches none.  ``eager_chunks`` runs the prefill chunks through the
     plain chunk step instead of their graphs (the path before the chunk
@@ -1656,8 +1800,9 @@ def pass_launches(cfg, policy=None) -> dict:
     whose role runs ``pallas`` at its depth (``KIND_ROLES``: 4 per
     attention mixer, 6 per mamba mixer, 3 per dense MLP), one of each
     ``_experts`` kernel per expert projection (3 per MoE layer, for all
-    its experts).  llama31_8b: 224 and 0; granite_moe_3b_a800m: 128 and
-    96; mamba2_130m: 144 and 0."""
+    its experts).  At full depth llama31_8b: 224 and 0;
+    granite_moe_3b_a800m: 128 and 96; mamba2_130m: 144 and 0; at
+    ``SERVE_DEPTH`` = 8 layers: 56 and 0, 32 and 24, 48 and 0."""
     plain = experts = 0
     for depth, kind in enumerate(cfg.layer_kinds()):
         lpol = None if policy is None else policy.resolve_depth(depth)
@@ -2574,8 +2719,8 @@ def _slot_prefix(eng, slot: int, n: int) -> list:
 
 
 def _bytes_per_token(eng) -> int:
-    """Bytes of one position of one slot across every cache leaf (128 KiB
-    for full-width llama31_8b in bf16)."""
+    """Bytes of one position of one slot across every cache leaf (4 KiB
+    per layer of llama31_8b in bf16)."""
     return sum(t[:, 0].numel() // t.shape[-1 if i % 2 == 0 else -2]
                * t.element_size() for i, t in enumerate(_pool_leaves(eng)))
 
@@ -3892,20 +4037,21 @@ GEMMA_SERVED = ("score_select", "sparse_matmul_shared")
 
 
 def gemma_model(dev):
-    """gemma2_2b at full width and depth, random weights from SEED."""
+    """gemma2_2b at full width, SERVE_DEPTH of its 26 layers (local and
+    global alternating), random weights from SEED."""
     from repro_torch import obs
-    from repro_torch.configs import get_config
     from repro_torch.models import api
 
-    cfg = get_config("gemma2_2b")
+    cfg = served_config("gemma2_2b")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \
-        (26, 2304, 8, 4, 256, 9216, 256000)
+        (SERVE_DEPTH, 2304, 8, 4, 256, 9216, 256000)
     t0 = obs.now()
     params = api.init_model(cfg, SEED, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"gemma2_2b: {n_params / 1e9:.2f}B params ({cfg.dtype}), init "
+    print(f"gemma2_2b, {cfg.num_layers} of 26 layers: "
+          f"{n_params / 1e9:.2f}B params ({cfg.dtype}), init "
           f"{obs.now() - t0:.1f} s, device memory "
           f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
     return cfg, params
@@ -3948,7 +4094,7 @@ def gemma_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
     after the run.  Checks the ``whole`` strategy, decode steps with a
     row past the window (its local layers' caches rolled), no decode
     step built after warmup, and the launches against the sparse passes
-    executed: 182 (26 layers x 7 projections) of each kernel per replay
+    executed: 7 per layer of each kernel (:func:`pass_launches`) per replay
     of a sparse decode graph, per its eager warm call and per eager
     whole-prompt prefill run sparse (``prefill_dense_frac`` 0)."""
     from repro_torch import obs
@@ -4246,22 +4392,24 @@ def serve_gemma(dev, K) -> dict:
 # ---------------------------------------------------------------------------
 
 def granite_model(dev):
-    """granite_moe_3b_a800m at full width and depth, random weights from
-    SEED: 40 experts padded to 48, top-8, expert d_ff 512."""
+    """granite_moe_3b_a800m at full width, SERVE_DEPTH of its 32 layers,
+    random weights from SEED: 40 experts padded to 48, top-8, expert
+    d_ff 512."""
     from repro_torch import obs
-    from repro_torch.configs import get_config
     from repro_torch.models import api
 
-    cfg = get_config("granite_moe_3b_a800m")
+    cfg = served_config("granite_moe_3b_a800m")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.head_dim, cfg.expert_d_ff, cfg.num_experts,
             cfg.num_experts_padded, cfg.num_experts_per_tok,
-            cfg.vocab_size) == (32, 1536, 24, 8, 64, 512, 40, 48, 8, 49155)
+            cfg.vocab_size) == (SERVE_DEPTH, 1536, 24, 8, 64, 512, 40, 48,
+                                8, 49155)
     t0 = obs.now()
     params = api.init_model(cfg, SEED, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"granite_moe_3b_a800m: {n_params / 1e9:.2f}B params ({cfg.dtype}, "
+    print(f"granite_moe_3b_a800m, {cfg.num_layers} of 32 layers: "
+          f"{n_params / 1e9:.2f}B params ({cfg.dtype}, "
           f"48 experts computed per layer), init {obs.now() - t0:.1f} s, "
           f"device memory {torch.cuda.memory_allocated() / 1e9:.1f} GB")
     return cfg, params
@@ -4271,9 +4419,10 @@ def granite_run(name, params, cfg, policy, sp, trace, dev, K) -> dict:
     """One run of phase 5's trace through a fresh, warmed ``Engine``
     (``serve_once(warm=True)``: no decode or chunk step built after
     warmup, the sparse prefill chunks, and the launches against the
-    sparse passes, :func:`pass_launches`: per pass 128 of each 2-D kernel
-    for 32 layers x 4 attention projections and 96 of each expert kernel
-    for 32 x 3 expert-batched ones), which must resolve ``chunked``."""
+    sparse passes, :func:`pass_launches`: per pass 4 of each 2-D kernel
+    per layer for the attention projections and 3 of each expert kernel
+    per layer for the expert-batched ones), which must resolve
+    ``chunked``."""
     res = serve_once(f"granite {name}", params, cfg, policy, sp, trace, dev,
                      K, warm=True)
     if res["strategy"] != "chunked":
@@ -4417,11 +4566,11 @@ def rung_table(tag, runs, keys=("decode_tok_s", "decode_step_p50_ms",
 def granite_calibrated(dev, K, cfg, params, trace, runs) -> dict:
     """Phase 17's calibrated ladder: ``timed_ladder`` at 0.0/0.5/0.7 on
     the full-width model (per-expert capture and g, top-k-scaled block
-    budgets), checked by ``check_calibrated_ladder`` (7 x 32 taus); its
+    budgets), checked by ``check_calibrated_ladder`` (7 taus per layer); its
     v4 artifact round trip; each sparse rung served pinned (phase 5's
     trace, warmed, 0 builds after warmup, launches per sparse pass as
-    ``pass_launches``: 128 of each 2-D kernel, 96 of each ``_experts``
-    kernel), then the loaded ladder under the SLO controller.  Adds the
+    ``pass_launches``: 4 of each 2-D kernel and 3 of each ``_experts``
+    kernel per layer), then the loaded ladder under the SLO controller.  Adds the
     pinned runs to ``runs``."""
     from repro_torch.core.allocation import EvoConfig
     from repro_torch.serving import SLOConfig
@@ -4544,23 +4693,23 @@ MAMBA_ECFG = dict(max_slots=8, max_len=8448, prefill_chunk=32)
 
 
 def mamba_model(dev):
-    """mamba2_130m at full width and depth, random weights from SEED: 24
-    layers, d_model 768, d_inner 1536, 24 heads of 64, state 128, conv 4,
-    vocab 50280, tied head, bf16."""
+    """mamba2_130m at full width, SERVE_DEPTH of its 24 layers, random
+    weights from SEED: d_model 768, d_inner 1536, 24 heads of 64, state
+    128, conv 4, vocab 50280, tied head, bf16."""
     from repro_torch import obs
-    from repro_torch.configs import get_config
     from repro_torch.models import api
 
-    cfg = get_config("mamba2_130m")
+    cfg = served_config("mamba2_130m")
     assert (cfg.num_layers, cfg.d_model, cfg.d_inner, cfg.ssm_nheads,
             cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv, cfg.vocab_size,
             cfg.tie_embeddings, cfg.dtype) == \
-        (24, 768, 1536, 24, 64, 128, 4, 50280, True, "bfloat16")
+        (SERVE_DEPTH, 768, 1536, 24, 64, 128, 4, 50280, True, "bfloat16")
     t0 = obs.now()
     params = api.init_model(cfg, SEED, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"mamba2_130m: {n_params / 1e6:.1f}M params ({cfg.dtype}), init "
+    print(f"mamba2_130m, {cfg.num_layers} of 24 layers: "
+          f"{n_params / 1e6:.1f}M params ({cfg.dtype}), init "
           f"{obs.now() - t0:.1f} s, device memory "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     return cfg, params
@@ -4622,7 +4771,7 @@ def mamba_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
     (the 8192-token batch at B = ``trace["max_batch"]`` = 3 where the
     trace has one), no decode step built after warmup, and the launches
     against the sparse passes executed: :func:`pass_launches` under each
-    rung's decode policy (144 = 24 layers x 6 projections) per replay of
+    rung's decode policy (6 projections per layer) per replay of
     a sparse decode graph and per its eager warm call, and under the
     prefill policy per whole prefill run sparse (``prefill_dense_frac``
     0; a ladder run prefills dense)."""
@@ -5481,6 +5630,426 @@ def train_only(dev, card: str, src: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 20: whisper_large_v3 and internvl2_26b at full width
+# ---------------------------------------------------------------------------
+
+# phase 20's traces: whisper_large_v3 serves (a) 4 utterances of its 1500
+# frames, each with a 4-token decoder start sequence, and (b) one with a
+# 224-token text prompt (its prompt conditioning, inside the 448-token
+# decoder context), 64 new tokens each; internvl2_26b serves 2 sequences
+# of its 256 patch embeddings and 128 text tokens, 32 new tokens each
+WHISPER_RUNS = {"a": (4, 4), "b": (1, 224)}
+WHISPER_GEN = 64
+INTERNVL_RUN = (2, 128)
+INTERNVL_GEN = 32
+# whisper's calibration batch (the serve CLI's --calib-quick stages) and
+# its training: 20 steps on one batch of 2 x 448 tokens over 1500 frames,
+# every layer recomputed in the backward (remat "full": the f32 attention
+# scores of one encoder layer take B * H * F * F * 4 = 360 MB at B = 2).
+# One batch, since on a fresh synthetic batch per step the random-init
+# model's loss did not fall in 20 steps (11.04 -> 11.06 on an NVIDIA H100
+# 80GB HBM3 at 700 W: its residual stream is the sinusoidal positions)
+WHISPER_CALIB = (2, 64)
+WHISPER_TRAIN = dict(steps=20, batch=2, seq=448, lr=1e-3, remat="full")
+
+
+def generate(params, cfg, tokens, gen: int, *, policy=None, sp=None,
+             frames=None, patch_embeds=None, times=None):
+    """Greedy tokens (B, gen) of the plain batched path, which the
+    enc-dec and VLM families take (the engine refuses them, as the
+    reference's does): ``api.make_prefill_step`` over the prompt with
+    its frames or patch embeddings, the caches padded to prefix + prompt
+    + ``gen`` positions (``api.pad_caches``), then ``gen - 1`` steps of
+    ``api.make_decode_step``, every row at one position, prefill and
+    decode under ``policy`` and ``sp``.  ``times``, a dict, gets the
+    prefill's host ms and each decode step's (``prefill_ms``,
+    ``decode_ms``), each until its tokens are on the host."""
+    import time
+
+    from repro_torch.models import api
+    B, S = tokens.shape
+    start = S + (0 if patch_embeds is None else patch_embeds.shape[1])
+    decode = api.make_decode_step(cfg, policy)
+    steps = []
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, caches = api.make_prefill_step(cfg)(
+            params, tokens, sp, policy, frames=frames,
+            patch_embeds=patch_embeds)
+        caches = api.pad_caches(cfg, caches, B, start + gen)
+        tok = torch.argmax(logits, -1)
+        out = [tok.cpu()]
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        for i in range(gen - 1):
+            t0 = time.perf_counter()
+            logits, caches = decode(params, {
+                "tokens": tok, "caches": caches,
+                "positions": torch.full((B,), start + i, dtype=torch.long,
+                                        device=tok.device)}, sp)
+            tok = torch.argmax(logits, -1)
+            out.append(tok.cpu())
+            steps.append(1e3 * (time.perf_counter() - t0))
+    if times is not None:
+        times.update(prefill_ms=prefill_ms, decode_ms=steps)
+    return torch.stack(out, 1)
+
+
+def multimodal_inputs(cfg, batch: int, dev, seed: int) -> dict:
+    """Frame embeddings (batch, encoder_frames, d_model) of an enc-dec
+    model or patch embeddings (batch, vision_prefix, d_model) of a VLM,
+    standard normal in the model dtype, from ``seed`` (both frontends are
+    stubs in the reference too)."""
+    from repro_torch.models import params as P
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    key, rows = (("frames", cfg.encoder_frames) if cfg.family == "encdec"
+                 else ("patch_embeds", cfg.vision_prefix))
+    x = torch.randn(batch, rows, cfg.d_model, device=dev, generator=gen)
+    return {key: x.to(P.DTYPES[cfg.dtype])}
+
+
+def multimodal_passes(cfg) -> tuple:
+    """Launches of each 2-D kernel in one sparse prefill and in one sparse
+    decode step of an enc-dec or VLM model: per decoder layer its 4
+    self-attention projections, an enc-dec layer's 4 cross-attention
+    projections in prefill and 2 in decode (``wq``, ``wo``: decode reads
+    the static cross cache, and prefill stashes it dense), and the
+    MLP's 2 (plain GELU) or 3 (gated).  whisper_large_v3: 320 and 256;
+    internvl2_26b: 336 and 336."""
+    from repro_torch.models.mlp import GATED
+    cross = cfg.family == "encdec"
+    mlp = 3 if cfg.mlp_activation in GATED else 2
+    return (cfg.num_layers * (4 + 4 * cross + mlp),
+            cfg.num_layers * (4 + 2 * cross + mlp))
+
+
+def multimodal_run(name, params, cfg, policy, sp, tokens, inputs, gen,
+                   K) -> dict:
+    """One :func:`generate` run, the kernels' launch counts zeroed just
+    before it and read just after: a sparse run launches each 2-D kernel
+    once per projection of its prefill and of its ``gen - 1`` decode
+    steps (:func:`multimodal_passes`), a dense run none, and neither an
+    expert kernel."""
+    from repro_torch.serving.metrics import percentile
+
+    K.reset_launch_counts()
+    times = {}
+    out = generate(params, cfg, tokens, gen, policy=policy, sp=sp,
+                   times=times, **inputs)
+    torch.cuda.synchronize()
+    counts = dict(K.launch_counts)
+    pre, dec = multimodal_passes(cfg)
+    sparse = policy is not None and not policy.is_dense and sp is not None
+    want = pre + (gen - 1) * dec if sparse else 0
+    got = {k: counts[k] for k in ("score_select", "sparse_matmul_shared")}
+    if set(got.values()) != {want} or any(
+            v for k, v in counts.items() if k not in got):
+        raise AssertionError(f"{name}: launches {counts}, expected {want} "
+                             f"of each 2-D kernel ({pre} in the prefill, "
+                             f"{dec} per decode step)")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{name}: tokens out of the vocabulary")
+    return {"tokens": out, "prefill_ms": times["prefill_ms"],
+            "decode_p50_ms": percentile(times["decode_ms"], 50),
+            "decode_p95_ms": percentile(times["decode_ms"], 95),
+            "launches": got["score_select"],
+            "distinct_tokens": len(set(out.flatten().tolist()))}
+
+
+def traced_decode(params, cfg, policy, sp, tokens, inputs, steps=WINDOW,
+                  top: int = 8) -> dict:
+    """A prefill, one warm decode step, then ``steps`` decode steps under
+    ``torch.profiler`` (the card only): device ms per step and the top
+    ``top`` operators by device time per step [name, ms, share]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import api
+    B, S = tokens.shape
+    start = S + sum(x.shape[1] for k, x in inputs.items()
+                    if k == "patch_embeds")
+    decode = api.make_decode_step(cfg, policy)
+    with torch.no_grad():
+        logits, caches = api.make_prefill_step(cfg)(params, tokens, sp,
+                                                    policy, **inputs)
+        caches = api.pad_caches(cfg, caches, B, start + steps + 1)
+
+        def step(i, logits, caches):
+            return decode(params, {
+                "tokens": torch.argmax(logits, -1), "caches": caches,
+                "positions": torch.full((B,), start + i, dtype=torch.long,
+                                        device=tokens.device)}, sp)
+
+        logits, caches = step(0, logits, caches)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                logits, caches = step(i + 1, logits, caches)
+            torch.cuda.synchronize()
+    ev = [(e.key, e.self_device_time_total / 1e3 / steps)
+          for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    if not ev:
+        raise AssertionError("torch.profiler recorded no device time")
+    total = sum(ms for _, ms in ev)
+    ev.sort(key=lambda e: -e[1])
+    return {"device_ms": total,
+            "top_ops": [[k[:60], ms, ms / total] for k, ms in ev[:top]]}
+
+
+def decode_step_bytes(cfg, params, batch: int, cache_len: int,
+                      keep: float = 1.0) -> float:
+    """Bytes one decode step must read: the decoder layers' projection
+    weights (``keep`` of their rows under the block top-k; not the cross
+    ``wk``/``wv``, which only the prefill runs), the head, each row's
+    self K/V over ``cache_len`` positions and, for enc-dec, its cross
+    K/V over the frames; norms and embedding rows are left out (under
+    0.1%)."""
+    from repro_torch.core.unstacked import SPARSIFIABLE
+    from repro_torch.models import params as P
+    proj = sum(t.numel() * t.element_size()
+               for path, t in P.tree_flatten_with_path(params["groups"])
+               if path[-1] in SPARSIFIABLE
+               and path[-2:] not in (("cross", "wk"), ("cross", "wv")))
+    head = params["embed" if cfg.tie_embeddings else "lm_head"]
+    kv = 2 * cfg.num_layers * batch * cfg.num_kv_heads * cfg.head_dim * \
+        head.element_size()
+    frames = cfg.encoder_frames if cfg.family == "encdec" else 0
+    return keep * proj + head.numel() * head.element_size() + \
+        kv * (cache_len + frames)
+
+
+def multimodal_modes(tag, params, cfg, sp, runs, gen, K, rates,
+                     pol) -> dict:
+    """Each of ``runs`` ({name: (tokens, inputs)}) served dense, under
+    ``pol`` (uncalibrated: ``sp`` keeps half the blocks at tau -inf),
+    under ``pol`` again and dense again (:func:`multimodal_run`): each
+    mode's two passes must give the same tokens.  Then a window of
+    decode steps of the first run traced per mode (:func:`traced_decode`)
+    beside the step's byte bound.  Returns (the numbers per mode, the
+    first run's dense tokens)."""
+    out = {}
+    for i, mode in enumerate(("dense", "pallas", "pallas", "dense")):
+        policy, s = (None, None) if mode == "dense" else (pol, sp)
+        for run, (toks, inputs) in runs.items():
+            res = multimodal_run(f"{tag} {mode} {i} run {run}", params, cfg,
+                                 policy, s, toks, inputs, gen, K)
+            seen = out.setdefault(f"{mode} {run}", [])
+            if seen and not torch.equal(seen[0]["tokens"], res["tokens"]):
+                raise AssertionError(f"{tag} {mode} run {run}: the second "
+                                     "pass gave other tokens")
+            seen.append(res)
+            print(f"{tag} {mode} (pass {len(seen)}) run {run} "
+                  f"B={toks.shape[0]} prompt {toks.shape[1]}: prefill "
+                  f"{res['prefill_ms']:.1f} ms, decode p50 "
+                  f"{res['decode_p50_ms']:.2f} ms (p95 "
+                  f"{res['decode_p95_ms']:.2f}), launches {res['launches']} "
+                  f"of each kernel, {res['distinct_tokens']} distinct tokens")
+    first, (toks, inputs) = next(iter(runs.items()))
+    B, S = toks.shape
+    prefix = sum(x.shape[1] for k, x in inputs.items()
+                 if k == "patch_embeds")
+    for mode in ("dense", "pallas"):
+        policy, s = (None, None) if mode == "dense" else (pol, sp)
+        tr = traced_decode(params, cfg, policy, s, toks, inputs)
+        nbytes = decode_step_bytes(cfg, params, B, prefix + S + gen,
+                                   1.0 if mode == "dense" else KEEP)
+        tr["bound_ms"] = 1e3 * nbytes / rates.hbm_bw
+        out[f"{mode} traced"] = tr
+        print(f"{tag} {mode} run {first}: {tr['device_ms']:.3f} device ms "
+              f"per traced decode step against a byte bound of "
+              f"{tr['bound_ms']:.3f} ms ({nbytes / 1e9:.3f} GB); top ops "
+              + "; ".join(f"{k} {ms:.3f} ms ({100 * f:.0f}%)"
+                          for k, ms, f in tr["top_ops"]))
+    dense = out[f"dense {first}"][0]["tokens"]
+    agree = float((out[f"pallas {first}"][0]["tokens"] == dense
+                   ).float().mean())
+    print(f"{tag}: uncalibrated pallas keeps {agree:.3f} of dense's greedy "
+          f"tokens on run {first}")
+    return {k: ([{n: x for n, x in r.items() if n != "tokens"} for r in v]
+                if isinstance(v, list) else v) for k, v in out.items()} | {
+        "pallas_token_agreement": agree}, dense
+
+
+def whisper_calibrated(dev, K, cfg, params, run, dense_tokens) -> dict:
+    """A 0.5 plan calibrated on the full-width whisper (the serve CLI's
+    ``--calib-quick`` stages, on WHISPER_CALIB utterances with their
+    frames), checked as phase 6 checks its rung (budget, 10 x 32 taus,
+    finite wherever sparsified), served as a ``pallas`` policy on
+    ``run``: launches per pass as uncalibrated, the share of dense's
+    tokens it keeps."""
+    from repro_torch import obs
+    from repro_torch.core import calibration, pipeline
+    from repro_torch.core.allocation import EvoConfig, weighted_average
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    evo = EvoConfig(generations=2, offspring=4, eps=0.1)
+    B, S = WHISPER_CALIB
+    batch = {"tokens": SyntheticLM(DataConfig(cfg.vocab_size, S, B)
+                                   ).batch(0),
+             **multimodal_inputs(cfg, B, dev, SEED + 3)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = obs.now()
+    ctx = calibration.build_context(params, cfg, batch)
+    torch.cuda.synchronize()
+    t_ctx = obs.now() - t0
+    plan = pipeline.run_pipeline(params, cfg, None, KEEP, evo=evo,
+                                 delta=0.25, coord_passes=0, ctx=ctx)
+    torch.cuda.synchronize()
+    calib_s = obs.now() - t0
+    kl = ctx.fitness(plan.per_depth_sp)
+    avg = weighted_average(ctx, np.asarray(plan.block_ratios))
+    if not KEEP - evo.eps <= avg <= KEEP + 1e-9:
+        raise AssertionError(f"whisper plan: size-weighted block ratio {avg}")
+    if len(plan.taus) != 10 * cfg.num_layers or any(
+            plan.layer_ratios[k] > 0 and not math.isfinite(t)
+            for k, t in plan.taus.items()):
+        raise AssertionError(f"whisper plan: {len(plan.taus)} taus, or a "
+                             "sparsified one not finite")
+    policy = plan.to_policy(backend="pallas")
+    res = multimodal_run("whisper calibrated", params, cfg, policy,
+                         plan.stacked_sp, *run, WHISPER_GEN, K)
+    agree = float((res.pop("tokens") == dense_tokens).float().mean())
+    info = {"calibration_s": calib_s, "context_s": t_ctx, "kl": kl,
+            "weighted_ratio": avg, "k_max_frac": policy.k_max_frac,
+            "keep_min": 1.0 - max(plan.layer_ratios.values()),
+            "keep_max": 1.0 - min(plan.layer_ratios.values()),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "token_agreement": agree, **res}
+    print(f"whisper calibrated 0.5 plan: {calib_s:.2f} s (context "
+          f"{t_ctx:.2f}; {len(ctx.acts)} linears, cross/wk over "
+          f"{ctx.acts[(0, 'cross/wk')].shape[0]} encoder rows), KL "
+          f"{kl:.6g}, size-weighted ratio {avg:.4f}, k_max_frac "
+          f"{policy.k_max_frac}, keep {info['keep_min']}-{info['keep_max']}"
+          f"; served: prefill {res['prefill_ms']:.1f} ms, decode p50 "
+          f"{res['decode_p50_ms']:.2f} ms, {res['launches']} launches of "
+          f"each kernel, {agree:.3f} of dense's tokens; peak "
+          f"{info['peak_gb']:.1f} GB")
+    del ctx
+    return info
+
+
+def train_whisper(dev, cfg, params, rates) -> dict:
+    """WHISPER_TRAIN's steps of ``api.make_train_step`` on the full-width
+    whisper (bf16 params; f32 master, m and v), all on one batch of
+    synthetic tokens over frames from SEED: every loss finite, the last
+    below the first; step p50 and peak memory."""
+    from repro_torch import obs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    from repro_torch.serving.metrics import percentile
+
+    t = WHISPER_TRAIN
+    ocfg = adamw.AdamWConfig(lr_peak=t["lr"], warmup_steps=5,
+                             decay_steps=t["steps"])
+    data = SyntheticLM(DataConfig(cfg.vocab_size, t["seq"], t["batch"],
+                                  seed=SEED))
+    batch = {"tokens": torch.from_numpy(data.batch(0)).to(dev),
+             **multimodal_inputs(cfg, t["batch"], dev, SEED + 4)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw.init(params, ocfg)
+    step = api.make_train_step(cfg, ocfg, remat=t["remat"])
+    losses, step_s = [], []
+    for _ in range(t["steps"]):
+        t0 = obs.now()
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))
+        step_s.append(obs.now() - t0)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"whisper training: losses {losses}")
+    res = {"losses": losses, "step_p50_s": percentile(step_s[1:], 50),
+           "first_step_s": step_s[0],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"whisper training ({t}): loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, all {len(losses)} finite; step p50 "
+          f"{1e3 * res['step_p50_s']:.1f} ms (first "
+          f"{1e3 * step_s[0]:.1f}); peak allocated {res['peak_gb']:.1f} GB")
+    del opt
+    return res
+
+
+def serve_whisper(dev, K, rates) -> dict:
+    """Phase 20, whisper_large_v3 at full width (32 + 32 layers, bf16,
+    random weights from SEED): the encoder's time; WHISPER_RUNS dense,
+    uncalibrated ``pallas``, ``pallas``, dense (:func:`multimodal_modes`);
+    a calibrated 0.5 plan served (:func:`whisper_calibrated`); then
+    WHISPER_TRAIN's training steps."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.models import api, model as M
+    from repro_torch.sparsity import SparsityPolicy
+
+    cfg = get_config("whisper_large_v3")
+    params = api.init_model(cfg, SEED, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(SEED)
+    runs = {name: (torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                 (B, S))).to(dev),
+                   multimodal_inputs(cfg, B, dev, SEED + i))
+            for i, (name, (B, S)) in enumerate(WHISPER_RUNS.items())}
+    frames = runs["a"][1]["frames"]
+    with torch.no_grad():
+        M.encode(params, frames, cfg)
+        torch.cuda.synchronize()
+        t0 = obs.now()
+        M.encode(params, frames, cfg)
+        torch.cuda.synchronize()
+    enc_ms = 1e3 * (obs.now() - t0)
+    print(f"whisper_large_v3 full width: {n_params / 1e9:.3f}B params, "
+          f"encoder over {tuple(frames.shape)} frames {enc_ms:.1f} ms")
+    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
+    pol = SparsityPolicy.uniform("pallas", k_max_frac=KEEP)
+    res, dense_a = multimodal_modes("whisper", params, cfg, sp, runs,
+                                    WHISPER_GEN, K, rates, pol)
+    del sp
+    calibrated = whisper_calibrated(dev, K, cfg, params, runs["a"], dense_a)
+    del runs
+    torch.cuda.empty_cache()
+    training = train_whisper(dev, cfg, params, rates)
+    return {"n_params": n_params, "encoder_ms": enc_ms, **res,
+            "calibrated": calibrated, "training": training}
+
+
+def serve_internvl(dev, K, rates) -> dict:
+    """Phase 20, internvl2_26b's language model at full width (48 layers,
+    19.86B parameters, bf16, random weights from SEED, initialised on
+    the card leaf by leaf): INTERNVL_RUN dense, uncalibrated ``pallas``,
+    ``pallas``, dense (:func:`multimodal_modes`)."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.models import api
+    from repro_torch.sparsity import SparsityPolicy
+
+    cfg = get_config("internvl2_26b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = obs.now()
+    params = api.init_model(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = obs.now() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"internvl2_26b full width: {n_params / 1e9:.3f}B params "
+          f"({torch.cuda.memory_allocated() / 1e9:.1f} GB) initialised in "
+          f"{init_s:.1f} s, peak {init_peak:.1f} GB")
+    B, S = INTERNVL_RUN
+    rng = np.random.default_rng(SEED)
+    runs = {"a": (torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                (B, S))).to(dev),
+                  multimodal_inputs(cfg, B, dev, SEED))}
+    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
+    pol = SparsityPolicy.uniform("pallas", k_max_frac=KEEP)
+    res, _ = multimodal_modes("internvl2", params, cfg, sp, runs,
+                              INTERNVL_GEN, K, rates, pol)
+    return {"n_params": n_params, "init_s": init_s, "init_peak_gb": init_peak,
+            **res}
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -5690,17 +6259,33 @@ def main() -> int:
                                       v1=False)
     errs8 = whole_prefill_kernels(K, ref, dev, mamba_prefill_rows(),
                                   layer=MAMBA_LAYER, model="mamba2_130m")
+    # whisper_large_v3's and internvl2_26b's decode-layer shapes (phase
+    # 20), B = 8 and 32 timed, and whisper's cross wk/wv at its encoder
+    # row counts
+    w_rows, errs9 = main_path_kernels(K, ref, build, dev, rates,
+                                      layer=WHISPER_LAYER, batches=(8, 32),
+                                      v1=False)
+    errs10 = whole_prefill_kernels(K, ref, dev, WHISPER_CROSS_ROWS,
+                                   layer=WHISPER_CROSS_KV,
+                                   model="whisper_large_v3")
+    i_rows, errs11 = main_path_kernels(K, ref, build, dev, rates,
+                                       layer=INTERNVL_LAYER, batches=(8, 32),
+                                       v1=False)
     ps_rows, ps_err, ps_launches = per_seq_kernel(K, ref, ops, build, dev,
                                                   rates)
     layer_summary(rows, ps_rows, proj)
     gemma_layer = gemma_layer_summary(g_rows)
     mamba_layer = gemma_layer_summary(m_rows, "mamba2_130m")
+    whisper_layer = gemma_layer_summary(w_rows, "whisper_large_v3")
+    internvl_layer = gemma_layer_summary(i_rows, "internvl2_26b")
     took("3 kernels")
     reduced_model_check(dev)
     reduced_gemma_check(dev)
     reduced_granite = reduced_granite_check(dev)
     reduced_ssm = {a: reduced_ssm_check(dev, a)
                    for a in ("mamba2_130m", "jamba_v01_52b")}
+    reduced_multimodal = {a: reduced_multimodal_check(dev, a)
+                          for a in ("whisper_large_v3", "internvl2_26b")}
     took("4 reduced model")
     cfg, params = full_width_model(dev)
     trace = serving_trace(cfg)
@@ -5738,6 +6323,13 @@ def main() -> int:
     training = train_on_card(
         dev, K, rates, spec_res["spec calibrated"]["spec"]["accept_rate"])
     took("19 training")
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper = serve_whisper(dev, K, rates)
+    gc.collect()
+    torch.cuda.empty_cache()
+    internvl = serve_internvl(dev, K, rates)
+    took("20 whisper_large_v3 and internvl2_26b")
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -5760,7 +6352,12 @@ def main() -> int:
         "mamba2_130m": {**mamba, "kernels": m_rows,
                         "kernels_per_decode_layer": mamba_layer},
         "reduced_granite": reduced_granite, "reduced_ssm": reduced_ssm,
-        "training": training}}))
+        "training": training,
+        "whisper_large_v3": {**whisper, "kernels": w_rows,
+                             "kernels_per_decode_layer": whisper_layer},
+        "internvl2_26b": {**internvl, "kernels": i_rows,
+                          "kernels_per_decode_layer": internvl_layer},
+        "reduced_multimodal": reduced_multimodal}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     expert_rows = [r for r in ge_rows if r["R"] == 8]
@@ -5774,7 +6371,8 @@ def main() -> int:
                 (kname, [r[kname] for r in decode_rows],
                  results["pallas"][0]["launches"][kname],
                  max(errs[kname], errs2[kname], errs3[kname], errs4[kname],
-                     errs5[kname], errs7[kname], errs8[kname])),
+                     errs5[kname], errs7[kname], errs8[kname], errs9[kname],
+                     errs10[kname], errs11[kname])),
                 # one granite decode layer's 3 expert-batched projections
                 # (48 experts, R = 8), and the expert kernel's launches in
                 # phase 17's first pallas run

@@ -21,6 +21,14 @@ dispatched rows of every expert, capacity padding included), one tau
 per (layer, key) is shared by the experts, and its compute weight is
 the reference's ``_active_size``: top-k x n x m, the weights a token
 actually reads.
+
+On whisper the context keeps the dense encoder output (``enc_out``):
+``cross/wk`` and ``cross/wv`` capture its B*F rows, ``cross/wq`` the
+decoder's, and the encoder's own projections are no key.  The fitness
+runs feed it to every block instead of encoding the frames again (the
+encoder runs dense under every policy, so it is the same tensor).  On
+InternVL the patch embeddings ride in the batch and every capture
+includes their rows.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_linear as sl
 from repro_torch.core import unstacked as U
+from repro_torch.models import model as M
 from repro_torch.sparsity import CaptureSink, SparsityPolicy
 
 Key = Tuple[int, str]                       # (depth, leaf path e.g. "attn/wq")
@@ -111,7 +120,9 @@ class CalibContext:
         with torch.no_grad():
             logits, _ = U.forward_unstacked(
                 self.params, self.cfg, self.batch["tokens"],
-                layers=self.layers, per_depth_sp=per_depth_sp, policy=_MASK)
+                layers=self.layers, per_depth_sp=per_depth_sp,
+                patch_embeds=self.batch.get("patch_embeds"),
+                enc_out=self.enc_out, policy=_MASK)
             ls = torch.log_softmax(logits.float(), -1)
             return float(torch.mean(torch.sum(pd * (dense - ls), -1)))
 
@@ -143,10 +154,14 @@ def _active_size(cfg: ModelConfig, w) -> float:
 def build_context(params, cfg: ModelConfig, batch) -> CalibContext:
     """Run the dense model once over the calibration batch, capturing every
     linear's inputs and each block's dense input/output.  ``batch["tokens"]``
-    (numpy or a tensor) moves to the params' device."""
+    (numpy or a tensor) moves to the params' device, and so do
+    ``batch["frames"]`` (enc-dec) and ``batch["patch_embeds"]`` (VLM),
+    in their own dtype."""
     layers = U.unstack_layers(cfg, params)
     device = params["embed"].device
     tokens = torch.as_tensor(batch["tokens"]).to(device, torch.long)
+    inputs = {k: torch.as_tensor(batch[k]).to(device)
+              for k in ("frames", "patch_embeds") if k in batch}
     id2key: Dict[int, Key] = {}
     g, sizes, keys_by_depth = {}, {}, {}
     for dl in layers:
@@ -162,12 +177,17 @@ def build_context(params, cfg: ModelConfig, batch) -> CalibContext:
 
     cap = CaptureSink()
     with torch.no_grad():
+        enc_out = None
+        if cfg.family == "encdec" and "frames" in inputs:
+            enc_out = M.encode(params, inputs["frames"], cfg)
         logits, block_io = U.forward_unstacked(
             params, cfg, tokens, layers=layers, collect_block_inputs=True,
+            patch_embeds=inputs.get("patch_embeds"), enc_out=enc_out,
             policy=SparsityPolicy.dense(capture=cap))
         block_io = list(block_io)
         # the last block's output (the input of the final norm)
-        block_io.append(U.block_forward(layers[-1], block_io[-1], cfg))
+        block_io.append(U.block_forward(layers[-1], block_io[-1], cfg,
+                                        enc_out=enc_out))
 
     # (T, n) per linear; an expert capture is already (E, T, n)
     acts: Dict[Key, list] = {}
@@ -181,6 +201,7 @@ def build_context(params, cfg: ModelConfig, batch) -> CalibContext:
               for key, chunks in acts.items()}
 
     return CalibContext(
-        cfg=cfg, params=params, layers=layers, batch={"tokens": tokens},
-        dense_logits=logits, block_io=block_io, acts=acts_t, g=g,
-        sizes=sizes, keys_by_depth=keys_by_depth)
+        cfg=cfg, params=params, layers=layers,
+        batch={"tokens": tokens, **inputs}, dense_logits=logits,
+        block_io=block_io, acts=acts_t, g=g, sizes=sizes,
+        keys_by_depth=keys_by_depth, enc_out=enc_out)

@@ -7,9 +7,12 @@ forward's.  The port supports the layers its model runs (``attn``,
 ``local`` and ``global`` attention or a ``mamba`` block, with a dense
 MLP, a MoE FFN or none, each layer run as its own kind, jamba's mixed
 pattern positions included); an expert leaf's sp entry carries one g
-row per expert, (E, n) per depth and (reps, E, n) stacked.  Encoder
-frames and patch embeddings raise ``NotImplementedError`` (they come
-with the enc-dec and VLM slices).
+row per expert, (E, n) per depth and (reps, E, n) stacked.  On
+whisper the depths are the decoder's, each with its ``cross`` leaves;
+the encoder runs whole (dense, as the reference's calibration runs it)
+and its output feeds every block's cross-attention.  On InternVL the
+patch embeddings precede the tokens, so every block's rows include
+them.
 
 The capture hook keys activations on ``id(w)``, and ``tensor[r]`` makes a
 new Python object on every call.  So :func:`unstack_layers` builds each
@@ -26,7 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models import params as P
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import rmsnorm, sinusoidal_positions
 
 # weight-leaf names WiSparse sparsifies: every channel-sparse linear in the
 # zoo (attention q/k/v/o, MLP gate/up/down, SSM input/output projections);
@@ -136,38 +139,47 @@ def get_sp_leaf(sp: dict, path: str) -> dict:
 
 def forward_unstacked(params, cfg: ModelConfig, tokens, *, layers=None,
                       per_depth_sp=None, patch_embeds=None, frames=None,
-                      collect_block_inputs=False, policy=None):
+                      collect_block_inputs=False, policy=None,
+                      enc_out=None):
     """Full forward via the Python-loop layer list.  Returns
     (f32 logits, block_inputs or None).  ``policy``: the SparsityPolicy
     driving every projection (depth ranges resolve per layer here; None
-    runs dense)."""
+    runs dense).  ``frames`` run whisper's encoder under ``policy``
+    without its capture (the encoder's inputs are no calibration key,
+    and at full width they would be 32 layers x 6 projections x B*1500
+    rows); ``enc_out``, when given, stands in for that encoder output.
+    ``patch_embeds`` precede the tokens."""
     from repro_torch.core import sparse_linear as _sl
-    if patch_embeds is not None or frames is not None:
-        raise NotImplementedError(
-            "patch embeddings and encoder frames come with the VLM and "
-            "enc-dec slices")
     policy = policy if policy is not None else _sl.DENSE
     layers = layers or unstack_layers(cfg, params)
+    if enc_out is None and cfg.family == "encdec" and frames is not None:
+        enc_out = M.encode(params, frames, cfg,
+                           policy=dataclasses.replace(policy, capture=None))
     x = M.embed_tokens(params, tokens, cfg)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], 1)
+    if cfg.family == "encdec":
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device).to(x.dtype)[None]
     block_inputs = [] if collect_block_inputs else None
     for dl in layers:
         if collect_block_inputs:
             block_inputs.append(x)
         sp = per_depth_sp[dl.depth] if per_depth_sp is not None else None
         x, _ = M.layer_apply(dl.params, x, cfg, dl.kind, sp, None, None,
-                             "train", policy=policy.resolve_depth(dl.depth))
+                             "train", policy=policy.resolve_depth(dl.depth),
+                             enc_out=enc_out)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return M.lm_logits(params, x, cfg), block_inputs
 
 
 def block_forward(dl: DepthLayer, x, cfg: ModelConfig, sp=None, enc_out=None,
                   policy=None):
-    """One transformer block (paper's unit of sensitivity analysis)."""
+    """One transformer block (paper's unit of sensitivity analysis);
+    ``enc_out`` feeds an enc-dec block's cross-attention."""
     from repro_torch.core import sparse_linear as _sl
-    if enc_out is not None:
-        raise NotImplementedError("cross-attention comes with the enc-dec "
-                                  "slice")
     policy = policy if policy is not None else _sl.DENSE
     out, _ = M.layer_apply(dl.params, x, cfg, dl.kind, sp, None, None,
-                           "train", policy=policy.resolve_depth(dl.depth))
+                           "train", policy=policy.resolve_depth(dl.depth),
+                           enc_out=enc_out)
     return out

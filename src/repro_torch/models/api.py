@@ -1,7 +1,9 @@
 """Public model API (port of the JAX package's ``models/api.py``): the
 cache and prefix-segment schemas, model init, the loss and the train
-step, and the step functions the serving engine calls (slot decode,
-chunked prefill, speculative verify, whole-prompt prefill)."""
+step, the step functions the serving engine calls (slot decode, chunked
+prefill, speculative verify, whole-prompt prefill), and the plain
+batched prefill and decode steps, with frames (enc-dec) or patch
+embeddings (VLM) beside the tokens."""
 from __future__ import annotations
 
 import torch
@@ -22,19 +24,21 @@ def cache_schema(cfg: ModelConfig, batch: int, cache_len: int):
     layer (its rolling window); ``{"ssm": {conv_x, conv_B, conv_C,
     ssm}}`` on a ``mamba`` layer: the last ``W - 1`` projected inputs
     (reps,B,W-1,C) in the model dtype and the f32 state (reps,B,H,P,N),
-    with no time axis."""
+    with no time axis.  An enc-dec decoder layer adds ``{"cross": {k,
+    v}}``, the static cross K/V over ``cfg.encoder_frames`` frames in the
+    same layouts."""
     M.check_supported(cfg)
     KV, hd = cfg.num_kv_heads, cfg.head_dim
 
     def kv_pair(reps, T):
-        return {"self": {
+        return {
             "k": P.ParamSpec((reps, batch, KV, hd, T),
                              ("layers", "batch", "kv_heads", None, "kv_seq"),
                              init="zeros"),
             "v": P.ParamSpec((reps, batch, KV, T, hd),
                              ("layers", "batch", "kv_heads", "kv_seq", None),
                              init="zeros"),
-        }}
+        }
 
     def ssm_state(reps):
         w, di, n = cfg.ssm_conv, cfg.d_inner, cfg.ssm_state
@@ -51,14 +55,36 @@ def cache_schema(cfg: ModelConfig, batch: int, cache_len: int):
                                init="zeros", dtype="float32"),
         }}
 
-    groups = []
-    for pattern, reps in cfg.layer_groups():
-        groups.append(tuple(
-            ssm_state(reps) if mixer == "mamba" else
-            kv_pair(reps, min(cfg.sliding_window, cache_len)
-                    if mixer == "local" else cache_len)
-            for mixer, _ffn in pattern))
-    return groups
+    def entry(mixer, reps):
+        if mixer == "mamba":
+            e = ssm_state(reps)
+        else:
+            e = {"self": kv_pair(reps, min(cfg.sliding_window, cache_len)
+                                 if mixer == "local" else cache_len)}
+        if cfg.family == "encdec":
+            e["cross"] = kv_pair(reps, cfg.encoder_frames)
+        return e
+
+    return [tuple(entry(mixer, reps) for mixer, _ffn in pattern)
+            for pattern, reps in cfg.layer_groups()]
+
+
+def pad_caches(cfg: ModelConfig, caches, batch: int, total_len: int):
+    """Prefill caches zero-padded to :func:`cache_schema`'s shapes at
+    ``total_len`` positions and cast to the model dtype (the reference's
+    ``launch/serve._pad_caches``): the self caches grow along T, the
+    cross caches (F frames) stay as they are."""
+    def fit(src, spec):
+        pads = []                 # F.pad lists the last dim's pads first
+        for have, want in zip(reversed(src.shape), reversed(spec.shape)):
+            pads += [0, want - have]
+        return torch.nn.functional.pad(src, pads).to(
+            P.DTYPES[spec.dtype or cfg.dtype])
+
+    specs = P.tree_leaves(cache_schema(cfg, batch, total_len))
+    return P.tree_unflatten_like(caches, [
+        fit(src, spec)
+        for src, spec in zip(P.tree_leaves(caches), specs, strict=True)])
 
 
 def prefix_segment_schema(cfg: ModelConfig, length: int):
@@ -98,17 +124,31 @@ def token_loss(cfg: ModelConfig, logits, tokens, text_start: int = 0):
     return torch.mean(lse - picked)
 
 
+def _multimodal_inputs(cfg: ModelConfig, batch) -> dict:
+    """The forward's frames (enc-dec) or patch embeddings (VLM) from
+    ``batch``; a batch without them raises ``KeyError``, as the
+    reference's steps do."""
+    if cfg.family == "vlm":
+        return {"patch_embeds": batch["patch_embeds"]}
+    if cfg.family == "encdec":
+        return {"frames": batch["frames"]}
+    return {}
+
+
 def make_loss_fn(cfg: ModelConfig, remat: str = "none", policy=None):
     """``policy``: the SparsityPolicy baked into the returned callable
-    (override per call via the ``policy=`` kwarg).  The VLM and enc-dec
-    families raise here: their forwards are not ported."""
+    (override per call via the ``policy=`` kwarg).  ``batch`` holds
+    ``tokens`` and, for a VLM, ``patch_embeds`` (the loss skips the
+    prefix positions: ``text_start = vision_prefix``) or, for enc-dec,
+    ``frames``."""
     M.check_supported(cfg)
     text_start = cfg.vision_prefix if cfg.family == "vlm" else 0
 
     def loss_fn(params, batch, sp=None, policy=policy):
         logits, _ = M.forward(params, cfg, tokens=batch["tokens"],
                               mode="train", sp=sp, remat=remat,
-                              policy=policy)
+                              policy=policy,
+                              **_multimodal_inputs(cfg, batch))
         return token_loss(cfg, logits, batch["tokens"], text_start)
     return loss_fn
 
@@ -166,10 +206,28 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
 
 
 def make_prefill_step(cfg: ModelConfig):
-    def prefill_step(params, tokens, sp=None, policy=None):
+    """``prefill_step(params, tokens, sp=None, policy=None, frames=None,
+    patch_embeds=None) -> (last-position logits (B,V), fresh caches)``;
+    an enc-dec prefill with frames stashes each layer's cross K/V."""
+    def prefill_step(params, tokens, sp=None, policy=None, frames=None,
+                     patch_embeds=None):
         return M.forward(params, cfg, tokens=tokens, mode="prefill", sp=sp,
-                         policy=policy)
+                         policy=policy, frames=frames,
+                         patch_embeds=patch_embeds)
     return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, policy=None):
+    """The plain batched decode step (the reference's
+    ``make_decode_step``): ``decode_step(params, batch, sp=None,
+    policy=policy)`` with ``batch`` = {tokens (B,), positions (B,),
+    caches} -> (logits (B,V), caches updated in place).  Every row
+    weighs alike in the shared saliency."""
+    def decode_step(params, batch, sp=None, policy=policy):
+        return M.forward(params, cfg, tokens=batch["tokens"], mode="decode",
+                         caches=batch["caches"],
+                         positions=batch["positions"], sp=sp, policy=policy)
+    return decode_step
 
 
 def make_slot_decode_step(cfg: ModelConfig):

@@ -5,8 +5,10 @@ pre-transposed cache plus an explicit new-token term, over a full-length
 or a rolling-window cache, multi-token attention against the cache at a
 shared or per-row device offset (chunked prefill, speculative verify),
 and the in-place cache writes of one token (decode, rolling or not) and
-of a window of tokens (chunk, verify).  Cross-attention and bidirectional
-attention come with the archs that use them.
+of a window of tokens (chunk, verify).  Bidirectional attention (whisper's encoder)
+and cross-attention (its decoder against the encoder output) are
+``flash_attention(causal=False)`` over T keys, and cross-attention's
+decode attends a static cache of encoder frames with no new-token term.
 
 The reference wrote these in jnp, not Pallas, so plain torch ops are the
 port.  Scores and softmax run in f32 as in the reference
@@ -25,33 +27,41 @@ from repro_torch.models.layers import softcap as _softcap
 NEG_INF = -1e30
 
 
-def flash_attention(q, k, v, *, window: int = 0, attn_softcap: float = 0.0):
-    """Causal attention.  q: (B,S,H,hd); k, v: (B,S,KV,hd) -> (B,S,H,hd).
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    attn_softcap: float = 0.0):
+    """q: (B,S,H,hd); k, v: (B,T,KV,hd) -> (B,S,H,hd).  ``causal`` keeps,
+    for the query at position s, the keys at t <= s (T = S); without it
+    every query attends all T keys (the encoder's bidirectional layers,
+    cross-attention over T encoder frames).
 
     ``window`` > 0 keeps, for the query at position q, the keys at
     positions t with ``q - window < t <= q`` (the reference's
-    ``_local_attention``, which it takes when ``window < S``).
+    ``_local_attention``, which it takes when ``window < T``).
 
     One masked pass over the whole key range.  Without a window the
-    reference's online softmax over 1024-key chunks is the same
-    computation for S <= 1024 and equal up to f32 rounding beyond; it
-    casts the unnormalised probabilities to v's dtype and divides after
-    the PV product.  Its window path normalises first (a softmax per
-    query chunk), then casts, and so does this one.  The f32 scores of
-    one call take ``B*H*S*S*4`` bytes (650 MB at B = 1, H = 8, S = 4500)."""
+    reference's online softmax over kv chunks (the largest divisor of T
+    up to 1024: 750 for whisper's 1500 frames) is the same computation
+    for T <= 1024 and equal up to f32 rounding beyond; it casts the
+    unnormalised probabilities to v's dtype and divides after the PV
+    product.  Its window path normalises first (a softmax per query
+    chunk), then casts, and so does this one.  The f32 scores of one
+    call take ``B*H*S*T*4`` bytes (650 MB at B = 1, H = 8, S = T = 4500;
+    720 MB in a whisper encoder layer at B = 4, H = 20, S = T = 1500)."""
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    T, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = hd ** -0.5
-    local = bool(window) and window < S
+    local = bool(window) and window < T
     qr = q.reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4).float()
     kr = k.permute(0, 2, 3, 1).float()[:, :, None]         # (B,KV,1,hd,T)
     s = _softcap(torch.matmul(qr, kr) * scale, attn_softcap)  # (B,KV,G,S,T)
-    pos = torch.arange(S, device=q.device)
-    mask = pos[None, :] <= pos[:, None]
-    if local:
-        mask &= pos[None, :] > pos[:, None] - window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    if causal or local:
+        qpos = torch.arange(S, device=q.device)[:, None]
+        kpos = torch.arange(T, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if local:
+            mask &= kpos > qpos - window
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     if local:
         p = torch.softmax(s, -1)
     else:
@@ -63,8 +73,9 @@ def flash_attention(q, k, v, *, window: int = 0, attn_softcap: float = 0.0):
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, positions, k_new, v_new, *,
-                     rolling: bool = False, attn_softcap: float = 0.0):
+def decode_attention(q, k_cache, v_cache, positions, k_new=None,
+                     v_new=None, *, rolling: bool = False,
+                     attn_softcap: float = 0.0):
     """Single new query vs a pre-transposed cache plus an explicit
     new-token term.
 
@@ -72,7 +83,10 @@ def decode_attention(q, k_cache, v_cache, positions, k_new, v_new, *,
     (B,): cache slots at ``positions`` and beyond are masked.  k_new/v_new
     (B,KV,hd) carry the current token, attended explicitly (an online
     softmax over [cache, new token]) and written to the cache separately
-    by :func:`cache_write_kv`.
+    by :func:`cache_write_kv`.  Without them (cross-attention over a
+    static cache of encoder frames, ``positions`` = T) the query attends
+    the cache alone: a softmax, then the PV product of the probabilities
+    cast to the cache dtype, as the reference.
 
     ``rolling``: slot ``p % T`` holds position ``p`` (a local layer's
     window cache).  Before the position wraps, the slots below it are
@@ -91,6 +105,10 @@ def decode_attention(q, k_cache, v_cache, positions, k_new, v_new, *,
     if rolling:
         valid = torch.where(pos < T, valid, slot != pos % T)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    if k_new is None:
+        p = torch.softmax(s, -1)
+        out = torch.matmul(p.to(v_cache.dtype).float(), v_cache.float())
+        return out.reshape(B, H, hd).to(q.dtype)
     s_new = (qr * k_new.float()[:, :, None, :]).sum(-1) * scale
     s_new = _softcap(s_new, attn_softcap)
     m = torch.maximum(s.amax(-1), s_new)

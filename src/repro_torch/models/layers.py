@@ -1,7 +1,10 @@
 """Shared primitive layers (port of the JAX package's ``models/layers.py``):
 the sparsity-aware dense projection, RMSNorm, half-split rotary
-embeddings, the logit softcap, SiLU and tanh-approximated GELU."""
+embeddings, whisper's sinusoidal absolute positions, the logit softcap,
+SiLU and tanh-approximated GELU."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -61,3 +64,20 @@ def apply_rope(x, cos, sin):
     c = cos[..., None, :]
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(dt)
+
+
+def sinusoidal_at(positions, dim: int):
+    """Sinusoidal absolute position embedding at ``positions`` (...,) ->
+    (..., dim) f32: ``[sin, cos]`` of ``positions * 10000^(-i / (half -
+    1))``; the caller casts it to x's dtype."""
+    half = dim // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None):
+    """Whisper-style sinusoidal absolute position embedding (length, dim)."""
+    return sinusoidal_at(torch.arange(length, device=device), dim)

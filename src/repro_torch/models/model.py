@@ -1,10 +1,24 @@
-"""Model assembly for decoders (port of the JAX package's
-``models/model.py`` for layers whose mixer is ``attn``, ``local`` or
-``global`` attention or a Mamba2 SSD block and whose FFN is a dense
-gated MLP, a Mixture-of-Experts FFN or none: llama31_8b, deepseek_67b,
-the Gemma family (gemma_2b, gemma2_2b, gemma3_4b), the granite MoE
-models (granite_moe_1b_a400m, granite_moe_3b_a800m), mamba2_130m and the
-jamba hybrid).
+"""Model assembly (port of the JAX package's ``models/model.py`` for
+layers whose mixer is ``attn``, ``local`` or ``global`` attention or a
+Mamba2 SSD block and whose FFN is a dense MLP, a Mixture-of-Experts FFN
+or none: llama31_8b, deepseek_67b, the Gemma family (gemma_2b,
+gemma2_2b, gemma3_4b), the granite MoE models (granite_moe_1b_a400m,
+granite_moe_3b_a800m), mamba2_130m, the jamba hybrid, the enc-dec
+whisper_large_v3 and the VLM internvl2_26b).
+
+Whisper adds an encoder stack (``params["encoder"]``: one stacked group
+of bidirectional ``attn_bidir`` layers with a plain GELU MLP, then a
+final norm) over precomputed frame embeddings (the conv frontend is a
+stub in the reference too), and ``ln_cross``/``cross`` on every decoder
+layer: cross-attention over the encoder output, or over the layer's own
+input when no frames are given, as the reference.  Its positions are
+sinusoidal (no RoPE).  In ``prefill`` each layer stashes the encoder
+output's cross K/V, projected dense whatever the policy (the
+reference's stash passes no sp tree), as the static cache that
+``decode`` attends without a new-token term.  The encoder always runs
+dense: no caller passes it an sp tree.  InternVL prepends precomputed
+patch embeddings (its vision tower is a stub in the reference) to the
+token embeddings in ``train`` and ``prefill``.
 
 Parameters keep the reference's stacked layout: ``params["groups"][g]``
 is a dict of ``(reps, ...)`` tensors per pattern position (``"l0"``), so
@@ -27,7 +41,10 @@ chunk and verify offsets and the chunk's slot are device tensors, read
 by the device alone, so both steps can be captured as CUDA graphs.
 Chunk and verify refuse ``local`` layers, as the reference does: a
 rolling window cannot resume mid-prompt or roll back; and ``mamba``
-layers, whose state has no time axis to write at an offset.
+layers, whose state has no time axis to write at an offset; and the
+enc-dec and VLM families, whose frames or patches no serving step
+carries (the reference's engine refuses them, so none of its entry
+points reaches these modes with them).
 """
 from __future__ import annotations
 
@@ -41,16 +58,21 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_linear
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (apply_rope, dense, rmsnorm,
-                                       rope_angles, softcap)
+                                       rope_angles, sinusoidal_at,
+                                       sinusoidal_positions, softcap)
 from repro_torch.models.mlp import mlp_apply, mlp_schema
 from repro_torch.models.moe import moe_apply, moe_schema
 from repro_torch.models.params import ParamSpec, stacked
 from repro_torch.models.ssm import mamba_apply, mamba_schema
 
-ATTN_KINDS = ("attn", "local", "global")
+ATTN_KINDS = ("attn", "local", "global", "attn_bidir")
 MIXERS = ATTN_KINDS + ("mamba",)
 FFN_KINDS = ("dense", "moe", "none")
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+# families whose inputs go beyond tokens (frames, patch embeddings)
+MULTIMODAL = ("encdec", "vlm")
+# whisper's encoder: one stacked group of this pattern, encoder_layers deep
+ENC_PATTERN = (("attn_bidir", "dense"),)
 # mixers whose caches are full length, so chunk and verify can write them
 # at any offset; a ``local`` layer's window cache rolls, and a ``mamba``
 # layer's state has no time axis
@@ -74,14 +96,12 @@ def _supported_kind(kind) -> bool:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run: cross-attention (enc-dec) and
-    the VLM patch prefix."""
+    """Refuse a family or a layer kind the port does not run."""
     kinds = set(cfg.layer_kinds())
-    if cfg.family not in FAMILIES or cfg.vision_prefix or \
-            not all(map(_supported_kind, kinds)):
+    if cfg.family not in FAMILIES or not all(map(_supported_kind, kinds)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoders (mixers {MIXERS}, "
-            f"FFNs {FFN_KINDS}, families {FAMILIES}); got family "
+            f"{cfg.name}: the port runs mixers {MIXERS}, "
+            f"FFNs {FFN_KINDS} and families {FAMILIES}; got family "
             f"{cfg.family!r} with layer kinds {sorted(kinds)}")
 
 
@@ -99,9 +119,11 @@ def attn_schema(cfg: ModelConfig):
     }
 
 
-def layer_schema(cfg: ModelConfig, kind):
-    """One layer's params: ``ln1`` and the mixer, then ``ln2`` and the
-    FFN unless it is ``none`` (a mamba2 layer has no ``ln2``)."""
+def layer_schema(cfg: ModelConfig, kind, cross: bool = False):
+    """One layer's params: ``ln1`` and the mixer, with ``cross``
+    ``ln_cross`` and the cross-attention (an enc-dec decoder layer),
+    then ``ln2`` and the FFN unless it is ``none`` (a mamba2 layer has
+    no ``ln2``)."""
     if not _supported_kind(kind):
         raise NotImplementedError(f"layer kind {kind} is not ported")
     mixer, ffn = kind
@@ -110,6 +132,9 @@ def layer_schema(cfg: ModelConfig, kind):
         s["mamba"] = mamba_schema(cfg)
     else:
         s["attn"] = attn_schema(cfg)
+    if cross:
+        s["ln_cross"] = ParamSpec((cfg.d_model,), (None,), init="zeros")
+        s["cross"] = attn_schema(cfg)
     if ffn != "none":
         s["ln2"] = ParamSpec((cfg.d_model,), (None,), init="zeros")
         if ffn == "moe":
@@ -122,16 +147,24 @@ def layer_schema(cfg: ModelConfig, kind):
 def model_schema(cfg: ModelConfig):
     check_supported(cfg)
     V, D = cfg.vocab_size, cfg.d_model
+    cross = cfg.family == "encdec"
     s = {
         "embed": ParamSpec((V, D), ("vocab", "embed")),
         "final_norm": ParamSpec((D,), (None,), init="zeros"),
-        "groups": [stacked({f"l{j}": layer_schema(cfg, kind)
+        "groups": [stacked({f"l{j}": layer_schema(cfg, kind, cross)
                             for j, kind in enumerate(pattern)},
                            reps, "layers")
                    for pattern, reps in cfg.layer_groups()],
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamSpec((D, V), ("embed", "vocab"))
+    if cross:
+        s["encoder"] = {
+            "groups": [stacked({f"l{j}": layer_schema(cfg, kind)
+                                for j, kind in enumerate(ENC_PATTERN)},
+                               cfg.encoder_layers, "layers")],
+            "final_norm": ParamSpec((D,), (None,), init="zeros"),
+        }
     return s
 
 
@@ -150,8 +183,16 @@ def _index(tree, r: int):
 
 def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
                cache=None, positions=None, mode: str = "train", slot=None,
-               policy=None, token_weights=None):
-    """Self-attention for one layer of mixer ``kind``.
+               policy=None, token_weights=None, kv_override=None,
+               role_base: str = "attn"):
+    """Self-attention for one layer of mixer ``kind`` (``attn_bidir``:
+    no causal mask), or cross-attention over ``kv_override`` (B,F,D)
+    under the roles ``{role_base}/w*``.
+
+    Cross-attention projects ``wk``/``wv`` over ``kv_override`` without
+    token weights (encoder rows are not the step's tokens) and attends
+    all F rows; in ``decode`` it projects only ``wq`` and ``wo`` and
+    attends the static cache ``{k: (B,KV,hd,F), v: (B,KV,F,hd)}``.
 
     ``decode``: x (B,1,D), ``positions`` (B,) tensor, ``cache`` the
     layer's pool views, written in place after the new token is attended
@@ -182,11 +223,26 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
             "chunked prefill does not support local-attention layers; "
             "use the engine's whole-prompt prefill strategy")
 
-    def proj(name, xin):
+    def proj(name, xin, weights=tw):
         return dense(xin, p[name], sp.get(name), policy=policy,
-                     role=f"attn/{name}", token_weights=tw)
+                     role=f"{role_base}/{name}", token_weights=weights)
 
     q = proj("wq", x).reshape(B, S, H, hd)
+    if kv_override is not None:                      # cross-attention
+        if mode == "decode":
+            kc, vc = cache["k"], cache["v"]
+            F = kc.shape[-1]
+            out = attn_lib.decode_attention(
+                q[:, 0], kc, vc,
+                torch.full((B,), F, dtype=torch.long, device=x.device)
+            )[:, None]
+        else:
+            F = kv_override.shape[1]
+            k = proj("wk", kv_override, None).reshape(B, F, KV, hd)
+            v = proj("wv", kv_override, None).reshape(B, F, KV, hd)
+            out = attn_lib.flash_attention(q, k, v, causal=False)
+        return proj("wo", out.reshape(B, S, H * hd)), None
+
     k = proj("wk", x).reshape(B, S, KV, hd)
     v = proj("wv", x).reshape(B, S, KV, hd)
 
@@ -227,7 +283,8 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
                                 rolling=rolling)
         new_cache = {"k": kc, "v": vc}
     else:
-        out = attn_lib.flash_attention(q, k, v, window=win,
+        out = attn_lib.flash_attention(q, k, v, causal=kind != "attn_bidir",
+                                       window=win,
                                        attn_softcap=cfg.attn_softcap)
         new_cache = None
         if mode == "prefill":
@@ -245,11 +302,13 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
 
 def layer_apply(p, x, cfg: ModelConfig, kind, sp=None, cache=None,
                 positions=None, mode: str = "train", slot=None, policy=None,
-                token_weights=None):
-    """One pre-norm decoder layer of ``kind`` (mixer, ffn).  ``policy``
-    is already depth-resolved; None runs dense.  Returns (x, {"self":
+                token_weights=None, enc_out=None):
+    """One pre-norm layer of ``kind`` (mixer, ffn).  ``policy`` is
+    already depth-resolved; None runs dense.  Returns (x, {"self":
     cache} on an attention layer, {"ssm": cache} on a mamba layer, or
-    None)."""
+    None); an enc-dec decoder layer adds {"cross": cache} in
+    ``prefill`` when ``enc_out`` is given: the cross K/V of the encoder
+    output, projected dense."""
     if policy is None:
         policy = sparse_linear.DENSE
     mixer, ffn = kind
@@ -271,6 +330,24 @@ def layer_apply(p, x, cfg: ModelConfig, kind, sp=None, cache=None,
                            policy=policy, token_weights=token_weights)
         key = "self"
     x = x + h
+    new_cache = {key: nc} if nc is not None else {}
+    if "cross" in p:
+        h = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+        h, _ = attn_apply(p["cross"], h, cfg, "attn_bidir", sp.get("cross"),
+                          cache.get("cross"), positions, mode,
+                          policy=policy, token_weights=token_weights,
+                          kv_override=enc_out if enc_out is not None else x,
+                          role_base="cross")
+        if mode == "prefill" and enc_out is not None:
+            # the static cross K/V for decode, in the decode layouts
+            B, F = enc_out.shape[:2]
+            KV, hd = cfg.num_kv_heads, cfg.head_dim
+            ck = dense(enc_out, p["cross"]["wk"], policy=policy)
+            cv = dense(enc_out, p["cross"]["wv"], policy=policy)
+            new_cache["cross"] = {
+                "k": ck.reshape(B, F, KV, hd).permute(0, 2, 3, 1).contiguous(),
+                "v": cv.reshape(B, F, KV, hd).permute(0, 2, 1, 3).contiguous()}
+        x = x + h
     if ffn == "moe":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         # expert rows are dispatched tokens: no token weights
@@ -279,7 +356,7 @@ def layer_apply(p, x, cfg: ModelConfig, kind, sp=None, cache=None,
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + mlp_apply(p["mlp"], h, cfg, sp.get("mlp"), policy=policy,
                           token_weights=token_weights)
-    return x, ({key: nc} if nc is not None else None)
+    return x, (new_cache or None)
 
 
 def _unbind(tree, reps: int) -> list:
@@ -316,15 +393,17 @@ def _remat_wrap(fn, remat: str):
 
 def run_groups(groups, x, cfg: ModelConfig, *, mode="train", caches=None,
                positions=None, sp=None, slot=None, policy=None,
-               token_weights=None, remat: str = "none"):
+               token_weights=None, remat: str = "none", enc_out=None,
+               patterns=None):
     """Run every stacked layer group in depth order.  Returns (x, caches):
     the pool caches updated in place for decode/chunk/verify, fresh
     stacked caches for prefill, None for train.  ``remat`` (train mode
     only) wraps each rep's layers, as the reference wraps its scan
-    body."""
+    body.  ``patterns`` (default ``cfg.layer_groups()``) gives the
+    groups' (pattern, reps): the encoder passes its own."""
     fresh = []
     depth = 0
-    for gi, (pattern, reps) in enumerate(cfg.layer_groups()):
+    for gi, (pattern, reps) in enumerate(patterns or cfg.layer_groups()):
         gp = groups[gi]
         gc = caches[gi] if caches is not None else None
         gsp = sp[gi] if sp is not None else None
@@ -342,7 +421,7 @@ def run_groups(groups, x, cfg: ModelConfig, *, mode="train", caches=None,
                         _index(gsp[f"l{j}"], r) if gsp is not None else None,
                         _index(gc[j], r) if gc is not None else None,
                         positions, mode, slot=slot, policy=lpol,
-                        token_weights=token_weights)
+                        token_weights=token_weights, enc_out=enc_out)
                     ncs.append(nc)
                 return x, ncs
             x, ncs = _remat_wrap(body, remat if mode == "train"
@@ -446,18 +525,44 @@ def lm_logits(params, x, cfg: ModelConfig):
     return softcap(logits, cfg.logit_softcap).reshape(B, S, -1)
 
 
-def forward(params, cfg: ModelConfig, *, tokens, mode="train", caches=None,
-            positions=None, sp=None, slot=None, policy=None,
-            token_weights=None, remat: str = "none"):
+def encode(params, frames, cfg: ModelConfig, sp=None, remat: str = "none",
+           policy=None):
+    """Whisper's encoder over precomputed conv-frontend frame embeddings
+    (B,F,D): sinusoidal positions, the ``attn_bidir`` stack (train mode:
+    no caches), the final norm.  Per-block backend ranges index decoder
+    depth, so the encoder runs the policy's default backend; without
+    ``sp`` (no caller passes one) every projection is dense."""
+    if policy is not None:
+        policy = policy.resolve_depth(None)
+    enc = params["encoder"]
+    x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                      frames.device).to(frames.dtype)[None]
+    x, _ = run_groups(enc["groups"], x, cfg, mode="train", sp=sp,
+                      remat=remat, policy=policy,
+                      patterns=[(ENC_PATTERN, cfg.encoder_layers)])
+    return rmsnorm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def forward(params, cfg: ModelConfig, *, tokens, frames=None,
+            patch_embeds=None, mode="train", caches=None, positions=None,
+            sp=None, sp_enc=None, slot=None, policy=None, token_weights=None,
+            remat: str = "none"):
     """Unified forward.
 
-    train/prefill: tokens (B,S).
+    train/prefill: tokens (B,S[-P]) [+ frames (B,F,D) | patch_embeds
+                   (B,P,D)].
     decode:        tokens (B,), positions (B,) tensor, caches = the pool.
     chunk:         tokens (1,C) one request's prefill chunk, positions =
                    chunk-start offset (a (1,) tensor), slot = its pool
                    slot (a 0-d tensor), caches = the full slot pool.
     verify:        tokens (S,C) one window per pool row, positions (S,)
                    per-row start offsets, caches = the full slot pool.
+
+    Enc-dec: ``frames`` run the encoder (:func:`encode`, under ``sp_enc``)
+    and the decoder's cross-attention attends its output; sinusoidal
+    positions are added to the token embeddings (at ``positions`` in
+    decode).  VLM: ``patch_embeds`` are cast to x's dtype and precede
+    the tokens.  Chunk and verify refuse both families.
 
     Returns (logits, caches): train -> (B,S,V), None; prefill -> (B,V)
     at the last position, fresh caches; decode -> (B,V), pool updated in
@@ -467,15 +572,30 @@ def forward(params, cfg: ModelConfig, *, tokens, mode="train", caches=None,
     if mode not in MODES:
         raise NotImplementedError(
             f"forward mode {mode!r}: the port runs {MODES}")
+    if mode in ("chunk", "verify") and cfg.family in MULTIMODAL:
+        raise NotImplementedError(
+            f"{mode} mode serves token-only models, not {cfg.family}")
     if policy is None:
         policy = sparse_linear.DENSE
+    enc_out = None
+    if cfg.family == "encdec" and frames is not None:
+        enc_out = encode(params, frames, cfg, sp=sp_enc, remat=remat,
+                         policy=policy)
     if mode == "decode":
-        tokens = tokens[:, None]
-    x = embed_tokens(params, tokens, cfg)
+        x = embed_tokens(params, tokens[:, None], cfg)
+        if cfg.family == "encdec" and cfg.rope_theta == 0.0:
+            x = x + sinusoidal_at(positions, cfg.d_model)[:, None].to(x.dtype)
+    else:
+        x = embed_tokens(params, tokens, cfg)
+        if patch_embeds is not None:                   # VLM stub frontend
+            x = torch.cat([patch_embeds.to(x.dtype), x], 1)
+        if cfg.family == "encdec":
+            x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                         x.device).to(x.dtype)[None]
     x, new_caches = run_groups(
         params["groups"], x, cfg, mode=mode, caches=caches,
         positions=positions, sp=sp, slot=slot, policy=policy,
-        token_weights=token_weights, remat=remat)
+        token_weights=token_weights, remat=remat, enc_out=enc_out)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if mode == "decode":
         return lm_logits(params, x, cfg)[:, 0], new_caches

@@ -240,6 +240,9 @@ class Engine:
                  sp=None, *, device="cuda",
                  ladder: Optional[PolicyLadder] = None,
                  telemetry: Telemetry = NULL_TELEMETRY, clock=None):
+        if cfg.family in M.MULTIMODAL:
+            raise NotImplementedError(
+                f"serving engine supports token-only models, not {cfg.family}")
         if telemetry is None:
             telemetry = NULL_TELEMETRY
         elif not isinstance(telemetry, Telemetry):

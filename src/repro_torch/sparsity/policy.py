@@ -190,9 +190,11 @@ class SparsityPolicy:
                     return b
         return self.backend
 
-    def resolve_depth(self, depth: int) -> "SparsityPolicy":
+    def resolve_depth(self, depth: Optional[int]) -> "SparsityPolicy":
         """Fold the depth-range map into the default backend for one
-        block — the per-layer policy the layer loop dispatches on."""
+        block — the per-layer policy the layer loop dispatches on.
+        ``None`` (whisper's encoder, outside the decoder's depths) folds
+        it into the default backend alone."""
         if not self.block_backends:
             return self
         return dataclasses.replace(

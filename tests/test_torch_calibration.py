@@ -221,12 +221,37 @@ def test_capture_records_before_dispatch_on_every_backend(backend):
     assert wid == id(w) and torch.equal(xc, x) and not xc.requires_grad
 
 
-def test_unported_calibration_inputs_raise(m):
-    with pytest.raises(NotImplementedError):
-        TU.forward_unstacked(m["params"], m["cfg"], torch.zeros(1, 4).long(),
-                             frames=torch.zeros(1))
-    with pytest.raises(NotImplementedError):
-        TU.unstack_layers(reduced(get_config("whisper_large_v3")), {})
+def test_unported_calibration_inputs_raise():
+    """Frames and patch embeddings, once refused here, now run: the
+    unstacked forward of reduced whisper (decoder depths, each with its
+    ``cross`` leaves) and internvl2 against the reference's, logits and
+    every block input at 1e-5."""
+    for arch in ("whisper_large_v3", "internvl2_26b"):
+        jcfg, cfg = jreduced(jget_config(arch)), reduced(get_config(arch))
+        jparams = japi.init_model(jcfg, 0)
+        params = P.from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+        rng = np.random.default_rng(DATA_SEED)
+        toks = rng.integers(0, jcfg.vocab_size, (2, 10)).astype(np.int32)
+        key = "frames" if jcfg.family == "encdec" else "patch_embeds"
+        rows = jcfg.encoder_frames or jcfg.vision_prefix
+        extra = rng.standard_normal((2, rows, jcfg.d_model)).astype(
+            np.float32)
+        layers = TU.unstack_layers(cfg, params)
+        assert [dl.depth for dl in layers] == list(range(cfg.num_layers))
+        assert ("cross" in layers[0].params) == (arch == "whisper_large_v3")
+        jl, jio = JU.forward_unstacked(jparams, jcfg, jnp.asarray(toks),
+                                       collect_block_inputs=True,
+                                       **{key: jnp.asarray(extra)})
+        with torch.no_grad():
+            tl, tio = TU.forward_unstacked(
+                params, cfg, torch.from_numpy(toks).long(), layers=layers,
+                collect_block_inputs=True, **{key: torch.from_numpy(extra)})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5,
+                                   atol=1e-5)
+        assert len(tio) == len(jio) == cfg.num_layers
+        for a, b in zip(tio, jio):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                       atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -1440,3 +1440,29 @@ def test_preempted_train_on_card_equals_uninterrupted(dev, tmp_path):
         assert x.is_cuda and torch.equal(x, y)
     assert a[4] == b[4]
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.parametrize("arch", ["whisper_large_v3", "internvl2_26b"])
+def test_reduced_multimodal_on_card_matches_cpu(dev, arch):
+    """Reduced whisper (frames, cross-attention) and internvl2 (patch
+    prefix) from the CPU's init: the card's prefill-then-decode greedy
+    tokens equal the CPU's under off, mask and pallas, and a whisper plan
+    calibrated on the CPU serves the CPU's tokens on the card
+    (``chip_smoke.reduced_multimodal_check`` raises otherwise)."""
+    out = chip_smoke.reduced_multimodal_check(dev, arch)
+    assert set(out["distinct_tokens"]) == {"off", "mask", "pallas"}
+
+
+@pytest.mark.parametrize("model,layer,rows", [
+    ("whisper_large_v3", [("mlp/wi", 1280, 5120), ("cross/wk", 1280, 1280)],
+     [8, 1500]),
+    ("internvl2_26b", [("mlp/wo", 16384, 6144), ("attn/wk", 6144, 1024)],
+     [8, 32])])
+def test_kernels_at_multimodal_shapes(dev, model, layer, rows):
+    """score_select, then sparse_matmul_shared on its kept blocks, at a
+    whisper and an internvl2 projection shape (bf16, tau -inf and
+    finite, no row weights): against their plain versions, two launches
+    bit-equal (``chip_smoke.whole_prefill_kernels`` raises otherwise)."""
+    errs = chip_smoke.whole_prefill_kernels(K, ref, dev, rows, layer=layer,
+                                            model=model)
+    assert set(errs) == {"score_select", "sparse_matmul_shared"}

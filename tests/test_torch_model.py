@@ -340,10 +340,24 @@ def test_train_logits_match_jax(model):
 
 
 def test_unported_paths_raise(model):
+    """An unknown forward mode raises.  The VLM and enc-dec families,
+    once refused whole, build the reference's schema (key paths and
+    shapes, whisper's encoder and cross leaves among them); only the
+    chunk mode, which no reference entry point reaches on them, still
+    refuses them."""
     with pytest.raises(NotImplementedError, match="forward mode"):
         TM.forward(model["params"], model["cfg"],
                    tokens=torch.zeros(1, 2, dtype=torch.long), mode="encode")
-    with pytest.raises(NotImplementedError):
-        TM.model_schema(get_config("internvl2_26b"))
-    with pytest.raises(NotImplementedError):
-        api.init_model(get_config("whisper_large_v3"), 0, device="cpu")
+    for arch in ("internvl2_26b", "whisper_large_v3"):
+        jcfg, cfg = jreduced(jget_config(arch)), reduced(get_config(arch))
+        want = P.tree_flatten_with_path(_np(japi.init_model(jcfg, 0)))
+        params = api.init_model(cfg, 0, device="cpu")
+        got = P.tree_flatten_with_path(params)
+        assert [(p, tuple(t.shape)) for p, t in got] == \
+            [(p, a.shape) for p, a in want]
+        with pytest.raises(NotImplementedError, match=cfg.family):
+            TM.forward(params, cfg, tokens=torch.zeros(1, 2, dtype=torch.long),
+                       mode="chunk",
+                       caches=api.init_caches(cfg, 1, 8, device="cpu"),
+                       positions=torch.zeros(1, dtype=torch.long),
+                       slot=torch.tensor(0))

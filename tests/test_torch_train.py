@@ -307,8 +307,21 @@ def test_pallas_under_an_sp_tree_has_no_backward():
 
 @pytest.mark.parametrize("arch", ["internvl2_26b", "whisper_large_v3"])
 def test_vlm_and_encdec_losses_raise(arch):
-    cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError):
-        api.make_loss_fn(cfg)
-    with pytest.raises(NotImplementedError):
-        api.make_train_step(cfg, adamw.AdamWConfig())
+    """The VLM and enc-dec losses and train steps read the family's
+    second input from the batch: on tokens alone they raise the
+    reference's ``KeyError`` (their parity with it on full batches:
+    ``tests/test_torch_vlm.py``, ``tests/test_torch_whisper.py``)."""
+    jcfg, cfg = jreduced(jget_config(arch)), reduced(get_config(arch))
+    key = "patch_embeds" if cfg.family == "vlm" else "frames"
+    toks = np.zeros((1, 4), np.int32)
+    jparams = japi.init_model(jcfg, 0)
+    params = P.from_numpy(_np(jparams))
+    with pytest.raises(KeyError) as jexc:
+        japi.make_loss_fn(jcfg)(jparams, {"tokens": jnp.asarray(toks)})
+    with pytest.raises(KeyError) as texc:
+        api.make_loss_fn(cfg)(params, {"tokens": torch.from_numpy(toks)})
+    assert texc.value.args == jexc.value.args == (key,)
+    step = api.make_train_step(cfg, adamw.AdamWConfig())
+    with pytest.raises(KeyError, match=key):
+        step(params, adamw.init(params, adamw.AdamWConfig()),
+             {"tokens": torch.from_numpy(toks)})
