@@ -280,32 +280,54 @@ In order, it:
    params (bit-equal) and the restored params served dense and
    ``pallas`` on phase 16's 8 short prompts, launches checked as in
    phase 16;
-20. runs the enc-dec and VLM families at full width through
-   ``api.make_prefill_step`` and ``api.make_decode_step`` with caches
-   padded as the reference's ``_pad_caches`` (``generate``; the engine
-   refuses these families, as the reference's does).  whisper_large_v3
+20. runs the enc-dec and VLM families at full width through the
+   static-batch loop (``generate``; the engine refuses these families,
+   as the reference's does): ``api.make_prefill_step`` with frames or
+   patch embeddings, the caches padded as the reference's
+   ``_pad_caches``, then the decode step of a
+   ``serving/graphs.BatchDecodeSteps`` per run, one key per mode (dense,
+   ``mask``, uncalibrated ``pallas``: keep 0.5, tau -inf), each built
+   once before the passes and replayed (a CUDA graph; 256 or 336
+   launches of each kernel recorded per sparse replay).  whisper_large_v3
    (32 + 32 layers, d_model 1280, 20 heads of 64, d_ff 5120, vocab
    51866, 1500 frames, 1.60B parameters, bf16, random weights and frame
    embeddings from SEED): the encoder's time, then (a) 4 utterances with
    4-token decoder start sequences and (b) one with a 224-token prompt,
-   64 new tokens each, dense, uncalibrated ``pallas`` (keep 0.5, tau
-   -inf), ``pallas``, dense: each mode repeats its tokens; a sparse run
-   launches each kernel 320 times in its prefill (32 x 4 self, 4 cross,
-   2 MLP projections; the cross-KV stash is dense) and 256 per decode
-   step (32 x (4 + 2 + 2)), a dense run none.  8 decode steps of run (a)
-   traced per mode give device ms per step and the top ops beside the
-   step's byte bound.  Then a 0.5 plan calibrated at full width with the
-   ``--calib-quick`` stages on 2 x 64 tokens over their frames (calibration
-   s, KL, ``k_max_frac``), served on run (a) (launches as above, the
-   share of dense's tokens), and 20 training steps of 2 x 448 tokens
-   over 1500 frames at ``remat="full"`` (every loss finite, the last
-   below the first; step p50, peak memory).  Then internvl2_26b's
-   language model (48 layers, d_model 6144, 48 heads with 8 KV heads of
-   128, d_ff 16384, vocab 92553, 19.86B parameters, 39.7 GB in bf16,
-   initialised leaf by leaf on the card after every earlier model is
-   freed): 2 sequences of 256 patch embeddings and 128 tokens, 32 new
-   tokens, dense, ``pallas``, ``pallas``, dense, 336 launches of each
-   kernel per sparse pass (48 x 7), the same traces and bounds;
+   64 new tokens each, through the graphs dense, ``mask``, ``pallas``,
+   ``pallas``, ``mask``, dense (each mode repeats its tokens), then the
+   eager loop once per mode (its tokens equal the graph's); a sparse
+   run launches each kernel 320 times in its prefill (32 x 4 self, 4
+   cross, 2 MLP projections; the cross-KV stash is dense) and 256 per
+   decode step (32 x (4 + 2 + 2)), any other run none.  8 eager decode
+   steps of run (a) traced dense and ``pallas`` give device ms per step
+   and the top ops beside the step's byte bound, printed with decode p50
+   graph against eager (host ms per step, synced per step) and the
+   card's name and power limit.  Then a 0.5 plan calibrated at full
+   width with the ``--calib-quick`` stages on 2 x 64 tokens over their
+   frames (calibration s, KL, ``k_max_frac``), served eagerly on run (a)
+   (launches as above, the share of dense's tokens), and 20 training
+   steps of 2 x 448 tokens over 1500 frames at ``remat="full"`` (every
+   loss finite, the last below the first; step p50, peak memory).  Then
+   internvl2_26b's language model (48 layers, d_model 6144, 48 heads
+   with 8 KV heads of 128, d_ff 16384, vocab 92553, 19.86B parameters,
+   39.7 GB in bf16, initialised leaf by leaf on the card after every
+   earlier model is freed): 2 sequences of 256 patch embeddings and 128
+   tokens, 32 new tokens, the same graph and eager passes, 336 launches
+   of each kernel per sparse pass (48 x 7), the same traces and bounds;
+21. runs the serve CLI's ``--legacy`` loop (``launch/serve.generate``)
+   on llama31_8b at full width (``SERVE_DEPTH`` layers) over the CLI's
+   4 x 64-token prompts, 32 new tokens, dense, uncalibrated ``pallas``
+   (the CLI's sp: keep 0.5, tau -inf), ``pallas``, dense: a dense
+   prefill, then the decode step built once per call and replayed;
+   each mode repeats its tokens and equals the eager loop's, a ``pallas``
+   call launches each kernel (1 warm call + 31 replays) x 56 = 1,792
+   times, a dense call none.  Then ``python -m
+   repro_torch.launch.serve --legacy --arch llama31_8b --mode pallas`` at
+   full width and full depth in a subprocess must exit 0 and print its
+   tok/s line, and on reduced llama31_8b (f32) the whole-prefill
+   engine's tokens must equal ``generate``'s for equal-length prompts,
+   dense and ``topk_shared`` (``tests/test_serving.py``'s invariant);
+22. prints one JSON line describing every kernel, then, as its last line,
 21. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
@@ -5655,44 +5677,60 @@ WHISPER_TRAIN = dict(steps=20, batch=2, seq=448, lr=1e-3, remat="full")
 
 
 def generate(params, cfg, tokens, gen: int, *, policy=None, sp=None,
-             frames=None, patch_embeds=None, times=None):
-    """Greedy tokens (B, gen) of the plain batched path, which the
-    enc-dec and VLM families take (the engine refuses them, as the
-    reference's does): ``api.make_prefill_step`` over the prompt with
-    its frames or patch embeddings, the caches padded to prefix + prompt
-    + ``gen`` positions (``api.pad_caches``), then ``gen - 1`` steps of
-    ``api.make_decode_step``, every row at one position, prefill and
-    decode under ``policy`` and ``sp``.  ``times``, a dict, gets the
+             frames=None, patch_embeds=None, times=None, steps=None, key=0,
+             prefill=None):
+    """Greedy tokens (B, gen) of the static-batch loop, which the enc-dec
+    and VLM families take (the engine refuses them, as the reference's
+    does): ``api.make_prefill_step`` over the prompt with its frames or
+    patch embeddings under ``prefill`` (a (policy, sp) pair; default
+    ``policy`` and ``sp``), the caches padded to prefix + prompt + ``gen``
+    positions (``api.pad_caches``), then ``gen - 1`` decode steps, every
+    row at one position: with ``steps`` (a
+    ``serving.graphs.BatchDecodeSteps`` at (B, prefix + prompt + gen)),
+    its key ``key`` over the padded caches copied in, the captured step
+    on the card (``BatchDecodeSteps.decode``); without, the eager
+    control, ``api.make_decode_step`` under ``policy`` and ``sp`` with
+    each step's tokens read to the host.  ``times``, a dict, gets the
     prefill's host ms and each decode step's (``prefill_ms``,
-    ``decode_ms``), each until its tokens are on the host."""
+    ``decode_ms``), each until its tokens are ready (a graph step synced
+    for that reading only)."""
     import time
 
     from repro_torch.models import api
     B, S = tokens.shape
     start = S + (0 if patch_embeds is None else patch_embeds.shape[1])
+    pre_policy, pre_sp = prefill or (policy, sp)
     decode = api.make_decode_step(cfg, policy)
-    steps = []
+    step_ms = []
     with torch.no_grad():
         t0 = time.perf_counter()
         logits, caches = api.make_prefill_step(cfg)(
-            params, tokens, sp, policy, frames=frames,
+            params, tokens, pre_sp, pre_policy, frames=frames,
             patch_embeds=patch_embeds)
         caches = api.pad_caches(cfg, caches, B, start + gen)
         tok = torch.argmax(logits, -1)
-        out = [tok.cpu()]
-        prefill_ms = 1e3 * (time.perf_counter() - t0)
-        for i in range(gen - 1):
-            t0 = time.perf_counter()
-            logits, caches = decode(params, {
-                "tokens": tok, "caches": caches,
-                "positions": torch.full((B,), start + i, dtype=torch.long,
-                                        device=tok.device)}, sp)
-            tok = torch.argmax(logits, -1)
-            out.append(tok.cpu())
-            steps.append(1e3 * (time.perf_counter() - t0))
+        if steps is not None:
+            tok.cpu()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            out = steps.decode(key, caches, tok, start, gen,
+                               times=step_ms).cpu()
+        else:
+            out = [tok.cpu()]
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            for i in range(gen - 1):
+                t0 = time.perf_counter()
+                logits, caches = decode(params, {
+                    "tokens": tok, "caches": caches,
+                    "positions": torch.full((B,), start + i,
+                                            dtype=torch.long,
+                                            device=tok.device)}, sp)
+                tok = torch.argmax(logits, -1)
+                out.append(tok.cpu())
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            out = torch.stack(out, 1)
     if times is not None:
-        times.update(prefill_ms=prefill_ms, decode_ms=steps)
-    return torch.stack(out, 1)
+        times.update(prefill_ms=prefill_ms, decode_ms=step_ms)
+    return out
 
 
 def multimodal_inputs(cfg, batch: int, dev, seed: int) -> dict:
@@ -5724,23 +5762,33 @@ def multimodal_passes(cfg) -> tuple:
 
 
 def multimodal_run(name, params, cfg, policy, sp, tokens, inputs, gen,
-                   K) -> dict:
-    """One :func:`generate` run, the kernels' launch counts zeroed just
-    before it and read just after: a sparse run launches each 2-D kernel
-    once per projection of its prefill and of its ``gen - 1`` decode
-    steps (:func:`multimodal_passes`), a dense run none, and neither an
+                   K, steps=None, key=0) -> dict:
+    """One :func:`generate` run (the captured decode step of ``steps``'
+    key ``key``, built before the run, or without ``steps`` the eager
+    control), the kernels' launch counts zeroed just before it and read
+    just after, each launch a graph recorded counted once per replay: a
+    ``pallas`` run launches each 2-D kernel once per projection of its
+    prefill and of its ``gen - 1`` decode steps
+    (:func:`multimodal_passes`), any other run none, and no run an
     expert kernel."""
+    from repro_torch.serving import graphs
     from repro_torch.serving.metrics import percentile
 
+    replays = 0 if steps is None else steps.steps[key]
     K.reset_launch_counts()
     times = {}
     out = generate(params, cfg, tokens, gen, policy=policy, sp=sp,
-                   times=times, **inputs)
+                   times=times, steps=steps, key=key, **inputs)
     torch.cuda.synchronize()
     counts = dict(K.launch_counts)
+    if steps is not None:
+        replays = steps.steps[key] - replays
+        for k, v in steps.captured[key].items():
+            counts[k] += v * replays
     pre, dec = multimodal_passes(cfg)
-    sparse = policy is not None and not policy.is_dense and sp is not None
-    want = pre + (gen - 1) * dec if sparse else 0
+    kernels = (policy is not None and "pallas" in graphs.backends(policy)
+               and sp is not None)
+    want = pre + (gen - 1) * dec if kernels else 0
     got = {k: counts[k] for k in ("score_select", "sparse_matmul_shared")}
     if set(got.values()) != {want} or any(
             v for k, v in counts.items() if k not in got):
@@ -5819,41 +5867,97 @@ def decode_step_bytes(cfg, params, batch: int, cache_len: int,
         kv * (cache_len + frames)
 
 
-def multimodal_modes(tag, params, cfg, sp, runs, gen, K, rates,
-                     pol) -> dict:
-    """Each of ``runs`` ({name: (tokens, inputs)}) served dense, under
-    ``pol`` (uncalibrated: ``sp`` keeps half the blocks at tau -inf),
-    under ``pol`` again and dense again (:func:`multimodal_run`): each
-    mode's two passes must give the same tokens.  Then a window of
-    decode steps of the first run traced per mode (:func:`traced_decode`)
-    beside the step's byte bound.  Returns (the numbers per mode, the
-    first run's dense tokens)."""
-    out = {}
-    for i, mode in enumerate(("dense", "pallas", "pallas", "dense")):
-        policy, s = (None, None) if mode == "dense" else (pol, sp)
+# phase 20's modes, the keys of each run's BatchDecodeSteps, and the
+# order of the graph passes (each mode twice); the eager control runs
+# each mode once
+MODES = ("off", "mask", "pallas")
+GRAPH_PASSES = ("off", "mask", "pallas", "pallas", "mask", "off")
+
+
+def multimodal_modes(tag, params, cfg, sp, runs, gen, K, rates, pol,
+                     smi) -> dict:
+    """Each of ``runs`` ({name: (tokens, inputs)}) served under each of
+    MODES: dense, ``mask`` and ``pol`` (``pallas``; both uncalibrated:
+    ``sp`` keeps half the blocks at tau -inf, where ``mask`` keeps
+    every channel).  The decode step of each run is a
+    ``BatchDecodeSteps`` with one key per mode, each built once before
+    the passes; GRAPH_PASSES replays them, each mode's two passes giving
+    the same tokens, then the eager control runs each mode once and
+    must give the graph's tokens (:func:`multimodal_run`).  A sparse
+    step's graph records 256 (whisper) or 336 (internvl2) launches of
+    each 2-D kernel.  Then a window of eager decode steps of the first
+    run traced dense and ``pallas`` (:func:`traced_decode`) beside the
+    step's byte bound, and decode p50 graph against eager, with ``smi``
+    (the card's name and power limit).  Returns (the numbers per mode,
+    the first run's dense tokens)."""
+    from repro_torch.serving.graphs import BatchDecodeSteps
+    from repro_torch.sparsity import SparsityPolicy
+
+    pols = {"off": (SparsityPolicy.dense(), None),
+            "mask": (SparsityPolicy.uniform("mask"), sp), "pallas": (pol, sp)}
+    _, dec = multimodal_passes(cfg)
+    out, steps = {}, {}
+    for run, (toks, inputs) in runs.items():
+        prefix = sum(x.shape[1] for k, x in inputs.items()
+                     if k == "patch_embeds")
+        st = BatchDecodeSteps(cfg, params, [pols[m] for m in MODES],
+                              toks.shape[0], prefix + toks.shape[1] + gen,
+                              toks.device)
+        for i in range(len(MODES)):
+            st.build(i)
+        for i, m in enumerate(MODES):
+            want = dec if m == "pallas" else 0
+            if {k: v for k, v in st.captured[i].items() if v} != {
+                    k: want for k in ("score_select", "sparse_matmul_shared")
+                    if want}:
+                raise AssertionError(f"{tag} run {run} {m}: the decode "
+                                     f"graph records {st.captured[i]}, "
+                                     f"expected {want} of each 2-D kernel")
+        steps[run] = st
+    for i, mode in enumerate(GRAPH_PASSES):
         for run, (toks, inputs) in runs.items():
-            res = multimodal_run(f"{tag} {mode} {i} run {run}", params, cfg,
-                                 policy, s, toks, inputs, gen, K)
+            res = multimodal_run(f"{tag} graph {mode} {i} run {run}", params,
+                                 cfg, *pols[mode], toks, inputs, gen, K,
+                                 steps=steps[run], key=MODES.index(mode))
             seen = out.setdefault(f"{mode} {run}", [])
             if seen and not torch.equal(seen[0]["tokens"], res["tokens"]):
                 raise AssertionError(f"{tag} {mode} run {run}: the second "
-                                     "pass gave other tokens")
+                                     "graph pass gave other tokens")
             seen.append(res)
-            print(f"{tag} {mode} (pass {len(seen)}) run {run} "
+            print(f"{tag} {mode} graph (pass {len(seen)}) run {run} "
                   f"B={toks.shape[0]} prompt {toks.shape[1]}: prefill "
                   f"{res['prefill_ms']:.1f} ms, decode p50 "
                   f"{res['decode_p50_ms']:.2f} ms (p95 "
                   f"{res['decode_p95_ms']:.2f}), launches {res['launches']} "
-                  f"of each kernel, {res['distinct_tokens']} distinct tokens")
+                  f"of each kernel, {res['distinct_tokens']} distinct tokens",
+                  flush=True)
+    for mode in MODES:
+        for run, (toks, inputs) in runs.items():
+            res = multimodal_run(f"{tag} eager {mode} run {run}", params,
+                                 cfg, *pols[mode], toks, inputs, gen, K)
+            if not torch.equal(res["tokens"], out[f"{mode} {run}"][0][
+                    "tokens"]):
+                raise AssertionError(f"{tag} {mode} run {run}: the graph's "
+                                     "tokens differ from the eager loop's")
+            out[f"{mode} {run} eager"] = res
+            print(f"{tag} {mode} eager run {run}: prefill "
+                  f"{res['prefill_ms']:.1f} ms, decode p50 "
+                  f"{res['decode_p50_ms']:.2f} ms (p95 "
+                  f"{res['decode_p95_ms']:.2f}), launches {res['launches']} "
+                  f"of each kernel; tokens equal the graph's", flush=True)
+    for run, st in steps.items():
+        if st.builds != len(MODES):
+            raise AssertionError(f"{tag} run {run}: {st.builds} builds for "
+                                 f"{len(MODES)} keys")
+    del steps
     first, (toks, inputs) = next(iter(runs.items()))
     B, S = toks.shape
     prefix = sum(x.shape[1] for k, x in inputs.items()
                  if k == "patch_embeds")
-    for mode in ("dense", "pallas"):
-        policy, s = (None, None) if mode == "dense" else (pol, sp)
-        tr = traced_decode(params, cfg, policy, s, toks, inputs)
+    for mode in ("off", "pallas"):
+        tr = traced_decode(params, cfg, *pols[mode], toks, inputs)
         nbytes = decode_step_bytes(cfg, params, B, prefix + S + gen,
-                                   1.0 if mode == "dense" else KEEP)
+                                   1.0 if mode == "off" else KEEP)
         tr["bound_ms"] = 1e3 * nbytes / rates.hbm_bw
         out[f"{mode} traced"] = tr
         print(f"{tag} {mode} run {first}: {tr['device_ms']:.3f} device ms "
@@ -5861,13 +5965,25 @@ def multimodal_modes(tag, params, cfg, sp, runs, gen, K, rates,
               f"{tr['bound_ms']:.3f} ms ({nbytes / 1e9:.3f} GB); top ops "
               + "; ".join(f"{k} {ms:.3f} ms ({100 * f:.0f}%)"
                           for k, ms, f in tr["top_ops"]))
-    dense = out[f"dense {first}"][0]["tokens"]
+    for mode in MODES:
+        for run in runs:
+            g = [r["decode_p50_ms"] for r in out[f"{mode} {run}"]]
+            e = out[f"{mode} {run} eager"]["decode_p50_ms"]
+            tr = out.get(f"{mode} traced") if run == first else None
+            print(f"{tag} {mode} run {run}: decode p50 graph "
+                  f"{' / '.join(f'{x:.2f}' for x in g)} ms against eager "
+                  f"{e:.2f} ms (host, synced per step)"
+                  + (f"; {tr['device_ms']:.3f} device ms per traced eager "
+                     "step" if tr else "") + f"; {smi}")
+    dense = out[f"off {first}"][0]["tokens"]
     agree = float((out[f"pallas {first}"][0]["tokens"] == dense
                    ).float().mean())
     print(f"{tag}: uncalibrated pallas keeps {agree:.3f} of dense's greedy "
           f"tokens on run {first}")
     return {k: ([{n: x for n, x in r.items() if n != "tokens"} for r in v]
-                if isinstance(v, list) else v) for k, v in out.items()} | {
+                if isinstance(v, list) else
+                {n: x for n, x in v.items() if n != "tokens"})
+            for k, v in out.items()} | {
         "pallas_token_agreement": agree}, dense
 
 
@@ -5971,11 +6087,11 @@ def train_whisper(dev, cfg, params, rates) -> dict:
     return res
 
 
-def serve_whisper(dev, K, rates) -> dict:
+def serve_whisper(dev, K, rates, smi) -> dict:
     """Phase 20, whisper_large_v3 at full width (32 + 32 layers, bf16,
-    random weights from SEED): the encoder's time; WHISPER_RUNS dense,
-    uncalibrated ``pallas``, ``pallas``, dense (:func:`multimodal_modes`);
-    a calibrated 0.5 plan served (:func:`whisper_calibrated`); then
+    random weights from SEED): the encoder's time; WHISPER_RUNS under
+    MODES, graph against eager (:func:`multimodal_modes`); a calibrated
+    0.5 plan served (:func:`whisper_calibrated`); then
     WHISPER_TRAIN's training steps."""
     from repro_torch import obs
     from repro_torch.configs import get_config
@@ -6004,7 +6120,7 @@ def serve_whisper(dev, K, rates) -> dict:
     sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
     pol = SparsityPolicy.uniform("pallas", k_max_frac=KEEP)
     res, dense_a = multimodal_modes("whisper", params, cfg, sp, runs,
-                                    WHISPER_GEN, K, rates, pol)
+                                    WHISPER_GEN, K, rates, pol, smi)
     del sp
     calibrated = whisper_calibrated(dev, K, cfg, params, runs["a"], dense_a)
     del runs
@@ -6014,11 +6130,11 @@ def serve_whisper(dev, K, rates) -> dict:
             "calibrated": calibrated, "training": training}
 
 
-def serve_internvl(dev, K, rates) -> dict:
+def serve_internvl(dev, K, rates, smi) -> dict:
     """Phase 20, internvl2_26b's language model at full width (48 layers,
     19.86B parameters, bf16, random weights from SEED, initialised on
-    the card leaf by leaf): INTERNVL_RUN dense, uncalibrated ``pallas``,
-    ``pallas``, dense (:func:`multimodal_modes`)."""
+    the card leaf by leaf): INTERNVL_RUN under MODES, graph against
+    eager (:func:`multimodal_modes`)."""
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core.sp_schema import default_sp_stacked
@@ -6045,9 +6161,205 @@ def serve_internvl(dev, K, rates) -> dict:
     sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
     pol = SparsityPolicy.uniform("pallas", k_max_frac=KEEP)
     res, _ = multimodal_modes("internvl2", params, cfg, sp, runs,
-                              INTERNVL_GEN, K, rates, pol)
+                              INTERNVL_GEN, K, rates, pol, smi)
     return {"n_params": n_params, "init_s": init_s, "init_peak_gb": init_peak,
             **res}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the serve CLI's --legacy loop (launch/serve.generate)
+# ---------------------------------------------------------------------------
+
+# the serve CLI's defaults: SyntheticLM(DataConfig(vocab, 64, 4)).batch(0)
+# prompts, 32 new tokens each
+LEGACY_RUN = dict(batch=4, prompt_len=64, gen=32)
+# the reduced f32 engine-against-generate check (tests/test_serving.py's
+# counterpart): 4 prompts of 16 tokens, 8 new tokens each
+LEGACY_PARITY = dict(batch=4, prompt_len=16, gen=8)
+
+
+def legacy_run(name, serve, params, cfg, prompts, gen, policy, sp, K,
+               smi) -> dict:
+    """One ``serve.generate`` call (the ``--legacy`` loop: dense prefill,
+    the decode step built once per call and replayed), the kernels'
+    launch counts zeroed just before it and read just after, each launch
+    the graph recorded counted once per replay (``graphs.launches`` over
+    the ``BatchDecodeSteps`` the call built): a ``pallas`` decode step
+    launches each 2-D kernel once per projection (``pass_launches``), in
+    the warm call and in each of ``gen - 1`` replays; a dense run none."""
+    from unittest import mock
+
+    from repro_torch import obs
+    from repro_torch.serving import graphs
+
+    built = []
+
+    class Recorded(graphs.BatchDecodeSteps):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    K.reset_launch_counts()
+    t0 = obs.now()
+    with mock.patch.object(serve, "BatchDecodeSteps", Recorded):
+        toks = serve.generate(params, cfg, prompts, gen, sp, policy=policy)
+    dt = obs.now() - t0
+    counts = graphs.launches(dict(K.launch_counts), *built)
+    per = pass_launches(cfg)["score_select"] if "pallas" in \
+        graphs.backends(policy) else 0
+    want = {k: gen * per if k in ("score_select", "sparse_matmul_shared")
+            else 0 for k in counts}
+    if counts != want or [st.builds for st in built] != [1] or \
+            built[0].steps != [gen - 1]:
+        raise AssertionError(f"{name}: launches {counts} (expected {want}), "
+                             f"builds {[st.builds for st in built]}, steps "
+                             f"{[st.steps for st in built]}")
+    n = toks.numel()
+    print(f"{name}: generated {n} tokens in {dt:.3f} s ({n / dt:.1f} tok/s "
+          f"on {smi}, the build included), launches "
+          f"{counts['score_select']} of each kernel", flush=True)
+    return {"tokens": toks, "s": dt, "tok_s": n / dt,
+            "launches": counts["score_select"]}
+
+
+def legacy_cli(B: int, P: int, gen: int) -> dict:
+    """``python -m repro_torch.launch.serve --legacy --mode pallas`` at full
+    width and full depth (llama31_8b, 32 layers) in a subprocess: it must
+    exit 0 and print its tok/s line."""
+    from repro_torch import obs
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    argv = ["--legacy", "--arch", "llama31_8b", "--mode", "pallas",
+            "--sparsity", str(KEEP), "--prompt-len", str(P), "--gen",
+            str(gen), "--batch", str(B)]
+    t0 = obs.now()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+        env=env, cwd=HERE, capture_output=True, text=True, timeout=300)
+    wall = obs.now() - t0
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("generated ")), None)
+    if proc.returncode != 0 or line is None:
+        raise AssertionError(f"serve {' '.join(argv)} exited "
+                             f"{proc.returncode}: {proc.stdout[-1000:]}"
+                             f"{proc.stderr[-2000:]}")
+    print(f"serve {' '.join(argv)}: exit 0 in {wall:.1f} s; {line}",
+          flush=True)
+    return {"exit": proc.returncode, "wall_s": wall, "line": line}
+
+
+def legacy_parity(dev) -> dict:
+    """The reference's invariant on the card (tests/test_serving.py:41-57):
+    on reduced llama31_8b (f32) the whole-prefill engine's tokens equal
+    ``generate``'s for equal-length prompts, dense and under
+    ``topk_shared`` at keep 0.5 (exact token parity is a property of f32
+    runs)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.sparsity import SparsityPolicy
+
+    cfg = reduced(get_config("llama31_8b"))
+    params = api.init_model(cfg, SEED, device=dev)
+    B, P, gen = (LEGACY_PARITY[k] for k in ("batch", "prompt_len", "gen"))
+    prompts = SyntheticLM(DataConfig(cfg.vocab_size, P, B)).batch(0)
+    out = {}
+    for backend, keep in (("off", 1.0), ("topk_shared", KEEP)):
+        sp = None if backend == "off" else default_sp_stacked(
+            params, cfg, keep_frac=keep)
+        policy = SparsityPolicy.uniform(backend, k_max_frac=keep)
+        legacy = serve.generate(params, cfg, prompts, gen, sp,
+                                policy=policy).tolist()
+        eng = Engine(params, cfg, EngineConfig(
+            max_slots=B, max_len=P + gen, prefill_chunk=8, policy=policy,
+            prefill_strategy="whole", prefill_dense_frac=1.0), sp,
+            device=dev)
+        for b in range(B):
+            eng.submit(prompts[b], gen)
+        got = eng.run()
+        if [got[b] for b in range(B)] != legacy:
+            raise AssertionError(f"reduced f32 {backend}: engine {got} != "
+                                 f"generate {legacy}")
+        out[backend] = len({t for row in legacy for t in row})
+    print(f"reduced llama31_8b (f32) on the card: the whole-prefill "
+          f"engine's tokens equal generate's under off and topk_shared "
+          f"({out} distinct tokens)", flush=True)
+    return {"distinct_tokens": out}
+
+
+def serve_legacy(dev, K, smi) -> dict:
+    """Phase 21, the ``--legacy`` loop: ``launch/serve.generate`` on
+    llama31_8b at full width (SERVE_DEPTH layers, random weights from
+    SEED) over the CLI's prompts (LEGACY_RUN), dense and under
+    uncalibrated ``pallas`` with the CLI's sp (keep 0.5, tau -inf), each
+    called twice (:func:`legacy_run`: the same tokens, 1 build, (1 + gen -
+    1) x 56 launches of each kernel, 0 dense), against the loop timed per
+    step through a ``BatchDecodeSteps`` and eagerly (:func:`generate`
+    with a dense prefill: the same tokens, decode p50 graph against
+    eager); then the
+    CLI at full depth (:func:`legacy_cli`) and the reduced f32
+    engine-against-generate check (:func:`legacy_parity`)."""
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.serving.graphs import BatchDecodeSteps
+    from repro_torch.sparsity import SparsityPolicy
+
+    cfg, params = full_width_model(dev)
+    B, P, gen = (LEGACY_RUN[k] for k in ("batch", "prompt_len", "gen"))
+    prompts = torch.from_numpy(SyntheticLM(DataConfig(
+        cfg.vocab_size, P, B)).batch(0)).to(dev)
+    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
+    pols = {"off": (SparsityPolicy.dense(), None),
+            "pallas": (SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
+                       sp)}
+    out = {}
+    for mode in ("off", "pallas", "pallas", "off"):
+        policy, s = pols[mode]
+        res = legacy_run(f"legacy {mode}", serve, params, cfg, prompts, gen,
+                         policy, s, K, smi)
+        seen = out.setdefault(mode, [])
+        if seen and not torch.equal(seen[0]["tokens"], res["tokens"]):
+            raise AssertionError(f"legacy {mode}: a second generate gave "
+                                 "other tokens")
+        seen.append(res)
+    # the same loop, timed per step: through a BatchDecodeSteps built
+    # before the run (the graph) and eagerly
+    st = BatchDecodeSteps(cfg, params, [(p.for_phase("decode"), s)
+                                        for p, s in pols.values()],
+                          B, P + gen, dev)
+    for i, (mode, (policy, s)) in enumerate(pols.items()):
+        st.build(i)
+        for path, steps in (("graph", st), ("eager", None)):
+            times = {}
+            got = generate(params, cfg, prompts, gen,
+                           policy=policy.for_phase("decode"), sp=s,
+                           prefill=(policy.for_phase("prefill_dense"), None),
+                           times=times, steps=steps, key=i)
+            if not torch.equal(got, out[mode][0]["tokens"]):
+                raise AssertionError(f"legacy {mode}: the {path} loop's "
+                                     "tokens differ from generate's")
+            out[f"{mode} {path}_step_p50_ms"] = float(np.median(
+                times["decode_ms"]))
+        print(f"legacy {mode}: tokens equal the eager loop's; decode p50 "
+              f"graph {out[f'{mode} graph_step_p50_ms']:.2f} ms against "
+              f"eager {out[f'{mode} eager_step_p50_ms']:.2f} ms (host, "
+              f"synced per step); {smi}")
+    del st
+    agree = float((out["pallas"][0]["tokens"] == out["off"][0]["tokens"]
+                   ).float().mean())
+    print(f"legacy: uncalibrated pallas keeps {agree:.3f} of dense's tokens")
+    del params, sp, pols
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {m: [{k: v for k, v in r.items() if k != "tokens"} for r in rs]
+           if isinstance(rs, list) else rs for m, rs in out.items()}
+    res["pallas_token_agreement"] = agree
+    res["cli"] = legacy_cli(B, P, gen)
+    res["reduced_parity"] = legacy_parity(dev)
+    return res
 
 
 def drive(eng, window: int = WINDOW) -> tuple:
@@ -6238,6 +6550,7 @@ def main() -> int:
     def took(phase):
         phase_s[phase] = round(obs.now() - mark[0], 1)
         mark[0] = obs.now()
+        print(f"phase {phase}: {phase_s[phase]} s", flush=True)
 
     errs = check_kernel_shapes(K, ref, dev)
     rows, errs2 = main_path_kernels(K, ref, build, dev, rates)
@@ -6325,11 +6638,15 @@ def main() -> int:
     took("19 training")
     gc.collect()
     torch.cuda.empty_cache()
-    whisper = serve_whisper(dev, K, rates)
+    whisper = serve_whisper(dev, K, rates, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    internvl = serve_internvl(dev, K, rates)
+    internvl = serve_internvl(dev, K, rates, smi)
     took("20 whisper_large_v3 and internvl2_26b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    legacy = serve_legacy(dev, K, smi)
+    took("21 legacy generate")
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -6357,7 +6674,7 @@ def main() -> int:
                              "kernels_per_decode_layer": whisper_layer},
         "internvl2_26b": {**internvl, "kernels": i_rows,
                           "kernels_per_decode_layer": internvl_layer},
-        "reduced_multimodal": reduced_multimodal}}))
+        "reduced_multimodal": reduced_multimodal, "legacy": legacy}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     expert_rows = [r for r in ge_rows if r["R"] == 8]

@@ -99,8 +99,16 @@ PATH`` also streams the complete recording to PATH, which ``python -m
 repro_torch.obs.flight.replay PATH`` replays bit for bit.
 ``--flight-dump-dir D`` receives the ring on a trigger: an exception,
 an SLO breach, a saliency-drift edge, ``GET /v1/debug/flight`` or
-SIGUSR1 (``kill -USR1 <pid>``).  The reference's ``--legacy`` (its
-static-batch loop) is not ported yet.
+SIGUSR1 (``kill -USR1 <pid>``).
+
+``--legacy`` runs the static-batch loop instead of the engine
+(:func:`generate`, the reference's numerics reference: the engine's
+whole-prompt prefill gives its tokens for equal-length prompts), with
+the prefill and decode policies and the sp tree the flags above build;
+the engine's flags (the prefix cache, admission control, the gateway,
+telemetry, the quality probe and the flight recorder) are refused
+beside it.  Its decode step is built once (a CUDA graph on the card,
+``serving/graphs.BatchDecodeSteps``).
 """
 from __future__ import annotations
 
@@ -119,10 +127,52 @@ from repro_torch.core.sp_schema import default_sp_stacked
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import api
+from repro_torch.models import model as M
 from repro_torch.serving import (Engine, EngineConfig, SchedulerConfig,
                                  SLOConfig, SpecConfig)
+from repro_torch.serving.graphs import BatchDecodeSteps
 from repro_torch.serving.metrics import latency_percentiles
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
+
+
+def generate(params, cfg, prompts, gen_tokens: int, sp_stacked=None, *,
+             prefill_sparse_frac: float = 0.5, policy=None):
+    """prompts: (B, P) integer tokens.  Returns the (B, gen_tokens) greedy
+    tokens, on the host.
+
+    The reference's static-batch loop: the whole prompt prefills sparse
+    under ``policy.for_phase("prefill_sparse")`` and ``sp_stacked`` when
+    ``prefill_sparse_frac >= 1``, else dense under
+    ``for_phase("prefill_dense")`` with no sp tree (its conservative
+    reading of §5.1's half-dense prefill); the caches are padded to P +
+    ``gen_tokens`` positions (``api.pad_caches``); then ``gen_tokens -
+    1`` greedy decode steps under ``for_phase("decode")``, every row at
+    position P + i.  ``policy=None`` is ``SparsityPolicy.uniform("mask")``
+    (dense-equivalent without calibrated thresholds).  The decode step
+    is built once per call (:class:`BatchDecodeSteps`; the reference
+    jits one per call) and the tokens stay on the device until the end.
+    An enc-dec model's prefill here has no frames, so it stashes no cross
+    cache and the padding raises ``ValueError``, as the reference's
+    does."""
+    if policy is None:
+        policy = SparsityPolicy.uniform("mask")
+    dev = params["embed"].device
+    prompts = torch.as_tensor(prompts, device=dev).long()
+    B, P = prompts.shape
+    total = P + gen_tokens
+    prefill_sparse = prefill_sparse_frac >= 1.0
+    with torch.no_grad():
+        logits, caches = M.forward(
+            params, cfg, tokens=prompts, mode="prefill",
+            sp=sp_stacked if prefill_sparse else None,
+            policy=policy.for_phase(
+                "prefill_sparse" if prefill_sparse else "prefill_dense"))
+        caches = api.pad_caches(cfg, caches, B, total)
+    steps = BatchDecodeSteps(cfg, params,
+                             [(policy.for_phase("decode"), sp_stacked)],
+                             B, total, dev)
+    out = steps.decode(0, caches, torch.argmax(logits, -1), P, gen_tokens)
+    return out.cpu()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -143,6 +193,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--calib-quick", action="store_true",
                     help="small-budget WiSparse calibration on the prompts")
+    ap.add_argument("--legacy", action="store_true",
+                    help="static-batch reference loop instead of the engine")
     ap.add_argument("--sensitive-backend", default=None,
                     choices=["off", "mask"],
                     help="mixed per-block policy: run this backend on the "
@@ -300,7 +352,17 @@ def validate_args(args) -> None:
     elif args.spec_adaptive or args.spec_drafter != 1:
         raise SystemExit("--spec-drafter/--spec-adaptive need "
                          "--spec-gamma > 0 to arm speculative decoding")
+    if args.prefix_cache and args.legacy:
+        raise SystemExit("--prefix-cache needs the engine path, not "
+                         "--legacy")
+    if args.legacy and (args.trace_out or args.events_out
+                        or args.metrics_port or args.metrics_out):
+        raise SystemExit("telemetry flags (--trace-out/--events-out/"
+                         "--metrics-*) need the engine path, not --legacy")
     if args.gateway:
+        if args.legacy:
+            raise SystemExit("--gateway needs the engine path, not "
+                             "--legacy")
         if args.metrics_out:
             raise SystemExit("--gateway owns the engine loop; drop "
                              "--metrics-out and scrape GET /metrics "
@@ -318,6 +380,9 @@ def validate_args(args) -> None:
         raise SystemExit(
             f"--quality-probe-rate must be in (0, 1], or 0 to disable "
             f"probing, got {args.quality_probe_rate}")
+    if args.quality_probe_rate > 0 and args.legacy:
+        raise SystemExit("--quality-probe-rate needs the engine path, "
+                         "not --legacy")
     if args.quality_drift_threshold is not None:
         if args.quality_probe_rate <= 0:
             raise SystemExit("--quality-drift-threshold needs "
@@ -327,9 +392,16 @@ def validate_args(args) -> None:
             raise SystemExit(
                 f"--quality-drift-threshold must be in (0, 1), got "
                 f"{args.quality_drift_threshold}")
+    if (args.max_queue or args.preemption) and args.legacy:
+        raise SystemExit("--max-queue/--preemption need the engine path, "
+                         "not --legacy")
     if args.flight_ring <= 0:
         raise SystemExit(f"--flight-ring must be > 0, got "
                          f"{args.flight_ring}")
+    if args.flight_record is not None and args.legacy:
+        raise SystemExit("--flight-record needs the engine path, not "
+                         "--legacy: the recorder captures the engine's "
+                         "submission and clock streams")
     if args.flight_record is None:
         if args.flight_ring != 4096:
             raise SystemExit("--flight-ring needs --flight-record to arm "
@@ -409,6 +481,19 @@ def main(argv=None):
         validate_rungs(args, len(ladder))
     else:
         policy, sp = build_policy(args, params, cfg, prompts, device)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    if args.legacy:
+        # as the reference's: a ladder's rungs are not served here, dense
+        t0 = obs.now()
+        toks = generate(params, cfg, prompts, args.gen, sp,
+                        policy=policy or SparsityPolicy.dense())
+        dt = obs.now() - t0
+        n = toks.numel()
+        print(f"generated {n} tokens in {dt:.2f}s ({n / dt:.1f} tok/s on "
+              f"{where})")
+        print("sample:", toks[0][:16].numpy())
+        return toks
     slo = None
     if args.slo_tpot_p95 > 0:
         slo = SLOConfig(tpot_p95=args.slo_tpot_p95,
@@ -470,8 +555,6 @@ def main(argv=None):
     if flight is not None and hasattr(signal, "SIGUSR1"):
         # operator-triggered black-box dump: kill -USR1 <pid>
         signal.signal(signal.SIGUSR1, lambda *_: flight.dump("sigusr1"))
-    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
-             else "cpu")
 
     if args.gateway:
         from repro_torch.serving.gateway import Gateway

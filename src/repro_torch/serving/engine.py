@@ -116,9 +116,7 @@ from repro_torch import obs
 from repro_torch.obs import NULL_TELEMETRY, Telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, sync
-from repro_torch.core.unstacked import sparsifiable_leaves
 from repro_torch.kernels import sparse_matmul as K
-from repro_torch.kernels.ops import channel_plan
 from repro_torch.models import api
 from repro_torch.models import model as M
 from repro_torch.models import moe
@@ -475,13 +473,13 @@ class Engine:
         the scratch reserved before the first capture is all any launch
         needs."""
         blocks = {pol.block for pol in self._rung_policies
-                  if "pallas" in _backends(pol)}
+                  if "pallas" in graphs.backends(pol)}
         if not blocks or self.device.type != "cuda":
             return []
         cfg, ecfg = self.cfg, self.ecfg
         whole = self.prefill_strategy == "whole" and any(
-            "pallas" in _backends(ps if ecfg.prefill_dense_frac <= 0.0
-                                  else pd)
+            "pallas" in graphs.backends(
+                ps if ecfg.prefill_dense_frac <= 0.0 else pd)
             for pd, ps, _ in self._rung_phases)
         S = ecfg.max_slots
         # x of each captured step: (groups, tokens per group)
@@ -494,26 +492,11 @@ class Engine:
                       if self.prefill_strategy == "chunked" else set())
         expert_rows = {moe.expert_rows(cfg, b, t) for b, t in steps} \
             if cfg.num_experts else set()
-        elem = self.params["embed"].element_size()
-        shapes = set()
-        for group in self.params["groups"]:
-            for layer in group.values():
-                for _path, w in sparsifiable_leaves(layer):
-                    if w.dim() == 4:                 # (reps, E, n, m)
-                        E, n, m = w.shape[1:]
-                        rs = expert_rows
-                    else:                            # (reps, n, m)
-                        E, n, m = 1, w.shape[1], int(np.prod(w.shape[2:]))
-                        rs = rows
-                    for block in blocks:
-                        blk, n_padded, _ = channel_plan(n, block)
-                        bs = rs | (_whole_rows(
-                            n_padded, m, blk, elem, E,
-                            ecfg.max_slots * ecfg.max_len) if whole
-                            else set())
-                        shapes.update((B, n_padded, m, blk, elem, E)
-                                      for B in bs)
-        return sorted(shapes)
+        top = ecfg.max_slots * ecfg.max_len
+        return graphs.matmul_shapes(
+            self.params, blocks, rows, expert_rows,
+            (lambda n, m, blk, elem, E: _whole_rows(n, m, blk, elem, E, top))
+            if whole else None)
 
     # ------------------------------------------------------------------
     # ladder rungs
@@ -1239,6 +1222,3 @@ def _whole_rows(n: int, m: int, blk: int, elem: int, experts: int,
         b, n, m, n // blk, blk, False, elem, experts).splits > 1}
 
 
-def _backends(pol: SparsityPolicy) -> set:
-    return ({pol.backend} | {b for _, b in pol.role_backends}
-            | {b for _, _, b in pol.block_backends})

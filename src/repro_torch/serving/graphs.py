@@ -17,7 +17,11 @@ and replayed:
   probe is one more, a window-1 verify (gamma 0) under the dense
   reference policy;
 - :class:`ReconSteps`: the quality monitor's Eq. 6 reconstruction pass
-  at ``(1, window)``, one graph for every rung (a staging sp tree).
+  at ``(1, window)``, one graph for every rung (a staging sp tree);
+- :class:`BatchDecodeSteps`: the static-batch loop's plain decode step
+  at ``(B,)`` (``launch/serve.generate``, and the enc-dec and VLM
+  families, which the engine refuses), one graph per decode policy,
+  over caches of its own.
 
 Each keeps static input buffers, filled with ``copy_`` (or ``fill_``)
 before a replay; the pool caches are written in place, and the params
@@ -67,7 +71,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch.core.unstacked import sparsifiable_leaves
+from repro_torch.device import sync
 from repro_torch.kernels import sparse_matmul as K
+from repro_torch.kernels.ops import channel_plan
+from repro_torch.models import api, moe
 from repro_torch.models import params as P
 
 
@@ -201,6 +210,42 @@ def launches(counts: Dict[str, int], *steps: _Steps) -> Dict[str, int]:
             for k, v in cap.items():
                 out[k] += v * (n - 1)
     return out
+
+
+def backends(policy) -> set:
+    """Every backend ``policy`` runs somewhere (its default, by role or
+    by depth)."""
+    return ({policy.backend} | {b for _, b in policy.role_backends}
+            | {b for _, _, b in policy.block_backends})
+
+
+def matmul_shapes(params, blocks, rows, expert_rows=(),
+                  whole_rows=None) -> list:
+    """(B, n, m, blk, elem_bytes, experts) of every ``pallas`` matmul over
+    the sparsifiable weights of ``params`` at each channel block of
+    ``blocks``: a (reps, n, m) weight at each row count of ``rows``, a
+    MoE layer's (reps, E, n, m) expert weights, launched once for all E
+    experts, at each of ``expert_rows``; ``whole_rows(n, m, blk, elem,
+    E)``, when given, adds a set of row counts per weight (a whole-prompt
+    prefill's).  What :class:`GraphSpace` reserves before its first
+    capture."""
+    elem = params["embed"].element_size()
+    shapes = set()
+    for group in params["groups"]:
+        for layer in group.values():
+            for _path, w in sparsifiable_leaves(layer):
+                if w.dim() == 4:                     # (reps, E, n, m)
+                    E, n, m = w.shape[1:]
+                    rs = set(expert_rows)
+                else:                                # (reps, n, m)
+                    E, n, m = 1, w.shape[1], int(np.prod(w.shape[2:]))
+                    rs = set(rows)
+                for block in blocks:
+                    blk, n_padded, _ = channel_plan(n, block)
+                    bs = rs | (whole_rows(n_padded, m, blk, elem, E)
+                               if whole_rows is not None else set())
+                    shapes.update((B, n_padded, m, blk, elem, E) for B in bs)
+    return sorted(shapes)
 
 
 def scratch_columns(caches, scratch_pos: int) -> list:
@@ -552,6 +597,104 @@ class ReconSteps(_Steps):
         self._tokens.copy_(torch.from_numpy(tokens))
         _tree_copy_(self._sp, sp)
         return self._replay(0)
+
+
+class BatchDecodeSteps(_Steps):
+    """The static-batch loop's decode step (the reference's jitted
+    ``decode`` in ``launch/serve.generate``): ``api.make_decode_step``
+    at ``(batch,)`` tokens, every row at one position, one step per key
+    of ``policies``, each a (decode-phase policy, sp tree).
+
+    The steps own ``caches``, zeros of ``api.init_caches(cfg, batch,
+    total_len)``'s shapes (an enc-dec model's static cross cache of
+    ``encoder_frames`` rows too): a step is built on them before a
+    prompt's padded caches are copied in (:meth:`decode`), so neither
+    the warm call nor the capture sees a live cache.  The inactive
+    inputs put every row at ``total_len - 1``, the one position a
+    ``gen``-token loop from a prompt of ``total_len - gen`` never writes;
+    a build on filled caches still puts back what its warm call wrote
+    there (:func:`scratch_columns`: on a ``local`` layer that column is
+    ``total_len - 1`` modulo the window; :func:`ssm_leaves`, which every
+    decode step advances).  The split-K scratch of every ``pallas``
+    matmul at ``batch`` rows is reserved before the first capture.
+
+    The graph returns the f32 logits (B, V) and their argmax, as
+    :class:`DecodeSteps` does.  On the CPU the steps run eagerly."""
+
+    def __init__(self, cfg, params, policies: Sequence[tuple], batch: int,
+                 total_len: int, device):
+        policies = list(policies)
+        device = torch.device(device)
+        blocks = {pol.block for pol, _ in policies
+                  if "pallas" in backends(pol)}
+        reserve = matmul_shapes(
+            params, blocks, {batch},
+            {moe.expert_rows(cfg, batch, 1)} if cfg.num_experts else ()
+        ) if device.type == "cuda" else ()
+        super().__init__(range(len(policies)), GraphSpace(device, reserve))
+        self._step = api.make_decode_step(cfg)
+        self._params = params
+        self._policies = policies
+        self.batch, self.total_len = batch, total_len
+        self.caches = api.init_caches(cfg, batch, total_len, device)
+        self._scratch_pos = total_len - 1
+        if self.space.cuda:
+            self._tokens = torch.zeros(batch, dtype=torch.long,
+                                       device=device)
+            self._positions = torch.full((batch,), self._scratch_pos,
+                                         dtype=torch.long, device=device)
+
+    def _eager(self, i: int, tokens, positions):
+        policy, sp = self._policies[i]
+        logits, _ = self._step(self._params, {
+            "tokens": tokens, "positions": positions,
+            "caches": self.caches}, sp, policy=policy)
+        return logits
+
+    def _inactive(self, i: int) -> None:
+        self._tokens.zero_()
+        self._positions.fill_(self._scratch_pos)
+
+    def _run(self, i: int) -> tuple:
+        logits = self._eager(i, self._tokens, self._positions)
+        return logits, torch.argmax(logits, -1)
+
+    def written(self, i: int) -> list:
+        return scratch_columns(self.caches, self._scratch_pos) + \
+            ssm_leaves(self.caches)
+
+    @torch.no_grad()
+    def decode(self, i: int, caches, first: torch.Tensor, start: int,
+               gen: int, times: Optional[list] = None) -> torch.Tensor:
+        """The loop of ``generate``: ``caches`` (padded to ``total_len``
+        positions, ``api.pad_caches``) copied into the owned ones, then
+        ``gen - 1`` steps of key ``i`` from the prefill's tokens
+        ``first`` (B,), step ``j`` at position ``start + j`` ->
+        (B, ``gen``) greedy tokens on the device, with no host read (on
+        the card each step a replay of the graph, fed the previous
+        step's argmax).  ``times``, a list, gets each step's host ms,
+        the device synced after each step for that reading only."""
+        self.build(i)
+        _tree_copy_(self.caches, caches)
+        out = torch.empty((self.batch, gen), dtype=torch.long,
+                          device=self.device)
+        out[:, 0] = first
+        tok = out[:, 0]
+        for j in range(gen - 1):
+            t0 = obs.now()
+            if self.space.cuda:
+                self._tokens.copy_(tok)
+                self._positions.fill_(start + j)
+                _, tok = self._replay(i)
+            else:
+                self.steps[i] += 1
+                tok = torch.argmax(self._eager(i, tok, torch.full(
+                    (self.batch,), start + j, dtype=torch.long)), -1)
+            out[:, j + 1] = tok
+            if times is not None:
+                sync(self.device)
+                times.append(1e3 * (obs.now() - t0))
+        return out
 
 
 def _tree_copy_(dst, src) -> None:

@@ -12,7 +12,7 @@ ring and the same dump.  Also: concurrent ``/metrics`` scrapes during
 decode (every scrape valid, counters never fall), drain closing the
 engine, an engine-thread exception answered with 500 and re-raised, the
 serve CLI's accepted and refused flags against the JAX CLI's messages
-(``tests/test_gateway.py``, without its ``--legacy`` rows), its metrics
+(``tests/test_gateway.py``), its metrics
 sinks, and ``serve --gateway`` in a subprocess draining an in-flight
 streaming request on SIGTERM and exiting 0, and dumping its flight ring
 on SIGUSR1 into a dump that replays."""
@@ -523,6 +523,18 @@ def test_gateway_steps_the_engine_on_its_own_thread(model):
      "--flight-ring must be > 0"),
     (["--flight-ring", "1024"], "needs --flight-record"),
     (["--flight-dump-dir", "/tmp"], "needs --flight-record"),
+    (["--gateway", "--legacy"], "engine path"),
+    (["--preemption", "--legacy"], "engine path"),
+    (["--max-queue", "4", "--legacy"], "engine path"),
+    (["--quality-probe-rate", "0.5", "--legacy"], "engine path"),
+    (["--flight-record", "f.jsonl", "--legacy"], "engine path"),
+    (["--prefix-cache", "--legacy"], "engine path"),
+    (["--legacy", "--trace-out", "t.json"], "telemetry flags"),
+    (["--legacy", "--events-out", "e.jsonl"], "telemetry flags"),
+    (["--legacy", "--metrics-out", "m.jsonl"], "telemetry flags"),
+    (["--legacy", "--metrics-port", "9090"], "telemetry flags"),
+    (["--legacy", "--gateway", "--metrics-out", "m.jsonl"],
+     "telemetry flags"),
 ])
 def test_serve_cli_rejects_bad_flags_like_jax(argv, msg):
     errs = []

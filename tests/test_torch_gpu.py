@@ -1466,3 +1466,89 @@ def test_kernels_at_multimodal_shapes(dev, model, layer, rows):
     errs = chip_smoke.whole_prefill_kernels(K, ref, dev, rows, layer=layer,
                                             model=model)
     assert set(errs) == {"score_select", "sparse_matmul_shared"}
+
+
+def _legacy_model(arch, dev):
+    """A reduced ``arch`` from the CPU's init (Gemma and whisper weights
+    scaled by ``GEMMA_WEIGHT_SCALE``, else they repeat one token) on the
+    card, its sp tree at keep 0.5 and tau -inf, ``pallas`` at block 16."""
+    cfg = reduced(get_config(arch))
+    params = api.init_model(cfg, 0, device="cpu")
+    if arch.startswith(("gemma", "whisper")):
+        params = chip_smoke.scale_gemma_weights(params)
+    params = P.tree_map(lambda t: t.to(dev), params)
+    sp = default_sp_stacked(params, cfg, keep_frac=0.5, tau=float("-inf"))
+    return cfg, params, sp, SparsityPolicy.uniform("pallas", k_max_frac=0.5,
+                                                   block=16)
+
+
+@pytest.mark.parametrize("arch,S,gen", [("gemma2_2b", 24, 16),
+                                        ("mamba2_130m", 16, 8)])
+def test_legacy_generate_graph_equals_eager_on_card(dev, arch, S, gen):
+    """``serve.generate`` on the card, its decode step a CUDA graph built
+    once per call, under uncalibrated ``pallas``: the eager loop's tokens
+    (a dense prefill, then ``api.make_decode_step``), the same tokens
+    from a second call, and each kernel launched once per projection in
+    the warm call and in each of ``gen - 1`` replays
+    (``chip_smoke.legacy_run`` raises otherwise); gemma2's 32-position
+    windows roll."""
+    from repro_torch.launch import serve
+    cfg, params, sp, pol = _legacy_model(arch, dev)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, S))).to(dev)
+    runs = [chip_smoke.legacy_run(f"{arch} legacy", serve, params, cfg,
+                                  prompts, gen, pol, sp, K, "the card")
+            for _ in range(2)]
+    assert torch.equal(runs[0]["tokens"], runs[1]["tokens"])
+    eager = chip_smoke.generate(
+        params, cfg, prompts, gen, policy=pol.for_phase("decode"), sp=sp,
+        prefill=(pol.for_phase("prefill_dense"), None))
+    assert torch.equal(eager, runs[0]["tokens"])
+    assert runs[0]["launches"] == gen * chip_smoke.pass_launches(cfg)[
+        "score_select"] > 0
+
+
+def test_batch_decode_steps_on_card_equal_eager_for_whisper(dev):
+    """Reduced whisper with frames through one ``BatchDecodeSteps`` of
+    three keys (dense, ``mask``, ``pallas``; each built once): the
+    graph's tokens equal the eager loop's per mode, and the ``pallas``
+    graph records one launch of each kernel per decode projection."""
+    from repro_torch.serving.graphs import BatchDecodeSteps
+    cfg, params, sp, pol = _legacy_model("whisper_large_v3", dev)
+    B, S, gen = 2, 12, 8
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).to(dev)
+    frames = chip_smoke.multimodal_inputs(cfg, B, dev, 0)
+    keys = [(SparsityPolicy.dense(), None),
+            (SparsityPolicy.uniform("mask"), sp), (pol, sp)]
+    steps = BatchDecodeSteps(cfg, params, keys, B, S + gen, dev)
+    for i, (policy, s) in enumerate(keys):
+        for _ in range(2):
+            got = chip_smoke.generate(params, cfg, toks, gen, policy=policy,
+                                      sp=s, steps=steps, key=i, **frames)
+        want = chip_smoke.generate(params, cfg, toks, gen, policy=policy,
+                                   sp=s, **frames)
+        assert torch.equal(got, want)
+    assert steps.builds == 3 and steps.steps == [2 * (gen - 1)] * 3
+    dec = chip_smoke.multimodal_passes(cfg)[1]
+    assert {k: v for k, v in steps.captured[2].items() if v} == {
+        "score_select": dec, "sparse_matmul_shared": dec}
+
+
+@pytest.mark.parametrize("arch", ["gemma2_2b", "mamba2_130m"])
+def test_batch_decode_build_on_filled_caches_leaves_them(dev, arch):
+    """A ``BatchDecodeSteps`` build on caches already holding a prompt:
+    its warm call writes a rolling window's live column and advances
+    every SSM state, and the build puts all of it back bit for bit."""
+    from repro_torch.serving.graphs import BatchDecodeSteps
+    cfg, params, sp, pol = _legacy_model(arch, dev)
+    steps = BatchDecodeSteps(cfg, params, [(pol, sp)], 4, 40, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for leaf in P.tree_leaves(steps.caches):
+        leaf.copy_(torch.randn(leaf.shape, device=dev, generator=gen))
+    before = [t.clone() for t in P.tree_leaves(steps.caches)]
+    steps.build(0)
+    torch.cuda.synchronize()
+    assert steps.builds == 1 and steps.captured[0]
+    for a, b in zip(before, P.tree_leaves(steps.caches), strict=True):
+        assert torch.equal(a, b)

@@ -33,6 +33,7 @@ from repro_torch.models import api
 from repro_torch.models import model as TM
 from repro_torch.models import params as P
 from repro_torch.optim import adamw
+from repro_torch.serving.graphs import BatchDecodeSteps
 from repro_torch.sparsity import SparsityPolicy
 
 _spec = importlib.util.spec_from_file_location(
@@ -118,7 +119,8 @@ def test_prefill_caches_and_decode_match_jax(m, backend):
     positions), the caches padded to 28, then 8 greedy decode steps at
     positions 20.. (logits at each step, the caches after the last); the
     port's steps are those ``chip_smoke.generate`` drives, and it gives
-    these tokens."""
+    these tokens, with the eager loop and with ``BatchDecodeSteps`` (the
+    step built once)."""
     jcfg, cfg = m["jcfg"], m["cfg"]
     jpol, tpol = _policies(backend)
     jsp, sp = _sps(m, backend)
@@ -155,11 +157,13 @@ def test_prefill_caches_and_decode_match_jax(m, backend):
         tokens.append(nxt)
     for a, b in zip(jax.tree_util.tree_leaves(jc), P.tree_leaves(tc)):
         _close(b, a)
-    got = chip_smoke.generate(m["params"], cfg,
-                              torch.from_numpy(m["toks"]).long(), GEN,
-                              policy=tpol, sp=sp,
-                              patch_embeds=torch.from_numpy(m["patches"]))
-    assert np.array_equal(got.numpy(), np.stack(tokens, 1))
+    for steps in (None, BatchDecodeSteps(cfg, m["params"], [(tpol, sp)],
+                                         B, start + GEN, "cpu")):
+        got = chip_smoke.generate(
+            m["params"], cfg, torch.from_numpy(m["toks"]).long(), GEN,
+            policy=tpol, sp=sp, patch_embeds=torch.from_numpy(m["patches"]),
+            steps=steps)
+        assert np.array_equal(got.numpy(), np.stack(tokens, 1))
 
 
 def _batch(m):

@@ -43,6 +43,7 @@ from repro_torch.models import api, attention, layers, mlp
 from repro_torch.models import model as TM
 from repro_torch.models import params as P
 from repro_torch.serving import Engine, EngineConfig
+from repro_torch.serving.graphs import BatchDecodeSteps
 from repro_torch.sparsity import SparsityPolicy
 
 _spec = importlib.util.spec_from_file_location(
@@ -223,7 +224,8 @@ def test_prefill_caches_and_decode_match_jax(m, backend):
     caches), the caches padded to 20 positions as the reference's
     ``_pad_caches``, then 8 greedy decode steps (logits at each step,
     the caches after the last) in both packages; the port's steps are
-    those ``chip_smoke.generate`` drives, and it gives these tokens."""
+    those ``chip_smoke.generate`` drives, and it gives these tokens, with
+    the eager loop and with ``BatchDecodeSteps`` (the step built once)."""
     jcfg, cfg = m["jcfg"], m["cfg"]
     jpol, tpol = _policies(backend)
     jsp, sp = _sps(m, backend)
@@ -262,11 +264,13 @@ def test_prefill_caches_and_decode_match_jax(m, backend):
         tokens.append(nxt)
     for a, b in zip(jax.tree_util.tree_leaves(jc), P.tree_leaves(tc)):
         _close(b, a)
-    got = chip_smoke.generate(m["params"], cfg,
-                              torch.from_numpy(m["toks"]).long(), GEN,
-                              policy=tpol, sp=sp,
-                              frames=torch.from_numpy(fr))
-    assert np.array_equal(got.numpy(), np.stack(tokens, 1))
+    for steps in (None, BatchDecodeSteps(cfg, m["params"], [(tpol, sp)],
+                                         B, T, "cpu")):
+        got = chip_smoke.generate(m["params"], cfg,
+                                  torch.from_numpy(m["toks"]).long(), GEN,
+                                  policy=tpol, sp=sp,
+                                  frames=torch.from_numpy(fr), steps=steps)
+        assert np.array_equal(got.numpy(), np.stack(tokens, 1))
 
 
 @pytest.mark.parametrize("backend", ["mask", "pallas"])
