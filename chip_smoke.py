@@ -327,8 +327,22 @@ In order, it:
    tok/s line, and on reduced llama31_8b (f32) the whole-prefill
    engine's tokens must equal ``generate``'s for equal-length prompts,
    dense and ``topk_shared`` (``tests/test_serving.py``'s invariant);
-22. prints one JSON line describing every kernel, then, as its last line,
-21. prints one JSON line describing every kernel, then, as its last line,
+22. runs the sharded steps on a 1x1 mesh: an NCCL group of one rank
+   (``init_method="file://..."``) and ``launch/mesh.make_host_mesh()``
+   on the card.  Full-width llama31_8b (``SERVE_DEPTH`` layers, the
+   unsharded run's weights) placed by ``LOGICAL_RULES_SERVE`` serves a
+   4 x 128-token prefill and 16 ``aligned`` decode steps under
+   uncalibrated ``pallas`` (keep 0.5, tau -inf): the greedy tokens equal
+   the unsharded run's, the logits within 3e-2 (the largest difference
+   printed), and every sparse pass launches ``score_select`` and
+   ``sparse_matmul_shared`` 56 times each, as unsharded.  One
+   ``LOGICAL_RULES_TRAIN`` train step (loss, grads, AdamW) of gemma2_2b
+   at 2 layers of its published width: loss and updated params within
+   3e-2 of the unsharded step's.  The dry run's ``argument_bytes`` of
+   that serve cell (depth, batch, cache length, sp tree) on meta tensors
+   within 1% of ``torch.cuda.memory_allocated()``'s growth when the same
+   arguments are placed on the card.  The group is destroyed at the end;
+23. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run (whose llama31_8b decode layer their times are), those of the
@@ -6362,6 +6376,217 @@ def serve_legacy(dev, K, smi) -> dict:
     return res
 
 
+# Phase 22: the sharded serve run (llama31_8b at SERVE_DEPTH layers), the
+# sharded train step (gemma2_2b at its published width, TRAIN_LAYERS
+# layers) and their tolerance against the unsharded runs (bf16)
+SHARDED_RUN = {"batch": 4, "prompt_len": 128, "decode_steps": 16}
+SHARDED_TRAIN = {"arch": "gemma2_2b", "layers": 2, "batch": 2, "seq": 256}
+SHARD_TOL = 3e-2
+
+
+@contextlib.contextmanager
+def single_rank_group(dev):
+    """An NCCL process group of one rank on the card ``dev``, its
+    address a file: nothing tells a program of a cluster."""
+    import tempfile
+
+    import torch.distributed as dist
+    torch.cuda.set_device(dev)
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_group_")
+    os.close(fd)
+    os.remove(path)
+    dist.init_process_group("nccl", init_method=f"file://{path}", rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def sharded_generate(params, cfg, prompts, steps: int, policy, sp, K):
+    """Prefill then ``steps`` ``aligned`` decode steps (greedy), on
+    plain or placed params: (tokens (B, steps + 1), logits per pass,
+    each pass's launches of the 2-D kernels, counted from 0 just before
+    it)."""
+    from repro_torch.distributed.sharding import full
+    from repro_torch.models import api
+    B, S = prompts.shape
+    logits_out, launches = [], []
+
+    def counted(fn):
+        K.reset_launch_counts()
+        out = fn()
+        launches.append({k: K.launch_counts[k]
+                         for k in ("score_select", "sparse_matmul_shared")})
+        logits_out.append(full(out[0]).float())
+        return out
+
+    decode = api.make_decode_step(cfg, policy, aligned=True)
+    with torch.no_grad():
+        _, caches = counted(lambda: api.make_prefill_step(cfg, policy)(
+            params, prompts, sp))
+        caches = api.pad_caches(cfg, caches, B, S + steps)
+        toks = [logits_out[-1].argmax(-1)]
+        for i in range(steps):
+            batch = {"tokens": toks[-1], "caches": caches,
+                     "positions": torch.full((B,), S + i, dtype=torch.long,
+                                             device=prompts.device)}
+            _, caches = counted(lambda: decode(params, batch, sp))
+            toks.append(logits_out[-1].argmax(-1))
+    return torch.stack(toks, 1), logits_out, launches
+
+
+def sharded_serve_check(dev, K, mesh, cfg, params) -> dict:
+    """22a: the serve run, unsharded then placed by LOGICAL_RULES_SERVE
+    on ``mesh`` (the same weights)."""
+    from repro_torch.core import sp_schema
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+    from repro_torch.sparsity import SparsityPolicy
+
+    B, S, steps = (SHARDED_RUN[k] for k in ("batch", "prompt_len",
+                                            "decode_steps"))
+    prompts = torch.from_numpy(SyntheticLM(DataConfig(
+        cfg.vocab_size, S, B)).batch(0)).to(dev)
+    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
+    pol = SparsityPolicy.uniform("pallas", k_max_frac=KEEP)
+    want, want_logits, want_launch = sharded_generate(
+        params, cfg, prompts, steps, pol, sp, K)
+    with sh.sharding_context(mesh, sh.LOGICAL_RULES_SERVE):
+        sparams = sh.distribute(params, P.logical_axes(M.model_schema(cfg)))
+        ssp = sh.distribute(sp, P.logical_axes(
+            sp_schema.sparsity_schema(cfg)))
+        got, logits, launches = sharded_generate(sparams, cfg, prompts,
+                                                 steps, pol, ssp, K)
+    per = pass_launches(cfg)["score_select"]
+    diff = max(max_err(a, b) for a, b in zip(logits, want_logits,
+                                             strict=True))
+    if not torch.equal(got, want):
+        raise AssertionError("sharded serve: greedy tokens differ from the "
+                             "unsharded run's")
+    if diff > SHARD_TOL:
+        raise AssertionError(f"sharded serve: logits differ by {diff:.3e} "
+                             f"(limit {SHARD_TOL})")
+    if any(c != {"score_select": per, "sparse_matmul_shared": per}
+           for c in launches + want_launch):
+        raise AssertionError(f"sharded serve: launches per pass {launches} "
+                             f"(unsharded {want_launch}), expected {per}")
+    print(f"sharded serve (1x1 mesh, LOGICAL_RULES_SERVE): {B} x {S} "
+          f"prefill + {steps} aligned decode steps under pallas, tokens "
+          f"equal the unsharded run's, largest logit difference "
+          f"{diff:.3e}, {per} launches of each kernel per sparse pass "
+          f"({len(launches)} passes)", flush=True)
+    del sparams, ssp
+    return {"logit_max_diff": diff, "launches_per_pass": per,
+            "passes": len(launches), "tokens_equal": True}
+
+
+def sharded_train_check(dev, mesh, cfg=None) -> dict:
+    """22b: one train step (loss, grads, AdamW), unsharded and placed by
+    LOGICAL_RULES_TRAIN, from the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import api
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+    from repro_torch.optim import adamw
+
+    t = SHARDED_TRAIN
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(t["arch"]),
+                                  num_layers=t["layers"])
+    params = api.init_model(cfg, SEED, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (t["batch"], t["seq"]))).to(dev)
+    ocfg = adamw.AdamWConfig()
+    step = api.make_train_step(cfg, ocfg)
+    axes = P.logical_axes(M.model_schema(cfg))
+    with sh.sharding_context(mesh, sh.LOGICAL_RULES_TRAIN):
+        sparams = sh.distribute(P.tree_map(torch.clone, params), axes)
+        sparams, _, smet = step(sparams, adamw.init(sparams, ocfg),
+                                {"tokens": toks})
+        sloss = float(sh.full(smet["loss"]))
+        got = [sh.full(p) for p in P.tree_leaves(sparams)]
+    del sparams
+    params, _, met = step(params, adamw.init(params, ocfg), {"tokens": toks})
+    dloss = abs(sloss - float(met["loss"]))
+    dparam = max(max_err(a.float(), b.float())
+                 for a, b in zip(got, P.tree_leaves(params), strict=True))
+    if dloss > SHARD_TOL or dparam > SHARD_TOL:
+        raise AssertionError(f"sharded train step: loss differs by "
+                             f"{dloss:.3e}, params by {dparam:.3e} (limit "
+                             f"{SHARD_TOL})")
+    print(f"sharded train step ({cfg.name}, {cfg.num_layers} layers, 1x1 "
+          f"mesh, LOGICAL_RULES_TRAIN): loss {sloss:.5f} against "
+          f"{float(met['loss']):.5f} unsharded (difference {dloss:.3e}), "
+          f"updated params differ by at most {dparam:.3e}", flush=True)
+    del params, got
+    return {"loss": sloss, "loss_diff": dloss, "param_max_diff": dparam}
+
+
+def sharded_bytes_check(dev, mesh, cfg, smi: str) -> dict:
+    """22c: the dry run's argument bytes of the serve cell (meta tensors)
+    against the device memory its arguments take when placed."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+
+    B, S, steps = (SHARDED_RUN[k] for k in ("batch", "prompt_len",
+                                            "decode_steps"))
+    shape = ShapeConfig("phase22", S + steps, B, "decode")
+    with sh.sharding_context(mesh, sh.LOGICAL_RULES_SERVE):
+        want = dryrun.argument_bytes(dryrun.cell_args(
+            cfg.name, shape.name, sparsity=KEEP, cfg=cfg, shape=shape))
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        args = dryrun.cell_args(cfg.name, shape.name, sparsity=KEEP,
+                                cfg=cfg, shape=shape, device=dev)
+        torch.cuda.synchronize(dev)
+        grown = torch.cuda.memory_allocated(dev) - before
+        del args
+    rel = abs(grown - want) / want
+    print(f"dry-run argument bytes of the serve cell: {want} on meta "
+          f"tensors, {grown} allocated on {smi} ({100 * rel:.4f}% apart)",
+          flush=True)
+    if rel > 0.01:
+        raise AssertionError("the dry run's argument bytes are more than 1% "
+                             "from the card's allocation")
+    return {"argument_bytes": want, "allocated_bytes": grown,
+            "relative_diff": rel}
+
+
+def serve_sharded(dev, K, smi) -> dict:
+    """Phase 22: the sharded steps on a 1x1 mesh of the card
+    (:func:`sharded_serve_check`, :func:`sharded_train_check`,
+    :func:`sharded_bytes_check`), each figure beside the card's name and
+    power limit."""
+    from repro_torch import obs
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = obs.now()
+    with single_rank_group(dev):
+        mesh = make_host_mesh("cuda")
+        cfg, params = full_width_model(dev)
+        out = {"serve": sharded_serve_check(dev, K, mesh, cfg, params)}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["bytes"] = sharded_bytes_check(dev, mesh, cfg, smi)
+        out["train"] = sharded_train_check(dev, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = obs.now() - t0
+    print(f"sharded steps on a 1x1 mesh: {out['s']:.1f} s on {smi}",
+          flush=True)
+    return out
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -6647,6 +6872,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     legacy = serve_legacy(dev, K, smi)
     took("21 legacy generate")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = serve_sharded(dev, K, smi)
+    took("22 sharded steps")
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -6674,7 +6903,8 @@ def main() -> int:
                              "kernels_per_decode_layer": whisper_layer},
         "internvl2_26b": {**internvl, "kernels": i_rows,
                           "kernels_per_decode_layer": internvl_layer},
-        "reduced_multimodal": reduced_multimodal, "legacy": legacy}}))
+        "reduced_multimodal": reduced_multimodal, "legacy": legacy,
+        "sharded": sharded}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     expert_rows = [r for r in ge_rows if r["R"] == 8]

@@ -12,9 +12,11 @@ template's dtype.  Writes go to ``.tmp_step_*`` and are renamed to
 so a preemption mid-write never corrupts the newest complete checkpoint.
 Async mode snapshots on the calling thread (a copy, so an in-place
 optimizer step cannot reach the checkpoint) and writes on a daemon
-thread.  Restore places leaves on the template's device; the sharded
-placement of the reference's ``axes_tree`` waits for the sharding
-slice, and without a sharding context the reference ignores it too.
+thread.  Restore places leaves on the template's device; inside a
+``distributed.sharding_context`` each leaf listed in ``axes_tree`` is
+placed on the current mesh by its logical axes (the reference's elastic
+rescale: the checkpoint holds whole arrays, whatever mesh wrote them).
+A DTensor leaf is saved whole (gathered on every rank).
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ def _to_host(leaf) -> np.ndarray:
     """A host copy of one leaf, never a view of live memory."""
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf)
-    t = leaf.detach()
+    from repro_torch.distributed import sharding   # imports this module
+    t = sharding.full(leaf.detach())
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
         return t.to("cpu", copy=True).numpy().view("V2")
@@ -139,17 +142,25 @@ class CheckpointManager:
                 axes_tree=None):
         """Restore into the structure of ``template`` (values ignored; its
         leaves give each restored leaf's dtype and device).  Returns
-        (tree, meta), or (None, None) when there is no checkpoint.
-        ``axes_tree`` is accepted for the reference's signature."""
-        del axes_tree
+        (tree, meta), or (None, None) when there is no checkpoint.  With
+        an active sharding context and ``axes_tree`` (the template's
+        logical axes), every leaf it lists is placed under the current
+        mesh's rules."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
         path = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
+        from repro_torch.distributed import sharding
+        ctx = sharding.current_ctx()
+        axes = dict(sharding.axes_leaves(axes_tree)) \
+            if ctx is not None and axes_tree is not None else {}
         leaves = []
         with np.load(os.path.join(path, "arrays.npz")) as blobs:
             for p, tmpl in tree_flatten_with_path(template):
-                leaves.append(_from_host(blobs[keystr(p)], tmpl))
+                t = _from_host(blobs[keystr(p)], tmpl)
+                if p in axes:
+                    t = sharding.place(t, axes[p], ctx)
+                leaves.append(t)
         return tree_unflatten_like(template, leaves), meta

@@ -11,10 +11,22 @@ parameters as device tensors:
     keep_frac  ()       keep ratio 1 - p_l (gather backends)
 
 The static execution config is an explicit :class:`SparsityPolicy`;
-``policy=None`` means dense.  The reference's grouped top-k path for
-row-parallel weights on a mesh (``row_parallel``,
-``_topk_gather_grouped``) waits for the sharding slice; without a mesh
-the reference takes the path below.
+``policy=None`` means dense.
+
+On a mesh (operands are DTensors under a
+``distributed.sharding_context``) ``off`` and ``mask`` run as DTensor
+ops, and the shared saliency is reduced over every row of every shard.
+The top-k gathers run on local shards (``sharding.local_call``): the
+weight rows they gather are made whole, its output columns stay where
+they are.  A ``row_parallel`` weight (its input dim model-sharded:
+``wo``, ``mlp/wo``, ``out_proj``) under ``topk_shared``/``topk_block``
+takes the reference's balanced per-shard selection
+(:func:`_topk_gather_grouped`, G = the ``model`` axis size when it
+divides ``n_in``): each shard keeps its top ``k/G`` channels, so the
+gather stays local and the per-shard products are summed.  The
+``pallas`` kernels are not partitioned (nor is the reference's Pallas
+call): they run on the whole operands, gathered on every rank, and give
+the unsharded result.
 """
 from __future__ import annotations
 
@@ -22,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels.select import topk_ids
 from repro_torch.sparsity import VALID_BACKENDS, SparsityPolicy
 
@@ -61,16 +74,30 @@ def scores(x, g, alpha):
     return x.float().abs() * torch.pow(gf, alpha)
 
 
-def project(x, w, sp: Optional[dict] = None, *,
-            policy: Optional[SparsityPolicy] = None,
+def project(x, w, sp: Optional[dict] = None, row_parallel: bool = False,
+            *, policy: Optional[SparsityPolicy] = None,
             role: Optional[str] = None, token_weights=None):
     """Dispatch one projection under ``policy`` (depth ranges are already
     folded in by the model's layer loop; only role overrides remain to
-    resolve here).  ``policy=None`` runs dense."""
+    resolve here).  ``policy=None`` runs dense.
+
+    ``row_parallel`` statically marks weights whose *input* dim is
+    model-sharded (o_proj/down_proj/out_proj): under a sharding context
+    whose ``model`` axis has size G dividing ``n_in`` the top-k gather
+    backends select a balanced per-shard channel budget
+    (:func:`_topk_gather_grouped`)."""
     if policy is None:
         policy = DENSE
     if policy.capture is not None:
         policy.capture.record(w, x)
+    ctx = sharding.current_ctx() if row_parallel and sp is not None \
+        else None
+    if ctx is not None and policy.backend_at(role=role) in (
+            "topk_shared", "topk_block"):
+        g = sharding.mesh_sizes(ctx.mesh).get("model", 1)
+        if g > 1 and w.shape[0] % g == 0:
+            return _topk_gather_grouped(x, w, sp, policy, g,
+                                        token_weights=token_weights)
     return _dispatch(x, w, sp, policy, role, token_weights=token_weights)
 
 
@@ -111,14 +138,27 @@ def _dispatch(x, w, sp, policy, role, *, token_weights=None,
         m = (scores(x, g, sp["alpha"]) >= sp["tau"]).to(x.dtype)   # Eq. 5
         return mm(x * m, w)
     if backend in ("topk_shared", "topk_block"):
+        keep = sp["keep_frac"]
         if experts:
             sal = scores(x, g, sp["alpha"]).mean(1)              # (E, n)
-            return _topk_gather(x, w, sal, sp, policy, backend)
+            return sharding.local_call(
+                lambda wl, xl, sl, kl: _topk_gather(xl, wl, sl, kl, policy,
+                                                    backend),
+                (w, x, sal, keep),
+                (("experts", None, None), ("experts", "batch", None),
+                 ("experts", None), ()),
+                ("experts", "batch", None))
         n_in = w.shape[0]
         xf = x.reshape(1, -1, n_in)
         sal = _saliency(xf[0], sp, token_weights)[None]          # (1, n)
-        y = _topk_gather(xf, w.reshape(1, n_in, -1), sal, sp, policy,
-                         backend)
+        # the weight's output columns stay sharded as they are
+        y = sharding.local_call(
+            lambda wl, xl, sl, kl: _topk_gather(xl, wl, sl, kl, policy,
+                                                backend),
+            (w.reshape(1, n_in, -1), xf, sal, keep),
+            ((None, None, "w_out"), (None, "batch", None), (None, None), ()),
+            (None, "batch", "w_out"),
+            rules={"w_out": (sharding.dim_axes(w, 1),)})
         return y[0].reshape(x.shape[:-1] + w.shape[1:])
     if backend == "pallas":
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
@@ -126,17 +166,28 @@ def _dispatch(x, w, sp, policy, role, *, token_weights=None,
                 f"{role}: the pallas kernels have no backward; train under "
                 "off, mask or topk_* (or without an sp tree)")
         from repro_torch.kernels import ops as kops
+        # not partitioned: every operand whole on every rank
+        keys = sorted(sp)
         if experts:
-            return kops.wisparse_project_experts(
-                x, w, sp, block=policy.block, k_frac=policy.k_max_frac)
-        return kops.wisparse_project(x, w, sp, block=policy.block,
-                                     k_frac=policy.k_max_frac,
-                                     token_weights=token_weights)
+            def run(xl, wl, *spl):
+                return kops.wisparse_project_experts(
+                    xl, wl, dict(zip(keys, spl)), block=policy.block,
+                    k_frac=policy.k_max_frac)
+            args = (x, w)
+        else:
+            def run(xl, wl, twl, *spl):
+                return kops.wisparse_project(
+                    xl, wl, dict(zip(keys, spl)), block=policy.block,
+                    k_frac=policy.k_max_frac, token_weights=twl)
+            args = (x, w, token_weights)
+        args += tuple(sp[k] for k in keys)
+        return sharding.local_call(run, args, (None,) * len(args),
+                                   (None,) * x.dim())
     raise ValueError(    # unreachable: policies validate at construction
         f"unknown sparsity backend {backend}")
 
 
-def _topk_gather(x, w, sal, sp, policy, backend: str):
+def _topk_gather(x, w, sal, keep_frac, policy, backend: str):
     """Shared-mask gather path, per batch entry e of x (E, R, n), w (E, n,
     m) and its saliency ``sal`` (E, n) aggregated over e's rows (a plain
     projection is E = 1): keep the top k_max channels (static) in
@@ -163,17 +214,57 @@ def _topk_gather(x, w, sal, sp, policy, backend: str):
                ).reshape(E, -1)
         # the reference clamps tail-block ids to the last channel
         idx = torch.clamp(idx, max=n_in - 1)
-        k_l = torch.round(sp["keep_frac"] * nb)
+        k_l = torch.round(keep_frac * nb)
         rank_ok = (torch.arange(kb_max, device=dev) < k_l).repeat_interleave(b)
     else:
         k_max = max(1, round(n_in * policy.k_max_frac))
         idx = topk_ids(sal, k_max)                                # (E, k)
-        k_l = torch.round(sp["keep_frac"] * n_in)
+        k_l = torch.round(keep_frac * n_in)
         rank_ok = torch.arange(k_max, device=dev) < k_l
     k = idx.shape[1]
     ws = w.gather(1, idx[:, :, None].expand(E, k, m))            # (E, k, m)
     xs = x.gather(2, idx[:, None, :].expand(E, R, k)) * rank_ok.to(x.dtype)
     return torch.bmm(xs.float(), ws.float()).to(x.dtype)
+
+
+def _topk_gather_grouped(x, w, sp, policy, groups: int, token_weights=None):
+    """Balanced grouped selection (the reference's, for row-parallel
+    weights): the input-channel dim splits into (groups, n/groups), each
+    group keeps its top-(k/groups) channels in ``lax.top_k`` order
+    (ranks past the layer's ``keep_frac * n/groups`` masked), gathers
+    within the group (shard-local for model-sharded weight rows),
+    contracts in f32 and the groups are summed.  The same global budget;
+    the selection is per-shard balanced.  On a mesh each rank contracts
+    its own groups and the f32 partial sums are reduced before the cast
+    to x's dtype."""
+    n_in = w.shape[0]
+    G = groups
+    ng = n_in // G
+    xf = x.reshape(-1, n_in)
+    sal = _saliency(xf, sp, token_weights).reshape(G, ng)
+    k_max = max(1, round(ng * policy.k_max_frac))
+    wg = sharding.constrain(w.reshape(G, ng, -1), "grouped_in", None, None)
+
+    def run(wl, sl, xl, keep):
+        idx = topk_ids(sl, k_max)                                # (g, k)
+        k_l = torch.round(keep * ng)
+        rank_ok = torch.arange(k_max, device=xl.device) < k_l    # (k,)
+        g, m = wl.shape[0], wl.shape[2]
+        ws = wl.gather(1, idx[:, :, None].expand(g, k_max, m))   # (g, k, m)
+        xs = xl.gather(2, idx[None].expand(xl.shape[0], g, k_max))
+        xs = xs * rank_ok.to(xs.dtype)
+        return torch.einsum("bgk,gkm->bm", xs.float(), ws.float())
+
+    y = sharding.local_call(
+        run, (wg, sal, xf.reshape(-1, G, ng), sp["keep_frac"]),
+        (("grouped_in", None, None), ("grouped_in", None),
+         ("batch", "grouped_in", None), ()),
+        ("batch", None), out_partial=("grouped_in",))
+    if sharding.is_sharded(y):
+        y = y.redistribute(y.device_mesh, [
+            p if p.is_shard() else sharding.replicate()
+            for p in y.placements])
+    return y.to(x.dtype).reshape(x.shape[:-1] + w.shape[1:])
 
 
 def column_norms(w) -> torch.Tensor:

@@ -36,12 +36,28 @@ the sparsity policy (the port's counterpart of the JAX package's
 Activations that stay on chip are not counted.  The quality monitor
 (``obs/quality.py``) uses it for its per-rung roofline counters and
 decode utilization, and ``chip_smoke.py`` prints it beside the measured
-steps."""
+steps.
+
+The mesh half (the reference's ``launch/roofline.py`` after its HLO
+parsing) turns the dry run's per-device counts into three terms per
+(arch x shape x mesh) cell, each a prediction from the H100 SXM data
+sheet (``launch/constants.py``), not a measurement:
+
+    compute    = FLOPs per device            / 989 TF/s bf16
+    memory     = bytes per device            / 3.35 TB/s HBM3
+    collective = collective bytes per device / 450 GB/s NVLink (one way)
+
+with all-reduce bytes counted twice on the wire (reduce-scatter +
+all-gather).  MODEL_FLOPS = 6*N_active*tokens (train) or
+2*N_active*tokens (serve); its ratio to the counted FLOPs exposes remat,
+causal overcount and redundant (replicated) work."""
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Dict, Tuple
 
 from repro_torch.kernels.ops import channel_plan
+from repro_torch.launch import constants as C
 from repro_torch.models.model import chunkable
 from repro_torch.models.moe import expert_rows
 
@@ -168,3 +184,112 @@ def step_costs(cfg, ecfg, policy, sp, phase: str, gamma=None
     flops += 2.0 * rows * d * cfg.vocab_size         # LM head
     nbytes += float(cfg.vocab_size * d * elem)
     return flops, nbytes
+
+
+# ---------------------------------------------------------------------------
+# The mesh half: roofline terms of one dry-run cell
+# ---------------------------------------------------------------------------
+
+def wire_bytes(coll: Dict[str, int]) -> float:
+    """Per-device wire bytes: all-reduce counts 2x (RS+AG decomposition)."""
+    total = 0.0
+    for k, v in coll.items():
+        total += 2 * v if k == "all-reduce" else v
+    return total
+
+
+def active_matmul_params(cfg) -> float:
+    """N_active: per-token matmul params (MoE scaled by k/E), head
+    included: the reference's arithmetic over the port's schema."""
+    import numpy as np
+
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_flatten_with_path
+
+    total = 0.0
+    for path, spec in tree_flatten_with_path(M.model_schema(cfg)):
+        keys = [str(k) for k in path]
+        if keys[-1] in ("embed", "lm_head"):
+            continue                      # head counted separately below
+        if len(spec.shape) < 2:
+            continue
+        shape = spec.shape
+        # drop the stacked-layers dim from the product, multiply back reps
+        if any(k.startswith("l") and k[1:].isdigit() for k in keys):
+            reps, shape = shape[0], shape[1:]
+        else:
+            reps = 1
+        p = float(np.prod(shape)) * reps
+        if len(shape) == 3:               # MoE expert weight (E, n, m)
+            p *= cfg.num_experts_per_tok / cfg.num_experts
+        total += p
+    total += float(cfg.vocab_size) * cfg.d_model   # unembedding matmul
+    return total
+
+
+def model_flops(cfg, shape) -> float:
+    n = active_matmul_params(cfg)
+    if shape.mode == "train":
+        return 6.0 * n * shape.global_batch * shape.seq_len
+    if shape.mode == "prefill":
+        return 2.0 * n * shape.global_batch * shape.seq_len
+    return 2.0 * n * shape.global_batch          # decode: one token per seq
+
+
+@dataclasses.dataclass
+class Roofline:
+    """Roofline terms of one cell on H100 SXM cards (data-sheet rates)."""
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    flops_per_device: float      # counted on each rank's local shards
+    bytes_per_device: float
+    coll_bytes: float            # per-device wire bytes
+    model_flops_total: float
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops_per_device / C.PEAK_FLOPS_BF16
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes_per_device / C.HBM_BW
+
+    @property
+    def collective_s(self) -> float:
+        return self.coll_bytes / C.NVLINK_BW
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """Roofline step time: max of the three terms (full overlap)."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        total = self.flops_per_device * self.chips
+        return self.model_flops_total / max(total, 1.0)
+
+    @property
+    def mfu(self) -> float:
+        """Model-FLOPs utilization at the roofline step time."""
+        return (self.model_flops_total
+                / (max(self.step_time_s, 1e-30) * self.chips
+                   * C.PEAK_FLOPS_BF16))
+
+    def row(self) -> dict:
+        return {
+            "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
+            "compute_s": self.compute_s, "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "bottleneck": self.bottleneck,
+            "model_flops": self.model_flops_total,
+            "useful_ratio": self.useful_flops_ratio,
+            "mfu": self.mfu,
+        }

@@ -6,10 +6,13 @@ batched prefill and decode steps, with frames (enc-dec) or patch
 embeddings (VLM) beside the tokens."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import model as M
 from repro_torch.models import params as P
 from repro_torch.optim import adamw
@@ -73,8 +76,11 @@ def pad_caches(cfg: ModelConfig, caches, batch: int, total_len: int):
     """Prefill caches zero-padded to :func:`cache_schema`'s shapes at
     ``total_len`` positions and cast to the model dtype (the reference's
     ``launch/serve._pad_caches``): the self caches grow along T, the
-    cross caches (F frames) stay as they are."""
+    cross caches (F frames) stay as they are.  Under a mesh each leaf
+    is gathered, padded and placed again by its logical axes."""
     def fit(src, spec):
+        if sharding.is_sharded(src):
+            return sharding.place(fit(src.full_tensor(), spec), spec.axes)
         pads = []                 # F.pad lists the last dim's pads first
         for have, want in zip(reversed(src.shape), reversed(spec.shape)):
             pads += [0, want - have]
@@ -115,13 +121,23 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def token_loss(cfg: ModelConfig, logits, tokens, text_start: int = 0):
-    """Next-token CE in f32.  logits: (B,S,V) over [prefix+]text positions."""
+    """Next-token CE in f32.  logits: (B,S,V) over [prefix+]text positions.
+    Under a mesh each rank takes its rows' losses over the whole vocab
+    (the logits' vocab shards are gathered), and the mean reduces over
+    every rank's rows."""
+    return sharding.local_call(
+        lambda lg, tok: _token_nll(lg, tok, text_start), (logits, tokens),
+        (("batch", None, None), ("batch", None)), ("batch", None)).mean()
+
+
+def _token_nll(logits, tokens, text_start: int):
+    """(B,S-1) next-token losses."""
     lg = logits[:, text_start: -1].float() if logits.shape[1] > 1 \
         else logits.float()
     labels = tokens[:, 1:].long()
     lse = torch.logsumexp(lg, -1)
     picked = torch.take_along_dim(lg, labels[..., None], -1)[..., 0]
-    return torch.mean(lse - picked)
+    return lse - picked
 
 
 def _multimodal_inputs(cfg: ModelConfig, batch) -> dict:
@@ -185,8 +201,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         else:
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves]
+            grads = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in leaves]
             mbs = {k: v.reshape((accum_steps, -1) + v.shape[1:])
                    for k, v in batch.items()}
             for i in range(accum_steps):
@@ -205,11 +221,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
-    """``prefill_step(params, tokens, sp=None, policy=None, frames=None,
+def make_prefill_step(cfg: ModelConfig, policy=None):
+    """``prefill_step(params, tokens, sp=None, policy=policy, frames=None,
     patch_embeds=None) -> (last-position logits (B,V), fresh caches)``;
-    an enc-dec prefill with frames stashes each layer's cross K/V."""
-    def prefill_step(params, tokens, sp=None, policy=None, frames=None,
+    an enc-dec prefill with frames stashes each layer's cross K/V.
+    ``policy`` is baked in, as the reference's (override per call)."""
+    def prefill_step(params, tokens, sp=None, policy=policy, frames=None,
                      patch_embeds=None):
         return M.forward(params, cfg, tokens=tokens, mode="prefill", sp=sp,
                          policy=policy, frames=frames,
@@ -217,16 +234,18 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, policy=None):
+def make_decode_step(cfg: ModelConfig, policy=None, aligned: bool = False):
     """The plain batched decode step (the reference's
     ``make_decode_step``): ``decode_step(params, batch, sp=None,
     policy=policy)`` with ``batch`` = {tokens (B,), positions (B,),
     caches} -> (logits (B,V), caches updated in place).  Every row
-    weighs alike in the shared saliency."""
+    weighs alike in the shared saliency.  ``aligned``: every row decodes
+    ``positions[0]``, so each cache write is one slice write."""
     def decode_step(params, batch, sp=None, policy=policy):
         return M.forward(params, cfg, tokens=batch["tokens"], mode="decode",
                          caches=batch["caches"],
-                         positions=batch["positions"], sp=sp, policy=policy)
+                         positions=batch["positions"], sp=sp, policy=policy,
+                         aligned=aligned)
     return decode_step
 
 
@@ -287,3 +306,87 @@ def make_verify_step(cfg: ModelConfig):
                          caches=caches, positions=positions, sp=sp,
                          policy=policy, token_weights=weights)
     return verify_step
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs (meta tensors, no allocation) for the dry run
+# ---------------------------------------------------------------------------
+
+INT = torch.int32
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, dtype=None):
+    """Meta-tensor inputs of an (arch x shape) cell.  For decode shapes
+    this is the decode step's ``batch``: one new token per row and the
+    caches at ``seq_len``."""
+    dt = P.DTYPES[dtype or cfg.dtype]
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, d):
+        return torch.empty(shp, dtype=d, device="meta")
+
+    if shape.mode in ("train", "prefill"):
+        specs = {}
+        if cfg.family == "vlm":
+            Ptok = cfg.vision_prefix
+            specs["patch_embeds"] = meta((B, Ptok, cfg.d_model), dt)
+            specs["tokens"] = meta((B, S - Ptok), INT)
+        elif cfg.family == "encdec":
+            specs["frames"] = meta((B, cfg.encoder_frames, cfg.d_model), dt)
+            specs["tokens"] = meta((B, S), INT)
+        else:
+            specs["tokens"] = meta((B, S), INT)
+        return specs
+    return {
+        "tokens": meta((B,), INT),
+        "positions": meta((B,), INT),
+        "caches": P.abstract_params(cache_schema(cfg, B, S),
+                                    dtype or cfg.dtype),
+    }
+
+
+def input_axes(cfg: ModelConfig, shape: ShapeConfig):
+    """Logical axes tree matching :func:`input_specs`."""
+    if shape.mode in ("train", "prefill"):
+        axes = {"tokens": ("batch", "seq")}
+        if cfg.family == "vlm":
+            axes["patch_embeds"] = ("batch", "seq", "embed_act")
+        elif cfg.family == "encdec":
+            axes["frames"] = ("batch", "seq", "embed_act")
+        return axes
+    return {
+        "tokens": ("batch",),
+        "positions": ("batch",),
+        "caches": P.logical_axes(cache_schema(cfg, shape.global_batch,
+                                              shape.seq_len)),
+    }
+
+
+def step_for_shape(cfg: ModelConfig, shape: ShapeConfig,
+                   opt_cfg: Optional[adamw.AdamWConfig] = None,
+                   remat: str = "none", policy=None, aligned: bool = False):
+    """The step a dry-run cell runs, and its kind: ``train`` ->
+    ``step(params, opt_state, batch, sp=None)`` (loss, grads, AdamW);
+    ``prefill`` and ``decode`` -> ``step(params, batch, sp=None)``.
+    ``policy`` is baked into the step; ``aligned`` selects the one-slice
+    decode cache write."""
+    if shape.mode == "train":
+        opt_cfg = opt_cfg or adamw.AdamWConfig()
+        return make_train_step(cfg, opt_cfg, remat=remat,
+                               policy=policy), "train"
+    if shape.mode == "prefill":
+        prefill = make_prefill_step(cfg, policy=policy)
+
+        def prefill_step(params, batch, sp=None):
+            return prefill(params, batch["tokens"], sp,
+                           **_multimodal_inputs(cfg, batch))
+        return prefill_step, "prefill"
+    return make_decode_step(cfg, policy=policy, aligned=aligned), "decode"
+
+
+def abstract_model(cfg: ModelConfig):
+    """(meta params in the schema's dtypes, their logical axes, the
+    schema)."""
+    schema = M.model_schema(cfg)
+    return (P.abstract_params(schema, cfg.dtype), P.logical_axes(schema),
+            schema)

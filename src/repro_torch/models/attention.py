@@ -20,15 +20,53 @@ layouts: K ``(B, KV, hd, T)`` and V ``(B, KV, T, hd)``; a rolling cache
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import softcap as _softcap
 
 NEG_INF = -1e30
 
+# logical axes of the attention operands on a mesh: the query heads take
+# the kv heads' name, so a shard holds whole GQA groups
+_Q = ("batch", None, "kv_heads", None)          # q (B,S,H,hd), k/v (B,T,KV,hd)
+_QH = ("batch", None, "heads", None)            # q split by its own heads
+_KVR = ("batch", None, None, None)              # k/v whole over the heads
+_Q1 = ("batch", "kv_heads", None)               # q (B,H,hd), k/v_new (B,KV,hd)
+_KC = ("batch", "kv_heads", None, "kv_seq")     # K cache (B,KV,hd,T)
+_VC = ("batch", "kv_heads", "kv_seq", None)     # V cache (B,KV,T,hd)
+
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     attn_softcap: float = 0.0):
+    """:func:`_flash_attention` on local shards under a mesh: rows and
+    kv-head groups are independent.  Where the kv heads cannot shard
+    over the mesh but the query heads can (8 kv heads, model = 16), each
+    rank takes its query heads and the kv head each of them reads, as
+    GSPMD splits the reference's ``heads``-constrained queries."""
+    kw = dict(causal=causal, window=window, attn_softcap=attn_softcap)
+    if sharding.is_sharded(q, k, v):
+        hq = sharding.mesh_axes_for(_QH, q.shape)[2]
+        hk = sharding.mesh_axes_for(_Q, k.shape)[2]
+        if hq is not None and hk is None:
+            h0 = sharding.chunk_start(q.device_mesh, hq, q.shape[2])
+            G = q.shape[2] // k.shape[2]
+
+            def run(q, k, v):
+                kv = (h0 + torch.arange(q.shape[2], device=q.device)) // G
+                return _flash_attention(q, k.index_select(2, kv),
+                                        v.index_select(2, kv), **kw)
+            return sharding.local_call(
+                run, (q, k, v), (_QH, _KVR, _KVR), _QH)
+    return sharding.local_call(
+        lambda k, v, q: _flash_attention(q, k, v, **kw),
+        (k, v, q), (_Q, _Q, _Q), _Q)
+
+
+def _flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                     attn_softcap: float = 0.0):
     """q: (B,S,H,hd); k, v: (B,T,KV,hd) -> (B,S,H,hd).  ``causal`` keeps,
     for the query at position s, the keys at t <= s (T = S); without it
     every query attends all T keys (the encoder's bidirectional layers,
@@ -73,9 +111,49 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
 
 
+def _time_shards(k_cache):
+    """(offset of this rank's cache slots, all-reduce over the mesh dims
+    the cache's time axis is sharded over, or None) of a K cache."""
+    axes = sharding.dim_axes(k_cache, 3)
+    if not axes:
+        return 0, None
+    from torch.distributed import _functional_collectives as funcol
+    mesh = k_cache.device_mesh
+    dims = [sharding.axis_names(mesh).index(a) for a in axes]
+
+    def reduce(t, op):
+        for d in dims:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, d)))
+        return t
+    return sharding.chunk_start(mesh, axes, k_cache.shape[3]), reduce
+
+
 def decode_attention(q, k_cache, v_cache, positions, k_new=None,
                      v_new=None, *, rolling: bool = False,
                      attn_softcap: float = 0.0):
+    """:func:`_decode_attention` on local shards under a mesh.  A cache
+    whose time axis is sharded (``kv_seq``) is attended flash-decoding
+    style: each rank scores its own slots, and the softmax's max, sum
+    and PV product are all-reduced over the time shards."""
+    if not sharding.is_sharded(q, k_cache, v_cache, positions, k_new):
+        return _decode_attention(q, k_cache, v_cache, positions, k_new,
+                                 v_new, rolling=rolling,
+                                 attn_softcap=attn_softcap)
+    t0, reduce = _time_shards(k_cache)
+    run = functools.partial(_decode_attention, rolling=rolling,
+                            attn_softcap=attn_softcap, t0=t0,
+                            T=k_cache.shape[-1], reduce=reduce)
+    news = (k_new, v_new) if k_new is not None else ()
+    return sharding.local_call(
+        lambda kc, vc, q, pos, *kv: run(q, kc, vc, pos, *kv),
+        (k_cache, v_cache, q, positions) + news,
+        (_KC, _VC, _Q1, ("batch",)) + (_Q1,) * len(news), _Q1)
+
+
+def _decode_attention(q, k_cache, v_cache, positions, k_new=None,
+                      v_new=None, *, rolling: bool = False,
+                      attn_softcap: float = 0.0, t0: int = 0, T=None,
+                      reduce=None):
     """Single new query vs a pre-transposed cache plus an explicit
     new-token term.
 
@@ -92,30 +170,44 @@ def decode_attention(q, k_cache, v_cache, positions, k_new=None,
     window cache).  Before the position wraps, the slots below it are
     valid; after, every slot but ``positions % T``, which holds the
     position that just left the window.  The mask is computed on the
-    device from the positions tensor, so the step can be captured."""
+    device from the positions tensor, so the step can be captured.
+
+    ``t0``, ``T`` and ``reduce``: the caches hold slots ``[t0, t0 +
+    local T)`` of ``T``, and ``reduce(t, op)`` all-reduces over the other
+    time shards (None: the whole cache is here)."""
     B, H, hd = q.shape
-    KV, T = k_cache.shape[1], k_cache.shape[3]
+    KV, Tl = k_cache.shape[1], k_cache.shape[3]
+    T = Tl if T is None else T
     G = H // KV
     scale = hd ** -0.5
     qr = q.reshape(B, KV, G, hd).float()
     s = _softcap(torch.matmul(qr, k_cache.float()) * scale, attn_softcap)
-    slot = torch.arange(T, device=q.device)[None, :]
+    slot = torch.arange(t0, t0 + Tl, device=q.device)[None, :]
     pos = positions[:, None]
     valid = slot < pos
     if rolling:
         valid = torch.where(pos < T, valid, slot != pos % T)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    if reduce is None:
+        def reduce(t, _op):
+            return t
     if k_new is None:
-        p = torch.softmax(s, -1)
-        out = torch.matmul(p.to(v_cache.dtype).float(), v_cache.float())
+        if t0 == 0 and Tl == T:
+            p = torch.softmax(s, -1)
+        else:
+            e = torch.exp(s - reduce(s.amax(-1), "max")[..., None])
+            p = e / reduce(e.sum(-1), "sum")[..., None]
+        out = reduce(torch.matmul(p.to(v_cache.dtype).float(),
+                                  v_cache.float()), "sum")
         return out.reshape(B, H, hd).to(q.dtype)
     s_new = (qr * k_new.float()[:, :, None, :]).sum(-1) * scale
     s_new = _softcap(s_new, attn_softcap)
-    m = torch.maximum(s.amax(-1), s_new)
+    m = torch.maximum(reduce(s.amax(-1), "max"), s_new)
     e = torch.exp(s - m[..., None])
     e_new = torch.exp(s_new - m)
-    l = e.sum(-1) + e_new
-    out = torch.matmul(e.to(v_cache.dtype).float(), v_cache.float())
+    l = reduce(e.sum(-1), "sum") + e_new
+    out = reduce(torch.matmul(e.to(v_cache.dtype).float(), v_cache.float()),
+                 "sum")
     out = out + e_new[..., None] * v_new.float()[:, :, None, :]
     out = out / l[..., None]
     return out.reshape(B, H, hd).to(q.dtype)
@@ -165,19 +257,60 @@ def cache_write_window(k_cache, v_cache, k_new, v_new, rows, offsets):
 
 
 def cache_write_kv(k_cache, v_cache, k_new, v_new, positions, *,
-                   rolling: bool = False):
+                   rolling: bool = False, aligned: bool = False):
     """Write one token per row into a layer's caches, in place.
 
     k_cache: (B,KV,hd,T); v_cache: (B,KV,T,hd); k/v_new: (B,KV,hd);
     positions (B,); ``rolling`` writes position p at slot ``p % T``.  The
     reference returns updated copies through a donated
     ``dynamic_update_slice``; here the pool tensors are updated in place
-    (``index_put_``) and returned for the same call shape."""
-    B, T = k_cache.shape[0], k_cache.shape[-1]
-    rows = torch.arange(B, device=k_cache.device)
+    and returned for the same call shape: one ``index_put_`` per cache,
+    or with ``aligned`` (every row decodes the same position,
+    ``positions[0]``) one slice write per cache (``index_copy_`` of one
+    time slot, read on the device).  Under a mesh each rank writes its
+    own shard of the caches; a time-sharded cache takes the slot on the
+    rank that holds it."""
+    if not sharding.is_sharded(k_cache, v_cache, k_new, positions):
+        _write_kv(k_cache, v_cache, k_new, v_new, positions,
+                  rolling=rolling, aligned=aligned)
+        return k_cache, v_cache
+    t0, _ = _time_shards(k_cache)
+    sharding.local_call(
+        functools.partial(_write_kv, rolling=rolling, aligned=aligned,
+                          t0=t0, T=k_cache.shape[-1]),
+        (k_cache, v_cache, k_new, v_new, positions),
+        (_KC, _VC, _Q1, _Q1, ("batch",)), (), inplace=(0, 1))
+    return k_cache, v_cache
+
+
+def _write_kv(k_cache, v_cache, k_new, v_new, positions, *, rolling: bool,
+              aligned: bool, t0: int = 0, T=None):
+    """:func:`cache_write_kv` on caches holding slots ``[t0, t0 + local
+    T)`` of ``T``: a slot outside them is left as it is."""
+    B, Tl = k_cache.shape[0], k_cache.shape[-1]
+    T = Tl if T is None else T
     pos = positions.long()
     if rolling:
         pos = pos % T
-    k_cache[rows, :, :, pos] = k_new.to(k_cache.dtype)
-    v_cache[rows, :, pos, :] = v_new.to(v_cache.dtype)
-    return k_cache, v_cache
+    kn, vn = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
+    if aligned:
+        pos = pos[:1]
+    rows = torch.arange(B, device=k_cache.device)
+    if t0 or Tl != T:
+        # a slot held by another rank: write back what is there
+        here = (pos >= t0) & (pos < t0 + Tl)
+        pos = torch.clamp(pos - t0, 0, Tl - 1)
+        if aligned:
+            kn = torch.where(here, kn, k_cache.index_select(3, pos)[..., 0])
+            vn = torch.where(here, vn, v_cache.index_select(2, pos)[:, :, 0])
+        else:
+            kn = torch.where(here[:, None, None], kn,
+                             k_cache[rows, :, :, pos])
+            vn = torch.where(here[:, None, None], vn,
+                             v_cache[rows, :, pos, :])
+    if aligned:
+        k_cache.index_copy_(3, pos, kn[..., None])
+        v_cache.index_copy_(2, pos, vn[:, :, None])
+    else:
+        k_cache[rows, :, :, pos] = kn
+        v_cache[rows, :, pos, :] = vn

@@ -10,13 +10,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import sparse_linear
+from repro_torch.distributed import sharding
 
 
-def dense(x, w, sp=None, *, policy=None, role=None, token_weights=None):
+def dense(x, w, sp=None, row_parallel: bool = False, *, policy=None,
+          role=None, token_weights=None):
     """y = x @ W, optionally channel-sparsified per WiSparse (see
-    :func:`repro_torch.core.sparse_linear.project`)."""
-    return sparse_linear.project(x, w, sp, policy=policy, role=role,
-                                 token_weights=token_weights)
+    :func:`repro_torch.core.sparse_linear.project`; ``row_parallel``
+    marks a weight whose input dim is model-sharded)."""
+    return sparse_linear.project(x, w, sp, row_parallel, policy=policy,
+                                 role=role, token_weights=token_weights)
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -64,6 +67,22 @@ def apply_rope(x, cos, sin):
     c = cos[..., None, :]
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(dt)
+
+
+def rope_qk(q, k, pos, theta: float):
+    """RoPE on q (B,S,H,hd) and k (B,S,KV,hd) at positions ``pos``
+    ((B|1, S) ints), on local shards under a mesh (the angles are built
+    from ``arange``): rows and heads are independent."""
+    pos_axes = ("batch", None) if pos.shape[0] == q.shape[0] and \
+        pos.shape[0] > 1 else (None, None)
+    ang = pos_axes + (None,)
+    cos, sin = sharding.local_call(
+        lambda p: rope_angles(p, q.shape[-1], theta), (pos,), (pos_axes,),
+        (ang, ang))
+    return tuple(sharding.local_call(apply_rope, (t, cos, sin),
+                                     (axes, ang, ang), axes)
+                 for t, axes in ((q, ("batch", None, "heads", None)),
+                                 (k, ("batch", None, "kv_heads", None))))
 
 
 def sinusoidal_at(positions, dim: int):

@@ -3,6 +3,7 @@ whisper's plain ``wi`` -> GELU -> ``wo`` MLP (port of the JAX package's
 ``models/mlp.py``)."""
 from __future__ import annotations
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import dense, gelu, silu
 from repro_torch.models.params import ParamSpec
 
@@ -35,12 +36,14 @@ def mlp_schema(cfg):
 def mlp_apply(p, x, cfg, sp=None, policy=None, token_weights=None):
     sp = sp or {}
 
-    def proj(name, xin):
-        return dense(xin, p[name], sp.get(name), policy=policy,
-                     role=f"mlp/{name}", token_weights=token_weights)
+    def proj(name, xin, row_parallel=False):
+        return dense(xin, p[name], sp.get(name), row_parallel,
+                     policy=policy, role=f"mlp/{name}",
+                     token_weights=token_weights)
 
     if cfg.mlp_activation in GATED:
         h = GATED[cfg.mlp_activation](proj("wi_gate", x)) * proj("wi_up", x)
     else:
         h = gelu(proj("wi", x))
-    return proj("wo", h)
+    h = constrain(h, "batch", None, "mlp")
+    return proj("wo", h, row_parallel=True)

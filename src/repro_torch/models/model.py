@@ -56,10 +56,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_linear
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import (apply_rope, dense, rmsnorm,
-                                       rope_angles, sinusoidal_at,
-                                       sinusoidal_positions, softcap)
+from repro_torch.models.layers import (dense, rmsnorm, rope_qk,
+                                       sinusoidal_at, sinusoidal_positions,
+                                       softcap)
 from repro_torch.models.mlp import mlp_apply, mlp_schema
 from repro_torch.models.moe import moe_apply, moe_schema
 from repro_torch.models.params import ParamSpec, stacked
@@ -184,7 +186,7 @@ def _index(tree, r: int):
 def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
                cache=None, positions=None, mode: str = "train", slot=None,
                policy=None, token_weights=None, kv_override=None,
-               role_base: str = "attn"):
+               role_base: str = "attn", aligned: bool = False):
     """Self-attention for one layer of mixer ``kind`` (``attn_bidir``:
     no causal mask), or cross-attention over ``kv_override`` (B,F,D)
     under the roles ``{role_base}/w*``.
@@ -208,7 +210,10 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
     A ``local`` layer attends over the last ``cfg.sliding_window``
     positions; in ``prefill`` its cache keeps the last window of them,
     rolled so that slot ``p % window`` holds position ``p``, and in
-    ``decode`` a cache whose time length is the window rolls."""
+    ``decode`` a cache whose time length is the window rolls.
+
+    ``aligned`` (decode): every row decodes the same position, so each
+    cache takes one slice write (:func:`attention.cache_write_kv`)."""
     sp = sp or {}
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -223,11 +228,23 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
             "chunked prefill does not support local-attention layers; "
             "use the engine's whole-prompt prefill strategy")
 
-    def proj(name, xin, weights=tw):
-        return dense(xin, p[name], sp.get(name), policy=policy,
-                     role=f"{role_base}/{name}", token_weights=weights)
+    if mode in ("chunk", "verify") and sharding.is_sharded(x):
+        raise NotImplementedError(
+            f"{mode} mode runs outside a sharding context (the serving "
+            "engine never enters one, as the reference's does not)")
 
-    q = proj("wq", x).reshape(B, S, H, hd)
+    def proj(name, xin, weights=tw, row_parallel=False):
+        return dense(xin, p[name], sp.get(name), row_parallel,
+                     policy=policy, role=f"{role_base}/{name}",
+                     token_weights=weights)
+
+    def out_proj(out):
+        return proj("wo", sharding.flatten(out, 2, 2), row_parallel=True)
+
+    def heads(t, n):                              # (B,S,n*hd) -> (B,S,n,hd)
+        return sharding.unflatten(t, -1, (n, hd))
+
+    q = heads(proj("wq", x), H)
     if kv_override is not None:                      # cross-attention
         if mode == "decode":
             kc, vc = cache["k"], cache["v"]
@@ -238,13 +255,14 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
             )[:, None]
         else:
             F = kv_override.shape[1]
-            k = proj("wk", kv_override, None).reshape(B, F, KV, hd)
-            v = proj("wv", kv_override, None).reshape(B, F, KV, hd)
+            k = heads(proj("wk", kv_override, None), KV)
+            v = heads(proj("wv", kv_override, None), KV)
+            q = constrain(q, "batch", None, "heads", None)
             out = attn_lib.flash_attention(q, k, v, causal=False)
-        return proj("wo", out.reshape(B, S, H * hd)), None
+        return out_proj(out), None
 
-    k = proj("wk", x).reshape(B, S, KV, hd)
-    v = proj("wv", x).reshape(B, S, KV, hd)
+    k = heads(proj("wk", x), KV)
+    v = heads(proj("wv", x), KV)
 
     if cfg.rope_theta:
         if mode == "decode":
@@ -253,9 +271,8 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
             pos = positions.reshape(-1, 1) + torch.arange(S, device=x.device)
         else:
             pos = torch.arange(S, device=x.device)[None]
-        cos, sin = rope_angles(pos, hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        q, k = rope_qk(q, k, pos, cfg.rope_theta)
+    q = constrain(q, "batch", None, "heads", None)
 
     if mode in ("chunk", "verify"):
         kc, vc = cache["k"], cache["v"]          # pool: (S,KV,hd,T)/(S,KV,T,hd)
@@ -270,7 +287,7 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
             ks, vs = kc, vc                      # every pool row, in place
         out = attn_lib.chunk_attention(q, ks, vs, offs,
                                        attn_softcap=cfg.attn_softcap)
-        return proj("wo", out.reshape(B, S, H * hd)), {"k": kc, "v": vc}
+        return out_proj(out), {"k": kc, "v": vc}
 
     if mode == "decode":
         kc, vc = cache["k"], cache["v"]
@@ -280,7 +297,7 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
             q[:, 0], kc, vc, positions, k_new, v_new, rolling=rolling,
             attn_softcap=cfg.attn_softcap)[:, None]
         attn_lib.cache_write_kv(kc, vc, k_new, v_new, positions,
-                                rolling=rolling)
+                                rolling=rolling, aligned=aligned)
         new_cache = {"k": kc, "v": vc}
     else:
         out = attn_lib.flash_attention(q, k, v, causal=kind != "attn_bidir",
@@ -292,17 +309,23 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str = "attn", sp=None,
             if win and win < S:                  # rolling window cache
                 # slot j of k[:, -win:] holds position S-win+j; roll right
                 # by S % win so slot (p % win) holds position p
-                ck = torch.roll(k[:, -win:], S % win, dims=1)
-                cv = torch.roll(v[:, -win:], S % win, dims=1)
+                def roll(t):
+                    return torch.roll(t[:, -win:], S % win, dims=1)
+                kv_axes = ("batch", None, "kv_heads", None)
+                ck, cv = (sharding.local_call(roll, (t,), (kv_axes,),
+                                              kv_axes) for t in (k, v))
             # decode-layout caches: K as (B,KV,hd,T), V as (B,KV,T,hd)
-            new_cache = {"k": ck.permute(0, 2, 3, 1).contiguous(),
-                         "v": cv.permute(0, 2, 1, 3).contiguous()}
-    return proj("wo", out.reshape(B, S, H * hd)), new_cache
+            new_cache = {
+                "k": constrain(ck.permute(0, 2, 3, 1).contiguous(),
+                               "batch", "kv_heads", None, "kv_seq"),
+                "v": constrain(cv.permute(0, 2, 1, 3).contiguous(),
+                               "batch", "kv_heads", "kv_seq", None)}
+    return out_proj(out), new_cache
 
 
 def layer_apply(p, x, cfg: ModelConfig, kind, sp=None, cache=None,
                 positions=None, mode: str = "train", slot=None, policy=None,
-                token_weights=None, enc_out=None):
+                token_weights=None, enc_out=None, aligned: bool = False):
     """One pre-norm layer of ``kind`` (mixer, ffn).  ``policy`` is
     already depth-resolved; None runs dense.  Returns (x, {"self":
     cache} on an attention layer, {"ssm": cache} on a mamba layer, or
@@ -327,9 +350,10 @@ def layer_apply(p, x, cfg: ModelConfig, kind, sp=None, cache=None,
     else:
         h, nc = attn_apply(p["attn"], h, cfg, mixer, sp.get("attn"),
                            cache.get("self"), positions, mode, slot=slot,
-                           policy=policy, token_weights=token_weights)
+                           policy=policy, token_weights=token_weights,
+                           aligned=aligned)
         key = "self"
-    x = x + h
+    x = x + constrain(h, "batch", None, "embed_act")
     new_cache = {key: nc} if nc is not None else {}
     if "cross" in p:
         h = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
@@ -344,18 +368,23 @@ def layer_apply(p, x, cfg: ModelConfig, kind, sp=None, cache=None,
             KV, hd = cfg.num_kv_heads, cfg.head_dim
             ck = dense(enc_out, p["cross"]["wk"], policy=policy)
             cv = dense(enc_out, p["cross"]["wv"], policy=policy)
+            ck = sharding.unflatten(ck, -1, (KV, hd))
+            cv = sharding.unflatten(cv, -1, (KV, hd))
             new_cache["cross"] = {
-                "k": ck.reshape(B, F, KV, hd).permute(0, 2, 3, 1).contiguous(),
-                "v": cv.reshape(B, F, KV, hd).permute(0, 2, 1, 3).contiguous()}
-        x = x + h
+                "k": ck.permute(0, 2, 3, 1).contiguous(),
+                "v": cv.permute(0, 2, 1, 3).contiguous()}
+        x = x + constrain(h, "batch", None, "embed_act")
     if ffn == "moe":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         # expert rows are dispatched tokens: no token weights
         x = x + moe_apply(p["moe"], h, cfg, sp.get("moe"), policy=policy)
     elif ffn == "dense":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, cfg, sp.get("mlp"), policy=policy,
-                          token_weights=token_weights)
+        x = x + constrain(mlp_apply(p["mlp"], h, cfg, sp.get("mlp"),
+                                    policy=policy,
+                                    token_weights=token_weights),
+                          "batch", None, "embed_act")
+    x = constrain(x, "batch", None, "embed_act")
     return x, (new_cache or None)
 
 
@@ -394,7 +423,7 @@ def _remat_wrap(fn, remat: str):
 def run_groups(groups, x, cfg: ModelConfig, *, mode="train", caches=None,
                positions=None, sp=None, slot=None, policy=None,
                token_weights=None, remat: str = "none", enc_out=None,
-               patterns=None):
+               patterns=None, aligned: bool = False):
     """Run every stacked layer group in depth order.  Returns (x, caches):
     the pool caches updated in place for decode/chunk/verify, fresh
     stacked caches for prefill, None for train.  ``remat`` (train mode
@@ -410,7 +439,10 @@ def run_groups(groups, x, cfg: ModelConfig, *, mode="train", caches=None,
         made = [[] for _ in pattern]
         rep_params = _unbind(gp, reps) if mode == "train" else None
         for r in range(reps):
-            def body(x, r=r, depth=depth, pattern=pattern):
+            # every loop variable bound now: remat runs body again in the
+            # backward, after the loop has moved on to later groups
+            def body(x, r=r, depth=depth, pattern=pattern, gp=gp, gc=gc,
+                     gsp=gsp, rep_params=rep_params):
                 ncs = []
                 for j, kind in enumerate(pattern):
                     lpol = policy.resolve_depth(depth + j) \
@@ -421,7 +453,8 @@ def run_groups(groups, x, cfg: ModelConfig, *, mode="train", caches=None,
                         _index(gsp[f"l{j}"], r) if gsp is not None else None,
                         _index(gc[j], r) if gc is not None else None,
                         positions, mode, slot=slot, policy=lpol,
-                        token_weights=token_weights, enc_out=enc_out)
+                        token_weights=token_weights, enc_out=enc_out,
+                        aligned=aligned)
                     ncs.append(nc)
                 return x, ncs
             x, ncs = _remat_wrap(body, remat if mode == "train"
@@ -446,7 +479,27 @@ def _stack_reps(trees):
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
-    e = params["embed"][tokens]
+    """Token rows of the embedding (scaled by sqrt(d) where the config
+    says).  Under a mesh each rank looks its tokens up in its own vocab
+    rows (the table's d_model dim made whole) and the rows held
+    elsewhere come from the other ranks' partial sums."""
+    emb = params["embed"]
+    if sharding.is_sharded(emb):
+        vocab = sharding.mesh_axes_for(("vocab", None), emb.shape)[0]
+        v0 = 0 if vocab is None else sharding.chunk_start(
+            emb.device_mesh, vocab, emb.shape[0])
+
+        def lookup(table, tok):
+            ids = tok - v0
+            here = (ids >= 0) & (ids < table.shape[0])
+            rows = table[torch.clamp(ids, 0, table.shape[0] - 1)]
+            return rows * here[..., None].to(rows.dtype)
+        e = constrain(sharding.local_call(
+            lookup, (emb, tokens), (("vocab", None), ("batch", None)),
+            ("batch", None, None), out_partial=("vocab",)),
+            "batch", None, "embed_act")
+    else:
+        e = emb[tokens]
     if cfg.scale_embed:
         e = e * torch.tensor(cfg.d_model ** 0.5, dtype=e.dtype)
     return e
@@ -509,8 +562,18 @@ class _HeadProduct(torch.autograd.Function):
 
 
 def lm_logits(params, x, cfg: ModelConfig):
-    """(B,S,D) -> f32 logits (B,S,V), accumulated in f32."""
+    """(B,S,D) -> f32 logits (B,S,V), accumulated in f32.  Under a mesh
+    each rank multiplies its rows by its vocab columns (the head's own
+    layout): the logits come out ``("batch", None, "vocab")``."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = sharding.local_call(
+        _head, (x, w), (("batch", None, None), (None, "vocab")),
+        ("batch", None, "vocab"))
+    logits = softcap(logits, cfg.logit_softcap)
+    return constrain(logits, "batch", None, "vocab")
+
+
+def _head(x, w):
     B, S, D = x.shape
     x2 = x.reshape(B * S, D)
     if x2.is_cuda and x2.dtype != torch.float32:
@@ -522,7 +585,7 @@ def lm_logits(params, x, cfg: ModelConfig):
             logits = _mm_f32(x2, w)
     else:
         logits = x2.float() @ w.float()
-    return softcap(logits, cfg.logit_softcap).reshape(B, S, -1)
+    return logits.reshape(B, S, -1)
 
 
 def encode(params, frames, cfg: ModelConfig, sp=None, remat: str = "none",
@@ -535,8 +598,9 @@ def encode(params, frames, cfg: ModelConfig, sp=None, remat: str = "none",
     if policy is not None:
         policy = policy.resolve_depth(None)
     enc = params["encoder"]
-    x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
-                                      frames.device).to(frames.dtype)[None]
+    x = frames + constrain(sinusoidal_positions(
+        frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)[None],
+        None, None, "embed_act")
     x, _ = run_groups(enc["groups"], x, cfg, mode="train", sp=sp,
                       remat=remat, policy=policy,
                       patterns=[(ENC_PATTERN, cfg.encoder_layers)])
@@ -546,7 +610,7 @@ def encode(params, frames, cfg: ModelConfig, sp=None, remat: str = "none",
 def forward(params, cfg: ModelConfig, *, tokens, frames=None,
             patch_embeds=None, mode="train", caches=None, positions=None,
             sp=None, sp_enc=None, slot=None, policy=None, token_weights=None,
-            remat: str = "none"):
+            remat: str = "none", aligned: bool = False):
     """Unified forward.
 
     train/prefill: tokens (B,S[-P]) [+ frames (B,F,D) | patch_embeds
@@ -568,6 +632,12 @@ def forward(params, cfg: ModelConfig, *, tokens, frames=None,
     at the last position, fresh caches; decode -> (B,V), pool updated in
     place; chunk/verify -> (B,C,V), pool updated in place.  ``remat``
     (train mode): ``none``, ``dots`` or ``full`` (:func:`_remat_wrap`).
+    ``aligned`` (decode): every row decodes ``positions[0]``, so each
+    cache write is one slice write.
+
+    Under a ``distributed.sharding_context`` with params placed on its
+    mesh (``sharding.distribute``), the same code runs on DTensors, with
+    the reference's ``constrain`` sites as redistributions.
     """
     if mode not in MODES:
         raise NotImplementedError(
@@ -577,6 +647,11 @@ def forward(params, cfg: ModelConfig, *, tokens, frames=None,
             f"{mode} mode serves token-only models, not {cfg.family}")
     if policy is None:
         policy = sparse_linear.DENSE
+    if sharding.is_sharded(params["embed"]):
+        # the step's inputs, laid out as the reference's in_shardings
+        tokens = constrain(tokens, "batch", "seq")
+        if positions is not None:
+            positions = constrain(positions, "batch")
     enc_out = None
     if cfg.family == "encdec" and frames is not None:
         enc_out = encode(params, frames, cfg, sp=sp_enc, remat=remat,
@@ -584,18 +659,25 @@ def forward(params, cfg: ModelConfig, *, tokens, frames=None,
     if mode == "decode":
         x = embed_tokens(params, tokens[:, None], cfg)
         if cfg.family == "encdec" and cfg.rope_theta == 0.0:
-            x = x + sinusoidal_at(positions, cfg.d_model)[:, None].to(x.dtype)
+            x = x + sharding.local_call(
+                lambda pos: sinusoidal_at(pos, cfg.d_model)[:, None].to(
+                    x.dtype), (positions,), (("batch",),),
+                ("batch", None, None))
     else:
         x = embed_tokens(params, tokens, cfg)
         if patch_embeds is not None:                   # VLM stub frontend
             x = torch.cat([patch_embeds.to(x.dtype), x], 1)
         if cfg.family == "encdec":
-            x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
-                                         x.device).to(x.dtype)[None]
+            x = x + constrain(sinusoidal_positions(
+                x.shape[1], cfg.d_model, x.device).to(x.dtype)[None],
+                None, None, "embed_act")
+        if mode in ("train", "prefill"):
+            x = constrain(x, "batch", None, "embed_act")
     x, new_caches = run_groups(
         params["groups"], x, cfg, mode=mode, caches=caches,
         positions=positions, sp=sp, slot=slot, policy=policy,
-        token_weights=token_weights, remat=remat, enc_out=enc_out)
+        token_weights=token_weights, remat=remat, enc_out=enc_out,
+        aligned=aligned)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if mode == "decode":
         return lm_logits(params, x, cfg)[:, 0], new_caches

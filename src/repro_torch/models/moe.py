@@ -1,6 +1,5 @@
 """Mixture-of-Experts FFN with capacity-bounded gather dispatch (port of
-the JAX package's ``models/moe.py``; its sharding constraints are the
-identity on one card).
+the JAX package's ``models/moe.py``, with its sharding constraints).
 
 A group is the batch dim of x, in every mode: one token per group in
 decode, one request's chunk in chunked prefill, one slot's window in
@@ -16,12 +15,20 @@ ascending expert id, in x's dtype.
 
 Every op reads shapes only, never a device value, so the decode, chunk
 and verify steps that run it can be captured as CUDA graphs.
+
+On a mesh the routing and dispatch run on each rank's rows (groups are
+independent), the dispatched rows are laid out ``("batch", "experts",
+None, None)`` as the reference constrains them, the expert projections
+run as DTensor products, and the combine gathers every expert's rows
+for the rank's tokens.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.sparse_linear import project_experts
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.select import topk_ids
 from repro_torch.models.layers import gelu, silu
 from repro_torch.models.params import ParamSpec
@@ -109,36 +116,68 @@ def moe_apply(p, x, cfg, sp=None, policy=None):
     no token weights (the reference passes ``token_weights=None``)."""
     sp = sp or {}
     B, S, D = x.shape
-    E, K = cfg.num_experts_padded, cfg.num_experts_per_tok
-    C = _capacity(S, cfg)
-
-    gate, topk = route(p, x, cfg)
-    disp, pos, _ = dispatch(topk, S, C, E)
-    xg = torch.cat([x, x.new_zeros(B, 1, D)], 1)                 # (B,S+1,D)
-    xe = xg.gather(1, disp.reshape(B, E * C, 1).expand(-1, -1, D))
+    E, C = cfg.num_experts_padded, _capacity(S, cfg)
+    xe, gate, topk, pos = sharding.local_call(
+        lambda x, router: _route_dispatch(x, router, cfg, C),
+        (x, p["router"]), (("batch", None, None), (None, None)),
+        (("batch", None, None, None), ("batch", None, None),
+         ("batch", None, None), ("batch", None, None)))
+    xe = constrain(xe, "batch", "experts", None, None)
     # experts first: (E, B*C, D), each expert's rows of every group
-    xe = xe.reshape(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
+    xe = xe.transpose(0, 1).reshape(E, B * C, D)
 
     def ff(name, h):
         return project_experts(h.contiguous(), p[name], sp.get(name),
                                policy=policy, role=f"moe/{name}")
 
+    def groups_first(t, *axes):                 # (E,B*C,X) -> (B,E,C,X)
+        return constrain(sharding.unflatten(t, 1, (B, C)).transpose(0, 1),
+                         *axes)
+
     act = silu if cfg.mlp_activation == "swiglu" else gelu
     h = act(ff("wi_gate", xe)) * ff("wi_up", xe)                 # (E,B*C,F)
-    ye = ff("wo", h)                                             # (E,B*C,D)
+    h = groups_first(h, "batch", "experts", None, "expert_mlp")
+    ye = ff("wo", h.transpose(0, 1).reshape(E, B * C, -1))       # (E,B*C,D)
+    ye = groups_first(ye, "batch", "experts", None, None)
+    out = sharding.local_call(
+        lambda ye, gate, topk, pos: _combine(ye, gate, topk, pos, C),
+        (ye, gate, topk, pos),
+        (("batch", None, None, None), ("batch", None, None),
+         ("batch", None, None), ("batch", None, None)),
+        ("batch", None, None))
+    return constrain(out, "batch", None, "embed_act").to(x.dtype)
 
-    # combine: token (b, s)'s K assignments in ascending expert id, each
-    # read at its position (clipped; a dropped one is gated to 0) and
-    # added in x's dtype, as the reference's sorted scatter-add adds them
+
+def _route_dispatch(x, router, cfg, C: int):
+    """One rank's groups: (xe (B,E,C,D) each expert's dispatched rows,
+    gate (B,S,K), topk (B,S,K), pos (B,S,K))."""
+    B, S, D = x.shape
+    E = cfg.num_experts_padded
+    gate, topk = route({"router": router}, x, cfg)
+    disp, pos, _ = dispatch(topk, S, C, E)
+    xg = torch.cat([x, x.new_zeros(B, 1, D)], 1)                 # (B,S+1,D)
+    xe = xg.gather(1, disp.reshape(B, E * C, 1).expand(-1, -1, D))
+    return xe.reshape(B, E, C, D), gate, topk, pos
+
+
+def _combine(ye, gate, topk, pos, C: int):
+    """ye (B,E,C,D) every expert's outputs for one rank's groups -> (B,S,D)
+    in ye's dtype.  Token (b, s)'s K assignments in ascending expert id,
+    each read at its position (clipped; a dropped one is gated to 0) and
+    added in x's dtype, as the reference's sorted scatter-add adds
+    them."""
+    B, E, _, D = ye.shape
+    S, K = topk.shape[1], topk.shape[2]
+    ye = ye.transpose(0, 1)                                      # (E,B,C,D)
     eid, k_of = torch.sort(topk, dim=-1)                         # (B,S,K)
     g_k = gate.gather(-1, k_of)
     p_k = pos.gather(-1, k_of)
     kept = (p_k < C).to(g_k.dtype)
-    rows = (eid * B + torch.arange(B, device=x.device)[:, None, None]) * C \
+    rows = (eid * B + torch.arange(B, device=ye.device)[:, None, None]) * C \
         + torch.clamp(p_k, max=C - 1)
     vals = ye.reshape(E * B * C, D).index_select(0, rows.reshape(-1))
     vals = vals.reshape(B, S, K, D) * (g_k * kept).to(ye.dtype)[..., None]
     out = vals[:, :, 0]
     for k in range(1, K):
         out = out + vals[:, :, k]
-    return out.to(x.dtype)
+    return out

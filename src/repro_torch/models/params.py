@@ -128,6 +128,23 @@ def stacked(schema, n: int, axis_name: Optional[str] = None):
                                         s.init, s.scale, s.dtype), schema)
 
 
+def abstract_params(schema, default_dtype: str = "float32"):
+    """Meta tensors of the schema's shapes and dtypes (no storage): the
+    dry run's stand-ins for ``jax.ShapeDtypeStruct``."""
+    return tree_map(lambda s: torch.empty(
+        s.shape, dtype=DTYPES[s.dtype or default_dtype], device="meta"),
+        schema)
+
+
+def logical_axes(schema):
+    """The logical axis names of every leaf: a tree of tuples."""
+    return tree_map(lambda s: s.axes, schema)
+
+
+def count_params(schema) -> int:
+    return int(sum(int(np.prod(s.shape)) for s in tree_leaves(schema)))
+
+
 def from_numpy(tree, device="cpu", dtype=None):
     """A tree of numpy arrays (e.g. the JAX package's params or stacked
     sp tree, exported with ``np.asarray``) -> the same tree of torch

@@ -29,8 +29,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import dense, rmsnorm, silu
 from repro_torch.models.params import ParamSpec
+
+# logical axes of the conv inputs' channels: x's are d_inner ("mlp"),
+# B's and C's the state size (replicated), as in the cache schema
+_CONV_AXES = {"conv_x": "mlp", "conv_B": None, "conv_C": None}
 
 
 def mamba_schema(cfg):
@@ -53,6 +59,31 @@ def mamba_schema(cfg):
         "norm": ParamSpec((di,), (None,), init="zeros"),
         "out_proj": ParamSpec((di, d), ("mlp", "embed")),
     }
+
+
+def causal_conv(u, w, name: str):
+    """:func:`_causal_conv` on local shards under a mesh (rows and
+    channels are independent); ``name`` is the conv's param name."""
+    c = _CONV_AXES[name]
+    return sharding.local_call(_causal_conv, (u, w),
+                               (("batch", None, c), (None, c)),
+                               ("batch", None, c))
+
+
+def conv_step(state, u_new, w, name: str):
+    """:func:`_conv_step` on local shards under a mesh."""
+    c = _CONV_AXES[name]
+    return sharding.local_call(
+        _conv_step, (state, u_new, w),
+        (("batch", None, c), ("batch", c), (None, c)),
+        (("batch", c), ("batch", None, c)))
+
+
+def conv_tail(u, w: int, name: str):
+    """:func:`_conv_tail` on local shards under a mesh."""
+    c = _CONV_AXES[name]
+    return sharding.local_call(lambda u: _conv_tail(u, w), (u,),
+                               (("batch", None, c),), ("batch", None, c))
 
 
 def _causal_conv(u, w):
@@ -94,6 +125,28 @@ def chunk_len(S: int, chunk: int) -> int:
     while S % L:
         L -= 1
     return L
+
+
+def ssd(xh, dt, A, Bm, Cm, chunk: int):
+    """:func:`ssd_chunked` on local shards under a mesh: rows and heads
+    are independent."""
+    return sharding.local_call(
+        lambda xh, dt, A, Bm, Cm: ssd_chunked(xh, dt, A, Bm, Cm, chunk),
+        (xh, dt, A, Bm, Cm),
+        (("batch", None, "ssm_heads", None), ("batch", None, "ssm_heads"),
+         ("ssm_heads",), ("batch", None, None), ("batch", None, None)),
+        (("batch", None, "ssm_heads", None),
+         ("batch", "ssm_heads", None, None)))
+
+
+def _ssm_step(state, dt, A, Bm, Cm, xh, Dp):
+    """One recurrent SSD step: state (B,H,P,N) f32, dt (B,H), Bm/Cm
+    (B,N), xh (B,H,P) f32 -> (y (B,H,P) f32, the new state)."""
+    dA = torch.exp(dt * A)                                      # (B,H)
+    S_new = (state * dA[..., None, None]
+             + torch.einsum("bh,bn,bhp->bhpn", dt, Bm.float(), xh))
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), S_new)
+    return y + Dp[:, None] * xh, S_new
 
 
 def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
@@ -168,21 +221,23 @@ def mamba_apply(p, x, cfg, sp=None, cache=None, mode: str = "train",
     if mode == "decode":
         xt = x[:, 0]
         z, xs, Bm, Cm, dt = _project_inputs(p, xt, sp, policy, token_weights)
-        xs, conv_x = _conv_step(cache["conv_x"], xs, p["conv_x"])
-        Bm, conv_B = _conv_step(cache["conv_B"], Bm, p["conv_B"])
-        Cm, conv_C = _conv_step(cache["conv_C"], Cm, p["conv_C"])
+        xs, conv_x = conv_step(cache["conv_x"], xs, p["conv_x"], "conv_x")
+        Bm, conv_B = conv_step(cache["conv_B"], Bm, p["conv_B"], "conv_B")
+        Cm, conv_C = conv_step(cache["conv_C"], Cm, p["conv_C"], "conv_C")
         xs, Bm, Cm = silu(xs), silu(Bm), silu(Cm)
         dt = F.softplus(dt.float() + p["dt_bias"])
-        xh = xs.reshape(-1, H, P).float()
-        dA = torch.exp(dt * A)                                  # (B,H)
-        S_new = (cache["ssm"] * dA[..., None, None]
-                 + torch.einsum("bh,bn,bhp->bhpn", dt, Bm.float(), xh))
-        y = torch.einsum("bn,bhpn->bhp", Cm.float(), S_new)
-        y = y + Dp[:, None] * xh
-        y = y.reshape(xt.shape[0], H * P).to(x.dtype)
+        xh = sharding.unflatten(xs, -1, (H, P)).float()
+        y, S_new = sharding.local_call(
+            _ssm_step, (cache["ssm"], dt, A, Bm, Cm, xh, Dp),
+            (("batch", "ssm_heads", None, None), ("batch", "ssm_heads"),
+             ("ssm_heads",), ("batch", None), ("batch", None),
+             ("batch", "ssm_heads", None), ("ssm_heads",)),
+            (("batch", "ssm_heads", None), ("batch", "ssm_heads", None, None)))
+        y = sharding.flatten(y, 1, 2).to(x.dtype)
         y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
-        out = dense(y, p["out_proj"], sp.get("out_proj"), policy=policy,
-                    role="mamba/out_proj", token_weights=token_weights)
+        out = dense(y, p["out_proj"], sp.get("out_proj"), True,
+                    policy=policy, role="mamba/out_proj",
+                    token_weights=token_weights)
         # the new windows and state are fresh tensors: no copy overlaps
         # its source
         cache["conv_x"].copy_(conv_x)
@@ -194,21 +249,22 @@ def mamba_apply(p, x, cfg, sp=None, cache=None, mode: str = "train",
     B, S, _ = x.shape
     z, xs, Bm, Cm, dt = _project_inputs(p, x, sp, policy, token_weights)
     raw = (xs, Bm, Cm)          # pre-conv inputs: their tails feed the cache
-    xs = silu(_causal_conv(xs, p["conv_x"]))
-    Bm = silu(_causal_conv(Bm, p["conv_B"]))
-    Cm = silu(_causal_conv(Cm, p["conv_C"]))
+    xs = silu(causal_conv(xs, p["conv_x"], "conv_x"))
+    Bm = silu(causal_conv(Bm, p["conv_B"], "conv_B"))
+    Cm = silu(causal_conv(Cm, p["conv_C"], "conv_C"))
     dt = F.softplus(dt.float() + p["dt_bias"])
-    xh = xs.reshape(B, S, H, P)
-    y, S_fin = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    xh = sharding.unflatten(xs, -1, (H, P))
+    xh = constrain(xh, "batch", None, "ssm_heads", None)
+    y, S_fin = ssd(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y.float() + Dp[None, None, :, None] * xh.float()
-    y = y.reshape(B, S, H * P).to(x.dtype)
+    y = sharding.flatten(y, 2, 2).to(x.dtype)
     y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
-    out = dense(y, p["out_proj"], sp.get("out_proj"), policy=policy,
+    out = dense(y, p["out_proj"], sp.get("out_proj"), True, policy=policy,
                 role="mamba/out_proj", token_weights=token_weights)
     new_cache = None
     if mode == "prefill":
         w = cfg.ssm_conv
-        new_cache = {"conv_x": _conv_tail(raw[0], w),
-                     "conv_B": _conv_tail(raw[1], w),
-                     "conv_C": _conv_tail(raw[2], w), "ssm": S_fin}
+        new_cache = {"conv_x": conv_tail(raw[0], w, "conv_x"),
+                     "conv_B": conv_tail(raw[1], w, "conv_B"),
+                     "conv_C": conv_tail(raw[2], w, "conv_C"), "ssm": S_fin}
     return out, new_cache

@@ -9,6 +9,12 @@ params in place (the analog of the reference's donated buffers) and
 keeps no grads past the step.  Every scalar of the step (the schedule,
 the bias corrections, the clip factor) is an f32 tensor, as in the
 reference, so the step runs on the params' device with no host read.
+
+On a mesh (DTensor params, placed by ``LOGICAL_RULES_TRAIN``) the
+moments and master copies take the params' placements (the reference's
+ZeRO-style sharding of ``embed`` over ``data``), each grad is
+redistributed to its param's layout first (a reduce-scatter of a partial
+sum), and the norm and the int8 scale reduce over every shard.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models.params import tree_leaves, tree_map
 
 F32 = torch.float32
@@ -52,7 +59,7 @@ def init(params, cfg: AdamWConfig):
     # a copy even of an f32 leaf: params must not alias the master copy,
     # which update() writes in place
     def zeros(p):
-        return torch.zeros(p.shape, dtype=F32, device=p.device)
+        return torch.zeros_like(p, dtype=F32)
 
     state = {
         "m": tree_map(zeros, params),
@@ -83,12 +90,22 @@ def _quantize_int8(g, ef):
     return deq, g - deq
 
 
+def _like(g, m):
+    """``g`` in the layout of the state leaf ``m`` (the identity off a
+    mesh)."""
+    if sharding.is_sharded(g) and tuple(g.placements) != tuple(m.placements):
+        return g.redistribute(m.device_mesh, m.placements)
+    return g
+
+
 @torch.no_grad()
 def update(grads, state, params, cfg: AdamWConfig):
     """One step.  Returns (params, state, {"grad_norm", "lr"}); params
     and state are the objects passed in, written in place."""
     step = state["step"] + 1
-    g_leaves = tree_leaves(grads)
+    g_leaves = [_like(g, m) for g, m in zip(tree_leaves(grads),
+                                            tree_leaves(state["m"]),
+                                            strict=True)]
     if cfg.compress_grads:
         pairs = [_quantize_int8(g, ef)
                  for g, ef in zip(g_leaves, tree_leaves(state["ef"]),

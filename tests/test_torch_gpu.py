@@ -1552,3 +1552,54 @@ def test_batch_decode_build_on_filled_caches_leaves_them(dev, arch):
     assert steps.builds == 1 and steps.captured[0]
     for a, b in zip(before, P.tree_leaves(steps.caches), strict=True):
         assert torch.equal(a, b)
+
+
+@pytest.fixture
+def host_mesh(dev):
+    """A 1x1 mesh over an NCCL group of one rank (chip_smoke's phase 22
+    group), destroyed after the test."""
+    from repro_torch.launch.mesh import make_host_mesh
+    with chip_smoke.single_rank_group(dev):
+        yield make_host_mesh("cuda")
+
+
+def test_host_mesh_serve_equals_unsharded_on_card(dev, host_mesh):
+    """Reduced llama31_8b (bf16) placed by LOGICAL_RULES_SERVE on a 1x1
+    mesh of the card: prefill and aligned decode under uncalibrated
+    ``pallas`` give the unsharded run's tokens and logits, and launch
+    each kernel once per projection per pass, as unsharded
+    (``chip_smoke.sharded_serve_check`` raises otherwise)."""
+    import dataclasses
+    cfg = dataclasses.replace(reduced(get_config("llama31_8b")),
+                              dtype="bfloat16", d_model=256, num_heads=4,
+                              head_dim=64, d_ff=512)
+    params = api.init_model(cfg, 0, device=dev)
+    res = chip_smoke.sharded_serve_check(dev, K, host_mesh, cfg, params)
+    assert res["tokens_equal"] and res["logit_max_diff"] <= \
+        chip_smoke.SHARD_TOL
+    assert res["launches_per_pass"] == \
+        chip_smoke.pass_launches(cfg)["score_select"] > 0
+
+
+def test_restore_under_context_on_card(dev, host_mesh, tmp_path):
+    """A checkpoint restored inside a context lands on the card as
+    DTensors laid out by the rules, holding the saved values; the
+    sharded train step's loss and params equal the unsharded step's."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import sharding as sh
+    cfg = reduced(get_config("granite_moe_1b_a400m"))
+    params = api.init_model(cfg, 0, device=dev)
+    _, axes, _ = api.abstract_model(cfg)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, params)
+    with sh.sharding_context(host_mesh, sh.LOGICAL_RULES_TRAIN) as ctx:
+        got, _ = mgr.restore(params, axes_tree=axes)
+        for (path, ax), leaf in zip(sh.axes_leaves(axes),
+                                    P.tree_leaves(got), strict=True):
+            want = dict(P.tree_flatten_with_path(params))[path]
+            assert leaf.device_mesh is host_mesh and leaf.is_cuda
+            assert tuple(leaf.placements) == sh.named_sharding(
+                ax, want.shape, ctx).placements
+            assert torch.equal(leaf.full_tensor(), want)
+    res = chip_smoke.sharded_train_check(dev, host_mesh, cfg)
+    assert res["loss_diff"] <= 1e-5 and res["param_max_diff"] <= 1e-5
