@@ -81,8 +81,8 @@ In order, it:
    ``pallas``, and a whisper plan calibrated on the CPU serves the CPU's
    tokens on the card;
 5. serves full-width llama31_8b (d_model 4096, bf16, random weights from
-   a fixed seed; phases 5-18 run the first ``SERVE_DEPTH`` = 8 layers of
-   each model, phase 20 every layer) through the port's ``Engine``: 12 requests
+   a fixed seed; phases 5-18 and 20 run the first ``SERVE_DEPTH`` = 8
+   layers of each model) through the port's ``Engine``: 12 requests
    with ragged prompts of 64-448 tokens, 32 new tokens each, dense and
    under ``SparsityPolicy.uniform("pallas", k_max_frac=0.5)`` with an
    uncalibrated sp tree (``keep_frac=0.5``, ``tau=-inf``), each twice in
@@ -210,7 +210,9 @@ In order, it:
    ``GET /v1/debug/flight`` through a gateway returns the ring; last,
    ``serve --gateway --reduced --flight-record --flight-dump-dir`` in a
    subprocess dumps its ring on SIGUSR1, and ``python -m
-   repro_torch.obs.flight.replay`` replays the dump with exit 0;
+   repro_torch.obs.flight.replay`` replays the dump with exit 0.  The
+   serve CLI subprocesses of phases 14-18 and 21 run together once this
+   phase has freed the card (``serve_clis``), timed as one phase;
 16. serves full-width gemma2_2b (8 of its 26 layers, d_model 2304, 8 heads with 4
    KV heads of 256, d_ff 9216, vocab 256000, local/global layers with a
    4096 window, softcaps, bf16, random weights from SEED): 8 slots,
@@ -280,40 +282,41 @@ In order, it:
    params (bit-equal) and the restored params served dense and
    ``pallas`` on phase 16's 8 short prompts, launches checked as in
    phase 16;
-20. runs the enc-dec and VLM families at full width through the
-   static-batch loop (``generate``; the engine refuses these families,
+20. runs the enc-dec and VLM families at full width, cut to
+   ``SERVE_DEPTH`` layers (whisper: that many encoder and decoder
+   layers), through the static-batch loop (``generate``; the engine refuses these families,
    as the reference's does): ``api.make_prefill_step`` with frames or
    patch embeddings, the caches padded as the reference's
    ``_pad_caches``, then the decode step of a
    ``serving/graphs.BatchDecodeSteps`` per run, one key per mode (dense,
    ``mask``, uncalibrated ``pallas``: keep 0.5, tau -inf), each built
-   once before the passes and replayed (a CUDA graph; 256 or 336
+   once before the passes and replayed (a CUDA graph; 64 or 56
    launches of each kernel recorded per sparse replay).  whisper_large_v3
-   (32 + 32 layers, d_model 1280, 20 heads of 64, d_ff 5120, vocab
-   51866, 1500 frames, 1.60B parameters, bf16, random weights and frame
+   (8 + 8 of its 32 + 32 layers, d_model 1280, 20 heads of 64, d_ff
+   5120, vocab 51866, 1500 frames, bf16, random weights and frame
    embeddings from SEED): the encoder's time, then (a) 4 utterances with
    4-token decoder start sequences and (b) one with a 224-token prompt,
    64 new tokens each, through the graphs dense, ``mask``, ``pallas``,
    ``pallas``, ``mask``, dense (each mode repeats its tokens), then the
    eager loop once per mode (its tokens equal the graph's); a sparse
-   run launches each kernel 320 times in its prefill (32 x 4 self, 4
-   cross, 2 MLP projections; the cross-KV stash is dense) and 256 per
-   decode step (32 x (4 + 2 + 2)), any other run none.  8 eager decode
+   run launches each kernel 80 times in its prefill (8 x 4 self, 4
+   cross, 2 MLP projections; the cross-KV stash is dense) and 64 per
+   decode step (8 x (4 + 2 + 2)), any other run none.  8 eager decode
    steps of run (a) traced dense and ``pallas`` give device ms per step
    and the top ops beside the step's byte bound, printed with decode p50
    graph against eager (host ms per step, synced per step) and the
-   card's name and power limit.  Then a 0.5 plan calibrated at full
-   width with the ``--calib-quick`` stages on 2 x 64 tokens over their
+   card's name and power limit.  Then a 0.5 plan calibrated on it
+   with the ``--calib-quick`` stages on 2 x 64 tokens over their
    frames (calibration s, KL, ``k_max_frac``), served eagerly on run (a)
    (launches as above, the share of dense's tokens), and 20 training
    steps of 2 x 448 tokens over 1500 frames at ``remat="full"`` (every
    loss finite, the last below the first; step p50, peak memory).  Then
-   internvl2_26b's language model (48 layers, d_model 6144, 48 heads
-   with 8 KV heads of 128, d_ff 16384, vocab 92553, 19.86B parameters,
-   39.7 GB in bf16, initialised leaf by leaf on the card after every
-   earlier model is freed): 2 sequences of 256 patch embeddings and 128
-   tokens, 32 new tokens, the same graph and eager passes, 336 launches
-   of each kernel per sparse pass (48 x 7), the same traces and bounds;
+   internvl2_26b's language model (8 of its 48 layers, d_model 6144, 48
+   heads with 8 KV heads of 128, d_ff 16384, vocab 92553, bf16,
+   initialised leaf by leaf on the card after every earlier model is
+   freed): 2 sequences of 256 patch embeddings and 128 tokens, 32 new
+   tokens, the same graph and eager passes, 56 launches of each kernel
+   per sparse pass (8 x 7), the same traces and bounds;
 21. runs the serve CLI's ``--legacy`` loop (``launch/serve.generate``)
    on llama31_8b at full width (``SERVE_DEPTH`` layers) over the CLI's
    4 x 64-token prompts, 32 new tokens, dense, uncalibrated ``pallas``
@@ -342,7 +345,21 @@ In order, it:
    that serve cell (depth, batch, cache length, sp tree) on meta tensors
    within 1% of ``torch.cuda.memory_allocated()``'s growth when the same
    arguments are placed on the card.  The group is destroyed at the end;
-23. prints one JSON line describing every kernel, then, as its last line,
+23. runs the port's static checker (``repro_torch.analysis``) on the
+   card: the AST passes over ``src/repro_torch`` and the three global
+   passes on ``cuda`` — ``graph-in-place`` (reduced llama31_8b's warmup
+   set, 3 ``pallas`` rungs, spec at gamma 2, captured: no pool leaf moves
+   or is copied whole, eagerly or in a replay, and no capture keeps a
+   leaf's bytes in its graph pool), ``graph-keys`` (captures only in
+   ``GraphSpace.capture``, stable keys, nothing built under deep-copied
+   policies) and ``launch-geometry`` (every kernel's grid, block, shared
+   memory and cluster over nine archs' projection shapes at published
+   width, B = 1, 8, 32, 448, held against ``wisparse_launch_info`` and the
+   card's own limits, every ``score_select`` cluster shape able to run).
+   Prints the findings (none outside ``analysis-baseline-torch.json``),
+   each pass's seconds, the shapes and comparisons, and each kernel's
+   largest shared memory with its headroom;
+24. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run (whose llama31_8b decode layer their times are), those of the
@@ -456,8 +473,8 @@ GEMMA_WEIGHT_SCALE = 8.0
 # Depth of the full-width models that phases 5-18 serve: each keeps its
 # published widths and layer pattern and runs its first SERVE_DEPTH
 # layers, so that the whole script ends well inside its 1200 s limit.
-# Phase 19b's gemma2_2b and phase 20's whisper_large_v3 and internvl2_26b
-# run at full depth.
+# Phase 20's whisper_large_v3 (encoder and decoder) and internvl2_26b are
+# cut to the same depth; phase 19b's gemma2_2b runs at full depth.
 SERVE_DEPTH = 8
 # Times of the v1 matmul kernels (one thread block per 64 columns walking
 # the kept blocks on CUDA cores; us, CUDA-graph replay, bf16, 50% kept,
@@ -1690,10 +1707,14 @@ def reduced_multimodal_check(dev, arch: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def served_config(arch: str):
-    """``arch``'s published config cut to :data:`SERVE_DEPTH` layers."""
+    """``arch``'s published config cut to :data:`SERVE_DEPTH` layers (an
+    enc-dec model's encoder too)."""
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(arch), num_layers=SERVE_DEPTH)
+    cfg = get_config(arch)
+    return dataclasses.replace(
+        cfg, num_layers=SERVE_DEPTH,
+        encoder_layers=SERVE_DEPTH if cfg.encoder_layers else 0)
 
 
 def full_width_model(dev):
@@ -3286,8 +3307,9 @@ def serve_gateway(dev, K, cfg, params, trace, ladder) -> dict:
     gateway with full telemetry and a scraper, and through a gateway
     with ``NULL_TELEMETRY``; phase 8's ladder under its SLO controller
     through a gateway, with a ``ProfilerSession`` window over 8 of its
-    decode steps; a burst of 12 into a queue bounded at 2 (429s); and
-    ``serve --gateway`` in a subprocess drained by SIGTERM."""
+    decode steps; and a burst of 12 into a queue bounded at 2 (429s).
+    ``serve --gateway`` drained by SIGTERM (:func:`drain_subprocess`)
+    runs later, in :func:`serve_clis`."""
     from repro_torch import obs
     from repro_torch.serving import Engine, EngineConfig, SLOConfig
 
@@ -3467,8 +3489,6 @@ def serve_gateway(dev, K, cfg, params, trace, ladder) -> dict:
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-
-        res["drain"] = drain_subprocess(out_dir, dev)
     finally:
         threading.excepthook = hook
     if crashed:
@@ -3497,6 +3517,21 @@ def serve_gateway(dev, K, cfg, params, trace, ladder) -> dict:
     return res
 
 
+def gateway_port(proc) -> int:
+    """The port that ``serve --gateway`` running in ``proc`` prints on its
+    stdout; the process is killed if it prints none within
+    HTTP_TIMEOUT_S."""
+    timer = threading.Timer(HTTP_TIMEOUT_S, proc.kill)
+    timer.start()
+    try:
+        for line in proc.stdout:
+            if line.startswith("gateway listening on http://"):
+                return int(line.split()[3].rsplit(":", 1)[1])
+    finally:
+        timer.cancel()
+    raise AssertionError("serve --gateway never printed its port")
+
+
 def drain_subprocess(out_dir: str, dev) -> dict:
     """``python -m repro_torch.launch.serve --gateway --reduced`` on the
     card in a subprocess: one streaming request, SIGTERM while it is in
@@ -3518,13 +3553,7 @@ def drain_subprocess(out_dir: str, dev) -> dict:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=env, cwd=HERE)
     try:
-        port = None
-        for line in proc.stdout:
-            if line.startswith("gateway listening on http://"):
-                port = int(line.split()[3].rsplit(":", 1)[1])
-                break
-        if port is None:
-            raise AssertionError("serve --gateway never printed its port")
+        port = gateway_port(proc)
         payload = json.dumps({"prompt": list(range(1, 17)),
                               "max_new_tokens": 48, "stream": True}).encode()
         with socket.create_connection(("127.0.0.1", port),
@@ -3961,13 +3990,7 @@ def sigusr1_subprocess(out_dir: str, dev) -> dict:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=env, cwd=HERE)
     try:
-        port = None
-        for line in proc.stdout:
-            if line.startswith("gateway listening on http://"):
-                port = int(line.split()[3].rsplit(":", 1)[1])
-                break
-        if port is None:
-            raise AssertionError("serve --gateway never printed its port")
+        port = gateway_port(proc)
         r = http_request(port, "POST", "/v1/generate",
                          {"prompt": list(range(1, 17)),
                           "max_new_tokens": 12})
@@ -4011,8 +4034,9 @@ def sigusr1_subprocess(out_dir: str, dev) -> dict:
 def serve_quality_flight(dev, K, cfg, params, trace, ladder) -> dict:
     """Phase 15 at full width on the calibrated ladder: probed against
     unprobed serving, the forced drift and the quality de-escalation,
-    record and replay, the flight ring through a gateway, and the serve
-    CLI's SIGUSR1 dump replayed by the replay CLI."""
+    record and replay, and the flight ring through a gateway.  The serve
+    CLI's SIGUSR1 dump replayed by the replay CLI
+    (:func:`sigusr1_subprocess`) runs later, in :func:`serve_clis`."""
     from repro_torch import obs
 
     t_phase = obs.now()
@@ -4057,10 +4081,38 @@ def serve_quality_flight(dev, K, cfg, params, trace, ladder) -> dict:
     print(f"record and replay: {_fmt(res['replay'])}")
     res["gateway"] = flight_gateway(params, cfg, trace, ladder, dev)
     print(f"/v1/debug/flight: {res['gateway']}")
-    res["cli"] = sigusr1_subprocess(out_dir, dev)
-    print(f"serve --flight-record, SIGUSR1 dump replayed: {res['cli']}")
     res["phase_s"] = obs.now() - t_phase
     print(f"phase 15 took {res['phase_s']:.1f} s")
+    return res
+
+
+def serve_clis(dev) -> dict:
+    """The serve CLI's subprocess checks of phases 14-18 and 21, started
+    together once phase 15 has freed the card: ``serve --gateway``
+    drained by SIGTERM (:func:`drain_subprocess`), its SIGUSR1 dump
+    replayed (:func:`sigusr1_subprocess`), and :func:`gemma_serve_cli`,
+    :func:`granite_serve_cli`, :func:`mamba_serve_cli` and
+    :func:`legacy_cli`.  Each is a process of its own that spends most of
+    its time starting up, so one after another they took about 90 s.
+    Their wall times overlap one another's.  Returns {name: result};
+    any failure raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    B, P, gen = (LEGACY_RUN[k] for k in ("batch", "prompt_len", "gen"))
+    dirs = {k: os.path.join(HERE, "build", "chip_smoke", k)
+            for k in ("gateway", "flight")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    jobs = {"drain": lambda: drain_subprocess(dirs["gateway"], dev),
+            "flight": lambda: sigusr1_subprocess(dirs["flight"], dev),
+            "gemma2_2b": lambda: gemma_serve_cli(dev),
+            "granite_moe_3b_a800m": lambda: granite_serve_cli(dev),
+            "mamba2_130m": lambda: mamba_serve_cli(dev),
+            "legacy": lambda: legacy_cli(B, P, gen)}
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {k: ex.submit(fn) for k, fn in jobs.items()}
+        res = {k: f.result() for k, f in futs.items()}
+    print(f"serve --flight-record, SIGUSR1 dump replayed: {res['flight']}")
     return res
 
 
@@ -4352,13 +4404,14 @@ def gemma_serve_cli(dev) -> dict:
     return {"exit": proc.returncode, "wall_s": obs.now() - t0}
 
 
-def serve_gemma(dev, K) -> dict:
+def serve_gemma(dev, K, cli: dict) -> dict:
     """Phase 16: full-width gemma2_2b through the port's ``Engine``:
     dense, ``pallas``, ``pallas``, dense (uncalibrated: keep_frac =
     k_max_frac = 0.5, tau -inf), ``pallas`` with ``prefill_dense_frac``
     0 (the whole prompts through the kernels at up to 2 x 4500 rows),
     and a 0.5 plan calibrated at full width; then the captured decode
-    step against the eager one at rolled positions, and the serve CLI."""
+    step against the eager one at rolled positions.  ``cli`` is the serve
+    CLI's result (:func:`gemma_serve_cli`, run by :func:`serve_clis`)."""
     from repro_torch import obs
     from repro_torch.core.sp_schema import default_sp_stacked
     from repro_torch.serving.metrics import percentile
@@ -4402,7 +4455,6 @@ def serve_gemma(dev, K) -> dict:
                 + f"; launches {r['launches']}; whole-prefill ms per "
                 f"prompt length x batch: {pre}")
     gve = gemma_graph_vs_eager(dev, cfg, params, sp, trace)
-    cli = gemma_serve_cli(dev)
     d = runs["dense"]
     long_ms = [ms for n, _b, ms in d[0]["whole_prefills"] if n > 4096]
     print(f"gemma2 dense: greedy tokens equal in both runs; decode p50 "
@@ -4640,14 +4692,15 @@ def granite_calibrated(dev, K, cfg, params, trace, runs) -> dict:
     return {"calibration": times, "rungs": rungs}
 
 
-def serve_granite(dev, K) -> dict:
+def serve_granite(dev, K, cli: dict) -> dict:
     """Phase 17: full-width granite_moe_3b_a800m through the port's
     ``Engine`` on phase 5's trace: dense, ``pallas``, ``pallas``, dense
     (uncalibrated: keep_frac = k_max_frac = 0.5, tau -inf); then a
     calibrated ladder, its rungs and the ladder under the SLO controller
-    (:func:`granite_calibrated`), the capacity drops per chunk, the
-    captured decode step against the eager one, and the serve CLI at
-    full width."""
+    (:func:`granite_calibrated`), the capacity drops per chunk and the
+    captured decode step against the eager one.  ``cli`` is the serve
+    CLI's result at full width (:func:`granite_serve_cli`, run by
+    :func:`serve_clis`)."""
     from repro_torch import obs
     from repro_torch.core.sp_schema import default_sp_stacked
     from repro_torch.launch import constants
@@ -4686,7 +4739,6 @@ def serve_granite(dev, K) -> dict:
     calibrated = granite_calibrated(dev, K, cfg, params, trace, runs)
     drops = capacity_drops(dev, cfg, params, trace)
     gve = granite_graph_vs_eager(dev, cfg, params, sp, trace)
-    cli = granite_serve_cli(dev)
     for name in ("dense", "pallas"):
         rs = runs[name]
         print(f"granite {name}: decode tok/s "
@@ -5070,7 +5122,7 @@ def mamba_serve_cli(dev) -> dict:
     return res
 
 
-def serve_mamba(dev, K) -> dict:
+def serve_mamba(dev, K, cli: dict) -> dict:
     """Phase 18: full-width mamba2_130m through the port's ``Engine``
     (8 slots, whole-prompt prefill, the decode step captured once):
     dense, ``pallas``, ``pallas``, dense (uncalibrated: keep_frac =
@@ -5144,7 +5196,6 @@ def serve_mamba(dev, K) -> dict:
                 f"batch: {pre}")
     gve = mamba_graph_vs_eager(dev, cfg, params, sp, trace)
     calibrated = mamba_calibrated(dev, K, cfg, params, sp, trace)
-    cli = mamba_serve_cli(dev)
     for name in ("dense", "pallas"):
         rs = runs[name]
         print(f"mamba2 {name}: greedy tokens equal in both runs; decode p50 "
@@ -5670,6 +5721,7 @@ def train_only(dev, card: str, src: str) -> int:
 # phase 20: whisper_large_v3 and internvl2_26b at full width
 # ---------------------------------------------------------------------------
 
+
 # phase 20's traces: whisper_large_v3 serves (a) 4 utterances of its 1500
 # frames, each with a 4-token decoder start sequence, and (b) one with a
 # 224-token text prompt (its prompt conditioning, inside the 448-token
@@ -5766,8 +5818,8 @@ def multimodal_passes(cfg) -> tuple:
     self-attention projections, an enc-dec layer's 4 cross-attention
     projections in prefill and 2 in decode (``wq``, ``wo``: decode reads
     the static cross cache, and prefill stashes it dense), and the
-    MLP's 2 (plain GELU) or 3 (gated).  whisper_large_v3: 320 and 256;
-    internvl2_26b: 336 and 336."""
+    MLP's 2 (plain GELU) or 3 (gated).  At SERVE_DEPTH, whisper_large_v3:
+    80 and 64; internvl2_26b: 56 and 56."""
     from repro_torch.models.mlp import GATED
     cross = cfg.family == "encdec"
     mlp = 3 if cfg.mlp_activation in GATED else 2
@@ -5898,7 +5950,7 @@ def multimodal_modes(tag, params, cfg, sp, runs, gen, K, rates, pol,
     the passes; GRAPH_PASSES replays them, each mode's two passes giving
     the same tokens, then the eager control runs each mode once and
     must give the graph's tokens (:func:`multimodal_run`).  A sparse
-    step's graph records 256 (whisper) or 336 (internvl2) launches of
+    step's graph records 64 (whisper) or 56 (internvl2) launches of
     each 2-D kernel.  Then a window of eager decode steps of the first
     run traced dense and ``pallas`` (:func:`traced_decode`) beside the
     step's byte bound, and decode p50 graph against eager, with ``smi``
@@ -6002,7 +6054,7 @@ def multimodal_modes(tag, params, cfg, sp, runs, gen, K, rates, pol,
 
 
 def whisper_calibrated(dev, K, cfg, params, run, dense_tokens) -> dict:
-    """A 0.5 plan calibrated on the full-width whisper (the serve CLI's
+    """A 0.5 plan calibrated on phase 20's whisper (the serve CLI's
     ``--calib-quick`` stages, on WHISPER_CALIB utterances with their
     frames), checked as phase 6 checks its rung (budget, 10 x 32 taus,
     finite wherever sparsified), served as a ``pallas`` policy on
@@ -6061,7 +6113,7 @@ def whisper_calibrated(dev, K, cfg, params, run, dense_tokens) -> dict:
 
 
 def train_whisper(dev, cfg, params, rates) -> dict:
-    """WHISPER_TRAIN's steps of ``api.make_train_step`` on the full-width
+    """WHISPER_TRAIN's steps of ``api.make_train_step`` on phase 20's
     whisper (bf16 params; f32 master, m and v), all on one batch of
     synthetic tokens over frames from SEED: every loss finite, the last
     below the first; step p50 and peak memory."""
@@ -6102,18 +6154,17 @@ def train_whisper(dev, cfg, params, rates) -> dict:
 
 
 def serve_whisper(dev, K, rates, smi) -> dict:
-    """Phase 20, whisper_large_v3 at full width (32 + 32 layers, bf16,
-    random weights from SEED): the encoder's time; WHISPER_RUNS under
-    MODES, graph against eager (:func:`multimodal_modes`); a calibrated
-    0.5 plan served (:func:`whisper_calibrated`); then
-    WHISPER_TRAIN's training steps."""
+    """Phase 20, whisper_large_v3 at full width (SERVE_DEPTH encoder and
+    decoder layers, bf16, random weights from SEED): the encoder's time;
+    WHISPER_RUNS under MODES, graph against eager
+    (:func:`multimodal_modes`); a calibrated 0.5 plan served
+    (:func:`whisper_calibrated`); then WHISPER_TRAIN's training steps."""
     from repro_torch import obs
-    from repro_torch.configs import get_config
     from repro_torch.core.sp_schema import default_sp_stacked
     from repro_torch.models import api, model as M
     from repro_torch.sparsity import SparsityPolicy
 
-    cfg = get_config("whisper_large_v3")
+    cfg = served_config("whisper_large_v3")
     params = api.init_model(cfg, SEED, device=dev)
     n_params = sum(t.numel() for t in _leaves(params))
     rng = np.random.default_rng(SEED)
@@ -6129,7 +6180,8 @@ def serve_whisper(dev, K, rates, smi) -> dict:
         M.encode(params, frames, cfg)
         torch.cuda.synchronize()
     enc_ms = 1e3 * (obs.now() - t0)
-    print(f"whisper_large_v3 full width: {n_params / 1e9:.3f}B params, "
+    print(f"whisper_large_v3 full width, {cfg.encoder_layers} + "
+          f"{cfg.num_layers} of 32 + 32 layers: {n_params / 1e9:.3f}B params, "
           f"encoder over {tuple(frames.shape)} frames {enc_ms:.1f} ms")
     sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
     pol = SparsityPolicy.uniform("pallas", k_max_frac=KEEP)
@@ -6145,17 +6197,16 @@ def serve_whisper(dev, K, rates, smi) -> dict:
 
 
 def serve_internvl(dev, K, rates, smi) -> dict:
-    """Phase 20, internvl2_26b's language model at full width (48 layers,
-    19.86B parameters, bf16, random weights from SEED, initialised on
-    the card leaf by leaf): INTERNVL_RUN under MODES, graph against
-    eager (:func:`multimodal_modes`)."""
+    """Phase 20, internvl2_26b's language model at full width
+    (SERVE_DEPTH of its 48 layers, bf16, random weights from SEED,
+    initialised on the card leaf by leaf): INTERNVL_RUN under MODES,
+    graph against eager (:func:`multimodal_modes`)."""
     from repro_torch import obs
-    from repro_torch.configs import get_config
     from repro_torch.core.sp_schema import default_sp_stacked
     from repro_torch.models import api
     from repro_torch.sparsity import SparsityPolicy
 
-    cfg = get_config("internvl2_26b")
+    cfg = served_config("internvl2_26b")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = obs.now()
@@ -6164,7 +6215,8 @@ def serve_internvl(dev, K, rates, smi) -> dict:
     init_s = obs.now() - t0
     init_peak = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"internvl2_26b full width: {n_params / 1e9:.3f}B params "
+    print(f"internvl2_26b full width, {cfg.num_layers} of 48 layers: "
+          f"{n_params / 1e9:.3f}B params "
           f"({torch.cuda.memory_allocated() / 1e9:.1f} GB) initialised in "
           f"{init_s:.1f} s, peak {init_peak:.1f} GB")
     B, S = INTERNVL_RUN
@@ -6303,7 +6355,7 @@ def legacy_parity(dev) -> dict:
     return {"distinct_tokens": out}
 
 
-def serve_legacy(dev, K, smi) -> dict:
+def serve_legacy(dev, K, smi, cli: dict) -> dict:
     """Phase 21, the ``--legacy`` loop: ``launch/serve.generate`` on
     llama31_8b at full width (SERVE_DEPTH layers, random weights from
     SEED) over the CLI's prompts (LEGACY_RUN), dense and under
@@ -6312,9 +6364,9 @@ def serve_legacy(dev, K, smi) -> dict:
     1) x 56 launches of each kernel, 0 dense), against the loop timed per
     step through a ``BatchDecodeSteps`` and eagerly (:func:`generate`
     with a dense prefill: the same tokens, decode p50 graph against
-    eager); then the
-    CLI at full depth (:func:`legacy_cli`) and the reduced f32
-    engine-against-generate check (:func:`legacy_parity`)."""
+    eager); then the reduced f32 engine-against-generate check
+    (:func:`legacy_parity`).  ``cli`` is the CLI's result at full depth
+    (:func:`legacy_cli`, run by :func:`serve_clis`)."""
     from repro_torch.core.sp_schema import default_sp_stacked
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch import serve
@@ -6371,7 +6423,7 @@ def serve_legacy(dev, K, smi) -> dict:
     res = {m: [{k: v for k, v in r.items() if k != "tokens"} for r in rs]
            if isinstance(rs, list) else rs for m, rs in out.items()}
     res["pallas_token_agreement"] = agree
-    res["cli"] = legacy_cli(B, P, gen)
+    res["cli"] = cli
     res["reduced_parity"] = legacy_parity(dev)
     return res
 
@@ -6587,6 +6639,48 @@ def serve_sharded(dev, K, smi) -> dict:
     return out
 
 
+def static_analysis(smi: str) -> dict:
+    """Phase 23: the port's static checker (``repro_torch.analysis``) on
+    the card: the AST passes over ``src/repro_torch``, then each global
+    pass on ``cuda`` — the warmup set captured and replayed in place, its
+    keys, and every kernel's launch geometry against the card's limits
+    and ``wisparse_launch_info`` at every swept shape.  Prints the
+    findings outside the port baseline (there must be none), each pass's
+    seconds, the shapes and comparisons, and each kernel's largest shared
+    memory with its headroom, beside the card's name and power limit."""
+    from repro_torch import obs
+    from repro_torch.analysis import Baseline, run_ast_passes
+    from repro_torch.analysis.registry import global_passes
+
+    t0 = obs.now()
+    findings = run_ast_passes(HERE)
+    pass_s = {"ast": obs.now() - t0}
+    for rule, p in sorted(global_passes().items()):
+        t = obs.now()
+        findings += p.run(HERE, "cuda")
+        pass_s[rule] = obs.now() - t
+    base = Baseline.load(os.path.join(HERE, "analysis-baseline-torch.json"))
+    fresh = base.filter(findings)
+    for f in fresh:
+        print(f.format())
+    rep = global_passes()["launch-geometry"].report
+    out = {"findings": len(fresh), "baselined": len(findings) - len(fresh),
+           "pass_s": pass_s, "shapes": rep["shapes"],
+           "compared": rep["compared"],
+           "min_active_clusters": rep["min_active_clusters"],
+           "smem": rep["smem"], "headroom": rep["headroom"],
+           "limits": rep["limits"], "s": obs.now() - t0}
+    print(json.dumps({"static_analysis": out}))
+    print(f"static analysis: {len(fresh)} findings, {rep['compared']} "
+          f"launch geometries equal to wisparse_launch_info over "
+          f"{rep['shapes']} shapes, {out['s']:.1f} s on {smi}", flush=True)
+    if fresh:
+        raise AssertionError(f"{len(fresh)} static-analysis findings")
+    if not rep["compared"] or not rep["min_active_clusters"]:
+        raise AssertionError("launch-geometry compared no launch on the card")
+    return out
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -6769,13 +6863,18 @@ def main() -> int:
         raise AssertionError("a pallas projection should launch 3 kernels "
                              "(score_select, the matmul, the cast)")
 
-    # each phase's wall time, printed after the serving line
+    # each phase's wall time, printed after the serving line; each is
+    # also written to stderr with the time since the start, so that a run
+    # stopped at its limit shows how far it got
     phase_s, mark = {}, [obs.now()]
 
     def took(phase):
         phase_s[phase] = round(obs.now() - mark[0], 1)
         mark[0] = obs.now()
         print(f"phase {phase}: {phase_s[phase]} s", flush=True)
+        print(f"phase {phase}: {phase_s[phase]} s, "
+              f"{obs.now() - t_start:.1f} s since the start",
+              file=sys.stderr, flush=True)
 
     errs = check_kernel_shapes(K, ref, dev)
     rows, errs2 = main_path_kernels(K, ref, build, dev, rates)
@@ -6852,11 +6951,15 @@ def main() -> int:
     del params, ladder
     gc.collect()
     torch.cuda.empty_cache()
-    gemma = serve_gemma(dev, K)
+    clis = serve_clis(dev)
+    gateway_res["drain"] = clis["drain"]
+    quality_flight["cli"] = clis["flight"]
+    took("14-18, 21 serve CLIs")
+    gemma = serve_gemma(dev, K, clis["gemma2_2b"])
     took("16 gemma2_2b")
-    granite = serve_granite(dev, K)
+    granite = serve_granite(dev, K, clis["granite_moe_3b_a800m"])
     took("17 granite_moe_3b_a800m")
-    mamba = serve_mamba(dev, K)
+    mamba = serve_mamba(dev, K, clis["mamba2_130m"])
     took("18 mamba2_130m")
     training = train_on_card(
         dev, K, rates, spec_res["spec calibrated"]["spec"]["accept_rate"])
@@ -6870,12 +6973,14 @@ def main() -> int:
     took("20 whisper_large_v3 and internvl2_26b")
     gc.collect()
     torch.cuda.empty_cache()
-    legacy = serve_legacy(dev, K, smi)
+    legacy = serve_legacy(dev, K, smi, clis["legacy"])
     took("21 legacy generate")
     gc.collect()
     torch.cuda.empty_cache()
     sharded = serve_sharded(dev, K, smi)
     took("22 sharded steps")
+    static = static_analysis(smi)
+    took("23 static analysis")
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -6904,7 +7009,7 @@ def main() -> int:
         "internvl2_26b": {**internvl, "kernels": i_rows,
                           "kernels_per_decode_layer": internvl_layer},
         "reduced_multimodal": reduced_multimodal, "legacy": legacy,
-        "sharded": sharded}}))
+        "sharded": sharded, "static_analysis": static}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     expert_rows = [r for r in ge_rows if r["R"] == 8]

@@ -44,6 +44,9 @@ SIGNATURES = {
     # x, w, idx, y, workspace, counters, E, B, n, m, blk, kb, rows, cols,
     # splits, dtype, stream
     "wisparse_sparse_matmul_shared_experts": (_P,) * 6 + (_I,) * 10 + (_P,),
+    # the launch-geometry query (launches nothing): kernel name, E, B, n,
+    # m, blk, kb, rows, cols, splits, dtype, aligned, out (9 int32)
+    "wisparse_launch_info": (ctypes.c_char_p,) + (_I,) * 11 + (_P,),
 }
 
 

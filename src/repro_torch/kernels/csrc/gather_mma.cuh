@@ -490,6 +490,33 @@ inline bool tiles_ok(int B, int rows, int cols, int E = 1) {
          cols == Geom<T>::kCols;
 }
 
+// The arguments the C entries accept (ws and counters aside): the shared
+// kernel's S slices of the kb positions of idx (the expert-batched form's
+// too), per-seq's S slices of the nb block ids, none longer than
+// kMaxSlice.
+inline bool shared_args_ok(int E, int B, int n, int m, int blk, int kb,
+                           int S) {
+  return E > 0 && B > 0 && n > 0 && m > 0 && blk > 0 && kb > 0 &&
+         n % blk == 0 && S >= 1 && S <= kb && S <= 65535;
+}
+
+inline bool per_seq_args_ok(int B, int n, int m, int blk, int kb, int S) {
+  if (B <= 0 || n <= 0 || m <= 0 || blk <= 0 || kb <= 0 || n % blk != 0) {
+    return false;
+  }
+  const int nb = n / blk;
+  return S >= 1 && S <= nb && S <= 65535 && (nb + S - 1) / S <= kMaxSlice;
+}
+
+// The grid of a launch of NB-row tiles: (column tiles of m, S slices,
+// row tiles x E experts); its block is kThreads and its dynamic shared
+// memory Layout::kBytes.
+template <typename T, int NB>
+inline dim3 grid_of(int E, int B, int m, int S) {
+  return dim3((m + Geom<T>::kCols - 1) / Geom<T>::kCols, S,
+              (B + NB - 1) / NB * E);
+}
+
 // Allow the kernel's dynamic shared memory above the 48 KB default, once
 // per device.
 template <typename Kern>

@@ -71,6 +71,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "launch_info.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -392,38 +393,62 @@ cudaError_t prepare(Kern kern, unsigned& done, int& sms) {
   return cudaSuccess;
 }
 
+// The launch geometry of an (E, B, n) call: the E experts' clusters share
+// the card, each taking at most SMs / E blocks so that all of them run at
+// once.  `launch` and `score_select_info` both compute it here.
 template <typename T, bool kWide>
-int launch(const void* x, const void* g, const void* alpha, const void* tau,
-           const void* keep, const void* rw, void* xm, void* idx, void* bs,
-           int E, int B, int n, int blk, int kb, cudaStream_t st) {
-  static unsigned done = 0;
-  auto kern = score_select_kernel<T, kWide>;
-  int sms = 0;
-  cudaError_t e = prepare(kern, done, sms);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int nb = n / blk;
-  // the E experts' clusters share the card: each takes at most SMs / E
-  // blocks, so that all of them run at once
-  const int C = std::min({kCluster, nb, std::max(1, sms / E)});
-  const int lmax = (nb + C - 1) / C;
-  const int vmax = lmax * (blk / Unit<T, kWide>::kElems);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(nb) + lmax +
-                       static_cast<size_t>(lmax) * blk +
-                       std::max(kThreads, vmax));
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, E);
+struct Geometry {
+  int C;        // blocks per cluster (and grid x)
+  size_t smem;  // dynamic shared memory per block
+  Geometry(int E, int nb, int blk, int sms) {
+    C = std::min({kCluster, nb, std::max(1, sms / E)});
+    const int lmax = (nb + C - 1) / C;
+    const int vmax = lmax * (blk / Unit<T, kWide>::kElems);
+    smem = sizeof(float) * (static_cast<size_t>(nb) + lmax +
+                            static_cast<size_t>(lmax) * blk +
+                            std::max(kThreads, vmax));
+  }
+};
+
+// The launch of `geo` over E experts on `st`: a (C, E) grid of
+// clusters of C blocks (cfg points at the caller's `attr`).
+template <typename T, bool kWide>
+void cluster_config(const Geometry<T, kWide>& geo, int E, cudaStream_t st,
+                    cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1]) {
+  cfg = {};
+  cfg.gridDim = dim3(geo.C, E);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = geo.smem;
   cfg.stream = st;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.x = geo.C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+}
+
+// The kernel's function attributes, set once per device (`prepared`
+// keeps the per-instantiation flags).
+template <typename T, bool kWide>
+cudaError_t prepared(int& sms) {
+  static unsigned done = 0;
+  return prepare(score_select_kernel<T, kWide>, done, sms);
+}
+
+template <typename T, bool kWide>
+int launch(const void* x, const void* g, const void* alpha, const void* tau,
+           const void* keep, const void* rw, void* xm, void* idx, void* bs,
+           int E, int B, int n, int blk, int kb, cudaStream_t st) {
+  auto kern = score_select_kernel<T, kWide>;
+  int sms = 0;
+  cudaError_t e = prepared<T, kWide>(sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Geometry<T, kWide> geo(E, n / blk, blk, sms);
+  if (geo.smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cluster_config(geo, E, st, cfg, attr);
   e = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(x), static_cast<const float*>(g),
       static_cast<const float*>(alpha), static_cast<const float*>(tau),
@@ -434,18 +459,42 @@ int launch(const void* x, const void* g, const void* alpha, const void* tau,
   return static_cast<int>(cudaGetLastError());
 }
 
+// What `launch` would use, written to out[0..8] as in launch_info.cuh,
+// with the clusters of that shape that can be active at once
+// (cudaOccupancyMaxActiveClusters).  Launches nothing.
+template <typename T, bool kWide>
+int info(int E, int n, int blk, int* out) {
+  int sms = 0;
+  cudaError_t e = prepared<T, kWide>(sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Geometry<T, kWide> geo(E, n / blk, blk, sms);
+  const int fill[8] = {geo.C, E, 1, kThreads, static_cast<int>(geo.smem),
+                       geo.C, 1, 1};
+  for (int i = 0; i < 8; ++i) out[i] = fill[i];
+  out[8] = 0;
+  if (geo.smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cluster_config(geo, E, nullptr, cfg, attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      &out[8], score_select_kernel<T, kWide>, &cfg));
+}
+
+// 16-byte units: x and xm 16-byte aligned and every expert's rows too
+// (blk, so n, a multiple of the 16-byte unit)
+template <typename T>
+bool wide_ok(int blk, bool aligned) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  return blk % kVec == 0 && aligned;
+}
+
 template <typename T>
 int dispatch(const void* x, const void* g, const void* alpha,
              const void* tau, const void* keep, const void* rw, void* xm,
              void* idx, void* bs, int E, int B, int n, int blk, int kb,
              cudaStream_t st) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  // every expert's rows start 16-byte aligned too: blk (so n) is a
-  // multiple of the 16-byte unit
-  const bool wide = blk % kVec == 0 &&
-                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(xm) % 16 == 0;
-  if (wide) {
+  if (wide_ok<T>(blk, reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(xm) % 16 == 0)) {
     return launch<T, true>(x, g, alpha, tau, keep, rw, xm, idx, bs, E, B, n,
                            blk, kb, st);
   }
@@ -453,12 +502,16 @@ int dispatch(const void* x, const void* g, const void* alpha,
                           blk, kb, st);
 }
 
+bool args_ok(int E, int B, int n, int blk, int kb) {
+  return E > 0 && E <= 65535 && B > 0 && n > 0 && blk > 0 && n % blk == 0 &&
+         n / blk <= kMaxBlocks && kb >= 1 && kb <= n / blk;
+}
+
 int entry(const void* x, const void* g, const void* alpha, const void* tau,
           const void* keep_frac, const void* rw, void* xm, void* idx,
           void* bs, int E, int B, int n, int blk, int kb, int dtype,
           void* stream) {
-  if (E <= 0 || E > 65535 || B <= 0 || n <= 0 || blk <= 0 || n % blk != 0 ||
-      n / blk > kMaxBlocks || kb < 1 || kb > n / blk) {
+  if (!args_ok(E, B, n, blk, kb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -474,6 +527,24 @@ int entry(const void* x, const void* g, const void* alpha, const void* tau,
 }
 
 }  // namespace
+
+int score_select_info(int E, int B, int n, int blk, int kb, int dtype,
+                      bool aligned, int* out) {
+  if (!args_ok(E, B, n, blk, kb)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == kFloat32) {
+    return wide_ok<float>(blk, aligned) ? info<float, true>(E, n, blk, out)
+                                        : info<float, false>(E, n, blk, out);
+  }
+  if (dtype == kBFloat16) {
+    return wide_ok<__nv_bfloat16>(blk, aligned)
+               ? info<__nv_bfloat16, true>(E, n, blk, out)
+               : info<__nv_bfloat16, false>(E, n, blk, out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace wisparse
 
 // x, xm: (B, n) of `dtype`; g: (n,) f32; alpha, tau, keep_frac: one f32

@@ -133,7 +133,7 @@ int launch_per_seq(const void* x, const void* w, const void* idx, void* y,
   auto kern = sparse_matmul_per_seq_kernel<T, NB>;
   cudaError_t e = gm::allow_smem(kern, L::kBytes, done);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((m + L::kCols - 1) / L::kCols, S, (B + NB - 1) / NB);
+  const dim3 grid = gm::grid_of<T, NB>(1, B, m, S);
   kern<<<grid, gm::kThreads, L::kBytes, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const int*>(idx), static_cast<float*>(y),
@@ -181,12 +181,7 @@ extern "C" int wisparse_sparse_matmul_per_seq(const void* x, const void* w,
                                               int S, int dtype,
                                               void* stream) {
   using namespace wisparse;
-  if (B <= 0 || n <= 0 || m <= 0 || blk <= 0 || kb <= 0 || n % blk != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int nb = n / blk;
-  if (S < 1 || S > nb || S > 65535 ||
-      (nb + S - 1) / S > gm::kMaxSlice ||
+  if (!gm::per_seq_args_ok(B, n, m, blk, kb, S) ||
       (S > 1 && (ws == nullptr || counters == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

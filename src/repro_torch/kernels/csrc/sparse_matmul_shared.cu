@@ -118,7 +118,7 @@ int launch_shared(const void* x, const void* w, const void* idx, void* y,
   auto kern = sparse_matmul_shared_kernel<T, NB>;
   cudaError_t e = gm::allow_smem(kern, L::kBytes, done);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((m + L::kCols - 1) / L::kCols, S, (B + NB - 1) / NB * E);
+  const dim3 grid = gm::grid_of<T, NB>(E, B, m, S);
   kern<<<grid, gm::kThreads, L::kBytes, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const int*>(idx), static_cast<float*>(y),
@@ -153,8 +153,7 @@ int entry_shared(const void* x, const void* w, const void* idx, void* y,
                  void* ws, void* counters, int E, int B, int n, int m,
                  int blk, int kb, int rows, int cols, int S, int dtype,
                  void* stream) {
-  if (E <= 0 || B <= 0 || n <= 0 || m <= 0 || blk <= 0 || kb <= 0 ||
-      n % blk != 0 || S < 1 || S > kb || S > 65535 ||
+  if (!gm::shared_args_ok(E, B, n, m, blk, kb, S) ||
       (S > 1 && (ws == nullptr || counters == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,0 +1,140 @@
+"""Launch geometry of the port's CUDA kernels: a Python mirror of what
+their C entries launch, and the library's own query of it.
+
+The C entries decide each launch's grid, block, dynamic shared memory
+and cluster (``csrc/score_select.cu``'s ``Geometry``; for the matmuls
+``csrc/gather_mma.cuh``'s ``grid_of`` and ``Layout::kBytes``, with the
+split from :func:`repro_torch.kernels.sparse_matmul.launch_plan`).  A
+launch outside the card's limits shows only on the card, as
+``cudaErrorInvalidValue`` from the entry.  The mirror lets a check on the
+CPU cover every served shape (``repro_torch.analysis``'s
+``launch-geometry``); on the card the same check holds the mirror against
+:func:`launch_info`, which calls ``wisparse_launch_info``: the geometry
+computed by the launches' own code, with nothing launched.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+from repro_torch.kernels import sparse_matmul as K
+
+# an H100's limits, for the CPU check (on the card they are read from the
+# device: ``launch_info("device")``)
+H100_LIMITS = {"threads": 1024, "smem_optin": 232448, "cluster": 16,
+               "sms": 132, "grid_yz": 65535}
+
+# csrc/score_select.cu: threads per block, the largest cluster, the
+# shared-memory cap the entry checks and the channel-block limit
+SCORE_THREADS = 512
+SCORE_CLUSTER = 16
+SCORE_MAX_SMEM = 232448
+SCORE_MAX_BLOCKS = 8192
+# csrc/gather_mma.cuh: threads per block
+MATMUL_THREADS = 256
+
+KERNELS = ("score_select", "score_select_experts", "sparse_matmul_shared",
+           "sparse_matmul_shared_experts", "sparse_matmul_per_seq")
+_DTYPE_OF_ELEM = {4: 0, 2: 1}    # element bytes -> the entries' dtype code
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One launch: grid and cluster dims (x, y, z), threads per block,
+    dynamic shared memory bytes; ``ok`` is False where the C entry would
+    refuse the arguments (``cudaErrorInvalidValue``)."""
+    grid: tuple
+    threads: int
+    smem: int
+    cluster: tuple
+    ok: bool = True
+
+
+def score_select_geometry(E: int, B: int, n: int, blk: int, kb: int,
+                          elem_bytes: int = 2, aligned: bool = True,
+                          sms: int = H100_LIMITS["sms"]) -> Geometry:
+    """``score_select`` (E = 1) or ``score_select_experts`` at (E, B, n):
+    one cluster of C = min(16, nb, max(1, SMs / E)) blocks per expert;
+    shared memory for the nb block sums, a flag and blk g^alpha values per
+    owned channel block, and the partial sums of one row group.  A thread
+    loads 16 bytes where ``aligned`` (x and xm 16-byte aligned) and blk
+    holds whole 16-byte units, else one element."""
+    nb = n // blk if blk > 0 else 0
+    ok = (0 < E <= 65535 and B > 0 and n > 0 and blk > 0 and n % blk == 0
+          and nb <= SCORE_MAX_BLOCKS and 1 <= kb <= nb)
+    if not ok:
+        return Geometry((0, 0, 0), 0, 0, (0, 0, 0), False)
+    vec = 16 // elem_bytes
+    units = vec if aligned and blk % vec == 0 else 1
+    C = min(SCORE_CLUSTER, nb, max(1, sms // E))
+    lmax = -(-nb // C)
+    vmax = lmax * (blk // units)
+    smem = 4 * (nb + lmax + lmax * blk + max(SCORE_THREADS, vmax))
+    return Geometry((C, E, 1), SCORE_THREADS, smem, (C, 1, 1),
+                    smem <= SCORE_MAX_SMEM)
+
+
+def matmul_smem(elem_bytes: int, rows: int, per_seq: bool) -> int:
+    """``Layout<T, rows, per_seq>::kBytes``: the cp.async ring (stages of
+    kKC weight rows x the column tile and the rows' x values, rows padded
+    by 16 bytes) and the slice's ids (per-seq: occurrence counts, the
+    kept list, the passes and the list length)."""
+    kkc, stages = (64, 4) if per_seq else (128, 3)
+    cols = K.TILE_COLS[elem_bytes]
+    pad = 16 // elem_bytes           # 16 bytes of padding per row
+    ring = stages * (kkc * (cols + pad) + rows * (kkc + pad)) * elem_bytes
+    slice_ = K.MAX_SLICE_BLOCKS
+    counts = (rows * slice_ + 2 * slice_ + 4) if per_seq else slice_
+    return ring + 4 * counts
+
+
+def matmul_geometry(kernel: str, plan: K.LaunchPlan, B: int, n: int, m: int,
+                    blk: int, kb: int, elem_bytes: int = 2) -> Geometry:
+    """One block-gather matmul launch of ``plan``: grid (column tiles,
+    splits, row tiles x experts), 256 threads, ``matmul_smem``; ``ok``
+    as the C entry checks the plan (tile rows 8/16/32, the column tile it
+    is compiled for, at most 65535 row tiles, 1 <= splits <= kb or, per
+    seq, <= nb with no slice over ``MAX_SLICE_BLOCKS`` ids)."""
+    per_seq = kernel == "sparse_matmul_per_seq"
+    E, S = plan.experts, plan.splits
+    nb = n // blk if blk > 0 else 0
+    ok = (E > 0 and B > 0 and n > 0 and m > 0 and blk > 0 and kb > 0
+          and n % blk == 0 and 1 <= S <= 65535)
+    if per_seq:
+        ok = ok and E == 1 and S <= nb and -(-nb // S) <= K.MAX_SLICE_BLOCKS
+    else:
+        ok = ok and S <= kb
+    ok = ok and plan.rows in (8, 16, 32) and \
+        math.ceil(B / plan.rows) * E <= 65535 and \
+        plan.cols == K.TILE_COLS[elem_bytes]
+    cols = K.TILE_COLS[elem_bytes]
+    grid = (math.ceil(m / cols), S, math.ceil(B / plan.rows) * E)
+    return Geometry(grid, MATMUL_THREADS,
+                    matmul_smem(elem_bytes, plan.rows, per_seq), (1, 1, 1),
+                    ok)
+
+
+def launch_info(kernel: str, E: int = 1, B: int = 0, n: int = 0, m: int = 0,
+                blk: int = 0, kb: int = 0, rows: int = 0, cols: int = 0,
+                splits: int = 0, elem_bytes: int = 2, aligned: bool = True):
+    """The C library's answer (``wisparse_launch_info``) for one launch:
+    (Geometry, active) where ``active`` is how many such clusters can run
+    at once (``cudaOccupancyMaxActiveClusters``; score_select only), or,
+    for ``kernel="device"``, the card's limits as a dict.  Builds the
+    library on first use and launches nothing."""
+    from repro_torch.kernels import build
+    out = (ctypes.c_int * 9)()
+    err = build.library().wisparse_launch_info(
+        kernel.encode(), E, B, n, m, blk, kb, rows, cols, splits,
+        _DTYPE_OF_ELEM[elem_bytes], int(aligned), out)
+    if kernel == "device":
+        if err:
+            raise RuntimeError(f"wisparse_launch_info(device): cudaError {err}")
+        return {"threads": out[0], "smem_optin": out[1], "sms": out[2],
+                "grid_x": out[3], "grid_yz": min(out[4], out[5])}
+    if err == 1:                # cudaErrorInvalidValue: the entry refuses
+        return Geometry((0, 0, 0), 0, 0, (0, 0, 0), False), 0
+    if err:
+        raise RuntimeError(f"wisparse_launch_info({kernel}): cudaError {err}")
+    return Geometry(tuple(out[0:3]), out[3], out[4], tuple(out[5:8])), out[8]

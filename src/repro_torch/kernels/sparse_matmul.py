@@ -128,6 +128,9 @@ def launch_plan(B: int, n: int, m: int, kb: int, blk: int, per_seq: bool,
 # growth while a capture is running raises: the new tensors would come
 # from the graph's private pool.
 _scratch: dict = {}
+# the least the scratch grows to (f32 workspace values, int32 counters)
+MIN_WORKSPACE = 1 << 20
+MIN_COUNTERS = 4096
 
 
 def _device_key(device) -> torch.device:
@@ -154,11 +157,11 @@ def matmul_scratch(plan: LaunchPlan, device):
             "the split-K scratch would grow during a CUDA-graph capture; "
             "reserve it first (reserve_matmul_scratch)")
     if grow_ws:
-        ws = torch.empty(max(1 << 20, plan.workspace), dtype=torch.float32,
-                         device=device)
+        ws = torch.empty(max(MIN_WORKSPACE, plan.workspace),
+                         dtype=torch.float32, device=device)
     if grow_cnt:
-        cnt = torch.zeros(max(4096, plan.counters), dtype=torch.int32,
-                          device=device)
+        cnt = torch.zeros(max(MIN_COUNTERS, plan.counters),
+                          dtype=torch.int32, device=device)
     _scratch[device] = ws, cnt
     return ws, cnt
 

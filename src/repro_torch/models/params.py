@@ -167,10 +167,12 @@ def from_numpy(tree, device="cpu", dtype=None):
 
 
 def to_numpy(tree):
-    """Inverse of :func:`from_numpy` (bf16 leaves come back as float32)."""
+    """Inverse of :func:`from_numpy` (bf16 leaves come back as float32).
+    An export to the host (artifacts, checkpoints, tests): no step runs
+    it, so its host reads are off every captured path."""
     def leaf(t):
-        t = t.detach().cpu()
+        t = t.detach().cpu()  # repro: ignore[host-sync-in-step] -- host export
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.numpy()
+        return t.numpy()  # repro: ignore[host-sync-in-step] -- host export
     return tree_map(leaf, tree)

@@ -1603,3 +1603,50 @@ def test_restore_under_context_on_card(dev, host_mesh, tmp_path):
             assert torch.equal(leaf.full_tensor(), want)
     res = chip_smoke.sharded_train_check(dev, host_mesh, cfg)
     assert res["loss_diff"] <= 1e-5 and res["param_max_diff"] <= 1e-5
+
+
+def test_analysis_global_passes_clean_on_card(dev):
+    """``repro_torch.analysis``'s global passes on the card: the warmup
+    set captured and replayed in place, every key stable, and every
+    launch geometry inside the card's limits and equal to
+    ``wisparse_launch_info``'s at every swept shape."""
+    from repro_torch.analysis import run_global_passes
+    from repro_torch.analysis.registry import global_passes
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    assert run_global_passes(root, device="cuda") == []
+    rep = global_passes()["launch-geometry"].report
+    assert rep["compared"] > 1000 and rep["min_active_clusters"] >= 1
+    assert rep["limits"]["smem_optin"] >= max(rep["smem"].values())
+
+
+@pytest.mark.parametrize("E,B,n,m", [(1, 8, 4096, 14336), (1, 448, 14336, 4096),
+                                     (1, 13, 384, 131), (48, 8, 1536, 512),
+                                     (1, 32, 128, 1)])
+@pytest.mark.parametrize("elem", [2, 4])
+def test_launch_info_equals_the_mirror(dev, E, B, n, m, elem):
+    """``wisparse_launch_info`` (the geometry by the launches' own code)
+    equals ``kernels/geometry.py``'s mirror for every kernel of the
+    shape, at kb = 1, nb/2, nb; every score_select cluster can run."""
+    from repro_torch.kernels import geometry as G
+    limits = G.launch_info("device")
+    assert limits["threads"] >= 1024 and limits["smem_optin"] >= 232448
+    blk = min(128, n)
+    nb = n // blk
+    for kb in sorted({1, max(1, nb // 2), nb}):
+        kernels = [("sparse_matmul_shared_experts" if E > 1
+                    else "sparse_matmul_shared", False)]
+        if E == 1:
+            kernels.append(("sparse_matmul_per_seq", True))
+        for name, per_seq in kernels:
+            plan = K.launch_plan(B, n, m, kb, blk, per_seq, elem, E)
+            want = G.matmul_geometry(name, plan, B, n, m, blk, kb, elem)
+            got, _ = G.launch_info(name, E, B, n, m, blk, kb, plan.rows,
+                                   plan.cols, plan.splits, elem)
+            assert got == want, (name, kb)
+        name = "score_select_experts" if E > 1 else "score_select"
+        for aligned in (True, False):
+            want = G.score_select_geometry(E, B, n, blk, kb, elem, aligned,
+                                           limits["sms"])
+            got, active = G.launch_info(name, E, B, n, 0, blk, kb, 0, 0, 0,
+                                        elem, aligned)
+            assert got == want and active >= 1, (name, kb, aligned)
