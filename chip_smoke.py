@@ -52,6 +52,14 @@ In order, it:
    bit-equal and ids equal or tied per expert, the pad experts' zero rows
    giving ids 0..kb-1, the matmul within the tolerance, two launches
    bit-equal, timed beside the plain versions and dense ``torch.bmm``.
+   ``score_select_experts`` alone is then held, checked for bit-equal
+   launches and timed at every expert shape of granite_moe_1b_a400m (32
+   experts), granite_moe_3b_a800m (48) and jamba_v01_52b (16): both
+   expert input widths at decode rows 1, 8, 32 and 448 and the rows of a
+   32- and a 448-token chunk, each line with its form (one block per
+   expert, or one cluster per expert) and a per-layer sum, then at E = 1
+   on llama31_8b's seven decode shapes beside ``score_select`` (a
+   measurement line; the dense path keeps ``score_select``).
    ``score_select`` and ``sparse_matmul_shared`` are then held and timed
    at mamba2_130m's six projection shapes (n = 768 into m = 1536, 1536,
    128, 128 and 24, and n = 1536 into m = 768; B = 8 and 32), with a
@@ -353,7 +361,7 @@ In order, it:
    leaf's bytes in its graph pool), ``graph-keys`` (captures only in
    ``GraphSpace.capture``, stable keys, nothing built under deep-copied
    policies) and ``launch-geometry`` (every kernel's grid, block, shared
-   memory and cluster over nine archs' projection shapes at published
+   memory and cluster over ten archs' projection shapes at published
    width, B = 1, 8, 32, 448, held against ``wisparse_launch_info`` and the
    card's own limits, every ``score_select`` cluster shape able to run).
    Prints the findings (none outside ``analysis-baseline-torch.json``),
@@ -379,6 +387,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import inspect
 import json
 import math
 import os
@@ -418,6 +427,16 @@ GRANITE_ATTN = [("attn/wq", 1536, 1536), ("attn/wk", 1536, 512),
 GRANITE_EXPERTS = [("moe/wi_gate", 1536, 512), ("moe/wi_up", 1536, 512),
                    ("moe/wo", 512, 1536)]
 GRANITE_E = 48
+# The expert-batched selection's shapes on every MoE arch the port
+# serves: (arch, padded experts E, routed experts, n of moe/wi_gate and
+# moe/wi_up, n of moe/wo, expert rows R).  R: decode with 1, 8, 32 and
+# 448 slots (capacity 1), then one group of 32 and of 448 tokens
+# (``models/moe.expert_rows``).  Experts past the routed ones (or, with
+# none, the last) have zero rows, as an expert no token chose.
+EXPERT_SELECT = [
+    ("granite_moe_1b_a400m", 32, 32, 1024, 512, (1, 8, 32, 448, 11, 141)),
+    ("granite_moe_3b_a800m", 48, 40, 1536, 512, (1, 8, 32, 448, 9, 113)),
+    ("jamba_v01_52b", 16, 16, 4096, 14336, (1, 8, 32, 448, 6, 71))]
 # mamba2_130m projections of one layer (d_model 768, d_inner 1536, state
 # 128, 24 heads): in_B, in_C and in_dt are a single ragged column tile
 MAMBA_LAYER = [("mamba/in_z", 768, 1536), ("mamba/in_x", 768, 1536),
@@ -986,6 +1005,154 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
           f"{list(rows)} x 3 (alpha, tau) agree with their plain versions "
           f"(max abs err {errs})")
     return out, errs
+
+
+def select_form(G, E: int, R: int, n: int, kb: int, sms: int) -> str:
+    """The form ``score_select_experts`` takes at (E, R, n), bf16, from
+    ``kernels/geometry.py``'s mirror, with its grid, threads and cluster
+    (a tree whose mirror names no form launches one cluster per
+    expert)."""
+    kw = {"experts": True} if "experts" in inspect.signature(
+        G.score_select_geometry).parameters else {}
+    geo = G.score_select_geometry(E, R, n, BLK, kb, 2, True, sms, **kw)
+    return (f"{getattr(geo, 'form', 'cluster')} grid {geo.grid} x "
+            f"{geo.threads} cluster {geo.cluster[0]}")
+
+
+def hold_experts(name, K, ref, x, g, a, tau, kf, kb, zero) -> float:
+    """``score_select_experts`` on (x, g) against its plain version: the
+    whole (E, ...) outputs at once, and where they differ expert by
+    expert as ``check_select`` allows (near ties printed); the experts in
+    ``zero`` (zero rows) give ids 0..kb-1; two launches bit-equal.
+    Returns the largest bs error."""
+    got = K.score_select_experts(x, g, a, tau, kf, kb=kb, blk=BLK)
+    torch.cuda.synchronize()
+    want = ref.ref_score_select_experts(x, g, a, tau, kf, BLK, kb)
+    err = check_close(f"{name} bs", got[2], want[2])
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        nb = x.shape[2] // BLK
+        unranked = ref.ref_score_mask_experts(x, g, a, tau, BLK)[0]
+        for e in range(x.shape[0]):
+            check_select(f"{name} expert {e}", tuple(t[e] for t in got),
+                         tuple(t[e] for t in want),
+                         rank_limit(float(kf), nb, kb),
+                         lambda e=e: unranked[e])
+    if got[1][zero].tolist() != [list(range(kb))] * len(zero):
+        raise AssertionError(f"{name}: the zero experts' ids "
+                             f"{got[1][zero].tolist()}")
+    bit_equal(name, lambda: K.score_select_experts(x, g, a, tau, kf, kb=kb,
+                                                   blk=BLK))
+    return err
+
+
+def expert_select_shapes(K, ref, G, dev, rates) -> tuple:
+    """``score_select_experts`` at every shape of ``EXPERT_SELECT`` (three
+    MoE archs, both expert input widths, decode and chunk rows), bf16,
+    k_frac 0.5: held against its plain version (:func:`hold_experts`) at
+    alpha 0.7 with a finite tau (a quarter of the mean score) and
+    keep_frac 0.375, and at alpha 1 (the uncalibrated sp tree's), tau
+    -inf, keep_frac 0.5, then timed there by CUDA-graph replay beside the
+    plain version and the bound (bytes over the card's memory rate), with
+    the form the launch took, and once more at alpha 0.7 (a calibrated
+    layer's: powf runs).  Then the
+    evidence line: the expert entry at E = 1 on llama31_8b's seven
+    decode shapes (B = 8) beside ``score_select``'s one cluster.
+    Returns (rows, largest bs error)."""
+    rows, err = [], 0.0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    alpha = torch.tensor(1.0, device=dev)
+    a7 = torch.tensor(0.7, device=dev)
+    ninf = torch.tensor(-math.inf, device=dev)
+    for arch, E, routed, n_in, n_ff, rs in EXPERT_SELECT:
+        zero = list(range(routed, E)) or [E - 1]
+        for R in rs:
+            for role, n in (("moe/wi", n_in), ("moe/wo", n_ff)):
+                x = torch.randn(E, R, n, device=dev, generator=gen)
+                x[zero] = 0
+                x = x.to(torch.bfloat16)
+                g = torch.rand(E, n, device=dev, generator=gen) + 0.5
+                nb = n // BLK
+                kb = round(nb * KEEP)
+                name = f"score_select experts {arch} {role} E={E} R={R}"
+                tau = 0.25 * (x.float().abs() * g[:, None] ** 0.7).mean()
+                k3 = torch.tensor(0.375, device=dev)
+                k5 = torch.tensor(KEEP, device=dev)
+                err = max(err, hold_experts(f"{name} alpha=0.7 "
+                                            f"tau={float(tau):.3g}", K, ref,
+                                            x, g, a7, tau, k3, kb, zero),
+                          hold_experts(f"{name} tau=-inf", K, ref, x, g,
+                                       alpha, ninf, k5, kb, zero))
+                t = graph_ms(lambda i: K.score_select_experts(
+                    x, g, alpha, ninf, k5, kb=kb, blk=BLK))
+                t7 = graph_ms(lambda i: K.score_select_experts(
+                    x, g, a7, ninf, k5, kb=kb, blk=BLK))
+                t_plain = graph_ms(lambda i: ref.ref_score_select_experts(
+                    x, g, alpha, ninf, k5, BLK, kb))
+                # x read, xm written, g, the three scalars, bs and idx
+                nbytes = 2 * E * R * n * 2 + E * n * 4 + 12 + E * (nb + kb) * 4
+                bound, by = bound_ms(nbytes, 6.0 * E * R * n, torch.float32,
+                                     rates)
+                form = select_form(G, E, R, n, kb, sms)
+                rows.append({"arch": arch, "role": role, "E": E, "R": R,
+                             "n": n, "kb": kb, "form": form, "ms": t,
+                             "ms_alpha_0.7": t7, "plain_ms": t_plain,
+                             "library_ms": None, "bound_ms": bound,
+                             "bound_by": by})
+                print(f"  {arch:20s} {role:6s} E={E:2d} R={R:3d} n={n:5d} "
+                      f"kb={kb:2d} | score_select_experts {t * 1e3:7.2f} us "
+                      f"(alpha 0.7: {t7 * 1e3:7.2f}; plain "
+                      f"{t_plain * 1e3:8.2f}, bound {bound * 1e3:6.2f}) {form}")
+                del x, g
+        for R in rs:
+            per = {r["role"]: r for r in rows
+                   if r["arch"] == arch and r["R"] == R}
+            tot = {k: 2 * per["moe/wi"][k] + per["moe/wo"][k]
+                   for k in ("ms", "ms_alpha_0.7", "plain_ms", "bound_ms")}
+            print(f"{arch} per layer (3 launches), R={R}: "
+                  f"score_select_experts {tot['ms'] * 1e3:7.2f} us (alpha "
+                  f"0.7: {tot['ms_alpha_0.7'] * 1e3:7.2f}; plain "
+                  f"{tot['plain_ms'] * 1e3:8.2f}, bound "
+                  f"{tot['bound_ms'] * 1e3:6.2f})")
+    # evidence for a one-launch selection on the dense path: the expert
+    # entry at E = 1 (no row weights) beside score_select (row weights 1)
+    line = "llama31_8b decode (B = 8), score_select_experts at E = 1 " \
+        "against score_select, us:"
+    tot = [0.0, 0.0]
+    for role, n, _m in LAYER:
+        x = torch.randn(1, 8, n, device=dev, generator=gen).to(
+            torch.bfloat16)
+        g = torch.rand(1, n, device=dev, generator=gen) + 0.5
+        kb = round(n // BLK * KEEP)
+        k5 = torch.tensor(KEEP, device=dev)
+        rw = torch.ones(8, device=dev)
+        err = max(err, hold_experts(f"score_select experts E=1 {role}", K,
+                                    ref, x, g, alpha, ninf, k5, kb, []))
+        t_e = graph_ms(lambda i: K.score_select_experts(
+            x, g, alpha, ninf, k5, kb=kb, blk=BLK))
+        t_d = graph_ms(lambda i: K.score_select(
+            x[0], g[0], alpha, ninf, k5, kb=kb, blk=BLK, row_weights=rw))
+        tot = [tot[0] + t_e, tot[1] + t_d]
+        line += (f" {role} {t_e * 1e3:.2f} / {t_d * 1e3:.2f} "
+                 f"({select_form(G, 1, 8, n, kb, sms).split()[0]});")
+    print(f"{line} the layer {tot[0] * 1e3:.2f} / {tot[1] * 1e3:.2f}")
+    print(f"expert selection: {len(rows)} shapes of {len(EXPERT_SELECT)} "
+          f"MoE archs agree with the plain version (max abs bs err "
+          f"{err:.3e})")
+    return rows, err
+
+
+def experts_only(dev, card: str, src: str, rates) -> int:
+    """``--experts-only``: :func:`expert_select_shapes` for the package
+    under ``src``, one JSON line."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import geometry as G
+    from repro_torch.kernels import sparse_matmul as K
+    build.library()
+    rows, err = expert_select_shapes(K, ref, G, dev, rates)
+    print(json.dumps({"expert_select": rows, "max_abs_err": err,
+                      "src": src, "card": card}))
+    return 0
 
 
 def whole_prefill_kernels(K, ref, dev, rows, layer=GEMMA_LAYER,
@@ -6818,10 +6985,15 @@ def main() -> int:
                          "(with its TF32 control) and phase 19b's 30 "
                          "gemma2_2b steps, print their numbers as one JSON "
                          "line, and stop")
+    ap.add_argument("--experts-only", action="store_true",
+                    help="hold and time score_select_experts at every MoE "
+                         "arch's expert shapes (phase 3's "
+                         "expert_select_shapes), print them as one JSON "
+                         "line, and stop")
     ap.add_argument("--src", default=os.path.join(HERE, "src"),
                     help="directory holding the repro_torch package (for "
-                         "--host-only or --train-only against another "
-                         "tree)")
+                         "--host-only, --train-only or --experts-only "
+                         "against another tree)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     if not torch.cuda.is_available():
@@ -6832,6 +7004,7 @@ def main() -> int:
     print(smi)
     from repro_torch import obs
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import geometry as G
     from repro_torch.kernels import sparse_matmul as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6841,6 +7014,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
     if args.train_only:
         return train_only(dev, card, args.src)
+    if args.experts_only:
+        from repro_torch.launch import constants
+        return experts_only(dev, card, args.src, constants.peak_rates(card))
 
     t_start = t0 = obs.now()
     build.library()
@@ -6889,6 +7065,10 @@ def main() -> int:
                                        layer=GRANITE_ATTN, batches=(8, 32),
                                        v1=False)
     ge_rows, errs6 = expert_kernels(K, ref, dev, rates)
+    # the expert selection alone at every MoE arch's expert shapes, in the
+    # form each takes
+    es_rows, es_err = expert_select_shapes(K, ref, G, dev, rates)
+    errs6["score_select"] = max(errs6["score_select"], es_err)
     # mamba2_130m's six projection shapes (phase 18), B = 8 and 32 timed,
     # and at the row counts of phase 18's whole-prompt prefills
     m_rows, errs7 = main_path_kernels(K, ref, build, dev, rates,
@@ -7000,6 +7180,7 @@ def main() -> int:
         "gemma2_2b": {**gemma, "kernels_per_decode_layer": gemma_layer},
         "granite_moe_3b_a800m": {**granite, "attention_kernels": ga_rows,
                                  "expert_kernels": ge_rows},
+        "expert_select": es_rows,
         "mamba2_130m": {**mamba, "kernels": m_rows,
                         "kernels_per_decode_layer": mamba_layer},
         "reduced_granite": reduced_granite, "reduced_ssm": reduced_ssm,

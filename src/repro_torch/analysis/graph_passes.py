@@ -26,7 +26,7 @@ Three rules:
   * ``launch-geometry`` (for ``pallas-blockspec``) — the matmuls' split-K
     plans (``kernels.sparse_matmul.launch_plan``) and every kernel's
     grid, block, shared memory and cluster (``kernels.geometry``) over
-    the JAX pass's awkward shapes and every projection of nine served
+    the JAX pass's awkward shapes and every projection of ten served
     archs at published width, B in {1, 8, 32, 448}, kb in {1, nb/2, nb}:
     slices partition the kept blocks, reads stay in the padded weight,
     the scratch the engine reserves covers every plan, and every launch
@@ -513,9 +513,9 @@ class GraphKeysPass(GlobalPass):
 # ---------------------------------------------------------------------------
 
 # the archs the port serves or trains at published width
-_ARCHS = ("llama31_8b", "gemma2_2b", "gemma3_4b", "granite_moe_3b_a800m",
-          "mamba2_130m", "whisper_large_v3", "internvl2_26b",
-          "deepseek_67b", "jamba_v01_52b")
+_ARCHS = ("llama31_8b", "gemma2_2b", "gemma3_4b", "granite_moe_1b_a400m",
+          "granite_moe_3b_a800m", "mamba2_130m", "whisper_large_v3",
+          "internvl2_26b", "deepseek_67b", "jamba_v01_52b")
 _BATCHES = (1, 8, 32, 448)
 
 
@@ -526,13 +526,14 @@ class LaunchGeometryPass(GlobalPass):
 
     Sweeps ``launch_plan`` and the launch mirrors of
     ``kernels.geometry`` over the JAX pass's awkward shapes (prime dims,
-    f32 and bf16) and every projection shape of nine archs at published
+    f32 and bf16) and every projection shape of ten archs at published
     width (``serving.graphs.matmul_shapes`` on meta params, as the dry
     run builds them), B in {1, 8, 32, 448} (expert rows of the MoE archs
     at those decode and chunk sizes), kb in {1, nb/2, nb}.  On the card
     the limits come from the device and the mirror is held against
     ``wisparse_launch_info``.  ``report`` keeps the number of shapes, of
-    comparisons, and each kernel's largest shared memory and headroom.
+    comparisons, each kernel's largest shared memory and headroom, and the
+    forms ``score_select`` and ``score_select_experts`` took.
     """
 
     rule = "launch-geometry"
@@ -587,6 +588,7 @@ class LaunchGeometryPass(GlobalPass):
         plan_line = _line_of(repo_root, self._REL, "def launch_plan")
         geo_line = _line_of(repo_root, self._GEO, "def score_select_geometry")
         smem = {k: 0 for k in G.KERNELS}
+        forms = {"score_select": set(), "score_select_experts": set()}
         report = {"shapes": 0, "compared": 0, "min_active_clusters": None}
 
         def finding(rel, line, msg, snippet):
@@ -718,7 +720,8 @@ class LaunchGeometryPass(GlobalPass):
                 kernel = "score_select_experts" if E > 1 else "score_select"
                 for aligned in (True, False):
                     geo = G.score_select_geometry(E, B, n, blk, kb, elem,
-                                                  aligned, sms)
+                                                  aligned, sms, E > 1)
+                    forms[kernel].add(geo.form.split()[0])
                     query = functools.partial(
                         G.launch_info, kernel, E, B, n, 0, blk, kb, 0, 0, 0,
                         elem, aligned) if cuda else None
@@ -727,6 +730,7 @@ class LaunchGeometryPass(GlobalPass):
                                    query)
         findings.extend(self._channel_plan(repo_root))
         report["smem"] = smem
+        report["forms"] = {k: sorted(v) for k, v in forms.items()}
         report["headroom"] = {k: limits["smem_optin"] - v
                               for k, v in smem.items()}
         report["limits"] = limits

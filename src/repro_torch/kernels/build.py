@@ -45,7 +45,7 @@ SIGNATURES = {
     # splits, dtype, stream
     "wisparse_sparse_matmul_shared_experts": (_P,) * 6 + (_I,) * 10 + (_P,),
     # the launch-geometry query (launches nothing): kernel name, E, B, n,
-    # m, blk, kb, rows, cols, splits, dtype, aligned, out (9 int32)
+    # m, blk, kb, rows, cols, splits, dtype, aligned, out (10 int32)
     "wisparse_launch_info": (ctypes.c_char_p,) + (_I,) * 11 + (_P,),
 }
 

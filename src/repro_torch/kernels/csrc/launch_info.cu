@@ -17,11 +17,10 @@ template <typename T, int NB, bool kPerSeq>
 int matmul_info(int E, int B, int m, int S, int* out) {
   using L = gm::Layout<T, NB, kPerSeq>;
   const dim3 grid = gm::grid_of<T, NB>(E, B, m, S);
-  const int fill[8] = {static_cast<int>(grid.x), static_cast<int>(grid.y),
-                       static_cast<int>(grid.z), gm::kThreads,
-                       static_cast<int>(L::kBytes), 1, 1, 1};
-  for (int i = 0; i < 8; ++i) out[i] = fill[i];
-  out[8] = 0;
+  const int fill[10] = {static_cast<int>(grid.x), static_cast<int>(grid.y),
+                        static_cast<int>(grid.z), gm::kThreads,
+                        static_cast<int>(L::kBytes), 1, 1, 1, 0, 0};
+  for (int i = 0; i < 10; ++i) out[i] = fill[i];
   return 0;
 }
 
@@ -80,8 +79,8 @@ int device_limits(int* out) {
 // "sparse_matmul_shared_experts", "sparse_matmul_per_seq", or "device" for
 // the card's limits.  The shape arguments are the C entry's (E = 1 for the
 // 2-D kernels; rows, cols and splits the host's plan, unused by
-// score_select; aligned: its x and xm 16-byte aligned).  Fills out (9 ints,
-// launch_info.cuh) and returns 0, or the cudaError_t the entry would
+// score_select; aligned: its x and xm 16-byte aligned).  Fills out (10
+// ints, launch_info.cuh) and returns 0, or the cudaError_t the entry would
 // return for these arguments.
 extern "C" int wisparse_launch_info(const char* kernel, int E, int B, int n,
                                     int m, int blk, int kb, int rows,
@@ -89,9 +88,10 @@ extern "C" int wisparse_launch_info(const char* kernel, int E, int B, int n,
                                     int aligned, int* out) {
   using namespace wisparse;
   if (std::strcmp(kernel, "device") == 0) return device_limits(out);
-  if (std::strcmp(kernel, "score_select") == 0 ||
-      std::strcmp(kernel, "score_select_experts") == 0) {
-    return score_select_info(E, B, n, blk, kb, dtype, aligned != 0, out);
+  const bool experts = std::strcmp(kernel, "score_select_experts") == 0;
+  if (experts || std::strcmp(kernel, "score_select") == 0) {
+    return score_select_info(experts, E, B, n, blk, kb, dtype, aligned != 0,
+                             out);
   }
   if (std::strcmp(kernel, "sparse_matmul_shared") == 0 ||
       std::strcmp(kernel, "sparse_matmul_shared_experts") == 0) {

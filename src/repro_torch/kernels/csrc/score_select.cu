@@ -54,21 +54,59 @@
 // of rows) the time grows with B, far from the bound.
 // Expert axis: the reference runs this kernel under jax.vmap over a MoE
 // layer's experts (src/repro/models/moe.py:93-112), one selection per
-// expert.  Here that is one launch of a (C, E) grid with cluster
-// dimension (C, 1, 1): cluster y is expert y, whose x, g, xm, idx and bs
-// are strided by expert, while alpha, tau and keep_frac are the layer's
-// and shared.  C = min(16, nb, SMs / E), so that every expert's cluster
-// runs at once: at granite_moe_3b_a800m's 48 experts of 8 rows, 2 blocks
-// each.  Clusters of min(16, nb) = 12 ran 48 x 12 blocks in waves, 28 us
-// per launch at n = 1536 (chip_smoke.py on an NVIDIA H100 80GB HBM3 at
-// 700 W; PERF.md).  The map_shared_rank exchange addresses cluster ranks, so
-// it stays inside one expert's cluster.  An expert that no token chose
-// has zero rows: every block sum is 0, and the ids come out 0..kb-1.
+// expert, each with its own x (R, n), g, idx and bs, while alpha, tau
+// and keep_frac are the layer's and shared.  The expert entry takes one
+// of two forms, chosen by Geometry from (E, R, n, blk, dtype, alignment,
+// SMs) alone, for the launch and for score_select_info alike:
+// - One block per expert, no cluster (select_expert_kernel), wherever an
+//   expert's rows fit one block's registers: aligned 16-byte units,
+//   channel blocks of 128, nb <= 32 and the rows per lane of a
+//   kExpertConfigs entry.  That holds at every decode and 32-token-chunk
+//   row count of granite_moe_1b_a400m and _3b_a800m (R <= 32 in bf16)
+//   and at jamba_v01_52b's n = 4096 up to R = 16.  The grid is min(E,
+//   SMs) blocks (a block takes several experts in turn where E exceeds
+//   the SMs) of one warp per channel block, up to 16: a lane owns a
+//   16-byte column of its warp's block (16 lanes a row in bf16, so two
+//   rows per pass) and every lane issues all its loads (its rows of x,
+//   its g, the scalars) before the first use.  The rows stay in
+//   registers from scoring to the store: x is read once.  g^alpha is
+//   the plain version's powf(fmaxf(g, 1e-12f), alpha), each channel once
+//   per warp (the two row groups of a column split its 8 channels and
+//   trade them by shuffle); at alpha = 1 powf returns every float it can
+//   see here unchanged (the GPU tests check all of them), so the
+//   uncalibrated sp tree's alpha skips it.  A lane keeps one sum per
+//   element position over its rows, a fixed tree and a fixed xor-shuffle
+//   tree over the warp give the block sum, one __syncthreads publishes
+//   the nb sums, and each warp then ranks its own blocks by counting
+//   (one ballot over the nb sums) and writes its rows, masked, from the
+//   registers.  One block barrier, no cluster barrier, no DSMEM.  The
+//   rows per lane come in small steps because a predicated-off unit
+//   still issues its instructions.  The cluster form it replaces at
+//   these shapes spent its time in a chain of six barriers (two
+//   cluster-wide) around 8-25 KB per expert; this form's time follows
+//   the instructions one SM issues for one expert (powf the largest
+//   share), so it stops at nb = 32: at jamba's n = 14336 (nb = 112) an
+//   early version of it took 2.1x its cluster of 8.  Tried and dropped
+//   (PERF.md):
+//   two warps per channel block, g^alpha through shared memory, and the
+//   slab moved by bulk copies through shared memory, all slower.
+// - One cluster per expert (score_select_kernel on a (C, E) grid, cluster
+//   y is expert y) everywhere else: granite's 113-448 rows, jamba from
+//   R = 32 (n = 4096) and at n = 14336, f32 beyond 16 rows, unaligned
+//   tensors.  C = min(16, nb, SMs / E), so that every expert's cluster
+//   runs at once (clusters of min(16, nb) = 12 ran in waves, 28 us per
+//   launch at n = 1536).  The map_shared_rank exchange addresses cluster
+//   ranks, so it stays inside one expert's cluster.
+// In both, an expert that no token chose has zero rows: every block sum
+// is 0, and the ids come out 0..kb-1.  No atomics and a fixed summation
+// order in both: two launches are bit-equal.  A form the card refuses
+// returns its error; the other form is never tried in its place.
 // Measured result: PERF.md (chip_smoke.py, per projection shape).
 #include <cooperative_groups.h>
 
 #include <algorithm>
 #include <cstdint>
+#include <utility>
 
 #include "common.cuh"
 #include "launch_info.cuh"
@@ -84,6 +122,20 @@ constexpr int kUnroll = 4;
 constexpr int kCluster = 16;
 constexpr int kMaxBlocks = 8192;           // nb limit of the shared table
 constexpr size_t kMaxSmem = 232448;        // an H100 block's shared memory
+// The per-expert form: channel blocks of kExpertBlk, at most
+// kExpertWarps warps, each owning whole channel blocks; its (channel
+// blocks per warp, rows per lane) instantiations, tried in order.  A
+// predicated-off unit still issues its instructions, so rows per lane
+// come in small steps.  Registers: 4 per 16-byte unit held, under the
+// 128 a thread of 512 may use.
+constexpr int kExpertBlk = 128;
+constexpr int kExpertWarps = 16;
+constexpr int kExpertConfigs = 13;
+constexpr int kExpertNJ[kExpertConfigs] = {1, 1, 1, 1, 1, 1, 1,
+                                           1, 1, 2, 2, 2, 2};
+constexpr int kExpertRU[kExpertConfigs] = {1, 2, 3, 4, 5, 6, 8,
+                                           12, 16, 1, 2, 4, 8};
+constexpr int kExpertMaxBlocks = 32;       // kExpertWarps x the largest NJ
 
 // A thread's load unit: 16 bytes (uint4) when the channel block is a
 // multiple of 16 bytes and x, xm are 16-byte aligned, else one element.
@@ -363,6 +415,168 @@ score_select_kernel(const T* __restrict__ x, const float* __restrict__ g,
   }
 }
 
+// The per-expert form (see the design comment): block e % gridDim.x
+// selects expert e, one after another where E exceeds the grid.  Warp w
+// owns channel blocks w, w + W, ... (kNJ at most); lane l owns 16-byte
+// column l % BV of each and rows l / BV + G * r, r < kRU.  At n = 1536
+// twelve warps share one SM's four schedulers, so the time follows the
+// instructions issued: powf is the largest part of them.
+template <typename T, int kNJ, int kRU>
+__global__ void __launch_bounds__(kExpertWarps * 32, 1)
+select_expert_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                     const float* __restrict__ alpha_p,
+                     const float* __restrict__ tau_p,
+                     const float* __restrict__ keep_p, T* __restrict__ xm,
+                     int* __restrict__ idx, float* __restrict__ bs, int E,
+                     int R, int n, int kb) {
+  using U = Unit<T, true>;
+  using Raw = typename U::Raw;
+  constexpr int EL = U::kElems;                // elements per unit
+  constexpr int BV = kExpertBlk / EL;          // lanes per block row
+  constexpr int G = 32 / BV;                   // rows per warp pass
+  constexpr int GE = EL / G;                   // g^alpha values per lane
+  static_assert(GE == 4, "a lane's g is one 16-byte load");
+  __shared__ float table[kExpertMaxBlocks];
+  const int nb = n / kExpertBlk;
+  const int W = static_cast<int>(blockDim.x) / 32;
+  const int w = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rg = lane / BV;
+  const int lane_col = (lane % BV) * EL;       // the lane's first channel
+  const bool g_vec = reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const float alpha = *alpha_p;
+  const float tau = *tau_p;
+  const float kb_l = keep_p != nullptr
+                         ? rintf(*keep_p * static_cast<float>(nb))
+                         : static_cast<float>(kb);
+  for (int e = blockIdx.x; e < E; e += gridDim.x) {
+    // the expert's slab; offsets inside it fit 32 bits (R <= 32 rows of
+    // n <= 4096 channels in this form)
+    const T* xe = x + static_cast<size_t>(e) * R * n;
+    T* xme = xm + static_cast<size_t>(e) * R * n;
+    const float* ge = g + static_cast<size_t>(e) * n;
+    // every load before the first use: the rows, then the lane's share
+    // of its column's g (the G row groups of a column split its EL
+    // channels)
+    Raw v[kNJ][kRU];
+    float gl[kNJ][GE];
+#pragma unroll
+    for (int k = 0; k < kNJ; ++k) {
+      const int j = w + k * W;
+      if (j < nb) {
+        const int col = j * kExpertBlk + lane_col;
+#pragma unroll
+        for (int r = 0; r < kRU; ++r) {
+          const int row = rg + G * r;
+          if (row < R) v[k][r] = U::load(xe + row * n + col);
+        }
+        const float* gs = ge + col + rg * GE;
+        if (g_vec) {
+          const float4 q = *reinterpret_cast<const float4*>(gs);
+          gl[k][0] = q.x;
+          gl[k][1] = q.y;
+          gl[k][2] = q.z;
+          gl[k][3] = q.w;
+        } else {
+#pragma unroll
+          for (int i = 0; i < GE; ++i) gl[k][i] = gs[i];
+        }
+      }
+    }
+    // per channel block: g^alpha (each channel once per warp, then
+    // shuffled to the row groups; at alpha = 1 powf returns every float
+    // it can be given here unchanged, which the GPU tests check over all
+    // of them, so it is skipped), the scores, the tau mask applied to
+    // the registers in place, and the block sum: one sum per element
+    // position over the lane's rows in order, a fixed tree over the
+    // positions, then a fixed xor-shuffle tree over the warp.  The sums
+    // are of s >= 0 from +0, so adding only the kept scores equals
+    // adding 0 for the others.
+#pragma unroll
+    for (int k = 0; k < kNJ; ++k) {
+      const int j = w + k * W;
+      if (j < nb) {                            // the same for the warp
+#pragma unroll
+        for (int i = 0; i < GE; ++i) {
+          const float gc = fmaxf(gl[k][i], 1e-12f);
+          gl[k][i] = alpha == 1.0f ? gc : powf(gc, alpha);
+        }
+        float gp[EL];
+#pragma unroll
+        for (int el = 0; el < EL; ++el) {
+          gp[el] = G == 1 ? gl[k][el % GE]
+                          : __shfl_sync(0xffffffffu, gl[k][el % GE],
+                                        lane % BV + (el / GE) * BV);
+        }
+        float acc[EL];
+#pragma unroll
+        for (int el = 0; el < EL; ++el) acc[el] = 0.0f;
+#pragma unroll
+        for (int r = 0; r < kRU; ++r) {
+          if (rg + G * r < R) {
+            unsigned m[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int el = 0; el < EL; ++el) {
+              const float s = fabsf(U::get(v[k][r], el)) * gp[el];
+              if (s >= tau) {
+                acc[el] += s;
+                m[el / U::kPerWord] |= U::kPerWord == 1 ? ~0u
+                                       : el % 2 ? 0xffff0000u : 0x0000ffffu;
+              }
+            }
+            v[k][r] = make_uint4(v[k][r].x & m[0], v[k][r].y & m[1],
+                                 v[k][r].z & m[2], v[k][r].w & m[3]);
+          }
+        }
+#pragma unroll
+        for (int h = EL / 2; h > 0; h /= 2) {
+#pragma unroll
+          for (int el = 0; el < h; ++el) acc[el] += acc[el + h];
+        }
+        float sum = acc[0];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        }
+        if (lane == 0) table[j] = sum;
+      }
+    }
+    // the one barrier: every block's sum published
+    __syncthreads();
+    // each warp ranks its own blocks by counting (lane i holds block i's
+    // sum, block j's comes from lane j, one ballot counts the blocks
+    // ranked before it; the lower id first among equal sums) and stores
+    // their rows from the registers: blocks outside the limit as zeros
+    const float ti = lane < nb ? table[lane] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kNJ; ++k) {
+      const int j = w + k * W;
+      if (j < nb) {
+        const float a = __shfl_sync(0xffffffffu, ti, j);
+        const int cnt = __popc(__ballot_sync(
+            0xffffffffu, lane < nb && ranks_before(ti, lane, a, j)));
+        const bool blk_kept =
+            idx == nullptr || (cnt < kb && static_cast<float>(cnt) < kb_l);
+        if (lane == 0) {
+          bs[static_cast<size_t>(e) * nb + j] = a;
+          if (idx != nullptr && cnt < kb) {
+            idx[static_cast<size_t>(e) * kb + cnt] = j;
+          }
+        }
+        const int col = j * kExpertBlk + lane_col;
+#pragma unroll
+        for (int r = 0; r < kRU; ++r) {
+          const int row = rg + G * r;
+          if (row < R) U::store(xme + row * n + col, blk_kept ? v[k][r] : Raw{});
+        }
+      }
+    }
+    // the next expert reuses the table
+    if (e + static_cast<int>(gridDim.x) < E) __syncthreads();
+  }
+}
+
+
 // Dynamic shared memory above 48 KB and clusters above 8 blocks need a
 // function attribute, set once per device; the device's SM count is read
 // at the same time and kept for later launches in ``sms``.
@@ -393,15 +607,41 @@ cudaError_t prepare(Kern kern, unsigned& done, int& sms) {
   return cudaSuccess;
 }
 
-// The launch geometry of an (E, B, n) call: the E experts' clusters share
-// the card, each taking at most SMs / E blocks so that all of them run at
-// once.  `launch` and `score_select_info` both compute it here.
+// The launch geometry of an (E, B, n) call, computed here for `launch`
+// and `score_select_info` alike.  The expert entry (`experts`) takes the
+// per-expert form where an expert's slab fits one block's registers
+// (form >= 0: the index of the first kExpertConfigs entry that holds the
+// warp's channel blocks and the lane's rows); else, and always for the
+// 2-D entry, one cluster per expert: the E experts' clusters share the
+// card, each taking at most SMs / E blocks so that all of them run at
+// once.
 template <typename T, bool kWide>
 struct Geometry {
-  int C;        // blocks per cluster (and grid x)
-  size_t smem;  // dynamic shared memory per block
-  Geometry(int E, int nb, int blk, int sms) {
+  int form = -1;  // -1: one cluster per expert; else the per-expert config
+  int C;          // blocks per cluster (1 in the per-expert form)
+  int grid;       // grid x (the cluster form's grid is (C, E))
+  int threads;
+  size_t smem;    // dynamic shared memory per block
+  Geometry(bool experts, int E, int B, int nb, int blk, int sms) {
+    if (experts && kWide && blk == kExpertBlk) {
+      const int G = 32 * Unit<T, true>::kElems / kExpertBlk;
+      const int W = std::min(kExpertWarps, nb);
+      const int nj = (nb + W - 1) / W;
+      const int ru = (B + G - 1) / G;
+      for (int i = 0; i < kExpertConfigs && form < 0; ++i) {
+        if (nj <= kExpertNJ[i] && ru <= kExpertRU[i]) form = i;
+      }
+      if (form >= 0) {
+        C = 1;
+        grid = std::min(E, sms);
+        threads = 32 * W;
+        smem = 0;
+        return;
+      }
+    }
     C = std::min({kCluster, nb, std::max(1, sms / E)});
+    grid = C;
+    threads = kThreads;
     const int lmax = (nb + C - 1) / C;
     const int vmax = lmax * (blk / Unit<T, kWide>::kElems);
     smem = sizeof(float) * (static_cast<size_t>(nb) + lmax +
@@ -436,42 +676,77 @@ cudaError_t prepared(int& sms) {
   return prepare(score_select_kernel<T, kWide>, done, sms);
 }
 
+// The per-expert kernel of config `form`.
+template <typename T, size_t... I>
+auto expert_kernel_of(int form, std::index_sequence<I...>) {
+  static decltype(&select_expert_kernel<T, 1, 1>) const table[] = {
+      &select_expert_kernel<T, kExpertNJ[I], kExpertRU[I]>...};
+  return table[form];
+}
+
+template <typename T>
+auto expert_kernel(int form) {
+  return expert_kernel_of<T>(form,
+                             std::make_index_sequence<kExpertConfigs>{});
+}
+
 template <typename T, bool kWide>
-int launch(const void* x, const void* g, const void* alpha, const void* tau,
-           const void* keep, const void* rw, void* xm, void* idx, void* bs,
-           int E, int B, int n, int blk, int kb, cudaStream_t st) {
-  auto kern = score_select_kernel<T, kWide>;
+int launch(bool experts, const void* x, const void* g, const void* alpha,
+           const void* tau, const void* keep, const void* rw, void* xm,
+           void* idx, void* bs, int E, int B, int n, int blk, int kb,
+           cudaStream_t st) {
   int sms = 0;
   cudaError_t e = prepared<T, kWide>(sms);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Geometry<T, kWide> geo(E, n / blk, blk, sms);
+  const Geometry<T, kWide> geo(experts, E, B, n / blk, blk, sms);
+  if constexpr (kWide) {
+    if (geo.form >= 0) {
+      expert_kernel<T>(geo.form)<<<geo.grid, geo.threads, 0, st>>>(
+          static_cast<const T*>(x), static_cast<const float*>(g),
+          static_cast<const float*>(alpha), static_cast<const float*>(tau),
+          static_cast<const float*>(keep), static_cast<T*>(xm),
+          static_cast<int*>(idx), static_cast<float*>(bs), E, B, n, kb);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
   if (geo.smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cluster_config(geo, E, st, cfg, attr);
   e = cudaLaunchKernelEx(
-      &cfg, kern, static_cast<const T*>(x), static_cast<const float*>(g),
-      static_cast<const float*>(alpha), static_cast<const float*>(tau),
-      static_cast<const float*>(keep), static_cast<const float*>(rw),
-      static_cast<T*>(xm), static_cast<int*>(idx), static_cast<float*>(bs), B,
-      n, blk, kb);
+      &cfg, score_select_kernel<T, kWide>, static_cast<const T*>(x),
+      static_cast<const float*>(g), static_cast<const float*>(alpha),
+      static_cast<const float*>(tau), static_cast<const float*>(keep),
+      static_cast<const float*>(rw), static_cast<T*>(xm),
+      static_cast<int*>(idx), static_cast<float*>(bs), B, n, blk, kb);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// What `launch` would use, written to out[0..8] as in launch_info.cuh,
-// with the clusters of that shape that can be active at once
-// (cudaOccupancyMaxActiveClusters).  Launches nothing.
+// What `launch` would use, written to out[0..9] as in launch_info.cuh:
+// with the blocks (per-expert form) or clusters of that shape that can be
+// active at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, or
+// cudaOccupancyMaxActiveClusters).  Launches nothing.
 template <typename T, bool kWide>
-int info(int E, int n, int blk, int* out) {
+int info(bool experts, int E, int B, int n, int blk, int* out) {
   int sms = 0;
   cudaError_t e = prepared<T, kWide>(sms);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Geometry<T, kWide> geo(E, n / blk, blk, sms);
-  const int fill[8] = {geo.C, E, 1, kThreads, static_cast<int>(geo.smem),
-                       geo.C, 1, 1};
-  for (int i = 0; i < 8; ++i) out[i] = fill[i];
-  out[8] = 0;
+  const Geometry<T, kWide> geo(experts, E, B, n / blk, blk, sms);
+  const bool cluster = geo.form < 0;
+  const int fill[10] = {geo.grid, cluster ? E : 1, 1, geo.threads,
+                        static_cast<int>(geo.smem), geo.C, 1, 1, 0,
+                        geo.form + 1};
+  for (int i = 0; i < 10; ++i) out[i] = fill[i];
+  if constexpr (kWide) {
+    if (!cluster) {
+      int per_sm = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, expert_kernel<T>(geo.form), geo.threads, 0);
+      out[8] = per_sm * sms;
+      return static_cast<int>(e);
+    }
+  }
   if (geo.smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
@@ -489,17 +764,17 @@ bool wide_ok(int blk, bool aligned) {
 }
 
 template <typename T>
-int dispatch(const void* x, const void* g, const void* alpha,
+int dispatch(bool experts, const void* x, const void* g, const void* alpha,
              const void* tau, const void* keep, const void* rw, void* xm,
              void* idx, void* bs, int E, int B, int n, int blk, int kb,
              cudaStream_t st) {
   if (wide_ok<T>(blk, reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                          reinterpret_cast<uintptr_t>(xm) % 16 == 0)) {
-    return launch<T, true>(x, g, alpha, tau, keep, rw, xm, idx, bs, E, B, n,
-                           blk, kb, st);
+    return launch<T, true>(experts, x, g, alpha, tau, keep, rw, xm, idx, bs,
+                           E, B, n, blk, kb, st);
   }
-  return launch<T, false>(x, g, alpha, tau, keep, rw, xm, idx, bs, E, B, n,
-                          blk, kb, st);
+  return launch<T, false>(experts, x, g, alpha, tau, keep, rw, xm, idx, bs,
+                          E, B, n, blk, kb, st);
 }
 
 bool args_ok(int E, int B, int n, int blk, int kb) {
@@ -507,40 +782,41 @@ bool args_ok(int E, int B, int n, int blk, int kb) {
          n / blk <= kMaxBlocks && kb >= 1 && kb <= n / blk;
 }
 
-int entry(const void* x, const void* g, const void* alpha, const void* tau,
-          const void* keep_frac, const void* rw, void* xm, void* idx,
-          void* bs, int E, int B, int n, int blk, int kb, int dtype,
-          void* stream) {
+int entry(bool experts, const void* x, const void* g, const void* alpha,
+          const void* tau, const void* keep_frac, const void* rw, void* xm,
+          void* idx, void* bs, int E, int B, int n, int blk, int kb,
+          int dtype, void* stream) {
   if (!args_ok(E, B, n, blk, kb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) {
-    return dispatch<float>(x, g, alpha, tau, keep_frac, rw, xm, idx, bs, E, B,
-                           n, blk, kb, st);
+    return dispatch<float>(experts, x, g, alpha, tau, keep_frac, rw, xm, idx,
+                           bs, E, B, n, blk, kb, st);
   }
   if (dtype == kBFloat16) {
-    return dispatch<__nv_bfloat16>(x, g, alpha, tau, keep_frac, rw, xm, idx,
-                                   bs, E, B, n, blk, kb, st);
+    return dispatch<__nv_bfloat16>(experts, x, g, alpha, tau, keep_frac, rw,
+                                   xm, idx, bs, E, B, n, blk, kb, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-int score_select_info(int E, int B, int n, int blk, int kb, int dtype,
-                      bool aligned, int* out) {
+int score_select_info(bool experts, int E, int B, int n, int blk, int kb,
+                      int dtype, bool aligned, int* out) {
   if (!args_ok(E, B, n, blk, kb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == kFloat32) {
-    return wide_ok<float>(blk, aligned) ? info<float, true>(E, n, blk, out)
-                                        : info<float, false>(E, n, blk, out);
+    return wide_ok<float>(blk, aligned)
+               ? info<float, true>(experts, E, B, n, blk, out)
+               : info<float, false>(experts, E, B, n, blk, out);
   }
   if (dtype == kBFloat16) {
     return wide_ok<__nv_bfloat16>(blk, aligned)
-               ? info<__nv_bfloat16, true>(E, n, blk, out)
-               : info<__nv_bfloat16, false>(E, n, blk, out);
+               ? info<__nv_bfloat16, true>(experts, E, B, n, blk, out)
+               : info<__nv_bfloat16, false>(experts, E, B, n, blk, out);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -557,13 +833,14 @@ extern "C" int wisparse_score_select(const void* x, const void* g,
                                      void* xm, void* idx, void* bs, int B,
                                      int n, int blk, int kb, int dtype,
                                      void* stream) {
-  return wisparse::entry(x, g, alpha, tau, keep_frac, rw, xm, idx, bs, 1, B,
-                         n, blk, kb, dtype, stream);
+  return wisparse::entry(false, x, g, alpha, tau, keep_frac, rw, xm, idx, bs,
+                         1, B, n, blk, kb, dtype, stream);
 }
 
 // The expert-batched form: x, xm (E, B, n); g (E, n); idx (E, kb); bs
 // (E, n / blk); alpha, tau and keep_frac shared; no row weights.  One
-// cluster per expert.  Returns cudaGetLastError().
+// block per expert where its slab fits, else one cluster per expert
+// (Geometry).  Returns cudaGetLastError().
 extern "C" int wisparse_score_select_experts(const void* x, const void* g,
                                              const void* alpha,
                                              const void* tau,
@@ -571,6 +848,6 @@ extern "C" int wisparse_score_select_experts(const void* x, const void* g,
                                              void* idx, void* bs, int E,
                                              int B, int n, int blk, int kb,
                                              int dtype, void* stream) {
-  return wisparse::entry(x, g, alpha, tau, keep_frac, nullptr, xm, idx, bs,
-                         E, B, n, blk, kb, dtype, stream);
+  return wisparse::entry(true, x, g, alpha, tau, keep_frac, nullptr, xm, idx,
+                         bs, E, B, n, blk, kb, dtype, stream);
 }

@@ -2,7 +2,8 @@
 their C entries launch, and the library's own query of it.
 
 The C entries decide each launch's grid, block, dynamic shared memory
-and cluster (``csrc/score_select.cu``'s ``Geometry``; for the matmuls
+and cluster (``csrc/score_select.cu``'s ``Geometry``, which also picks
+the expert selection's form; for the matmuls
 ``csrc/gather_mma.cuh``'s ``grid_of`` and ``Layout::kBytes``, with the
 split from :func:`repro_torch.kernels.sparse_matmul.launch_plan`).  A
 launch outside the card's limits shows only on the card, as
@@ -31,6 +32,14 @@ SCORE_THREADS = 512
 SCORE_CLUSTER = 16
 SCORE_MAX_SMEM = 232448
 SCORE_MAX_BLOCKS = 8192
+# its per-expert form (score_select_experts): channel blocks of this
+# size, at most this many warps, and the (channel blocks per warp, rows
+# per lane) instantiations, tried in order (kExpertNJ, kExpertRU)
+SCORE_EXPERT_BLK = 128
+SCORE_EXPERT_WARPS = 16
+SCORE_EXPERT_CONFIGS = ((1, 1), (1, 2), (1, 3), (1, 4), (1, 5), (1, 6),
+                        (1, 8), (1, 12), (1, 16), (2, 1), (2, 2), (2, 4),
+                        (2, 8))
 # csrc/gather_mma.cuh: threads per block
 MATMUL_THREADS = 256
 
@@ -49,22 +58,53 @@ class Geometry:
     smem: int
     cluster: tuple
     ok: bool = True
+    form: str = "cluster"     # score_select: "cluster" or "expert NJxRU"
+
+
+def expert_config(B: int, n: int, blk: int, elem_bytes: int = 2,
+                  aligned: bool = True):
+    """The per-expert form's (index, warps) for ``score_select_experts``
+    at R = ``B`` rows of n channels, or None where one expert's slab does
+    not fit one block: 16-byte units (``aligned``), channel blocks of
+    ``SCORE_EXPERT_BLK``, and the first ``SCORE_EXPERT_CONFIGS`` entry
+    that holds a warp's channel blocks (nb over min(16, nb) warps) and a
+    lane's rows (R over the rows a warp takes at once: 32 lanes over a
+    block's 16-byte units, 2 in bf16, 1 in f32)."""
+    if not (aligned and blk == SCORE_EXPERT_BLK):
+        return None
+    nb = n // blk
+    warps = min(SCORE_EXPERT_WARPS, nb)
+    nj = -(-nb // warps)
+    ru = -(-B // (32 * (16 // elem_bytes) // blk))
+    for i, (cnj, cru) in enumerate(SCORE_EXPERT_CONFIGS):
+        if nj <= cnj and ru <= cru:
+            return i, warps
+    return None
 
 
 def score_select_geometry(E: int, B: int, n: int, blk: int, kb: int,
                           elem_bytes: int = 2, aligned: bool = True,
-                          sms: int = H100_LIMITS["sms"]) -> Geometry:
-    """``score_select`` (E = 1) or ``score_select_experts`` at (E, B, n):
-    one cluster of C = min(16, nb, max(1, SMs / E)) blocks per expert;
-    shared memory for the nb block sums, a flag and blk g^alpha values per
-    owned channel block, and the partial sums of one row group.  A thread
-    loads 16 bytes where ``aligned`` (x and xm 16-byte aligned) and blk
-    holds whole 16-byte units, else one element."""
+                          sms: int = H100_LIMITS["sms"],
+                          experts: bool = False) -> Geometry:
+    """``score_select`` (E = 1) or, with ``experts``,
+    ``score_select_experts`` at (E, B, n).  The expert entry's per-expert
+    form where :func:`expert_config` fits: min(E, SMs) blocks of 32 x
+    warps threads, static shared memory only, no cluster.  Else one
+    cluster of C = min(16, nb, max(1, SMs / E)) blocks per expert; shared
+    memory for the nb block sums, a flag and blk g^alpha values per owned
+    channel block, and the partial sums of one row group.  A thread loads
+    16 bytes where ``aligned`` (x and xm 16-byte aligned) and blk holds
+    whole 16-byte units, else one element."""
     nb = n // blk if blk > 0 else 0
     ok = (0 < E <= 65535 and B > 0 and n > 0 and blk > 0 and n % blk == 0
           and nb <= SCORE_MAX_BLOCKS and 1 <= kb <= nb)
     if not ok:
         return Geometry((0, 0, 0), 0, 0, (0, 0, 0), False)
+    cfg = expert_config(B, n, blk, elem_bytes, aligned) if experts else None
+    if cfg is not None:
+        nj, ru = SCORE_EXPERT_CONFIGS[cfg[0]]
+        return Geometry((min(E, sms), 1, 1), 32 * cfg[1], 0, (1, 1, 1),
+                        form=f"expert {nj}x{ru}")
     vec = 16 // elem_bytes
     units = vec if aligned and blk % vec == 0 else 1
     C = min(SCORE_CLUSTER, nb, max(1, sms // E))
@@ -119,12 +159,13 @@ def launch_info(kernel: str, E: int = 1, B: int = 0, n: int = 0, m: int = 0,
                 blk: int = 0, kb: int = 0, rows: int = 0, cols: int = 0,
                 splits: int = 0, elem_bytes: int = 2, aligned: bool = True):
     """The C library's answer (``wisparse_launch_info``) for one launch:
-    (Geometry, active) where ``active`` is how many such clusters can run
-    at once (``cudaOccupancyMaxActiveClusters``; score_select only), or,
+    (Geometry, active) where ``active`` is how many such clusters (or,
+    in the per-expert form, blocks) can run at once (score_select only),
+    or,
     for ``kernel="device"``, the card's limits as a dict.  Builds the
     library on first use and launches nothing."""
     from repro_torch.kernels import build
-    out = (ctypes.c_int * 9)()
+    out = (ctypes.c_int * 10)()
     err = build.library().wisparse_launch_info(
         kernel.encode(), E, B, n, m, blk, kb, rows, cols, splits,
         _DTYPE_OF_ELEM[elem_bytes], int(aligned), out)
@@ -137,4 +178,7 @@ def launch_info(kernel: str, E: int = 1, B: int = 0, n: int = 0, m: int = 0,
         return Geometry((0, 0, 0), 0, 0, (0, 0, 0), False), 0
     if err:
         raise RuntimeError(f"wisparse_launch_info({kernel}): cudaError {err}")
-    return Geometry(tuple(out[0:3]), out[3], out[4], tuple(out[5:8])), out[8]
+    form = "cluster" if out[9] == 0 else \
+        "expert {}x{}".format(*SCORE_EXPERT_CONFIGS[out[9] - 1])
+    return (Geometry(tuple(out[0:3]), out[3], out[4], tuple(out[5:8]),
+                     form=form), out[8])

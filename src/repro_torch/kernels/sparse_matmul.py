@@ -314,9 +314,10 @@ def score_select_experts(x, g, alpha, tau, keep_frac, *, kb: int,
     returns (xm (E, R, n) in x.dtype, idx (E, kb) int32, bs (E, n//blk)
     f32), expert e's equal to ``score_select(x[e], g[e], ...)``.  alpha,
     tau and keep_frac are the layer's, shared by its experts; there are no
-    row weights (expert rows are dispatched tokens).  One launch (one
-    thread-block cluster per expert), counted as a
-    ``score_select_experts``."""
+    row weights (expert rows are dispatched tokens).  One launch, counted
+    as a ``score_select_experts``: one thread block per expert where the
+    expert's rows fit its registers, else one thread-block cluster per
+    expert (the form is the shape's, ``kernels/geometry.py``)."""
     E, R, n = x.shape
     blk = min(blk, n)
     if n % blk:

@@ -11,6 +11,7 @@ import ctypes
 import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,12 +29,15 @@ CORPUS = os.path.join(HERE, "torch_analysis_corpus")
 def test_global_passes_clean_on_tree():
     """Acceptance: the pool written in place, the keys stable, every
     launch inside the card's limits — zero findings over the 3-rung
-    warmup set and the nine archs' shapes."""
+    warmup set and the ten archs' shapes."""
     assert run_global_passes(REPO, device="cpu") == []
     rep = global_passes()["launch-geometry"].report
     assert rep["shapes"] > 150 and rep["compared"] == 0
     assert all(0 < v <= G.H100_LIMITS["smem_optin"]
                for v in rep["smem"].values())
+    # the expert selection's sweep exercises both forms, the 2-D entry one
+    assert rep["forms"] == {"score_select": ["cluster"],
+                            "score_select_experts": ["cluster", "expert"]}
 
 
 # ---------------------------------------------------------------------------
@@ -192,9 +196,9 @@ def test_launch_geometry_covers_nine_archs_at_published_width():
 
     p = global_passes()["launch-geometry"]
     shapes = set(p.shapes())
-    archs = ("llama31_8b", "gemma2_2b", "gemma3_4b", "granite_moe_3b_a800m",
-             "mamba2_130m", "whisper_large_v3", "internvl2_26b",
-             "deepseek_67b", "jamba_v01_52b")
+    archs = ("llama31_8b", "gemma2_2b", "gemma3_4b", "granite_moe_1b_a400m",
+             "granite_moe_3b_a800m", "mamba2_130m", "whisper_large_v3",
+             "internvl2_26b", "deepseek_67b", "jamba_v01_52b")
     for arch in archs:
         abstract, _, _ = api.abstract_model(get_config(arch))
         mine = set(matmul_shapes(abstract, {128}, {1, 8, 32, 448}))
@@ -202,7 +206,65 @@ def test_launch_geometry_covers_nine_archs_at_published_width():
         assert dense and dense <= shapes, arch
     assert {s[0] for s in shapes} >= {1, 8, 32, 448}
     assert any(s[5] == 48 for s in shapes)          # granite's experts
+    assert any(s[5] == 32 for s in shapes)          # granite 1b's
     assert (8, 14336, 4096, 128, 2, 1) in shapes    # llama31_8b mlp/wo
+
+
+# The form of score_select_experts at every MoE arch's expert shapes
+# (bf16, aligned, an H100's 132 SMs): (arch, n) -> {R: form} for the
+# decode rows of 1, 8, 32 and 448 slots and one group of 32 and of 448
+# tokens.  One block per expert where the expert's rows fit its
+# registers; one cluster per expert where they do not (or nb > 32).
+EXPERT_FORMS = {
+    ("granite_moe_1b_a400m", 1024): {1: "expert 1x1", 8: "expert 1x4",
+                                     32: "expert 1x16", 448: "cluster",
+                                     11: "expert 1x6", 141: "cluster"},
+    ("granite_moe_1b_a400m", 512): {1: "expert 1x1", 8: "expert 1x4",
+                                    32: "expert 1x16", 448: "cluster",
+                                    11: "expert 1x6", 141: "cluster"},
+    ("granite_moe_3b_a800m", 1536): {1: "expert 1x1", 8: "expert 1x4",
+                                     32: "expert 1x16", 448: "cluster",
+                                     9: "expert 1x5", 113: "cluster"},
+    ("granite_moe_3b_a800m", 512): {1: "expert 1x1", 8: "expert 1x4",
+                                    32: "expert 1x16", 448: "cluster",
+                                    9: "expert 1x5", 113: "cluster"},
+    ("jamba_v01_52b", 4096): {1: "expert 2x1", 8: "expert 2x4",
+                              32: "cluster", 448: "cluster",
+                              6: "expert 2x4", 71: "cluster"},
+    ("jamba_v01_52b", 14336): {1: "cluster", 8: "cluster", 32: "cluster",
+                               448: "cluster", 6: "cluster", 71: "cluster"},
+}
+
+
+def test_expert_selection_form_at_every_moe_shape():
+    """Which form ``score_select_experts`` takes at each expert shape of
+    the three MoE archs (the rows ``models/moe.expert_rows`` gives), and
+    that each launch fits an H100: threads, shared memory, cluster and
+    grid within ``geometry.H100_LIMITS``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    lim = G.H100_LIMITS
+    for (arch, n), forms in EXPERT_FORMS.items():
+        cfg = get_config(arch)
+        E = cfg.num_experts_padded
+        assert n in (cfg.d_model, cfg.moe_d_ff)
+        rows = {moe.expert_rows(cfg, b, 1) for b in (1, 8, 32, 448)} | \
+            {moe.expert_rows(cfg, 1, t) for t in (32, 448)}
+        assert rows == set(forms), arch
+        for R, want in forms.items():
+            nb = n // 128
+            for kb in sorted({1, max(1, nb // 2), nb}):
+                geo = G.score_select_geometry(E, R, n, 128, kb, 2, True,
+                                              lim["sms"], experts=True)
+                assert geo.ok and geo.form == want, (arch, n, R, geo)
+                assert geo.threads <= lim["threads"]
+                assert geo.smem <= lim["smem_optin"]
+                assert int(np.prod(geo.cluster)) <= lim["cluster"]
+                assert max(geo.grid[1:]) <= lim["grid_yz"]
+            # the 2-D entry keeps its one cluster at every shape
+            assert G.score_select_geometry(
+                1, R, n, 128, 1, 2, True, lim["sms"]).form == "cluster"
 
 
 def test_mirror_constants_match_the_cuda_sources():
@@ -216,6 +278,19 @@ def test_mirror_constants_match_the_cuda_sources():
     assert const("kCluster") == G.SCORE_CLUSTER
     assert const("kMaxSmem") == G.SCORE_MAX_SMEM
     assert const("kMaxBlocks") == G.SCORE_MAX_BLOCKS
+    assert const("kExpertBlk") == G.SCORE_EXPERT_BLK
+    assert const("kExpertWarps") == G.SCORE_EXPERT_WARPS
+    assert const("kExpertConfigs") == len(G.SCORE_EXPERT_CONFIGS)
+
+    def table(name):
+        (v,) = re.findall(rf"constexpr int {name}\[kExpertConfigs\] = "
+                          r"\{([\d,\s]+)\};", src)
+        return tuple(int(t) for t in v.split(","))
+
+    assert tuple(zip(table("kExpertNJ"), table("kExpertRU"))) == \
+        G.SCORE_EXPERT_CONFIGS
+    nj_max = max(nj for nj, _ in G.SCORE_EXPERT_CONFIGS)
+    assert const("kExpertMaxBlocks") == G.SCORE_EXPERT_WARPS * nj_max
     gm = (build.CSRC / "gather_mma.cuh").read_text()
     assert const("kThreads", gm) == G.MATMUL_THREADS
     assert "static constexpr int kKC = kPerSeq ? 64 : 128;" in gm

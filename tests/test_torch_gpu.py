@@ -336,8 +336,18 @@ def _separated_experts(dev, E, R, n, dtype, blk=128, seed=6):
 
 
 # granite_moe_3b_a800m's expert projections (48 experts, 8 decode rows or
-# 9 rows of a 32-token chunk), and an awkward f32 shape
-EXPERT_SHAPES = [(48, 8, 1536, 512), (48, 9, 512, 1536), (5, 13, 384, 131)]
+# 9 rows of a 32-token chunk), granite_moe_1b_a400m's (32 experts), and
+# an awkward f32 shape
+EXPERT_SHAPES = [(48, 8, 1536, 512), (48, 9, 512, 1536), (32, 8, 1024, 512),
+                 (5, 13, 384, 131)]
+# the expert selection alone, (E, R, n): granite_moe_1b_a400m, granite_moe_
+# 3b_a800m and jamba_v01_52b at decode rows (1, 8, 32, 448 slots) and the
+# rows of a 32- and a 448-token chunk, both forms of the launch
+SELECT_SHAPES = [(32, 1, 512), (32, 8, 1024), (32, 11, 1024),
+                 (32, 141, 512), (48, 1, 1536), (48, 9, 512), (48, 32, 1536),
+                 (48, 113, 1536), (48, 448, 512), (16, 1, 4096),
+                 (16, 1, 14336), (16, 6, 4096), (16, 8, 4096),
+                 (16, 8, 14336), (16, 71, 14336), (16, 448, 4096)]
 
 
 @pytest.mark.parametrize("E,R,n,m", EXPERT_SHAPES)
@@ -371,6 +381,62 @@ def test_expert_kernels_match_plain_versions(dev, E, R, n, m, tau, dtype):
     again = K.score_select_experts(x, g, alpha, t, kf, kb=kb)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert torch.equal(y, K.sparse_matmul_shared_experts(got[0], w, got[1]))
+
+
+@pytest.mark.parametrize("E,R,n", SELECT_SHAPES)
+@pytest.mark.parametrize("alpha,tau", [(1.0, float("-inf")), (0.7, 0.05)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_selection_matches_plain_version(dev, E, R, n, alpha, tau,
+                                                dtype):
+    """``score_select_experts`` in the form its shape takes (per expert
+    or one cluster per expert, ``kernels/geometry``): xm and idx
+    bit-equal to the plain version at tie-free block scores, with expert
+    1 all zero (ids 0..kb-1) and expert 2's blocks tied in pairs (equal
+    sums, ranked lower id first as ``lax.top_k`` ranks them), keep_frac
+    0.375 under kb/nb = 0.5; bs to 1e-4; two launches bit-equal; one
+    launch.  At alpha 1 (the uncalibrated sp tree's, where the kernel
+    skips powf) and at alpha 0.7 with a finite tau."""
+    from repro_torch.kernels import geometry as G
+    x, g = _separated_experts(dev, E, R, n, dtype)
+    nb = n // 128
+    xt = x[2].view(R, nb, 128)
+    xt[:, 1::2] = xt[:, 0::2]
+    gt = g[2].view(nb, 128)
+    gt[1::2] = gt[0::2]
+    alpha, t = torch.tensor(alpha, device=dev), torch.tensor(tau, device=dev)
+    kf = torch.tensor(0.375, device=dev)
+    kb = max(1, round(nb * 0.5))
+    K.reset_launch_counts()
+    got = K.score_select_experts(x, g, alpha, t, kf, kb=kb)
+    assert K.launch_counts["score_select_experts"] == 1
+    want = ref.ref_score_select_experts(x, g, alpha, t, kf, 128, kb)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert got[1][1].tolist() == list(range(kb))
+    assert torch.equal(got[2][2, 0::2], got[2][2, 1::2])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
+    again = K.score_select_experts(x, g, alpha, t, kf, kb=kb)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    form = G.score_select_geometry(E, R, n, 128, kb, x.element_size(),
+                                   experts=True).form
+    assert form.startswith("expert") == (
+        G.expert_config(R, n, 128, x.element_size()) is not None)
+
+
+def test_powf_at_alpha_one_returns_every_float_unchanged(dev):
+    """``score_select_experts``' per-expert form skips powf at alpha = 1
+    and takes max(g, 1e-12) as it is; the plain version computes
+    ``torch.pow`` (powf on the card).  The two are bit-equal only if
+    powf(v, 1) == v for every float the kernel can be given there: every
+    one from 1e-12 up to +inf, all 1,408,451,381 of them, checked here."""
+    one = torch.tensor(1.0, device=dev)
+    lo = int(np.array(1e-12, dtype=np.float32).view(np.int32))
+    hi = 0x7F800000                                  # +inf
+    for start in range(lo, hi + 1, 1 << 27):
+        bits = torch.arange(start, min(start + (1 << 27), hi + 1),
+                            dtype=torch.int32, device=dev)
+        got = torch.pow(bits.view(torch.float32), one).view(torch.int32)
+        assert torch.equal(got, bits), start
 
 
 @pytest.mark.parametrize("E,R,n,m,kb", [(4, 40, 256, 128, 2),
@@ -1621,12 +1687,15 @@ def test_analysis_global_passes_clean_on_card(dev):
 
 @pytest.mark.parametrize("E,B,n,m", [(1, 8, 4096, 14336), (1, 448, 14336, 4096),
                                      (1, 13, 384, 131), (48, 8, 1536, 512),
-                                     (1, 32, 128, 1)])
+                                     (1, 32, 128, 1), (48, 113, 1536, 512),
+                                     (32, 32, 1024, 512), (16, 8, 4096, 14336),
+                                     (16, 1, 14336, 4096)])
 @pytest.mark.parametrize("elem", [2, 4])
 def test_launch_info_equals_the_mirror(dev, E, B, n, m, elem):
     """``wisparse_launch_info`` (the geometry by the launches' own code)
     equals ``kernels/geometry.py``'s mirror for every kernel of the
-    shape, at kb = 1, nb/2, nb; every score_select cluster can run."""
+    shape, at kb = 1, nb/2, nb, in both forms of the expert selection;
+    every score_select cluster (or per-expert block) can run."""
     from repro_torch.kernels import geometry as G
     limits = G.launch_info("device")
     assert limits["threads"] >= 1024 and limits["smem_optin"] >= 232448
@@ -1646,7 +1715,7 @@ def test_launch_info_equals_the_mirror(dev, E, B, n, m, elem):
         name = "score_select_experts" if E > 1 else "score_select"
         for aligned in (True, False):
             want = G.score_select_geometry(E, B, n, blk, kb, elem, aligned,
-                                           limits["sms"])
+                                           limits["sms"], E > 1)
             got, active = G.launch_info(name, E, B, n, 0, blk, kb, 0, 0, 0,
                                         elem, aligned)
             assert got == want and active >= 1, (name, kb, aligned)

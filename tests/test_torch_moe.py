@@ -346,6 +346,47 @@ def _jax_selection(x, g, sp, blk, kb):
 
 
 @pytest.mark.parametrize("tau", [float("-inf"), 0.3])
+@pytest.mark.parametrize("E,R,n,blk", [(5, 1, 64, 16), (4, 6, 512, 16),
+                                       (3, 11, 128, 32), (4, 11, 1024, 32)])
+def test_ref_score_select_experts_matches_jax_vmap(E, R, n, blk, tau):
+    """The expert selection's plain version against the reference's
+    ``ref_score_mask`` under ``jax.vmap`` over experts, then
+    ``lax.top_k`` of the block sums and the rank mask as
+    ``kernels/ops.wisparse_project`` applies them, at the expert rows of
+    a decode step and of 32-token chunks (R = 1, 6, 11) and nb = 4 and
+    32: expert 1 all zero (ids 0..kb-1), expert 2's blocks tied in pairs
+    (ranked lower id first), keep_frac 0.375 under kb/nb = 0.5.  xm and
+    idx exact, bs within 1e-5."""
+    from repro.kernels import ref as jref
+    nb = n // blk
+    kb = round(nb * 0.5)
+    x, _, g = _expert_inputs(E, R, n, 1, seed=E * R + n)
+    x2 = x[2].view(R, nb, blk)
+    x2[:, 1::2] = x2[:, 0::2]
+    g2 = g[2].view(nb, blk)
+    g2[1::2] = g2[0::2]
+    alpha, kf = 0.7, 0.375
+    xm, idx, bs = ref.ref_score_select_experts(
+        x, g, torch.tensor(alpha), torch.tensor(tau), torch.tensor(kf), blk,
+        kb)
+
+    def one(xe, ge):
+        xm, bs = jref.ref_score_mask(xe, ge, alpha, tau, blk)
+        _, idx = jax.lax.top_k(bs, kb)
+        kb_l = jnp.round(jnp.float32(kf) * nb).astype(jnp.int32)
+        keep = jnp.zeros((nb,), bool).at[idx].set(jnp.arange(kb) < kb_l)
+        return xm * jnp.repeat(keep, blk)[None].astype(xm.dtype), idx, bs
+
+    jxm, jidx, jbs = jax.jit(jax.vmap(one))(jnp.asarray(x.numpy()),
+                                           jnp.asarray(g.numpy()))
+    assert np.array_equal(xm.numpy(), np.asarray(jxm))
+    assert np.array_equal(idx.numpy(), np.asarray(jidx))
+    assert idx[1].tolist() == list(range(kb))
+    assert torch.equal(bs[2, 0::2], bs[2, 1::2])
+    _close(bs, jbs)
+
+
+@pytest.mark.parametrize("tau", [float("-inf"), 0.3])
 @pytest.mark.parametrize("n,m", [(64, 48), (80, 32)])
 def test_wisparse_project_experts_matches_jax_vmap(n, m, tau):
     """The expert-batched ``pallas`` projection against JAX's ``vmap`` of
