@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --host-only [--src DIR]
     python3 chip_smoke.py --train-only [--src DIR]
+    python3 chip_smoke.py --experts-only [--src DIR]
+    python3 chip_smoke.py --jamba-only
 
 In order, it:
 
@@ -72,7 +74,14 @@ In order, it:
    16384 into 6144), B = 8 and 32, each beside its bound and dense
    ``torch.matmul`` with a per-decode-layer summary, and held at
    whisper's cross wk/wv row counts (1500 and 6000 encoder rows of
-   1280), tau -inf and finite, no row weights;
+   1280), tau -inf and finite, no row weights.  Then both at
+   jamba_v01_52b's thirteen 2-D shapes (attention 4096 into 4096, 1024,
+   1024 and 4096; the mamba mixer's 4096 into 8192, 8192, 16, 16 and
+   128, and 8192 into 4096; the dense FFN's 4096 into 14336 and 14336
+   into 4096), B = 8 and 32, timed and summed over one sparse pass of
+   the period (58 projections), and the ``_experts`` pair at its three
+   expert shapes (16 experts, R = 8 and the 641 rows of a 4096-token
+   whole prefill) as at granite's (``jamba_kernels``);
 4. checks a reduced llama31_8b on the card against the same model on the
    CPU (plain kernel versions): forward logits and served greedy tokens;
    then a reduced gemma2_2b (f32, window 32) the same way: prefill logits
@@ -89,7 +98,7 @@ In order, it:
    ``pallas``, and a whisper plan calibrated on the CPU serves the CPU's
    tokens on the card;
 5. serves full-width llama31_8b (d_model 4096, bf16, random weights from
-   a fixed seed; phases 5-18 and 20 run the first ``SERVE_DEPTH`` = 8
+   a fixed seed; phases 5-18 run the first ``SERVE_DEPTH`` = 8
    layers of each model) through the port's ``Engine``: 12 requests
    with ragged prompts of 64-448 tokens, 32 new tokens each, dense and
    under ``SparsityPolicy.uniform("pallas", k_max_frac=0.5)`` with an
@@ -281,7 +290,8 @@ In order, it:
    ppl, retention, top-1 agreement under ``mask``) and spec decoding
    (gamma 2, the 0.5 rung of a ``pallas`` ladder calibrated on the model
    drafting) on the trained model and on its random init, launches
-   checked as in phase 11.  19b trains full-width gemma2_2b (bf16 params,
+   checked as in phase 11.  19b trains full-width gemma2_2b (its first
+   ``SERVE_DEPTH`` = 8 of 26 layers; bf16 params,
    f32 master, m and v) 30 steps of 2 x 1024 tokens: every loss finite,
    the last below the first; prints step time p50, tokens/s, MFU and
    peak memory, one step split into forward + backward and the update
@@ -291,25 +301,25 @@ In order, it:
    ``pallas`` on phase 16's 8 short prompts, launches checked as in
    phase 16;
 20. runs the enc-dec and VLM families at full width, cut to
-   ``SERVE_DEPTH`` layers (whisper: that many encoder and decoder
+   ``MULTIMODAL_DEPTH`` = 4 layers (whisper: that many encoder and decoder
    layers), through the static-batch loop (``generate``; the engine refuses these families,
    as the reference's does): ``api.make_prefill_step`` with frames or
    patch embeddings, the caches padded as the reference's
    ``_pad_caches``, then the decode step of a
    ``serving/graphs.BatchDecodeSteps`` per run, one key per mode (dense,
    ``mask``, uncalibrated ``pallas``: keep 0.5, tau -inf), each built
-   once before the passes and replayed (a CUDA graph; 64 or 56
+   once before the passes and replayed (a CUDA graph; 32 or 28
    launches of each kernel recorded per sparse replay).  whisper_large_v3
-   (8 + 8 of its 32 + 32 layers, d_model 1280, 20 heads of 64, d_ff
+   (4 + 4 of its 32 + 32 layers, d_model 1280, 20 heads of 64, d_ff
    5120, vocab 51866, 1500 frames, bf16, random weights and frame
    embeddings from SEED): the encoder's time, then (a) 4 utterances with
    4-token decoder start sequences and (b) one with a 224-token prompt,
    64 new tokens each, through the graphs dense, ``mask``, ``pallas``,
    ``pallas``, ``mask``, dense (each mode repeats its tokens), then the
    eager loop once per mode (its tokens equal the graph's); a sparse
-   run launches each kernel 80 times in its prefill (8 x 4 self, 4
-   cross, 2 MLP projections; the cross-KV stash is dense) and 64 per
-   decode step (8 x (4 + 2 + 2)), any other run none.  8 eager decode
+   run launches each kernel 40 times in its prefill (4 x (4 self, 4
+   cross, 2 MLP projections); the cross-KV stash is dense) and 32 per
+   decode step (4 x (4 + 2 + 2)), any other run none.  8 eager decode
    steps of run (a) traced dense and ``pallas`` give device ms per step
    and the top ops beside the step's byte bound, printed with decode p50
    graph against eager (host ms per step, synced per step) and the
@@ -319,12 +329,12 @@ In order, it:
    (launches as above, the share of dense's tokens), and 20 training
    steps of 2 x 448 tokens over 1500 frames at ``remat="full"`` (every
    loss finite, the last below the first; step p50, peak memory).  Then
-   internvl2_26b's language model (8 of its 48 layers, d_model 6144, 48
+   internvl2_26b's language model (4 of its 48 layers, d_model 6144, 48
    heads with 8 KV heads of 128, d_ff 16384, vocab 92553, bf16,
    initialised leaf by leaf on the card after every earlier model is
    freed): 2 sequences of 256 patch embeddings and 128 tokens, 32 new
-   tokens, the same graph and eager passes, 56 launches of each kernel
-   per sparse pass (8 x 7), the same traces and bounds;
+   tokens, the same graph and eager passes, 28 launches of each kernel
+   per sparse pass (4 x 7), the same traces and bounds;
 21. runs the serve CLI's ``--legacy`` loop (``launch/serve.generate``)
    on llama31_8b at full width (``SERVE_DEPTH`` layers) over the CLI's
    4 x 64-token prompts, 32 new tokens, dense, uncalibrated ``pallas``
@@ -367,7 +377,29 @@ In order, it:
    Prints the findings (none outside ``analysis-baseline-torch.json``),
    each pass's seconds, the shapes and comparisons, and each kernel's
    largest shared memory with its headroom;
-24. prints one JSON line describing every kernel, then, as its last line,
+24. serves one period of jamba_v01_52b at published width (its first
+   ``SERVE_DEPTH`` = 8 of 32 layers, the layer pattern once: 7 mamba
+   mixers of d_inner 8192, state 16 and 128 heads, one attention layer
+   of 32 heads and 8 KV heads of 128 with no positions, 4 dense FFNs of
+   d_ff 14336 and 4 MoE FFNs of 16 experts of d_ff 14336, top-2; vocab
+   65536, bf16, 13.27B parameters from SEED) through the port's
+   ``Engine``: 8 slots, whole-prompt prefill, ``max_len`` 4608, 8
+   prompts of 256-4096 tokens (one of 4096, none of a prime length), 32
+   new tokens each, dense, ``pallas``, ``pallas``, dense (uncalibrated),
+   ``pallas`` with ``prefill_dense_frac`` 0, and a 0.5 plan calibrated
+   on the period with the ``--calib-quick`` budget served twice.  Each
+   run must build no decode step after warmup and launch 58 of each 2-D
+   kernel and 12 of each ``_experts`` kernel per sparse pass; each
+   mode's runs must give the same tokens; the decode graph built on a
+   busy engine must leave every SSM leaf bit-equal and equal the eager
+   step (logits within 3e-2).  Prints the parameters and their bytes,
+   the phase's peak memory, per run decode tok/s, p50/p95, TTFT p50,
+   whole-prefill ms per prompt length and device ms per traced decode
+   step beside ``step_costs``' bytes and bound, the top ops of one eager
+   decode step, the capacity drops of each whole prefill, and the plan's
+   stage seconds, KL and ``k_max_frac``.  ``--jamba-only`` runs phase
+   3's jamba part and this phase alone;
+25. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run (whose llama31_8b decode layer their times are), those of the
@@ -459,6 +491,23 @@ INTERNVL_LAYER = [("attn/wq", 6144, 6144), ("attn/wk", 6144, 1024),
                   ("attn/wv", 6144, 1024), ("attn/wo", 6144, 6144),
                   ("mlp/wi_gate", 6144, 16384), ("mlp/wi_up", 6144, 16384),
                   ("mlp/wo", 16384, 6144)]
+# jamba_v01_52b's 2-D projection shapes (32 heads and 8 KV heads of 128;
+# a mamba mixer of d_inner 8192, state 16 and 128 heads: in_B, in_C and
+# in_dt are one ragged column tile; the dense FFN's d_ff 14336), and its
+# expert shapes (16 experts of d_ff 14336, top-2), launched once for all
+# 16 experts at R = 8 (decode: 8 slots x capacity 1) and 641 (the
+# capacity of a 4096-token whole prefill)
+JAMBA_LAYER = [("attn/wq", 4096, 4096), ("attn/wk", 4096, 1024),
+               ("attn/wv", 4096, 1024), ("attn/wo", 4096, 4096),
+               ("mamba/in_z", 4096, 8192), ("mamba/in_x", 4096, 8192),
+               ("mamba/in_B", 4096, 16), ("mamba/in_C", 4096, 16),
+               ("mamba/in_dt", 4096, 128), ("mamba/out_proj", 8192, 4096),
+               ("mlp/wi_gate", 4096, 14336), ("mlp/wi_up", 4096, 14336),
+               ("mlp/wo", 14336, 4096)]
+JAMBA_EXPERTS = [("moe/wi_gate", 4096, 14336), ("moe/wi_up", 4096, 14336),
+                 ("moe/wo", 14336, 4096)]
+JAMBA_E = 16
+JAMBA_EXPERT_ROWS = (8, 641)
 # the projection roles of each mixer and FFN kind: one launch of each
 # 2-D kernel per role that runs pallas (an expert role: one of each
 # _experts kernel for all the layer's experts)
@@ -492,9 +541,12 @@ GEMMA_WEIGHT_SCALE = 8.0
 # Depth of the full-width models that phases 5-18 serve: each keeps its
 # published widths and layer pattern and runs its first SERVE_DEPTH
 # layers, so that the whole script ends well inside its 1200 s limit.
-# Phase 20's whisper_large_v3 (encoder and decoder) and internvl2_26b are
-# cut to the same depth; phase 19b's gemma2_2b runs at full depth.
+# Phase 19b's gemma2_2b trainer is cut to the same depth, and phase 20's
+# whisper_large_v3 (encoder and decoder) and internvl2_26b to
+# MULTIMODAL_DEPTH; phase 24 serves one period of jamba_v01_52b, which is
+# SERVE_DEPTH layers.
 SERVE_DEPTH = 8
+MULTIMODAL_DEPTH = 4
 # Times of the v1 matmul kernels (one thread block per 64 columns walking
 # the kept blocks on CUDA cores; us, CUDA-graph replay, bf16, 50% kept,
 # cold L2, this script on an NVIDIA H100 80GB HBM3 at 700 W), printed
@@ -877,14 +929,18 @@ def calibrated_tau(x, g, alpha: float) -> tuple:
     return torch.where(near, x * 1.05, x).to(x.dtype), tau
 
 
-def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
+def expert_kernels(K, ref, dev, rates, rows=(8, 9),
+                   model="granite_moe_3b_a800m", shapes=GRANITE_EXPERTS,
+                   E=GRANITE_E, routed=40) -> tuple:
     """The expert-batched ``score_select`` and ``sparse_matmul_shared`` at
-    granite_moe_3b_a800m's three expert shapes, 48 experts, each R of
-    ``rows`` (8 decode rows, 9 of a 32-token chunk), bf16, k_frac 0.5,
+    ``model``'s three expert shapes (``shapes``: granite_moe_3b_a800m's by
+    default, 48 experts), each R of ``rows`` (granite: 8 decode rows, 9 of
+    a 32-token chunk; jamba_v01_52b: 8 and the 641 of a 4096-token whole
+    prefill), bf16, k_frac 0.5,
     keep_frac 0.5 and 0.375, at alpha 1 with tau -inf (the uncalibrated
     runs) and finite (a quarter of the mean g), and at alpha 0.7 with a
     calibrated, tie-free tau shared by the experts
-    (:func:`calibrated_tau`).  Experts 40-47 (the pad
+    (:func:`calibrated_tau`).  Experts from ``routed`` on (granite's 8 pad
     experts, which no token chooses) have zero rows.  Per expert: xm
     bit-equal to the plain version, ids equal or tied within the
     tolerance (``check_select``), the matmul within 1e-4 + 1e-4 |ref|
@@ -895,12 +951,11 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
     out = []
     errs = {"score_select": 0.0, "sparse_matmul_shared": 0.0}
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    E = GRANITE_E
     alpha = torch.tensor(1.0, device=dev)
     for R in rows:
-        for role, n, m in GRANITE_EXPERTS:
+        for role, n, m in shapes:
             x = torch.randn(E, R, n, device=dev, generator=gen)
-            x[40:] = 0
+            x[routed:] = 0
             x = x.to(torch.bfloat16)
             w = (torch.randn(E, n, m, device=dev, generator=gen) * 0.02).to(
                 torch.bfloat16)
@@ -932,7 +987,8 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
                                 tuple(t[e] for t in want),
                                 rank_limit(keep, nb, kb),
                                 lambda e=e: unranked[e]))
-                    if got[1][40:].tolist() != [list(range(kb))] * (E - 40):
+                    if got[1][routed:].tolist() != \
+                            [list(range(kb))] * (E - routed):
                         raise AssertionError(f"{name}: the zero experts' ids "
                                              f"{got[1][40:].tolist()}")
                     bit_equal(name, lambda: K.score_select_experts(
@@ -948,18 +1004,20 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
                             xk, w, idx, BLK)))
                 bit_equal(mname, lambda: K.sparse_matmul_shared_experts(
                     xk, w, idx, blk=BLK))
-            # timed at tau -inf, keep_frac 0.5 (the served runs' sp tree)
+            # timed at tau -inf, keep_frac 0.5 (the served runs' sp tree);
+            # a whole prefill's rows take milliseconds per call: fewer
             copies = max(1, math.ceil(200e6 / w.nbytes))
             ws = [w] + [w.clone() for _ in range(copies - 1)]
+            reps = {} if R <= 64 else {"reps": 4, "replays": 2}
             t_sel = graph_ms(lambda i: K.score_select_experts(
-                x, g, alpha, tau, kf, kb=kb, blk=BLK))
+                x, g, alpha, tau, kf, kb=kb, blk=BLK), **reps)
             t_sel_plain = graph_ms(lambda i: ref.ref_score_select_experts(
-                x, g, alpha, tau, kf, BLK, kb))
+                x, g, alpha, tau, kf, BLK, kb), **reps)
             t_mm = graph_ms(lambda i: K.sparse_matmul_shared_experts(
-                xk, ws[i % copies], idx, blk=BLK))
+                xk, ws[i % copies], idx, blk=BLK), **reps)
             t_mm_plain = graph_ms(lambda i: ref.ref_sparse_matmul_shared_experts(
-                xk, ws[i % copies], idx, BLK))
-            t_bmm = graph_ms(lambda i: torch.bmm(x, ws[i % copies]))
+                xk, ws[i % copies], idx, BLK), **reps)
+            t_bmm = graph_ms(lambda i: torch.bmm(x, ws[i % copies]), **reps)
             del ws
             # x read, xm written, g, the three scalars, bs and idx
             sel_bytes = 2 * E * R * n * 2 + E * n * 4 + 12 + E * (nb + kb) * 4
@@ -990,7 +1048,7 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
             del x, w
     for R in rows:
         per = [r for r in out if r["R"] == R]
-        line = f"granite per layer, 3 expert-batched projections, R={R}:"
+        line = f"{model} per layer, 3 expert-batched projections, R={R}:"
         for name in ("score_select", "sparse_matmul_shared"):
             tot = {k: sum(r[name][k] for r in per)
                    for k in ("ms", "plain_ms", "bound_ms")}
@@ -1001,7 +1059,7 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9)) -> tuple:
                         f", torch.bmm dense {sum(lib) * 1e3:7.2f}")
                      + f", bound {tot['bound_ms'] * 1e3:6.2f});")
         print(line)
-    print(f"expert kernels: 48 experts x granite's 3 expert shapes x R = "
+    print(f"expert kernels: {E} experts x {model}'s 3 expert shapes x R = "
           f"{list(rows)} x 3 (alpha, tau) agree with their plain versions "
           f"(max abs err {errs})")
     return out, errs
@@ -1446,22 +1504,28 @@ def layer_summary(rows, ps_rows, proj) -> None:
                   f"than v1 at {faster}/{len(per)} shapes")
 
 
-def gemma_layer_summary(rows, model: str = "gemma2_2b") -> dict:
+def gemma_layer_summary(rows, model: str = "gemma2_2b", counts=None
+                        ) -> dict:
     """Per ``model`` decode layer (its projection shapes summed: 7 of
     gemma2_2b, 6 of mamba2_130m) at B = 8 and 32: ``score_select`` and
     ``sparse_matmul_shared`` against their bounds, plain versions and
-    dense ``torch.matmul``."""
+    dense ``torch.matmul``.  ``counts`` ({role: projections}, a hybrid's
+    :func:`role_counts`) weights each shape by its projections in one
+    sparse pass instead, and the sums are per pass."""
     out = {}
+    unit = "decode layer" if counts is None else "sparse pass"
+    weight = (lambda r: 1) if counts is None else (lambda r: counts[r["role"]])
     for B in (8, 32):
         row = {}
         for name in ("score_select", "sparse_matmul_shared"):
-            per = [r[name] for r in rows if r["B"] == B]
-            row[name] = {k: sum(p[k] for p in per) for k in
+            per = [(r[name], weight(r)) for r in rows if r["B"] == B]
+            row[name] = {k: sum(p[k] * c for p, c in per) for k in
                          ("ms", "plain_ms", "bound_ms")}
-            lib = [p["library_ms"] for p in per]
-            row[name]["library_ms"] = None if lib[0] is None else sum(lib)
+            lib = [p["library_ms"] for p, _c in per]
+            row[name]["library_ms"] = None if lib[0] is None else sum(
+                p["library_ms"] * c for p, c in per)
             r = row[name]
-            print(f"{model} per decode layer B={B:2d} {name:20s} "
+            print(f"{model} per {unit} B={B:2d} {name:20s} "
                   f"{r['ms'] * 1e3:8.2f} us (plain {r['plain_ms'] * 1e3:8.2f}"
                   + ("" if r["library_ms"] is None else
                      f", torch.matmul dense {r['library_ms'] * 1e3:7.2f}")
@@ -1873,15 +1937,15 @@ def reduced_multimodal_check(dev, arch: str) -> dict:
 # phase 5: full-width serving
 # ---------------------------------------------------------------------------
 
-def served_config(arch: str):
-    """``arch``'s published config cut to :data:`SERVE_DEPTH` layers (an
-    enc-dec model's encoder too)."""
+def served_config(arch: str, depth: int = SERVE_DEPTH):
+    """``arch``'s published config cut to ``depth`` layers (an enc-dec
+    model's encoder too)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
     return dataclasses.replace(
-        cfg, num_layers=SERVE_DEPTH,
-        encoder_layers=SERVE_DEPTH if cfg.encoder_layers else 0)
+        cfg, num_layers=depth,
+        encoder_layers=depth if cfg.encoder_layers else 0)
 
 
 def full_width_model(dev):
@@ -2026,7 +2090,8 @@ def pass_launches(cfg, policy=None) -> dict:
     ``_experts`` kernel per expert projection (3 per MoE layer, for all
     its experts).  At full depth llama31_8b: 224 and 0;
     granite_moe_3b_a800m: 128 and 96; mamba2_130m: 144 and 0; at
-    ``SERVE_DEPTH`` = 8 layers: 56 and 0, 32 and 24, 48 and 0."""
+    ``SERVE_DEPTH`` = 8 layers: 56 and 0, 32 and 24, 48 and 0; one
+    period of jamba_v01_52b (8 layers): 58 and 12."""
     plain = experts = 0
     for depth, kind in enumerate(cfg.layer_kinds()):
         lpol = None if policy is None else policy.resolve_depth(depth)
@@ -2039,6 +2104,17 @@ def pass_launches(cfg, policy=None) -> dict:
     return {"score_select": plain, "sparse_matmul_shared": plain,
             "score_select_experts": experts,
             "sparse_matmul_shared_experts": experts}
+
+
+def role_counts(cfg) -> dict:
+    """{role: its projections in one sparse pass of ``cfg``}, every role
+    under ``pallas`` (an expert role: one projection for all the layer's
+    experts)."""
+    out = {}
+    for mixer, ffn in cfg.layer_kinds():
+        for role in KIND_ROLES[mixer] + KIND_ROLES[ffn]:
+            out[role] = out.get(role, 0) + 1
+    return out
 
 
 def check_launches(name, eng, ladder, counts, res, cfg) -> None:
@@ -4699,26 +4775,19 @@ def capacity_drops(dev, cfg, params, trace) -> dict:
     from repro_torch.sparsity import SparsityPolicy
 
     C = trace["ecfg"]["prefill_chunk"]
-    over = []
-    real = moe.dispatch
-
-    def recording(topk, S, cap, E):
-        disp, pos, counts = real(topk, S, cap, E)
-        if S == C and topk.shape[0] == 1:
-            over.append((counts - cap).clamp(min=0).sum())
-        return disp, pos, counts
-
+    drops = []
     eng = Engine(params, cfg, EngineConfig(policy=SparsityPolicy.dense(),
                                            **trace["ecfg"]), None, device=dev)
     eng._chunk = EagerChunks(eng._chunk)
-    moe.dispatch = recording
-    try:
+    with recorded_drops(drops):
         for p in trace["prompts"]:
             eng.submit(p, 1)
         eng.run()
-    finally:
-        moe.dispatch = real
-    per_layer = torch.stack(over).reshape(-1, cfg.num_layers).cpu()
+    if any(S != C for S, _cap, _n in drops):
+        raise AssertionError(f"capacity drops: a dispatch of other than {C} "
+                             "tokens per group")
+    per_layer = torch.stack([n for _S, _cap, n in drops]).reshape(
+        -1, cfg.num_layers).cpu()
     per_chunk = per_layer.sum(1).double()
     chunks = per_chunk.numel()
     if chunks != eng.stats.prefill_chunks:
@@ -5017,19 +5086,21 @@ def ssm_state_bytes(eng) -> int:
     return sum(t.nbytes for t in graphs.ssm_leaves(eng.pool.caches))
 
 
-def mamba_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
-              window=WINDOW, ladder=None, slo=None) -> dict:
-    """One run of a phase 18 trace through a fresh, warmed ``Engine``
+def ssm_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
+            window=WINDOW, ladder=None, slo=None) -> dict:
+    """One run of a phase 18 or 24 trace through a fresh, warmed ``Engine``
     (from ``policy`` and ``sp``, or from ``ladder`` under ``slo``), the
     kernels' counts zeroed just before it is built and read just after
     the run.  Checks the ``whole`` strategy, every prompt prefilled whole
-    (the 8192-token batch at B = ``trace["max_batch"]`` = 3 where the
-    trace has one), no decode step built after warmup, and the launches
-    against the sparse passes executed: :func:`pass_launches` under each
-    rung's decode policy (6 projections per layer) per replay of
-    a sparse decode graph and per its eager warm call, and under the
-    prefill policy per whole prefill run sparse (``prefill_dense_frac``
-    0; a ladder run prefills dense)."""
+    (the largest batch at B = ``trace["max_batch"]`` where the trace
+    names one: phase 18's three 8192-token prompts), no decode step built
+    after warmup, and the launches of each kernel, the ``_experts`` pair
+    too, against the sparse passes executed: :func:`pass_launches` under
+    each rung's decode policy (mamba2_130m: 6 projections per layer;
+    jamba_v01_52b: 58 and 12 per period) per replay of a sparse decode
+    graph and per its eager warm call, and under the prefill policy per
+    whole prefill run sparse (``prefill_dense_frac`` 0; a ladder run
+    prefills dense)."""
     from repro_torch import obs
     from repro_torch.serving import Engine, EngineConfig
 
@@ -5042,7 +5113,7 @@ def mamba_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
         sp, device=dev, ladder=ladder)
     eng.warmup()
     if eng.prefill_strategy != "whole":
-        raise AssertionError(f"{name}: mamba2_130m resolved to "
+        raise AssertionError(f"{name}: {cfg.name} resolved to "
                              f"{eng.prefill_strategy!r}, expected 'whole'")
     prefills, prefill_whole = [], eng._prefill_whole
 
@@ -5078,14 +5149,15 @@ def mamba_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
     pre_pol = policies[0].for_phase("prefill_sparse" if frac <= 0.0
                                     else "prefill_dense")
     per_prefill = pass_launches(cfg, pre_pol)
+    served = tuple(per_prefill)
     sparse_prefill = not pre_pol.is_dense
     g = eng.decode_graphs
     launches = eng.launches(counts)
     want = {k: per_prefill[k] * len(prefills) if sparse_prefill else 0
-            for k in GEMMA_SERVED}
+            for k in served}
     for i, dpol in enumerate(dec_pols):
         per_pass = pass_launches(cfg, dpol)
-        for k in GEMMA_SERVED:
+        for k in served:
             want_cap = 0 if dpol.is_dense else per_pass[k]
             if g.captured[i].get(k, 0) != want_cap:
                 raise AssertionError(
@@ -5093,7 +5165,7 @@ def mamba_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
                     f"{g.captured[i].get(k, 0)} {k}, expected {want_cap}")
             if not dpol.is_dense:
                 want[k] += per_pass[k] * (g.steps[i] + 1)
-    for k in GEMMA_SERVED:
+    for k in served:
         if launches[k] != want[k]:
             raise AssertionError(
                 f"{name}: {k} launched {launches[k]} times, expected "
@@ -5113,8 +5185,8 @@ def mamba_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
         "sparse_passes": sum(g.steps[i] + 1 for i, d in enumerate(dec_pols)
                              if not d.is_dense)
         + (len(prefills) if sparse_prefill else 0),
-        "launches": {k: launches[k] for k in GEMMA_SERVED},
-        "launches_counted": {k: counts[k] for k in GEMMA_SERVED},
+        "launches": {k: launches[k] for k in served},
+        "launches_counted": {k: counts[k] for k in served},
         "launches_per_pass": pass_launches(cfg, dec_pols[0])
         if ladder is None else [pass_launches(cfg, d) for d in dec_pols],
         "state_bytes": ssm_state_bytes(eng),
@@ -5132,50 +5204,58 @@ def mamba_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
     return res
 
 
-def mamba_graph_vs_eager(dev, cfg, params, sp, trace, steps: int = 4,
-                         modes=None) -> dict:
-    """Phase 18's 8 short prompts prefilled whole into an engine whose
-    decode step is not built yet, dense and uncalibrated ``pallas``.
+def ssm_graph_vs_eager(dev, cfg, params, sp, trace, steps: int = 4,
+                       modes=None, tag="mamba2", prompts=None,
+                       drops=None, tol=None) -> dict:
+    """``prompts`` (phase 18's 8 short prompts by default) prefilled whole
+    into an engine whose decode step is not built yet, dense and
+    uncalibrated ``pallas`` (or ``modes``).
     First the decode graph is built on that busy engine: its warm call
     runs every slot inactive, which advances every slot's conv windows
     and SSM state, and the build must put them back, every live slot's
     rows bit-equal.  Then, at each of ``steps`` decode steps, the eager
     step and the graph replay from the same pool state (restored between
     them: a decode step advances the state in place): greedy tokens must
-    be equal; prints the logits' max abs error and the top ops of one
-    eager step."""
+    be equal, and the logits within ``tol`` where it is given; prints the
+    logits' max abs error and the top ops of one eager step.  ``drops``
+    (a list) records the capacity drops of each MoE layer in the first
+    mode's whole prefills (:func:`recorded_drops`)."""
     from repro_torch.serving import Engine, EngineConfig, graphs
     from repro_torch.sparsity import SparsityPolicy
 
     out = {}
+    prompts = trace["prompts"][4:] if prompts is None else prompts
     for name, pol, s in modes or (
             ("dense", SparsityPolicy.dense(), None),
             ("pallas", SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
              sp)):
         eng = Engine(params, cfg, EngineConfig(policy=pol, **trace["ecfg"]),
                      s, device=dev)
-        for p in trace["prompts"][4:]:
+        for p in prompts:
             eng.submit(p, 64)
         eng._admit()
-        while eng.scheduler.prefilling:
-            eng._prefill_whole(eng.scheduler.prefill_group())
+        with recorded_drops(drops):
+            while eng.scheduler.prefilling:
+                eng._prefill_whole(eng.scheduler.prefill_group())
+        drops = None
         g = eng.decode_graphs
         leaves = graphs.ssm_leaves(eng.pool.caches)
         live = [t.clone() for t in leaves]
         if g.built(0):
-            raise AssertionError(f"mamba2 {name}: decode graph built early")
+            raise AssertionError(f"{tag} {name}: decode graph built early")
         g.build(0)
         torch.cuda.synchronize()
         moved = [i for i, (a, b) in enumerate(zip(leaves, live))
                  if not torch.equal(a, b)]
         if moved:
-            raise AssertionError(f"mamba2 {name}: the decode build on a busy "
+            raise AssertionError(f"{tag} {name}: the decode build on a busy "
                                  f"engine changed SSM leaves {moved}")
+        del live
         err = 0.0
         for _ in range(steps):
             tokens, positions, active = eng.decode_inputs()
-            if active.sum() != 8:
-                raise AssertionError(f"mamba2 {name}: {active.sum()} active "
+            if active.sum() != len(prompts):
+                raise AssertionError(f"{tag} {name}: {active.sum()} active "
                                      "slots")
             before = [t.clone() for t in leaves]
             logits = g.eager(0, tokens, positions, active)
@@ -5185,24 +5265,54 @@ def mamba_graph_vs_eager(dev, cfg, params, sp, trace, steps: int = 4,
                 t.copy_(b)
             nxt, logits = g(0, tokens, positions, active)
             if not np.array_equal(want[0], nxt):
-                raise AssertionError(f"mamba2 {name}: graph replay tokens "
+                raise AssertionError(f"{tag} {name}: graph replay tokens "
                                      f"{nxt} != eager {want[0]}")
             err = max(err, max_err(logits.float(), want[1]))
             for t, b in zip(leaves, before):
                 t.copy_(b)
             eng.step()
+        if tol is not None and err > tol:
+            raise AssertionError(f"{tag} {name}: graph replay logits differ "
+                                 f"from the eager step's by {err:.3g} > "
+                                 f"{tol}")
         # the last use of this engine: one eager step under the profiler
         # (it advances the pool's state)
         out[name] = {"logits_max_abs_err": err, "steps": steps,
                      "busy_build_leaves_equal": len(leaves),
                      "eager_step_top_ops": eager_step_ops(g, eng)}
-        print(f"mamba2 {name}: the decode graph built on a busy engine left "
-              f"all {len(leaves)} SSM leaves bit-equal; graph vs eager, B=8, "
-              f"{steps} steps: greedy tokens equal; logits max abs err "
-              f"{err:.3g}")
+        print(f"{tag} {name}: the decode graph built on a busy engine left "
+              f"all {len(leaves)} SSM leaves bit-equal; graph vs eager, "
+              f"B={len(prompts)}, {steps} steps: greedy tokens equal; logits "
+              f"max abs err {err:.3g}")
         del eng
         gc.collect()
     return out
+
+
+@contextlib.contextmanager
+def recorded_drops(drops):
+    """While it is open, every MoE dispatch of more than one token per
+    group (a whole prefill: its tokens, capacity and the assignments past
+    it) is appended to ``drops``, unless that is None.  A diagnostic: the
+    sum is read back from the device."""
+    from repro_torch.models import moe
+
+    if drops is None:
+        yield
+        return
+    real = moe.dispatch
+
+    def recording(topk, S, cap, E):
+        disp, pos, counts = real(topk, S, cap, E)
+        if S > 1:
+            drops.append((S, cap, (counts - cap).clamp(min=0).sum()))
+        return disp, pos, counts
+
+    moe.dispatch = recording
+    try:
+        yield
+    finally:
+        moe.dispatch = real
 
 
 def mamba_calibrated(dev, K, cfg, params, sp, trace) -> dict:
@@ -5227,19 +5337,18 @@ def mamba_calibrated(dev, K, cfg, params, sp, trace) -> dict:
     short = mamba_short_trace(cfg)
     print(f"phase 18 calibrated trace: prompt lengths {short['lens']}, "
           f"{short['gen']} new tokens each, {short['ecfg']}")
-    runs = {"dense": [mamba_run("short dense", params, cfg,
-                                SparsityPolicy.dense(), None, short, dev,
-                                K)],
-            "pallas (uncalibrated)": [mamba_run(
+    runs = {"dense": [ssm_run("short dense", params, cfg,
+                              SparsityPolicy.dense(), None, short, dev, K)],
+            "pallas (uncalibrated)": [ssm_run(
                 "short pallas", params, cfg,
                 SparsityPolicy.uniform("pallas", k_max_frac=KEEP), sp,
                 short, dev, K)]}
     for i in range(1, len(loaded)):
         pol, rsp = loaded.rung(i)
-        runs[f"calibrated rung {i}"] = [mamba_run(
+        runs[f"calibrated rung {i}"] = [ssm_run(
             f"calibrated rung {i}", params, cfg, pol, rsp, short, dev, K)]
-    res = mamba_run("mamba2 ladder", params, cfg, None, None, short, dev, K,
-                    ladder=loaded, slo=SLOConfig(**PHASE8_SLO))
+    res = ssm_run("mamba2 ladder", params, cfg, None, None, short, dev, K,
+                  ladder=loaded, slo=SLOConfig(**PHASE8_SLO))
     check_ladder_run("mamba2 ladder", res)
     runs["ladder (SLO controller)"] = [res]
     for name, rs in runs.items():
@@ -5248,8 +5357,8 @@ def mamba_calibrated(dev, K, cfg, params, sp, trace) -> dict:
           f"rung {res['residency']}, 0 builds after warmup")
     rung_table("mamba2", runs)
     pol, rsp = loaded.rung(1)
-    gve = mamba_graph_vs_eager(dev, cfg, params, None, trace,
-                               modes=(("calibrated 0.5", pol, rsp),))
+    gve = ssm_graph_vs_eager(dev, cfg, params, None, trace,
+                             modes=(("calibrated 0.5", pol, rsp),))
     del ladder, loaded
     gc.collect()
     torch.cuda.empty_cache()
@@ -5323,13 +5432,13 @@ def serve_mamba(dev, K, cli: dict) -> dict:
     runs = {}
     for name in ("dense", "pallas", "pallas", "dense"):
         pol, s = modes[name]
-        res = mamba_run(name, params, cfg, pol, s, trace, dev, K)
+        res = ssm_run(name, params, cfg, pol, s, trace, dev, K)
         if name in runs and res["tokens"] != runs[name][0]["tokens"]:
             raise AssertionError(f"mamba2 {name}: the second run's greedy "
                                  "tokens differ from the first's")
         runs.setdefault(name, []).append(res)
     pol, s = modes["pallas"]
-    runs["pallas sparse prefill"] = [mamba_run(
+    runs["pallas sparse prefill"] = [ssm_run(
         "pallas sparse prefill", params, cfg, pol, s, trace, dev, K,
         frac=0.0)]
     state = runs["dense"][0]["state_bytes"]
@@ -5361,7 +5470,7 @@ def serve_mamba(dev, K, cli: dict) -> dict:
                 + f"; launches {r['launches']} ({r['launches_per_pass']} "
                 f"per sparse pass); whole-prefill ms per prompt length x "
                 f"batch: {pre}")
-    gve = mamba_graph_vs_eager(dev, cfg, params, sp, trace)
+    gve = ssm_graph_vs_eager(dev, cfg, params, sp, trace)
     calibrated = mamba_calibrated(dev, K, cfg, params, sp, trace)
     for name in ("dense", "pallas"):
         rs = runs[name]
@@ -5403,7 +5512,8 @@ TRAIN_LOSS_TOL = 1e-5
 SPARSITIES = (0.3, 0.4, 0.5)
 # the reduced model's pallas block: 4 blocks of its 64 input channels
 REDUCED_BLOCK = 16
-# 19b: full-width gemma2_2b, full depth, no checkpoints
+# 19b: full-width gemma2_2b, SERVE_DEPTH of its 26 layers
+# (:func:`served_depth`), no checkpoints
 GEMMA_TRAIN = dict(arch="gemma2_2b", use_reduced=False, steps=30, batch=2,
                    seq=1024, lr=1e-3)
 
@@ -5650,6 +5760,19 @@ def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     return 6.0 * n_params * batch * seq + attn
 
 
+@contextlib.contextmanager
+def served_depth(module):
+    """While it is open, ``module.get_config`` (a launcher's) gives the
+    published config cut to SERVE_DEPTH layers."""
+    real = module.get_config
+    module.get_config = lambda arch: dataclasses.replace(
+        real(arch), num_layers=SERVE_DEPTH)
+    try:
+        yield
+    finally:
+        module.get_config = real
+
+
 def train_step_breakdown(cfg, params, opt, ocfg, toks, top: int = 10
                          ) -> dict:
     """Train steps of ``params`` split on the host clock (each part ends
@@ -5705,18 +5828,19 @@ def train_step_breakdown(cfg, params, opt, ocfg, toks, top: int = 10
 
 def gemma_steps(dev, rates) -> tuple:
     """19b's training: full-width gemma2_2b (bf16 params; f32 master, m
-    and v) 30 steps through ``launch.train.train``: every loss finite,
+    and v), its first SERVE_DEPTH layers (:func:`served_depth`), 30 steps
+    through ``launch.train.train``: every loss finite,
     the last below the first; step time p50, tokens/s, MFU and peak
     memory.  Returns (params, cfg, data_cfg, numbers)."""
-    from repro_torch import obs
-    from repro_torch.launch.train import train
+    from repro_torch.launch import train as T
     from repro_torch.serving.metrics import percentile
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    params, cfg, data_cfg, hist, final = train(**GEMMA_TRAIN, device=dev,
-                                               log=lambda *a: None)
+    with served_depth(T):
+        params, cfg, data_cfg, hist, final = T.train(
+            **GEMMA_TRAIN, device=dev, log=lambda *a: None)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     losses = [h["loss"] for h in hist]
@@ -5735,7 +5859,8 @@ def gemma_steps(dev, rates) -> tuple:
            "mfu": flops / p50 / rates.flops_bf16,
            "peak_gb": peak / 1e9, "state_gb": state_gb,
            "logits_gb": tokens * cfg.vocab_size * 4 / 1e9}
-    print(f"19b gemma2_2b full width ({n_params / 1e9:.2f}B params, "
+    print(f"19b gemma2_2b full width, {cfg.num_layers} of 26 layers "
+          f"({n_params / 1e9:.2f}B params, "
           f"{GEMMA_TRAIN}): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
           f"(held-out {final:.4f}), all {len(losses)} finite; step p50 "
           f"{1e3 * p50:.1f} ms (first {1e3 * step_s[0]:.1f}), "
@@ -5985,8 +6110,8 @@ def multimodal_passes(cfg) -> tuple:
     self-attention projections, an enc-dec layer's 4 cross-attention
     projections in prefill and 2 in decode (``wq``, ``wo``: decode reads
     the static cross cache, and prefill stashes it dense), and the
-    MLP's 2 (plain GELU) or 3 (gated).  At SERVE_DEPTH, whisper_large_v3:
-    80 and 64; internvl2_26b: 56 and 56."""
+    MLP's 2 (plain GELU) or 3 (gated).  At MULTIMODAL_DEPTH,
+    whisper_large_v3: 40 and 32; internvl2_26b: 28 and 28."""
     from repro_torch.models.mlp import GATED
     cross = cfg.family == "encdec"
     mlp = 3 if cfg.mlp_activation in GATED else 2
@@ -6321,8 +6446,8 @@ def train_whisper(dev, cfg, params, rates) -> dict:
 
 
 def serve_whisper(dev, K, rates, smi) -> dict:
-    """Phase 20, whisper_large_v3 at full width (SERVE_DEPTH encoder and
-    decoder layers, bf16, random weights from SEED): the encoder's time;
+    """Phase 20, whisper_large_v3 at full width (MULTIMODAL_DEPTH encoder
+    and decoder layers, bf16, random weights from SEED): the encoder's time;
     WHISPER_RUNS under MODES, graph against eager
     (:func:`multimodal_modes`); a calibrated 0.5 plan served
     (:func:`whisper_calibrated`); then WHISPER_TRAIN's training steps."""
@@ -6331,7 +6456,7 @@ def serve_whisper(dev, K, rates, smi) -> dict:
     from repro_torch.models import api, model as M
     from repro_torch.sparsity import SparsityPolicy
 
-    cfg = served_config("whisper_large_v3")
+    cfg = served_config("whisper_large_v3", MULTIMODAL_DEPTH)
     params = api.init_model(cfg, SEED, device=dev)
     n_params = sum(t.numel() for t in _leaves(params))
     rng = np.random.default_rng(SEED)
@@ -6365,7 +6490,7 @@ def serve_whisper(dev, K, rates, smi) -> dict:
 
 def serve_internvl(dev, K, rates, smi) -> dict:
     """Phase 20, internvl2_26b's language model at full width
-    (SERVE_DEPTH of its 48 layers, bf16, random weights from SEED,
+    (MULTIMODAL_DEPTH of its 48 layers, bf16, random weights from SEED,
     initialised on the card leaf by leaf): INTERNVL_RUN under MODES,
     graph against eager (:func:`multimodal_modes`)."""
     from repro_torch import obs
@@ -6373,7 +6498,7 @@ def serve_internvl(dev, K, rates, smi) -> dict:
     from repro_torch.models import api
     from repro_torch.sparsity import SparsityPolicy
 
-    cfg = served_config("internvl2_26b")
+    cfg = served_config("internvl2_26b", MULTIMODAL_DEPTH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = obs.now()
@@ -6848,6 +6973,328 @@ def static_analysis(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: one period of jamba_v01_52b at published width
+# ---------------------------------------------------------------------------
+
+JAMBA_ECFG = dict(max_slots=8, max_len=4608, prefill_chunk=32)
+
+
+def jamba_model(dev):
+    """One period of jamba_v01_52b at published width: its first
+    SERVE_DEPTH = 8 of 32 layers, the layer pattern once (7 mamba mixers
+    and one attention layer at period index 4; dense FFNs at the even
+    indices, 16-expert top-2 MoE FFNs at the odd ones), bf16, random
+    weights from SEED.  Returns (cfg, params, info): parameters, their
+    bytes, the init's seconds, the device memory after it and its peak."""
+    from repro_torch import obs
+    from repro_torch.models import api
+
+    cfg = served_config("jamba_v01_52b")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.expert_d_ff, cfg.num_experts,
+            cfg.num_experts_padded, cfg.num_experts_per_tok, cfg.d_inner,
+            cfg.ssm_nheads, cfg.ssm_state, cfg.vocab_size, cfg.rope_theta,
+            cfg.dtype) == (SERVE_DEPTH, 4096, 32, 8, 128, 14336, 14336, 16,
+                           16, 2, 8192, 128, 16, 65536, 0.0, "bfloat16")
+    kinds = cfg.layer_kinds()
+    assert ([m for m, _ in kinds].count("mamba"), [f for _, f in
+                                                   kinds].count("moe")) \
+        == (7, 4) and kinds[4] == ("attn", "dense")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = obs.now()
+    params = api.init_model(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    info = {"params": sum(t.numel() for t in leaves),
+            "param_bytes": sum(t.nbytes for t in leaves),
+            "init_s": obs.now() - t0,
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"jamba_v01_52b, {cfg.num_layers} of 32 layers (one period: "
+          f"{kinds}): {info['params'] / 1e9:.3f}B params, "
+          f"{info['param_bytes'] / 1e9:.3f} GB ({cfg.dtype}), init "
+          f"{info['init_s']:.1f} s, device memory "
+          f"{info['allocated_gb']:.2f} GB, peak during the init "
+          f"{info['init_peak_gb']:.2f} GB")
+    return cfg, params, info
+
+
+def jamba_lens() -> list:
+    """Phase 24's prompt lengths: one of 4096 tokens (expert capacity 641
+    in its whole prefill), then 7 distinct multiples of 64 from 256 to
+    4032 drawn from SEED + 24.  None is prime, and each has a divisor of
+    64 or more, so the SSD chunk length (``models/ssm.chunk_len``, at
+    most 256) stays at 64 or more."""
+    rng = np.random.default_rng(SEED + 24)
+    return [4096] + [int(x) for x in rng.choice(np.arange(256, 4096, 64), 7,
+                                                replace=False)]
+
+
+def jamba_trace(cfg) -> dict:
+    """Phase 24's trace: the 8 prompts of :func:`jamba_lens` at once into
+    8 slots, each its own whole prefill, 32 new tokens each."""
+    rng = np.random.default_rng(SEED + 24)
+    lens = jamba_lens()
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    return {"prompts": prompts, "lens": lens, "gen": 32,
+            "ecfg": dict(JAMBA_ECFG), "max_batch": 1}
+
+
+def jamba_calibrate(cfg, params) -> tuple:
+    """A 0.5 ``pallas`` plan of the period (paper Alg. 1-4,
+    ``core/pipeline.run_pipeline``, per-expert capture and g) with the
+    ``--calib-quick`` budget of phases 6 and 17 on 4 x 128 synthetic
+    tokens: each stage's wall seconds, the KL (Eq. 8) on those tokens and
+    the policy's ``k_max_frac``; checks the size-weighted budget and one
+    finite tau per sparsified linear (70: 58 2-D and 12 expert
+    projections).  Returns (policy, sp, info)."""
+    from repro_torch import obs
+    from repro_torch.core import calibration, pipeline
+    from repro_torch.core.allocation import EvoConfig, weighted_average
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    evo = EvoConfig(generations=2, offspring=4, eps=0.1)
+    toks = SyntheticLM(DataConfig(cfg.vocab_size, 128, 4)).batch(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    marks = [("context", obs.now())]
+
+    def log(msg):
+        torch.cuda.synchronize()
+        for stage, text in (("coarse (Alg. 3)", "coarse search"),
+                            ("fine (Alg. 4)", "fine search"),
+                            ("alpha (Alg. 2)", "alpha search:")):
+            if msg.startswith(text):
+                marks.append((stage, obs.now()))
+
+    ctx = calibration.build_context(params, cfg, {"tokens": toks})
+    plan = pipeline.run_pipeline(params, cfg, None, KEEP, evo=evo,
+                                 delta=0.25, coord_passes=0, ctx=ctx, log=log)
+    torch.cuda.synchronize()
+    marks.append(("end", obs.now()))
+    stages = {label: t1 - t for (label, t), (_n, t1) in zip(marks, marks[1:])}
+    kl = ctx.fitness(plan.per_depth_sp)
+    avg = weighted_average(ctx, np.asarray(plan.block_ratios))
+    policy = plan.to_policy(backend="pallas")
+    if not KEEP - evo.eps <= avg <= KEEP + 1e-9:
+        raise AssertionError(f"jamba plan: size-weighted block ratio {avg} "
+                             f"outside [{KEEP - evo.eps}, {KEEP}]")
+    per_pass = pass_launches(cfg)
+    n_keys = per_pass["score_select"] + per_pass["score_select_experts"]
+    bad = [k for k, t in plan.taus.items()
+           if plan.layer_ratios[k] > 0 and not math.isfinite(t)]
+    if bad or len(plan.taus) != n_keys:
+        raise AssertionError(f"jamba plan: {len(plan.taus)} taus (expected "
+                             f"{n_keys}), non-finite where sparsified: {bad}")
+    info = {"stages_s": stages, "total_s": marks[-1][1] - marks[0][1],
+            "kl": kl, "k_max_frac": policy.k_max_frac,
+            "weighted_ratio": avg,
+            "keep_min": min(1.0 - r for r in plan.layer_ratios.values()),
+            "keep_max": max(1.0 - r for r in plan.layer_ratios.values()),
+            "mean_alpha": float(np.mean(list(plan.alphas.values()))),
+            "peak_above_model_gb": (torch.cuda.max_memory_allocated()
+                                    - base) / 1e9}
+    print(f"jamba 0.5 plan (--calib-quick budget, {toks.size} tokens): wall "
+          "s per stage " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                     stages.items())
+          + f"; total {info['total_s']:.2f} s; KL {kl:.6g} (random weights; "
+          f"informative only); k_max_frac {policy.k_max_frac}; keep "
+          f"{info['keep_min']:.4f}-{info['keep_max']:.4f}; mean alpha "
+          f"{info['mean_alpha']:.4f}; size-weighted block ratio {avg:.6f}; "
+          f"{n_keys} finite taus; device memory peak above the model "
+          f"{info['peak_above_model_gb']:.2f} GB")
+    sp = plan.stacked_sp
+    del ctx, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    return policy, sp, info
+
+
+def jamba_drops(drops, cfg) -> dict:
+    """The expert assignments each whole prefill dropped past capacity
+    (:func:`recorded_drops`), summed over the period's MoE layers, per
+    prompt length."""
+    moe_layers = [f for _, f in cfg.layer_kinds()].count("moe")
+    per_len = {}
+    for S, cap, n in drops:
+        d = per_len.setdefault(S, {"capacity": cap, "dropped": 0, "calls": 0})
+        d["dropped"] += int(n)
+        d["calls"] += 1
+    K = cfg.num_experts_per_tok
+    for S, d in per_len.items():
+        if d["calls"] != moe_layers:
+            raise AssertionError(f"jamba drops: {d['calls']} dispatches of "
+                                 f"the {S}-token prefill, expected "
+                                 f"{moe_layers}")
+        d["share"] = d["dropped"] / (S * K * moe_layers)
+    print("jamba capacity drops per whole prefill (dense, summed over "
+          f"{moe_layers} MoE layers, {K} of {cfg.num_experts} experts per "
+          "token): " + "; ".join(
+              f"{S} tokens at C = {d['capacity']}: {d['dropped']} "
+              f"({100 * d['share']:.2f}%)"
+              for S, d in sorted(per_len.items())))
+    return {str(S): d for S, d in sorted(per_len.items())}
+
+
+def serve_jamba(dev, K, smi: str) -> dict:
+    """Phase 24: one period of jamba_v01_52b at published width through
+    the port's ``Engine`` (8 slots, whole-prompt prefill, ``max_len``
+    4608, the decode step captured once): dense, ``pallas``, ``pallas``,
+    dense (uncalibrated: keep_frac = k_max_frac = 0.5, tau -inf), then
+    ``pallas`` with ``prefill_dense_frac`` 0 (every whole prompt through
+    both kernel pairs, up to 641 rows per expert); the busy build and the
+    captured decode step against the eager one (logits within 3e-2), with
+    the capacity drops of the dense engine's whole prefills; a 0.5 plan
+    calibrated on the period and served twice.  Each run: 0 builds after
+    warmup, launches per sparse pass 58 of each 2-D kernel and 12 of each
+    ``_experts`` kernel (:func:`pass_launches`), each mode's runs equal
+    token for token.  Prints ``step_costs``' bytes and bound beside the
+    device ms of each run's 8 traced decode steps, the top ops of one
+    eager decode step, and the phase's peak device memory."""
+    from repro_torch import obs
+    from repro_torch.core.sp_schema import default_sp_stacked
+    from repro_torch.launch import constants
+    from repro_torch.launch.roofline import step_costs
+    from repro_torch.models.ssm import chunk_len
+    from repro_torch.serving import EngineConfig
+    from repro_torch.sparsity import SparsityPolicy
+
+    t_phase = obs.now()
+    cfg, params, model = jamba_model(dev)
+    trace = jamba_trace(cfg)
+    L = {n: chunk_len(n, cfg.ssm_chunk) for n in trace["lens"]}
+    print(f"phase 24 trace: prompt lengths {trace['lens']} (SSD chunk "
+          f"lengths {L}), {trace['gen']} new tokens each, {trace['ecfg']}")
+    if min(L.values()) < min(64, cfg.ssm_chunk):
+        raise AssertionError(f"jamba: an SSD chunk length under 64: {L}")
+    sp = default_sp_stacked(params, cfg, keep_frac=KEEP, tau=float("-inf"))
+    modes = {"dense": (SparsityPolicy.dense(), None),
+             "pallas": (SparsityPolicy.uniform("pallas", k_max_frac=KEEP),
+                        sp)}
+    runs = {}
+    for name in ("dense", "pallas", "pallas", "dense"):
+        pol, s = modes[name]
+        res = ssm_run(f"jamba {name}", params, cfg, pol, s, trace, dev, K)
+        if name in runs and res["tokens"] != runs[name][0]["tokens"]:
+            raise AssertionError(f"jamba {name}: the second run's greedy "
+                                 "tokens differ from the first's")
+        runs.setdefault(name, []).append(res)
+    pol, s = modes["pallas"]
+    runs["pallas sparse prefill"] = [ssm_run(
+        "jamba pallas sparse prefill", params, cfg, pol, s, trace, dev, K,
+        frac=0.0)]
+    drops = []
+    gve = ssm_graph_vs_eager(dev, cfg, params, sp, trace, tag="jamba",
+                             prompts=trace["prompts"], drops=drops,
+                             tol=NEAR_TIE)
+    capacity = jamba_drops(drops, cfg)
+    peak = torch.cuda.max_memory_allocated()       # the calibration resets it
+    policy, plan_sp, calib = jamba_calibrate(cfg, params)
+    modes["calibrated"] = (policy, plan_sp)
+    for _ in range(2):
+        res = ssm_run("jamba calibrated", params, cfg, policy, plan_sp, trace,
+                      dev, K)
+        if "calibrated" in runs and \
+                res["tokens"] != runs["calibrated"][0]["tokens"]:
+            raise AssertionError("jamba calibrated: the second run's greedy "
+                                 "tokens differ from the first's")
+        runs.setdefault("calibrated", []).append(res)
+    ecfg = EngineConfig(**trace["ecfg"])
+    bounds = {}
+    for name, (pol, s) in modes.items():
+        flops, nbytes = step_costs(cfg, ecfg, pol, s, "decode")
+        bounds[name] = {"decode_step_gb": nbytes / 1e9,
+                        "decode_step_gflop": flops / 1e9,
+                        "decode_step_bound_ms": 1e3 * nbytes
+                        / constants.HBM_BW}
+    keys = ("decode_tok_s", "decode_step_p50_ms", "decode_step_p95_ms",
+            "ttft_p50_ms", "window_step_device_ms", "decode_device_busy",
+            "wall_s", "sparse_passes", "decode_retraces_after_warmup",
+            "distinct_tokens")
+    for name, rs in runs.items():
+        for i, r in enumerate(rs):
+            pre = ", ".join(f"{n}x{b} {ms:.1f}" for n, b, ms in
+                            sorted(r["whole_prefills"]))
+            print(f"jamba {name} {i + 1}: " + ", ".join(
+                f"{k} {r[k]:.4g}" if isinstance(r[k], float)
+                else f"{k} {r[k]}" for k in keys)
+                + f"; launches {r['launches']} ({r['launches_per_pass']} "
+                f"per sparse pass); whole-prefill ms per prompt length x "
+                f"batch: {pre}")
+    for name in ("dense", "pallas", "calibrated"):
+        rs, b = runs[name], bounds[name]
+        dev_ms = [r["window_step_device_ms"] for r in rs]
+        print(f"jamba {name}: decode step bytes (step_costs) "
+              f"{b['decode_step_gb']:.3f} GB, bound "
+              f"{b['decode_step_bound_ms']:.3f} ms at 3.35 TB/s; device ms "
+              f"per traced decode step " + " / ".join(f"{v:.3f}"
+                                                     for v in dev_ms)
+              + f" (the bound is "
+              f"{100 * b['decode_step_bound_ms'] / min(dev_ms):.1f}% of it); "
+              "decode p50 " + " / ".join(
+                  f"{r['decode_step_p50_ms']:.2f}" for r in rs)
+              + " ms; greedy tokens equal in both runs; " + smi)
+    print(f"jamba greedy tokens equal to dense at the same position: pallas "
+          f"{agreement(runs['dense'][0], runs['pallas'][0]):.3f}, calibrated "
+          f"{agreement(runs['dense'][0], runs['calibrated'][0]):.3f} (random "
+          "weights; informative only)")
+    peak = max(peak, torch.cuda.max_memory_allocated()) / 1e9
+    out = {"model": model, "trace_lens": trace["lens"],
+           "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
+                                      if k != "tokens"}
+                    for n, rs in runs.items() for i, r in enumerate(rs)},
+           "step_bounds": bounds, "graph_vs_eager": gve,
+           "capacity_drops": capacity, "calibration": calib,
+           "phase_peak_gb": peak}
+    del params, sp, plan_sp, modes
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = obs.now() - t_phase
+    print(f"phase 24 took {out['wall_s']:.1f} s; device memory peak "
+          f"{out['phase_peak_gb']:.2f} GB ({smi})")
+    return out
+
+
+def jamba_kernels(K, ref, build, dev, rates) -> tuple:
+    """Phase 3's jamba_v01_52b part: both 2-D kernels at its 13 projection
+    shapes (B = 8 and 32) and the ``_experts`` pair at its 3 expert shapes
+    (16 experts, R = 8 and 641), each held against its plain versions and
+    timed beside ``torch.matmul`` / ``torch.bmm`` and its bound; then the
+    2-D kernels summed over one sparse pass of the period (58
+    projections, :func:`role_counts`).  Returns (rows, errs, expert rows,
+    expert errs, per-pass sums)."""
+    rows, errs = main_path_kernels(K, ref, build, dev, rates,
+                                   layer=JAMBA_LAYER, batches=(8, 32),
+                                   v1=False)
+    e_rows, e_errs = expert_kernels(
+        K, ref, dev, rates, rows=JAMBA_EXPERT_ROWS, model="jamba_v01_52b",
+        shapes=JAMBA_EXPERTS, E=JAMBA_E, routed=JAMBA_E)
+    per_pass = gemma_layer_summary(rows, "jamba_v01_52b",
+                                   role_counts(served_config("jamba_v01_52b")))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, errs, e_rows, e_errs, per_pass
+
+
+def jamba_only(dev, K, ref, build, rates, smi: str, t_start) -> int:
+    """``--jamba-only``: :func:`jamba_kernels` and phase 24, one JSON line
+    (no contract lines)."""
+    from repro_torch import obs
+    rows, errs, e_rows, e_errs, per_pass = jamba_kernels(K, ref, build, dev,
+                                                         rates)
+    t0 = obs.now()
+    jamba = serve_jamba(dev, K, smi)
+    print(json.dumps({"jamba_only": {
+        **jamba, "kernels": rows, "kernels_max_abs_err": errs,
+        "expert_kernels": e_rows, "expert_kernels_max_abs_err": e_errs,
+        "kernels_per_sparse_pass": per_pass, "phase_24_s": obs.now() - t0,
+        "s": obs.now() - t_start, "card": smi}}))
+    return 0
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -6990,6 +7437,10 @@ def main() -> int:
                          "arch's expert shapes (phase 3's "
                          "expert_select_shapes), print them as one JSON "
                          "line, and stop")
+    ap.add_argument("--jamba-only", action="store_true",
+                    help="build the kernels, hold and time them at "
+                         "jamba_v01_52b's shapes (phase 3's jamba part), "
+                         "run phase 24, print one JSON line, and stop")
     ap.add_argument("--src", default=os.path.join(HERE, "src"),
                     help="directory holding the repro_torch package (for "
                          "--host-only, --train-only or --experts-only "
@@ -7038,6 +7489,8 @@ def main() -> int:
     if proj["launches_per_projection"] != 3:
         raise AssertionError("a pallas projection should launch 3 kernels "
                              "(score_select, the matmul, the cast)")
+    if args.jamba_only:
+        return jamba_only(dev, K, ref, build, rates, smi, t_start)
 
     # each phase's wall time, printed after the serving line; each is
     # also written to stderr with the time since the start, so that a run
@@ -7088,6 +7541,9 @@ def main() -> int:
     i_rows, errs11 = main_path_kernels(K, ref, build, dev, rates,
                                        layer=INTERNVL_LAYER, batches=(8, 32),
                                        v1=False)
+    # jamba_v01_52b's 13 2-D shapes and its 3 expert shapes (phase 24)
+    j_rows, errs12, je_rows, errs13, jamba_pass = jamba_kernels(
+        K, ref, build, dev, rates)
     ps_rows, ps_err, ps_launches = per_seq_kernel(K, ref, ops, build, dev,
                                                   rates)
     layer_summary(rows, ps_rows, proj)
@@ -7161,6 +7617,10 @@ def main() -> int:
     took("22 sharded steps")
     static = static_analysis(smi)
     took("23 static analysis")
+    gc.collect()
+    torch.cuda.empty_cache()
+    jamba = serve_jamba(dev, K, smi)
+    took("24 jamba_v01_52b")
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -7190,7 +7650,10 @@ def main() -> int:
         "internvl2_26b": {**internvl, "kernels": i_rows,
                           "kernels_per_decode_layer": internvl_layer},
         "reduced_multimodal": reduced_multimodal, "legacy": legacy,
-        "sharded": sharded, "static_analysis": static}}))
+        "sharded": sharded, "static_analysis": static,
+        "jamba_v01_52b": {**jamba, "kernels": j_rows,
+                          "expert_kernels": je_rows,
+                          "kernels_per_sparse_pass": jamba_pass}}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     expert_rows = [r for r in ge_rows if r["R"] == 8]
@@ -7205,13 +7668,13 @@ def main() -> int:
                  results["pallas"][0]["launches"][kname],
                  max(errs[kname], errs2[kname], errs3[kname], errs4[kname],
                      errs5[kname], errs7[kname], errs8[kname], errs9[kname],
-                     errs10[kname], errs11[kname])),
+                     errs10[kname], errs11[kname], errs12[kname])),
                 # one granite decode layer's 3 expert-batched projections
                 # (48 experts, R = 8), and the expert kernel's launches in
                 # phase 17's first pallas run
                 (kname + "_experts", [r[kname] for r in expert_rows],
                  granite["runs"]["pallas 1"]["launches"][kname + "_experts"],
-                 errs6[kname])):
+                 max(errs6[kname], errs13[kname]))):
             lib = [p["library_ms"] for p in per]
             kernels.append({
                 "name": row, "route": "cuda",

@@ -1,16 +1,12 @@
-"""The port's checkpoint manager, fault-tolerant runner and ``train()``
-(``repro_torch.checkpoint``, ``repro_torch.distributed``,
-``repro_torch.launch.train``): the reference's seven cases of
-``tests/test_checkpoint.py`` on torch trees, checkpoints of either
-package restored in the other with bit-equal leaves, an async save
-unharmed by an in-place step, a preempted ``train()`` equal to an
-uninterrupted one bit for bit, and ``train()`` against the JAX
-``train()`` from the same weights.
-
-The loss histories of the two ``train()`` runs agree at 1e-4: both run
-the same f32 arithmetic, and the 1e-6 per-step differences of the
-optimizer and the 1e-5 of the loss (``tests/test_torch_optim.py``,
-``tests/test_torch_train.py``) grow over the steps at lr 5e-3."""
+"""The port's checkpoint manager and fault-tolerant runner
+(``repro_torch.checkpoint``, ``repro_torch.distributed``): the
+reference's seven cases of ``tests/test_checkpoint.py`` on torch trees,
+checkpoints of either package restored in the other with bit-equal
+leaves, and an async save unharmed by an in-place step.  ``train()``
+through them: a preempted run equal to an uninterrupted one
+(``tests/test_torch_train_preempted.py``) and against the JAX
+``train()`` (``tests/test_torch_train_follows_jax.py``), each in a file
+of its own so that the suite's workers take them in parallel."""
 import os
 
 import jax
@@ -20,17 +16,11 @@ import pytest
 import torch
 
 from repro.checkpoint import CheckpointManager as JManager
-from repro.launch import train as jtrain
-from repro.models import api as japi
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.manager import keystr
 from repro_torch.distributed import (FailureInjector, Preemption,
                                      RunnerConfig, TrainingRunner)
-from repro_torch.launch import train as ttrain
 from repro_torch.models import params as P
-
-HIST_TOL = 1e-4
-
 
 def _tree(seed=0):
     g = torch.Generator().manual_seed(seed)
@@ -209,56 +199,3 @@ def test_async_snapshot_is_unharmed_by_an_in_place_step(tmp_path):
     m.wait()
     restored, _ = m.restore(want)
     _equal(want, restored)
-
-
-# -- train() -----------------------------------------------------------------
-
-TRAIN = dict(arch="llama31_8b", use_reduced=True, steps=20, batch=4,
-             seq=64, lr=5e-3)
-
-
-def test_preempted_train_equals_uninterrupted_bit_for_bit(tmp_path):
-    """At the example's batch 8 x 96, where the CPU's threaded index
-    accumulation (the embedding and gather backwards) makes two plain
-    runs differ, ``train()``'s deterministic kernels keep them equal."""
-    quiet = dict(TRAIN, steps=24, batch=8, seq=96, log=lambda *a: None,
-                 device="cpu", ckpt_every=5)
-    p0, _, _, h0, f0 = ttrain.train(**quiet, ckpt_dir=str(tmp_path / "a"))
-    p1, _, _, h1, f1 = ttrain.train(**quiet, ckpt_dir=str(tmp_path / "b"),
-                                    fail_at=(7, 21))
-    assert len(h1) == len(h0) + 2 + 1    # steps 5-6 and 20 run twice
-    _equal(p0, p1)
-    assert f0 == f1
-    assert not torch.are_deterministic_algorithms_enabled()
-    assert "CUBLAS_WORKSPACE_CONFIG" not in os.environ
-
-
-@pytest.mark.parametrize("kw", [{}, dict(steps=200, batch=8, seq=96)],
-                         ids=["20_steps", "train_then_sparsify_recipe"])
-def test_train_follows_the_jax_train(monkeypatch, kw):
-    """Both trainers from the JAX package's init: the per-step losses,
-    grad norms and lrs, and the held-out loss, over 20 steps and over
-    ``examples/train_then_sparsify.py``'s 200 (without its checkpoints,
-    which the runner's tests cover)."""
-    run = dict(TRAIN, **kw)
-    logs = []
-    jparams, jcfg, _, jhist, jfinal = jtrain.train(**run, log=logs.append)
-    init = japi.init_model(jcfg, 0)
-    monkeypatch.setattr(
-        ttrain.api, "init_model",
-        lambda cfg, seed, device: P.from_numpy(
-            jax.tree_util.tree_map(np.asarray, init), device))
-    tlogs = []
-    params, cfg, data_cfg, hist, final = ttrain.train(
-        **run, log=tlogs.append, device="cpu")
-    assert len(hist) == len(jhist) == run["steps"]
-    for k in ("loss", "grad_norm", "lr"):
-        np.testing.assert_allclose([h[k] for h in hist],
-                                   [h[k] for h in jhist], rtol=HIST_TOL,
-                                   atol=HIST_TOL, err_msg=k)
-    assert hist[-1]["loss"] < hist[0]["loss"] - 0.2
-    assert all(h["step_s"] > 0 for h in hist)
-    assert abs(final - jfinal) < HIST_TOL
-    # the same log lines, numbers aside
-    assert [s.split("=")[0].split(":")[0] for s in tlogs] == \
-        [s.split("=")[0].split(":")[0] for s in logs]

@@ -439,6 +439,55 @@ def test_powf_at_alpha_one_returns_every_float_unchanged(dev):
         assert torch.equal(got, bits), start
 
 
+@pytest.mark.parametrize("R,n,m", [(8, 4096, 14336), (641, 14336, 4096)])
+def test_expert_pair_at_jamba_expert_shapes(dev, R, n, m):
+    """jamba_v01_52b's expert projections (16 experts, bf16): ``moe/wi``
+    at a decode step's 8 rows and ``moe/wo`` at the 641 rows of a
+    4096-token whole prefill, the ``_experts`` pair against its plain
+    versions at alpha 0.7 and a finite tau (:func:`test_expert_kernels_
+    match_plain_versions`' checks, one launch each)."""
+    test_expert_kernels_match_plain_versions(dev, 16, R, n, m, 0.05,
+                                             torch.bfloat16)
+
+
+def test_jamba_with_sixteen_experts_on_card_matches_cpu(dev):
+    """Reduced jamba_v01_52b with its published 16 experts (f32, weights
+    from one CPU init): a whole-prefill ``pallas`` engine's greedy tokens
+    on the card equal the CPU's, and every sparse pass launches 58 of
+    each 2-D kernel and 12 of each ``_experts`` kernel
+    (``chip_smoke.pass_launches``), the decode graph's recorded once per
+    replay."""
+    import dataclasses
+    cfg = dataclasses.replace(reduced(get_config("jamba_v01_52b")),
+                              num_experts=16)
+    params = api.init_model(cfg, 0, device="cpu")
+    sp = default_sp_stacked(params, cfg, keep_frac=0.5, tau=float("-inf"))
+    pol = SparsityPolicy.uniform("pallas", k_max_frac=0.5, block=16)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 9, 33)]
+    per = {**chip_smoke.pass_launches(cfg), "sparse_matmul_per_seq": 0}
+    assert per["score_select"] == 58 and per["score_select_experts"] == 12
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        K.reset_launch_counts()
+        eng = Engine(P.tree_map(lambda t, d=d: t.to(d), params), cfg,
+                     EngineConfig(max_slots=4, max_len=64, prefill_chunk=16,
+                                  policy=pol, prefill_dense_frac=0.0),
+                     P.tree_map(lambda t, d=d: t.to(d), sp), device=d)
+        assert eng.prefill_strategy == "whole"
+        for p in prompts:
+            eng.submit(p, 10)
+        outs.append(eng.run())
+        if d.type == "cuda":
+            g = eng.decode_graphs
+            assert g.captured[0] == per
+            ran = g.steps[0] + 1 + len(prompts)   # replays, warm, prefills
+            assert eng.launches(K.launch_counts) == {
+                k: v * ran for k, v in per.items()}
+    assert outs[0] == outs[1]
+    assert len({t for ts in outs[0].values() for t in ts}) > 8
+
+
 @pytest.mark.parametrize("E,R,n,m,kb", [(4, 40, 256, 128, 2),
                                         (3, 33, 1024, 256, 7)])
 def test_expert_matmul_split_k(dev, E, R, n, m, kb):
