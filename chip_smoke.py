@@ -80,8 +80,17 @@ In order, it:
    128, and 8192 into 4096; the dense FFN's 4096 into 14336 and 14336
    into 4096), B = 8 and 32, timed and summed over one sparse pass of
    the period (58 projections), and the ``_experts`` pair at its three
-   expert shapes (16 experts, R = 8 and the 641 rows of a 4096-token
-   whole prefill) as at granite's (``jamba_kernels``);
+   expert shapes (16 experts, R = 8 and the 111, 241 and 641 rows of
+   704-, 1536- and 4096-token whole prefills) as at granite's, each line
+   naming the matmul's form (``jamba_kernels``); then the expert matmul
+   alone there in both its forms, the gather form and the whole-prefill
+   tile form, at R = 8, 32, 71, 111, 241 and 641, each held against the
+   plain version with two launches bit-equal and timed beside dense
+   ``torch.bmm`` and the bound (the times that chose the tile form's row
+   threshold; ``--experts-only`` runs this too), and the tile form at
+   E = 1 on jamba's 13 2-D shapes at B = 4096, summed over a sparse
+   pass, beside the 2-D ``sparse_matmul_shared`` and ``torch.matmul`` (a
+   measurement line: the 2-D entry keeps its gather form);
 4. checks a reduced llama31_8b on the card against the same model on the
    CPU (plain kernel versions): forward logits and served greedy tokens;
    then a reduced gemma2_2b (f32, window 32) the same way: prefill logits
@@ -386,16 +395,20 @@ In order, it:
    ``Engine``: 8 slots, whole-prompt prefill, ``max_len`` 4608, 8
    prompts of 256-4096 tokens (one of 4096, none of a prime length), 32
    new tokens each, dense, ``pallas``, ``pallas``, dense (uncalibrated),
-   ``pallas`` with ``prefill_dense_frac`` 0, and a 0.5 plan calibrated
+   ``pallas`` with ``prefill_dense_frac`` 0 twice, and a 0.5 plan calibrated
    on the period with the ``--calib-quick`` budget served twice.  Each
    run must build no decode step after warmup and launch 58 of each 2-D
-   kernel and 12 of each ``_experts`` kernel per sparse pass; each
-   mode's runs must give the same tokens; the decode graph built on a
+   kernel and 12 of each ``_experts`` kernel per sparse pass, the
+   expert matmul in its tile form exactly in the sparse whole prefills
+   (12 each: every prompt's expert rows, 111-641, reach its threshold);
+   each mode's runs must give the same tokens; the decode graph built on a
    busy engine must leave every SSM leaf bit-equal and equal the eager
    step (logits within 3e-2).  Prints the parameters and their bytes,
    the phase's peak memory, per run decode tok/s, p50/p95, TTFT p50,
-   whole-prefill ms per prompt length and device ms per traced decode
-   step beside ``step_costs``' bytes and bound, the top ops of one eager
+   whole-prefill ms per prompt length (with sparse prefill on a line of
+   its own, beside its TTFT and the dense runs') and device ms per traced
+   decode step beside ``step_costs``' bytes and bound, the top ops of one
+   eager
    decode step, the capacity drops of each whole prefill, and the plan's
    stage seconds, KL and ``k_max_frac``.  ``--jamba-only`` runs phase
    3's jamba part and this phase alone;
@@ -405,7 +418,10 @@ In order, it:
    run (whose llama31_8b decode layer their times are), those of the
    ``_experts`` kernels from phase 17's first ``pallas`` run (the 2-D
    kernels' ``max_abs_err`` covers every shape phase 3 held, mamba2's
-   included), and those of ``sparse_matmul_per_seq`` from phase 3's
+   included), those of ``sparse_matmul_shared_experts_tile`` (the
+   expert matmul's whole-prefill tile form, timed per jamba MoE layer at
+   R = 641) from phase 24's sparse-prefill run, and those of
+   ``sparse_matmul_per_seq`` from phase 3's
    ``wisparse_project(per_seq=True)`` calls, since no serving path
    reaches that kernel.
 
@@ -495,8 +511,8 @@ INTERNVL_LAYER = [("attn/wq", 6144, 6144), ("attn/wk", 6144, 1024),
 # a mamba mixer of d_inner 8192, state 16 and 128 heads: in_B, in_C and
 # in_dt are one ragged column tile; the dense FFN's d_ff 14336), and its
 # expert shapes (16 experts of d_ff 14336, top-2), launched once for all
-# 16 experts at R = 8 (decode: 8 slots x capacity 1) and 641 (the
-# capacity of a 4096-token whole prefill)
+# 16 experts at R = 8 (decode: 8 slots x capacity 1) and 111, 241 and 641
+# (the capacities of 704-, 1536- and 4096-token whole prefills)
 JAMBA_LAYER = [("attn/wq", 4096, 4096), ("attn/wk", 4096, 1024),
                ("attn/wv", 4096, 1024), ("attn/wo", 4096, 4096),
                ("mamba/in_z", 4096, 8192), ("mamba/in_x", 4096, 8192),
@@ -507,7 +523,13 @@ JAMBA_LAYER = [("attn/wq", 4096, 4096), ("attn/wk", 4096, 1024),
 JAMBA_EXPERTS = [("moe/wi_gate", 4096, 14336), ("moe/wi_up", 4096, 14336),
                  ("moe/wo", 14336, 4096)]
 JAMBA_E = 16
-JAMBA_EXPERT_ROWS = (8, 641)
+JAMBA_EXPERT_ROWS = (8, 111, 241, 641)
+# the expert matmul's rows timed in both forms (decode, a 32-token chunk,
+# a 448-token chunk's 71, then whole prefills of 704, 1536 and 4096
+# tokens); the rows of a 4096-token whole prefill at which jamba's 13 2-D
+# shapes are timed in the tile form at E = 1
+EXPERT_FORM_ROWS = (8, 32, 71, 111, 241, 641)
+TILE_EVIDENCE_B = 4096
 # the projection roles of each mixer and FFN kind: one launch of each
 # 2-D kernel per role that runs pallas (an expert role: one of each
 # _experts kernel for all the layer's experts)
@@ -633,6 +655,27 @@ def direct_matmul(K, build, name, x, ws, idx, m, kb, per_seq):
                        kb, plan.rows, plan.cols, plan.splits, 1,
                        torch.cuda.current_stream().cuda_stream))
     return fn, plan
+
+
+def direct_expert_matmul(K, build, x, ws, idx, plan):
+    """``fn(i)`` calling ``wisparse_sparse_matmul_shared_experts`` with
+    ``plan``'s form on (x, ``ws[i % len(ws)]``, idx), its output and
+    split-K scratch allocated once here (kernel-only timing, and no
+    launch counted), and that output."""
+    E, R, n = x.shape
+    m = ws[0].shape[2]
+    y = torch.empty(E, R, m, device=x.device)
+    scratch, cnt = K.matmul_scratch(plan, x.device)
+    entry = build.library().wisparse_sparse_matmul_shared_experts
+
+    def fn(i):
+        launched(entry(x.data_ptr(), ws[i % len(ws)].data_ptr(),
+                       idx.data_ptr(), y.data_ptr(),
+                       None if scratch is None else scratch.data_ptr(),
+                       None if cnt is None else cnt.data_ptr(), E, R, n, m,
+                       BLK, idx.shape[1], plan.rows, plan.cols, plan.splits,
+                       1, torch.cuda.current_stream().cuda_stream))
+    return fn, y
 
 
 def bit_equal(name: str, fn) -> None:
@@ -948,9 +991,11 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9),
     Timed at tau -inf by CUDA-graph replay (the weights rotated through
     copies beyond L2) beside the plain versions, dense ``torch.bmm`` and
     the bound (bytes over the card's memory rate)."""
+    from repro_torch.kernels import geometry as G
     out = []
     errs = {"score_select": 0.0, "sparse_matmul_shared": 0.0}
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     alpha = torch.tensor(1.0, device=dev)
     for R in rows:
         for role, n, m in shapes:
@@ -1028,23 +1073,28 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9),
                             + R * m * 4)
             mm_bound, mm_by = bound_ms(mm_bytes, 2.0 * E * R * kb * BLK * m,
                                        torch.bfloat16, rates)
-            plan = K.launch_plan(R, n, m, kb, BLK, False, 2, E)
+            plan = K.expert_plan(R, n, m, kb, BLK, 2, E)
+            form = plan.form
             out.append({
                 "R": R, "role": role, "E": E, "n": n, "m": m, "kb": kb,
+                "form": form,
                 "score_select": {"ms": t_sel, "plain_ms": t_sel_plain,
                                  "library_ms": None, "bound_ms": sel_bound,
                                  "bound_by": sel_by},
                 "sparse_matmul_shared": {
                     "ms": t_mm, "plain_ms": t_mm_plain, "library_ms": t_bmm,
                     "bound_ms": mm_bound, "bound_by": mm_by,
-                    "splits": plan.splits, "blocks": math.prod(plan.grid)}})
+                    "splits": plan.splits,
+                    "blocks": G.tile_ctas(plan, sms) if form == "tile"
+                    else math.prod(plan.grid)}})
             print(f"  experts E={E} R={R} {role:12s} n={n:5d} m={m:5d} "
                   f"kb={kb:2d} | score_select {t_sel * 1e3:7.2f} us (plain "
                   f"{t_sel_plain * 1e3:8.2f}, bound {sel_bound * 1e3:5.2f}) | "
                   f"sparse_matmul_shared {t_mm * 1e3:7.2f} us (plain "
                   f"{t_mm_plain * 1e3:8.2f}, torch.bmm dense "
                   f"{t_bmm * 1e3:7.2f}, bound {mm_bound * 1e3:6.2f} = "
-                  f"{100 * mm_bound / t_mm:5.1f}%, grid {plan.grid})")
+                  f"{100 * mm_bound / t_mm:5.1f}%, {form} form, grid "
+                  f"{plan.grid})")
             del x, w
     for R in rows:
         per = [r for r in out if r["R"] == R]
@@ -1057,12 +1107,161 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9),
                      f"{tot['plain_ms'] * 1e3:8.2f}"
                      + ("" if lib[0] is None else
                         f", torch.bmm dense {sum(lib) * 1e3:7.2f}")
-                     + f", bound {tot['bound_ms'] * 1e3:6.2f});")
-        print(line)
+                     + f", bound {tot['bound_ms'] * 1e3:6.2f} = "
+                     f"{100 * tot['bound_ms'] / tot['ms']:5.1f}%);")
+        print(line + " matmul form " + "/".join(sorted({r["form"]
+                                                        for r in per})))
     print(f"expert kernels: {E} experts x {model}'s 3 expert shapes x R = "
           f"{list(rows)} x 3 (alpha, tau) agree with their plain versions "
           f"(max abs err {errs})")
     return out, errs
+
+
+def expert_matmul_forms(K, ref, build, dev, rates,
+                        rows=EXPERT_FORM_ROWS) -> tuple:
+    """``sparse_matmul_shared_experts`` in both its forms at
+    jamba_v01_52b's three expert shapes (16 experts, bf16, half of the
+    blocks kept at random per expert) and each R of ``rows``: the gather
+    form (``launch_plan``'s: ``mma.sync`` tiles of 8-32 rows, split-K)
+    and the tile form (``csrc/sparse_matmul_tile.cu``; through the C
+    entry, below the plan's row threshold too), each held against the
+    plain version within 1e-4 + 1e-4 |ref| with two launches bit-equal,
+    then timed by CUDA-graph replay (the weights rotated through copies
+    beyond L2) beside dense ``torch.bmm`` and the bound.  Each line names
+    the form ``expert_plan`` routes the shape to; ``TILE_MIN_ROWS`` was
+    chosen from these times.  A tree without the tile form (``--src`` of
+    an older commit) times the gather form alone.  Returns (rows, the
+    largest error per form)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    tiled = hasattr(K, "expert_plan")
+    E, out, errs = JAMBA_E, [], {"gather": 0.0, "tile": 0.0}
+    for R in rows:
+        for role, n, m in JAMBA_EXPERTS:
+            nb = n // BLK
+            kb = round(nb * KEEP)
+            x = torch.randn(E, R, n, device=dev, generator=gen).to(
+                torch.bfloat16)
+            w = (torch.randn(E, n, m, device=dev, generator=gen) * 0.02).to(
+                torch.bfloat16)
+            idx = torch.stack([torch.randperm(nb, device=dev,
+                                              generator=gen)[:kb]
+                               for _ in range(E)]).to(torch.int32)
+            copies = max(1, math.ceil(200e6 / w.nbytes))
+            ws = [w] + [w.clone() for _ in range(copies - 1)]
+            want = ref.ref_sparse_matmul_shared_experts(x, w, idx, BLK)
+            plans = {"gather": K.launch_plan(R, n, m, kb, BLK, False, 2, E)}
+            if tiled:
+                plans["tile"] = K.LaunchPlan(
+                    K.TILE_ROWS, K.TILE_WIDE, math.ceil(m / K.TILE_WIDE),
+                    math.ceil(R / K.TILE_ROWS), 1, kb, 0, 0, E)
+            reps = {} if R <= 64 else {"reps": 4, "replays": 2}
+            row = {"R": R, "role": role, "E": E, "n": n, "m": m, "kb": kb,
+                   "routed": K.expert_plan(R, n, m, kb, BLK, 2, E).form
+                   if tiled else "gather"}
+            for form, plan in plans.items():
+                fn, y = direct_expert_matmul(K, build, x, ws, idx, plan)
+                fn(0)
+                torch.cuda.synchronize()
+                name = f"expert matmul, {form} form, {role} R={R}"
+                errs[form] = max(errs[form], check_close(name, y, want))
+                first = y.clone()
+                fn(0)
+                torch.cuda.synchronize()
+                if not torch.equal(first, y):
+                    raise AssertionError(f"{name}: two launches differ")
+                row[form + "_ms"] = graph_ms(fn, **reps)
+                del first
+            row["library_ms"] = graph_ms(lambda i: torch.bmm(
+                x, ws[i % copies]), **reps)
+            # the kept x blocks and weight rows of every expert, ids, y
+            nbytes = E * (R * kb * BLK * 2 + kb * BLK * m * 2 + kb * 4
+                          + R * m * 4)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                nbytes, 2.0 * E * R * kb * BLK * m, torch.bfloat16, rates)
+            out.append(row)
+            print(f"  expert matmul E={E} R={R:3d} {role:12s} kb={kb:2d}: "
+                  + ", ".join(f"{f} {row[f + '_ms'] * 1e3:8.2f} us "
+                              f"({100 * row['bound_ms'] / row[f + '_ms']:5.1f}"
+                              "% of the bound)" for f in plans)
+                  + f"; torch.bmm dense {row['library_ms'] * 1e3:8.2f}, "
+                  f"bound {row['bound_ms'] * 1e3:7.2f} "
+                  f"({row['bound_by']}); routed: {row['routed']}")
+            del x, w, ws, want
+    for R in rows:
+        per = [r for r in out if r["R"] == R]
+        tot = {k: sum(r[k] for r in per) for k in per[0]
+               if k.endswith("_ms")}
+        label = {"gather_ms": "gather form", "tile_ms": "tile form",
+                 "library_ms": "torch.bmm dense", "bound_ms": "bound"}
+        print(f"jamba_v01_52b per MoE layer, expert matmul at R={R}: "
+              + ", ".join(f"{label[k]} {v * 1e3:8.2f} us"
+                          for k, v in tot.items())
+              + f"; routed: {per[0]['routed']}; tile form at "
+              + (f"{100 * tot['bound_ms'] / tot['tile_ms']:5.1f}% of the "
+                 "bound" if tiled else "n/a"))
+    print(f"expert matmul forms: R = {list(rows)} x jamba's 3 expert shapes "
+          f"agree with the plain version (max abs err {errs})")
+    return out, errs
+
+
+def tile_form_2d_evidence(K, ref, dev, rates) -> tuple:
+    """Evidence for routing the 2-D entry at whole-prefill B, timed and
+    not routed: the tile form at E = 1 (the expert entry on ``x[None]``)
+    at jamba_v01_52b's 13 2-D shapes (``JAMBA_LAYER``) and
+    ``TILE_EVIDENCE_B`` rows, bf16, half of the blocks kept, held against
+    the plain 2-D version with two launches bit-equal, and timed beside
+    today's ``sparse_matmul_shared`` (its gather form), dense
+    ``torch.matmul`` and the bound; then summed over one sparse pass of
+    the period (58 projections, :func:`role_counts`).  Returns (rows,
+    largest error)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    B, out, err = TILE_EVIDENCE_B, [], 0.0
+    reps = {"reps": 4, "replays": 2}
+    for role, n, m in JAMBA_LAYER:
+        nb = n // BLK
+        kb = round(nb * KEEP)
+        x = torch.randn(B, n, device=dev, generator=gen).to(torch.bfloat16)
+        w = (torch.randn(n, m, device=dev, generator=gen) * 0.02).to(
+            torch.bfloat16)
+        idx = torch.randperm(nb, device=dev, generator=gen)[:kb].to(
+            torch.int32)
+        copies = max(1, math.ceil(200e6 / w.nbytes))
+        ws = [w] + [w.clone() for _ in range(copies - 1)]
+        assert K.expert_plan(B, n, m, kb, BLK, 2, 1).form == "tile"
+        y = K.sparse_matmul_shared_experts(x[None], w[None], idx[None])[0]
+        torch.cuda.synchronize()
+        name = f"tile form at E = 1, {role} B={B}"
+        err = max(err, check_close(name, y, ref.ref_sparse_matmul_shared(
+            x, w, idx, BLK)))
+        bit_equal(name, lambda: K.sparse_matmul_shared_experts(
+            x[None], w[None], idx[None]))
+        row = {"role": role, "B": B, "n": n, "m": m, "kb": kb}
+        row["tile_ms"] = graph_ms(lambda i: K.sparse_matmul_shared_experts(
+            x[None], ws[i % copies][None], idx[None]), **reps)
+        row["gather_ms"] = graph_ms(lambda i: K.sparse_matmul_shared(
+            x, ws[i % copies], idx), **reps)
+        row["library_ms"] = graph_ms(lambda i: torch.matmul(
+            x, ws[i % copies]), **reps)
+        nbytes = B * kb * BLK * 2 + kb * BLK * m * 2 + kb * 4 + B * m * 4
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 2.0 * B * kb * BLK * m, torch.bfloat16, rates)
+        out.append(row)
+        print(f"  2-D {role:12s} B={B} n={n:5d} m={m:5d} kb={kb:3d}: tile "
+              f"form at E = 1 {row['tile_ms'] * 1e3:8.2f} us, "
+              f"sparse_matmul_shared {row['gather_ms'] * 1e3:8.2f}, "
+              f"torch.matmul dense {row['library_ms'] * 1e3:8.2f}, bound "
+              f"{row['bound_ms'] * 1e3:7.2f} ({row['bound_by']})")
+        del x, w, ws
+    counts = role_counts(served_config("jamba_v01_52b"))
+    tot = {k: sum(r[k] * counts[r["role"]] for r in out) for k in out[0]
+           if k.endswith("_ms")}
+    label = {"tile_ms": "tile form", "gather_ms": "sparse_matmul_shared",
+             "library_ms": "torch.matmul dense", "bound_ms": "bound"}
+    print(f"jamba_v01_52b's 2-D projections over one sparse pass (58) at "
+          f"B = {B}, tile form at E = 1 against the 2-D entry: " + ", ".join(
+              f"{label[k]} {v * 1e3:9.2f} us" for k, v in tot.items())
+          + f" (max abs err {err:.3e}; the 2-D entry is not routed)")
+    return out, err
 
 
 def select_form(G, E: int, R: int, n: int, kb: int, sms: int) -> str:
@@ -1201,14 +1400,18 @@ def expert_select_shapes(K, ref, G, dev, rates) -> tuple:
 
 
 def experts_only(dev, card: str, src: str, rates) -> int:
-    """``--experts-only``: :func:`expert_select_shapes` for the package
-    under ``src``, one JSON line."""
+    """``--experts-only``: :func:`expert_select_shapes` and
+    :func:`expert_matmul_forms` for the package under ``src``, one JSON
+    line."""
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import geometry as G
     from repro_torch.kernels import sparse_matmul as K
     build.library()
     rows, err = expert_select_shapes(K, ref, G, dev, rates)
+    mm_rows, mm_errs = expert_matmul_forms(K, ref, build, dev, rates)
     print(json.dumps({"expert_select": rows, "max_abs_err": err,
+                      "expert_matmul_forms": mm_rows,
+                      "expert_matmul_max_abs_err": mm_errs,
                       "src": src, "card": card}))
     return 0
 
@@ -5100,8 +5303,11 @@ def ssm_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
     jamba_v01_52b: 58 and 12 per period) per replay of a sparse decode
     graph and per its eager warm call, and under the prefill policy per
     whole prefill run sparse (``prefill_dense_frac`` 0; a ladder run
-    prefills dense)."""
+    prefills dense), and of those expert matmuls the tile form's: every
+    one of a sparse whole prefill whose expert rows reach
+    ``TILE_MIN_ROWS``, no other."""
     from repro_torch import obs
+    from repro_torch.models import moe
     from repro_torch.serving import Engine, EngineConfig
 
     if ladder is not None and frac <= 0.0:
@@ -5174,6 +5380,17 @@ def ssm_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
                 f"{len(prefills) if sparse_prefill else 0})")
     if launches["sparse_matmul_per_seq"]:
         raise AssertionError(f"{name}: sparse_matmul_per_seq launched")
+    # the expert matmul's tile form: each sparse whole prefill whose
+    # expert rows reach its threshold, eagerly (decode rows never do)
+    tiles = K.tile_launches["sparse_matmul_shared_experts"]
+    want_tiles = per_prefill["sparse_matmul_shared_experts"] * sum(
+        moe.expert_rows(cfg, b, n) >= K.TILE_MIN_ROWS
+        for n, b, _ms in prefills) if sparse_prefill and cfg.num_experts \
+        else 0
+    if tiles != want_tiles:
+        raise AssertionError(f"{name}: the expert matmul's tile form "
+                             f"launched {tiles} times, expected "
+                             f"{want_tiles}")
     distinct = len({t for ts in out.values() for t in ts})
     if distinct < 2:
         raise AssertionError(f"{name}: every request emitted one token")
@@ -5187,6 +5404,7 @@ def ssm_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
         + (len(prefills) if sparse_prefill else 0),
         "launches": {k: launches[k] for k in served},
         "launches_counted": {k: counts[k] for k in served},
+        "tile_launches": tiles,
         "launches_per_pass": pass_launches(cfg, dec_pols[0])
         if ladder is None else [pass_launches(cfg, d) for d in dec_pols],
         "state_bytes": ssm_state_bytes(eng),
@@ -7144,8 +7362,9 @@ def serve_jamba(dev, K, smi: str) -> dict:
     the port's ``Engine`` (8 slots, whole-prompt prefill, ``max_len``
     4608, the decode step captured once): dense, ``pallas``, ``pallas``,
     dense (uncalibrated: keep_frac = k_max_frac = 0.5, tau -inf), then
-    ``pallas`` with ``prefill_dense_frac`` 0 (every whole prompt through
-    both kernel pairs, up to 641 rows per expert); the busy build and the
+    ``pallas`` with ``prefill_dense_frac`` 0 twice (every whole prompt
+    through both kernel pairs, up to 641 rows per expert, the expert
+    matmul in its tile form; the second run warm); the busy build and the
     captured decode step against the eager one (logits within 3e-2), with
     the capacity drops of the dense engine's whole prefills; a 0.5 plan
     calibrated on the period and served twice.  Each run: 0 builds after
@@ -7183,9 +7402,15 @@ def serve_jamba(dev, K, smi: str) -> dict:
                                  "tokens differ from the first's")
         runs.setdefault(name, []).append(res)
     pol, s = modes["pallas"]
-    runs["pallas sparse prefill"] = [ssm_run(
-        "jamba pallas sparse prefill", params, cfg, pol, s, trace, dev, K,
-        frac=0.0)]
+    for _ in range(2):
+        res = ssm_run("jamba pallas sparse prefill", params, cfg, pol, s,
+                      trace, dev, K, frac=0.0)
+        if "pallas sparse prefill" in runs and res["tokens"] != runs[
+                "pallas sparse prefill"][0]["tokens"]:
+            raise AssertionError("jamba pallas sparse prefill: the second "
+                                 "run's greedy tokens differ from the "
+                                 "first's")
+        runs.setdefault("pallas sparse prefill", []).append(res)
     drops = []
     gve = ssm_graph_vs_eager(dev, cfg, params, sp, trace, tag="jamba",
                              prompts=trace["prompts"], drops=drops,
@@ -7237,6 +7462,20 @@ def serve_jamba(dev, K, smi: str) -> dict:
               "decode p50 " + " / ".join(
                   f"{r['decode_step_p50_ms']:.2f}" for r in rs)
               + " ms; greedy tokens equal in both runs; " + smi)
+    for i, sp_run in enumerate(runs["pallas sparse prefill"]):
+        lens = {n: ms for n, _b, ms in sp_run["whole_prefills"]}
+        print(f"jamba sparse whole prefill, run {i + 1} (every prompt "
+              f"through both expert kernels, {sp_run['tile_launches']} "
+              "tile-form expert matmuls), ms per prompt length: " + ", ".join(
+                  f"{n} {ms:.1f}" for n, ms in sorted(lens.items(),
+                                                      reverse=True))
+              + f"; TTFT p50 {sp_run['ttft_p50_ms']:.1f} ms; {smi}")
+    dense_4096 = [ms for r in runs["dense"] for n, _b, ms in
+                  r["whole_prefills"] if n == 4096]
+    print("jamba dense runs: TTFT p50 " + " / ".join(
+        f"{r['ttft_p50_ms']:.1f}" for r in runs["dense"])
+        + " ms, the 4096-token whole prefill " + " / ".join(
+            f"{ms:.1f}" for ms in dense_4096) + " ms")
     print(f"jamba greedy tokens equal to dense at the same position: pallas "
           f"{agreement(runs['dense'][0], runs['pallas'][0]):.3f}, calibrated "
           f"{agreement(runs['dense'][0], runs['calibrated'][0]):.3f} (random "
@@ -7261,11 +7500,14 @@ def serve_jamba(dev, K, smi: str) -> dict:
 def jamba_kernels(K, ref, build, dev, rates) -> tuple:
     """Phase 3's jamba_v01_52b part: both 2-D kernels at its 13 projection
     shapes (B = 8 and 32) and the ``_experts`` pair at its 3 expert shapes
-    (16 experts, R = 8 and 641), each held against its plain versions and
-    timed beside ``torch.matmul`` / ``torch.bmm`` and its bound; then the
-    2-D kernels summed over one sparse pass of the period (58
-    projections, :func:`role_counts`).  Returns (rows, errs, expert rows,
-    expert errs, per-pass sums)."""
+    (16 experts, R = 8, 111, 241 and 641), each held against its plain
+    versions and timed beside ``torch.matmul`` / ``torch.bmm`` and its
+    bound; then the 2-D kernels summed over one sparse pass of the period
+    (58 projections, :func:`role_counts`), the expert matmul's two forms
+    (:func:`expert_matmul_forms`) and the tile form at E = 1 on 2-D
+    whole-prefill shapes (:func:`tile_form_2d_evidence`).  Returns (rows,
+    errs, expert rows, expert errs, per-pass sums, form rows, form errs,
+    evidence rows, evidence err)."""
     rows, errs = main_path_kernels(K, ref, build, dev, rates,
                                    layer=JAMBA_LAYER, batches=(8, 32),
                                    v1=False)
@@ -7276,21 +7518,27 @@ def jamba_kernels(K, ref, build, dev, rates) -> tuple:
                                    role_counts(served_config("jamba_v01_52b")))
     gc.collect()
     torch.cuda.empty_cache()
-    return rows, errs, e_rows, e_errs, per_pass
+    f_rows, f_errs = expert_matmul_forms(K, ref, build, dev, rates)
+    v_rows, v_err = tile_form_2d_evidence(K, ref, dev, rates)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, errs, e_rows, e_errs, per_pass, f_rows, f_errs, v_rows, v_err
 
 
 def jamba_only(dev, K, ref, build, rates, smi: str, t_start) -> int:
     """``--jamba-only``: :func:`jamba_kernels` and phase 24, one JSON line
     (no contract lines)."""
     from repro_torch import obs
-    rows, errs, e_rows, e_errs, per_pass = jamba_kernels(K, ref, build, dev,
-                                                         rates)
+    (rows, errs, e_rows, e_errs, per_pass, f_rows, f_errs, v_rows,
+     v_err) = jamba_kernels(K, ref, build, dev, rates)
     t0 = obs.now()
     jamba = serve_jamba(dev, K, smi)
     print(json.dumps({"jamba_only": {
         **jamba, "kernels": rows, "kernels_max_abs_err": errs,
         "expert_kernels": e_rows, "expert_kernels_max_abs_err": e_errs,
-        "kernels_per_sparse_pass": per_pass, "phase_24_s": obs.now() - t0,
+        "kernels_per_sparse_pass": per_pass, "expert_matmul_forms": f_rows,
+        "expert_matmul_max_abs_err": f_errs, "tile_2d_evidence": v_rows,
+        "tile_2d_evidence_max_abs_err": v_err, "phase_24_s": obs.now() - t0,
         "s": obs.now() - t_start, "card": smi}}))
     return 0
 
@@ -7434,8 +7682,9 @@ def main() -> int:
                          "line, and stop")
     ap.add_argument("--experts-only", action="store_true",
                     help="hold and time score_select_experts at every MoE "
-                         "arch's expert shapes (phase 3's "
-                         "expert_select_shapes), print them as one JSON "
+                         "arch's expert shapes and the expert matmul's two "
+                         "forms at jamba's (phase 3's expert_select_shapes "
+                         "and expert_matmul_forms), print them as one JSON "
                          "line, and stop")
     ap.add_argument("--jamba-only", action="store_true",
                     help="build the kernels, hold and time them at "
@@ -7542,8 +7791,8 @@ def main() -> int:
                                        layer=INTERNVL_LAYER, batches=(8, 32),
                                        v1=False)
     # jamba_v01_52b's 13 2-D shapes and its 3 expert shapes (phase 24)
-    j_rows, errs12, je_rows, errs13, jamba_pass = jamba_kernels(
-        K, ref, build, dev, rates)
+    (j_rows, errs12, je_rows, errs13, jamba_pass, jf_rows, errs14, jv_rows,
+     err15) = jamba_kernels(K, ref, build, dev, rates)
     ps_rows, ps_err, ps_launches = per_seq_kernel(K, ref, ops, build, dev,
                                                   rates)
     layer_summary(rows, ps_rows, proj)
@@ -7653,7 +7902,9 @@ def main() -> int:
         "sharded": sharded, "static_analysis": static,
         "jamba_v01_52b": {**jamba, "kernels": j_rows,
                           "expert_kernels": je_rows,
-                          "kernels_per_sparse_pass": jamba_pass}}}))
+                          "kernels_per_sparse_pass": jamba_pass,
+                          "expert_matmul_forms": jf_rows,
+                          "tile_2d_evidence": jv_rows}}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     expert_rows = [r for r in ge_rows if r["R"] == 8]
@@ -7674,7 +7925,8 @@ def main() -> int:
                 # phase 17's first pallas run
                 (kname + "_experts", [r[kname] for r in expert_rows],
                  granite["runs"]["pallas 1"]["launches"][kname + "_experts"],
-                 max(errs6[kname], errs13[kname]))):
+                 max(errs6[kname], errs13[kname],
+                     errs14["gather"] if kname.endswith("shared") else 0))):
             lib = [p["library_ms"] for p in per]
             kernels.append({
                 "name": row, "route": "cuda",
@@ -7689,6 +7941,27 @@ def main() -> int:
                                              for p in per) else "operations"),
                 "library_ms": None if lib[0] is None else sum(lib),
             })
+    # the expert matmul's tile form, per jamba MoE layer at R = 641 (a
+    # 4096-token whole prefill), and its launches in phase 24's sparse
+    # prefill run
+    per = [r["sparse_matmul_shared"] for r in je_rows if r["R"] == 641]
+    if {r["form"] for r in je_rows if r["R"] == 641} != {"tile"}:
+        raise AssertionError("jamba's R = 641 expert matmuls did not take "
+                             "the tile form")
+    kernels.append({
+        "name": "sparse_matmul_shared_experts_tile", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sparse_matmul_tile.cu",
+        "replaces": "src/repro/kernels/sparse_matmul.py:211",
+        "launches": jamba["runs"]["pallas sparse prefill 1"][
+            "tile_launches"],
+        "max_abs_err": max(errs14["tile"], err15),
+        "ms": sum(p["ms"] for p in per),
+        "plain_ms": sum(p["plain_ms"] for p in per),
+        "bound_ms": sum(p["bound_ms"] for p in per),
+        "bound_by": ("bytes" if all(p["bound_by"] == "bytes" for p in per)
+                     else "operations"),
+        "library_ms": sum(p["library_ms"] for p in per),
+    })
     per = [r for r in ps_rows if r["B"] == 8]
     kernels.append({
         "name": "sparse_matmul_per_seq", "route": "cuda",

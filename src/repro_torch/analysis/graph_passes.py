@@ -517,6 +517,10 @@ _ARCHS = ("llama31_8b", "gemma2_2b", "gemma3_4b", "granite_moe_1b_a400m",
           "granite_moe_3b_a800m", "mamba2_130m", "whisper_large_v3",
           "internvl2_26b", "deepseek_67b", "jamba_v01_52b")
 _BATCHES = (1, 8, 32, 448)
+# the prompt lengths served by whole prefill at published width (one
+# period of jamba_v01_52b in chip_smoke.py's phase 24): a MoE arch's
+# expert rows at each are its capacity for one prompt, 641 at 4096 tokens
+_WHOLE_PREFILL = (4096, 1536, 704, 1408, 3136, 2368, 2944, 1728)
 
 
 @register
@@ -529,11 +533,15 @@ class LaunchGeometryPass(GlobalPass):
     f32 and bf16) and every projection shape of ten archs at published
     width (``serving.graphs.matmul_shapes`` on meta params, as the dry
     run builds them), B in {1, 8, 32, 448} (expert rows of the MoE archs
-    at those decode and chunk sizes), kb in {1, nb/2, nb}.  On the card
+    at those decode and chunk sizes, and at the whole prefill of each
+    ``_WHOLE_PREFILL`` length), kb in {1, nb/2, nb}.  On the card
     the limits come from the device and the mirror is held against
-    ``wisparse_launch_info``.  ``report`` keeps the number of shapes, of
-    comparisons, each kernel's largest shared memory and headroom, and the
-    forms ``score_select`` and ``score_select_experts`` took.
+    ``wisparse_launch_info``.  The expert matmul's plan is
+    ``expert_plan``'s; in its tile form the persistent CTAs must walk each
+    (expert, row tile, column tile) once.  ``report`` keeps the number of
+    shapes, of comparisons, each kernel's largest shared memory and
+    headroom, the forms ``score_select`` and ``score_select_experts``
+    took, and the matmuls' (``matmul_forms``).
     """
 
     rule = "launch-geometry"
@@ -569,7 +577,8 @@ class LaunchGeometryPass(GlobalPass):
             cfg = get_config(arch)
             abstract, _, _ = api.abstract_model(cfg)
             erows = {moe.expert_rows(cfg, b, 1) for b in _BATCHES} | \
-                {moe.expert_rows(cfg, 1, t) for t in _BATCHES} \
+                {moe.expert_rows(cfg, 1, t)
+                 for t in _BATCHES + _WHOLE_PREFILL} \
                 if cfg.num_experts else set()
             out.update(matmul_shapes(abstract, {128}, set(_BATCHES), erows))
         return sorted(out)
@@ -589,6 +598,7 @@ class LaunchGeometryPass(GlobalPass):
         geo_line = _line_of(repo_root, self._GEO, "def score_select_geometry")
         smem = {k: 0 for k in G.KERNELS}
         forms = {"score_select": set(), "score_select_experts": set()}
+        matmul_forms = set()
         report = {"shapes": 0, "compared": 0, "min_active_clusters": None}
 
         def finding(rel, line, msg, snippet):
@@ -676,7 +686,8 @@ class LaunchGeometryPass(GlobalPass):
             # from id * blk; columns past m are masked in the kernel, so
             # the grid need only cover m
             nb = n // blk
-            kkc = 64 if kernel == "sparse_matmul_per_seq" else 128
+            kkc = 64 if kernel == "sparse_matmul_per_seq" or \
+                plan.form == "tile" else 128
             last = max(i * blk + c * kkc + min(kkc, blk - c * kkc)
                        for i in (0, nb - 1) for c in range(-(-blk // kkc)))
             if last > n or gx * plan.cols < m or (gx - 1) * plan.cols >= m:
@@ -684,7 +695,20 @@ class LaunchGeometryPass(GlobalPass):
                         f"{kernel} {where}: a weight tile read leaves the "
                         f"padded ({n}, {m}) with ids 0 and {nb - 1}",
                         f"{kernel} bounds")
-            geo = G.matmul_geometry(kernel, plan, B, n, m, blk, kb, elem)
+            if plan.form == "tile":
+                # the persistent CTAs compute every (expert, row tile,
+                # column tile) once
+                walked = sorted(itertools.chain.from_iterable(
+                    G.tile_walk(plan, sms)))
+                if walked != sorted(itertools.product(
+                        range(plan.experts), range(plan.tiles_b),
+                        range(plan.tiles_m))):
+                    finding(self._GEO, geo_line,
+                            f"{kernel} {where}: the tile form's CTAs do not "
+                            "walk each (expert, row tile, column tile) once",
+                            f"{kernel} tile walk")
+            matmul_forms.add(plan.form)
+            geo = G.matmul_geometry(kernel, plan, B, n, m, blk, kb, elem, sms)
             query = functools.partial(
                 G.launch_info, kernel, plan.experts, B, n, m, blk, kb,
                 plan.rows, plan.cols, plan.splits, elem) if cuda else None
@@ -702,7 +726,9 @@ class LaunchGeometryPass(GlobalPass):
             reserved = K.launch_plan(B, n, m, nb, blk, False, elem, E)
             for kb in sorted({1, max(1, nb // 2), nb}):
                 for kernel, per_seq in mm:
-                    plan = K.launch_plan(B, n, m, kb, blk, per_seq, elem, E)
+                    plan = K.expert_plan(B, n, m, kb, blk, elem, E) \
+                        if E > 1 else \
+                        K.launch_plan(B, n, m, kb, blk, per_seq, elem, E)
                     check_plan(kernel, plan, B, n, m, blk, kb, elem,
                                f"{where} kb={kb}")
                     if not per_seq and (
@@ -731,6 +757,7 @@ class LaunchGeometryPass(GlobalPass):
         findings.extend(self._channel_plan(repo_root))
         report["smem"] = smem
         report["forms"] = {k: sorted(v) for k, v in forms.items()}
+        report["matmul_forms"] = sorted(matmul_forms)
         report["headroom"] = {k: limits["smem_optin"] - v
                               for k, v in smem.items()}
         report["limits"] = limits

@@ -9,6 +9,7 @@
 
 #include "gather_mma.cuh"
 #include "launch_info.cuh"
+#include "sparse_matmul_tile.cuh"
 
 namespace wisparse {
 namespace {
@@ -39,11 +40,33 @@ int matmul_rows(int E, int B, int m, int rows, int cols, int S, int* out) {
   }
 }
 
+// The shared entry's tile form (rows == tile::kRows): persistent CTAs
+// over the device's SMs; out[9] = 1 names the form.
+int tile_info(int E, int B, int m, int* out) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int fill[10] = {tile::ctas(E, B, m, sms), 1, 1, tile::kThreads,
+                        tile::kBytes, 1, 1, 1, 0, 1};
+  for (int i = 0; i < 10; ++i) out[i] = fill[i];
+  return 0;
+}
+
 int matmul(bool per_seq, int E, int B, int n, int m, int blk, int kb,
-           int rows, int cols, int S, int dtype, int* out) {
+           int rows, int cols, int S, int dtype, bool aligned, int* out) {
   const bool ok = per_seq ? E == 1 && gm::per_seq_args_ok(B, n, m, blk, kb, S)
                           : gm::shared_args_ok(E, B, n, m, blk, kb, S);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == tile::kRows) {
+    if (per_seq || dtype != kBFloat16 || !aligned ||
+        !tile::args_ok(n, m, blk, cols, S)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return tile_info(E, B, m, out);
+  }
   if (dtype == kFloat32) {
     return per_seq ? matmul_rows<float, true>(E, B, m, rows, cols, S, out)
                    : matmul_rows<float, false>(E, B, m, rows, cols, S, out);
@@ -79,9 +102,9 @@ int device_limits(int* out) {
 // "sparse_matmul_shared_experts", "sparse_matmul_per_seq", or "device" for
 // the card's limits.  The shape arguments are the C entry's (E = 1 for the
 // 2-D kernels; rows, cols and splits the host's plan, unused by
-// score_select; aligned: its x and xm 16-byte aligned).  Fills out (10
-// ints, launch_info.cuh) and returns 0, or the cudaError_t the entry would
-// return for these arguments.
+// score_select; aligned: its x and xm, or the matmul's x and w, 16-byte
+// aligned).  Fills out (10 ints, launch_info.cuh) and returns 0, or the
+// cudaError_t the entry would return for these arguments.
 extern "C" int wisparse_launch_info(const char* kernel, int E, int B, int n,
                                     int m, int blk, int kb, int rows,
                                     int cols, int splits, int dtype,
@@ -95,10 +118,12 @@ extern "C" int wisparse_launch_info(const char* kernel, int E, int B, int n,
   }
   if (std::strcmp(kernel, "sparse_matmul_shared") == 0 ||
       std::strcmp(kernel, "sparse_matmul_shared_experts") == 0) {
-    return matmul(false, E, B, n, m, blk, kb, rows, cols, splits, dtype, out);
+    return matmul(false, E, B, n, m, blk, kb, rows, cols, splits, dtype,
+                  aligned != 0, out);
   }
   if (std::strcmp(kernel, "sparse_matmul_per_seq") == 0) {
-    return matmul(true, E, B, n, m, blk, kb, rows, cols, splits, dtype, out);
+    return matmul(true, E, B, n, m, blk, kb, rows, cols, splits, dtype,
+                  aligned != 0, out);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

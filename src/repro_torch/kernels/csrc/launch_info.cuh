@@ -7,7 +7,8 @@
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs; score_select only,
 // 0 for the matmuls, which launch no clusters); out[9] score_select's
 // form: 0 one cluster per expert, 1 + i the per-expert form of config i
-// (score_select.cu's kExpertNJ / kExpertRU), 0 for the matmuls.
+// (score_select.cu's kExpertNJ / kExpertRU); the matmuls': 0 the gather
+// form (gather_mma.cuh), 1 the tile form (sparse_matmul_tile.cu).
 #pragma once
 
 namespace wisparse {

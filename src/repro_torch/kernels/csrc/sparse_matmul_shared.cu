@@ -37,9 +37,13 @@
 // runs over (expert, row tile): x (E, B, n), W (E, n, m), idx (E, kb) and
 // y (E, B, m) are strided by expert, the split-K partials are planes of
 // E x B x m, and the arrival counters are indexed per (expert, row tile,
-// column tile).
+// column tile).  That form was sized for 8-32 decode and chunk rows; at a
+// whole prefill's rows (bound by operations, not bytes) the host passes
+// rows == tile::kRows and the entry launches the TMA + wgmma tile kernel
+// of sparse_matmul_tile.cu instead.
 // Measured result: PERF.md (chip_smoke.py, per projection shape).
 #include "gather_mma.cuh"
+#include "sparse_matmul_tile.cuh"
 
 namespace wisparse {
 namespace {
@@ -158,6 +162,15 @@ int entry_shared(const void* x, const void* w, const void* idx, void* y,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows == tile::kRows) {
+    // the whole-prefill form: bf16, 16-byte aligned x and w, one slice
+    if (dtype != kBFloat16 || !tile::args_ok(n, m, blk, cols, S) ||
+        !gm::vec_ok<__nv_bfloat16>(x, w, n, m, blk) ||
+        reinterpret_cast<uintptr_t>(y) % 8 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return tile::launch(x, w, idx, y, E, B, n, m, blk, kb, st);
+  }
   if (dtype == kFloat32) {
     return dispatch_shared<float>(x, w, idx, y, ws, counters, E, B, n, m, blk,
                                   kb, rows, cols, S, st);
@@ -175,9 +188,11 @@ int entry_shared(const void* x, const void* w, const void* idx, void* y,
 // x: (B, n) and w: (n, m) of `dtype`; idx: (kb,) int32; y: (B, m) f32.
 // The host's plan: `rows` batch rows per tile (8, 16 or 32), `cols`
 // columns per tile (must be the kernel's: 128 bf16, 64 f32), S split-K
-// slices (1 <= S <= kb).  For S > 1, ws: S x B x m f32 scratch and
-// counters: one int32 per (column tile, row tile), zero on entry and left
-// zero.  Returns cudaGetLastError().
+// slices (1 <= S <= kb); or rows 128, cols 256 and S 1 for the tile form
+// (sparse_matmul_tile.cu: bf16, aligned, blk a multiple of 64).  For
+// S > 1, ws: S x B x m f32 scratch and counters: one int32 per (column
+// tile, row tile), zero on entry and left zero.  Returns
+// cudaGetLastError().
 extern "C" int wisparse_sparse_matmul_shared(const void* x, const void* w,
                                              const void* idx, void* y,
                                              void* ws, void* counters, int B,
@@ -190,8 +205,10 @@ extern "C" int wisparse_sparse_matmul_shared(const void* x, const void* w,
 
 // The expert-batched form: x (E, B, n) and w (E, n, m) of `dtype`; idx
 // (E, kb) int32; y (E, B, m) f32.  For S > 1, ws: S x E x B x m f32 and
-// counters: one int32 per (expert, row tile, column tile).  Returns
-// cudaGetLastError().
+// counters: one int32 per (expert, row tile, column tile).  rows 128
+// launches the tile form (whole-prefill rows), which takes neither.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue where the tile
+// form's tensor maps cannot be encoded.
 extern "C" int wisparse_sparse_matmul_shared_experts(
     const void* x, const void* w, const void* idx, void* y, void* ws,
     void* counters, int E, int B, int n, int m, int blk, int kb, int rows,

@@ -5,7 +5,8 @@ The C entries decide each launch's grid, block, dynamic shared memory
 and cluster (``csrc/score_select.cu``'s ``Geometry``, which also picks
 the expert selection's form; for the matmuls
 ``csrc/gather_mma.cuh``'s ``grid_of`` and ``Layout::kBytes``, with the
-split from :func:`repro_torch.kernels.sparse_matmul.launch_plan`).  A
+split from :func:`repro_torch.kernels.sparse_matmul.launch_plan`, and
+the tile form's persistent grid, ``csrc/sparse_matmul_tile.cuh``).  A
 launch outside the card's limits shows only on the card, as
 ``cudaErrorInvalidValue`` from the entry.  The mirror lets a check on the
 CPU cover every served shape (``repro_torch.analysis``'s
@@ -42,6 +43,11 @@ SCORE_EXPERT_CONFIGS = ((1, 1), (1, 2), (1, 3), (1, 4), (1, 5), (1, 6),
                         (2, 8))
 # csrc/gather_mma.cuh: threads per block
 MATMUL_THREADS = 256
+# csrc/sparse_matmul_tile.cuh: threads per block, ring stages, the ids
+# held in shared memory
+TILE_THREADS = 384
+TILE_STAGES = 4
+TILE_MAX_IDS = 128
 
 KERNELS = ("score_select", "score_select_experts", "sparse_matmul_shared",
            "sparse_matmul_shared_experts", "sparse_matmul_per_seq")
@@ -58,7 +64,9 @@ class Geometry:
     smem: int
     cluster: tuple
     ok: bool = True
-    form: str = "cluster"     # score_select: "cluster" or "expert NJxRU"
+    # score_select: "cluster" or "expert NJxRU"; the matmuls: "tile" for
+    # the tile form, else the default
+    form: str = "cluster"
 
 
 def expert_config(B: int, n: int, blk: int, elem_bytes: int = 2,
@@ -119,7 +127,14 @@ def matmul_smem(elem_bytes: int, rows: int, per_seq: bool) -> int:
     """``Layout<T, rows, per_seq>::kBytes``: the cp.async ring (stages of
     kKC weight rows x the column tile and the rows' x values, rows padded
     by 16 bytes) and the slice's ids (per-seq: occurrence counts, the
-    kept list, the passes and the list length)."""
+    kept list, the passes and the list length).  Tile form (rows ==
+    ``TILE_ROWS``, bf16): ``tile::kBytes``, the TMA ring (an x tile of
+    TILE_ROWS x TILE_DEPTH and a W tile of TILE_DEPTH x TILE_WIDE per
+    stage), 1024 bytes to align it, two mbarriers per stage, the ids."""
+    if rows == K.TILE_ROWS:
+        stage = (K.TILE_ROWS + K.TILE_WIDE) * K.TILE_DEPTH * elem_bytes
+        return TILE_STAGES * stage + 1024 + 2 * TILE_STAGES * 8 + \
+            4 * TILE_MAX_IDS
     kkc, stages = (64, 4) if per_seq else (128, 3)
     cols = K.TILE_COLS[elem_bytes]
     pad = 16 // elem_bytes           # 16 bytes of padding per row
@@ -129,18 +144,54 @@ def matmul_smem(elem_bytes: int, rows: int, per_seq: bool) -> int:
     return ring + 4 * counts
 
 
+def tile_ctas(plan: K.LaunchPlan, sms: int = H100_LIMITS["sms"]) -> int:
+    """``tile::ctas``: the tile form's persistent CTAs, one per SM (every
+    tile where there are fewer), the count kept coprime with the row
+    tiles where the CTAs walk more than one tile each."""
+    tiles = plan.tiles_m * plan.tiles_b * plan.experts
+    g = min(tiles, sms)
+    if tiles > sms:
+        while g > 1 and math.gcd(g, plan.tiles_b) != 1:
+            g -= 1
+    return g
+
+
+def tile_walk(plan: K.LaunchPlan, sms: int = H100_LIMITS["sms"]) -> list:
+    """The (expert, row tile, column tile) each persistent CTA of the tile
+    form computes, in its order: CTA b takes the linear tiles b, b + G,
+    ... (G = :func:`tile_ctas`) of the order (expert, column tile, row
+    tile), row tile fastest, as ``tile_of`` in the kernel decodes them."""
+    rt, ct = plan.tiles_b, plan.tiles_m
+    tiles = rt * ct * plan.experts
+    g = tile_ctas(plan, sms)
+    return [[(t // (rt * ct), t % rt, t // rt % ct)
+             for t in range(b, tiles, g)] for b in range(g)]
+
+
 def matmul_geometry(kernel: str, plan: K.LaunchPlan, B: int, n: int, m: int,
-                    blk: int, kb: int, elem_bytes: int = 2) -> Geometry:
+                    blk: int, kb: int, elem_bytes: int = 2,
+                    sms: int = H100_LIMITS["sms"]) -> Geometry:
     """One block-gather matmul launch of ``plan``: grid (column tiles,
     splits, row tiles x experts), 256 threads, ``matmul_smem``; ``ok``
     as the C entry checks the plan (tile rows 8/16/32, the column tile it
     is compiled for, at most 65535 row tiles, 1 <= splits <= kb or, per
-    seq, <= nb with no slice over ``MAX_SLICE_BLOCKS`` ids)."""
+    seq, <= nb with no slice over ``MAX_SLICE_BLOCKS`` ids).  The tile
+    form (``plan.rows == TILE_ROWS``, the shared kernels only): grid
+    (:func:`tile_ctas`, 1, 1), 384 threads, form "tile"; ``ok`` for bf16,
+    one slice, the TILE_WIDE column tile, blk a multiple of TILE_DEPTH
+    and n, m multiples of 8."""
     per_seq = kernel == "sparse_matmul_per_seq"
     E, S = plan.experts, plan.splits
     nb = n // blk if blk > 0 else 0
     ok = (E > 0 and B > 0 and n > 0 and m > 0 and blk > 0 and kb > 0
           and n % blk == 0 and 1 <= S <= 65535)
+    if plan.rows == K.TILE_ROWS:
+        ok = (ok and not per_seq and S == 1 and elem_bytes == 2
+              and plan.cols == K.TILE_WIDE and blk % K.TILE_DEPTH == 0
+              and n % 8 == 0 and m % 8 == 0)
+        return Geometry((tile_ctas(plan, sms), 1, 1), TILE_THREADS,
+                        matmul_smem(elem_bytes, plan.rows, per_seq),
+                        (1, 1, 1), ok, "tile")
     if per_seq:
         ok = ok and E == 1 and S <= nb and -(-nb // S) <= K.MAX_SLICE_BLOCKS
     else:
@@ -178,7 +229,11 @@ def launch_info(kernel: str, E: int = 1, B: int = 0, n: int = 0, m: int = 0,
         return Geometry((0, 0, 0), 0, 0, (0, 0, 0), False), 0
     if err:
         raise RuntimeError(f"wisparse_launch_info({kernel}): cudaError {err}")
-    form = "cluster" if out[9] == 0 else \
-        "expert {}x{}".format(*SCORE_EXPERT_CONFIGS[out[9] - 1])
+    if out[9] == 0:
+        form = "cluster"
+    elif kernel.startswith("sparse_matmul"):
+        form = "tile"
+    else:
+        form = "expert {}x{}".format(*SCORE_EXPERT_CONFIGS[out[9] - 1])
     return (Geometry(tuple(out[0:3]), out[3], out[4], tuple(out[5:8]),
                      form=form), out[8])

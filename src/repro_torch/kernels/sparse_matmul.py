@@ -21,7 +21,9 @@ keep the matmuls' split-K scratch per device (:func:`matmul_scratch`,
 sized ahead of a CUDA-graph capture by :func:`reserve_matmul_scratch`).
 The TPU tile geometry of ``shared_plan``/``score_mask_plan`` does not
 carry over (Hopper runs its own tiles, masked at ragged edges in the
-kernels, and chosen by :func:`launch_plan`); what the port keeps is the
+kernels, and chosen by :func:`launch_plan`, or for the expert entry by
+:func:`expert_plan`, which takes the TMA + wgmma tile form at a whole
+prefill's rows); what the port keeps is the
 channel-block contract, checked here: ``n % blk == 0``.
 """
 from __future__ import annotations
@@ -41,6 +43,9 @@ DEFAULT_BLK = 128
 launch_counts = {"score_select": 0, "sparse_matmul_shared": 0,
                  "sparse_matmul_per_seq": 0, "score_select_experts": 0,
                  "sparse_matmul_shared_experts": 0}
+# the launches of ``launch_counts["sparse_matmul_shared_experts"]`` that
+# ran the tile form (:func:`expert_plan`), since the last reset
+tile_launches = {"sparse_matmul_shared_experts": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -58,6 +63,16 @@ MAX_SLICE_BLOCKS = 128
 TARGET_BLOCKS_SHARED = 132
 TARGET_BLOCKS_PER_SEQ = 2 * 132
 MAX_SPLITS = 16
+# The expert entry's whole-prefill form (csrc/sparse_matmul_tile.cu): tiles
+# of TILE_ROWS expert rows x TILE_WIDE columns, kept blocks streamed by TMA
+# in TILE_DEPTH-channel halves, no split.  The plan takes it from
+# TILE_MIN_ROWS rows per expert on, in bf16 with 16-byte aligned operands,
+# m a multiple of 8 (16-byte tensor-map strides) and blk of TILE_DEPTH;
+# PERF.md holds the times at 32-641 rows that chose the threshold.
+TILE_ROWS = 128
+TILE_WIDE = 256
+TILE_DEPTH = 64
+TILE_MIN_ROWS = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +82,9 @@ class LaunchPlan:
     The grid is (tiles_m, splits, tiles_b x experts); ``workspace`` f32
     values of split-K partials and ``counters`` int32 arrival counters
     (one per expert and tile) are needed when ``splits > 1`` (both 0
-    otherwise)."""
+    otherwise).  In the tile form (``rows == TILE_ROWS``) the grid is the
+    set of output tiles, which persistent CTAs walk
+    (``kernels/geometry.tile_walk``)."""
     rows: int          # batch rows per thread block
     cols: int          # columns per thread block
     tiles_m: int
@@ -81,6 +98,11 @@ class LaunchPlan:
     @property
     def grid(self):
         return (self.tiles_m, self.splits, self.tiles_b * self.experts)
+
+    @property
+    def form(self) -> str:
+        """"tile" (sparse_matmul_tile.cu) or "gather" (gather_mma.cuh)."""
+        return "tile" if self.rows == TILE_ROWS else "gather"
 
     def slice(self, s: int) -> range:
         """Positions of idx (shared) or block ids (per-seq) of slice s."""
@@ -113,6 +135,22 @@ def launch_plan(B: int, n: int, m: int, kb: int, blk: int, per_seq: bool,
     return LaunchPlan(rows, cols, tiles_m, tiles_b, splits, units,
                       splits * experts * B * m if split else 0,
                       tiles_m * tiles_b * experts if split else 0, experts)
+
+
+@functools.lru_cache(maxsize=1024)
+def expert_plan(R: int, n: int, m: int, kb: int, blk: int,
+                elem_bytes: int = 2, experts: int = 1,
+                aligned: bool = True) -> LaunchPlan:
+    """The plan of ``sparse_matmul_shared_experts`` at (experts, R, n, m):
+    the tile form (one slice, no scratch) in bf16 with x and w 16-byte
+    ``aligned``, R >= TILE_MIN_ROWS, m a multiple of 8 and blk of
+    TILE_DEPTH; else :func:`launch_plan`'s gather form, unchanged.  From
+    the shapes and the operands' alignment alone: no device read."""
+    if not (elem_bytes == 2 and aligned and R >= TILE_MIN_ROWS
+            and m % 8 == 0 and blk % TILE_DEPTH == 0 and n % blk == 0):
+        return launch_plan(R, n, m, kb, blk, False, elem_bytes, experts)
+    return LaunchPlan(TILE_ROWS, TILE_WIDE, math.ceil(m / TILE_WIDE),
+                      math.ceil(R / TILE_ROWS), 1, kb, 0, 0, experts)
 
 
 # device -> (f32 workspace, zeroed int32 arrival counters) shared by the
@@ -183,8 +221,9 @@ def scratch_tensors(device) -> tuple:
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, tile_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -358,7 +397,9 @@ def sparse_matmul_shared_experts(x, w, block_idx, *,
     already masked, w (E, n, m) of x's dtype, block_idx (E, kb) int32 (one
     kept-block list per expert).  Returns y (E, R, m) float32 with
     ``y[e] = sparse_matmul_shared(x[e], w[e], block_idx[e])``.  One launch
-    over every expert, counted as a ``sparse_matmul_shared_experts``."""
+    over every expert, counted as a ``sparse_matmul_shared_experts``; at
+    a whole prefill's rows it runs the tile form (:func:`expert_plan`),
+    counted in :data:`tile_launches` too."""
     E, R, n = x.shape
     m = w.shape[2]
     blk = min(blk, n)
@@ -412,11 +453,16 @@ def _check_cuda_matmul(name, x, w, block_idx) -> None:
 
 def _launch_matmul(name, x, w, block_idx, blk, kb, *, per_seq):
     """Launch the checked inputs on the kernel ``name`` and count it: x
-    (B, n), or (E, B, n) for ``sparse_matmul_shared_experts``."""
+    (B, n), or (E, B, n) for ``sparse_matmul_shared_experts``, whose plan
+    is :func:`expert_plan`'s."""
     *lead, B, n = x.shape
     E = lead[0] if lead else 1
     m = w.shape[-1]
-    plan = launch_plan(B, n, m, kb, blk, per_seq, x.element_size(), E)
+    if lead:
+        plan = expert_plan(B, n, m, kb, blk, x.element_size(), E,
+                           x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    else:
+        plan = launch_plan(B, n, m, kb, blk, per_seq, x.element_size(), E)
     y = torch.empty(tuple(lead) + (B, m), dtype=torch.float32,
                     device=x.device)
     ws, cnt = matmul_scratch(plan, x.device)
@@ -429,4 +475,6 @@ def _launch_matmul(name, x, w, block_idx, blk, kb, *, per_seq):
         *ptrs, *lead, B, *geom)
     _raise_on(err, name)
     launch_counts[name] += 1
+    if plan.form == "tile":
+        tile_launches[name] += 1
     return y

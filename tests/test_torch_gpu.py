@@ -1768,3 +1768,107 @@ def test_launch_info_equals_the_mirror(dev, E, B, n, m, elem):
             got, active = G.launch_info(name, E, B, n, 0, blk, kb, 0, 0, 0,
                                         elem, aligned)
             assert got == want and active >= 1, (name, kb, aligned)
+
+
+@pytest.mark.parametrize("R", [63, 64, 65, 129])
+@pytest.mark.parametrize("m", [384, 200])
+def test_expert_matmul_tile_form(dev, R, m):
+    """The expert entry's whole-prefill tile form (``csrc/sparse_matmul_
+    tile.cu``: TMA ring, wgmma, 128-row tiles with a half-tile tail)
+    against the plain version: 3 experts, n = 1024 (nb = 8), kb = 1,
+    nb/2 and nb with a repeated id and ids clamped at both ends, within
+    1e-4 + 1e-4 |ref|, two launches bit-equal.  The plan takes the tile
+    form from ``TILE_MIN_ROWS`` rows on (R = 63 keeps the gather form),
+    and the launch counts as a ``sparse_matmul_shared_experts`` and, in
+    the tile form, in ``tile_launches``."""
+    E, n, nb = 3, 1024, 8
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn(E, R, n, device=dev, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(E, n, m, device=dev, generator=gen) * 0.1).to(
+        torch.bfloat16)
+    for kb in (1, nb // 2, nb):
+        idx = torch.randint(0, nb, (E, kb), device=dev, generator=gen).to(
+            torch.int32)
+        idx[0, -1] = idx[0, 0]          # a repeat (kb = 1: itself)
+        idx[1, 0] = -3                  # clamped to 0
+        idx[2, -1] = nb + 5             # clamped to nb - 1
+        plan = K.expert_plan(R, n, m, kb, 128, 2, E)
+        assert (plan.form == "tile") == (R >= K.TILE_MIN_ROWS >= 64)
+        K.reset_launch_counts()
+        y = K.sparse_matmul_shared_experts(x, w, idx)
+        assert K.launch_counts["sparse_matmul_shared_experts"] == 1
+        assert K.tile_launches["sparse_matmul_shared_experts"] == \
+            int(plan.form == "tile")
+        _close(y, ref.ref_sparse_matmul_shared_experts(x, w, idx, 128))
+        assert torch.equal(y, K.sparse_matmul_shared_experts(x, w, idx))
+
+
+@pytest.mark.parametrize("R", [111, 641])
+def test_expert_matmul_tile_form_at_jamba_shapes(dev, R):
+    """jamba_v01_52b's three expert projections (16 experts, 50% kept)
+    at the whole-prefill capacities of a 704- and a 4096-token prompt:
+    the tile form within 1e-4 + 1e-4 |ref| of the plain version and of
+    the gather form's own result (``launch_plan``'s, through the C
+    entry), two launches bit-equal."""
+    from repro_torch.kernels import build
+    gen = torch.Generator(device=dev).manual_seed(32)
+    lib = build.library()
+    for n, m in ((4096, 14336), (14336, 4096)):
+        E, nb = 16, n // 128
+        kb = nb // 2
+        x = torch.randn(E, R, n, device=dev, generator=gen).to(torch.bfloat16)
+        w = (torch.randn(E, n, m, device=dev, generator=gen) * 0.02).to(
+            torch.bfloat16)
+        idx = torch.stack([torch.randperm(nb, device=dev, generator=gen)[:kb]
+                           for _ in range(E)]).to(torch.int32)
+        assert K.expert_plan(R, n, m, kb, 128, 2, E).form == "tile"
+        y = K.sparse_matmul_shared_experts(x, w, idx)
+        _close(y, ref.ref_sparse_matmul_shared_experts(x, w, idx, 128))
+        assert torch.equal(y, K.sparse_matmul_shared_experts(x, w, idx))
+        plan = K.launch_plan(R, n, m, kb, 128, False, 2, E)
+        ws, cnt = K.matmul_scratch(plan, dev)
+        yg = torch.empty_like(y)
+        err = lib.wisparse_sparse_matmul_shared_experts(
+            x.data_ptr(), w.data_ptr(), idx.data_ptr(), yg.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), E, R, n, m, 128, kb,
+            plan.rows, plan.cols, plan.splits, 1,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        _close(y, yg)
+
+
+def test_expert_matmul_tile_form_refusal_raises(dev, monkeypatch):
+    """No fallback: a tile plan the C entry refuses (f32 operands) raises
+    from the wrapper and counts no launch."""
+    tile = K.expert_plan(641, 256, 128, 2, 128, 2, 2)
+    assert tile.form == "tile"
+    monkeypatch.setattr(K, "expert_plan", lambda *a, **k: tile)
+    x = torch.randn(2, 641, 256, device=dev)
+    w = torch.randn(2, 256, 128, device=dev)
+    idx = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    K.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        K.sparse_matmul_shared_experts(x, w, idx)
+    assert K.launch_counts["sparse_matmul_shared_experts"] == 0
+
+
+@pytest.mark.parametrize("E,R,n,m", [(16, 641, 4096, 14336),
+                                     (16, 641, 14336, 4096),
+                                     (48, 113, 1536, 512), (3, 65, 1024, 200),
+                                     (1, 4096, 4096, 14336)])
+def test_launch_info_equals_the_mirror_in_the_tile_form(dev, E, R, n, m):
+    """``wisparse_launch_info`` for the expert entry's tile plans (the
+    persistent grid over the card's SMs, 384 threads, the ring's shared
+    memory, form "tile") equals ``matmul_geometry``'s mirror."""
+    from repro_torch.kernels import geometry as G
+    limits = G.launch_info("device")
+    nb = n // 128
+    for kb in sorted({1, max(1, nb // 2), nb}):
+        plan = K.expert_plan(R, n, m, kb, 128, 2, E)
+        want = G.matmul_geometry("sparse_matmul_shared_experts", plan, R, n,
+                                 m, 128, kb, 2, limits["sms"])
+        got, _ = G.launch_info("sparse_matmul_shared_experts", E, R, n, m,
+                               128, kb, plan.rows, plan.cols, plan.splits, 2)
+        assert want.form == "tile" and got == want, kb
+        assert want.smem <= limits["smem_optin"]
