@@ -5,6 +5,7 @@
     python3 chip_smoke.py --host-only [--src DIR]
     python3 chip_smoke.py --train-only [--src DIR]
     python3 chip_smoke.py --experts-only [--src DIR]
+    python3 chip_smoke.py --forms-only
     python3 chip_smoke.py --jamba-only
 
 In order, it:
@@ -44,7 +45,7 @@ In order, it:
    shape and held against ``per_seq=False``.  ``score_select`` and
    ``sparse_matmul_shared`` are then held and timed the same way at
    gemma2_2b's seven projection shapes (B = 8 and 32), with a
-   per-decode-layer summary, and held (not timed) at the row counts of
+   per-decode-layer summary, and held (and timed) at the row counts of
    phase 16's whole-prompt prefills (64-448, 4314, 4430 and 2 x 4326
    rows), tau -inf and finite, no row weights.  Both are held and timed
    at granite_moe_3b_a800m's four attention shapes (B = 8, 32), and the
@@ -87,10 +88,17 @@ In order, it:
    tile form, at R = 8, 32, 71, 111, 241 and 641, each held against the
    plain version with two launches bit-equal and timed beside dense
    ``torch.bmm`` and the bound (the times that chose the tile form's row
-   threshold; ``--experts-only`` runs this too), and the tile form at
-   E = 1 on jamba's 13 2-D shapes at B = 4096, summed over a sparse
-   pass, beside the 2-D ``sparse_matmul_shared`` and ``torch.matmul`` (a
-   measurement line: the 2-D entry keeps its gather form);
+   threshold; ``--experts-only`` runs this too), and both 2-D kernels
+   on jamba's 13 2-D shapes at B = 4096 in their routed whole-prefill
+   forms (the matmul's tile form, bit-equal to the tile form at E = 1;
+   ``score_select``'s spread form), summed over a sparse pass beside the
+   tile form at E = 1, the gather form, the cluster form, the plain
+   versions and ``torch.matmul``.  Every whole-prefill row count held
+   above (phases 16 and 18's, whisper's cross rows) is timed too, both
+   kernels in their routed forms beside their other forms.
+   ``--forms-only`` instead times both forms of each 2-D kernel at 48-4096
+   rows on five archs' 2-D shapes (the times that chose
+   ``TILE_MIN_TILES_2D`` and ``SCORE_SPREAD_MIN_ROWS``) and stops;
 4. checks a reduced llama31_8b on the card against the same model on the
    CPU (plain kernel versions): forward logits and served greedy tokens;
    then a reduced gemma2_2b (f32, window 32) the same way: prefill logits
@@ -252,9 +260,12 @@ In order, it:
    launch each kernel 182 times per sparse pass (graph replays, the
    warm call, sparse whole prefills); the dense runs must repeat their
    tokens, the captured decode step must equal the eager one at rolled
-   positions, and ``serve --arch gemma2_2b --reduced`` must exit 0.
-   Prints decode tok/s, p50/p95, TTFT p50, whole-prefill ms per prompt
-   length, device ms per traced decode step and the phase's wall time;
+   positions, and ``serve --arch gemma2_2b --reduced`` must exit 0.  The
+   sparse whole prefills must run the 2-D kernels' whole-prefill forms
+   exactly where their rows take them (``check_whole_forms``).  Prints
+   decode tok/s, p50/p95, TTFT p50, whole-prefill ms per prompt length
+   (sparse against dense at each, with the 2-D tile-form and spread-form
+   launches), device ms per traced decode step and the phase's wall time;
 17. serves full-width granite_moe_3b_a800m (8 of 32 layers, d_model 1536, 24
    heads with 8 KV heads of 64, 40 experts padded to 48, top-8, expert
    d_ff 512, bf16, random weights from SEED) on phase 5's trace: dense,
@@ -283,8 +294,9 @@ In order, it:
    tokens, a decode step built on a busy engine must leave every SSM
    leaf bit-equal, the captured decode step must equal the eager one,
    and ``serve --arch mamba2_130m`` (full width) and ``serve --arch
-   jamba_v01_52b --reduced`` must exit 0.  Prints decode tok/s, p50/p95,
-   TTFT p50, whole-prefill ms per prompt length, device ms per traced
+   jamba_v01_52b --reduced`` must exit 0; the 2-D whole-prefill forms as
+   in phase 16.  Prints decode tok/s, p50/p95, TTFT p50, whole-prefill ms
+   per prompt length (sparse against dense), device ms per traced
    decode step and the top ops of one eager step, and the decode step's
    byte bound split into conv/SSM state and the rest;
 19. trains on the card.  19a runs ``examples/train_then_sparsify.py``'s
@@ -400,8 +412,9 @@ In order, it:
    run must build no decode step after warmup and launch 58 of each 2-D
    kernel and 12 of each ``_experts`` kernel per sparse pass, the
    expert matmul in its tile form exactly in the sparse whole prefills
-   (12 each: every prompt's expert rows, 111-641, reach its threshold);
-   each mode's runs must give the same tokens; the decode graph built on a
+   (12 each: every prompt's expert rows, 111-641, reach its threshold)
+   and the 2-D kernels' whole-prefill forms as in phase 16; each mode's
+   runs must give the same tokens; the decode graph built on a
    busy engine must leave every SSM leaf bit-equal and equal the eager
    step (logits within 3e-2).  Prints the parameters and their bytes,
    the phase's peak memory, per run decode tok/s, p50/p95, TTFT p50,
@@ -420,7 +433,10 @@ In order, it:
    kernels' ``max_abs_err`` covers every shape phase 3 held, mamba2's
    included), those of ``sparse_matmul_shared_experts_tile`` (the
    expert matmul's whole-prefill tile form, timed per jamba MoE layer at
-   R = 641) from phase 24's sparse-prefill run, and those of
+   R = 641) from phase 24's sparse-prefill run, as those of
+   ``sparse_matmul_shared_tile`` and ``score_select_spread`` (the 2-D
+   kernels' whole-prefill forms, timed per jamba sparse pass at B = 4096
+   over the shapes routed to them), and those of
    ``sparse_matmul_per_seq`` from phase 3's
    ``wisparse_project(per_seq=True)`` calls, since no serving path
    reaches that kernel.
@@ -530,6 +546,16 @@ JAMBA_EXPERT_ROWS = (8, 111, 241, 641)
 # shapes are timed in the tile form at E = 1
 EXPERT_FORM_ROWS = (8, 32, 71, 111, 241, 641)
 TILE_EVIDENCE_B = 4096
+# --forms-only: the row counts at which both forms of each 2-D kernel are
+# timed (the matmul's gather and tile forms, score_select's cluster and
+# spread forms) at the 2-D shapes of the archs that serve whole prefill,
+# and llama31_8b's; TILE_MIN_TILES_2D and SCORE_SPREAD_MIN_ROWS were
+# chosen from these times
+FORM_ROWS = (48, 64, 128, 192, 256, 448, 1024, 2048, 3072, 4096)
+FORM_LAYERS = (("llama31_8b", LAYER), ("gemma2_2b", GEMMA_LAYER),
+               ("mamba2_130m", MAMBA_LAYER),
+               ("whisper_large_v3", WHISPER_LAYER),
+               ("jamba_v01_52b", JAMBA_LAYER))
 # the projection roles of each mixer and FFN kind: one launch of each
 # 2-D kernel per role that runs pallas (an expert role: one of each
 # _experts kernel for all the layer's experts)
@@ -637,12 +663,14 @@ def launched(err: int) -> None:
         raise RuntimeError(f"kernel launch failed: cudaError {err}")
 
 
-def direct_matmul(K, build, name, x, ws, idx, m, kb, per_seq):
+def direct_matmul(K, build, name, x, ws, idx, m, kb, per_seq, plan=None):
     """``fn(i)`` calling the C entry of the block-gather matmul ``name``
     on weight copy ``ws[i % len(ws)]``, with its output and split-K
-    scratch allocated once here (kernel-only timing), and its plan."""
+    scratch allocated once here (kernel-only timing), and its plan
+    (``launch_plan``'s gather form unless ``plan`` is given)."""
     B, n = x.shape
-    plan = K.launch_plan(B, n, m, kb, BLK, per_seq, x.element_size())
+    plan = plan or K.launch_plan(B, n, m, kb, BLK, per_seq,
+                                 x.element_size())
     y = torch.empty(B, m, device=x.device)
     scratch, cnt = K.matmul_scratch(plan, x.device)
     entry = getattr(build.library(), "wisparse_" + name)
@@ -654,7 +682,15 @@ def direct_matmul(K, build, name, x, ws, idx, m, kb, per_seq):
                        None if cnt is None else cnt.data_ptr(), B, n, m, BLK,
                        kb, plan.rows, plan.cols, plan.splits, 1,
                        torch.cuda.current_stream().cuda_stream))
+        return y
     return fn, plan
+
+
+def tile_plan(K, R: int, m: int, kb: int, E: int = 1):
+    """The tile form's plan at (E, R, m) (``expert_plan``'s when it routes
+    there), below the routing thresholds too."""
+    return K.LaunchPlan(K.TILE_ROWS, K.TILE_WIDE, math.ceil(m / K.TILE_WIDE),
+                        math.ceil(R / K.TILE_ROWS), 1, kb, 0, 0, E)
 
 
 def direct_expert_matmul(K, build, x, ws, idx, plan):
@@ -839,21 +875,27 @@ def check_kernel_shapes(K, ref, dev) -> dict:
     return errs
 
 
-def direct_select(build, x, g, alpha, tau, keep, rw, kb):
+def direct_select(K, build, x, g, alpha, tau, keep, rw, kb, form=None):
     """``fn(i)`` calling ``score_select``'s C entry on outputs allocated
-    once here (kernel-only timing)."""
+    once here (kernel-only timing, no launch counted), in the shape's own
+    form or the ``form`` given ("cluster", "spread"); it returns (xm, idx,
+    bs)."""
     B, n = x.shape
     xm = torch.empty_like(x)
     idx = torch.empty(kb, dtype=torch.int32, device=x.device)
     bs = torch.empty(n // BLK, device=x.device)
+    ws = K.score_workspace(x.device)
     entry = build.library().wisparse_score_select
 
     def fn(i):
         launched(entry(x.data_ptr(), g.data_ptr(), alpha.data_ptr(),
-                       tau.data_ptr(), keep.data_ptr(), rw.data_ptr(),
+                       tau.data_ptr(), keep.data_ptr(),
+                       None if rw is None else rw.data_ptr(),
                        xm.data_ptr(), idx.data_ptr(), bs.data_ptr(), B, n,
-                       BLK, kb, 1,
+                       BLK, kb, 1, ws.data_ptr(), ws.numel(),
+                       K.SCORE_FORM_CODES[form],
                        torch.cuda.current_stream().cuda_stream))
+        return xm, idx, bs
     return fn
 
 
@@ -899,8 +941,8 @@ def main_path_kernels(K, ref, build, dev, rates, layer=LAYER,
                 bit_equal(name, lambda: K.score_select(
                     x, g, alpha, tau, kf, kb=kb, blk=BLK, row_weights=rw))
             xk, idx, _ = got                    # keep_frac 0.5
-            t_sel = graph_ms(direct_select(build, x, g, alpha, tau, kf, rw,
-                                           kb))
+            t_sel = graph_ms(direct_select(K, build, x, g, alpha, tau, kf,
+                                           rw, kb))
             t_sel_plain = graph_ms(lambda i: ref.ref_score_select(
                 x, g, alpha, tau, kf, BLK, kb, rw))
             # x read, xm written, g, alpha, tau and keep_frac, the row
@@ -1151,9 +1193,7 @@ def expert_matmul_forms(K, ref, build, dev, rates,
             want = ref.ref_sparse_matmul_shared_experts(x, w, idx, BLK)
             plans = {"gather": K.launch_plan(R, n, m, kb, BLK, False, 2, E)}
             if tiled:
-                plans["tile"] = K.LaunchPlan(
-                    K.TILE_ROWS, K.TILE_WIDE, math.ceil(m / K.TILE_WIDE),
-                    math.ceil(R / K.TILE_ROWS), 1, kb, 0, 0, E)
+                plans["tile"] = tile_plan(K, R, m, kb, E)
             reps = {} if R <= 64 else {"reps": 4, "replays": 2}
             row = {"R": R, "role": role, "E": E, "n": n, "m": m, "kb": kb,
                    "routed": K.expert_plan(R, n, m, kb, BLK, 2, E).form
@@ -1204,19 +1244,30 @@ def expert_matmul_forms(K, ref, build, dev, rates,
     return out, errs
 
 
-def tile_form_2d_evidence(K, ref, dev, rates) -> tuple:
-    """Evidence for routing the 2-D entry at whole-prefill B, timed and
-    not routed: the tile form at E = 1 (the expert entry on ``x[None]``)
-    at jamba_v01_52b's 13 2-D shapes (``JAMBA_LAYER``) and
-    ``TILE_EVIDENCE_B`` rows, bf16, half of the blocks kept, held against
-    the plain 2-D version with two launches bit-equal, and timed beside
-    today's ``sparse_matmul_shared`` (its gather form), dense
-    ``torch.matmul`` and the bound; then summed over one sparse pass of
-    the period (58 projections, :func:`role_counts`).  Returns (rows,
-    largest error)."""
+def tile_form_2d_evidence(K, ref, build, dev, rates) -> tuple:
+    """The routed 2-D kernels at a whole prefill's rows: jamba_v01_52b's
+    13 2-D shapes (``JAMBA_LAYER``) at ``TILE_EVIDENCE_B`` rows, bf16,
+    half of the blocks kept.  ``sparse_matmul_shared`` (the wrapper, in
+    the form ``expert_plan`` routes it to at one expert) held against the
+    plain version within 1e-4 + 1e-4 |ref| with two launches bit-equal,
+    and where it takes the tile form bit-equal to the tile form at E = 1
+    (the expert entry's C entry with a tile plan) on the same operands;
+    timed beside that tile form at E = 1, the gather form (the 2-D C
+    entry on ``launch_plan``'s plan), the plain version, dense
+    ``torch.matmul`` and the bound.  ``score_select`` (the wrapper: the
+    spread form) on the same x, alpha 1, tau a quarter of the mean g,
+    keep_frac 0.5: held against the plain version (:func:`check_select`),
+    two launches bit-equal, timed beside its cluster form (forced through
+    the C entry), the plain version and the bound.  Then both summed
+    over one sparse pass of the period (58 projections,
+    :func:`role_counts`).  Returns (rows, per-pass sums, largest error
+    per kernel)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 32)
-    B, out, err = TILE_EVIDENCE_B, [], 0.0
+    B, out = TILE_EVIDENCE_B, []
+    errs = {"score_select": 0.0, "sparse_matmul_shared": 0.0}
     reps = {"reps": 4, "replays": 2}
+    alpha = torch.tensor(1.0, device=dev)
+    kf = torch.tensor(KEEP, device=dev)
     for role, n, m in JAMBA_LAYER:
         nb = n // BLK
         kb = round(nb * KEEP)
@@ -1225,43 +1276,232 @@ def tile_form_2d_evidence(K, ref, dev, rates) -> tuple:
             torch.bfloat16)
         idx = torch.randperm(nb, device=dev, generator=gen)[:kb].to(
             torch.int32)
-        copies = max(1, math.ceil(200e6 / w.nbytes))
+        copies = min(max(1, math.ceil(200e6 / w.nbytes)), reps["reps"])
         ws = [w] + [w.clone() for _ in range(copies - 1)]
-        assert K.expert_plan(B, n, m, kb, BLK, 2, 1).form == "tile"
-        y = K.sparse_matmul_shared_experts(x[None], w[None], idx[None])[0]
+        form = K.expert_plan(B, n, m, kb, BLK, 2, 1).form
+        name = f"sparse_matmul_shared {role} B={B} ({form} form)"
+        y = K.sparse_matmul_shared(x, w, idx)
         torch.cuda.synchronize()
-        name = f"tile form at E = 1, {role} B={B}"
-        err = max(err, check_close(name, y, ref.ref_sparse_matmul_shared(
-            x, w, idx, BLK)))
-        bit_equal(name, lambda: K.sparse_matmul_shared_experts(
-            x[None], w[None], idx[None]))
-        row = {"role": role, "B": B, "n": n, "m": m, "kb": kb}
-        row["tile_ms"] = graph_ms(lambda i: K.sparse_matmul_shared_experts(
-            x[None], ws[i % copies][None], idx[None]), **reps)
-        row["gather_ms"] = graph_ms(lambda i: K.sparse_matmul_shared(
-            x, ws[i % copies], idx), **reps)
-        row["library_ms"] = graph_ms(lambda i: torch.matmul(
-            x, ws[i % copies]), **reps)
+        errs["sparse_matmul_shared"] = max(
+            errs["sparse_matmul_shared"], check_close(
+                name, y, ref.ref_sparse_matmul_shared(x, w, idx, BLK)))
+        bit_equal(name, lambda: K.sparse_matmul_shared(x, w, idx))
+        tile_e1, y1 = direct_expert_matmul(K, build, x[None],
+                                           [c[None] for c in ws], idx[None],
+                                           tile_plan(K, B, m, kb))
+        tile_e1(0)
+        torch.cuda.synchronize()
+        if form == "tile" and not torch.equal(y, y1[0]):
+            raise AssertionError(f"{name}: the routed 2-D entry differs from "
+                                 "the tile form at E = 1")
+        gather, _plan = direct_matmul(K, build, "sparse_matmul_shared", x,
+                                      ws, idx, m, kb, False)
         nbytes = B * kb * BLK * 2 + kb * BLK * m * 2 + kb * 4 + B * m * 4
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            nbytes, 2.0 * B * kb * BLK * m, torch.bfloat16, rates)
-        out.append(row)
-        print(f"  2-D {role:12s} B={B} n={n:5d} m={m:5d} kb={kb:3d}: tile "
-              f"form at E = 1 {row['tile_ms'] * 1e3:8.2f} us, "
-              f"sparse_matmul_shared {row['gather_ms'] * 1e3:8.2f}, "
-              f"torch.matmul dense {row['library_ms'] * 1e3:8.2f}, bound "
-              f"{row['bound_ms'] * 1e3:7.2f} ({row['bound_by']})")
-        del x, w, ws
+        bound, by = bound_ms(nbytes, 2.0 * B * kb * BLK * m, torch.bfloat16,
+                             rates)
+        mm = {"form": form, "ms": graph_ms(lambda i: K.sparse_matmul_shared(
+            x, ws[i % copies], idx), **reps),
+            "tile_e1_ms": graph_ms(tile_e1, **reps),
+            "gather_ms": graph_ms(gather, **reps),
+            "plain_ms": graph_ms(lambda i: ref.ref_sparse_matmul_shared(
+                x, ws[i % copies], idx, BLK), **reps),
+            "library_ms": graph_ms(lambda i: torch.matmul(
+                x, ws[i % copies]), **reps),
+            "bound_ms": bound, "bound_by": by}
+        g = torch.sqrt((w.float() ** 2).sum(1))
+        tau = 0.25 * g.mean()
+        sname = f"score_select {role} B={B} ({K.score_form(B, n, BLK)} form)"
+        got = K.score_select(x, g, alpha, tau, kf, kb=kb)
+        torch.cuda.synchronize()
+        errs["score_select"] = max(errs["score_select"], check_select(
+            sname, got, ref.ref_score_select(x, g, alpha, tau, kf, BLK, kb),
+            rank_limit(KEEP, nb, kb),
+            lambda: ref.ref_score_mask(x, g, alpha, tau, BLK)[0]))
+        bit_equal(sname, lambda: K.score_select(x, g, alpha, tau, kf, kb=kb))
+        sbytes = 2 * B * n * 2 + n * 4 + 12 + nb * 4 + kb * 4
+        sbound, sby = bound_ms(sbytes, 6.0 * B * n, torch.float32, rates)
+        sel = {"form": K.score_form(B, n, BLK),
+               "ms": graph_ms(direct_select(K, build, x, g, alpha, tau, kf,
+                                            None, kb), **reps),
+               "cluster_ms": graph_ms(direct_select(
+                   K, build, x, g, alpha, tau, kf, None, kb, "cluster"),
+                   **reps),
+               "plain_ms": graph_ms(lambda i: ref.ref_score_select(
+                   x, g, alpha, tau, kf, BLK, kb), **reps),
+               "library_ms": None, "bound_ms": sbound, "bound_by": sby}
+        out.append({"role": role, "B": B, "n": n, "m": m, "kb": kb,
+                    "sparse_matmul_shared": mm, "score_select": sel})
+        print(f"  2-D {role:12s} B={B} n={n:5d} m={m:5d} kb={kb:3d}: "
+              f"sparse_matmul_shared ({form}) {mm['ms'] * 1e3:8.2f} us "
+              f"(tile form at E = 1 {mm['tile_e1_ms'] * 1e3:8.2f}, gather "
+              f"{mm['gather_ms'] * 1e3:8.2f}, plain "
+              f"{mm['plain_ms'] * 1e3:9.2f}, torch.matmul dense "
+              f"{mm['library_ms'] * 1e3:8.2f}, bound "
+              f"{mm['bound_ms'] * 1e3:7.2f} ({mm['bound_by']})); "
+              f"score_select ({sel['form']}) {sel['ms'] * 1e3:7.2f} us "
+              f"(cluster {sel['cluster_ms'] * 1e3:7.2f}, plain "
+              f"{sel['plain_ms'] * 1e3:8.2f}, bound "
+              f"{sel['bound_ms'] * 1e3:6.2f})")
+        del x, w, ws, y, y1, got
     counts = role_counts(served_config("jamba_v01_52b"))
-    tot = {k: sum(r[k] * counts[r["role"]] for r in out) for k in out[0]
-           if k.endswith("_ms")}
-    label = {"tile_ms": "tile form", "gather_ms": "sparse_matmul_shared",
-             "library_ms": "torch.matmul dense", "bound_ms": "bound"}
-    print(f"jamba_v01_52b's 2-D projections over one sparse pass (58) at "
-          f"B = {B}, tile form at E = 1 against the 2-D entry: " + ", ".join(
-              f"{label[k]} {v * 1e3:9.2f} us" for k, v in tot.items())
-          + f" (max abs err {err:.3e}; the 2-D entry is not routed)")
-    return out, err
+    sums = {}
+    for kname in ("sparse_matmul_shared", "score_select"):
+        keys = [k for k in out[0][kname] if k.endswith("ms")
+                and out[0][kname][k] is not None]
+        sums[kname] = {k: sum(r[kname][k] * counts[r["role"]] for r in out)
+                       for k in keys}
+        # the shapes routed to the whole-prefill form alone (the matmul's
+        # narrow ones keep the gather form)
+        whole = "tile" if kname == "sparse_matmul_shared" else "spread"
+        sums[kname]["whole_form"] = {
+            k: sum(r[kname][k] * counts[r["role"]] for r in out
+                   if r[kname]["form"] == whole) for k in keys}
+        print(f"jamba_v01_52b's 2-D {kname} over one sparse pass (58) at "
+              f"B = {B}: " + ", ".join(f"{k[:-3] or 'routed'} "
+                                       f"{v * 1e3:9.2f} us"
+                                       for k, v in sums[kname].items()
+                                       if k != "whole_form")
+              + f" (the {whole}-form shapes: " + ", ".join(
+                  f"{k[:-3] or 'routed'} {v * 1e3:9.2f}"
+                  for k, v in sums[kname]["whole_form"].items()) + ")")
+    mm = sums["sparse_matmul_shared"]
+    print(f"jamba_v01_52b's routed 2-D matmul per sparse pass at B = {B}: "
+          f"{100 * (mm['ms'] / mm['tile_e1_ms'] - 1):+.2f}% against the tile "
+          f"form at E = 1, {mm['library_ms'] / mm['ms']:.3f}x faster than "
+          f"torch.matmul, {100 * mm['bound_ms'] / mm['ms']:.1f}% of the "
+          f"bound (max abs err {errs})")
+    return out, sums, errs
+
+
+def prefill_forms(K, ref, build, dev, rates, rows=FORM_ROWS) -> list:
+    """Both forms of each 2-D kernel at every B of ``rows`` and every
+    distinct 2-D projection shape of ``FORM_LAYERS``, bf16, half of the
+    blocks kept at random, alpha 1, tau a quarter of the mean g,
+    keep_frac 0.5, unit row weights: ``sparse_matmul_shared``'s gather
+    form (``launch_plan``'s) and tile form (:func:`tile_plan`), both
+    through the C entry, held against the plain version within 1e-4 +
+    1e-4 |ref|; ``score_select``'s cluster and spread forms, forced
+    through the C entry's form argument, held against the plain version
+    (:func:`check_select`).  Each timed by CUDA-graph replay beside dense
+    ``torch.matmul`` (the matmul) and the bounds, with the form each
+    routes to; then the per-layer (jamba: per-pass) sums of each form by
+    B.  Returns the rows."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    alpha = torch.tensor(1.0, device=dev)
+    kf = torch.tensor(KEEP, device=dev)
+    mm, sel, out = {}, {}, []
+    shapes = sorted({(n, m) for _a, layer in FORM_LAYERS
+                     for _r, n, m in layer})
+    for B in rows:
+        reps = {} if B <= 448 else {"reps": 4, "replays": 2}
+        for n, m in shapes:
+            nb = n // BLK
+            kb = round(nb * KEEP)
+            x = torch.randn(B, n, device=dev, generator=gen).to(
+                torch.bfloat16)
+            w = (torch.randn(n, m, device=dev, generator=gen) * 0.02).to(
+                torch.bfloat16)
+            idx = torch.randperm(nb, device=dev, generator=gen)[:kb].to(
+                torch.int32)
+            copies = min(max(1, math.ceil(200e6 / w.nbytes)),
+                         reps.get("reps", 20))
+            ws = [w] + [w.clone() for _ in range(copies - 1)]
+            want = ref.ref_sparse_matmul_shared(x, w, idx, BLK)
+            row = {"B": B, "n": n, "m": m, "kb": kb,
+                   "routed": K.expert_plan(B, n, m, kb, BLK, 2, 1).form}
+            for form, plan in (("gather", None),
+                               ("tile", tile_plan(K, B, m, kb))):
+                fn, _plan = direct_matmul(K, build, "sparse_matmul_shared",
+                                          x, ws, idx, m, kb, False, plan)
+                y = fn(0).clone()
+                torch.cuda.synchronize()
+                check_close(f"2-D matmul {form} form B={B} {n}x{m}", y, want)
+                if not torch.equal(y, fn(0)):
+                    raise AssertionError(f"2-D matmul {form} form B={B} "
+                                         f"{n}x{m}: two launches differ")
+                row[form + "_ms"] = graph_ms(fn, **reps)
+            row["library_ms"] = graph_ms(lambda i: torch.matmul(
+                x, ws[i % copies]), **reps)
+            nbytes = B * kb * BLK * 2 + kb * BLK * m * 2 + kb * 4 + B * m * 4
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                nbytes, 2.0 * B * kb * BLK * m, torch.bfloat16, rates)
+            mm[B, n, m] = row
+            out.append({"kernel": "sparse_matmul_shared", **row})
+            print(f"  2-D matmul B={B:4d} n={n:5d} m={m:5d}: gather "
+                  f"{row['gather_ms'] * 1e3:9.2f} us, tile "
+                  f"{row['tile_ms'] * 1e3:9.2f}, torch.matmul dense "
+                  f"{row['library_ms'] * 1e3:9.2f}, bound "
+                  f"{row['bound_ms'] * 1e3:8.2f} ({row['bound_by']}); "
+                  f"routed: {row['routed']}")
+            del ws, want
+            if (B, n) not in sel:
+                g = torch.sqrt((w.float() ** 2).sum(1))
+                tau = 0.25 * g.mean()
+                rw = torch.ones(B, device=dev)
+                srow = {"B": B, "n": n, "kb": kb,
+                        "routed": K.score_form(B, n, BLK)}
+                plain = ref.ref_score_select(x, g, alpha, tau, kf, BLK, kb,
+                                             rw)
+                for form in ("cluster", "spread"):
+                    fn = direct_select(K, build, x, g, alpha, tau, kf, rw,
+                                       kb, form)
+                    got = tuple(t.clone() for t in fn(0))
+                    torch.cuda.synchronize()
+                    name = f"score_select {form} form B={B} n={n}"
+                    check_select(name, got, plain, rank_limit(KEEP, nb, kb),
+                                 lambda: ref.ref_score_mask(
+                                     x, g, alpha, tau, BLK, rw)[0])
+                    again = fn(0)
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"{name}: two launches differ")
+                    srow[form + "_ms"] = graph_ms(fn, **reps)
+                sbytes = 2 * B * n * 2 + n * 4 + 12 + B * 4 + nb * 4 + kb * 4
+                srow["bound_ms"], srow["bound_by"] = bound_ms(
+                    sbytes, 6.0 * B * n, torch.float32, rates)
+                sel[B, n] = srow
+                out.append({"kernel": "score_select", **srow})
+                print(f"  score_select B={B:4d} n={n:5d}: cluster "
+                      f"{srow['cluster_ms'] * 1e3:8.2f} us, spread "
+                      f"{srow['spread_ms'] * 1e3:8.2f}, bound "
+                      f"{srow['bound_ms'] * 1e3:7.2f}; routed: "
+                      f"{srow['routed']}")
+            del x, w
+    for arch, layer in FORM_LAYERS:
+        counts = role_counts(served_config(arch)) \
+            if arch == "jamba_v01_52b" else {r: 1 for r, _n, _m in layer}
+        unit = "sparse pass" if arch == "jamba_v01_52b" else "layer"
+        for B in rows:
+            t = {}
+            for role, n, m in layer:
+                c = counts[role]
+                for k in ("gather_ms", "tile_ms", "library_ms", "bound_ms"):
+                    t["mm " + k] = t.get("mm " + k, 0.0) + c * mm[B, n, m][k]
+                routed = mm[B, n, m][mm[B, n, m]["routed"] + "_ms"]
+                t["mm routed"] = t.get("mm routed", 0.0) + c * routed
+                for k in ("cluster_ms", "spread_ms", "bound_ms"):
+                    t["sel " + k] = t.get("sel " + k, 0.0) + \
+                        c * sel[B, n][k]
+            print(f"{arch} per {unit} at B={B}: matmul gather "
+                  f"{t['mm gather_ms'] * 1e3:9.2f} us, tile "
+                  f"{t['mm tile_ms'] * 1e3:9.2f}, routed "
+                  f"{t['mm routed'] * 1e3:9.2f}, torch.matmul "
+                  f"{t['mm library_ms'] * 1e3:9.2f}, bound "
+                  f"{t['mm bound_ms'] * 1e3:9.2f}; score_select cluster "
+                  f"{t['sel cluster_ms'] * 1e3:8.2f}, spread "
+                  f"{t['sel spread_ms'] * 1e3:8.2f}, bound "
+                  f"{t['sel bound_ms'] * 1e3:7.2f}")
+    return out
+
+
+def forms_only(dev, card: str, smi: str, rates) -> int:
+    """``--forms-only``: :func:`prefill_forms`, one JSON line."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import sparse_matmul as K
+    build.library()
+    print(build.build_log())
+    rows = prefill_forms(K, ref, build, dev, rates)
+    print(json.dumps({"prefill_forms": rows, "card": card, "smi": smi}))
+    return 0
 
 
 def select_form(G, E: int, R: int, n: int, kb: int, sms: int) -> str:
@@ -1416,21 +1656,27 @@ def experts_only(dev, card: str, src: str, rates) -> int:
     return 0
 
 
-def whole_prefill_kernels(K, ref, dev, rows, layer=GEMMA_LAYER,
-                          model="gemma2_2b") -> dict:
+def whole_prefill_kernels(K, ref, build, dev, rates, rows,
+                          layer=GEMMA_LAYER, model="gemma2_2b") -> tuple:
     """``score_select`` and then ``sparse_matmul_shared`` on its kept
     blocks at every B of ``rows`` (phase 16's whole-prompt prefills, up
-    to 2 x 4326 rows, or phase 18's, up to 3 x 8192) and each of
-    ``layer``'s projection shapes (``model``'s), bf16, no
-    row weights (as ``_prefill_whole`` passes none), alpha 1, k_frac and
-    keep_frac 0.5, tau -inf (the uncalibrated runs) and a finite tau (a
-    quarter of the mean g), held against their plain versions as
-    ``main_path_kernels`` holds them, two launches bit-equal.  Checked,
-    not timed."""
+    to 2 x 4326 rows, phase 18's, up to 3 x 8192, or whisper's cross
+    rows) and each of ``layer``'s projection shapes (``model``'s), bf16,
+    no row weights (as ``_prefill_whole`` passes none), alpha 1, k_frac
+    and keep_frac 0.5, tau -inf (the uncalibrated runs) and a finite tau
+    (a quarter of the mean g), held against their plain versions as
+    ``main_path_kernels`` holds them, two launches bit-equal.  Timed at
+    tau -inf by CUDA-graph replay: each in the form its shape routes to
+    (``score_form``; ``expert_plan`` at one expert) beside its other form
+    (the cluster form forced through the C entry; the gather form on
+    ``launch_plan``'s plan), the plain versions, dense ``torch.matmul``
+    and the bounds; then summed per layer at each B.  Returns (largest
+    errors, rows)."""
     errs = {"score_select": 0.0, "sparse_matmul_shared": 0.0}
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     alpha = torch.tensor(1.0, device=dev)
     kf = torch.tensor(KEEP, device=dev)
+    out = []
     for role, n, m in layer:
         w = (torch.randn(n, m, device=dev, generator=gen) * 0.02).to(
             torch.bfloat16)
@@ -1459,11 +1705,60 @@ def whole_prefill_kernels(K, ref, dev, rows, layer=GEMMA_LAYER,
                         ref.ref_sparse_matmul_shared(xk, w, idx, BLK)))
                 bit_equal(f"sparse_matmul_shared {name}",
                           lambda: K.sparse_matmul_shared(xk, w, idx, blk=BLK))
-            del x
+            row = {"role": role, "B": B, "n": n, "m": m, "kb": kb}
+            reps = {"reps": 4, "replays": 2} if B >= 1024 else \
+                {"reps": 10, "replays": 3}
+            ninf = torch.tensor(-math.inf, device=dev)
+            xk, idx, _ = K.score_select(x, g, alpha, ninf, kf, kb=kb)
+            sbytes = 2 * B * n * 2 + n * 4 + 12 + nb * 4 + kb * 4
+            sbound, sby = bound_ms(sbytes, 6.0 * B * n, torch.float32, rates)
+            row["score_select"] = {
+                "form": K.score_form(B, n, BLK),
+                "ms": graph_ms(direct_select(K, build, x, g, alpha, ninf, kf,
+                                             None, kb), **reps),
+                "cluster_ms": graph_ms(direct_select(
+                    K, build, x, g, alpha, ninf, kf, None, kb, "cluster"),
+                    **reps),
+                "plain_ms": graph_ms(lambda i: ref.ref_score_select(
+                    x, g, alpha, ninf, kf, BLK, kb), **reps),
+                "library_ms": None, "bound_ms": sbound, "bound_by": sby}
+            gather, _plan = direct_matmul(K, build, "sparse_matmul_shared",
+                                          xk, [w], idx, m, kb, False)
+            nbytes = B * kb * BLK * 2 + kb * BLK * m * 2 + kb * 4 + B * m * 4
+            mbound, mby = bound_ms(nbytes, 2.0 * B * kb * BLK * m,
+                                   torch.bfloat16, rates)
+            row["sparse_matmul_shared"] = {
+                "form": K.expert_plan(B, n, m, kb, BLK, 2, 1).form,
+                "ms": graph_ms(lambda i: K.sparse_matmul_shared(xk, w, idx),
+                               **reps),
+                "gather_ms": graph_ms(gather, **reps),
+                "plain_ms": graph_ms(lambda i: ref.ref_sparse_matmul_shared(
+                    xk, w, idx, BLK), **reps),
+                "library_ms": graph_ms(lambda i: torch.matmul(xk, w), **reps),
+                "bound_ms": mbound, "bound_by": mby}
+            out.append(row)
+            del x, xk
+    for B in rows:
+        per = [r for r in out if r["B"] == B]
+        line = []
+        for kname, other in (("score_select", "cluster_ms"),
+                             ("sparse_matmul_shared", "gather_ms")):
+            tot = {k: sum(r[kname][k] for r in per)
+                   for k in ("ms", other, "plain_ms", "library_ms",
+                             "bound_ms") if per[0][kname][k] is not None}
+            line.append(f"{kname} {tot['ms'] * 1e3:9.2f} us ("
+                        + ", ".join(f"{k[:-3]} {v * 1e3:9.2f}"
+                                    for k, v in tot.items() if k != "ms")
+                        + ")")
+        forms = sorted({r["sparse_matmul_shared"]["form"] for r in per}
+                       | {r["score_select"]["form"] for r in per})
+        print(f"{model} per layer ({len(layer)} projections) at the "
+              f"whole-prefill B={B}: " + "; ".join(line)
+              + f"; forms {forms}")
     print(f"whole-prefill kernels: score_select and sparse_matmul_shared at "
           f"B = {rows} x {len(layer)} {model} shapes x 2 taus agree with "
           f"their plain versions (max abs err {errs})")
-    return errs
+    return errs, out
 
 
 def projection_us(ops, dev) -> dict:
@@ -2317,6 +2612,57 @@ def role_counts(cfg) -> dict:
     for mixer, ffn in cfg.layer_kinds():
         for role in KIND_ROLES[mixer] + KIND_ROLES[ffn]:
             out[role] = out.get(role, 0) + 1
+    return out
+
+
+# the 2-D projection shapes, by role, of each arch that serves whole
+# prefill (phases 16, 18 and 24)
+WHOLE_LAYERS = {"gemma2_2b": GEMMA_LAYER, "mamba2_130m": MAMBA_LAYER,
+                "jamba_v01_52b": JAMBA_LAYER}
+
+
+def whole_prefill_forms(K, cfg, rows: int, k_frac: float = KEEP) -> tuple:
+    """(2-D matmuls in the tile form, ``score_select`` calls in the spread
+    form) of one sparse whole prefill of ``rows`` token rows of ``cfg``:
+    each 2-D projection of one sparse pass (:func:`role_counts`) whose
+    shape ``expert_plan`` routes to the tile form at one expert (bf16,
+    aligned operands, as the model's are), and each whose selection
+    ``score_form`` puts in the spread form."""
+    counts = role_counts(cfg)
+    tiles = spread = 0
+    for role, n, m in WHOLE_LAYERS[cfg.name]:
+        c = counts.get(role, 0)
+        nb = n // BLK
+        kb = max(1, min(nb, round(nb * k_frac)))
+        tiles += c * (K.expert_plan(rows, n, m, kb, BLK, 2, 1).form == "tile")
+        spread += c * (K.score_form(rows, n, BLK) == "spread")
+    return tiles, spread
+
+
+def prefill_against_dense(tag: str, runs: dict, smi: str) -> dict:
+    """Each whole prefill's ms (prompt length x batch) in the dense runs
+    beside the sparse-prefill runs' at the same prompts, printed with the
+    2-D tile-form matmuls and spread-form selections of those sparse
+    prefills; returns {"n x b": {"dense": [...], "sparse": [...]}}."""
+    out = {}
+    for name in ("dense", "pallas sparse prefill"):
+        key = "dense" if name == "dense" else "sparse"
+        for r in runs[name]:
+            for n, b, ms in r["whole_prefills"]:
+                out.setdefault(f"{n}x{b}", {"dense": [], "sparse": []})[
+                    key].append(ms)
+    for r in runs["pallas sparse prefill"]:
+        print(f"{tag} sparse whole prefill: {r['tile_launches_2d']} 2-D "
+              f"tile-form matmuls and {r['spread_launches']} spread-form "
+              f"score_selects over {len(r['whole_prefills'])} sparse whole "
+              "prefills")
+    for k, v in sorted(out.items(), key=lambda kv: -int(kv[0].split("x")[0])
+                       * int(kv[0].split("x")[1])):
+        ratio = min(v["sparse"]) / min(v["dense"])
+        print(f"{tag} whole prefill {k}: dense " + " / ".join(
+            f"{ms:.1f}" for ms in v["dense"]) + " ms, sparse " + " / ".join(
+            f"{ms:.1f}" for ms in v["sparse"]) + f" ms (sparse/dense "
+            f"{ratio:.3f}); {smi}")
     return out
 
 
@@ -4630,7 +4976,8 @@ def gemma_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
     step built after warmup, and the launches against the sparse passes
     executed: 7 per layer of each kernel (:func:`pass_launches`) per replay
     of a sparse decode graph, per its eager warm call and per eager
-    whole-prompt prefill run sparse (``prefill_dense_frac`` 0)."""
+    whole-prompt prefill run sparse (``prefill_dense_frac`` 0), and the
+    2-D kernels' whole-prefill forms (:func:`check_whole_forms`)."""
     from repro_torch import obs
     from repro_torch.serving import Engine, EngineConfig
 
@@ -4702,8 +5049,12 @@ def gemma_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
                 "passes")
     if launches["sparse_matmul_per_seq"]:
         raise AssertionError(f"{name}: sparse_matmul_per_seq launched")
+    tiles_2d, spread = check_whole_forms(name, K, cfg, prefills,
+                                         sparse_prefill)
     res.update({
         "strategy": eng.prefill_strategy,
+        "tile_launches_2d": tiles_2d,
+        "spread_launches": spread,
         "rolled_decode_steps": rolled[0],
         "decode_retraces_after_warmup": eng.decode_retraces_after_warmup,
         "decode_replays": list(g.steps),
@@ -4900,6 +5251,7 @@ def serve_gemma(dev, K, cli: dict) -> dict:
                 else f"{k} {r[k]}" for k in keys)
                 + f"; launches {r['launches']}; whole-prefill ms per "
                 f"prompt length x batch: {pre}")
+    against = prefill_against_dense("gemma2", runs, nvidia_smi())
     gve = gemma_graph_vs_eager(dev, cfg, params, sp, trace)
     d = runs["dense"]
     long_ms = [ms for n, _b, ms in d[0]["whole_prefills"] if n > 4096]
@@ -4912,7 +5264,7 @@ def serve_gemma(dev, K, cli: dict) -> dict:
                                       if k not in keep}
                     for n, rs in runs.items() for i, r in enumerate(rs)},
            "calibration": calib, "graph_vs_eager": gve, "serve_cli": cli,
-           "trace_lens": trace["lens"]}
+           "trace_lens": trace["lens"], "prefill_against_dense": against}
     del params, sp
     gc.collect()
     torch.cuda.empty_cache()
@@ -5282,6 +5634,29 @@ def mamba_short_trace(cfg) -> dict:
             "ecfg": dict(MAMBA_ECFG)}
 
 
+def check_whole_forms(name, K, cfg, prefills, sparse_prefill) -> tuple:
+    """The 2-D kernels' whole-prefill forms in one run (the counts reset
+    before it): ``tile_launches["sparse_matmul_shared"]`` and
+    ``spread_launches["score_select"]`` equal to what its sparse whole
+    prefills launch (:func:`whole_prefill_forms` at each prefill's rows
+    ``prompt length x batch``; decode and chunk rows never take either
+    form), and nonzero in a run with sparse whole prefills.  Returns
+    (tile-form matmuls, spread-form selections)."""
+    tiles_2d = K.tile_launches["sparse_matmul_shared"]
+    spread = K.spread_launches["score_select"]
+    want = [0, 0]
+    if sparse_prefill:
+        for n, b, _ms in prefills:
+            t, sp = whole_prefill_forms(K, cfg, n * b)
+            want = [want[0] + t, want[1] + sp]
+    if [tiles_2d, spread] != want or (sparse_prefill and 0 in want):
+        raise AssertionError(
+            f"{name}: {tiles_2d} 2-D tile-form matmuls and {spread} "
+            f"spread-form selections, expected {want[0]} and {want[1]} "
+            "(nonzero with sparse whole prefills)")
+    return tiles_2d, spread
+
+
 def ssm_state_bytes(eng) -> int:
     """Bytes of every slot's conv windows and f32 SSM state in ``eng``'s
     pool (a decode step reads them once and writes them once)."""
@@ -5305,7 +5680,8 @@ def ssm_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
     whole prefill run sparse (``prefill_dense_frac`` 0; a ladder run
     prefills dense), and of those expert matmuls the tile form's: every
     one of a sparse whole prefill whose expert rows reach
-    ``TILE_MIN_ROWS``, no other."""
+    ``TILE_MIN_ROWS``, no other; and the 2-D kernels' whole-prefill forms
+    (:func:`check_whole_forms`)."""
     from repro_torch import obs
     from repro_torch.models import moe
     from repro_torch.serving import Engine, EngineConfig
@@ -5391,6 +5767,8 @@ def ssm_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
         raise AssertionError(f"{name}: the expert matmul's tile form "
                              f"launched {tiles} times, expected "
                              f"{want_tiles}")
+    tiles_2d, spread = check_whole_forms(name, K, cfg, prefills,
+                                         sparse_prefill)
     distinct = len({t for ts in out.values() for t in ts})
     if distinct < 2:
         raise AssertionError(f"{name}: every request emitted one token")
@@ -5405,6 +5783,8 @@ def ssm_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
         "launches": {k: launches[k] for k in served},
         "launches_counted": {k: counts[k] for k in served},
         "tile_launches": tiles,
+        "tile_launches_2d": tiles_2d,
+        "spread_launches": spread,
         "launches_per_pass": pass_launches(cfg, dec_pols[0])
         if ladder is None else [pass_launches(cfg, d) for d in dec_pols],
         "state_bytes": ssm_state_bytes(eng),
@@ -5688,6 +6068,7 @@ def serve_mamba(dev, K, cli: dict) -> dict:
                 + f"; launches {r['launches']} ({r['launches_per_pass']} "
                 f"per sparse pass); whole-prefill ms per prompt length x "
                 f"batch: {pre}")
+    against = prefill_against_dense("mamba2", runs, nvidia_smi())
     gve = ssm_graph_vs_eager(dev, cfg, params, sp, trace)
     calibrated = mamba_calibrated(dev, K, cfg, params, sp, trace)
     for name in ("dense", "pallas"):
@@ -5705,7 +6086,8 @@ def serve_mamba(dev, K, cli: dict) -> dict:
                                       if k != "tokens"}
                     for n, rs in runs.items() for i, r in enumerate(rs)},
            "step_bounds": bounds, "graph_vs_eager": gve, "serve_cli": cli,
-           "trace_lens": trace["lens"], "calibrated": calibrated}
+           "trace_lens": trace["lens"], "calibrated": calibrated,
+           "prefill_against_dense": against}
     del params, sp
     gc.collect()
     torch.cuda.empty_cache()
@@ -7470,6 +7852,7 @@ def serve_jamba(dev, K, smi: str) -> dict:
                   f"{n} {ms:.1f}" for n, ms in sorted(lens.items(),
                                                       reverse=True))
               + f"; TTFT p50 {sp_run['ttft_p50_ms']:.1f} ms; {smi}")
+    against = prefill_against_dense("jamba", runs, smi)
     dense_4096 = [ms for r in runs["dense"] for n, _b, ms in
                   r["whole_prefills"] if n == 4096]
     print("jamba dense runs: TTFT p50 " + " / ".join(
@@ -7487,7 +7870,7 @@ def serve_jamba(dev, K, smi: str) -> dict:
                     for n, rs in runs.items() for i, r in enumerate(rs)},
            "step_bounds": bounds, "graph_vs_eager": gve,
            "capacity_drops": capacity, "calibration": calib,
-           "phase_peak_gb": peak}
+           "phase_peak_gb": peak, "prefill_against_dense": against}
     del params, sp, plan_sp, modes
     gc.collect()
     torch.cuda.empty_cache()
@@ -7505,9 +7888,10 @@ def jamba_kernels(K, ref, build, dev, rates) -> tuple:
     bound; then the 2-D kernels summed over one sparse pass of the period
     (58 projections, :func:`role_counts`), the expert matmul's two forms
     (:func:`expert_matmul_forms`) and the tile form at E = 1 on 2-D
-    whole-prefill shapes (:func:`tile_form_2d_evidence`).  Returns (rows,
-    errs, expert rows, expert errs, per-pass sums, form rows, form errs,
-    evidence rows, evidence err)."""
+    whole-prefill rows in their routed forms (:func:`tile_form_2d_evidence`).
+    Returns (rows, errs, expert rows, expert errs, per-pass sums, form
+    rows, form errs, whole-prefill rows, their per-pass sums, their
+    errs)."""
     rows, errs = main_path_kernels(K, ref, build, dev, rates,
                                    layer=JAMBA_LAYER, batches=(8, 32),
                                    v1=False)
@@ -7519,26 +7903,28 @@ def jamba_kernels(K, ref, build, dev, rates) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     f_rows, f_errs = expert_matmul_forms(K, ref, build, dev, rates)
-    v_rows, v_err = tile_form_2d_evidence(K, ref, dev, rates)
+    v_rows, v_sums, v_errs = tile_form_2d_evidence(K, ref, build, dev, rates)
     gc.collect()
     torch.cuda.empty_cache()
-    return rows, errs, e_rows, e_errs, per_pass, f_rows, f_errs, v_rows, v_err
+    return (rows, errs, e_rows, e_errs, per_pass, f_rows, f_errs, v_rows,
+            v_sums, v_errs)
 
 
 def jamba_only(dev, K, ref, build, rates, smi: str, t_start) -> int:
     """``--jamba-only``: :func:`jamba_kernels` and phase 24, one JSON line
     (no contract lines)."""
     from repro_torch import obs
-    (rows, errs, e_rows, e_errs, per_pass, f_rows, f_errs, v_rows,
-     v_err) = jamba_kernels(K, ref, build, dev, rates)
+    (rows, errs, e_rows, e_errs, per_pass, f_rows, f_errs, v_rows, v_sums,
+     v_errs) = jamba_kernels(K, ref, build, dev, rates)
     t0 = obs.now()
     jamba = serve_jamba(dev, K, smi)
     print(json.dumps({"jamba_only": {
         **jamba, "kernels": rows, "kernels_max_abs_err": errs,
         "expert_kernels": e_rows, "expert_kernels_max_abs_err": e_errs,
         "kernels_per_sparse_pass": per_pass, "expert_matmul_forms": f_rows,
-        "expert_matmul_max_abs_err": f_errs, "tile_2d_evidence": v_rows,
-        "tile_2d_evidence_max_abs_err": v_err, "phase_24_s": obs.now() - t0,
+        "expert_matmul_max_abs_err": f_errs, "whole_prefill_2d": v_rows,
+        "whole_prefill_2d_per_pass": v_sums,
+        "whole_prefill_2d_max_abs_err": v_errs, "phase_24_s": obs.now() - t0,
         "s": obs.now() - t_start, "card": smi}}))
     return 0
 
@@ -7686,6 +8072,12 @@ def main() -> int:
                          "forms at jamba's (phase 3's expert_select_shapes "
                          "and expert_matmul_forms), print them as one JSON "
                          "line, and stop")
+    ap.add_argument("--forms-only", action="store_true",
+                    help="build the kernels, hold and time both forms of "
+                         "each 2-D kernel (the matmul's gather and tile "
+                         "forms, score_select's cluster and spread forms) "
+                         "at 48-4096 rows and five archs' 2-D shapes, "
+                         "print one JSON line, and stop")
     ap.add_argument("--jamba-only", action="store_true",
                     help="build the kernels, hold and time them at "
                          "jamba_v01_52b's shapes (phase 3's jamba part), "
@@ -7717,6 +8109,9 @@ def main() -> int:
     if args.experts_only:
         from repro_torch.launch import constants
         return experts_only(dev, card, args.src, constants.peak_rates(card))
+    if args.forms_only:
+        from repro_torch.launch import constants
+        return forms_only(dev, card, smi, constants.peak_rates(card))
 
     t_start = t0 = obs.now()
     build.library()
@@ -7760,7 +8155,8 @@ def main() -> int:
     g_rows, errs3 = main_path_kernels(K, ref, build, dev, rates,
                                       layer=GEMMA_LAYER, batches=(8, 32),
                                       v1=False)
-    errs4 = whole_prefill_kernels(K, ref, dev, gemma_prefill_rows())
+    errs4, wp_gemma = whole_prefill_kernels(K, ref, build, dev, rates,
+                                            gemma_prefill_rows())
     # granite_moe_3b_a800m: its attention shapes through the 2-D kernels
     # and its expert shapes through the expert-batched ones (phase 17)
     ga_rows, errs5 = main_path_kernels(K, ref, build, dev, rates,
@@ -7776,23 +8172,24 @@ def main() -> int:
     m_rows, errs7 = main_path_kernels(K, ref, build, dev, rates,
                                       layer=MAMBA_LAYER, batches=(8, 32),
                                       v1=False)
-    errs8 = whole_prefill_kernels(K, ref, dev, mamba_prefill_rows(),
-                                  layer=MAMBA_LAYER, model="mamba2_130m")
+    errs8, wp_mamba = whole_prefill_kernels(
+        K, ref, build, dev, rates, mamba_prefill_rows(), layer=MAMBA_LAYER,
+        model="mamba2_130m")
     # whisper_large_v3's and internvl2_26b's decode-layer shapes (phase
     # 20), B = 8 and 32 timed, and whisper's cross wk/wv at its encoder
     # row counts
     w_rows, errs9 = main_path_kernels(K, ref, build, dev, rates,
                                       layer=WHISPER_LAYER, batches=(8, 32),
                                       v1=False)
-    errs10 = whole_prefill_kernels(K, ref, dev, WHISPER_CROSS_ROWS,
-                                   layer=WHISPER_CROSS_KV,
-                                   model="whisper_large_v3")
+    errs10, wp_whisper = whole_prefill_kernels(
+        K, ref, build, dev, rates, WHISPER_CROSS_ROWS, layer=WHISPER_CROSS_KV,
+        model="whisper_large_v3")
     i_rows, errs11 = main_path_kernels(K, ref, build, dev, rates,
                                        layer=INTERNVL_LAYER, batches=(8, 32),
                                        v1=False)
     # jamba_v01_52b's 13 2-D shapes and its 3 expert shapes (phase 24)
     (j_rows, errs12, je_rows, errs13, jamba_pass, jf_rows, errs14, jv_rows,
-     err15) = jamba_kernels(K, ref, build, dev, rates)
+     jv_sums, errs15) = jamba_kernels(K, ref, build, dev, rates)
     ps_rows, ps_err, ps_launches = per_seq_kernel(K, ref, ops, build, dev,
                                                   rates)
     layer_summary(rows, ps_rows, proj)
@@ -7904,7 +8301,11 @@ def main() -> int:
                           "expert_kernels": je_rows,
                           "kernels_per_sparse_pass": jamba_pass,
                           "expert_matmul_forms": jf_rows,
-                          "tile_2d_evidence": jv_rows}}}))
+                          "whole_prefill_2d": jv_rows,
+                          "whole_prefill_2d_per_pass": jv_sums},
+        "whole_prefill_kernels": {"gemma2_2b": wp_gemma,
+                                  "mamba2_130m": wp_mamba,
+                                  "whisper_large_v3": wp_whisper}}}))
 
     decode_rows = [r for r in rows if r["B"] == 8]
     expert_rows = [r for r in ge_rows if r["R"] == 8]
@@ -7954,7 +8355,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/sparse_matmul.py:211",
         "launches": jamba["runs"]["pallas sparse prefill 1"][
             "tile_launches"],
-        "max_abs_err": max(errs14["tile"], err15),
+        "max_abs_err": errs14["tile"],
         "ms": sum(p["ms"] for p in per),
         "plain_ms": sum(p["plain_ms"] for p in per),
         "bound_ms": sum(p["bound_ms"] for p in per),
@@ -7962,6 +8363,34 @@ def main() -> int:
                      else "operations"),
         "library_ms": sum(p["library_ms"] for p in per),
     })
+    # the 2-D kernels' whole-prefill forms, per jamba sparse pass at B =
+    # 4096 over the shapes routed to them, and their launches in phase
+    # 24's first sparse-prefill run
+    sp_run = jamba["runs"]["pallas sparse prefill 1"]
+    jamba_roles = role_counts(served_config("jamba_v01_52b"))
+    for name, kname, form, src, line, launches in (
+            ("sparse_matmul_shared_tile", "sparse_matmul_shared", "tile",
+             "sparse_matmul_tile.cu", 211, sp_run["tile_launches_2d"]),
+            ("score_select_spread", "score_select", "spread",
+             "score_select.cu", 319, sp_run["spread_launches"])):
+        per = [r[kname] for r in jv_rows
+               for _ in range(jamba_roles[r["role"]])
+               if r[kname]["form"] == form]
+        lib = [q["library_ms"] for q in per]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/sparse_matmul.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(errs15[kname], errs4[kname], errs8[kname],
+                               errs10[kname]),
+            "ms": sum(q["ms"] for q in per),
+            "plain_ms": sum(q["plain_ms"] for q in per),
+            "bound_ms": sum(q["bound_ms"] for q in per),
+            "bound_by": ("bytes" if all(q["bound_by"] == "bytes"
+                                         for q in per) else "operations"),
+            "library_ms": None if lib[0] is None else sum(lib),
+        })
     per = [r for r in ps_rows if r["B"] == 8]
     kernels.append({
         "name": "sparse_matmul_per_seq", "route": "cuda",

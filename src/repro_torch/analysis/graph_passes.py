@@ -521,6 +521,14 @@ _BATCHES = (1, 8, 32, 448)
 # period of jamba_v01_52b in chip_smoke.py's phase 24): a MoE arch's
 # expert rows at each are its capacity for one prompt, 641 at 4096 tokens
 _WHOLE_PREFILL = (4096, 1536, 704, 1408, 3136, 2368, 2944, 1728)
+# the 2-D rows of the whole prefills chip_smoke.py serves at published
+# width, where the shared matmul takes its tile form and score_select its
+# spread form: phase 24's lengths above, phase 16's (gemma2_2b: 4314,
+# 4430 and two prompts of 4326), phase 18's (mamba2_130m: 4099 and three
+# of 8192) and phase 20's (whisper_large_v3's cross wk/wv over one and
+# four utterances' 1500 frames)
+_WHOLE_PREFILL_2D = _WHOLE_PREFILL + (4314, 4430, 8652, 4099, 24576, 1500,
+                                      6000)
 
 
 @register
@@ -532,16 +540,19 @@ class LaunchGeometryPass(GlobalPass):
     ``kernels.geometry`` over the JAX pass's awkward shapes (prime dims,
     f32 and bf16) and every projection shape of ten archs at published
     width (``serving.graphs.matmul_shapes`` on meta params, as the dry
-    run builds them), B in {1, 8, 32, 448} (expert rows of the MoE archs
-    at those decode and chunk sizes, and at the whole prefill of each
-    ``_WHOLE_PREFILL`` length), kb in {1, nb/2, nb}.  On the card
-    the limits come from the device and the mirror is held against
-    ``wisparse_launch_info``.  The expert matmul's plan is
-    ``expert_plan``'s; in its tile form the persistent CTAs must walk each
-    (expert, row tile, column tile) once.  ``report`` keeps the number of
+    run builds them), B in {1, 8, 32, 448} and, for the 2-D kernels, the
+    rows of each served whole prefill (``_WHOLE_PREFILL_2D``; expert rows
+    of the MoE archs at those decode and chunk sizes, and at the whole
+    prefill of each ``_WHOLE_PREFILL`` length), kb in {1, nb/2, nb}.  On
+    the card the limits come from the device and the mirror is held
+    against ``wisparse_launch_info``.  Both shared matmuls' plans are
+    ``expert_plan``'s (the 2-D entry's at one expert); in the tile form
+    the persistent CTAs must walk each (expert, row tile, column tile)
+    once, checked once per tile plan.  ``report`` keeps the number of
     shapes, of comparisons, each kernel's largest shared memory and
-    headroom, the forms ``score_select`` and ``score_select_experts``
-    took, and the matmuls' (``matmul_forms``).
+    headroom, the forms ``score_select`` (cluster, spread) and
+    ``score_select_experts`` took, and the matmuls' (``matmul_forms``,
+    and per kernel ``matmul_forms_by_kernel``).
     """
 
     rule = "launch-geometry"
@@ -580,7 +591,9 @@ class LaunchGeometryPass(GlobalPass):
                 {moe.expert_rows(cfg, 1, t)
                  for t in _BATCHES + _WHOLE_PREFILL} \
                 if cfg.num_experts else set()
-            out.update(matmul_shapes(abstract, {128}, set(_BATCHES), erows))
+            out.update(matmul_shapes(abstract, {128},
+                                     set(_BATCHES + _WHOLE_PREFILL_2D),
+                                     erows))
         return sorted(out)
 
     def run(self, repo_root: str, device: str = "cuda") -> List[Finding]:
@@ -598,7 +611,8 @@ class LaunchGeometryPass(GlobalPass):
         geo_line = _line_of(repo_root, self._GEO, "def score_select_geometry")
         smem = {k: 0 for k in G.KERNELS}
         forms = {"score_select": set(), "score_select_experts": set()}
-        matmul_forms = set()
+        matmul_forms = {}
+        walked_plans = set()
         report = {"shapes": 0, "compared": 0, "min_active_clusters": None}
 
         def finding(rel, line, msg, snippet):
@@ -695,9 +709,10 @@ class LaunchGeometryPass(GlobalPass):
                         f"{kernel} {where}: a weight tile read leaves the "
                         f"padded ({n}, {m}) with ids 0 and {nb - 1}",
                         f"{kernel} bounds")
-            if plan.form == "tile":
+            if plan.form == "tile" and plan not in walked_plans:
                 # the persistent CTAs compute every (expert, row tile,
-                # column tile) once
+                # column tile) once (the walk is the plan's: one check each)
+                walked_plans.add(plan)
                 walked = sorted(itertools.chain.from_iterable(
                     G.tile_walk(plan, sms)))
                 if walked != sorted(itertools.product(
@@ -707,7 +722,7 @@ class LaunchGeometryPass(GlobalPass):
                             f"{kernel} {where}: the tile form's CTAs do not "
                             "walk each (expert, row tile, column tile) once",
                             f"{kernel} tile walk")
-            matmul_forms.add(plan.form)
+            matmul_forms.setdefault(kernel, set()).add(plan.form)
             geo = G.matmul_geometry(kernel, plan, B, n, m, blk, kb, elem, sms)
             query = functools.partial(
                 G.launch_info, kernel, plan.experts, B, n, m, blk, kb,
@@ -726,9 +741,9 @@ class LaunchGeometryPass(GlobalPass):
             reserved = K.launch_plan(B, n, m, nb, blk, False, elem, E)
             for kb in sorted({1, max(1, nb // 2), nb}):
                 for kernel, per_seq in mm:
-                    plan = K.expert_plan(B, n, m, kb, blk, elem, E) \
-                        if E > 1 else \
-                        K.launch_plan(B, n, m, kb, blk, per_seq, elem, E)
+                    plan = K.launch_plan(B, n, m, kb, blk, True, elem) \
+                        if per_seq else \
+                        K.expert_plan(B, n, m, kb, blk, elem, E)
                     check_plan(kernel, plan, B, n, m, blk, kb, elem,
                                f"{where} kb={kb}")
                     if not per_seq and (
@@ -757,7 +772,9 @@ class LaunchGeometryPass(GlobalPass):
         findings.extend(self._channel_plan(repo_root))
         report["smem"] = smem
         report["forms"] = {k: sorted(v) for k, v in forms.items()}
-        report["matmul_forms"] = sorted(matmul_forms)
+        report["matmul_forms"] = sorted(set().union(*matmul_forms.values()))
+        report["matmul_forms_by_kernel"] = {
+            k: sorted(v) for k, v in sorted(matmul_forms.items())}
         report["headroom"] = {k: limits["smem_optin"] - v
                               for k, v in smem.items()}
         report["limits"] = limits

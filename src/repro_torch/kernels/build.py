@@ -31,8 +31,10 @@ _I = ctypes.c_int
 # name -> argtypes; every entry returns a cudaError_t as int
 SIGNATURES = {
     # x, g, alpha, tau, keep_frac, rw, xm, idx, bs, B, n, blk, kb, dtype,
+    # workspace, its length, form (-1 the shape's, 0 cluster, 1 spread),
     # stream
-    "wisparse_score_select": (_P,) * 9 + (_I,) * 5 + (_P,),
+    "wisparse_score_select": (_P,) * 9 + (_I,) * 5 + (_P,) + (_I,) * 2
+    + (_P,),
     # x, w, idx, y, workspace, counters, B, n, m, blk, kb, rows, cols,
     # splits, dtype, stream
     "wisparse_sparse_matmul_shared": (_P,) * 6 + (_I,) * 9 + (_P,),

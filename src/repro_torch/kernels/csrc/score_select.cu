@@ -51,7 +51,28 @@
 //   version's, so xm is bit-equal to it; rintf rounds half to even, as
 //   torch.round and jnp.round do.
 // One cluster uses 8-16 of the 132 SMs, so at a whole-prompt B (hundreds
-// of rows) the time grows with B, far from the bound.
+// to thousands of rows) its time grows with B, far from the bound (185 us
+// per llama31_8b layer at B = 448 against a 20.9 us bound).  There the
+// 2-D entry takes the spread form instead (Geometry: from kSpreadMinRows
+// rows on, 16-byte units, blk / units dividing kSpreadThreads, nb <=
+// kSpreadMaxBlocks), two launches over a grid of (channel block, row
+// slab) blocks, about kSpreadPerSM blocks per SM:
+// - spread_sums_kernel: each block scores its slab's rows of its channel
+//   block (a thread owns one 16-byte column and every RG-th row, RG =
+//   threads / (blk / units), kSpreadUnroll loads in flight) and writes one
+//   f32 partial sum, summed over its threads by a fixed shuffle tree and
+//   its warps in order, to ws[slab * nb + block].  No atomics.
+// - spread_mask_kernel: every block sums the nb x S partials again, in
+//   slab order (the same bits in every block: 4 x SMs + nb values from
+//   L2), ranks its own channel block by counting over the nb sums
+//   (ranks_before, as the cluster form), and writes its slab of xm: x
+//   re-read (from L2 where the first pass left it) and masked where the
+//   block is kept, zeros without a read where it is not.  The blocks of
+//   slab 0 write bs and idx.
+// Two launches of one call are bit-equal to two more; one call counts
+// once on the host.  Bound: bytes, x read once and xm written once; the
+// design reads x twice, the second time mostly from L2 and only in kept
+// blocks.
 // Expert axis: the reference runs this kernel under jax.vmap over a MoE
 // layer's experts (src/repro/models/moe.py:93-112), one selection per
 // expert, each with its own x (R, n), g, idx and bs, while alpha, tau
@@ -136,6 +157,19 @@ constexpr int kExpertNJ[kExpertConfigs] = {1, 1, 1, 1, 1, 1, 1,
 constexpr int kExpertRU[kExpertConfigs] = {1, 2, 3, 4, 5, 6, 8,
                                            12, 16, 1, 2, 4, 8};
 constexpr int kExpertMaxBlocks = 32;       // kExpertWarps x the largest NJ
+// The 2-D entry's spread form (whole-prefill rows): threads per block,
+// loads in flight per thread, target blocks per SM, the least rows it
+// takes (PERF.md holds the times of both forms that chose it) and the
+// most channel blocks (each block sums every block's partials again).
+constexpr int kSpreadThreads = 256;
+constexpr int kSpreadWarps = kSpreadThreads / 32;
+constexpr int kSpreadUnroll = 8;
+constexpr int kSpreadPerSM = 4;
+constexpr int kSpreadMinRows = 64;
+constexpr int kSpreadMaxBlocks = 512;
+// Geometry's form codes besides the per-expert configs (>= 0)
+constexpr int kClusterForm = -1;
+constexpr int kSpreadForm = -2;
 
 // A thread's load unit: 16 bytes (uint4) when the channel block is a
 // multiple of 16 bytes and x, xm are 16-byte aligned, else one element.
@@ -577,6 +611,172 @@ select_expert_kernel(const T* __restrict__ x, const float* __restrict__ g,
 }
 
 
+// The spread form's first pass (see the design comment): block (j, q)
+// scores rows [q * rows, (q + 1) * rows) of channel block j and writes
+// their kept-score sum, weighted by rw, to ws[q * nb + j].
+template <typename T>
+__global__ void __launch_bounds__(kSpreadThreads)
+spread_sums_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                   const float* __restrict__ alpha_p,
+                   const float* __restrict__ tau_p,
+                   const float* __restrict__ rw, float* __restrict__ ws,
+                   int B, int n, int blk, int rows) {
+  using U = Unit<T, true>;
+  constexpr int EL = U::kElems;
+  extern __shared__ float smem[];
+  float* gps = smem;                           // blk g^alpha values
+  float* wsum = smem + blk;                    // one sum per warp
+  const int j = blockIdx.x;
+  const int q = blockIdx.y;
+  const int nb = gridDim.x;
+  const int bv = blk / EL;                     // lanes per block row
+  const int rg = kSpreadThreads / bv;          // row groups
+  const int t = threadIdx.x;
+  const int r0 = q * rows + t / bv;
+  const int r1 = min(B, (q + 1) * rows);
+  const size_t col = static_cast<size_t>(j) * blk + (t % bv) * EL;
+  const float alpha = *alpha_p;
+  const float tau = *tau_p;
+  for (int ch = t; ch < blk; ch += kSpreadThreads) {
+    gps[ch] = powf(fmaxf(g[static_cast<size_t>(j) * blk + ch], 1e-12f),
+                   alpha);
+  }
+  __syncthreads();
+  float gp[EL];
+#pragma unroll
+  for (int e = 0; e < EL; ++e) gp[e] = gps[(t % bv) * EL + e];
+  float acc = 0.0f;
+  for (int b0 = r0; b0 < r1; b0 += kSpreadUnroll * rg) {
+    typename U::Raw v[kSpreadUnroll];
+    float wt[kSpreadUnroll];
+#pragma unroll
+    for (int u = 0; u < kSpreadUnroll; ++u) {
+      const int b = b0 + u * rg;
+      if (b < r1) {
+        v[u] = U::load(x + static_cast<size_t>(b) * n + col);
+        wt[u] = rw != nullptr ? rw[b] : 1.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSpreadUnroll; ++u) {
+      if (b0 + u * rg < r1) {
+#pragma unroll
+        for (int e = 0; e < EL; ++e) {
+          const float s = fabsf(U::get(v[u], e)) * gp[e];
+          acc += (s >= tau ? s : 0.0f) * wt[u];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (t % 32 == 0) wsum[t / 32] = acc;
+  __syncthreads();
+  if (t == 0) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kSpreadWarps; ++w) sum += wsum[w];
+    ws[static_cast<size_t>(q) * nb + j] = sum;
+  }
+}
+
+// The spread form's second pass: block (j, q) sums the S x nb partials in
+// slab order (every block the same bits), ranks channel block j among the
+// nb sums, and writes its slab of xm; the blocks of slab 0 write bs and,
+// with a selection (idx), idx.  keep_p null: no limit below kb.
+template <typename T>
+__global__ void __launch_bounds__(kSpreadThreads)
+spread_mask_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                   const float* __restrict__ alpha_p,
+                   const float* __restrict__ tau_p,
+                   const float* __restrict__ keep_p,
+                   const float* __restrict__ ws, T* __restrict__ xm,
+                   int* __restrict__ idx, float* __restrict__ bs, int B,
+                   int n, int blk, int kb, int rows) {
+  using U = Unit<T, true>;
+  constexpr int EL = U::kElems;
+  extern __shared__ float smem[];
+  float* gps = smem;                           // blk g^alpha values
+  float* table = smem + blk;                   // nb block sums
+  __shared__ int kept;
+  const int j = blockIdx.x;
+  const int q = blockIdx.y;
+  const int nb = gridDim.x;
+  const int S = gridDim.y;
+  const int bv = blk / EL;
+  const int rg = kSpreadThreads / bv;
+  const int t = threadIdx.x;
+  const float alpha = *alpha_p;
+  const float tau = *tau_p;
+  for (int i = t; i < nb; i += kSpreadThreads) {
+    float sum = 0.0f;
+    for (int p = 0; p < S; ++p) sum += ws[static_cast<size_t>(p) * nb + i];
+    table[i] = sum;
+  }
+  for (int ch = t; ch < blk; ch += kSpreadThreads) {
+    gps[ch] = powf(fmaxf(g[static_cast<size_t>(j) * blk + ch], 1e-12f),
+                   alpha);
+  }
+  __syncthreads();
+  if (t < 32) {
+    const float a = table[j];
+    int cnt = 0;
+    if (idx != nullptr) {
+      for (int i = t; i < nb; i += 32) {
+        cnt += ranks_before(table[i], i, a, j) ? 1 : 0;
+      }
+      cnt = __reduce_add_sync(0xffffffffu, cnt);
+    }
+    if (t == 0) {
+      const float kb_l = keep_p != nullptr
+                             ? rintf(*keep_p * static_cast<float>(nb))
+                             : static_cast<float>(kb);
+      kept = idx == nullptr || (cnt < kb && static_cast<float>(cnt) < kb_l);
+      if (q == 0) {
+        bs[j] = a;
+        if (idx != nullptr && cnt < kb) idx[cnt] = j;
+      }
+    }
+  }
+  __syncthreads();
+  const bool blk_kept = kept != 0;
+  const int r0 = q * rows + t / bv;
+  const int r1 = min(B, (q + 1) * rows);
+  const size_t col = static_cast<size_t>(j) * blk + (t % bv) * EL;
+  float gp[EL];
+#pragma unroll
+  for (int e = 0; e < EL; ++e) gp[e] = gps[(t % bv) * EL + e];
+  for (int b0 = r0; b0 < r1; b0 += kSpreadUnroll * rg) {
+    typename U::Raw v[kSpreadUnroll];
+#pragma unroll
+    for (int u = 0; u < kSpreadUnroll; ++u) {
+      const int b = b0 + u * rg;
+      if (b < r1 && blk_kept) {
+        v[u] = U::load(x + static_cast<size_t>(b) * n + col);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSpreadUnroll; ++u) {
+      const int b = b0 + u * rg;
+      if (b < r1) {
+        unsigned keep = 0u;
+        if (blk_kept) {
+#pragma unroll
+          for (int e = 0; e < EL; ++e) {
+            const float s = fabsf(U::get(v[u], e)) * gp[e];
+            keep |= (s >= tau ? 1u : 0u) << e;
+          }
+        }
+        U::store(xm + static_cast<size_t>(b) * n + col,
+                 blk_kept ? U::masked(v[u], keep)
+                          : U::masked(typename U::Raw{}, 0u));
+      }
+    }
+  }
+}
+
 // Dynamic shared memory above 48 KB and clusters above 8 blocks need a
 // function attribute, set once per device; the device's SM count is read
 // at the same time and kept for later launches in ``sms``.
@@ -611,18 +811,26 @@ cudaError_t prepare(Kern kern, unsigned& done, int& sms) {
 // and `score_select_info` alike.  The expert entry (`experts`) takes the
 // per-expert form where an expert's slab fits one block's registers
 // (form >= 0: the index of the first kExpertConfigs entry that holds the
-// warp's channel blocks and the lane's rows); else, and always for the
-// 2-D entry, one cluster per expert: the E experts' clusters share the
-// card, each taking at most SMs / E blocks so that all of them run at
-// once.
+// warp's channel blocks and the lane's rows); the 2-D entry the spread
+// form from kSpreadMinRows rows on where its blocks can hold a channel
+// block's columns (form kSpreadForm); else one cluster per expert
+// (kClusterForm): the E experts' clusters share the card, each taking at
+// most SMs / E blocks so that all of them run at once.  `want` (2-D
+// only): -1 the shape's own form, 0 the cluster form, 1 the spread form
+// (a forced form the shape cannot take leaves `ok` false).
 template <typename T, bool kWide>
 struct Geometry {
-  int form = -1;  // -1: one cluster per expert; else the per-expert config
-  int C;          // blocks per cluster (1 in the per-expert form)
-  int grid;       // grid x (the cluster form's grid is (C, E))
+  int form = kClusterForm;
+  int C;          // blocks per cluster (1 in the other forms)
+  int grid;       // grid x (the cluster form's grid is (C, E), the spread
+                  // form's (nb, slabs))
+  int slabs = 1;  // spread form: row slabs, of `rows` rows each
+  int rows = 0;
   int threads;
   size_t smem;    // dynamic shared memory per block
-  Geometry(bool experts, int E, int B, int nb, int blk, int sms) {
+  bool ok = true;
+  Geometry(bool experts, int E, int B, int nb, int blk, int sms,
+           int want = -1) {
     if (experts && kWide && blk == kExpertBlk) {
       const int G = 32 * Unit<T, true>::kElems / kExpertBlk;
       const int W = std::min(kExpertWarps, nb);
@@ -636,6 +844,28 @@ struct Geometry {
         grid = std::min(E, sms);
         threads = 32 * W;
         smem = 0;
+        return;
+      }
+    }
+    const int bv = blk / Unit<T, true>::kElems;
+    const bool spread_ok = !experts && kWide && nb <= kSpreadMaxBlocks &&
+                           bv > 0 && kSpreadThreads % bv == 0;
+    if (!experts && (want == 1 || (want < 0 && B >= kSpreadMinRows))) {
+      ok = spread_ok || want != 1;   // a forced spread form it cannot take
+      if (spread_ok) {
+        // about kSpreadPerSM blocks per SM, slabs of whole row groups
+        const int rg = kSpreadThreads / bv;
+        const int target = kSpreadPerSM * sms;
+        const int s0 = std::max(1, std::min((B + rg - 1) / rg,
+                                            (target + nb - 1) / nb));
+        rows = ((B + s0 - 1) / s0 + rg - 1) / rg * rg;
+        slabs = (B + rows - 1) / rows;
+        form = kSpreadForm;
+        C = 1;
+        grid = nb;
+        threads = kSpreadThreads;
+        smem = sizeof(float) *
+               (static_cast<size_t>(blk) + std::max(nb, kSpreadWarps));
         return;
       }
     }
@@ -690,16 +920,48 @@ auto expert_kernel(int form) {
                              std::make_index_sequence<kExpertConfigs>{});
 }
 
+// The spread form's two launches on `st` (ws: geo.slabs x nb partials).
+template <typename T>
+int launch_spread(const Geometry<T, true>& geo, const void* x, const void* g,
+                  const void* alpha, const void* tau, const void* keep,
+                  const void* rw, void* xm, void* idx, void* bs, void* ws,
+                  int B, int n, int blk, int kb, cudaStream_t st) {
+  const dim3 grid(geo.grid, geo.slabs);
+  spread_sums_kernel<T><<<grid, geo.threads, geo.smem, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(alpha), static_cast<const float*>(tau),
+      static_cast<const float*>(rw), static_cast<float*>(ws), B, n, blk,
+      geo.rows);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  spread_mask_kernel<T><<<grid, geo.threads, geo.smem, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(alpha), static_cast<const float*>(tau),
+      static_cast<const float*>(keep), static_cast<const float*>(ws),
+      static_cast<T*>(xm), static_cast<int*>(idx), static_cast<float*>(bs),
+      B, n, blk, kb, geo.rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool kWide>
 int launch(bool experts, const void* x, const void* g, const void* alpha,
            const void* tau, const void* keep, const void* rw, void* xm,
-           void* idx, void* bs, int E, int B, int n, int blk, int kb,
-           cudaStream_t st) {
+           void* idx, void* bs, void* ws, int ws_len, int E, int B, int n,
+           int blk, int kb, int want, cudaStream_t st) {
   int sms = 0;
   cudaError_t e = prepared<T, kWide>(sms);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Geometry<T, kWide> geo(experts, E, B, n / blk, blk, sms);
+  const Geometry<T, kWide> geo(experts, E, B, n / blk, blk, sms, want);
+  if (!geo.ok) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (kWide) {
+    if (geo.form == kSpreadForm) {
+      if (ws == nullptr ||
+          static_cast<long long>(geo.slabs) * (n / blk) > ws_len) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      return launch_spread<T>(geo, x, g, alpha, tau, keep, rw, xm, idx, bs,
+                              ws, B, n, blk, kb, st);
+    }
     if (geo.form >= 0) {
       expert_kernel<T>(geo.form)<<<geo.grid, geo.threads, 0, st>>>(
           static_cast<const T*>(x), static_cast<const float*>(g),
@@ -724,25 +986,28 @@ int launch(bool experts, const void* x, const void* g, const void* alpha,
 }
 
 // What `launch` would use, written to out[0..9] as in launch_info.cuh:
-// with the blocks (per-expert form) or clusters of that shape that can be
-// active at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, or
-// cudaOccupancyMaxActiveClusters).  Launches nothing.
+// with the blocks (per-expert and spread forms) or clusters of that shape
+// that can be active at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// x SMs, or cudaOccupancyMaxActiveClusters).  Launches nothing.
 template <typename T, bool kWide>
 int info(bool experts, int E, int B, int n, int blk, int* out) {
   int sms = 0;
   cudaError_t e = prepared<T, kWide>(sms);
   if (e != cudaSuccess) return static_cast<int>(e);
   const Geometry<T, kWide> geo(experts, E, B, n / blk, blk, sms);
-  const bool cluster = geo.form < 0;
-  const int fill[10] = {geo.grid, cluster ? E : 1, 1, geo.threads,
+  const bool cluster = geo.form == kClusterForm;
+  const int fill[10] = {geo.grid, cluster ? E : geo.slabs, 1, geo.threads,
                         static_cast<int>(geo.smem), geo.C, 1, 1, 0,
                         geo.form + 1};
   for (int i = 0; i < 10; ++i) out[i] = fill[i];
   if constexpr (kWide) {
     if (!cluster) {
       int per_sm = 0;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, expert_kernel<T>(geo.form), geo.threads, 0);
+      e = geo.form == kSpreadForm
+              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &per_sm, spread_sums_kernel<T>, geo.threads, geo.smem)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &per_sm, expert_kernel<T>(geo.form), geo.threads, 0);
       out[8] = per_sm * sms;
       return static_cast<int>(e);
     }
@@ -766,15 +1031,15 @@ bool wide_ok(int blk, bool aligned) {
 template <typename T>
 int dispatch(bool experts, const void* x, const void* g, const void* alpha,
              const void* tau, const void* keep, const void* rw, void* xm,
-             void* idx, void* bs, int E, int B, int n, int blk, int kb,
-             cudaStream_t st) {
+             void* idx, void* bs, void* ws, int ws_len, int E, int B, int n,
+             int blk, int kb, int want, cudaStream_t st) {
   if (wide_ok<T>(blk, reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                          reinterpret_cast<uintptr_t>(xm) % 16 == 0)) {
     return launch<T, true>(experts, x, g, alpha, tau, keep, rw, xm, idx, bs,
-                           E, B, n, blk, kb, st);
+                           ws, ws_len, E, B, n, blk, kb, want, st);
   }
   return launch<T, false>(experts, x, g, alpha, tau, keep, rw, xm, idx, bs,
-                          E, B, n, blk, kb, st);
+                          ws, ws_len, E, B, n, blk, kb, want, st);
 }
 
 bool args_ok(int E, int B, int n, int blk, int kb) {
@@ -784,19 +1049,20 @@ bool args_ok(int E, int B, int n, int blk, int kb) {
 
 int entry(bool experts, const void* x, const void* g, const void* alpha,
           const void* tau, const void* keep_frac, const void* rw, void* xm,
-          void* idx, void* bs, int E, int B, int n, int blk, int kb,
-          int dtype, void* stream) {
-  if (!args_ok(E, B, n, blk, kb)) {
+          void* idx, void* bs, void* ws, int ws_len, int E, int B, int n,
+          int blk, int kb, int dtype, int want, void* stream) {
+  if (!args_ok(E, B, n, blk, kb) || want < -1 || want > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) {
     return dispatch<float>(experts, x, g, alpha, tau, keep_frac, rw, xm, idx,
-                           bs, E, B, n, blk, kb, st);
+                           bs, ws, ws_len, E, B, n, blk, kb, want, st);
   }
   if (dtype == kBFloat16) {
     return dispatch<__nv_bfloat16>(experts, x, g, alpha, tau, keep_frac, rw,
-                                   xm, idx, bs, E, B, n, blk, kb, st);
+                                   xm, idx, bs, ws, ws_len, E, B, n, blk, kb,
+                                   want, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -826,15 +1092,20 @@ int score_select_info(bool experts, int E, int B, int n, int blk, int kb,
 // x, xm: (B, n) of `dtype`; g: (n,) f32; alpha, tau, keep_frac: one f32
 // each (keep_frac null: no limit below kb); rw: (B,) f32 or null (weight
 // 1); idx: (kb,) int32, or null for the mask alone (then kb = n / blk);
-// bs: (n / blk,) f32.  Returns cudaGetLastError().
+// bs: (n / blk,) f32; ws: ws_len f32 values of scratch for the spread
+// form (slabs x nb of them; null where the form is the cluster's); form:
+// -1 the shape's own (Geometry), 0 the cluster form, 1 the spread form
+// (a form the shape cannot take is refused).  Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for arguments it refuses.
 extern "C" int wisparse_score_select(const void* x, const void* g,
                                      const void* alpha, const void* tau,
                                      const void* keep_frac, const void* rw,
                                      void* xm, void* idx, void* bs, int B,
                                      int n, int blk, int kb, int dtype,
+                                     void* ws, int ws_len, int form,
                                      void* stream) {
   return wisparse::entry(false, x, g, alpha, tau, keep_frac, rw, xm, idx, bs,
-                         1, B, n, blk, kb, dtype, stream);
+                         ws, ws_len, 1, B, n, blk, kb, dtype, form, stream);
 }
 
 // The expert-batched form: x, xm (E, B, n); g (E, n); idx (E, kb); bs
@@ -849,5 +1120,5 @@ extern "C" int wisparse_score_select_experts(const void* x, const void* g,
                                              int B, int n, int blk, int kb,
                                              int dtype, void* stream) {
   return wisparse::entry(true, x, g, alpha, tau, keep_frac, nullptr, xm, idx,
-                         bs, E, B, n, blk, kb, dtype, stream);
+                         bs, nullptr, 0, E, B, n, blk, kb, dtype, -1, stream);
 }

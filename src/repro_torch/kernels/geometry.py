@@ -3,10 +3,13 @@ their C entries launch, and the library's own query of it.
 
 The C entries decide each launch's grid, block, dynamic shared memory
 and cluster (``csrc/score_select.cu``'s ``Geometry``, which also picks
-the expert selection's form; for the matmuls
+the expert selection's form and the 2-D selection's spread form; for the
+matmuls
 ``csrc/gather_mma.cuh``'s ``grid_of`` and ``Layout::kBytes``, with the
 split from :func:`repro_torch.kernels.sparse_matmul.launch_plan`, and
-the tile form's persistent grid, ``csrc/sparse_matmul_tile.cuh``).  A
+the tile form's persistent grid, ``csrc/sparse_matmul_tile.cuh``, which
+:func:`repro_torch.kernels.sparse_matmul.expert_plan` picks for both
+shared entries).  A
 launch outside the card's limits shows only on the card, as
 ``cudaErrorInvalidValue`` from the entry.  The mirror lets a check on the
 CPU cover every served shape (``repro_torch.analysis``'s
@@ -41,6 +44,12 @@ SCORE_EXPERT_WARPS = 16
 SCORE_EXPERT_CONFIGS = ((1, 1), (1, 2), (1, 3), (1, 4), (1, 5), (1, 6),
                         (1, 8), (1, 12), (1, 16), (2, 1), (2, 2), (2, 4),
                         (2, 8))
+# its 2-D spread form (whole-prefill rows; the row threshold, threads,
+# channel-block limit and the form's own predicate are in
+# kernels/sparse_matmul.py, which the wrapper reads too): target blocks
+# per SM and the warps whose sums share its shared memory
+SCORE_SPREAD_PER_SM = 4
+SCORE_SPREAD_WARPS = K.SCORE_SPREAD_THREADS // 32
 # csrc/gather_mma.cuh: threads per block
 MATMUL_THREADS = 256
 # csrc/sparse_matmul_tile.cuh: threads per block, ring stages, the ids
@@ -64,8 +73,8 @@ class Geometry:
     smem: int
     cluster: tuple
     ok: bool = True
-    # score_select: "cluster" or "expert NJxRU"; the matmuls: "tile" for
-    # the tile form, else the default
+    # score_select: "cluster", "expert NJxRU" or "spread"; the matmuls:
+    # "tile" for the tile form, else the default
     form: str = "cluster"
 
 
@@ -90,6 +99,19 @@ def expert_config(B: int, n: int, blk: int, elem_bytes: int = 2,
     return None
 
 
+def spread_slabs(B: int, nb: int, blk: int, elem_bytes: int = 2,
+                 sms: int = H100_LIMITS["sms"]) -> tuple:
+    """The spread form's (slabs, rows per slab): about
+    ``SCORE_SPREAD_PER_SM`` blocks per SM over the nb channel blocks, each
+    slab whole row groups (a block's threads over a block row's 16-byte
+    units), as ``Geometry`` in ``csrc/score_select.cu`` cuts them."""
+    bv = blk // (16 // elem_bytes)
+    rg = K.SCORE_SPREAD_THREADS // bv
+    s0 = max(1, min(-(-B // rg), -(-(SCORE_SPREAD_PER_SM * sms) // nb)))
+    rows = -(-(-(-B // s0)) // rg) * rg
+    return -(-B // rows), rows
+
+
 def score_select_geometry(E: int, B: int, n: int, blk: int, kb: int,
                           elem_bytes: int = 2, aligned: bool = True,
                           sms: int = H100_LIMITS["sms"],
@@ -97,7 +119,11 @@ def score_select_geometry(E: int, B: int, n: int, blk: int, kb: int,
     """``score_select`` (E = 1) or, with ``experts``,
     ``score_select_experts`` at (E, B, n).  The expert entry's per-expert
     form where :func:`expert_config` fits: min(E, SMs) blocks of 32 x
-    warps threads, static shared memory only, no cluster.  Else one
+    warps threads, static shared memory only, no cluster.  The 2-D
+    entry's spread form where ``sparse_matmul.score_form`` names it: a
+    (nb, slabs) grid (:func:`spread_slabs`) of ``SCORE_SPREAD_THREADS``
+    threads, shared memory for blk g^alpha values and max(nb, warps)
+    sums, no cluster (the geometry of both its launches).  Else one
     cluster of C = min(16, nb, max(1, SMs / E)) blocks per expert; shared
     memory for the nb block sums, a flag and blk g^alpha values per owned
     channel block, and the partial sums of one row group.  A thread loads
@@ -113,6 +139,12 @@ def score_select_geometry(E: int, B: int, n: int, blk: int, kb: int,
         nj, ru = SCORE_EXPERT_CONFIGS[cfg[0]]
         return Geometry((min(E, sms), 1, 1), 32 * cfg[1], 0, (1, 1, 1),
                         form=f"expert {nj}x{ru}")
+    if not experts and K.score_form(B, n, blk, elem_bytes,
+                                    aligned) == "spread":
+        slabs, _rows = spread_slabs(B, nb, blk, elem_bytes, sms)
+        return Geometry((nb, slabs, 1), K.SCORE_SPREAD_THREADS,
+                        4 * (blk + max(nb, SCORE_SPREAD_WARPS)), (1, 1, 1),
+                        form="spread")
     vec = 16 // elem_bytes
     units = vec if aligned and blk % vec == 0 else 1
     C = min(SCORE_CLUSTER, nb, max(1, sms // E))
@@ -211,8 +243,8 @@ def launch_info(kernel: str, E: int = 1, B: int = 0, n: int = 0, m: int = 0,
                 splits: int = 0, elem_bytes: int = 2, aligned: bool = True):
     """The C library's answer (``wisparse_launch_info``) for one launch:
     (Geometry, active) where ``active`` is how many such clusters (or,
-    in the per-expert form, blocks) can run at once (score_select only),
-    or,
+    in the per-expert and spread forms, blocks) can run at once
+    (score_select only), or,
     for ``kernel="device"``, the card's limits as a dict.  Builds the
     library on first use and launches nothing."""
     from repro_torch.kernels import build
@@ -231,6 +263,8 @@ def launch_info(kernel: str, E: int = 1, B: int = 0, n: int = 0, m: int = 0,
         raise RuntimeError(f"wisparse_launch_info({kernel}): cudaError {err}")
     if out[9] == 0:
         form = "cluster"
+    elif out[9] == -1:
+        form = "spread"
     elif kernel.startswith("sparse_matmul"):
         form = "tile"
     else:

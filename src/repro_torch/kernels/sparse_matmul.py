@@ -21,10 +21,13 @@ keep the matmuls' split-K scratch per device (:func:`matmul_scratch`,
 sized ahead of a CUDA-graph capture by :func:`reserve_matmul_scratch`).
 The TPU tile geometry of ``shared_plan``/``score_mask_plan`` does not
 carry over (Hopper runs its own tiles, masked at ragged edges in the
-kernels, and chosen by :func:`launch_plan`, or for the expert entry by
-:func:`expert_plan`, which takes the TMA + wgmma tile form at a whole
-prefill's rows); what the port keeps is the
-channel-block contract, checked here: ``n % blk == 0``.
+kernels, and chosen by :func:`expert_plan` for both shared entries: the
+TMA + wgmma tile form at a whole prefill's rows, else
+:func:`launch_plan`'s gather form); what the port keeps is the
+channel-block contract, checked here: ``n % blk == 0``.  ``score_select``
+likewise takes one of two forms from the shape (:func:`score_form`): one
+thread-block cluster at decode and chunk rows, the rows spread over
+every SM at a whole prefill's.
 """
 from __future__ import annotations
 
@@ -43,9 +46,15 @@ DEFAULT_BLK = 128
 launch_counts = {"score_select": 0, "sparse_matmul_shared": 0,
                  "sparse_matmul_per_seq": 0, "score_select_experts": 0,
                  "sparse_matmul_shared_experts": 0}
-# the launches of ``launch_counts["sparse_matmul_shared_experts"]`` that
-# ran the tile form (:func:`expert_plan`), since the last reset
-tile_launches = {"sparse_matmul_shared_experts": 0}
+# the launches of ``launch_counts["sparse_matmul_shared"]`` and
+# ``["sparse_matmul_shared_experts"]`` that ran the tile form
+# (:func:`expert_plan`), since the last reset
+tile_launches = {"sparse_matmul_shared": 0,
+                 "sparse_matmul_shared_experts": 0}
+# the calls of ``launch_counts["score_select"]`` that ran the spread form
+# (:func:`score_form`; two CUDA launches each, counted once), since the
+# last reset
+spread_launches = {"score_select": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,11 +77,27 @@ MAX_SPLITS = 16
 # in TILE_DEPTH-channel halves, no split.  The plan takes it from
 # TILE_MIN_ROWS rows per expert on, in bf16 with 16-byte aligned operands,
 # m a multiple of 8 (16-byte tensor-map strides) and blk of TILE_DEPTH;
-# PERF.md holds the times at 32-641 rows that chose the threshold.
+# PERF.md holds the times at 32-641 rows that chose the threshold.  The
+# 2-D entry has no expert axis to fill the SMs with tiles and no split-K:
+# it takes the form from TILE_MIN_ROWS rows too, but only where the output
+# has at least TILE_MIN_TILES_2D tiles (an m of one column tile, jamba's
+# mamba/in_B of 16 columns, needs 9 row tiles, 1025 rows); PERF.md holds
+# the times of both forms at B = 48-4096 on five archs' 2-D shapes that
+# chose it.
 TILE_ROWS = 128
 TILE_WIDE = 256
 TILE_DEPTH = 64
 TILE_MIN_ROWS = 64
+TILE_MIN_TILES_2D = 9
+# score_select's spread form (csrc/score_select.cu) from SCORE_SPREAD_MIN_
+# ROWS rows on, in 16-byte units (x and xm 16-byte aligned, blk whole
+# units), with blk / units lanes per block row dividing its
+# SCORE_SPREAD_THREADS threads and at most SCORE_SPREAD_MAX_BLOCKS channel
+# blocks (each of its blocks sums every block's partials again); PERF.md
+# holds the times at 48-4096 rows that chose the threshold.
+SCORE_SPREAD_MIN_ROWS = 64
+SCORE_SPREAD_THREADS = 256
+SCORE_SPREAD_MAX_BLOCKS = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,16 +166,21 @@ def launch_plan(B: int, n: int, m: int, kb: int, blk: int, per_seq: bool,
 def expert_plan(R: int, n: int, m: int, kb: int, blk: int,
                 elem_bytes: int = 2, experts: int = 1,
                 aligned: bool = True) -> LaunchPlan:
-    """The plan of ``sparse_matmul_shared_experts`` at (experts, R, n, m):
-    the tile form (one slice, no scratch) in bf16 with x and w 16-byte
-    ``aligned``, R >= TILE_MIN_ROWS, m a multiple of 8 and blk of
-    TILE_DEPTH; else :func:`launch_plan`'s gather form, unchanged.  From
-    the shapes and the operands' alignment alone: no device read."""
+    """The plan of ``sparse_matmul_shared_experts`` at (experts, R, n, m)
+    and, at ``experts`` = 1, of ``sparse_matmul_shared`` at (R, n, m): the
+    tile form (one slice, no scratch) in bf16 with x and w 16-byte
+    ``aligned``, m a multiple of 8 and blk of TILE_DEPTH, from
+    TILE_MIN_ROWS rows per expert on (the 2-D entry: where its output has
+    at least TILE_MIN_TILES_2D tiles of TILE_ROWS x TILE_WIDE too); else
+    :func:`launch_plan`'s gather form, unchanged.  From the shapes and the
+    operands' alignment alone: no device read."""
+    tiles_b, tiles_m = math.ceil(R / TILE_ROWS), math.ceil(m / TILE_WIDE)
     if not (elem_bytes == 2 and aligned and R >= TILE_MIN_ROWS
-            and m % 8 == 0 and blk % TILE_DEPTH == 0 and n % blk == 0):
+            and m % 8 == 0 and blk % TILE_DEPTH == 0 and n % blk == 0
+            and (experts > 1 or tiles_b * tiles_m >= TILE_MIN_TILES_2D)):
         return launch_plan(R, n, m, kb, blk, False, elem_bytes, experts)
-    return LaunchPlan(TILE_ROWS, TILE_WIDE, math.ceil(m / TILE_WIDE),
-                      math.ceil(R / TILE_ROWS), 1, kb, 0, 0, experts)
+    return LaunchPlan(TILE_ROWS, TILE_WIDE, tiles_m, tiles_b, 1, kb, 0, 0,
+                      experts)
 
 
 # device -> (f32 workspace, zeroed int32 arrival counters) shared by the
@@ -178,6 +208,28 @@ def _device_key(device) -> torch.device:
     return device
 
 
+def _grown_scratch(device, workspace: int, counters: int):
+    """The device's (workspace, counters), grown to at least
+    ``workspace`` f32 values and ``counters`` zeroed int32 counters."""
+    device = _device_key(device)
+    ws, cnt = _scratch.get(device, (None, None))
+    grow_ws = ws is None or ws.numel() < workspace
+    grow_cnt = cnt is None or cnt.numel() < counters
+    if (grow_ws or grow_cnt) and device.type == "cuda" and \
+            torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "the kernels' scratch would grow during a CUDA-graph capture; "
+            "reserve it first (reserve_matmul_scratch)")
+    if grow_ws:
+        ws = torch.empty(max(MIN_WORKSPACE, workspace),
+                         dtype=torch.float32, device=device)
+    if grow_cnt:
+        cnt = torch.zeros(max(MIN_COUNTERS, counters),
+                          dtype=torch.int32, device=device)
+    _scratch[device] = ws, cnt
+    return ws, cnt
+
+
 def matmul_scratch(plan: LaunchPlan, device):
     """(workspace, counters) for ``plan`` on ``device``: the device's f32
     workspace (at least ``plan.workspace`` values) and zeroed int32
@@ -185,23 +237,17 @@ def matmul_scratch(plan: LaunchPlan, device):
     Allocates only when a plan needs more than any before it."""
     if plan.splits == 1:
         return None, None
-    device = _device_key(device)
-    ws, cnt = _scratch.get(device, (None, None))
-    grow_ws = ws is None or ws.numel() < plan.workspace
-    grow_cnt = cnt is None or cnt.numel() < plan.counters
-    if (grow_ws or grow_cnt) and device.type == "cuda" and \
-            torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(
-            "the split-K scratch would grow during a CUDA-graph capture; "
-            "reserve it first (reserve_matmul_scratch)")
-    if grow_ws:
-        ws = torch.empty(max(MIN_WORKSPACE, plan.workspace),
-                         dtype=torch.float32, device=device)
-    if grow_cnt:
-        cnt = torch.zeros(max(MIN_COUNTERS, plan.counters),
-                          dtype=torch.int32, device=device)
-    _scratch[device] = ws, cnt
-    return ws, cnt
+    return _grown_scratch(device, plan.workspace, plan.counters)
+
+
+def score_workspace(device):
+    """The f32 workspace of a spread-form ``score_select``: the device's
+    matmul workspace, which is at least ``MIN_WORKSPACE`` values and so
+    holds any spread launch's partial block sums (one per row slab and
+    channel block, about 4 x SMs; the C entry checks the length).  The
+    launches on one stream run in turn, so the selection and the split-K
+    matmul after it never hold it at once."""
+    return _grown_scratch(device, 0, 0)[0]
 
 
 def reserve_matmul_scratch(B: int, n: int, m: int, blk: int, device,
@@ -221,7 +267,7 @@ def scratch_tensors(device) -> tuple:
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, tile_launches):
+    for counts in (launch_counts, tile_launches, spread_launches):
         for k in counts:
             counts[k] = 0
 
@@ -256,7 +302,11 @@ def score_select(x, g, alpha, tau, keep_frac, *, kb: int,
     x's device (the sp tree's own; the kernel reads them where they lie,
     so no host sync), or floats, which are copied to the device;
     ``row_weights`` (B,) optionally weights each row's block-score
-    contribution (the engine's active-slot / real-token mask)."""
+    contribution (the engine's active-slot / real-token mask).  One call,
+    counted as one ``score_select``: one thread-block cluster at decode
+    and chunk rows, two launches that spread the rows over every SM at a
+    whole prefill's (:func:`score_form`, counted in
+    :data:`spread_launches` too)."""
     B, n = x.shape
     blk = min(blk, n)
     if n % blk:
@@ -297,13 +347,37 @@ def _f32_scalar(v, device, what: str):
     return v
 
 
-def _launch_score(x, g, alpha, tau, keep_frac, blk, kb, row_weights):
+def score_form(B: int, n: int, blk: int, elem_bytes: int = 2,
+               aligned: bool = True) -> str:
+    """The form of a 2-D ``score_select`` at (B, n), as its C entry picks
+    it (``Geometry`` in ``csrc/score_select.cu``): "spread" from
+    ``SCORE_SPREAD_MIN_ROWS`` rows on where x and xm are 16-byte
+    ``aligned``, blk holds whole 16-byte units whose count per block row
+    divides ``SCORE_SPREAD_THREADS``, and nb is at most
+    ``SCORE_SPREAD_MAX_BLOCKS``; else "cluster"."""
+    units = 16 // elem_bytes
+    if (B >= SCORE_SPREAD_MIN_ROWS and aligned and blk % units == 0
+            and SCORE_SPREAD_THREADS % (blk // units) == 0
+            and n // blk <= SCORE_SPREAD_MAX_BLOCKS):
+        return "spread"
+    return "cluster"
+
+
+# the 2-D C entry's form argument: its own choice, or one form forced
+# (to time both forms on one shape)
+SCORE_FORM_CODES = {None: -1, "cluster": 0, "spread": 1}
+
+
+def _launch_score(x, g, alpha, tau, keep_frac, blk, kb, row_weights,
+                  form=None):
     """Check the inputs of a CUDA ``score_select`` launch (with the
     selection when ``keep_frac`` is given, else the mask alone; x (B, n),
     or (E, B, n) for the expert-batched entry, which takes no row
-    weights), launch it on the current stream and count it.  Messages
-    are formatted only on failure: this runs 224 times per decode
-    step."""
+    weights), launch it on the current stream and count it.  ``form``
+    (2-D only): None for the shape's own (:func:`score_form`), or
+    "cluster" / "spread" forced, which the C entry refuses where the
+    shape cannot take it.  Messages are formatted only on failure: this
+    runs 224 times per decode step."""
     *lead, B, n = x.shape
     lead = tuple(lead)
     dev = x.device
@@ -338,12 +412,20 @@ def _launch_score(x, g, alpha, tau, keep_frac, blk, kb, row_weights):
             *args, *outs, lead[0], B, n, blk, kb, _DTYPE_CODES[x.dtype],
             _stream(dev))
     else:
+        spread = (form or score_form(
+            B, n, blk, x.element_size(),
+            x.data_ptr() % 16 == 0 and xm.data_ptr() % 16 == 0)) == "spread"
+        ws = score_workspace(dev) if spread else None
         err = build.library().wisparse_score_select(
             *args, None if rw is None else rw.data_ptr(), *outs, B, n, blk,
-            kb, _DTYPE_CODES[x.dtype], _stream(dev))
+            kb, _DTYPE_CODES[x.dtype], None if ws is None else ws.data_ptr(),
+            0 if ws is None else ws.numel(), SCORE_FORM_CODES[form],
+            _stream(dev))
     name = "score_select_experts" if lead else "score_select"
     _raise_on(err, name)
     launch_counts[name] += 1
+    if not lead and spread:
+        spread_launches[name] += 1
     return xm, idx, bs
 
 
@@ -453,16 +535,18 @@ def _check_cuda_matmul(name, x, w, block_idx) -> None:
 
 def _launch_matmul(name, x, w, block_idx, blk, kb, *, per_seq):
     """Launch the checked inputs on the kernel ``name`` and count it: x
-    (B, n), or (E, B, n) for ``sparse_matmul_shared_experts``, whose plan
-    is :func:`expert_plan`'s."""
+    (B, n), or (E, B, n) for ``sparse_matmul_shared_experts``; the shared
+    entries' plan is :func:`expert_plan`'s, ``sparse_matmul_per_seq``'s
+    :func:`launch_plan`'s.  A plan the C entry refuses raises: no other
+    form is tried in its place."""
     *lead, B, n = x.shape
     E = lead[0] if lead else 1
     m = w.shape[-1]
-    if lead:
+    if per_seq:
+        plan = launch_plan(B, n, m, kb, blk, True, x.element_size(), E)
+    else:
         plan = expert_plan(B, n, m, kb, blk, x.element_size(), E,
                            x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-    else:
-        plan = launch_plan(B, n, m, kb, blk, per_seq, x.element_size(), E)
     y = torch.empty(tuple(lead) + (B, m), dtype=torch.float32,
                     device=x.device)
     ws, cnt = matmul_scratch(plan, x.device)

@@ -21,6 +21,7 @@ from repro_torch.analysis import (Baseline, BaselineError, Finding,
                                   run_ast_passes)
 from repro_torch.analysis.cli import main as cli_main
 from repro_torch.analysis.registry import ast_passes
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(__file__)
 REPO = os.path.abspath(os.path.join(HERE, os.pardir))

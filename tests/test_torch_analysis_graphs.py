@@ -20,6 +20,7 @@ from repro_torch.analysis.registry import global_passes
 from repro_torch.kernels import build
 from repro_torch.kernels import geometry as G
 from repro_torch.kernels import sparse_matmul as K
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(__file__)
 REPO = os.path.abspath(os.path.join(HERE, os.pardir))
@@ -35,8 +36,10 @@ def test_global_passes_clean_on_tree():
     assert rep["shapes"] > 150 and rep["compared"] == 0
     assert all(0 < v <= G.H100_LIMITS["smem_optin"]
                for v in rep["smem"].values())
-    # the expert selection's sweep exercises both forms, the 2-D entry one
-    assert rep["forms"] == {"score_select": ["cluster"],
+    # the expert selection's sweep exercises both forms, and the 2-D
+    # entry's both too: the cluster at decode and chunk rows, the spread
+    # form at whole-prefill rows
+    assert rep["forms"] == {"score_select": ["cluster", "spread"],
                             "score_select_experts": ["cluster", "expert"]}
 
 
@@ -262,9 +265,11 @@ def test_expert_selection_form_at_every_moe_shape():
                 assert geo.smem <= lim["smem_optin"]
                 assert int(np.prod(geo.cluster)) <= lim["cluster"]
                 assert max(geo.grid[1:]) <= lim["grid_yz"]
-            # the 2-D entry keeps its one cluster at every shape
+            # the 2-D entry keeps its one cluster below the spread form's
+            # rows
             assert G.score_select_geometry(
-                1, R, n, 128, 1, 2, True, lim["sms"]).form == "cluster"
+                1, R, n, 128, 1, 2, True, lim["sms"]).form == (
+                    "spread" if R >= K.SCORE_SPREAD_MIN_ROWS else "cluster")
 
 
 def test_mirror_constants_match_the_cuda_sources():

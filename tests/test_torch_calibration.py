@@ -66,6 +66,7 @@ from repro_torch.models import params as P
 from repro_torch.serving import Engine, EngineConfig
 from repro_torch.sparsity import CaptureSink, SparsityPolicy
 from repro_torch.sparsity import policy as tpolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 DATA_SEED = 4
 QUICK = dict(delta=0.25, coord_passes=0)     # the serve CLI's --calib-quick

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import torch_calib_parity as C
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 from repro.core import calibration as JC
 from repro.launch import serve as jserve
 from repro.models import api as japi
@@ -35,12 +36,6 @@ from repro_torch.sparsity import SparsityPolicy
 
 ARCHS = ["whisper_large_v3", "internvl2_26b"]
 GEN = 8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    with C.one_thread():
-        yield
 
 
 class _Model(C._Model):

@@ -14,14 +14,9 @@ data and tolerances: ``tests/torch_calib_parity.py``."""
 import pytest
 
 import torch_calib_parity as C
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 ARCH = "jamba_v01_52b"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    with C.one_thread():
-        yield
 
 
 @pytest.fixture(scope="module")

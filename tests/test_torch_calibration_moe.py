@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 import torch_calib_parity as C
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 from repro.serving import Engine as JEngine
 from repro.serving import EngineConfig as JEngineConfig
 from repro.serving import SLOConfig as JSLOConfig
@@ -23,12 +24,6 @@ ARCH = "granite_moe_1b_a400m"
 # acts on queue depth alone
 SLO = dict(tpot_p95=1e6, max_queue=1, dwell=2, hysteresis=0.25)
 SLO_TRACE = dict(max_slots=2, max_len=32, prefill_chunk=8)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    with C.one_thread():
-        yield
 
 
 @pytest.fixture(scope="module")

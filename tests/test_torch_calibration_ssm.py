@@ -7,16 +7,11 @@ and tolerances: ``tests/torch_calib_parity.py``."""
 import pytest
 
 import torch_calib_parity as C
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 ARCH = "mamba2_130m"
 MAMBA_KEYS = ["mamba/in_B", "mamba/in_C", "mamba/in_dt", "mamba/in_x",
               "mamba/in_z", "mamba/out_proj"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    with C.one_thread():
-        yield
 
 
 @pytest.fixture(scope="module")

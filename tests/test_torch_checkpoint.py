@@ -21,6 +21,7 @@ from repro_torch.checkpoint.manager import keystr
 from repro_torch.distributed import (FailureInjector, Preemption,
                                      RunnerConfig, TrainingRunner)
 from repro_torch.models import params as P
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 def _tree(seed=0):
     g = torch.Generator().manual_seed(seed)

@@ -36,6 +36,7 @@ from repro_torch.models import params as P
 from repro_torch.serving import (AdaptiveController, Engine, EngineConfig,
                                  SLOConfig)
 from repro_torch.sparsity import PolicyLadder
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 SLO = dict(tpot_p95=1e6, max_queue=1, dwell=2, hysteresis=0.25)
 TRACE = dict(max_slots=2, max_len=32, prefill_chunk=8)

@@ -21,6 +21,7 @@ from repro_torch.configs import runnable_cells
 from repro_torch.launch import dryrun
 from repro_torch.launch import roofline as R
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 CELLS = runnable_cells()[0]
 MESHES = {"single": ((16, 16), ("data", "model"), False),

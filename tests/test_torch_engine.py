@@ -30,6 +30,7 @@ from repro_torch.models import params as P
 from repro_torch.serving import (Engine, EngineConfig, SchedulerConfig,
                                  SLOConfig, SlotKVPool)
 from repro_torch.sparsity import SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 TRACE = dict(max_slots=2, max_len=64, prefill_chunk=16)
 PROMPT_LENS = (20, 9, 33)

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from repro_torch.examples import calibrate_and_serve, quickstart
+from torch_threads import ONE_THREAD_ENV
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -50,7 +52,8 @@ def test_examples_need_a_card_unless_asked_for_cpu(example, monkeypatch):
     ["flight_smoke", "--gen", "512"]])
 def test_smoke_scripts_exit_zero(argv, tmp_path):
     extra = ["--out-dir", str(tmp_path)] if argv[0] == "flight_smoke" else []
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               **ONE_THREAD_ENV)
     proc = subprocess.run(
         [sys.executable, "-m", f"repro_torch.examples.{argv[0]}",
          "--device", "cpu", *argv[1:], *extra], cwd=ROOT, env=env,

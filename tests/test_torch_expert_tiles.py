@@ -23,6 +23,7 @@ from repro_torch.analysis.registry import global_passes
 from repro_torch.kernels import build
 from repro_torch.kernels import geometry as G
 from repro_torch.kernels import sparse_matmul as K
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 

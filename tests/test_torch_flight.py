@@ -51,6 +51,7 @@ from repro_torch.obs.flight import replay as flight_replay
 from repro_torch.serving import (Engine, EngineConfig, SchedulerConfig,
                                  SLOConfig, SpecConfig)
 from repro_torch.sparsity import PolicyLadder
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 # the reference's engine clock sites (src/repro/serving/engine.py, spec.py)
 SITES = {"submit.arrival", "admit.sweep", "prefill_chunk.t0",

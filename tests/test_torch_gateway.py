@@ -43,6 +43,8 @@ from repro_torch.launch import serve
 from repro_torch.models import params as P
 from repro_torch.serving import (Engine, EngineConfig, Gateway,
                                  SchedulerConfig)
+from torch_threads import ONE_THREAD_ENV
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -634,7 +636,8 @@ def test_serve_gateway_drains_on_sigterm(tmp_path):
     request in flight when SIGTERM arrives still completes, the process
     exits 0, and the trace and event files are complete."""
     trace, events = str(tmp_path / "t.json"), str(tmp_path / "e.jsonl")
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               **ONE_THREAD_ENV)
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
          "--device", "cpu", "--sparsity", "0", "--gateway",
@@ -690,7 +693,8 @@ def test_serve_gateway_dumps_its_flight_ring_on_sigusr1(tmp_path):
     repro_torch.obs.flight.replay`` (the engine rebuilt from the header)
     with exit 0."""
     sink, dump_dir = str(tmp_path / "f.jsonl"), tmp_path / "dumps"
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               **ONE_THREAD_ENV)
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
          "--device", "cpu", "--sparsity", "0", "--gateway",

@@ -68,6 +68,7 @@ from repro_torch.serving.spec import SpecConfig
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
 from repro_torch.sparsity import calibrate_ladder
 from repro_torch.sparsity import policy as tpolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")

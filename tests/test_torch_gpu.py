@@ -1577,10 +1577,15 @@ def test_kernels_at_multimodal_shapes(dev, model, layer, rows):
     """score_select, then sparse_matmul_shared on its kept blocks, at a
     whisper and an internvl2 projection shape (bf16, tau -inf and
     finite, no row weights): against their plain versions, two launches
-    bit-equal (``chip_smoke.whole_prefill_kernels`` raises otherwise)."""
-    errs = chip_smoke.whole_prefill_kernels(K, ref, dev, rows, layer=layer,
-                                            model=model)
+    bit-equal (``chip_smoke.whole_prefill_kernels`` raises otherwise),
+    each B timed in its routed form."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import constants
+    rates = constants.peak_rates(torch.cuda.get_device_name(0))
+    errs, timed = chip_smoke.whole_prefill_kernels(
+        K, ref, build, dev, rates, rows, layer=layer, model=model)
     assert set(errs) == {"score_select", "sparse_matmul_shared"}
+    assert len(timed) == len(rows) * len(layer)
 
 
 def _legacy_model(arch, dev):
@@ -1872,3 +1877,178 @@ def test_launch_info_equals_the_mirror_in_the_tile_form(dev, E, R, n, m):
                                128, kb, plan.rows, plan.cols, plan.splits, 2)
         assert want.form == "tile" and got == want, kb
         assert want.smem <= limits["smem_optin"]
+
+
+def _tile_2d(dev, B, n, m, kb, plan, x, w, idx):
+    """``wisparse_sparse_matmul_shared`` (the 2-D C entry) on ``plan``'s
+    form, its output allocated here: (error code, y)."""
+    from repro_torch.kernels import build
+    y = torch.empty(B, m, device=dev)
+    ws, cnt = K.matmul_scratch(plan, dev)
+    err = build.library().wisparse_sparse_matmul_shared(
+        x.data_ptr(), w.data_ptr(), idx.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), B, n, m, 128, kb,
+        plan.rows, plan.cols, plan.splits, 1,
+        torch.cuda.current_stream().cuda_stream)
+    return err, y
+
+
+@pytest.mark.parametrize("B", [63, 64, 65, 129, 4099])
+@pytest.mark.parametrize("n,m", [(1024, 384), (4096, 4096)])
+def test_2d_matmul_tile_form(dev, B, n, m):
+    """The 2-D entry's whole-prefill tile form (``csrc/sparse_matmul_tile.
+    cu`` at one expert, reached through ``wisparse_sparse_matmul_shared``
+    with a tile plan at every B, below the routing threshold too) against
+    the plain version, bf16, kb = 1, nb/2 and nb with a repeated id and
+    ids clamped at both ends, within 1e-4 + 1e-4 |ref|, two launches
+    bit-equal; the wrapper routes B to ``expert_plan``'s form at one
+    expert, counts one ``sparse_matmul_shared`` and, in the tile form,
+    one ``tile_launches`` entry, and its result is the tile form's bits
+    where it routes there."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    nb = n // 128
+    x = torch.randn(B, n, device=dev, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(n, m, device=dev, generator=gen) * 0.05).to(
+        torch.bfloat16)
+    for kb in (1, nb // 2, nb):
+        idx = torch.randint(0, nb, (kb,), device=dev, generator=gen).to(
+            torch.int32)
+        idx[-1] = idx[0]                 # a repeat (kb = 1: itself)
+        if kb > 2:
+            idx[1], idx[2] = -3, nb + 5  # clamped to 0 and nb - 1
+        want = ref.ref_sparse_matmul_shared(x, w, idx, 128)
+        tile = chip_smoke.tile_plan(K, B, m, kb)
+        err, y = _tile_2d(dev, B, n, m, kb, tile, x, w, idx)
+        assert err == 0
+        _close(y, want)
+        assert torch.equal(y, _tile_2d(dev, B, n, m, kb, tile, x, w, idx)[1])
+        plan = K.expert_plan(B, n, m, kb, 128, 2, 1)
+        K.reset_launch_counts()
+        got = K.sparse_matmul_shared(x, w, idx)
+        assert K.launch_counts["sparse_matmul_shared"] == 1
+        assert K.tile_launches["sparse_matmul_shared"] == \
+            int(plan.form == "tile")
+        _close(got, want)
+        if plan.form == "tile":
+            assert torch.equal(got, y)
+
+
+def test_2d_matmul_tile_refusal_raises(dev, monkeypatch):
+    """No fallback: a 2-D tile plan the C entry refuses (f32 operands)
+    raises from the wrapper and counts no launch."""
+    tile = chip_smoke.tile_plan(K, 4096, 256, 2)
+    monkeypatch.setattr(K, "expert_plan", lambda *a, **k: tile)
+    x = torch.randn(4096, 256, device=dev)
+    w = torch.randn(256, 256, device=dev)
+    idx = torch.zeros(2, dtype=torch.int32, device=dev)
+    K.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        K.sparse_matmul_shared(x, w, idx)
+    assert K.launch_counts["sparse_matmul_shared"] == 0
+
+
+@pytest.mark.parametrize("B,n", [(448, 4096), (4099, 4096), (8652, 2304),
+                                 (4099, 14336)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_score_select_spread_form(dev, B, n, weighted):
+    """``score_select``'s whole-prefill spread form (two launches over
+    every SM) against the plain version, bf16, with and without row
+    weights: xm and idx bit-equal at tie-free block scores, bs within
+    1e-4 + 1e-4 |ref|, two calls bit-equal; the shape's own form is the
+    spread form, counted as one ``score_select`` and one
+    ``spread_launches`` entry; the cluster form forced on the same inputs
+    gives the same xm and idx.  The mask alone (``score_mask``) too."""
+    x, g = _separated(dev, B, n, torch.bfloat16, seed=42)
+    alpha = torch.tensor(0.7, device=dev)
+    tau = torch.tensor(0.5 * 1.1 ** (-(n // 128) / 2), device=dev)
+    kf = torch.tensor(0.375, device=dev)
+    rw = torch.rand(B, device=dev) + 0.5 if weighted else None
+    kb = max(1, round(n // 128 * 0.5))
+    assert K.score_form(B, n, 128) == "spread"
+    K.reset_launch_counts()
+    got = K.score_select(x, g, alpha, tau, kf, kb=kb, row_weights=rw)
+    assert K.launch_counts["score_select"] == 1
+    assert K.spread_launches["score_select"] == 1
+    want = ref.ref_score_select(x, g, alpha, tau, kf, 128, kb, rw)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    _close(got[2], want[2])
+    again = K.score_select(x, g, alpha, tau, kf, kb=kb, row_weights=rw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    cluster = K._launch_score(x, g, alpha, tau, kf, 128, kb, rw, "cluster")
+    assert torch.equal(cluster[0], got[0]) and torch.equal(cluster[1], got[1])
+    xm, bs = K.score_mask(x, g, alpha, tau, row_weights=rw)
+    xm_r, bs_r = ref.ref_score_mask(x, g, alpha, tau, 128, rw)
+    assert torch.equal(xm, xm_r)
+    _close(bs, bs_r)
+
+
+@pytest.mark.parametrize("B", [448, 4099, 8652])
+@pytest.mark.parametrize("nb", [112, 32])
+def test_score_select_spread_form_under_ties(dev, B, nb):
+    """Exactly tied block scores (blocks repeat one pattern of
+    quarter-integers, scaled by 2, 1 or 0, g = 1) in the spread form: the
+    lower ids first among equal sums, ``lax.top_k``'s order, bit for bit
+    as the plain version."""
+    rng = np.random.default_rng(43)
+    pat = rng.integers(-8, 9, (B, 128)).astype(np.float32) / 4
+    counts = [nb // 10, nb // 2, nb - nb // 10 - nb // 2]
+    mult = rng.permutation(np.repeat(np.float32([2, 1, 0]), counts))
+    x = torch.from_numpy((pat[:, None, :] * mult[None, :, None]).reshape(
+        B, nb * 128)).to(dev, torch.bfloat16)
+    g = torch.ones(nb * 128, device=dev)
+    one = torch.tensor(1.0, device=dev)
+    assert K.score_form(B, nb * 128, 128) == "spread"
+    for keep_frac in (0.5, 0.375):
+        kf = torch.tensor(keep_frac, device=dev)
+        got = K.score_select(x, g, one, torch.tensor(-1.0, device=dev), kf,
+                             kb=nb // 2)
+        want = ref.ref_score_select(x, g, one, -1.0, kf, 128, nb // 2)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        _close(got[2], want[2])
+
+
+def test_score_select_spread_refusal_raises(dev):
+    """A spread form forced where the shape cannot take it (x not 16-byte
+    aligned) is refused by the C entry: the wrapper raises, no launch is
+    counted and no other form runs in its place."""
+    buf = torch.randn(448 * 1024 + 1, device=dev).to(torch.bfloat16)
+    x = buf[1:].view(448, 1024)
+    g = torch.ones(1024, device=dev)
+    K.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        K._launch_score(x, g, 1.0, 0.0, 0.5, 128, 4, None, "spread")
+    assert K.launch_counts["score_select"] == 0
+
+
+@pytest.mark.parametrize("B,n,m", [(4096, 4096, 14336), (4099, 4096, 16),
+                                   (8652, 2304, 9216), (24576, 768, 1536),
+                                   (1500, 1280, 1280), (448, 14336, 4096),
+                                   (128, 1536, 768)])
+@pytest.mark.parametrize("elem", [2, 4])
+def test_launch_info_equals_the_mirror_in_the_whole_prefill_forms(dev, B, n,
+                                                                  m, elem):
+    """At whole-prefill rows ``wisparse_launch_info`` equals the mirror
+    for the 2-D entry's routed matmul plan (the tile form where
+    ``expert_plan`` takes it) and for ``score_select`` (the spread form,
+    aligned; the cluster form unaligned), at kb = 1, nb/2, nb; every
+    spread block can run."""
+    from repro_torch.kernels import geometry as G
+    limits = G.launch_info("device")
+    nb = n // 128
+    for kb in sorted({1, nb // 2, nb}):
+        plan = K.expert_plan(B, n, m, kb, 128, elem, 1)
+        want = G.matmul_geometry("sparse_matmul_shared", plan, B, n, m, 128,
+                                 kb, elem, limits["sms"])
+        got, _ = G.launch_info("sparse_matmul_shared", 1, B, n, m, 128, kb,
+                               plan.rows, plan.cols, plan.splits, elem)
+        assert got == want, kb
+        for aligned in (True, False):
+            want = G.score_select_geometry(1, B, n, 128, kb, elem, aligned,
+                                           limits["sms"])
+            got, active = G.launch_info("score_select", 1, B, n, 0, 128, kb,
+                                        0, 0, 0, elem, aligned)
+            assert got == want and active >= 1, (kb, aligned)
+            assert (want.form == "spread") == (
+                aligned and B >= K.SCORE_SPREAD_MIN_ROWS)

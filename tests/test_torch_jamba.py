@@ -19,6 +19,7 @@ import torch
 
 from repro.models import model as JM
 from repro_torch.models import model as TM
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 _spec = importlib.util.spec_from_file_location(
     "ssm_checks", pathlib.Path(__file__).resolve().parent / "test_torch_ssm.py")

@@ -12,6 +12,7 @@ import pathlib
 import pytest
 
 from repro_torch.launch import serve
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 _spec = importlib.util.spec_from_file_location(
     "ssm_engine_checks",

@@ -22,7 +22,7 @@ run on the CPU.
 Attention, router and expert weights are scaled by
 ``chip_smoke.GEMMA_WEIGHT_SCALE`` in the MoE test, as
 ``tests/test_torch_moe.py`` does, so the routing is far from uniform.
-The port runs on one intra-op thread (``torch_calib_parity.one_thread``).
+The port runs on one intra-op thread (``torch_threads``).
 """
 import dataclasses
 import importlib.util
@@ -35,6 +35,7 @@ import pytest
 import torch
 
 import torch_calib_parity as C
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 from repro.configs import get_config as jget_config
 from repro.configs import reduced as jreduced
 from repro.core.sp_schema import default_sp_stacked as jdefault_sp
@@ -70,12 +71,6 @@ ARCH = "jamba_v01_52b"
 PERIOD = 8
 EXPERTS = 16
 TOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    with C.one_thread():
-        yield
 
 
 def _period(cfg):

@@ -33,6 +33,7 @@ from repro_torch.kernels import build, ref, select
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import sparse_matmul as TK
 from repro_torch.sparsity import SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 SHAPES = [
     (1, 256, 128, 128),

@@ -58,6 +58,7 @@ from repro_torch.sparsity import PolicyLadder, SparsityPolicy
 from repro_torch.sparsity import calibrate_ladder
 from repro_torch.sparsity import ladder as tladder_mod
 from repro_torch.sparsity import policy as tpolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 DATA_SEED = 4
 BUDGETS = (0.0, 0.3, 0.5)

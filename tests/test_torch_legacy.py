@@ -33,6 +33,7 @@ from repro_torch.models import params as P
 from repro_torch.serving import Engine, EngineConfig
 from repro_torch.serving.graphs import BatchDecodeSteps
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 B, S, GEN = 4, 16, 8
 # the default policy's Eq. 7 thresholds (uncalibrated: the reference's

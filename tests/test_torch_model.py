@@ -25,6 +25,7 @@ from repro_torch.models import api, attention, layers
 from repro_torch.models import model as TM
 from repro_torch.models import params as P
 from repro_torch.sparsity import SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 BACKENDS = ["off", "mask", "topk_shared", "topk_block", "pallas"]
 LOGIT_ATOL = 1e-4

@@ -53,6 +53,7 @@ from repro_torch.models import api, moe
 from repro_torch.models import model as TM
 from repro_torch.models import params as P
 from repro_torch.sparsity import SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")

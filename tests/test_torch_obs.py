@@ -57,6 +57,7 @@ from repro_torch.serving import (SNAPSHOT_SCHEMA_VERSION, Engine,
                                  SLOConfig, SpecConfig)
 from repro_torch.serving.metrics import EngineStats, percentile
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 # event and span fields that are times (excluded from equality)
 TIME_FIELDS = {"t", "ts", "dur", "waited_s", "suspended_s", "retry_after_s",

@@ -15,6 +15,7 @@ from hypothesis import strategies as st
 from repro.optim import adamw as jadamw
 from repro_torch.models import params as P
 from repro_torch.optim import adamw
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 CFG = dict(lr_peak=1e-2, warmup_steps=2, decay_steps=6, lr_min=1e-3)

@@ -50,6 +50,7 @@ from repro_torch.serving import (AdaptiveController, Engine, EngineConfig,
                                  SpecConfig, Status, SuspendedSlot)
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -41,6 +41,7 @@ from repro_torch.models import params as P
 from repro_torch.serving import (Engine, EngineConfig, PrefixCache,
                                  RadixTree, SlotKVPool, SpecConfig)
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

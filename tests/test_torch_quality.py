@@ -57,6 +57,7 @@ from repro_torch.obs import metrics as tmetrics
 from repro_torch.serving import Engine, EngineConfig, SLOConfig, SpecConfig
 from repro_torch.serving.controller import AdaptiveController
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 KW = dict(max_slots=2, max_len=32, prefill_chunk=8)
 

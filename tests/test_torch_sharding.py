@@ -33,6 +33,7 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.models import api
 from repro_torch.models import params as P
 from repro_torch.sparsity import SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}

@@ -32,6 +32,7 @@ from repro.launch.serve import _pad_caches as jpad_caches
 from repro.models import api as japi
 from repro.optim import adamw as jadamw
 from repro_torch.models import params as P
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 ARCHS = torch_sharding_worker.ARCHS
 B, S, STEPS = 4, 16, 3

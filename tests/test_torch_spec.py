@@ -37,6 +37,7 @@ from repro_torch.models import params as P
 from repro_torch.serving import (Engine, EngineConfig, SLOConfig, SlotKVPool,
                                  SpecConfig, SpecController)
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 TRACE = dict(max_slots=2, max_len=32, prefill_chunk=8)

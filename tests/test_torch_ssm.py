@@ -37,6 +37,7 @@ from repro_torch.models import model as TM
 from repro_torch.models import params as P
 from repro_torch.models import ssm
 from repro_torch.sparsity import SparsityPolicy, calibrate_ladder
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 TOL = 1e-5
 ARCHS = ["mamba2_130m", "jamba_v01_52b"]
@@ -398,34 +399,28 @@ def test_calibration_refuses_ssm_archs():
     serves the model under ``mask``, and the ladder's cold rung is the
     plan.  ``tests/test_torch_calibration_ssm.py`` and
     ``tests/test_torch_calibration_jamba.py`` hold them against JAX.
-    On one intra-op thread: the calibration runs thousands of small ops,
-    which a test run's parallel workers would otherwise oversubscribe
-    (790 s in a run with 6 workers, 13 s alone)."""
+    On one intra-op thread, as the module's every test
+    (``torch_threads``)."""
     from repro_torch.core.allocation import EvoConfig, weighted_average
     evo = EvoConfig(generations=1, offspring=2, eps=0.1)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        for arch in ARCHS:
-            cfg = reduced(get_config(arch))
-            params = api.init_model(cfg, 0, device="cpu")
-            toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                                     (2, 16))
-            batch = {"tokens": toks}
-            plan = pipeline.run_pipeline(params, cfg, batch, 0.5, evo=evo,
-                                         delta=0.25, coord_passes=0)
-            ctx = pipeline.build_context(params, cfg, batch)
-            avg = weighted_average(ctx, np.asarray(plan.block_ratios))
-            assert 0.5 - evo.eps <= avg <= 0.5 + 1e-9
-            assert all(np.isfinite(plan.taus[k])
-                       for k, r in plan.layer_ratios.items() if r > 0)
-            logits, _ = TM.forward(params, cfg, tokens=torch.as_tensor(toks),
-                                   sp=plan.stacked_sp,
-                                   policy=SparsityPolicy.uniform("mask"))
-            assert bool(torch.isfinite(logits).all())
-            ladder = calibrate_ladder(params, cfg, batch, (0.0, 0.5),
-                                      evo=evo, delta=0.25, coord_passes=0,
-                                      backend="pallas")
-            assert np.array_equal(ladder.block_ratios[1], plan.block_ratios)
-    finally:
-        torch.set_num_threads(threads)
+    for arch in ARCHS:
+        cfg = reduced(get_config(arch))
+        params = api.init_model(cfg, 0, device="cpu")
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                 (2, 16))
+        batch = {"tokens": toks}
+        plan = pipeline.run_pipeline(params, cfg, batch, 0.5, evo=evo,
+                                     delta=0.25, coord_passes=0)
+        ctx = pipeline.build_context(params, cfg, batch)
+        avg = weighted_average(ctx, np.asarray(plan.block_ratios))
+        assert 0.5 - evo.eps <= avg <= 0.5 + 1e-9
+        assert all(np.isfinite(plan.taus[k])
+                   for k, r in plan.layer_ratios.items() if r > 0)
+        logits, _ = TM.forward(params, cfg, tokens=torch.as_tensor(toks),
+                               sp=plan.stacked_sp,
+                               policy=SparsityPolicy.uniform("mask"))
+        assert bool(torch.isfinite(logits).all())
+        ladder = calibrate_ladder(params, cfg, batch, (0.0, 0.5),
+                                  evo=evo, delta=0.25, coord_passes=0,
+                                  backend="pallas")
+        assert np.array_equal(ladder.block_ratios[1], plan.block_ratios)

@@ -48,6 +48,7 @@ from repro_torch.serving.kv_pool import SuspendedSlot
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.spec import SpecConfig
 from repro_torch.sparsity import PolicyLadder, SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 ARCHS = ["mamba2_130m", "jamba_v01_52b"]
 TRACE = dict(max_slots=4, max_len=64, prefill_chunk=16)

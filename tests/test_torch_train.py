@@ -28,6 +28,7 @@ from repro_torch.models import model as M
 from repro_torch.models import params as P
 from repro_torch.optim import adamw
 from repro_torch.sparsity import SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 # mamba2_130m and jamba_v01_52b: tests/test_torch_train_ssm.py
 ARCHS = ["llama31_8b", "gemma2_2b", "granite_moe_1b_a400m"]

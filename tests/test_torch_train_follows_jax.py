@@ -6,18 +6,18 @@ The loss histories agree at 1e-4: both run the same f32 arithmetic, and
 the 1e-6 per-step differences of the optimizer and the 1e-5 of the loss
 (``tests/test_torch_optim.py``, ``tests/test_torch_train.py``) grow over
 the steps at lr 5e-3.  The port's trainer runs on one intra-op thread
-(``torch_calib_parity.one_thread``): its thousands of small CPU ops
+(``torch_threads``): its thousands of small CPU ops
 oversubscribe the cores when the suite's workers each run threads of
 their own."""
 import jax
 import numpy as np
 import pytest
 
-import torch_calib_parity as C
 from repro.launch import train as jtrain
 from repro.models import api as japi
 from repro_torch.launch import train as ttrain
 from repro_torch.models import params as P
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 HIST_TOL = 1e-4
 TRAIN = dict(arch="llama31_8b", use_reduced=True, steps=20, batch=4,
@@ -39,9 +39,8 @@ def test_train_follows_the_jax_train(monkeypatch, kw):
         lambda cfg, seed, device: P.from_numpy(
             jax.tree_util.tree_map(np.asarray, init), device))
     tlogs = []
-    with C.one_thread():
-        params, cfg, data_cfg, hist, final = ttrain.train(
-            **run, log=tlogs.append, device="cpu")
+    params, cfg, data_cfg, hist, final = ttrain.train(
+        **run, log=tlogs.append, device="cpu")
     assert len(hist) == len(jhist) == run["steps"]
     for k in ("loss", "grad_norm", "lr"):
         np.testing.assert_allclose([h[k] for h in hist],

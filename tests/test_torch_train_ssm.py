@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.models import params as P
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 _spec = importlib.util.spec_from_file_location(
     "train_checks",

@@ -35,6 +35,7 @@ from repro_torch.models import params as P
 from repro_torch.optim import adamw
 from repro_torch.serving.graphs import BatchDecodeSteps
 from repro_torch.sparsity import SparsityPolicy
+from torch_threads import one_thread_module  # noqa: F401 (autouse)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")

@@ -38,7 +38,6 @@ Tolerances, each with its reason:
   score of activations that agree to 1e-5, not bitwise (ROADMAP,
   reference behaviour 4).
 """
-import contextlib
 import dataclasses
 import importlib.util
 import pathlib
@@ -90,21 +89,6 @@ PROMPT_LENS = (20, 9, 33)
 GEN = 8
 BLOCK = 16
 SCALED = ("granite_moe_1b_a400m",)
-
-
-@contextlib.contextmanager
-def one_thread():
-    """torch on one intra-op thread, restored after.  The port's
-    calibration runs thousands of small ops; under a test run's parallel
-    workers their intra-op threads oversubscribe the CPU (in a run with
-    6 workers, two of its calibrations took 790 s where they take 13 s
-    alone, with one thread or all)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _np(tree):
