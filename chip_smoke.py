@@ -316,8 +316,10 @@ In order, it:
    f32 master, m and v) 30 steps of 2 x 1024 tokens: every loss finite,
    the last below the first; prints step time p50, tokens/s, MFU and
    peak memory, one step split into forward + backward and the update
-   with its top ATen ops by device time, then one step at
-   ``remat="full"``, an async checkpoint round trip of the trained
+   with its top ATen ops by device time, then two steps at
+   ``remat="full"`` whose bytes above the state must match the dry run's
+   ``temp_bytes`` of the step on meta tensors (as in 22d), an async
+   checkpoint round trip of the trained
    params (bit-equal) and the restored params served dense and
    ``pallas`` on phase 16's 8 short prompts, launches checked as in
    phase 16;
@@ -383,7 +385,17 @@ In order, it:
    3e-2 of the unsharded step's.  The dry run's ``argument_bytes`` of
    that serve cell (depth, batch, cache length, sp tree) on meta tensors
    within 1% of ``torch.cuda.memory_allocated()``'s growth when the same
-   arguments are placed on the card.  The group is destroyed at the end;
+   arguments are placed on the card.  22d: the dry run's ``temp_bytes``
+   (``launch/memory_analysis.PeakCounter`` on meta tensors) of that
+   cell's prefill and ``aligned`` decode steps, dense and ``topk_shared``
+   at 0.5, and of the train cell at remat none, dots and full, each
+   against ``torch.cuda.max_memory_allocated()`` above the arguments for
+   the same step on the card (its second call; the first is printed
+   too), within 10% or 64 MiB, whichever is larger; each pair printed
+   beside the card, a gap over 1% split into the step's storages as the
+   card counts them, 512-B granules, bytes the allocator holds outside
+   them and an op's internal workspace.  The group is destroyed at the
+   end;
 23. runs the port's static checker (``repro_torch.analysis``) on the
    card: the AST passes over ``src/repro_torch`` and the three global
    passes on ``cuda`` — ``graph-in-place`` (reduced llama31_8b's warmup
@@ -416,7 +428,9 @@ In order, it:
    and the 2-D kernels' whole-prefill forms as in phase 16; each mode's
    runs must give the same tokens; the decode graph built on a
    busy engine must leave every SSM leaf bit-equal and equal the eager
-   step (logits within 3e-2).  Prints the parameters and their bytes,
+   step (logits within 3e-2); a dense 4096-token prefill at B = 1 on the
+   resident params must take the dry run's ``temp_bytes`` of it (as in
+   22d).  Prints the parameters and their bytes,
    the phase's peak memory, per run decode tok/s, p50/p95, TTFT p50,
    whole-prefill ms per prompt length (with sparse prefill on a line of
    its own, beside its TTFT and the dense runs') and device ms per traced
@@ -6472,9 +6486,10 @@ def gemma_steps(dev, rates) -> tuple:
     return params, cfg, data_cfg, res
 
 
-def train_gemma(dev, K, rates) -> dict:
+def train_gemma(dev, K, rates, smi: str) -> dict:
     """Phase 19b: ``gemma_steps``, then one step at ``remat="full"`` on a
-    copy of the trained params with a fresh optimizer, an async
+    copy of the trained params with a fresh optimizer (its bytes above
+    the state against the dry run's estimate: :func:`memory_pair`), an async
     checkpoint round trip of the trained params (bit-equal), and the
     restored params served dense and ``pallas`` (keep 0.5, uncalibrated)
     on phase 16's 8 short prompts."""
@@ -6482,8 +6497,10 @@ def train_gemma(dev, K, rates) -> dict:
 
     from repro_torch import obs
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeConfig
     from repro_torch.core.sp_schema import default_sp_stacked
     from repro_torch.data import SyntheticLM
+    from repro_torch.launch import dryrun
     from repro_torch.launch.train import deterministic
     from repro_torch.models import api, params as P
     from repro_torch.optim import adamw
@@ -6501,21 +6518,28 @@ def train_gemma(dev, K, rates) -> dict:
     toks = torch.from_numpy(SyntheticLM(data_cfg).batch(
         GEMMA_TRAIN["steps"])).to(dev)
     res["breakdown"] = train_step_breakdown(cfg, copy, opt, ocfg, toks)
+    # the step's bytes above the state against the dry run's estimate of
+    # the same step on meta tensors (memory_pair)
     step = api.make_train_step(cfg, ocfg, remat="full")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
+    shape = ShapeConfig("phase19b", GEMMA_TRAIN["seq"], GEMMA_TRAIN["batch"],
+                        "train")
     t = obs.now()
     with deterministic():
-        copy, opt, m = step(copy, opt, {"tokens": toks})
+        (copy, opt, m), res["remat_full_memory"] = memory_pair(
+            "19b gemma2_2b train 2 x 1024 remat full",
+            lambda a: step(a["params"], a["opt_state"], a["batch"]),
+            dryrun.cell_args(cfg.name, shape.name, cfg=cfg, shape=shape),
+            {"params": copy, "opt_state": opt, "batch": {"tokens": toks}},
+            dev, smi)
         remat_loss = float(m["loss"])
-    res["remat_full_step_s"] = obs.now() - t
+    res["remat_full_calls_s"] = obs.now() - t
     res["remat_full_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res["remat_full_step_peak_over_state_gb"] = \
-        (torch.cuda.max_memory_allocated() - base) / 1e9
+        res["remat_full_memory"]["measured_bytes"] / 1e9
     if not np.isfinite(remat_loss):
         raise AssertionError(f"19b: remat full loss {remat_loss}")
-    print(f"19b one step at remat='full': {1e3 * res['remat_full_step_s']:.1f}"
+    print(f"19b two steps at remat='full' and the meta run of their "
+          f"estimate: {1e3 * res['remat_full_calls_s']:.1f}"
           f" ms, loss {remat_loss:.4f}, peak allocated "
           f"{res['remat_full_peak_gb']:.1f} GB "
           f"({res['remat_full_step_peak_over_state_gb']:.1f} GB above the "
@@ -6586,12 +6610,12 @@ def train_gemma(dev, K, rates) -> dict:
     return res
 
 
-def train_on_card(dev, K, rates, random_accept: float) -> dict:
+def train_on_card(dev, K, rates, random_accept: float, smi: str) -> dict:
     """Phase 19: 19a then 19b."""
     from repro_torch import obs
     t0 = obs.now()
     out = {"train_then_sparsify": train_then_sparsify(dev, K, random_accept),
-           "gemma2_2b": train_gemma(dev, K, rates)}
+           "gemma2_2b": train_gemma(dev, K, rates, smi)}
     out["wall_s"] = obs.now() - t0
     print(f"phase 19 took {out['wall_s']:.1f} s")
     return out
@@ -7505,11 +7529,162 @@ def sharded_bytes_check(dev, mesh, cfg, smi: str) -> dict:
             "relative_diff": rel}
 
 
+# 22d, 19b and 24: the dry run's memory estimate (``temp_bytes``, counted
+# on meta tensors) against the caching allocator's bytes above the
+# resident arguments, within MEMORY_REL_TOL of the measured bytes or
+# MEMORY_ABS_TOL, whichever is larger; a gap above MEMORY_NAMED of the
+# measured bytes is split into what the card allocates that meta does not
+# see
+MEMORY_REL_TOL = 0.10
+MEMORY_ABS_TOL = 64 * 2**20
+MEMORY_NAMED = 0.01
+
+
+def allocator_counter(args, dev):
+    """A ``PeakCounter`` over ``args`` on the card that also reads the
+    caching allocator after every op (from ``reset_peak_memory_stats()``
+    on, relative to ``memory_allocated()`` at its creation): at the op
+    where the allocator's peak was reached, the bytes it held beyond the
+    counted storages (512-B granules), those still held after the op
+    (the cuBLAS workspace, an allocation kept for later calls) and the
+    rest (freed inside the op: its internal workspace)."""
+    from repro_torch.launch.memory_analysis import PeakCounter, op_name
+
+    class AllocatorCounter(PeakCounter):
+        def __init__(self):
+            super().__init__(args)
+            self.args_rounded = self.live_rounded
+            gc.collect()
+            torch.cuda.synchronize(dev)
+            self.before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            self.card_peak, self.card_peak_op = 0, None
+            self.counted_at_peak = self.held_at_peak = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if out is NotImplemented:
+                return out
+            top = torch.cuda.max_memory_allocated(dev) - self.before
+            if top > self.card_peak:
+                counted = self.live_rounded - self.args_rounded
+                self.card_peak = top
+                self.card_peak_op = op_name(func)
+                self.counted_at_peak = counted
+                self.held_at_peak = torch.cuda.memory_allocated(dev) \
+                    - self.before - counted
+            return out
+
+    return AllocatorCounter()
+
+
+def memory_pair(tag: str, run, meta_args, card_args, dev, smi: str) -> tuple:
+    """``run(args)``'s ``temp_bytes`` on ``meta_args`` (the dry run's
+    estimate) against the caching allocator's peak above the resident
+    ``card_args`` for the same step on the card
+    (``max_memory_allocated()`` after ``reset_peak_memory_stats()``, less
+    ``memory_allocated()`` before), on the step's second call: the first
+    is measured too and printed, since it may allocate what later calls
+    reuse (the cuBLAS workspace of a thread's first product).  Raises
+    when estimate and second call are further apart than MEMORY_REL_TOL
+    of the measured bytes or MEMORY_ABS_TOL; prints each call's pair
+    beside the card, a gap over MEMORY_NAMED split into what the card
+    allocates that meta does not see.  Returns (the second call's
+    output, the numbers)."""
+    from repro_torch.launch.memory_analysis import PeakCounter
+
+    with PeakCounter(meta_args) as est:
+        out = run(meta_args)
+        del out
+    res = {"estimated_temp_bytes": est.temp_bytes,
+           "estimate_peak_op": est.peak_op,
+           "granules_at_peak": est.rounded_peak_bytes - est.peak_bytes}
+    for call in ("first", "second"):
+        with allocator_counter(card_args, dev) as card:
+            out = run(card_args)
+            torch.cuda.synchronize(dev)
+        measured = torch.cuda.max_memory_allocated(dev) - card.before
+        gap = measured - est.temp_bytes
+        res[call] = {"measured_bytes": measured, "gap_bytes": gap,
+                     "relative_gap": gap / measured,
+                     "counted_on_card": card.temp_bytes,
+                     "allocator_peak_op": card.card_peak_op,
+                     "held_outside_storages": card.held_at_peak,
+                     "op_workspace": card.card_peak - card.counted_at_peak
+                     - card.held_at_peak}
+        line = (f"memory {tag}, {call} call: estimated {est.temp_bytes} B "
+                f"above the arguments on meta tensors (peak at "
+                f"{est.peak_op}), measured {measured} B by the allocator "
+                f"({100 * gap / measured:+.2f}%)")
+        if abs(gap) > MEMORY_NAMED * measured:
+            r = res[call]
+            line += (f"; the gap: the step's own storages counted on the "
+                     f"card {card.temp_bytes - est.temp_bytes:+d} B against "
+                     f"meta, 512-B granules +{res['granules_at_peak']} B, at "
+                     f"the allocator's peak ({card.card_peak_op}) "
+                     f"{r['held_outside_storages']} B held outside any "
+                     f"storage of the step (the cuBLAS workspace, a kept "
+                     f"allocation) and {r['op_workspace']} B of "
+                     f"{card.card_peak_op}'s internal workspace")
+        print(f"{line}; {smi}", flush=True)
+        if call == "first":
+            del out
+    res.update(res.pop("second"))
+    if abs(gap) > max(MEMORY_REL_TOL * measured, MEMORY_ABS_TOL):
+        raise AssertionError(
+            f"memory {tag}: the estimate {est.temp_bytes} B is {gap:+d} B "
+            f"from the measured {measured} B (limit "
+            f"{100 * MEMORY_REL_TOL:.0f}% or {MEMORY_ABS_TOL} B)")
+    return out, res
+
+
+def sharded_memory_check(dev, mesh, cfg, smi: str) -> dict:
+    """22d: the dry run's ``temp_bytes`` of phase 22's serve cell (its
+    prefill and aligned decode steps, dense and ``topk_shared`` at KEEP)
+    and of the SHARDED_TRAIN cell (remat none, dots, full) on the 1x1
+    mesh, each against the card's allocator for the same step on
+    ``cell_args(device=dev)``."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+
+    B, S, steps = (SHARDED_RUN[k] for k in ("batch", "prompt_len",
+                                            "decode_steps"))
+    t = SHARDED_TRAIN
+    train_cfg = dataclasses.replace(get_config(t["arch"]),
+                                    num_layers=t["layers"])
+    cells = [(cfg, ShapeConfig("phase22", S, B, "prefill"), s, None)
+             for s in (0.0, KEEP)]
+    cells += [(cfg, ShapeConfig("phase22", S + steps, B, "decode"), s, None)
+              for s in (0.0, KEEP)]
+    cells += [(train_cfg, ShapeConfig("phase22", t["seq"], t["batch"],
+                                      "train"), 0.0, r)
+              for r in ("none", "dots", "full")]
+    out = {}
+    for c, shape, s, remat in cells:
+        rules = sh.LOGICAL_RULES_TRAIN if remat else sh.LOGICAL_RULES_SERVE
+        tag = (f"22d {c.name} {shape.mode} {shape.global_batch} x "
+               f"{shape.seq_len}" + (f" remat {remat}" if remat else
+                                     f" sparsity {s}"))
+        with sh.sharding_context(mesh, rules):
+            run = dryrun.cell_step(c, shape, sparsity=s,
+                                   remat=remat or "none")
+            meta = dryrun.cell_args(c.name, shape.name, sparsity=s, cfg=c,
+                                    shape=shape)
+            card = dryrun.cell_args(c.name, shape.name, sparsity=s, cfg=c,
+                                    shape=shape, device=dev)
+            step_out, out[tag] = memory_pair(tag, run, meta, card, dev, smi)
+            del step_out, card
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def serve_sharded(dev, K, smi) -> dict:
     """Phase 22: the sharded steps on a 1x1 mesh of the card
     (:func:`sharded_serve_check`, :func:`sharded_train_check`,
-    :func:`sharded_bytes_check`), each figure beside the card's name and
-    power limit."""
+    :func:`sharded_bytes_check`, :func:`sharded_memory_check`), each
+    figure beside the card's name and power limit."""
     from repro_torch import obs
     from repro_torch.launch.mesh import make_host_mesh
 
@@ -7522,6 +7697,7 @@ def serve_sharded(dev, K, smi) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         out["bytes"] = sharded_bytes_check(dev, mesh, cfg, smi)
+        out["memory"] = sharded_memory_check(dev, mesh, cfg, smi)
         out["train"] = sharded_train_check(dev, mesh)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7864,13 +8040,15 @@ def serve_jamba(dev, K, smi: str) -> dict:
           f"{agreement(runs['dense'][0], runs['calibrated'][0]):.3f} (random "
           "weights; informative only)")
     peak = max(peak, torch.cuda.max_memory_allocated()) / 1e9
+    memory = jamba_prefill_memory(dev, cfg, params, smi)
     out = {"model": model, "trace_lens": trace["lens"],
            "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
                                       if k != "tokens"}
                     for n, rs in runs.items() for i, r in enumerate(rs)},
            "step_bounds": bounds, "graph_vs_eager": gve,
            "capacity_drops": capacity, "calibration": calib,
-           "phase_peak_gb": peak, "prefill_against_dense": against}
+           "phase_peak_gb": peak, "prefill_against_dense": against,
+           "prefill_memory": memory}
     del params, sp, plan_sp, modes
     gc.collect()
     torch.cuda.empty_cache()
@@ -7878,6 +8056,28 @@ def serve_jamba(dev, K, smi: str) -> dict:
     print(f"phase 24 took {out['wall_s']:.1f} s; device memory peak "
           f"{out['phase_peak_gb']:.2f} GB ({smi})")
     return out
+
+
+def jamba_prefill_memory(dev, cfg, params, smi: str) -> dict:
+    """Phase 24's memory check: one dense prefill of a 4096-token
+    prompt at B = 1 (``api.step_for_shape``) on the period's resident
+    params, its bytes above them against the dry run's ``temp_bytes`` of
+    the same step on meta tensors (:func:`memory_pair`): the attention,
+    MoE and Mamba2 paths at jamba_v01_52b's width."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    shape = ShapeConfig("phase24", 4096, 1, "prefill")
+    toks = torch.from_numpy(np.random.default_rng(SEED + 24).integers(
+        0, cfg.vocab_size, (1, shape.seq_len))).to(dev)
+    out, res = memory_pair(
+        f"24 {cfg.name} dense prefill 1 x 4096", dryrun.cell_step(cfg, shape),
+        dryrun.cell_args(cfg.name, shape.name, cfg=cfg, shape=shape),
+        {"params": params, "batch": {"tokens": toks}}, dev, smi)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def jamba_kernels(K, ref, build, dev, rates) -> tuple:
@@ -8244,7 +8444,8 @@ def main() -> int:
     mamba = serve_mamba(dev, K, clis["mamba2_130m"])
     took("18 mamba2_130m")
     training = train_on_card(
-        dev, K, rates, spec_res["spec calibrated"]["spec"]["accept_rate"])
+        dev, K, rates, spec_res["spec calibrated"]["spec"]["accept_rate"],
+        smi)
     took("19 training")
     gc.collect()
     torch.cuda.empty_cache()

@@ -23,7 +23,11 @@ product, not one device's share).
   bytes (``roofline.wire_bytes`` doubles all-reduce).
 
 Under the dry run's fake group every rank is rank 0, so the counts are
-rank 0's; the rules give every rank a shard of the same size.
+rank 0's; the rules give every rank a shard of the same size.  DTensor's
+sharding propagation runs each op signature it has not cached on fake
+tensors of the global shapes, and this mode sees those ops too: they
+move nothing on any device and are not counted (else a cell's counts
+would depend on what ran before it in the process).
 """
 from __future__ import annotations
 
@@ -72,12 +76,14 @@ class CostCounter(TorchDispatchMode):
         self.collective_counts: Dict[str, int] = {k: 0 for k in COLLECTIVES}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
         from torch.distributed.tensor import DTensor
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented       # DTensor first: then its local ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if isinstance(func, torch._ops.HigherOrderOperator):
+        if isinstance(func, torch._ops.HigherOrderOperator) or \
+                any(issubclass(t, FakeTensor) for t in types):
             return out
         packet = func._overloadpacket
         name = packet.__name__

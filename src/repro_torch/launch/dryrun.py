@@ -20,18 +20,29 @@ builders (``api.abstract_model``, ``api.input_specs``,
 (``LOGICAL_RULES_TRAIN`` for train, ``LOGICAL_RULES_SERVE`` otherwise),
 and the cell's step runs once on them (train: loss, grads and AdamW
 under ``--remat``; prefill; decode, ``aligned`` unless ``--no-aligned``;
-``topk_shared`` at ``k_max_frac = 1 - sparsity`` when sparse) under
-``cost_analysis.CostCounter``.
+``topk_shared`` at ``k_max_frac = 1 - sparsity`` when sparse).
 
 A record keeps the reference's keys where their meaning holds: ``arch``,
 ``shape``, ``mesh``, ``mode``, ``chips``, ``sparsity``, ``remat``,
 ``status``, ``memory.argument_bytes`` / ``output_bytes`` (this rank's
 shards of the step's arguments and results), ``cost.flops_per_device``
 / ``bytes_per_device`` (counted on local shards), ``collectives`` and
-``roofline`` (H100 SXM data-sheet predictions).  ``memory.peak_bytes_estimate``
-is None: eager torch has no buffer assignment to read a peak from, and
-meta tensors allocate nothing.  The reference's ``xla_flops`` /
-``xla_bytes`` and ``temp_bytes`` have no counterpart and are left out;
+``roofline`` (H100 SXM data-sheet predictions).  The step runs once
+under ``CommDebugMode``, ``CostCounter`` and
+``memory_analysis.PeakCounter`` together, and the last gives
+``memory.peak_bytes_estimate`` (the most bytes alive on this rank at
+once, the arguments included, as the reference's "per-device peak")
+and ``memory.temp_bytes`` (that peak less the arguments' bytes: what
+the step holds above its arguments), beside ``peak_op`` (the op at the
+peak).  Both differ from XLA's numbers by design: eager torch fuses
+nothing, so every intermediate an op writes counts while it lives,
+where XLA keeps a fusion's intermediates on chip; and the port's decode
+and train steps write the caches, params and optimizer state in place,
+where the reference donates them to buffers it may reuse.  An op's
+internal workspace (freed inside the op) and the caching allocator's
+512-byte granules are not in them; ``chip_smoke.py`` holds them against
+``torch.cuda.max_memory_allocated`` on the card.  The reference's
+``xla_flops`` / ``xla_bytes`` have no counterpart and are left out;
 ``host_s`` (this process's time for the cell) replaces ``compile_s``.
 ``--no-donate`` is accepted for the reference's CLI: the port's decode
 writes its caches in place either way.
@@ -51,7 +62,9 @@ from repro_torch.configs import SHAPES, get_config, runnable_cells
 from repro_torch.core import sp_schema
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch import roofline as R
+from repro_torch.launch.constants import CARD_HBM_BYTES
 from repro_torch.launch.cost_analysis import CostCounter
+from repro_torch.launch.memory_analysis import PeakCounter
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import api
 from repro_torch.models import params as P
@@ -120,6 +133,27 @@ def argument_bytes(args) -> int:
     return _local_bytes(list(args.values()))
 
 
+def cell_step(cfg, shape, *, sparsity: float = 0.0, remat: str = "dots",
+              aligned: bool = True):
+    """The step a cell runs, as ``run(args)`` on :func:`cell_args`'s
+    arguments: train (loss, grads, AdamW under ``remat``), prefill, or
+    decode (``aligned`` one-slice cache writes); ``topk_shared`` at
+    ``k_max_frac = 1 - sparsity`` when a serve cell is sparse."""
+    train = shape.mode == "train"
+    policy = SparsityPolicy.uniform(
+        "topk_shared", k_max_frac=max(1.0 - sparsity, 1e-6)) \
+        if sparsity > 0.0 and not train else SparsityPolicy.dense()
+    step, _ = api.step_for_shape(
+        cfg, shape, remat=remat, policy=policy,
+        aligned=aligned and shape.mode == "decode")
+
+    def run(args):
+        call = [args["params"]] + (
+            [args["opt_state"]] if train else []) + [args["batch"]]
+        return step(*call, args.get("sp"))
+    return run
+
+
 def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 sparsity: float = 0.0, remat: str = "dots",
                 overrides=None, verbose: bool = True, aligned: bool = True,
@@ -141,20 +175,16 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     with sh.sharding_context(mesh, rules, overrides):
         args = cell_args(arch, shape_name, sparsity=sparsity, cfg=cfg,
                          shape=shape)
-        policy = SparsityPolicy.uniform(
-            "topk_shared", k_max_frac=max(1.0 - sparsity, 1e-6)) \
-            if sparse else SparsityPolicy.dense()
-        step, kind = api.step_for_shape(
-            cfg, shape, remat=remat, policy=policy,
-            aligned=aligned and shape.mode == "decode")
+        run = cell_step(cfg, shape, sparsity=sparsity, remat=remat,
+                        aligned=aligned)
         arg_bytes = argument_bytes(args)
-        call = [args["params"]] + (
-            [args["opt_state"]] if train else []) + [args["batch"]]
         from torch.distributed.tensor.debug import CommDebugMode
-        with CommDebugMode() as comm, CostCounter() as counter:
-            out = step(*call, args.get("sp"))
+        with CommDebugMode() as comm, CostCounter() as counter, \
+                PeakCounter(args) as peak:
+            out = run(args)
         out_bytes = _local_bytes(list(out) if isinstance(out, tuple)
                                  else out)
+        del out
     cost = counter.summary()
     coll = cost.pop("collectives")
     rl = R.Roofline(
@@ -173,7 +203,10 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "status": "ok",
         "host_s": now() - t0,
         "memory": {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
-                   "peak_bytes_estimate": None},
+                   "temp_bytes": peak.temp_bytes,
+                   # per-device peak of live bytes (includes arguments)
+                   "peak_bytes_estimate": peak.peak_bytes,
+                   "peak_op": peak.peak_op},
         "cost": {"flops_per_device": cost["flops_per_device"],
                  "bytes_per_device": cost["bytes_per_device"]},
         "collectives": coll,
@@ -183,10 +216,10 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "roofline": rl.row(),
     }
     if verbose:
-        gb = arg_bytes / 2**30
+        gb = peak.peak_bytes / 2**30
         print(f"[{arch} x {shape.name} x {mesh_name}"
               f"{' sparse@%.2f' % sparsity if sparse else ''}] "
-              f"host={rec['host_s']:.1f}s args={gb:.2f}GiB/device "
+              f"host={rec['host_s']:.1f}s peak={gb:.2f}GiB/device "
               f"compute={rl.compute_s*1e3:.2f}ms "
               f"memory={rl.memory_s*1e3:.2f}ms "
               f"coll={rl.collective_s*1e3:.2f}ms -> {rl.bottleneck} "
@@ -198,8 +231,9 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
 def report(path: str) -> str:
     """A markdown table of the records in ``path`` (one row per arch x
     shape, the single-pod and two-pod meshes side by side): per-device
-    argument GiB, TFLOPs, collective GB on the wire, the bottleneck and
-    ``mfu``; the roofline terms are H100 SXM data-sheet predictions."""
+    peak GiB and whether it fits one card's ``CARD_HBM_BYTES``, argument
+    GiB, TFLOPs, collective GB on the wire, the bottleneck and ``mfu``;
+    the roofline terms are H100 SXM data-sheet predictions."""
     rows = {}
     with open(path) as f:
         for line in f:
@@ -211,8 +245,12 @@ def report(path: str) -> str:
             return "—"
         if r["status"] != "ok":
             return f"error: {r['error'][:60]}"
-        rl = r["roofline"]
-        return (f"{r['memory']['argument_bytes'] / 2**30:.2f} GiB, "
+        rl, mem = r["roofline"], r["memory"]
+        fits = "fits" if mem["peak_bytes_estimate"] <= CARD_HBM_BYTES \
+            else "does not fit"
+        return (f"peak {mem['peak_bytes_estimate'] / 2**30:.2f} GiB "
+                f"({fits} {CARD_HBM_BYTES / 1e9:.0f} GB), "
+                f"args {mem['argument_bytes'] / 2**30:.2f} GiB, "
                 f"{r['cost']['flops_per_device'] / 1e12:.3f} TF, "
                 f"{R.wire_bytes(r['collectives']) / 1e9:.3f} GB; "
                 f"{rl['bottleneck']}, mfu {rl['mfu']:.4f}")

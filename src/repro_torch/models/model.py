@@ -505,10 +505,16 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
     return e
 
 
+def _on_card(t) -> bool:
+    """Whether ``t`` takes the card's path: on the card, and on meta
+    tensors, which stand for the card in the dry run's counts."""
+    return t.is_cuda or t.is_meta
+
+
 def _mm_f32(a, b):
     """``a @ b`` of low-precision operands, accumulated and returned in
     f32 (``torch.mm(out_dtype=)`` on the card; the CPU has no such op)."""
-    if a.is_cuda:
+    if _on_card(a):
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 
@@ -576,7 +582,7 @@ def lm_logits(params, x, cfg: ModelConfig):
 def _head(x, w):
     B, S, D = x.shape
     x2 = x.reshape(B * S, D)
-    if x2.is_cuda and x2.dtype != torch.float32:
+    if _on_card(x2) and x2.dtype != torch.float32:
         # f32 output from the low-precision operands, without an f32 copy
         # of the (V, D) head
         if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):

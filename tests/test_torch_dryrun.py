@@ -3,8 +3,9 @@ the mesh half of ``launch/roofline.py``) on a fake process group: the
 reference's ``model_flops`` and ``active_matmul_params`` for every
 runnable cell; per-device argument bytes worked out from the reference's
 specs on ``FakeMesh``; collectives counted on local shards (a
-model-sharded cell all-reduces, a 1x1 mesh does not); one full-width
-cell run to ``status: ok``."""
+model-sharded cell all-reduces, a 1x1 mesh does not), the same on a
+second run in one process; one full-width cell run to ``status: ok``
+with its peak-memory estimate; the report's peak and fits columns."""
 import math
 
 import numpy as np
@@ -131,7 +132,42 @@ def test_full_width_decode_cell_runs():
     assert rec["cost"]["flops_per_device"] > 0
     assert rec["roofline"]["bottleneck"] in ("compute", "memory",
                                              "collective")
-    assert rec["memory"]["peak_bytes_estimate"] is None
+    mem = rec["memory"]
+    assert isinstance(mem["peak_bytes_estimate"], int)
+    assert isinstance(mem["temp_bytes"], int) and mem["temp_bytes"] >= 0
+    assert mem["peak_bytes_estimate"] > mem["argument_bytes"]
+    assert mem["peak_bytes_estimate"] == mem["argument_bytes"] \
+        + mem["temp_bytes"]
+
+
+def test_counts_do_not_depend_on_what_ran_before():
+    """DTensor's sharding propagation runs each op signature it has not
+    cached on fake tensors of the global shapes: neither counter takes
+    those, so a cell counts the same on its first and second run in one
+    process."""
+    cfg = reduced(get_config("llama31_8b"))
+    with dryrun.fake_group(4):
+        mesh = make_mesh((1, 4), device_type="cpu")
+        recs = [dryrun.dryrun_cell(
+            "llama31_8b", "train", cfg=cfg,
+            shape=ShapeConfig("train", 16, 4, "train"), mesh=mesh,
+            verbose=False) for _ in range(2)]
+    first, second = ({k: r[k] for k in ("cost", "collectives", "memory")}
+                     for r in recs)
+    assert first == second
+
+
+def test_report_shows_peak_and_fit(tmp_path):
+    rec = _small_cell((1, 1))
+    path = tmp_path / "cells.jsonl"
+    import json
+    path.write_text(json.dumps(rec) + "\n" + json.dumps(
+        rec | {"mesh": "multi", "memory": rec["memory"] | {
+            "peak_bytes_estimate": 81 * 10**9}}) + "\n")
+    table = dryrun.report(str(path))
+    peak = rec["memory"]["peak_bytes_estimate"] / 2**30
+    assert f"peak {peak:.2f} GiB (fits 80 GB)" in table
+    assert "peak 75.44 GiB (does not fit 80 GB)" in table
 
 
 @pytest.mark.parametrize("remat", ["dots", "full"])

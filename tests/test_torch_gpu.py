@@ -1725,6 +1725,53 @@ def test_restore_under_context_on_card(dev, host_mesh, tmp_path):
     assert res["loss_diff"] <= 1e-5 and res["param_max_diff"] <= 1e-5
 
 
+def _memory_pair(dev, cfg, shape, **kw):
+    """``chip_smoke.memory_pair`` on :func:`dryrun.cell_args` of ``cfg``
+    (meta against zeros on the card), in the caller's sharding context
+    if any: it raises past max(10%, 64 MiB)."""
+    from repro_torch.launch import dryrun
+    args = [dryrun.cell_args(cfg.name, shape.name, cfg=cfg, shape=shape,
+                             sparsity=kw.get("sparsity", 0.0), device=d)
+            for d in ("meta", dev)]
+    out, res = chip_smoke.memory_pair(
+        f"{cfg.name} {shape.mode} {kw}", dryrun.cell_step(cfg, shape, **kw),
+        *args, dev, chip_smoke.nvidia_smi())
+    del out, args
+    return res
+
+
+@pytest.mark.parametrize("mode,kw", [("train", {"remat": "dots"}),
+                                     ("prefill", {}),
+                                     ("decode", {"sparsity": 0.5})])
+def test_memory_estimate_against_the_allocator(dev, mode, kw):
+    """The dry run's ``temp_bytes`` of a reduced llama31_8b step at 8 x
+    512, counted on meta tensors, against the caching allocator's bytes
+    above the same arguments on the card; the step's storages counted on
+    the card's tensors equal meta's."""
+    from repro_torch.configs import ShapeConfig
+    cfg = reduced(get_config("llama31_8b"))
+    res = _memory_pair(dev, cfg, ShapeConfig("gpu", 512, 8, mode), **kw)
+    assert res["measured_bytes"] > 0
+    assert res["counted_on_card"] == res["estimated_temp_bytes"]
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_memory_estimate_on_host_mesh_bf16(dev, host_mesh, remat):
+    """The same at bf16 on the 1x1 mesh (LOGICAL_RULES_TRAIN): the head's
+    f32-output product and its chunked backward take the card's path on
+    meta tensors too, so their counts agree."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    cfg = dataclasses.replace(reduced(get_config("llama31_8b")),
+                              dtype="bfloat16")
+    with sh.sharding_context(host_mesh, sh.LOGICAL_RULES_TRAIN):
+        res = _memory_pair(dev, cfg, ShapeConfig("gpu", 512, 4, "train"),
+                           remat=remat)
+    assert res["counted_on_card"] == res["estimated_temp_bytes"]
+
+
 def test_analysis_global_passes_clean_on_card(dev):
     """``repro_torch.analysis``'s global passes on the card: the warmup
     set captured and replayed in place, every key stable, and every
