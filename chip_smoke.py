@@ -58,9 +58,13 @@ In order, it:
    ``score_select_experts`` alone is then held, checked for bit-equal
    launches and timed at every expert shape of granite_moe_1b_a400m (32
    experts), granite_moe_3b_a800m (48) and jamba_v01_52b (16): both
-   expert input widths at decode rows 1, 8, 32 and 448 and the rows of a
-   32- and a 448-token chunk, each line with its form (one block per
-   expert, or one cluster per expert) and a per-layer sum, then at E = 1
+   expert input widths at decode rows 1, 8, 32 and 448, the rows of a
+   32- and a 448-token chunk and jamba's whole-prefill rows (111, 241,
+   641), each line with its form (one block per expert, one cluster per
+   expert, or from 32 rows per expert the spread form with the expert
+   axis in its grid), both the cluster and the spread form forced beside
+   it (held the same way; the times that chose the threshold) and a
+   per-layer sum, then at E = 1
    on llama31_8b's seven decode shapes beside ``score_select`` (a
    measurement line; the dense path keeps ``score_select``).
    ``score_select`` and ``sparse_matmul_shared`` are then held and timed
@@ -424,8 +428,12 @@ In order, it:
    run must build no decode step after warmup and launch 58 of each 2-D
    kernel and 12 of each ``_experts`` kernel per sparse pass, the
    expert matmul in its tile form exactly in the sparse whole prefills
-   (12 each: every prompt's expert rows, 111-641, reach its threshold)
-   and the 2-D kernels' whole-prefill forms as in phase 16; each mode's
+   (12 each: every prompt's expert rows, 111-641, reach its threshold),
+   the expert selection in its spread form there too (12 each, counted
+   in ``spread_launches["score_select_experts"]`` and printed per sparse
+   whole prefill beside the dense runs' prefills of the same prompt
+   tokens) and the 2-D kernels' whole-prefill forms as in phase 16; each
+   mode's
    runs must give the same tokens; the decode graph built on a
    busy engine must leave every SSM leaf bit-equal and equal the eager
    step (logits within 3e-2); a dense 4096-token prefill at B = 1 on the
@@ -450,7 +458,9 @@ In order, it:
    R = 641) from phase 24's sparse-prefill run, as those of
    ``sparse_matmul_shared_tile`` and ``score_select_spread`` (the 2-D
    kernels' whole-prefill forms, timed per jamba sparse pass at B = 4096
-   over the shapes routed to them), and those of
+   over the shapes routed to them) and ``score_select_experts_spread``
+   (the expert selection's spread form, timed per jamba MoE layer at R =
+   641), and those of
    ``sparse_matmul_per_seq`` from phase 3's
    ``wisparse_project(per_seq=True)`` calls, since no serving path
    reaches that kernel.
@@ -509,12 +519,16 @@ GRANITE_E = 48
 # serves: (arch, padded experts E, routed experts, n of moe/wi_gate and
 # moe/wi_up, n of moe/wo, expert rows R).  R: decode with 1, 8, 32 and
 # 448 slots (capacity 1), then one group of 32 and of 448 tokens
-# (``models/moe.expert_rows``).  Experts past the routed ones (or, with
-# none, the last) have zero rows, as an expert no token chose.
+# (``models/moe.expert_rows``), and jamba's whole prefills of 704, 1536
+# and 4096 tokens (``JAMBA_EXPERT_ROWS``).  Experts past the routed ones
+# (or, with none, the last) have zero rows, as an expert no token chose.
+# Both forced forms of the launch (cluster, spread) are timed beside the
+# routed one: what chose ``SCORE_EXPERT_SPREAD_MIN_ROWS``.
 EXPERT_SELECT = [
     ("granite_moe_1b_a400m", 32, 32, 1024, 512, (1, 8, 32, 448, 11, 141)),
     ("granite_moe_3b_a800m", 48, 40, 1536, 512, (1, 8, 32, 448, 9, 113)),
-    ("jamba_v01_52b", 16, 16, 4096, 14336, (1, 8, 32, 448, 6, 71))]
+    ("jamba_v01_52b", 16, 16, 4096, 14336,
+     (1, 8, 32, 448, 6, 71, 111, 241, 641))]
 # mamba2_130m projections of one layer (d_model 768, d_inner 1536, state
 # 128, 24 heads): in_B, in_C and in_dt are a single ragged column tile
 MAMBA_LAYER = [("mamba/in_z", 768, 1536), ("mamba/in_x", 768, 1536),
@@ -1131,9 +1145,10 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9),
                                        torch.bfloat16, rates)
             plan = K.expert_plan(R, n, m, kb, BLK, 2, E)
             form = plan.form
+            sel_form = select_form(G, E, R, n, kb, sms)
             out.append({
                 "R": R, "role": role, "E": E, "n": n, "m": m, "kb": kb,
-                "form": form,
+                "form": form, "select_form": sel_form.split()[0],
                 "score_select": {"ms": t_sel, "plain_ms": t_sel_plain,
                                  "library_ms": None, "bound_ms": sel_bound,
                                  "bound_by": sel_by},
@@ -1145,7 +1160,8 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9),
                     else math.prod(plan.grid)}})
             print(f"  experts E={E} R={R} {role:12s} n={n:5d} m={m:5d} "
                   f"kb={kb:2d} | score_select {t_sel * 1e3:7.2f} us (plain "
-                  f"{t_sel_plain * 1e3:8.2f}, bound {sel_bound * 1e3:5.2f}) | "
+                  f"{t_sel_plain * 1e3:8.2f}, bound {sel_bound * 1e3:5.2f}, "
+                  f"{sel_form}) | "
                   f"sparse_matmul_shared {t_mm * 1e3:7.2f} us (plain "
                   f"{t_mm_plain * 1e3:8.2f}, torch.bmm dense "
                   f"{t_bmm * 1e3:7.2f}, bound {mm_bound * 1e3:6.2f} = "
@@ -1166,7 +1182,9 @@ def expert_kernels(K, ref, dev, rates, rows=(8, 9),
                      + f", bound {tot['bound_ms'] * 1e3:6.2f} = "
                      f"{100 * tot['bound_ms'] / tot['ms']:5.1f}%);")
         print(line + " matmul form " + "/".join(sorted({r["form"]
-                                                        for r in per})))
+                                                        for r in per}))
+              + ", selection form " + "/".join(sorted({r["select_form"]
+                                                       for r in per})))
     print(f"expert kernels: {E} experts x {model}'s 3 expert shapes x R = "
           f"{list(rows)} x 3 (alpha, tau) agree with their plain versions "
           f"(max abs err {errs})")
@@ -1530,13 +1548,19 @@ def select_form(G, E: int, R: int, n: int, kb: int, sms: int) -> str:
             f"{geo.threads} cluster {geo.cluster[0]}")
 
 
-def hold_experts(name, K, ref, x, g, a, tau, kf, kb, zero) -> float:
-    """``score_select_experts`` on (x, g) against its plain version: the
-    whole (E, ...) outputs at once, and where they differ expert by
+def hold_experts(name, K, ref, x, g, a, tau, kf, kb, zero,
+                 form=None) -> float:
+    """``score_select_experts`` on (x, g) against its plain version, in
+    the shape's own form or the ``form`` forced ("cluster", "spread"):
+    the whole (E, ...) outputs at once, and where they differ expert by
     expert as ``check_select`` allows (near ties printed); the experts in
     ``zero`` (zero rows) give ids 0..kb-1; two launches bit-equal.
     Returns the largest bs error."""
-    got = K.score_select_experts(x, g, a, tau, kf, kb=kb, blk=BLK)
+    def call():
+        if form is None:
+            return K.score_select_experts(x, g, a, tau, kf, kb=kb, blk=BLK)
+        return K._launch_score(x, g, a, tau, kf, BLK, kb, None, form)
+    got = call()
     torch.cuda.synchronize()
     want = ref.ref_score_select_experts(x, g, a, tau, kf, BLK, kb)
     err = check_close(f"{name} bs", got[2], want[2])
@@ -1551,21 +1575,23 @@ def hold_experts(name, K, ref, x, g, a, tau, kf, kb, zero) -> float:
     if got[1][zero].tolist() != [list(range(kb))] * len(zero):
         raise AssertionError(f"{name}: the zero experts' ids "
                              f"{got[1][zero].tolist()}")
-    bit_equal(name, lambda: K.score_select_experts(x, g, a, tau, kf, kb=kb,
-                                                   blk=BLK))
+    bit_equal(name, call)
     return err
 
 
 def expert_select_shapes(K, ref, G, dev, rates) -> tuple:
     """``score_select_experts`` at every shape of ``EXPERT_SELECT`` (three
-    MoE archs, both expert input widths, decode and chunk rows), bf16,
-    k_frac 0.5: held against its plain version (:func:`hold_experts`) at
-    alpha 0.7 with a finite tau (a quarter of the mean score) and
-    keep_frac 0.375, and at alpha 1 (the uncalibrated sp tree's), tau
-    -inf, keep_frac 0.5, then timed there by CUDA-graph replay beside the
-    plain version and the bound (bytes over the card's memory rate), with
-    the form the launch took, and once more at alpha 0.7 (a calibrated
-    layer's: powf runs).  Then the
+    MoE archs, both expert input widths, decode and chunk rows, jamba's
+    whole prefills), bf16, k_frac 0.5: held against its plain version
+    (:func:`hold_experts`) at alpha 0.7 with a finite tau (a quarter of
+    the mean score) and keep_frac 0.375, and at alpha 1 (the
+    uncalibrated sp tree's), tau -inf, keep_frac 0.5, in its routed form
+    and in both forced forms (cluster, spread; a tree without the expert
+    spread form: the routed form alone), then timed there by CUDA-graph
+    replay, each form beside the plain version and the bound (bytes over
+    the card's memory rate), with the form the launch took, and the
+    routed form once more at alpha 0.7 (a calibrated layer's: powf
+    runs).  Then the
     evidence line: the expert entry at E = 1 on llama31_8b's seven
     decode shapes (B = 8) beside ``score_select``'s one cluster.
     Returns (rows, largest bs error)."""
@@ -1575,9 +1601,12 @@ def expert_select_shapes(K, ref, G, dev, rates) -> tuple:
     alpha = torch.tensor(1.0, device=dev)
     a7 = torch.tensor(0.7, device=dev)
     ninf = torch.tensor(-math.inf, device=dev)
+    forced = ("cluster", "spread") if "score_select_experts" in getattr(
+        K, "spread_launches", {}) else ()
     for arch, E, routed, n_in, n_ff, rs in EXPERT_SELECT:
         zero = list(range(routed, E)) or [E - 1]
         for R in rs:
+            reps = {} if R <= 64 else {"reps": 4, "replays": 2}
             for role, n in (("moe/wi", n_in), ("moe/wo", n_ff)):
                 x = torch.randn(E, R, n, device=dev, generator=gen)
                 x[zero] = 0
@@ -1589,17 +1618,24 @@ def expert_select_shapes(K, ref, G, dev, rates) -> tuple:
                 tau = 0.25 * (x.float().abs() * g[:, None] ** 0.7).mean()
                 k3 = torch.tensor(0.375, device=dev)
                 k5 = torch.tensor(KEEP, device=dev)
-                err = max(err, hold_experts(f"{name} alpha=0.7 "
-                                            f"tau={float(tau):.3g}", K, ref,
-                                            x, g, a7, tau, k3, kb, zero),
-                          hold_experts(f"{name} tau=-inf", K, ref, x, g,
-                                       alpha, ninf, k5, kb, zero))
+                for form in (None,) + forced:
+                    tag = f"{name} {form or 'routed'}"
+                    err = max(err, hold_experts(f"{tag} alpha=0.7 "
+                                                f"tau={float(tau):.3g}", K,
+                                                ref, x, g, a7, tau, k3, kb,
+                                                zero, form),
+                              hold_experts(f"{tag} tau=-inf", K, ref, x, g,
+                                           alpha, ninf, k5, kb, zero, form))
                 t = graph_ms(lambda i: K.score_select_experts(
-                    x, g, alpha, ninf, k5, kb=kb, blk=BLK))
+                    x, g, alpha, ninf, k5, kb=kb, blk=BLK), **reps)
                 t7 = graph_ms(lambda i: K.score_select_experts(
-                    x, g, a7, ninf, k5, kb=kb, blk=BLK))
+                    x, g, a7, ninf, k5, kb=kb, blk=BLK), **reps)
+                t_forms = {f"{form}_ms": graph_ms(
+                    lambda i, form=form: K._launch_score(
+                        x, g, alpha, ninf, k5, BLK, kb, None, form), **reps)
+                    for form in forced}
                 t_plain = graph_ms(lambda i: ref.ref_score_select_experts(
-                    x, g, alpha, ninf, k5, BLK, kb))
+                    x, g, alpha, ninf, k5, BLK, kb), **reps)
                 # x read, xm written, g, the three scalars, bs and idx
                 nbytes = 2 * E * R * n * 2 + E * n * 4 + 12 + E * (nb + kb) * 4
                 bound, by = bound_ms(nbytes, 6.0 * E * R * n, torch.float32,
@@ -1607,22 +1643,27 @@ def expert_select_shapes(K, ref, G, dev, rates) -> tuple:
                 form = select_form(G, E, R, n, kb, sms)
                 rows.append({"arch": arch, "role": role, "E": E, "R": R,
                              "n": n, "kb": kb, "form": form, "ms": t,
-                             "ms_alpha_0.7": t7, "plain_ms": t_plain,
-                             "library_ms": None, "bound_ms": bound,
-                             "bound_by": by})
+                             "ms_alpha_0.7": t7, **t_forms,
+                             "plain_ms": t_plain, "library_ms": None,
+                             "bound_ms": bound, "bound_by": by})
+                both = "".join(f", {k[:-3]} {v * 1e3:7.2f}"
+                               for k, v in t_forms.items())
                 print(f"  {arch:20s} {role:6s} E={E:2d} R={R:3d} n={n:5d} "
                       f"kb={kb:2d} | score_select_experts {t * 1e3:7.2f} us "
-                      f"(alpha 0.7: {t7 * 1e3:7.2f}; plain "
+                      f"(alpha 0.7: {t7 * 1e3:7.2f}{both}; plain "
                       f"{t_plain * 1e3:8.2f}, bound {bound * 1e3:6.2f}) {form}")
                 del x, g
         for R in rs:
             per = {r["role"]: r for r in rows
                    if r["arch"] == arch and r["R"] == R}
-            tot = {k: 2 * per["moe/wi"][k] + per["moe/wo"][k]
-                   for k in ("ms", "ms_alpha_0.7", "plain_ms", "bound_ms")}
+            keys = ("ms", "ms_alpha_0.7", "plain_ms", "bound_ms") + tuple(
+                f"{f}_ms" for f in forced)
+            tot = {k: 2 * per["moe/wi"][k] + per["moe/wo"][k] for k in keys}
+            both = "".join(f", {f} {tot[f + '_ms'] * 1e3:7.2f}"
+                           for f in forced)
             print(f"{arch} per layer (3 launches), R={R}: "
                   f"score_select_experts {tot['ms'] * 1e3:7.2f} us (alpha "
-                  f"0.7: {tot['ms_alpha_0.7'] * 1e3:7.2f}; plain "
+                  f"0.7: {tot['ms_alpha_0.7'] * 1e3:7.2f}{both}; plain "
                   f"{tot['plain_ms'] * 1e3:8.2f}, bound "
                   f"{tot['bound_ms'] * 1e3:6.2f})")
     # evidence for a one-launch selection on the dense path: the expert
@@ -1648,8 +1689,9 @@ def expert_select_shapes(K, ref, G, dev, rates) -> tuple:
                  f"({select_form(G, 1, 8, n, kb, sms).split()[0]});")
     print(f"{line} the layer {tot[0] * 1e3:.2f} / {tot[1] * 1e3:.2f}")
     print(f"expert selection: {len(rows)} shapes of {len(EXPERT_SELECT)} "
-          f"MoE archs agree with the plain version (max abs bs err "
-          f"{err:.3e})")
+          f"MoE archs agree with the plain version in the routed form"
+          + (" and both forced forms" if forced else "")
+          + f" (max abs bs err {err:.3e})")
     return rows, err
 
 
@@ -2656,20 +2698,34 @@ def whole_prefill_forms(K, cfg, rows: int, k_frac: float = KEEP) -> tuple:
 def prefill_against_dense(tag: str, runs: dict, smi: str) -> dict:
     """Each whole prefill's ms (prompt length x batch) in the dense runs
     beside the sparse-prefill runs' at the same prompts, printed with the
-    2-D tile-form matmuls and spread-form selections of those sparse
-    prefills; returns {"n x b": {"dense": [...], "sparse": [...]}}."""
-    out = {}
+    2-D tile-form matmuls and spread-form selections (and, on a MoE arch,
+    spread-form expert selections) of those sparse prefills; checks that
+    every dense and sparse run prefilled the same prompt tokens, prompt
+    for prompt.  Returns {"n x b": {"dense": [...], "sparse": [...]}}."""
+    out, tokens = {}, set()
     for name in ("dense", "pallas sparse prefill"):
         key = "dense" if name == "dense" else "sparse"
         for r in runs[name]:
+            tokens.add(sum(n * b for n, b, _ms in r["whole_prefills"]))
             for n, b, ms in r["whole_prefills"]:
                 out.setdefault(f"{n}x{b}", {"dense": [], "sparse": []})[
                     key].append(ms)
+    if len(tokens) != 1 or not all(v["dense"] and v["sparse"]
+                                   for v in out.values()):
+        raise AssertionError(f"{tag}: the sparse whole prefills' prompt "
+                             f"tokens {sorted(tokens)} and lengths "
+                             f"{sorted(out)} differ from the dense runs'")
+    (total,) = tokens
     for r in runs["pallas sparse prefill"]:
+        nw = len(r["whole_prefills"])
+        experts = "" if "expert_spread_launches" not in r else (
+            f", {r['expert_spread_launches']} spread-form "
+            f"score_select_experts ({r['expert_spread_launches'] / nw:g} per "
+            "sparse whole prefill)")
         print(f"{tag} sparse whole prefill: {r['tile_launches_2d']} 2-D "
               f"tile-form matmuls and {r['spread_launches']} spread-form "
-              f"score_selects over {len(r['whole_prefills'])} sparse whole "
-              "prefills")
+              f"score_selects{experts} over {nw} sparse whole prefills of "
+              f"{total} prompt tokens, as the dense runs'")
     for k, v in sorted(out.items(), key=lambda kv: -int(kv[0].split("x")[0])
                        * int(kv[0].split("x")[1])):
         ratio = min(v["sparse"]) / min(v["dense"])
@@ -2724,6 +2780,13 @@ def check_launches(name, eng, ladder, counts, res, cfg) -> None:
     if launches["sparse_matmul_per_seq"]:
         raise AssertionError(f"{name}: a serving run launched "
                              "sparse_matmul_per_seq")
+    # decode, chunk and verify rows lie below both selections' spread
+    # thresholds: no captured step (and no eager chunk) changed form
+    from repro_torch.kernels import sparse_matmul as K
+    if any(K.spread_launches.values()):
+        raise AssertionError(f"{name}: spread-form selections "
+                             f"{K.spread_launches} in a run of decode, "
+                             "chunk and verify steps")
     if passes:
         res["launches"] = {k: launches[k] for k in served}
         res["launches_counted"] = {k: counts[k] for k in served}
@@ -5063,8 +5126,8 @@ def gemma_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
                 "passes")
     if launches["sparse_matmul_per_seq"]:
         raise AssertionError(f"{name}: sparse_matmul_per_seq launched")
-    tiles_2d, spread = check_whole_forms(name, K, cfg, prefills,
-                                         sparse_prefill)
+    tiles_2d, spread, _ = check_whole_forms(name, K, cfg, prefills,
+                                            sparse_prefill)
     res.update({
         "strategy": eng.prefill_strategy,
         "tile_launches_2d": tiles_2d,
@@ -5648,27 +5711,49 @@ def mamba_short_trace(cfg) -> dict:
             "ecfg": dict(MAMBA_ECFG)}
 
 
+def expert_spread_forms(K, cfg, rows: int) -> int:
+    """``score_select_experts`` calls in the spread form in one sparse
+    pass of ``cfg`` at ``rows`` rows per expert: each expert projection
+    (:func:`role_counts`: three per MoE layer) whose selection
+    ``score_form`` puts there (bf16, aligned, as the model's are)."""
+    n_of = {"moe/wi_gate": cfg.d_model, "moe/wi_up": cfg.d_model,
+            "moe/wo": cfg.expert_d_ff}
+    return sum(c * (K.score_form(rows, n_of[role], BLK, 2, True, True)
+                    == "spread")
+               for role, c in role_counts(cfg).items() if role in n_of)
+
+
 def check_whole_forms(name, K, cfg, prefills, sparse_prefill) -> tuple:
-    """The 2-D kernels' whole-prefill forms in one run (the counts reset
-    before it): ``tile_launches["sparse_matmul_shared"]`` and
+    """The whole-prefill forms in one run (the counts reset before it):
+    ``tile_launches["sparse_matmul_shared"]`` and
     ``spread_launches["score_select"]`` equal to what its sparse whole
     prefills launch (:func:`whole_prefill_forms` at each prefill's rows
     ``prompt length x batch``; decode and chunk rows never take either
-    form), and nonzero in a run with sparse whole prefills.  Returns
-    (tile-form matmuls, spread-form selections)."""
+    form), and nonzero in a run with sparse whole prefills; and
+    ``spread_launches["score_select_experts"]`` equal to the expert
+    projections whose rows per expert (``models/moe.expert_rows``) take
+    the spread form (:func:`expert_spread_forms`), nonzero in such a run
+    of a MoE arch.  Returns (tile-form matmuls, spread-form selections,
+    spread-form expert selections)."""
+    from repro_torch.models import moe
     tiles_2d = K.tile_launches["sparse_matmul_shared"]
     spread = K.spread_launches["score_select"]
-    want = [0, 0]
+    experts = K.spread_launches["score_select_experts"]
+    want = [0, 0, 0]
     if sparse_prefill:
         for n, b, _ms in prefills:
             t, sp = whole_prefill_forms(K, cfg, n * b)
-            want = [want[0] + t, want[1] + sp]
-    if [tiles_2d, spread] != want or (sparse_prefill and 0 in want):
+            e = expert_spread_forms(K, cfg, moe.expert_rows(cfg, b, n)) \
+                if cfg.num_experts else 0
+            want = [want[0] + t, want[1] + sp, want[2] + e]
+    if [tiles_2d, spread, experts] != want or (
+            sparse_prefill and 0 in want[:2 + bool(cfg.num_experts)]):
         raise AssertionError(
-            f"{name}: {tiles_2d} 2-D tile-form matmuls and {spread} "
-            f"spread-form selections, expected {want[0]} and {want[1]} "
-            "(nonzero with sparse whole prefills)")
-    return tiles_2d, spread
+            f"{name}: {tiles_2d} 2-D tile-form matmuls, {spread} "
+            f"spread-form selections and {experts} spread-form expert "
+            f"selections, expected {want} (nonzero with sparse whole "
+            "prefills)")
+    return tiles_2d, spread, experts
 
 
 def ssm_state_bytes(eng) -> int:
@@ -5781,8 +5866,8 @@ def ssm_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
         raise AssertionError(f"{name}: the expert matmul's tile form "
                              f"launched {tiles} times, expected "
                              f"{want_tiles}")
-    tiles_2d, spread = check_whole_forms(name, K, cfg, prefills,
-                                         sparse_prefill)
+    tiles_2d, spread, spread_e = check_whole_forms(name, K, cfg, prefills,
+                                                   sparse_prefill)
     distinct = len({t for ts in out.values() for t in ts})
     if distinct < 2:
         raise AssertionError(f"{name}: every request emitted one token")
@@ -5799,6 +5884,7 @@ def ssm_run(name, params, cfg, policy, sp, trace, dev, K, frac=0.5,
         "tile_launches": tiles,
         "tile_launches_2d": tiles_2d,
         "spread_launches": spread,
+        "expert_spread_launches": spread_e,
         "launches_per_pass": pass_launches(cfg, dec_pols[0])
         if ladder is None else [pass_launches(cfg, d) for d in dec_pols],
         "state_bytes": ssm_state_bytes(eng),
@@ -8024,7 +8110,9 @@ def serve_jamba(dev, K, smi: str) -> dict:
         lens = {n: ms for n, _b, ms in sp_run["whole_prefills"]}
         print(f"jamba sparse whole prefill, run {i + 1} (every prompt "
               f"through both expert kernels, {sp_run['tile_launches']} "
-              "tile-form expert matmuls), ms per prompt length: " + ", ".join(
+              "tile-form expert matmuls, "
+              f"{sp_run['expert_spread_launches']} spread-form expert "
+              "selections), ms per prompt length: " + ", ".join(
                   f"{n} {ms:.1f}" for n, ms in sorted(lens.items(),
                                                       reverse=True))
               + f"; TTFT p50 {sp_run['ttft_p50_ms']:.1f} ms; {smi}")
@@ -8592,6 +8680,26 @@ def main() -> int:
                                          for q in per) else "operations"),
             "library_ms": None if lib[0] is None else sum(lib),
         })
+    # the expert selection's spread form, per jamba MoE layer at R = 641
+    # (a 4096-token whole prefill), and its launches in phase 24's first
+    # sparse-prefill run
+    if {r["select_form"] for r in je_rows if r["R"] == 641} != {"spread"}:
+        raise AssertionError("jamba's R = 641 expert selections did not "
+                             "take the spread form")
+    per = [r["score_select"] for r in je_rows if r["R"] == 641]
+    kernels.append({
+        "name": "score_select_experts_spread", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/score_select.cu",
+        "replaces": "src/repro/kernels/sparse_matmul.py:319",
+        "launches": sp_run["expert_spread_launches"],
+        "max_abs_err": max(errs13["score_select"], es_err),
+        "ms": sum(p["ms"] for p in per),
+        "plain_ms": sum(p["plain_ms"] for p in per),
+        "bound_ms": sum(p["bound_ms"] for p in per),
+        "bound_by": ("bytes" if all(p["bound_by"] == "bytes" for p in per)
+                     else "operations"),
+        "library_ms": None,
+    })
     per = [r for r in ps_rows if r["B"] == 8]
     kernels.append({
         "name": "sparse_matmul_per_seq", "route": "cuda",

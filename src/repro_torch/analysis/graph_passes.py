@@ -48,6 +48,7 @@ import copy
 import dataclasses
 import functools
 import itertools
+import math
 import os
 from typing import List
 
@@ -548,7 +549,10 @@ class LaunchGeometryPass(GlobalPass):
     against ``wisparse_launch_info``.  Both shared matmuls' plans are
     ``expert_plan``'s (the 2-D entry's at one expert); in the tile form
     the persistent CTAs must walk each (expert, row tile, column tile)
-    once, checked once per tile plan.  ``report`` keeps the number of
+    once, checked once per tile plan; in the selections' spread form the
+    partial sums (one per channel block, row slab and expert) must fit
+    the ``MIN_WORKSPACE`` values every spread launch is given.  ``report``
+    keeps the number of
     shapes, of comparisons, each kernel's largest shared memory and
     headroom, the forms ``score_select`` (cluster, spread) and
     ``score_select_experts`` took, and the matmuls' (``matmul_forms``,
@@ -769,6 +773,17 @@ class LaunchGeometryPass(GlobalPass):
                     check_geometry(kernel, geo,
                                    f"{where} kb={kb} aligned={aligned}",
                                    query)
+                    # one f32 partial per (channel block, slab, expert) in
+                    # the workspace every spread launch is given
+                    if geo.form == "spread" and \
+                            math.prod(geo.grid) > K.MIN_WORKSPACE:
+                        finding(self._REL,
+                                _line_of(repo_root, self._REL,
+                                         "def score_workspace"),
+                                f"{kernel} {where}: the spread form's "
+                                f"{math.prod(geo.grid)} partial sums exceed "
+                                "the workspace's MIN_WORKSPACE values",
+                                f"{kernel} workspace")
         findings.extend(self._channel_plan(repo_root))
         report["smem"] = smem
         report["forms"] = {k: sorted(v) for k, v in forms.items()}

@@ -41,8 +41,9 @@ SIGNATURES = {
     "wisparse_sparse_matmul_per_seq": (_P,) * 6 + (_I,) * 9 + (_P,),
     # the expert-batched forms (a leading expert axis E):
     # x, g, alpha, tau, keep_frac, xm, idx, bs, E, B, n, blk, kb, dtype,
-    # stream
-    "wisparse_score_select_experts": (_P,) * 8 + (_I,) * 6 + (_P,),
+    # workspace, its length, form (as above), stream
+    "wisparse_score_select_experts": (_P,) * 8 + (_I,) * 6 + (_P,)
+    + (_I,) * 2 + (_P,),
     # x, w, idx, y, workspace, counters, E, B, n, m, blk, kb, rows, cols,
     # splits, dtype, stream
     "wisparse_sparse_matmul_shared_experts": (_P,) * 6 + (_I,) * 10 + (_P,),

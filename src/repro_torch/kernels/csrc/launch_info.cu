@@ -1,7 +1,9 @@
 // wisparse_launch_info: the launch geometry each C entry of the library
 // would use for a kernel name and its shape arguments, computed by the
-// code the launches run (score_select.cu's Geometry, gather_mma.cuh's
-// grid_of, Layout::kBytes and argument checks), with the card's limits.
+// code the launches run (score_select.cu's Geometry, with the three forms
+// of score_select_experts and the spread form of both selections;
+// gather_mma.cuh's grid_of, Layout::kBytes and argument checks; the tile
+// form's persistent grid), with the card's limits.
 // It launches nothing.  The port's static checker
 // (repro_torch.analysis, pass launch-geometry) holds its Python mirror,
 // kernels/geometry.py, against it at every served shape.
@@ -102,7 +104,8 @@ int device_limits(int* out) {
 // "sparse_matmul_shared_experts", "sparse_matmul_per_seq", or "device" for
 // the card's limits.  The shape arguments are the C entry's (E = 1 for the
 // 2-D kernels; rows, cols and splits the host's plan, unused by
-// score_select; aligned: its x and xm, or the matmul's x and w, 16-byte
+// score_select, whose form the entry picks from the shape as its launch
+// does; aligned: its x and xm, or the matmul's x and w, 16-byte
 // aligned).  Fills out (10 ints, launch_info.cuh) and returns 0, or the
 // cudaError_t the entry would return for these arguments.
 extern "C" int wisparse_launch_info(const char* kernel, int E, int B, int n,

@@ -77,8 +77,8 @@
 // layer's experts (src/repro/models/moe.py:93-112), one selection per
 // expert, each with its own x (R, n), g, idx and bs, while alpha, tau
 // and keep_frac are the layer's and shared.  The expert entry takes one
-// of two forms, chosen by Geometry from (E, R, n, blk, dtype, alignment,
-// SMs) alone, for the launch and for score_select_info alike:
+// of three forms, chosen by Geometry from (E, R, n, blk, dtype,
+// alignment, SMs) alone, for the launch and for score_select_info alike:
 // - One block per expert, no cluster (select_expert_kernel), wherever an
 //   expert's rows fit one block's registers: aligned 16-byte units,
 //   channel blocks of 128, nb <= 32 and the rows per lane of a
@@ -111,17 +111,33 @@
 //   (PERF.md):
 //   two warps per channel block, g^alpha through shared memory, and the
 //   slab moved by bulk copies through shared memory, all slower.
+// - The spread form at a whole prefill's rows (kExpertSpreadMinRows rows
+//   per expert on, where the per-expert form does not fit, with the 2-D
+//   entry's conditions on units, blk and nb):
+//   the 2-D entry's two launches with the expert axis in the grid, (nb,
+//   slabs, E) blocks of kSpreadThreads threads, slabs cut so that nb x
+//   slabs x E is about kSpreadPerSM x SMs but no thread takes fewer than
+//   kSpreadUnroll rows (jamba's 16 x 32 and 16 x 112 channel blocks,
+//   granite's 48 x 12, fill the card with one or two slabs per expert:
+//   the expert axis, not the rows, spreads the work).
+//   Block (j, q, e) works on expert e's slices only; its partials go to
+//   ws[(e * slabs + q) * nb + j], and the mask pass ranks channel block j
+//   among expert e's nb sums.  The cluster form it replaces there ran one
+//   cluster of min(16, nb, SMs / E) blocks per expert, one block of 512
+//   threads per SM walking every row of its channel blocks around two
+//   cluster barriers: 781 us per jamba MoE layer at R = 641 against a
+//   276 us byte bound.
 // - One cluster per expert (score_select_kernel on a (C, E) grid, cluster
-//   y is expert y) everywhere else: granite's 113-448 rows, jamba from
-//   R = 32 (n = 4096) and at n = 14336, f32 beyond 16 rows, unaligned
-//   tensors.  C = min(16, nb, SMs / E), so that every expert's cluster
-//   runs at once (clusters of min(16, nb) = 12 ran in waves, 28 us per
-//   launch at n = 1536).  The map_shared_rank exchange addresses cluster
+//   y is expert y) everywhere else: jamba's n = 4096 at 17-31 rows, its
+//   n = 14336 below kExpertSpreadMinRows rows, f32 at 17-31 rows,
+//   unaligned tensors.  C = min(16, nb, SMs / E), so that every expert's
+//   cluster runs at once (clusters of min(16, nb) = 12 ran in waves, 28
+//   us per launch at n = 1536).  The map_shared_rank exchange addresses cluster
 //   ranks, so it stays inside one expert's cluster.
-// In both, an expert that no token chose has zero rows: every block sum
-// is 0, and the ids come out 0..kb-1.  No atomics and a fixed summation
-// order in both: two launches are bit-equal.  A form the card refuses
-// returns its error; the other form is never tried in its place.
+// In all three, an expert that no token chose has zero rows: every block
+// sum is 0, and the ids come out 0..kb-1.  No atomics and a fixed
+// summation order in each: two launches are bit-equal.  A form the card
+// refuses returns its error; no other form is tried in its place.
 // Measured result: PERF.md (chip_smoke.py, per projection shape).
 #include <cooperative_groups.h>
 
@@ -167,6 +183,13 @@ constexpr int kSpreadUnroll = 8;
 constexpr int kSpreadPerSM = 4;
 constexpr int kSpreadMinRows = 64;
 constexpr int kSpreadMaxBlocks = 512;
+// The expert entry's spread form, from kExpertSpreadMinRows rows per
+// expert on where the per-expert form does not hold the rows (Geometry
+// tries that form first).  PERF.md holds the times of both forms at
+// 1-641 rows that chose it; it lies above the rows per expert of the
+// served engines' captured steps (8 decode slots, 32-token chunks and
+// verify windows of 8 slots: at most 16).
+constexpr int kExpertSpreadMinRows = 32;
 // Geometry's form codes besides the per-expert configs (>= 0)
 constexpr int kClusterForm = -1;
 constexpr int kSpreadForm = -2;
@@ -611,9 +634,10 @@ select_expert_kernel(const T* __restrict__ x, const float* __restrict__ g,
 }
 
 
-// The spread form's first pass (see the design comment): block (j, q)
-// scores rows [q * rows, (q + 1) * rows) of channel block j and writes
-// their kept-score sum, weighted by rw, to ws[q * nb + j].
+// The spread form's first pass (see the design comment): block (j, q, e)
+// scores rows [q * rows, (q + 1) * rows) of expert e's channel block j
+// and writes their kept-score sum, weighted by rw, to ws[(e * S + q) * nb
+// + j] (the 2-D entry: e = 0).
 template <typename T>
 __global__ void __launch_bounds__(kSpreadThreads)
 spread_sums_kernel(const T* __restrict__ x, const float* __restrict__ g,
@@ -629,6 +653,11 @@ spread_sums_kernel(const T* __restrict__ x, const float* __restrict__ g,
   const int j = blockIdx.x;
   const int q = blockIdx.y;
   const int nb = gridDim.x;
+  // expert blockIdx.z's slices
+  const size_t ex = blockIdx.z;
+  x += ex * B * n;
+  g += ex * n;
+  ws += ex * gridDim.y * nb;
   const int bv = blk / EL;                     // lanes per block row
   const int rg = kSpreadThreads / bv;          // row groups
   const int t = threadIdx.x;
@@ -682,10 +711,11 @@ spread_sums_kernel(const T* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// The spread form's second pass: block (j, q) sums the S x nb partials in
-// slab order (every block the same bits), ranks channel block j among the
-// nb sums, and writes its slab of xm; the blocks of slab 0 write bs and,
-// with a selection (idx), idx.  keep_p null: no limit below kb.
+// The spread form's second pass: block (j, q, e) sums expert e's S x nb
+// partials in slab order (every block of the expert the same bits), ranks
+// channel block j among the expert's nb sums, and writes its slab of xm;
+// the blocks of slab 0 write bs and, with a selection (idx), idx.  keep_p
+// null: no limit below kb.
 template <typename T>
 __global__ void __launch_bounds__(kSpreadThreads)
 spread_mask_kernel(const T* __restrict__ x, const float* __restrict__ g,
@@ -708,6 +738,14 @@ spread_mask_kernel(const T* __restrict__ x, const float* __restrict__ g,
   const int bv = blk / EL;
   const int rg = kSpreadThreads / bv;
   const int t = threadIdx.x;
+  // expert blockIdx.z's slices
+  const size_t ex = blockIdx.z;
+  x += ex * B * n;
+  xm += ex * B * n;
+  g += ex * n;
+  ws += ex * S * nb;
+  bs += ex * nb;
+  if (idx != nullptr) idx += ex * kb;
   const float alpha = *alpha_p;
   const float tau = *tau_p;
   for (int i = t; i < nb; i += kSpreadThreads) {
@@ -811,19 +849,20 @@ cudaError_t prepare(Kern kern, unsigned& done, int& sms) {
 // and `score_select_info` alike.  The expert entry (`experts`) takes the
 // per-expert form where an expert's slab fits one block's registers
 // (form >= 0: the index of the first kExpertConfigs entry that holds the
-// warp's channel blocks and the lane's rows); the 2-D entry the spread
-// form from kSpreadMinRows rows on where its blocks can hold a channel
-// block's columns (form kSpreadForm); else one cluster per expert
+// warp's channel blocks and the lane's rows); both entries take the
+// spread form (form kSpreadForm) from kSpreadMinRows rows (the expert
+// entry: kExpertSpreadMinRows rows per expert) on where its blocks can
+// hold a channel block's columns; else one cluster per expert
 // (kClusterForm): the E experts' clusters share the card, each taking at
-// most SMs / E blocks so that all of them run at once.  `want` (2-D
-// only): -1 the shape's own form, 0 the cluster form, 1 the spread form
-// (a forced form the shape cannot take leaves `ok` false).
+// most SMs / E blocks so that all of them run at once.  `want`: -1 the
+// shape's own form, 0 the cluster form, 1 the spread form (a forced form
+// the shape cannot take leaves `ok` false).
 template <typename T, bool kWide>
 struct Geometry {
   int form = kClusterForm;
   int C;          // blocks per cluster (1 in the other forms)
   int grid;       // grid x (the cluster form's grid is (C, E), the spread
-                  // form's (nb, slabs))
+                  // form's (nb, slabs, E))
   int slabs = 1;  // spread form: row slabs, of `rows` rows each
   int rows = 0;
   int threads;
@@ -831,7 +870,7 @@ struct Geometry {
   bool ok = true;
   Geometry(bool experts, int E, int B, int nb, int blk, int sms,
            int want = -1) {
-    if (experts && kWide && blk == kExpertBlk) {
+    if (experts && want < 0 && kWide && blk == kExpertBlk) {
       const int G = 32 * Unit<T, true>::kElems / kExpertBlk;
       const int W = std::min(kExpertWarps, nb);
       const int nj = (nb + W - 1) / W;
@@ -848,16 +887,24 @@ struct Geometry {
       }
     }
     const int bv = blk / Unit<T, true>::kElems;
-    const bool spread_ok = !experts && kWide && nb <= kSpreadMaxBlocks &&
-                           bv > 0 && kSpreadThreads % bv == 0;
-    if (!experts && (want == 1 || (want < 0 && B >= kSpreadMinRows))) {
+    const bool spread_ok = kWide && nb <= kSpreadMaxBlocks && bv > 0 &&
+                           kSpreadThreads % bv == 0;
+    const int min_rows = experts ? kExpertSpreadMinRows : kSpreadMinRows;
+    if (want == 1 || (want < 0 && B >= min_rows)) {
       ok = spread_ok || want != 1;   // a forced spread form it cannot take
       if (spread_ok) {
-        // about kSpreadPerSM blocks per SM, slabs of whole row groups
+        // about kSpreadPerSM blocks per SM over the E x nb channel
+        // blocks, slabs of whole row groups; the expert entry, whose
+        // expert axis fills the card, cuts an expert's rows only as far
+        // as kSpreadUnroll rows per thread (below that, more and smaller
+        // blocks were slower at jamba's and granite's shapes, PERF.md)
         const int rg = kSpreadThreads / bv;
-        const int target = kSpreadPerSM * sms;
-        const int s0 = std::max(1, std::min((B + rg - 1) / rg,
-                                            (target + nb - 1) / nb));
+        const int least = experts ? rg * kSpreadUnroll : rg;
+        const long long cells = static_cast<long long>(nb) * E;
+        const long long target = static_cast<long long>(kSpreadPerSM) * sms;
+        const int s0 = static_cast<int>(std::max(
+            1LL, std::min(static_cast<long long>((B + least - 1) / least),
+                          (target + cells - 1) / cells)));
         rows = ((B + s0 - 1) / s0 + rg - 1) / rg * rg;
         slabs = (B + rows - 1) / rows;
         form = kSpreadForm;
@@ -920,13 +967,14 @@ auto expert_kernel(int form) {
                              std::make_index_sequence<kExpertConfigs>{});
 }
 
-// The spread form's two launches on `st` (ws: geo.slabs x nb partials).
+// The spread form's two launches over E experts on `st` (ws: E x
+// geo.slabs x nb partials).
 template <typename T>
 int launch_spread(const Geometry<T, true>& geo, const void* x, const void* g,
                   const void* alpha, const void* tau, const void* keep,
                   const void* rw, void* xm, void* idx, void* bs, void* ws,
-                  int B, int n, int blk, int kb, cudaStream_t st) {
-  const dim3 grid(geo.grid, geo.slabs);
+                  int E, int B, int n, int blk, int kb, cudaStream_t st) {
+  const dim3 grid(geo.grid, geo.slabs, E);
   spread_sums_kernel<T><<<grid, geo.threads, geo.smem, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(g),
       static_cast<const float*>(alpha), static_cast<const float*>(tau),
@@ -956,11 +1004,11 @@ int launch(bool experts, const void* x, const void* g, const void* alpha,
   if constexpr (kWide) {
     if (geo.form == kSpreadForm) {
       if (ws == nullptr ||
-          static_cast<long long>(geo.slabs) * (n / blk) > ws_len) {
+          static_cast<long long>(E) * geo.slabs * (n / blk) > ws_len) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
       return launch_spread<T>(geo, x, g, alpha, tau, keep, rw, xm, idx, bs,
-                              ws, B, n, blk, kb, st);
+                              ws, E, B, n, blk, kb, st);
     }
     if (geo.form >= 0) {
       expert_kernel<T>(geo.form)<<<geo.grid, geo.threads, 0, st>>>(
@@ -996,7 +1044,8 @@ int info(bool experts, int E, int B, int n, int blk, int* out) {
   if (e != cudaSuccess) return static_cast<int>(e);
   const Geometry<T, kWide> geo(experts, E, B, n / blk, blk, sms);
   const bool cluster = geo.form == kClusterForm;
-  const int fill[10] = {geo.grid, cluster ? E : geo.slabs, 1, geo.threads,
+  const int fill[10] = {geo.grid, cluster ? E : geo.slabs,
+                        geo.form == kSpreadForm ? E : 1, geo.threads,
                         static_cast<int>(geo.smem), geo.C, 1, 1, 0,
                         geo.form + 1};
   for (int i = 0; i < 10; ++i) out[i] = fill[i];
@@ -1109,16 +1158,23 @@ extern "C" int wisparse_score_select(const void* x, const void* g,
 }
 
 // The expert-batched form: x, xm (E, B, n); g (E, n); idx (E, kb); bs
-// (E, n / blk); alpha, tau and keep_frac shared; no row weights.  One
-// block per expert where its slab fits, else one cluster per expert
-// (Geometry).  Returns cudaGetLastError().
+// (E, n / blk); alpha, tau and keep_frac shared; no row weights; ws:
+// ws_len f32 values of scratch for the spread form (E x slabs x nb of
+// them; null in the other forms).  form: -1 the shape's own (Geometry:
+// one block per expert where its slab fits, the spread form from
+// kExpertSpreadMinRows rows per expert, else one cluster per expert), 0
+// the cluster form, 1 the spread form (a form the shape cannot take is
+// refused).  Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// arguments it refuses.
 extern "C" int wisparse_score_select_experts(const void* x, const void* g,
                                              const void* alpha,
                                              const void* tau,
                                              const void* keep_frac, void* xm,
                                              void* idx, void* bs, int E,
                                              int B, int n, int blk, int kb,
-                                             int dtype, void* stream) {
+                                             int dtype, void* ws, int ws_len,
+                                             int form, void* stream) {
   return wisparse::entry(true, x, g, alpha, tau, keep_frac, nullptr, xm, idx,
-                         bs, nullptr, 0, E, B, n, blk, kb, dtype, -1, stream);
+                         bs, ws, ws_len, E, B, n, blk, kb, dtype, form,
+                         stream);
 }

@@ -3,7 +3,7 @@ their C entries launch, and the library's own query of it.
 
 The C entries decide each launch's grid, block, dynamic shared memory
 and cluster (``csrc/score_select.cu``'s ``Geometry``, which also picks
-the expert selection's form and the 2-D selection's spread form; for the
+the expert selection's form and both selections' spread form; for the
 matmuls
 ``csrc/gather_mma.cuh``'s ``grid_of`` and ``Layout::kBytes``, with the
 split from :func:`repro_torch.kernels.sparse_matmul.launch_plan`, and
@@ -44,11 +44,13 @@ SCORE_EXPERT_WARPS = 16
 SCORE_EXPERT_CONFIGS = ((1, 1), (1, 2), (1, 3), (1, 4), (1, 5), (1, 6),
                         (1, 8), (1, 12), (1, 16), (2, 1), (2, 2), (2, 4),
                         (2, 8))
-# its 2-D spread form (whole-prefill rows; the row threshold, threads,
-# channel-block limit and the form's own predicate are in
+# its spread form (whole-prefill rows, both entries; the row thresholds,
+# threads, channel-block limit and the form's own predicate are in
 # kernels/sparse_matmul.py, which the wrapper reads too): target blocks
-# per SM and the warps whose sums share its shared memory
+# per SM, the warps whose sums share its shared memory, and the loads in
+# flight per thread (the expert entry's least rows per thread and slab)
 SCORE_SPREAD_PER_SM = 4
+SCORE_SPREAD_UNROLL = 8
 SCORE_SPREAD_WARPS = K.SCORE_SPREAD_THREADS // 32
 # csrc/gather_mma.cuh: threads per block
 MATMUL_THREADS = 256
@@ -100,14 +102,20 @@ def expert_config(B: int, n: int, blk: int, elem_bytes: int = 2,
 
 
 def spread_slabs(B: int, nb: int, blk: int, elem_bytes: int = 2,
-                 sms: int = H100_LIMITS["sms"]) -> tuple:
-    """The spread form's (slabs, rows per slab): about
-    ``SCORE_SPREAD_PER_SM`` blocks per SM over the nb channel blocks, each
-    slab whole row groups (a block's threads over a block row's 16-byte
-    units), as ``Geometry`` in ``csrc/score_select.cu`` cuts them."""
+                 sms: int = H100_LIMITS["sms"], E: int = 1,
+                 experts: bool = False) -> tuple:
+    """The spread form's (slabs, rows per slab) at B rows (per expert,
+    over ``E`` experts): about ``SCORE_SPREAD_PER_SM`` blocks per SM over
+    the E x nb channel blocks, each slab whole row groups (a block's
+    threads over a block row's 16-byte units) and, for the expert entry
+    (``experts``), at least ``SCORE_SPREAD_UNROLL`` rows per thread, as
+    ``Geometry`` in ``csrc/score_select.cu`` cuts them."""
     bv = blk // (16 // elem_bytes)
     rg = K.SCORE_SPREAD_THREADS // bv
-    s0 = max(1, min(-(-B // rg), -(-(SCORE_SPREAD_PER_SM * sms) // nb)))
+    least = rg * SCORE_SPREAD_UNROLL if experts else rg
+    cells = nb * E
+    s0 = max(1, min(-(-B // least),
+                    -(-(SCORE_SPREAD_PER_SM * sms) // cells)))
     rows = -(-(-(-B // s0)) // rg) * rg
     return -(-B // rows), rows
 
@@ -119,11 +127,12 @@ def score_select_geometry(E: int, B: int, n: int, blk: int, kb: int,
     """``score_select`` (E = 1) or, with ``experts``,
     ``score_select_experts`` at (E, B, n).  The expert entry's per-expert
     form where :func:`expert_config` fits: min(E, SMs) blocks of 32 x
-    warps threads, static shared memory only, no cluster.  The 2-D
-    entry's spread form where ``sparse_matmul.score_form`` names it: a
-    (nb, slabs) grid (:func:`spread_slabs`) of ``SCORE_SPREAD_THREADS``
-    threads, shared memory for blk g^alpha values and max(nb, warps)
-    sums, no cluster (the geometry of both its launches).  Else one
+    warps threads, static shared memory only, no cluster.  The spread
+    form where ``sparse_matmul.score_form`` names it: a (nb, slabs, E)
+    grid (:func:`spread_slabs`; E = 1 for the 2-D entry) of
+    ``SCORE_SPREAD_THREADS`` threads, shared memory for blk g^alpha values
+    and max(nb, warps) sums, no cluster (the geometry of both its
+    launches).  Else one
     cluster of C = min(16, nb, max(1, SMs / E)) blocks per expert; shared
     memory for the nb block sums, a flag and blk g^alpha values per owned
     channel block, and the partial sums of one row group.  A thread loads
@@ -139,10 +148,9 @@ def score_select_geometry(E: int, B: int, n: int, blk: int, kb: int,
         nj, ru = SCORE_EXPERT_CONFIGS[cfg[0]]
         return Geometry((min(E, sms), 1, 1), 32 * cfg[1], 0, (1, 1, 1),
                         form=f"expert {nj}x{ru}")
-    if not experts and K.score_form(B, n, blk, elem_bytes,
-                                    aligned) == "spread":
-        slabs, _rows = spread_slabs(B, nb, blk, elem_bytes, sms)
-        return Geometry((nb, slabs, 1), K.SCORE_SPREAD_THREADS,
+    if K.score_form(B, n, blk, elem_bytes, aligned, experts) == "spread":
+        slabs, _rows = spread_slabs(B, nb, blk, elem_bytes, sms, E, experts)
+        return Geometry((nb, slabs, E), K.SCORE_SPREAD_THREADS,
                         4 * (blk + max(nb, SCORE_SPREAD_WARPS)), (1, 1, 1),
                         form="spread")
     vec = 16 // elem_bytes

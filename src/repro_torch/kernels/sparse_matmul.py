@@ -27,7 +27,9 @@ TMA + wgmma tile form at a whole prefill's rows, else
 channel-block contract, checked here: ``n % blk == 0``.  ``score_select``
 likewise takes one of two forms from the shape (:func:`score_form`): one
 thread-block cluster at decode and chunk rows, the rows spread over
-every SM at a whole prefill's.
+every SM at a whole prefill's; ``score_select_experts`` takes the same
+spread form at a whole prefill's rows per expert, and one block or one
+cluster per expert below them.
 """
 from __future__ import annotations
 
@@ -51,10 +53,10 @@ launch_counts = {"score_select": 0, "sparse_matmul_shared": 0,
 # (:func:`expert_plan`), since the last reset
 tile_launches = {"sparse_matmul_shared": 0,
                  "sparse_matmul_shared_experts": 0}
-# the calls of ``launch_counts["score_select"]`` that ran the spread form
-# (:func:`score_form`; two CUDA launches each, counted once), since the
-# last reset
-spread_launches = {"score_select": 0}
+# the calls of ``launch_counts["score_select"]`` and
+# ``["score_select_experts"]`` that ran the spread form (:func:`score_form`;
+# two CUDA launches each, counted once), since the last reset
+spread_launches = {"score_select": 0, "score_select_experts": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -94,8 +96,14 @@ TILE_MIN_TILES_2D = 9
 # units), with blk / units lanes per block row dividing its
 # SCORE_SPREAD_THREADS threads and at most SCORE_SPREAD_MAX_BLOCKS channel
 # blocks (each of its blocks sums every block's partials again); PERF.md
-# holds the times at 48-4096 rows that chose the threshold.
+# holds the times at 48-4096 rows that chose the threshold.  The expert
+# entry takes the same form, the expert axis in its grid, from
+# SCORE_EXPERT_SPREAD_MIN_ROWS rows per expert on where its per-expert
+# form does not hold the rows (above the at most 16 rows per expert of
+# the served engines' captured steps); PERF.md holds the times of both
+# forms at the MoE archs' expert shapes (R = 1-641) that chose it.
 SCORE_SPREAD_MIN_ROWS = 64
+SCORE_EXPERT_SPREAD_MIN_ROWS = 32
 SCORE_SPREAD_THREADS = 256
 SCORE_SPREAD_MAX_BLOCKS = 512
 
@@ -241,12 +249,15 @@ def matmul_scratch(plan: LaunchPlan, device):
 
 
 def score_workspace(device):
-    """The f32 workspace of a spread-form ``score_select``: the device's
-    matmul workspace, which is at least ``MIN_WORKSPACE`` values and so
-    holds any spread launch's partial block sums (one per row slab and
-    channel block, about 4 x SMs; the C entry checks the length).  The
-    launches on one stream run in turn, so the selection and the split-K
-    matmul after it never hold it at once."""
+    """The f32 workspace of a spread-form ``score_select`` or
+    ``score_select_experts``: the device's matmul workspace, which is at
+    least ``MIN_WORKSPACE`` values and so holds any served spread launch's
+    partial block sums (one per expert, row slab and channel block, about
+    4 x SMs or E x nb; the C entry checks the length and refuses a
+    shortfall).  The launches on one stream run in turn, so the selection
+    and the split-K matmul after it never hold it at once.  An engine
+    whose captured steps take the spread form reserves it before its
+    first capture (:func:`reserve_matmul_scratch`)."""
     return _grown_scratch(device, 0, 0)[0]
 
 
@@ -255,9 +266,13 @@ def reserve_matmul_scratch(B: int, n: int, m: int, blk: int, device,
     """Grow ``device``'s scratch to what ``sparse_matmul_shared`` at
     (B, n, m) (with ``experts``: ``sparse_matmul_shared_experts`` at
     (experts, B, n, m)) can need for any kept-block count: the plan's
-    split grows with kb, so kb = n/blk bounds it."""
+    split grows with kb, so kb = n/blk bounds it.  Where the selection
+    before it takes the spread form at these rows (a whole prefill, or the
+    decode step of an engine with many slots), its workspace too."""
     matmul_scratch(launch_plan(B, n, m, n // blk, blk, False, elem_bytes,
                                experts), device)
+    if score_form(B, n, blk, elem_bytes, True, experts > 1) == "spread":
+        score_workspace(device)
 
 
 def scratch_tensors(device) -> tuple:
@@ -348,23 +363,32 @@ def _f32_scalar(v, device, what: str):
 
 
 def score_form(B: int, n: int, blk: int, elem_bytes: int = 2,
-               aligned: bool = True) -> str:
-    """The form of a 2-D ``score_select`` at (B, n), as its C entry picks
+               aligned: bool = True, experts: bool = False) -> str:
+    """The form of a 2-D ``score_select`` at (B, n), or with ``experts``
+    of ``score_select_experts`` at B rows per expert, as its C entry picks
     it (``Geometry`` in ``csrc/score_select.cu``): "spread" from
-    ``SCORE_SPREAD_MIN_ROWS`` rows on where x and xm are 16-byte
+    ``SCORE_SPREAD_MIN_ROWS`` (the expert entry:
+    ``SCORE_EXPERT_SPREAD_MIN_ROWS``) rows on where x and xm are 16-byte
     ``aligned``, blk holds whole 16-byte units whose count per block row
     divides ``SCORE_SPREAD_THREADS``, and nb is at most
-    ``SCORE_SPREAD_MAX_BLOCKS``; else "cluster"."""
+    ``SCORE_SPREAD_MAX_BLOCKS``; else "cluster".  The expert entry first
+    takes its per-expert form, "expert", wherever
+    ``kernels/geometry.expert_config`` fits."""
+    if experts:
+        from repro_torch.kernels.geometry import expert_config
+        if expert_config(B, n, blk, elem_bytes, aligned) is not None:
+            return "expert"
     units = 16 // elem_bytes
-    if (B >= SCORE_SPREAD_MIN_ROWS and aligned and blk % units == 0
+    least = SCORE_EXPERT_SPREAD_MIN_ROWS if experts else SCORE_SPREAD_MIN_ROWS
+    if (B >= least and aligned and blk % units == 0
             and SCORE_SPREAD_THREADS % (blk // units) == 0
             and n // blk <= SCORE_SPREAD_MAX_BLOCKS):
         return "spread"
     return "cluster"
 
 
-# the 2-D C entry's form argument: its own choice, or one form forced
-# (to time both forms on one shape)
+# the C entries' form argument: its own choice, or one form forced (to
+# time both forms on one shape)
 SCORE_FORM_CODES = {None: -1, "cluster": 0, "spread": 1}
 
 
@@ -373,11 +397,13 @@ def _launch_score(x, g, alpha, tau, keep_frac, blk, kb, row_weights,
     """Check the inputs of a CUDA ``score_select`` launch (with the
     selection when ``keep_frac`` is given, else the mask alone; x (B, n),
     or (E, B, n) for the expert-batched entry, which takes no row
-    weights), launch it on the current stream and count it.  ``form``
-    (2-D only): None for the shape's own (:func:`score_form`), or
-    "cluster" / "spread" forced, which the C entry refuses where the
-    shape cannot take it.  Messages are formatted only on failure: this
-    runs 224 times per decode step."""
+    weights), launch it on the current stream and count it.  ``form``:
+    None for the shape's own (:func:`score_form`), or "cluster" /
+    "spread" forced, which the C entry refuses where the shape cannot
+    take it.  The spread form gets the device's workspace
+    (:func:`score_workspace`) and is counted in :data:`spread_launches`
+    too.  Messages are formatted only on failure: this runs 224 times per
+    decode step."""
     *lead, B, n = x.shape
     lead = tuple(lead)
     dev = x.device
@@ -404,27 +430,28 @@ def _launch_score(x, g, alpha, tau, keep_frac, blk, kb, row_weights,
     bs = torch.empty(lead + (n // blk,), dtype=torch.float32, device=dev)
     idx = torch.empty(lead + (kb,), dtype=torch.int32, device=dev) \
         if select else None
+    spread = (form or score_form(
+        B, n, blk, x.element_size(),
+        x.data_ptr() % 16 == 0 and xm.data_ptr() % 16 == 0,
+        bool(lead))) == "spread"
+    ws = score_workspace(dev) if spread else None
     args = (x.data_ptr(), g.data_ptr(), a.data_ptr(), t.data_ptr(),
             kf.data_ptr() if select else None)
     outs = (xm.data_ptr(), idx.data_ptr() if select else None, bs.data_ptr())
-    if lead:
-        err = build.library().wisparse_score_select_experts(
-            *args, *outs, lead[0], B, n, blk, kb, _DTYPE_CODES[x.dtype],
-            _stream(dev))
-    else:
-        spread = (form or score_form(
-            B, n, blk, x.element_size(),
-            x.data_ptr() % 16 == 0 and xm.data_ptr() % 16 == 0)) == "spread"
-        ws = score_workspace(dev) if spread else None
-        err = build.library().wisparse_score_select(
-            *args, None if rw is None else rw.data_ptr(), *outs, B, n, blk,
-            kb, _DTYPE_CODES[x.dtype], None if ws is None else ws.data_ptr(),
+    tail = (_DTYPE_CODES[x.dtype], None if ws is None else ws.data_ptr(),
             0 if ws is None else ws.numel(), SCORE_FORM_CODES[form],
             _stream(dev))
+    if lead:
+        err = build.library().wisparse_score_select_experts(
+            *args, *outs, lead[0], B, n, blk, kb, *tail)
+    else:
+        err = build.library().wisparse_score_select(
+            *args, None if rw is None else rw.data_ptr(), *outs, B, n, blk,
+            kb, *tail)
     name = "score_select_experts" if lead else "score_select"
     _raise_on(err, name)
     launch_counts[name] += 1
-    if not lead and spread:
+    if spread:
         spread_launches[name] += 1
     return xm, idx, bs
 
@@ -435,10 +462,15 @@ def score_select_experts(x, g, alpha, tau, keep_frac, *, kb: int,
     returns (xm (E, R, n) in x.dtype, idx (E, kb) int32, bs (E, n//blk)
     f32), expert e's equal to ``score_select(x[e], g[e], ...)``.  alpha,
     tau and keep_frac are the layer's, shared by its experts; there are no
-    row weights (expert rows are dispatched tokens).  One launch, counted
-    as a ``score_select_experts``: one thread block per expert where the
-    expert's rows fit its registers, else one thread-block cluster per
-    expert (the form is the shape's, ``kernels/geometry.py``)."""
+    row weights (expert rows are dispatched tokens).  One call, counted
+    as a ``score_select_experts``, in one of three forms, the shape's
+    (:func:`score_form`): one thread block per expert where the expert's
+    rows fit its registers (decode and chunk rows); else from
+    ``SCORE_EXPERT_SPREAD_MIN_ROWS`` rows per expert (a whole prefill's)
+    two launches over a grid of (channel block, row slab, expert) blocks
+    that spreads every expert over the SMs (counted in
+    :data:`spread_launches` too); else one thread-block cluster per
+    expert."""
     E, R, n = x.shape
     blk = min(blk, n)
     if n % blk:

@@ -36,11 +36,12 @@ def test_global_passes_clean_on_tree():
     assert rep["shapes"] > 150 and rep["compared"] == 0
     assert all(0 < v <= G.H100_LIMITS["smem_optin"]
                for v in rep["smem"].values())
-    # the expert selection's sweep exercises both forms, and the 2-D
-    # entry's both too: the cluster at decode and chunk rows, the spread
-    # form at whole-prefill rows
+    # the expert selection's sweep exercises its three forms, and the 2-D
+    # entry's two: the cluster (and per expert) at decode and chunk rows,
+    # the spread form at whole-prefill rows
     assert rep["forms"] == {"score_select": ["cluster", "spread"],
-                            "score_select_experts": ["cluster", "expert"]}
+                            "score_select_experts": ["cluster", "expert",
+                                                     "spread"]}
 
 
 # ---------------------------------------------------------------------------
@@ -217,25 +218,26 @@ def test_launch_geometry_covers_nine_archs_at_published_width():
 # (bf16, aligned, an H100's 132 SMs): (arch, n) -> {R: form} for the
 # decode rows of 1, 8, 32 and 448 slots and one group of 32 and of 448
 # tokens.  One block per expert where the expert's rows fit its
-# registers; one cluster per expert where they do not (or nb > 32).
+# registers; else the spread form from SCORE_EXPERT_SPREAD_MIN_ROWS rows
+# per expert; else one cluster per expert.
 EXPERT_FORMS = {
     ("granite_moe_1b_a400m", 1024): {1: "expert 1x1", 8: "expert 1x4",
-                                     32: "expert 1x16", 448: "cluster",
-                                     11: "expert 1x6", 141: "cluster"},
+                                     32: "expert 1x16", 448: "spread",
+                                     11: "expert 1x6", 141: "spread"},
     ("granite_moe_1b_a400m", 512): {1: "expert 1x1", 8: "expert 1x4",
-                                    32: "expert 1x16", 448: "cluster",
-                                    11: "expert 1x6", 141: "cluster"},
+                                    32: "expert 1x16", 448: "spread",
+                                    11: "expert 1x6", 141: "spread"},
     ("granite_moe_3b_a800m", 1536): {1: "expert 1x1", 8: "expert 1x4",
-                                     32: "expert 1x16", 448: "cluster",
-                                     9: "expert 1x5", 113: "cluster"},
+                                     32: "expert 1x16", 448: "spread",
+                                     9: "expert 1x5", 113: "spread"},
     ("granite_moe_3b_a800m", 512): {1: "expert 1x1", 8: "expert 1x4",
-                                    32: "expert 1x16", 448: "cluster",
-                                    9: "expert 1x5", 113: "cluster"},
+                                    32: "expert 1x16", 448: "spread",
+                                    9: "expert 1x5", 113: "spread"},
     ("jamba_v01_52b", 4096): {1: "expert 2x1", 8: "expert 2x4",
-                              32: "cluster", 448: "cluster",
-                              6: "expert 2x4", 71: "cluster"},
-    ("jamba_v01_52b", 14336): {1: "cluster", 8: "cluster", 32: "cluster",
-                               448: "cluster", 6: "cluster", 71: "cluster"},
+                              32: "spread", 448: "spread",
+                              6: "expert 2x4", 71: "spread"},
+    ("jamba_v01_52b", 14336): {1: "cluster", 8: "cluster", 32: "spread",
+                               448: "spread", 6: "cluster", 71: "spread"},
 }
 
 

@@ -342,7 +342,7 @@ EXPERT_SHAPES = [(48, 8, 1536, 512), (48, 9, 512, 1536), (32, 8, 1024, 512),
                  (5, 13, 384, 131)]
 # the expert selection alone, (E, R, n): granite_moe_1b_a400m, granite_moe_
 # 3b_a800m and jamba_v01_52b at decode rows (1, 8, 32, 448 slots) and the
-# rows of a 32- and a 448-token chunk, both forms of the launch
+# rows of a 32- and a 448-token chunk, the three forms of the launch
 SELECT_SHAPES = [(32, 1, 512), (32, 8, 1024), (32, 11, 1024),
                  (32, 141, 512), (48, 1, 1536), (48, 9, 512), (48, 32, 1536),
                  (48, 113, 1536), (48, 448, 512), (16, 1, 4096),
@@ -388,8 +388,9 @@ def test_expert_kernels_match_plain_versions(dev, E, R, n, m, tau, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_expert_selection_matches_plain_version(dev, E, R, n, alpha, tau,
                                                 dtype):
-    """``score_select_experts`` in the form its shape takes (per expert
-    or one cluster per expert, ``kernels/geometry``): xm and idx
+    """``score_select_experts`` in the form its shape takes (per expert,
+    one cluster per expert, or from ``SCORE_EXPERT_SPREAD_MIN_ROWS`` rows
+    the spread form, ``kernels/geometry``): xm and idx
     bit-equal to the plain version at tie-free block scores, with expert
     1 all zero (ids 0..kb-1) and expert 2's blocks tied in pairs (equal
     sums, ranked lower id first as ``lax.top_k`` ranks them), keep_frac
@@ -421,6 +422,77 @@ def test_expert_selection_matches_plain_version(dev, E, R, n, alpha, tau,
                                    experts=True).form
     assert form.startswith("expert") == (
         G.expert_config(R, n, 128, x.element_size()) is not None)
+
+
+# the expert selection's spread form, (E, R, n, routed experts): at its
+# row threshold and above it, jamba_v01_52b's 704- and 4096-token whole
+# prefills (111 and 641 rows) at both input widths, granite_moe_3b_a800m's
+# 448-token group and 448 decode slots (40 routed experts of 48: 8 pad
+# experts with zero rows)
+EXPERT_SPREAD_SHAPES = [(16, K.SCORE_EXPERT_SPREAD_MIN_ROWS, 14336, 16),
+                        (16, 65, 4096, 16), (16, 111, 14336, 16),
+                        (16, 641, 4096, 16), (16, 641, 14336, 16),
+                        (48, 113, 1536, 40), (48, 448, 512, 40)]
+
+
+@pytest.mark.parametrize("E,R,n,routed", EXPERT_SPREAD_SHAPES)
+@pytest.mark.parametrize("alpha,tau", [(1.0, float("-inf")), (0.7, 0.05)])
+def test_expert_selection_spread_form(dev, E, R, n, routed, alpha, tau):
+    """``score_select_experts``' whole-prefill spread form (two launches
+    over a grid of (channel block, row slab, expert) blocks) against the
+    plain version, bf16: xm and idx bit-equal at tie-free block scores,
+    with expert 1 and the pad experts all zero (ids 0..kb-1) and expert
+    2's blocks tied in pairs (equal sums, the lower id first), keep_frac
+    0.375 under kb/nb = 0.5, bs within 1e-4 + 1e-4 |ref|; two calls
+    bit-equal; the shape's own form is the spread form, counted as one
+    ``score_select_experts`` and one ``spread_launches`` entry; the
+    spread form forced gives the same bits and the cluster form forced
+    the same xm and idx."""
+    x, g = _separated_experts(dev, E, R, n, torch.bfloat16)
+    x[routed:] = 0
+    nb = n // 128
+    xt = x[2].view(R, nb, 128)
+    xt[:, 1::2] = xt[:, 0::2]
+    gt = g[2].view(nb, 128)
+    gt[1::2] = gt[0::2]
+    a, t = torch.tensor(alpha, device=dev), torch.tensor(tau, device=dev)
+    kf = torch.tensor(0.375, device=dev)
+    kb = max(1, round(nb * 0.5))
+    assert K.score_form(R, n, 128, 2, True, True) == "spread"
+    K.reset_launch_counts()
+    got = K.score_select_experts(x, g, a, t, kf, kb=kb)
+    assert K.launch_counts["score_select_experts"] == 1
+    assert K.spread_launches == {"score_select": 0,
+                                 "score_select_experts": 1}
+    want = ref.ref_score_select_experts(x, g, a, t, kf, 128, kb)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    zero = [1] + list(range(routed, E))
+    assert got[1][zero].tolist() == [list(range(kb))] * len(zero)
+    assert torch.equal(got[2][2, 0::2], got[2][2, 1::2])
+    _close(got[2], want[2])
+    again = K.score_select_experts(x, g, a, t, kf, kb=kb)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    forced = K._launch_score(x, g, a, t, kf, 128, kb, None, "spread")
+    assert all(torch.equal(u, v) for u, v in zip(got, forced))
+    cluster = K._launch_score(x, g, a, t, kf, 128, kb, None, "cluster")
+    assert torch.equal(cluster[0], got[0]) and torch.equal(cluster[1], got[1])
+    _close(cluster[2], want[2])
+    assert K.spread_launches["score_select_experts"] == 3
+
+
+def test_expert_spread_refusal_raises(dev):
+    """A spread form forced where the shape cannot take it (x not 16-byte
+    aligned) is refused by the expert C entry: the wrapper raises, no
+    launch is counted and no other form runs in its place."""
+    buf = torch.randn(4 * 111 * 1024 + 1, device=dev).to(torch.bfloat16)
+    x = buf[1:].view(4, 111, 1024)
+    g = torch.ones(4, 1024, device=dev)
+    K.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        K._launch_score(x, g, 1.0, 0.0, 0.5, 128, 4, None, "spread")
+    assert K.launch_counts["score_select_experts"] == 0
+    assert K.spread_launches["score_select_experts"] == 0
 
 
 def test_powf_at_alpha_one_returns_every_float_unchanged(dev):
@@ -1790,13 +1862,18 @@ def test_analysis_global_passes_clean_on_card(dev):
                                      (1, 13, 384, 131), (48, 8, 1536, 512),
                                      (1, 32, 128, 1), (48, 113, 1536, 512),
                                      (32, 32, 1024, 512), (16, 8, 4096, 14336),
-                                     (16, 1, 14336, 4096)])
+                                     (16, 1, 14336, 4096),
+                                     (16, 641, 4096, 14336),
+                                     (16, 641, 14336, 4096),
+                                     (16, 32, 14336, 4096),
+                                     (48, 448, 512, 1536)])
 @pytest.mark.parametrize("elem", [2, 4])
 def test_launch_info_equals_the_mirror(dev, E, B, n, m, elem):
     """``wisparse_launch_info`` (the geometry by the launches' own code)
     equals ``kernels/geometry.py``'s mirror for every kernel of the
-    shape, at kb = 1, nb/2, nb, in both forms of the expert selection;
-    every score_select cluster (or per-expert block) can run."""
+    shape, at kb = 1, nb/2, nb, in the three forms of the expert
+    selection (the spread form's grid (nb, slabs, E)); every score_select
+    cluster (or per-expert or spread block) can run."""
     from repro_torch.kernels import geometry as G
     limits = G.launch_info("device")
     assert limits["threads"] >= 1024 and limits["smem_optin"] >= 232448

@@ -241,3 +241,30 @@ def test_launches_and_dense_decode_bytes_of_the_period():
     _, sparse = step_costs(cfg, ecfg, SparsityPolicy.uniform(
         "pallas", k_max_frac=0.5), sp, "decode")
     assert 0.5 < sparse / got < 0.55
+
+
+def test_whole_prefill_forms_of_the_period(monkeypatch):
+    """Phase 24's expected forms per sparse whole prefill of the period:
+    every expert projection's selection in the spread form (4 MoE layers
+    x 3 = 12) from the 111 rows per expert of its shortest prompt (704
+    tokens) on, none at decode or 32-token-chunk rows; its check
+    (``chip_smoke.check_whole_forms``) takes a run's counts that match
+    and refuses one short of them."""
+    from repro_torch.kernels import sparse_matmul as K
+    cfg = _period(get_config(ARCH))
+    for tokens in (704, 1536, 4096):
+        R = moe.expert_rows(cfg, 1, tokens)
+        assert chip_smoke.expert_spread_forms(K, cfg, R) == 12, R
+    for groups, tokens in ((8, 1), (1, 32)):
+        R = moe.expert_rows(cfg, groups, tokens)
+        assert chip_smoke.expert_spread_forms(K, cfg, R) == 0, R
+    tiles, spread = chip_smoke.whole_prefill_forms(K, cfg, 4096)
+    monkeypatch.setitem(K.tile_launches, "sparse_matmul_shared", tiles)
+    monkeypatch.setitem(K.spread_launches, "score_select", spread)
+    monkeypatch.setitem(K.spread_launches, "score_select_experts", 12)
+    prefills = [(4096, 1, 0.0)]
+    assert chip_smoke.check_whole_forms("period", K, cfg, prefills, True) \
+        == (tiles, spread, 12)
+    monkeypatch.setitem(K.spread_launches, "score_select_experts", 11)
+    with pytest.raises(AssertionError, match="11 spread-form expert"):
+        chip_smoke.check_whole_forms("period", K, cfg, prefills, True)

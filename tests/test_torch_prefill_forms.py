@@ -1,14 +1,17 @@
-"""The whole-prefill forms of the two 2-D kernels, on the CPU: the shared
-matmul's plan (``expert_plan`` at one expert: the TMA + wgmma tile form
-of ``csrc/sparse_matmul_tile.cu`` from ``TILE_MIN_ROWS`` rows where the
-output has ``TILE_MIN_TILES_2D`` tiles, else ``launch_plan``'s gather
-form exactly), ``score_select``'s form
+"""The whole-prefill forms of the two 2-D kernels and of the expert
+selection, on the CPU: the shared matmul's plan (``expert_plan`` at one
+expert: the TMA + wgmma tile form of ``csrc/sparse_matmul_tile.cu`` from
+``TILE_MIN_ROWS`` rows where the output has ``TILE_MIN_TILES_2D`` tiles,
+else ``launch_plan``'s gather form exactly), ``score_select``'s form
 (``score_form``: the spread form of ``csrc/score_select.cu`` from
-``SCORE_SPREAD_MIN_ROWS`` rows, else one cluster), the spread form's
-geometry and the mirror's constants against the CUDA source, what the
-wrappers pass their C entries (a stub library: no nvcc), and
-``wisparse_project`` against the JAX ``pallas`` projection at a
-whole-prefill shape.
+``SCORE_SPREAD_MIN_ROWS`` rows, else one cluster), the route of
+``score_select_experts`` (one block per expert, the same spread form with
+the expert axis in its grid from ``SCORE_EXPERT_SPREAD_MIN_ROWS`` rows per
+expert, else one cluster per expert), the spread form's geometry and the
+mirror's constants against the CUDA source, what the wrappers pass their
+C entries (a stub library: no nvcc), and ``wisparse_project`` and
+``wisparse_project_experts`` against the JAX ``pallas`` projection at
+whole-prefill shapes.
 
 The kernels themselves run only on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).  JAX parity: f32 1e-5 and bf16 3e-2, as
@@ -16,19 +19,24 @@ The kernels themselves run only on the card (``tests/test_torch_gpu.py``,
 tie-free (no score within 0.1% of tau)."""
 import ctypes
 import itertools
+import os
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import sparse_matmul as JK
 from repro_torch.kernels import build
 from repro_torch.kernels import geometry as G
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import sparse_matmul as K
 from torch_threads import one_thread_module  # noqa: F401 (autouse)
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 
 # (B, n, m): whole-prefill rows of the archs served whole at published
 # width (jamba_v01_52b's 4096-token prompt, a prime 4099, gemma2_2b's 2 x
@@ -92,15 +100,51 @@ def test_2d_plan_is_the_gather_plan_outside_the_tile_form(B, n, m, blk, elem,
     assert plan.form == "gather"
 
 
+# the MoE archs served at published width, and the (groups, tokens per
+# group) of each captured step of their engines: decode with 8 slots, a
+# 32-token chunk, verify windows of 2-4 tokens per slot
+MOE_ARCHS = ("granite_moe_1b_a400m", "granite_moe_3b_a800m", "jamba_v01_52b")
+CAPTURED_STEPS = ((8, 1), (1, 32), (8, 2), (8, 3), (8, 4))
+
+
 def test_serving_steps_keep_their_forms():
     """Decode (8 slots), verify (at most 24 rows) and chunk steps (32
-    rows) are captured: both thresholds lie above them, so no captured
-    step changes form."""
+    rows) are captured: every threshold lies above them, so no captured
+    step changes form, the expert selection's route included (its rows
+    per expert at those steps on every served MoE arch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
     assert K.TILE_MIN_ROWS >= 64
     assert K.SCORE_SPREAD_MIN_ROWS > 32
     for B in (1, 8, 24, 32):
         assert K.score_form(B, 4096, 128) == "cluster"
         assert K.expert_plan(B, 4096, 14336, 16, 128, 2, 1).form == "gather"
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        E = cfg.num_experts_padded
+        for groups, tokens in CAPTURED_STEPS:
+            R = moe.expert_rows(cfg, groups, tokens)
+            assert R < K.SCORE_EXPERT_SPREAD_MIN_ROWS, (arch, groups, tokens)
+            for n in (cfg.d_model, cfg.moe_d_ff):
+                assert K.score_form(R, n, 128, 2, True, True) != "spread"
+                geo = G.score_select_geometry(E, R, n, 128, 1, 2, True,
+                                              experts=True)
+                assert geo.form != "spread", (arch, R, n)
+
+
+def test_reserved_scratch_holds_the_spread_workspace(monkeypatch):
+    """``reserve_matmul_scratch`` at rows where the selection takes the
+    spread form (an engine with many slots, whose captured decode step
+    reaches it) reserves the workspace the spread launch is given, so a
+    capture never allocates it; at decode rows of 8 slots it reserves
+    nothing a one-slice plan does not need."""
+    monkeypatch.setattr(K, "_scratch", {})
+    K.reserve_matmul_scratch(9, 1536, 512, 128, "cpu", 2, 48)
+    assert K.scratch_tensors("cpu") == (None, None)
+    K.reserve_matmul_scratch(448, 1536, 512, 128, "cpu", 2, 48)
+    ws, _ = K.scratch_tensors("cpu")
+    assert ws is not None and ws.numel() >= K.MIN_WORKSPACE
+    assert K.score_workspace("cpu") is ws
 
 
 @pytest.mark.parametrize("B,n,elem,aligned,blk,want", [
@@ -168,6 +212,150 @@ def test_spread_mirror_constants_match_the_cuda_source():
     assert len(build.SIGNATURES["wisparse_score_select"]) == 18
 
 
+def test_expert_spread_mirror_constants_match_the_cuda_source():
+    """The expert entry's spread threshold, its per-expert form tried
+    first, its least rows per thread and slab, its grid with the expert
+    axis in z, the workspace check over E x slabs x nb, and the C entry's
+    workspace, length and form arguments."""
+    src = (build.CSRC / "score_select.cu").read_text()
+
+    def const(name):
+        (v,) = re.findall(rf"constexpr int {name} = (\d+);", src)
+        return int(v)
+
+    assert const("kExpertSpreadMinRows") == K.SCORE_EXPERT_SPREAD_MIN_ROWS
+    assert const("kSpreadUnroll") == G.SCORE_SPREAD_UNROLL
+    assert "const int min_rows = experts ? kExpertSpreadMinRows : " \
+        "kSpreadMinRows;" in src
+    assert "const int least = experts ? rg * kSpreadUnroll : rg;" in src
+    # the per-expert form is tried first, and only for the shape's own
+    # form
+    assert src.index("if (experts && want < 0 && kWide && blk == "
+                     "kExpertBlk) {") < src.index("const int min_rows")
+    assert "if (experts && want < 0 && kWide && blk == kExpertBlk) {" in src
+    assert "const dim3 grid(geo.grid, geo.slabs, E);" in src
+    assert "static_cast<long long>(E) * geo.slabs * (n / blk) > ws_len" in src
+    assert "geo.form == kSpreadForm ? E : 1, geo.threads," in src
+    sig = build.SIGNATURES["wisparse_score_select_experts"]
+    assert len(sig) == 18 and sig[-4:-1] == (ctypes.c_void_p, ctypes.c_int,
+                                             ctypes.c_int)
+
+
+# (R, n): jamba_v01_52b's expert rows at its whole prefills (704, 1536 and
+# 4096 tokens: 111, 241, 641) and granite_moe_3b_a800m's at a 448-token
+# group and 448 decode slots (113, 448), both input widths, and the
+# threshold itself
+EXPERT_SPREAD = [(641, 4096), (641, 14336), (241, 4096), (111, 14336),
+                 (448, 1536), (448, 512), (113, 1536), (113, 512),
+                 (K.SCORE_EXPERT_SPREAD_MIN_ROWS, 4096),
+                 (K.SCORE_EXPERT_SPREAD_MIN_ROWS, 14336)]
+
+
+@pytest.mark.parametrize("R,n", EXPERT_SPREAD)
+@pytest.mark.parametrize("E", [16, 48])
+@pytest.mark.parametrize("sms", [132, 114, 7])
+def test_expert_spread_geometry_within_the_card_limits(R, n, E, sms):
+    """The expert spread form's grid of (channel block, row slab, expert)
+    blocks: slabs of whole row groups that cover each expert's R rows
+    once, about four blocks per SM over the E x nb channel blocks, 256
+    threads, a few KB of shared memory, no cluster, and E x slabs x nb
+    partial sums that fit ``MIN_WORKSPACE``."""
+    lim = G.H100_LIMITS
+    nb = n // 128
+    geo = G.score_select_geometry(E, R, n, 128, nb // 2, 2, True, sms,
+                                  experts=True)
+    slabs, rows = G.spread_slabs(R, nb, 128, 2, sms, E, experts=True)
+    assert geo.form == "spread" and geo.ok
+    assert geo.grid == (nb, slabs, E) and geo.cluster == (1, 1, 1)
+    assert rows % (K.SCORE_SPREAD_THREADS // 16) == 0
+    assert slabs * rows >= R > (slabs - 1) * rows
+    # no more slabs than give each thread SCORE_SPREAD_UNROLL rows (16
+    # row groups in bf16)
+    assert slabs <= -(-R // (16 * G.SCORE_SPREAD_UNROLL))
+    assert E * nb * slabs < G.SCORE_SPREAD_PER_SM * sms + E * nb
+    assert geo.threads == K.SCORE_SPREAD_THREADS <= lim["threads"]
+    assert geo.smem == 4 * (128 + max(nb, G.SCORE_SPREAD_WARPS))
+    assert geo.smem <= 48 * 1024 and max(slabs, E) <= lim["grid_yz"]
+    assert E * slabs * nb <= K.MIN_WORKSPACE
+    if E * nb >= G.SCORE_SPREAD_PER_SM * sms:
+        assert slabs == 1                  # the expert axis fills the card
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_expert_route_by_the_rule(arch):
+    """``score_select_experts``' route at each of the arch's expert
+    shapes, decode and chunk rows up to a 4096-token whole prefill: the
+    per-expert form wherever ``expert_config`` fits, else the spread form
+    from ``SCORE_EXPERT_SPREAD_MIN_ROWS`` rows per expert, else one
+    cluster per expert; the wrapper's twin (``score_form``) names the
+    same form as the mirror, which the card holds against the C entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch)
+    E = cfg.num_experts_padded
+    rows = {moe.expert_rows(cfg, b, 1) for b in (1, 8, 32, 448)} | {
+        moe.expert_rows(cfg, 1, t) for t in (32, 448, 704, 1536, 4096)}
+    seen = set()
+    for R in sorted(rows):
+        for n in (cfg.d_model, cfg.moe_d_ff):
+            geo = G.score_select_geometry(E, R, n, 128, 1, 2, True,
+                                          experts=True)
+            if G.expert_config(R, n, 128) is not None:
+                want = "expert"
+            elif R >= K.SCORE_EXPERT_SPREAD_MIN_ROWS:
+                want = "spread"
+            else:
+                want = "cluster"
+            assert geo.form.split()[0] == want, (R, n, geo)
+            assert K.score_form(R, n, 128, 2, True, True) == want
+            seen.add(want)
+    assert "spread" in seen and "expert" in seen
+    # jamba's decode rows at moe/wo (nb = 112) keep the cluster form
+    if arch == "jamba_v01_52b":
+        assert G.score_select_geometry(16, 8, 14336, 128, 56, 2, True,
+                                       experts=True).form == "cluster"
+
+
+MIN_E = K.SCORE_EXPERT_SPREAD_MIN_ROWS
+
+
+@pytest.mark.parametrize("E,R,n,elem,aligned,blk,want", [
+    (16, 641, 14336, 2, True, 128, "spread"),
+    (16, MIN_E, 14336, 2, True, 128, "spread"),
+    (16, MIN_E - 1, 14336, 2, True, 128, "cluster"),
+    (16, MIN_E - 1, 4096, 2, True, 128, "cluster"),
+    (48, MIN_E, 512, 2, True, 128, "expert"),   # the per-expert form first
+    (48, MIN_E + 1, 512, 2, True, 128, "spread"),
+    (16, 241, 4096, 4, True, 128, "spread"),    # f32: 32 lanes a block row
+    (16, 17, 4096, 4, True, 128, "cluster"),    # f32 past the per-expert rows
+    (16, 641, 4096, 2, False, 128, "cluster"),  # x or xm unaligned
+    (4, 448, 96 * 40, 2, True, 96, "cluster"),  # 12 lanes do not divide 256
+    (2, 448, 128 * 513, 2, True, 128, "cluster")])  # nb over the limit
+def test_expert_score_form_at_the_edges_of_the_spread_form(
+        E, R, n, elem, aligned, blk, want):
+    """At the expert threshold and just below it, where the per-expert
+    form holds the rows, in f32, unaligned, with a block row that does
+    not divide the spread form's threads, or past its channel-block
+    limit: the form the twin names is the mirror's."""
+    assert K.score_form(R, n, blk, elem, aligned, True) == want
+    geo = G.score_select_geometry(E, R, n, blk, 1, elem, aligned,
+                                  experts=True)
+    assert geo.form.split()[0] == want
+
+
+def test_launch_geometry_catches_a_spread_workspace_shortfall(monkeypatch):
+    """The static checker holds every spread launch's partial sums (E x
+    slabs x nb) against the workspace: with a workspace of 64 values
+    jamba's and granite's expert spread launches and the 2-D ones no
+    longer fit, and the pass says so for both entries."""
+    from repro_torch.analysis.registry import global_passes
+    monkeypatch.setattr(K, "MIN_WORKSPACE", 64)
+    p = global_passes()["launch-geometry"]
+    snippets = {f.snippet for f in p.run(REPO, "cpu")}
+    assert {"score_select workspace",
+            "score_select_experts workspace"} <= snippets
+
+
 class _Stub:
     """A library whose entries record their arguments (checked against
     ``build.SIGNATURES``) and return 0."""
@@ -224,6 +412,41 @@ def test_score_select_launch_passes_the_workspace_in_the_spread_form(
     assert args[16] == -1
     assert K.launch_counts["score_select"] == 1
     assert K.spread_launches["score_select"] == int(want == "spread")
+
+
+@pytest.mark.parametrize("E,R,n,want", [
+    (16, 8, 4096, "expert"), (16, 8, 14336, "cluster"),
+    (16, MIN_E - 1, 14336, "cluster"), (16, MIN_E, 4096, "spread"),
+    (16, 641, 14336, "spread"), (48, 9, 512, "expert"),
+    (48, MIN_E, 1536, "expert"), (48, 113, 1536, "spread"),
+    (48, 448, 512, "spread")])
+@pytest.mark.parametrize("form", [None, "cluster", "spread"])
+def test_expert_launch_passes_the_workspace_in_the_spread_form(
+        stub, E, R, n, want, form):
+    """The expert launch passes the device workspace and its length only
+    where the form is the spread form (the shape's own, or forced), the
+    form argument (-1 the C entry's own choice, 0 / 1 forced), and counts
+    one ``score_select_experts`` and, in the spread form, one
+    ``spread_launches`` entry."""
+    kb = 4
+    x = torch.zeros(E, R, n, dtype=torch.bfloat16)
+    g = torch.ones(E, n)
+    K._launch_score(x, g, torch.tensor(1.0), torch.tensor(0.5),
+                    torch.tensor(0.5), 128, kb, None, form)
+    ((name, args),) = stub.calls
+    assert name == "wisparse_score_select_experts"
+    assert args[8:14] == (E, R, n, 128, kb, 1)
+    spread = (form or want) == "spread"
+    ws, _ = K.scratch_tensors("cpu")
+    if spread:
+        assert args[14] == ws.data_ptr() and args[15] == ws.numel()
+        assert args[15] >= K.MIN_WORKSPACE
+    else:
+        assert args[14] is None and args[15] == 0
+    assert args[16] == K.SCORE_FORM_CODES[form]
+    assert K.launch_counts["score_select_experts"] == 1
+    assert K.spread_launches == {"score_select": 0,
+                                 "score_select_experts": int(spread)}
 
 
 @pytest.mark.parametrize("B,m,dtype,want", [
@@ -295,4 +518,68 @@ def test_wisparse_project_matches_pallas_at_whole_prefill_rows(dtype, tol):
                                atol=tol)
     assert not any(K.launch_counts.values())
     assert not any(K.tile_launches.values())
+    assert not any(K.spread_launches.values())
+
+
+def _jax_selection(x, g, sp, blk, kb):
+    """The reference's selection (the Pallas ``score_mask`` in interpret
+    mode, ``lax.top_k``, the rank mask) under ``jax.vmap`` over experts:
+    (xm, idx)."""
+    nb = x.shape[-1] // blk
+
+    def one(xe, ge):
+        xm, bs = JK.score_mask(xe, ge, sp["alpha"], sp["tau"], blk=blk,
+                               interpret=True)
+        _, idx = jax.lax.top_k(bs, kb)
+        kb_l = jnp.round(sp["keep_frac"] * nb).astype(jnp.int32)
+        keep = jnp.zeros((nb,), bool).at[idx].set(jnp.arange(kb) < kb_l)
+        return xm * jnp.repeat(keep, blk)[None].astype(xm.dtype), idx
+    return jax.vmap(one)(x, g)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 3e-2)])
+def test_wisparse_project_experts_matches_pallas_at_spread_rows(dtype, tol):
+    """At R = 65 rows per expert (3 experts, n = 512, m = 384), where the
+    card takes the expert spread form and the tile form,
+    ``wisparse_project_experts`` on CPU tensors (the plain versions)
+    equals the JAX ``pallas`` projection under ``jax.vmap`` over experts
+    (interpret mode), expert 1 all zero; the kept ids and xm equal the
+    reference's; no kernel launch is counted."""
+    E, R, n, m, blk, kb = 3, 65, 512, 384, 128, 2
+    assert K.score_form(R, n, blk, 2, True, True) == "spread"
+    assert K.expert_plan(R, n, m, kb, blk, 2, E).form == "tile"
+    rng = np.random.default_rng(34)
+    x = rng.standard_normal((E, R, n)).astype(np.float32)
+    x[1] = 0                                  # an expert no token chose
+    w = (rng.standard_normal((E, n, m)) * 0.1).astype(np.float32)
+    g = (np.abs(rng.standard_normal((E, n))) + 0.1).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    x = torch.from_numpy(x).to(tdt).float().numpy()
+    x = _tie_free(x, g[:, None], 0.7, 0.2)
+    sp_j = {"alpha": jnp.float32(0.7), "tau": jnp.float32(0.2),
+            "keep_frac": jnp.float32(0.375)}
+    sp_t = {k: torch.tensor(np.asarray(v)) for k, v in sp_j.items()}
+    xj, wj = jnp.asarray(x, jdt), jnp.asarray(w, jdt)
+    yj = jax.vmap(lambda xe, we, ge: jops.wisparse_project(
+        xe, we, {**sp_j, "g": ge}, block=blk, k_frac=0.5, interpret=True))(
+        xj, wj, jnp.asarray(g))
+    K.reset_launch_counts()
+    xt, wt = torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt)
+    yt = tops.wisparse_project_experts(xt, wt, {**sp_t,
+                                                "g": torch.from_numpy(g)},
+                                       block=blk, k_frac=0.5)
+    assert yt.shape == (E, R, m) and yt.dtype == tdt
+    np.testing.assert_allclose(yt.float().numpy(),
+                               np.asarray(yj.astype(jnp.float32)), rtol=tol,
+                               atol=tol)
+    xm, idx, _ = K.score_select_experts(xt, torch.from_numpy(g),
+                                        sp_t["alpha"], sp_t["tau"],
+                                        sp_t["keep_frac"], kb=kb, blk=blk)
+    jxm, jidx = _jax_selection(xj, jnp.asarray(g), sp_j, blk, kb)
+    assert np.array_equal(idx.numpy(), np.asarray(jidx))
+    assert idx[1].tolist() == list(range(kb))
+    assert np.array_equal(xm.float().numpy(),
+                          np.asarray(jxm.astype(jnp.float32)))
+    assert not any(K.launch_counts.values())
     assert not any(K.spread_launches.values())
