@@ -7,6 +7,7 @@
     python3 chip_smoke.py --experts-only [--src DIR]
     python3 chip_smoke.py --forms-only
     python3 chip_smoke.py --jamba-only
+    python3 chip_smoke.py --evals-only
 
 In order, it:
 
@@ -303,8 +304,10 @@ In order, it:
    per prompt length (sparse against dense), device ms per traced
    decode step and the top ops of one eager step, and the decode step's
    byte bound split into conv/SSM state and the rest;
-19. trains on the card.  19a runs ``examples/train_then_sparsify.py``'s
-   recipe on reduced llama31_8b through ``launch.train.train`` (200
+19. trains on the card.  19a runs the recipe of
+   ``repro_torch.examples.train_then_sparsify`` (the JAX package's
+   ``examples/train_then_sparsify.py``'s, taken from the port's module)
+   on reduced llama31_8b through ``launch.train.train`` (200
    steps of 8 x 96 tokens, lr 5e-3, checkpoints every 50): once
    uninterrupted and once preempted at step 120, whose final params must
    be bit-equal; once on the CPU from the card run's init, whose
@@ -312,7 +315,8 @@ In order, it:
    on the card with TF32 products, whose losses must miss that limit;
    then
    WiSparse at 0.3/0.4/0.5 with the example's search budget (held-out
-   ppl, retention, top-1 agreement under ``mask``) and spec decoding
+   ppl, retention, top-1 agreement under ``mask``, by
+   ``repro_torch.evals.common.eval_metrics``) and spec decoding
    (gamma 2, the 0.5 rung of a ``pallas`` ladder calibrated on the model
    drafting) on the trained model and on its random init, launches
    checked as in phase 11.  19b trains full-width gemma2_2b (its first
@@ -447,7 +451,26 @@ In order, it:
    decode step, the capacity drops of each whole prefill, and the plan's
    stage seconds, KL and ``k_max_frac``.  ``--jamba-only`` runs phase
    3's jamba part and this phase alone;
-25. prints one JSON line describing every kernel, then, as its last line,
+25. runs the paper's evaluation drivers on the card.  25a: the six
+   drivers of ``python -m repro_torch.evals`` (Table 1 and 2, Fig. 3, 4
+   and 6, the roofline report) in process through the CLI's ``main``,
+   which prints every row, on ``evals.common.trained_model()`` (reduced
+   llama31_8b, 60 steps, trained first): every number finite, and the
+   launches counted from 0 just before the drivers and read just after
+   (fig4's kernel rows: 4 of ``sparse_matmul_shared``; the rest run
+   under ``mask``); Table 2's ``ordering_holds`` is printed, not
+   asserted, as the reference does.  25b: fig4's block gather (f32, B =
+   4, n = m = 2048, every second 128-channel block) held against its
+   plain version and timed (CUDA events) beside it and ``torch.matmul``.
+   25c: llama31_8b at published width (``SERVE_DEPTH`` layers, bf16,
+   random weights from SEED): Table 1's three methods at 50% through
+   the driver's code, each with KL and top-1 agreement against dense,
+   seconds per plan and the share of the weights' rows the plan keeps
+   on the held-out tokens (bf16 ties at alpha 0 can keep more than the
+   budget); ppl retention is printed and claims nothing on random
+   weights; then Fig. 3 at 50%, one block at a time.  ``--evals-only``
+   runs this phase alone;
+26. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.  The ``launches`` of ``score_select``
    and ``sparse_matmul_shared`` come from phase 5's first ``pallas``
    run (whose llama31_8b decode layer their times are), those of the
@@ -463,7 +486,8 @@ In order, it:
    641), and those of
    ``sparse_matmul_per_seq`` from phase 3's
    ``wisparse_project(per_seq=True)`` calls, since no serving path
-   reaches that kernel.
+   reaches that kernel, and those of ``sparse_matmul_shared_fig4``
+   (fig4's kernel rows, timed in 25b) from phase 25a's drivers.
 
 Any failed check raises, so the script exits nonzero and prints no
 result line.  It imports nothing of JAX or of the JAX package.
@@ -479,6 +503,7 @@ import inspect
 import json
 import math
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -702,13 +727,14 @@ def direct_matmul(K, build, name, x, ws, idx, m, kb, per_seq, plan=None):
     y = torch.empty(B, m, device=x.device)
     scratch, cnt = K.matmul_scratch(plan, x.device)
     entry = getattr(build.library(), "wisparse_" + name)
+    dtype = K._DTYPE_CODES[x.dtype]
 
     def fn(i):
         launched(entry(x.data_ptr(), ws[i % len(ws)].data_ptr(),
                        idx.data_ptr(), y.data_ptr(),
                        None if scratch is None else scratch.data_ptr(),
                        None if cnt is None else cnt.data_ptr(), B, n, m, BLK,
-                       kb, plan.rows, plan.cols, plan.splits, 1,
+                       kb, plan.rows, plan.cols, plan.splits, dtype,
                        torch.cuda.current_stream().cuda_stream))
         return y
     return fn, plan
@@ -6200,16 +6226,13 @@ def serve_mamba(dev, K, cli: dict) -> dict:
 # phase 19: training on the card
 # ---------------------------------------------------------------------------
 
-# 19a: examples/train_then_sparsify.py's recipe on reduced llama31_8b
-TRAIN_RECIPE = dict(arch="llama31_8b", use_reduced=True, steps=200,
-                    batch=8, seq=96, lr=5e-3)
-TRAIN_CKPT_EVERY, TRAIN_PREEMPT_AT = 50, (120,)
+# 19a: the recipe of the port's examples/train_then_sparsify.py on
+# reduced llama31_8b (:func:`train_recipe`).
 # card against CPU, each step's loss (f32, TF32 off): read at 1.43e-6
 # (this script on an NVIDIA H100 80GB HBM3 at 700 W), about a seventh of
 # this limit, which is the one-step bound of tests/test_torch_gpu.py; the
 # same recipe with TF32 products is the control the limit must reject
 TRAIN_LOSS_TOL = 1e-5
-SPARSITIES = (0.3, 0.4, 0.5)
 # the reduced model's pallas block: 4 blocks of its 64 input channels
 REDUCED_BLOCK = 16
 # 19b: full-width gemma2_2b, SERVE_DEPTH of its 26 layers
@@ -6218,30 +6241,13 @@ GEMMA_TRAIN = dict(arch="gemma2_2b", use_reduced=False, steps=30, batch=2,
                    seq=1024, lr=1e-3)
 
 
-def eval_metrics(params, cfg, data_cfg, dev, per_depth_sp=None) -> dict:
-    """Held-out ppl, and KL and top-1 agreement against dense, under
-    ``mask`` with ``per_depth_sp`` (``benchmarks/common.eval_metrics``)."""
-    from repro_torch.core import unstacked as U
-    from repro_torch.data import eval_batch
-    from repro_torch.sparsity import SparsityPolicy
-
-    toks = torch.from_numpy(eval_batch(data_cfg, n=4)).to(dev)
-    policy = SparsityPolicy.uniform("mask") if per_depth_sp is not None \
-        else SparsityPolicy.dense()
-    with torch.no_grad():
-        logits, _ = U.forward_unstacked(params, cfg, toks,
-                                        per_depth_sp=per_depth_sp,
-                                        policy=policy)
-        dense, _ = U.forward_unstacked(params, cfg, toks)
-    lg = logits[:, :-1].float()
-    lab = toks[:, 1:].long()
-    nll = torch.logsumexp(lg, -1) - lg.gather(-1, lab[..., None])[..., 0]
-    pd = torch.log_softmax(dense.float(), -1)
-    ps = torch.log_softmax(logits.float(), -1)
-    return {"ppl": math.exp(float(nll.mean())),
-            "kl": float((pd.exp() * (pd - ps)).sum(-1).mean()),
-            "top1_agree": float((logits.argmax(-1) == dense.argmax(-1))
-                                .float().mean())}
+def train_recipe():
+    """19a's recipe, ``repro_torch.examples.train_then_sparsify``'s:
+    (``train`` arguments, checkpoint interval, preemption steps, the
+    WiSparse sparsities, their search budget)."""
+    from repro_torch.examples import train_then_sparsify as X
+    return (dict(X.RECIPE, steps=X.STEPS), X.CKPT_EVERY, X.PREEMPT_AT,
+            X.SPARSITIES, X.EVO)
 
 
 def spec_acceptance(name, params, cfg, data_cfg, dev, K, evo) -> dict:
@@ -6314,18 +6320,19 @@ def card_against_cpu(dev) -> dict:
     from repro_torch.launch.train import train
     from repro_torch.models import api, params as P
 
+    recipe, ckpt_every, preempt_at = train_recipe()[:3]
     root = os.path.join(HERE, "build", "chip_smoke", "train")
     shutil.rmtree(root, ignore_errors=True)
     # the card run's init, for the CPU run: one seed draws other numbers
     # from the card's generator than from the CPU's
     init = P.tree_map(lambda t: t.cpu(), api.init_model(
-        reduced(get_config(TRAIN_RECIPE["arch"])), SEED, device=dev))
+        reduced(get_config(recipe["arch"])), SEED, device=dev))
     logs = []
     runs = {}
     for name, kw in (("uninterrupted", {}),
-                     ("preempted", {"fail_at": TRAIN_PREEMPT_AT})):
+                     ("preempted", {"fail_at": preempt_at})):
         t = obs.now()
-        runs[name] = train(**TRAIN_RECIPE, ckpt_every=TRAIN_CKPT_EVERY,
+        runs[name] = train(**recipe, ckpt_every=ckpt_every,
                            ckpt_dir=os.path.join(root, name), device=dev,
                            log=logs.append, **kw)
         torch.cuda.synchronize()
@@ -6333,7 +6340,7 @@ def card_against_cpu(dev) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     params, cfg, data_cfg, hist, final, card_s = runs["uninterrupted"]
     pre = runs["preempted"]
-    if not any(f"simulated preemption at step {TRAIN_PREEMPT_AT[0]}" in m
+    if not any(f"simulated preemption at step {preempt_at[0]}" in m
                for m in logs):
         raise AssertionError(f"19a: no preemption in the logs {logs}")
     unequal = [i for i, (a, b) in enumerate(zip(_leaves(params),
@@ -6345,11 +6352,11 @@ def card_against_cpu(dev) -> dict:
                              f"(held-out {pre[4]} against {final})")
     t = obs.now()
     with init_from(init):
-        _p, _c, _d, cpu_hist, cpu_final = train(**TRAIN_RECIPE, device="cpu",
+        _p, _c, _d, cpu_hist, cpu_final = train(**recipe, device="cpu",
                                                 log=lambda *a: None)
     cpu_s = obs.now() - t
     with tf32_products():
-        tf32_hist = train(**TRAIN_RECIPE, device=dev, log=lambda *a: None)[3]
+        tf32_hist = train(**recipe, device=dev, log=lambda *a: None)[3]
 
     def err(h):
         return max(abs(a["loss"] - b["loss"])
@@ -6370,11 +6377,11 @@ def train_then_sparsify(dev, K, random_accept: float) -> dict:
     ``mask``, and spec decoding on the trained model and on its random
     init."""
     from repro_torch import obs
-    from repro_torch.core import calibration, pipeline
-    from repro_torch.core.allocation import EvoConfig
-    from repro_torch.data import SyntheticLM
+    from repro_torch.core import pipeline
+    from repro_torch.evals.common import build_calibration, eval_metrics
     from repro_torch.models import api
 
+    recipe, ckpt_every, _, sparsities, evo = train_recipe()
     t0 = obs.now()
     tr = card_against_cpu(dev)
     params, cfg, data_cfg = tr["params"], tr["cfg"], tr["data_cfg"]
@@ -6387,8 +6394,8 @@ def train_then_sparsify(dev, K, random_accept: float) -> dict:
                              f"are within {tr['tf32_loss_err']} of the "
                              f"CPU's, so {TRAIN_LOSS_TOL} cannot tell TF32 "
                              f"from f32")
-    print(f"19a train_then_sparsify recipe ({TRAIN_RECIPE}, checkpoints "
-          f"every {TRAIN_CKPT_EVERY}): loss {hist[0]['loss']:.4f} -> "
+    print(f"19a train_then_sparsify recipe ({recipe}, checkpoints "
+          f"every {ckpt_every}): loss {hist[0]['loss']:.4f} -> "
           f"{hist[-1]['loss']:.4f}, held-out {final:.4f}; card run "
           f"{tr['card_s']:.1f} s, preempted run {tr['preempted_s']:.1f} s "
           f"({tr['preempted_steps']} steps executed), resumed params "
@@ -6396,18 +6403,14 @@ def train_then_sparsify(dev, K, random_accept: float) -> dict:
           f" s, per-step loss card vs CPU max abs err {loss_err:.3g} (<= "
           f"{TRAIN_LOSS_TOL}; with TF32 products {tr['tf32_loss_err']:.3g})"
           f", held-out {tr['cpu_final']:.4f}")
-    evo = EvoConfig(generations=4, offspring=8, eps=0.1)
-    calib = SyntheticLM(dataclasses.replace(data_cfg, global_batch=4)
-                        ).batch(991)
     t = obs.now()
-    ctx = calibration.build_context(params, cfg, {"tokens": calib})
-    dense = eval_metrics(params, cfg, data_cfg, dev)
+    ctx, batch = build_calibration(params, cfg, data_cfg)
+    dense = eval_metrics(params, cfg, data_cfg)
     quality = {"dense_ppl": dense["ppl"]}
-    for p in SPARSITIES:
-        plan = pipeline.run_pipeline(params, cfg, {"tokens": calib}, p,
-                                     evo=evo, delta=0.25, coord_passes=0,
-                                     ctx=ctx)
-        m = eval_metrics(params, cfg, data_cfg, dev, plan.per_depth_sp)
+    for p in sparsities:
+        plan = pipeline.run_pipeline(params, cfg, batch, p, evo=evo,
+                                     delta=0.25, coord_passes=0, ctx=ctx)
+        m = eval_metrics(params, cfg, data_cfg, plan.per_depth_sp)
         m["retention"] = dense["ppl"] / m["ppl"]
         quality[str(p)] = m
         print(f"19a WiSparse@{p:.0%}: ppl {m['ppl']:.4f} (dense "
@@ -8217,6 +8220,247 @@ def jamba_only(dev, K, ref, build, rates, smi: str, t_start) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the paper's evaluation drivers on the card
+# ---------------------------------------------------------------------------
+
+# 25c: Table 1's three methods on full-width llama31_8b at this sparsity,
+# calibrated and evaluated on 4 synthetic sequences of EVAL_SEQ tokens
+EVAL_SPARSITY = 0.5
+EVAL_SEQ = 128
+_NUMBER = re.compile(r"[-+]?(?:\d+\.?\d*(?:e[-+]?\d+)?|nan|inf)")
+
+
+def nonfinite_rows(rows) -> list:
+    """The ``(name, us_per_call, derived)`` rows with a number that is
+    not finite, in ``us_per_call`` or in ``derived``."""
+    return [r for r in rows if not math.isfinite(r[1]) or not all(
+        math.isfinite(float(v)) for v in _NUMBER.findall(r[2]))]
+
+
+def dryrun_records(root: str) -> float:
+    """The port's dry-run records that fig4's modeled gain and the
+    roofline report read: llama31_8b x decode_32k on the 16 x 16 mesh
+    (a fake group of 256 ranks, meta tensors, on the host) at sparsity 0
+    and 0.5, under ``root`` at the drivers' record paths.  Returns the
+    host seconds."""
+    from repro_torch import obs
+    from repro_torch.evals import fig4_efficiency as F4
+    from repro_torch.evals import roofline_report as RR
+    from repro_torch.launch import dryrun
+
+    assert (F4.BASE, F4.SPARSE) == (RR.BASE, RR.SPARSE)
+    t = obs.now()
+    os.makedirs(os.path.join(root, os.path.dirname(F4.BASE)), exist_ok=True)
+    with dryrun.fake_group(256):
+        for sp, path in ((0.0, F4.BASE), (0.5, F4.SPARSE)):
+            rec = dryrun.dryrun_cell("llama31_8b", "decode_32k", sparsity=sp,
+                                     verbose=False)
+            with open(os.path.join(root, path), "w") as f:
+                f.write(json.dumps(rec) + "\n")
+    return obs.now() - t
+
+
+def eval_drivers(dev, K) -> dict:
+    """25a: ``python -m repro_torch.evals``' six drivers in process on
+    the card (the CLI's ``main``, which prints every row), on
+    ``evals.common.trained_model()`` (reduced llama31_8b, 60 steps,
+    trained here first): every number finite, and the drivers' kernel
+    launches counted from 0 (fig4's kernel rows launch
+    ``sparse_matmul_shared`` once per timed call, 4 in all; the other
+    drivers evaluate under ``mask``, as the reference's do).  The drivers
+    run in a directory under ``build/chip_smoke`` that holds
+    :func:`dryrun_records`' two records, which fig4's modeled gain and
+    the roofline report render.  Table 2's ``ordering_holds`` row is
+    printed, not asserted, as the reference does."""
+    import shutil
+
+    from repro_torch import obs
+    from repro_torch.evals import __main__ as cli
+    from repro_torch.evals import common as E
+
+    root = os.path.join(HERE, "build", "chip_smoke", "evals")
+    shutil.rmtree(root, ignore_errors=True)
+    dryrun_s = dryrun_records(root)
+    t = obs.now()
+    E.trained_model(device=dev)
+    torch.cuda.synchronize()
+    train_s = obs.now() - t
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        K.reset_launch_counts()
+        t = obs.now()
+        rows = cli.main(["--device", str(dev)])
+        torch.cuda.synchronize()
+        drivers_s = obs.now() - t
+        launches = dict(K.launch_counts)
+    finally:
+        os.chdir(cwd)
+    shutil.rmtree(root, ignore_errors=True)
+    bad = nonfinite_rows(rows)
+    if bad:
+        raise AssertionError(f"25a: rows with numbers that are not finite: "
+                             f"{bad}")
+    missing = [d for d in ("table1/", "table2/", "fig3/", "fig4/", "fig6/",
+                           "roofline/")
+               if not any(r[0].startswith(d) for r in rows)]
+    by_name = {r[0]: r[2] for r in rows}
+    if missing or "fig4/modeled_decode_gain/llama31_8b" not in by_name or \
+            by_name["roofline/reports_rendered"] != "2":
+        raise AssertionError(f"25a: no rows from {missing}, or fig4's "
+                             f"modeled gain or the roofline report missing "
+                             f"from {sorted(by_name)}")
+    want = {k: 4 if k == "sparse_matmul_shared" else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"25a: the drivers launched {launches}, "
+                             f"expected {want}")
+    print(f"25a: {len(rows)} rows of the six drivers in {drivers_s:.1f} s "
+          f"on the card (the model trained in {train_s:.1f} s, the two "
+          f"dry-run records in {dryrun_s:.1f} s on the host), every number "
+          f"finite; launches {launches}; table2/ordering_holds "
+          f"{by_name['table2/ordering_holds']} (printed, not asserted, as "
+          f"the reference does)")
+    return {"rows": rows, "s": drivers_s, "train_s": train_s,
+            "dryrun_s": dryrun_s, "launches": launches}
+
+
+def fig4_kernel(K, ref, build, dev, rates, smi: str) -> dict:
+    """25b: fig4's kernel rows' block gather (f32, B = 4, n = m = 2048,
+    every second 128-channel block, ``evals/fig4_efficiency.kernel_inputs``)
+    on the card: the Hopper ``sparse_matmul_shared`` against its plain
+    version within ``RTOL``/``ATOL`` (``tests/test_torch_gpu.py``'s f32
+    tolerance), then its device time (CUDA-graph replays between CUDA
+    events, the weight rotated through copies past the 50 MB L2) beside
+    the plain version's and ``torch.matmul``'s dense product's."""
+    from repro_torch.evals import fig4_efficiency as F4
+
+    assert F4.BLK == BLK
+    x, w, idx = (torch.from_numpy(a).to(dev) for a in F4.kernel_inputs())
+    kb = idx.numel()
+    y = K.sparse_matmul_shared(x, w, idx, blk=F4.BLK)
+    torch.cuda.synchronize()
+    err = check_close("25b fig4 sparse_matmul_shared", y,
+                      ref.ref_sparse_matmul_shared(x, w, idx, F4.BLK))
+    copies = max(1, math.ceil(200e6 / (w.numel() * w.element_size())))
+    ws = [w] + [w.clone() for _ in range(copies - 1)]
+    plan = K.expert_plan(F4.B, F4.N, F4.M, kb, F4.BLK, x.element_size())
+    fn, plan = direct_matmul(K, build, "sparse_matmul_shared", x, ws, idx,
+                             F4.M, kb, False, plan=plan)
+    ms = graph_ms(fn)
+    plain = graph_ms(lambda i: ref.ref_sparse_matmul_shared(
+        x, ws[i % copies], idx, F4.BLK))
+    lib = graph_ms(lambda i: torch.matmul(x, ws[i % copies]))
+    del ws
+    # the kept x blocks, the kept weight rows, the ids and y
+    nbytes = (F4.B * kb * F4.BLK * 4 + kb * F4.BLK * F4.M * 4 + kb * 4
+              + F4.B * F4.M * 4)
+    bound, by = bound_ms(nbytes, 2.0 * F4.B * kb * F4.BLK * F4.M,
+                         torch.float32, rates)
+    print(f"25b fig4 kernel row (f32, B={F4.B}, n=m={F4.N}, kb={kb} of "
+          f"{F4.N // F4.BLK}, {plan.form} form): sparse_matmul_shared "
+          f"{ms * 1e3:.2f} us against its plain version {plain * 1e3:.2f} "
+          f"us and torch.matmul dense {lib * 1e3:.2f} us (CUDA events), "
+          f"bound {bound * 1e3:.2f} us ({by}); max abs err {err:.3g} "
+          f"({smi})")
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+            "bound_by": by, "max_abs_err": err, "form": plan.form}
+
+
+def table1_full_width(dev, smi: str) -> dict:
+    """25c: Table 1's three methods at ``EVAL_SPARSITY`` on llama31_8b at
+    published width (its first ``SERVE_DEPTH`` layers, bf16, random
+    weights from SEED; a leaf outside a plan keeps the default tau -inf)
+    through the driver's code (``evals.common.build_calibration`` of the
+    model, ``table1_accuracy.plans_at``, ``eval_metrics``): KL and top-1
+    agreement against dense, seconds per plan and the share of the
+    weights' rows each plan keeps, on its calibration tokens
+    (``evals.common.calib_kept_fraction``: bf16 scores tie at alpha 0,
+    so the activation-only plan may keep more than its budget) and on
+    the held-out tokens in the sparse forward
+    (``evals.common.kept_fraction``).  Then Fig. 3 at
+    the same sparsity, one block at a time.  On random weights ppl
+    retention is printed, and says nothing of the paper's accuracy."""
+    from repro_torch import obs
+    from repro_torch.core import unstacked as U
+    from repro_torch.data import DataConfig, eval_batch
+    from repro_torch.evals import common as E
+    from repro_torch.evals import fig3_sensitivity as F3
+    from repro_torch.evals import table1_accuracy as T1
+    from repro_torch.models import api
+
+    cfg = served_config("llama31_8b")
+    params = api.init_model(cfg, SEED, device=dev)
+    data_cfg = DataConfig(cfg.vocab_size, EVAL_SEQ, 4, seed=SEED)
+    model = (params, cfg, data_cfg)
+    t = obs.now()
+    ctx, batch = E.build_calibration(*model)
+    dense = E.eval_metrics(*model)
+    torch.cuda.synchronize()
+    ctx_s = obs.now() - t
+    # how many tokens the dense argmax takes over the held-out positions
+    # (random weights can put it on a few, which makes top-1 agreement
+    # all or nothing)
+    toks = torch.from_numpy(eval_batch(data_cfg, n=4)).to(dev)
+    with torch.no_grad():
+        argmax = U.forward_unstacked(params, cfg, toks)[0].argmax(-1)
+    distinct = int(argmax.unique().numel())
+    print(f"25c full-width llama31_8b: calibration context and dense "
+          f"metrics {ctx_s:.1f} s; the dense argmax takes {distinct} "
+          f"distinct tokens over {argmax.numel()} held-out positions")
+    plans = T1.plans_at(params, cfg, batch, ctx, EVAL_SPARSITY)
+    out = {"context_and_dense_s": ctx_s, "dense_ppl": dense["ppl"],
+           "dense_argmax_tokens": distinct, "methods": {}}
+    for name, (plan, secs) in plans.items():
+        m = E.eval_metrics(*model, plan.per_depth_sp)
+        kept = E.kept_fraction(*model, plan.per_depth_sp)
+        calib_kept = E.calib_kept_fraction(ctx, plan.per_depth_sp)
+        m.update(plan_s=secs, kept_fraction=kept,
+                 calib_kept_fraction=calib_kept,
+                 retention=dense["ppl"] / m["ppl"])
+        out["methods"][name] = m
+        print(f"25c {name}@{EVAL_SPARSITY:.0%}, full-width llama31_8b "
+              f"({cfg.num_layers} layers, {cfg.dtype}, random weights): KL "
+              f"{m['kl']:.6g}, top-1 agreement {m['top1_agree']:.4f}, "
+              f"{secs:.2f} s per plan, keeps {calib_kept:.4f} of the "
+              f"weights' rows on its calibration tokens and {kept:.4f} on "
+              f"the held-out ones (budget {1 - EVAL_SPARSITY}); ppl "
+              f"{m['ppl']:.4f} "
+              f"(dense {dense['ppl']:.4f}, retention {m['retention']:.4f}, "
+              f"random weights: no accuracy claim) ({smi})")
+        if not (all(math.isfinite(v) for v in m.values())
+                and 0.0 <= m["top1_agree"] <= 1.0 and 0.0 < kept <= 1.0):
+            raise AssertionError(f"25c: {name} gave {m}")
+    t = obs.now()
+    deltas = F3.block_deltas(params, cfg, data_cfg, ctx, EVAL_SPARSITY,
+                             dense["ppl"])
+    torch.cuda.synchronize()
+    out["fig3_deltas"], out["fig3_s"] = deltas, obs.now() - t
+    if not all(math.isfinite(d) for d in deltas):
+        raise AssertionError(f"25c: Fig. 3 deltas {deltas}")
+    print(f"25c Fig. 3 at {EVAL_SPARSITY:.0%}, one block at a time: dPPL% "
+          f"per block " + " ".join(f"{d:+.3f}" for d in deltas)
+          + f" ({out['fig3_s']:.1f} s)")
+    del params, ctx, plans
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def evals_only(dev, K, ref, build, rates, smi: str, t_start) -> int:
+    """``--evals-only``: phase 25 alone, one JSON line (no contract
+    lines)."""
+    from repro_torch import obs
+    t0 = obs.now()
+    evals = eval_drivers(dev, K)
+    evals["fig4_kernel"] = fig4_kernel(K, ref, build, dev, rates, smi)
+    evals["table1_full_width"] = table1_full_width(dev, smi)
+    print(json.dumps({"evals_only": {**evals, "phase_25_s": obs.now() - t0,
+                                     "s": obs.now() - t_start,
+                                     "card": smi}}))
+    return 0
+
+
 def drive(eng, window: int = WINDOW) -> tuple:
     """Run ``eng`` to the end, one step at a time, and measure its steps.
 
@@ -8370,6 +8614,10 @@ def main() -> int:
                     help="build the kernels, hold and time them at "
                          "jamba_v01_52b's shapes (phase 3's jamba part), "
                          "run phase 24, print one JSON line, and stop")
+    ap.add_argument("--evals-only", action="store_true",
+                    help="build the kernels, run phase 25 (the paper's "
+                         "evaluation drivers, fig4's kernel row, Table 1 "
+                         "at full width), print one JSON line, and stop")
     ap.add_argument("--src", default=os.path.join(HERE, "src"),
                     help="directory holding the repro_torch package (for "
                          "--host-only, --train-only or --experts-only "
@@ -8423,6 +8671,8 @@ def main() -> int:
                              "(score_select, the matmul, the cast)")
     if args.jamba_only:
         return jamba_only(dev, K, ref, build, rates, smi, t_start)
+    if args.evals_only:
+        return evals_only(dev, K, ref, build, rates, smi, t_start)
 
     # each phase's wall time, printed after the serving line; each is
     # also written to stderr with the time since the start, so that a run
@@ -8556,6 +8806,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     jamba = serve_jamba(dev, K, smi)
     took("24 jamba_v01_52b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    evals = eval_drivers(dev, K)
+    evals["fig4_kernel"] = fig4_kernel(K, ref, build, dev, rates, smi)
+    evals["table1_full_width"] = table1_full_width(dev, smi)
+    took("25 evaluation drivers")
     keep = ("tokens", "token_rungs")
     print(json.dumps({"serving": {
         "runs": {f"{n} {i + 1}": {k: v for k, v in r.items()
@@ -8592,6 +8848,7 @@ def main() -> int:
                           "expert_matmul_forms": jf_rows,
                           "whole_prefill_2d": jv_rows,
                           "whole_prefill_2d_per_pass": jv_sums},
+        "evals": evals,
         "whole_prefill_kernels": {"gemma2_2b": wp_gemma,
                                   "mamba2_130m": wp_mamba,
                                   "whisper_large_v3": wp_whisper}}}))
@@ -8699,6 +8956,17 @@ def main() -> int:
         "bound_by": ("bytes" if all(p["bound_by"] == "bytes" for p in per)
                      else "operations"),
         "library_ms": None,
+    })
+    # fig4's kernel rows (f32, B = 4, n = m = 2048, kb = 8), and their
+    # launches in phase 25a's run of the drivers
+    f4 = evals["fig4_kernel"]
+    kernels.append({
+        "name": "sparse_matmul_shared_fig4", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sparse_matmul_shared.cu",
+        "replaces": "src/repro/kernels/sparse_matmul.py:211",
+        "launches": evals["launches"]["sparse_matmul_shared"],
+        **{k: f4[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")},
     })
     per = [r for r in ps_rows if r["B"] == 8]
     kernels.append({

@@ -2176,3 +2176,20 @@ def test_launch_info_equals_the_mirror_in_the_whole_prefill_forms(dev, B, n,
             assert got == want and active >= 1, (kb, aligned)
             assert (want.form == "spread") == (
                 aligned and B >= K.SCORE_SPREAD_MIN_ROWS)
+
+
+def test_fig4_kernel_row_on_the_card(dev):
+    """``evals/fig4_efficiency``'s kernel rows on the card: the Hopper
+    ``sparse_matmul_shared`` at fig4's shapes (f32, B = 4, n = m = 2048,
+    every second 128-channel block), launched once per timed call (one
+    warmup, three reps), against its plain version."""
+    from repro_torch.evals import fig4_efficiency as F4
+    K.reset_launch_counts()
+    rows, y = F4.kernel_rows(dev, log=lambda *a: None)
+    assert K.launch_counts["sparse_matmul_shared"] == 4
+    x, w, idx = (torch.from_numpy(a).to(dev) for a in F4.kernel_inputs())
+    _close(y, ref.ref_sparse_matmul_shared(x, w, idx, F4.BLK))
+    assert [r[0] for r in rows] == ["fig4/kernel_dense_matmul",
+                                    "fig4/kernel_gather_50pct"]
+    assert rows[1][2] == "flops=16777216;note=hopper-kernel"
+    assert all(us > 0 for _, us, _ in rows)

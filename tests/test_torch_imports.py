@@ -2,14 +2,17 @@
 
 An AST walk over every ``.py`` under ``src/repro_torch/`` and over
 ``chip_smoke.py`` fails on any import of ``jax``, ``jaxlib`` or
-``repro`` / ``repro.*`` — ``repro_torch`` itself is not ``repro``."""
+``repro`` / ``repro.*`` — ``repro_torch`` itself is not ``repro`` — and
+of the JAX side's driver directories ``benchmarks`` and ``examples``,
+which import ``jax`` (the port's own are ``repro_torch.evals`` and
+``repro_torch.examples``)."""
 import ast
 import pathlib
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks", "examples")
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
 
@@ -39,7 +42,9 @@ def test_the_walk_sees_the_whole_port():
     for rel in ("obs/clock.py", "obs/quality.py", "obs/flight/__init__.py",
                 "obs/flight/replay.py", "launch/constants.py",
                 "launch/roofline.py", "launch/train.py", "optim/adamw.py",
-                "checkpoint/manager.py", "distributed/fault_tolerance.py"):
+                "checkpoint/manager.py", "distributed/fault_tolerance.py",
+                "evals/common.py", "evals/fig4_efficiency.py",
+                "examples/train_then_sparsify.py"):
         assert ROOT / "src" / "repro_torch" / rel in FILES, rel
 
 
@@ -56,6 +61,10 @@ def test_no_jax_or_reference_imports(path):
     ("from repro.kernels import ops", True),
     ("import importlib\nimportlib.import_module('repro.configs')", True),
     ("import repro_torch", False), ("from repro_torch.kernels import ops", False),
-    ("from . import ops", False), ("import jaxtyping", False)])
+    ("from . import ops", False), ("import jaxtyping", False),
+    ("from benchmarks.common import eval_metrics", True),
+    ("import examples.train_then_sparsify", True),
+    ("from repro_torch.examples import quickstart", False),
+    ("from repro_torch.evals.common import eval_metrics", False)])
 def test_the_check_itself(source, flagged):
     assert any(_forbidden(m) for _, m in imported_modules(source)) == flagged
